@@ -1,0 +1,116 @@
+"""Device page pools: layout, insert, page gather (port of src/repro/cache/pool.py).
+
+One attention layer's decode cache is a pool of fixed-size pages. The AMS
+pool stores `repro_torch.core.kv_quant`'s packed planes with a (page,
+slot-in-page, head) prefix:
+
+    k/v each {hi    [P, page, kv, hd_p/2]  int8   (2 codes/byte)
+              lsb   [P, page, kv, gw]      int32  (1 bit/k-group)
+              scale [P, page, kv, 1]       f32}
+
+A request's logical position i lives at ``page = block_table[slot, i //
+page_size], offset = i % page_size``. Inserts take a [B, c] token block;
+suppressed writes (idle slot pos < 0, or chunk entries past a slot's valid
+count) are dropped. Each token is quantized once at insert.
+
+Unlike the reference's functional scatter, `paged_insert` writes into the
+pool tensors in place (the engine's pools hold every layer of a
+full-width model, and a copy per insert would double their footprint).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.core.formats import get_scheme
+from repro_torch.core.kv_quant import dequantize_kv, kv_bytes, packed_head_dim, quantize_kv
+
+from .config import CacheConfig
+
+PLANES = ("hi", "lsb", "scale")
+
+
+def make_gqa_page_pool(ccfg: CacheConfig, kv: int, hd: int, *, device="cpu",
+                       lead: Tuple[int, ...] = ()) -> Dict:
+    """Zero-initialized AMS k/v page pools for one GQA layer (or, with
+    ``lead=(G,)``, for G stacked layers)."""
+    if not ccfg.quantized:
+        raise NotImplementedError(
+            "bf16 page pools need kernel K3, not ported yet (ROADMAP queue 2)")
+    P, page = ccfg.num_pages, ccfg.page_size
+    scheme = get_scheme(ccfg.kv_scheme)
+    hd_p = packed_head_dim(hd, scheme)
+    gw = -(-(hd_p // scheme.k) // 32)
+
+    def planes():
+        shape = (*lead, P, page, kv)
+        return {"hi": torch.zeros((*shape, hd_p // 2), dtype=torch.int8, device=device),
+                "lsb": torch.zeros((*shape, gw), dtype=torch.int32, device=device),
+                "scale": torch.zeros((*shape, 1), dtype=torch.float32, device=device)}
+
+    return {"k": planes(), "v": planes()}
+
+
+def _page_offset(pos, nvalid, block_table, ccfg: CacheConfig, c: int):
+    """Physical (page, offset) [B, c] for a chunk starting at ``pos`` per slot,
+    and the [B, c] mask of writes that happen (not idle, index < nvalid)."""
+    j = torch.arange(c, dtype=torch.int32, device=pos.device)[None, :]
+    p = pos[:, None] + j
+    ok = (pos[:, None] >= 0) & (j < nvalid[:, None])
+    logical = torch.clamp(torch.div(p, ccfg.page_size, rounding_mode="floor"),
+                          0, block_table.shape[1] - 1)
+    page = torch.take_along_dim(block_table, logical.long(), dim=1)
+    off = torch.clamp(torch.remainder(p, ccfg.page_size), 0, ccfg.page_size - 1)
+    return page, off, ok
+
+
+def paged_insert(pool: Dict, k_new: torch.Tensor, v_new: torch.Tensor, pos, block_table,
+                 ccfg: CacheConfig, nvalid=None) -> Dict:
+    """Write this tick's K/V block ([B, c, kv, hd]) into the layer pool in
+    place and return it. ``pos`` [B] start positions (negative = idle slot,
+    nothing written); ``nvalid`` [B] bounds each slot's valid chunk entries
+    (default: all c of non-idle slots)."""
+    c = k_new.shape[1]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=k_new.device)
+    if nvalid is None:
+        nvalid = torch.where(pos >= 0, c, 0)
+    nvalid = torch.as_tensor(nvalid, dtype=torch.int32, device=k_new.device)
+    page, off, ok = _page_offset(pos, nvalid, block_table, ccfg, c)
+    page, off = page[ok].long(), off[ok].long()
+    scheme = get_scheme(ccfg.kv_scheme)
+    for name, new in (("k", k_new), ("v", v_new)):
+        q = quantize_kv(new, scheme, ccfg.kv_strategy)          # [B, c, kv, *]
+        for pl in PLANES:
+            pool[name][pl][page, off] = q[pl][ok]
+    return pool
+
+
+def gather_pages(leaf: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """[P, page, ...] pool leaf -> [B, max_pages*page, ...] per-slot view."""
+    B, mp = block_table.shape
+    g = leaf[block_table.reshape(-1).long()]
+    return g.reshape(B, mp * leaf.shape[1], *leaf.shape[2:])
+
+
+def gather_kv(pool: Dict, block_table, hd: int, ccfg: CacheConfig, dtype=torch.bfloat16):
+    """(k, v) [B, S_max, kv, hd] views of an AMS layer pool, restored to their
+    exact lattice values."""
+    scheme = get_scheme(ccfg.kv_scheme)
+    k_pl, v_pl = ({pl: gather_pages(pool[n][pl], block_table) for pl in PLANES}
+                  for n in ("k", "v"))
+    return dequantize_kv(k_pl, hd, scheme, dtype), dequantize_kv(v_pl, hd, scheme, dtype)
+
+
+def pool_bytes_per_token(kv: int, hd: int, ccfg: CacheConfig) -> int:
+    """Cache bytes one token occupies in one layer (k + v)."""
+    if ccfg.quantized:
+        packed, _ = kv_bytes(hd, get_scheme(ccfg.kv_scheme))
+        return 2 * kv * packed
+    return 2 * kv * hd * 2
+
+
+def compression_vs_bf16(kv: int, hd: int, ccfg: CacheConfig) -> float:
+    """bf16 bytes / this cache-mode bytes, per token per layer."""
+    return (2 * kv * hd * 2) / pool_bytes_per_token(kv, hd, ccfg)

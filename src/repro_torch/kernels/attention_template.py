@@ -1,0 +1,237 @@
+"""Decode attention: plain flash-decode bodies and K2, the paged AMS kernel
+(port of src/repro/kernels/attention_template.py).
+
+  * `flash_decode` / `flash_decode_chunk` — the plain torch reference bodies
+    over a [B, S, kv, hd] cache (group-major heads), the oracle the paged
+    ``ref`` path attends with.
+  * `fused_paged_attention` — paged flash-decode over an AMS-e2m2 page pool:
+    folds q chunk-major per kv head (`_fold_q`), runs K2 through
+    `paged_attention_ams` and unfolds the result (`_unfold_o`).
+    `paged_attention_ams` launches the CUDA kernel in
+    ``csrc/paged_attention.cu`` on CUDA tensors (bound and design noted
+    there) and runs `paged_attention_ams_plain`, the kernel's plain torch
+    version, on CPU tensors.
+
+The bf16-page pair hook (K3), the contiguous-cache template (K4) and the
+absorbed-MLA stream (K5) are not ported yet (ROADMAP queue 2).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.formats import code_to_value, get_scheme
+from repro_torch.core.kv_quant import codes_from_planes
+
+from .build import KernelCount, check_device, library, stream_ptr
+
+NEG_BIG = -2e30   # additive mask; exp(NEG_BIG - NEG_CLAMP) == 0 exactly
+NEG_CLAMP = -1e30
+COUNT = KernelCount("paged_attention_ams")
+
+
+def _check_grouped(H: int, kv_n: int, kv_map) -> int:
+    if H % kv_n != 0 or not np.array_equal(np.asarray(kv_map), np.arange(H) // (H // kv_n)):
+        raise NotImplementedError("only the group-major GQA head layout is ported")
+    return H // kv_n
+
+
+def _attend(qf, k, v, valid, g):
+    """Shared softmax body: qf [B, c, kv, g, hd] (already scaled), k/v
+    [B, S, kv, hd] f32, valid [B, c, S] -> o [B, c, kv*g, hd_v] f32."""
+    B, c, kv_n = qf.shape[:3]
+    s = torch.einsum("bcngd,bknd->bcngk", qf.to(torch.float32), k.to(torch.float32))
+    vmask = valid[:, :, None, None, :]
+    s = torch.where(vmask, s, -torch.inf)
+    m = s.amax(dim=-1)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m_safe[..., None])
+    p = torch.where(vmask, p, torch.zeros_like(p))
+    l = p.sum(dim=-1)
+    o = torch.einsum("bcngk,bknd->bcngd", p.to(v.dtype).to(torch.float32),
+                     v.to(torch.float32))
+    o = o / torch.clamp(l, min=1e-20)[..., None]
+    return o.reshape(B, c, kv_n * g, v.shape[-1])
+
+
+def _scaled(q: torch.Tensor, scale: Optional[float]) -> torch.Tensor:
+    hd = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / np.sqrt(hd)
+    return q * torch.tensor(np.float32(scale), dtype=q.dtype, device=q.device)
+
+
+def flash_decode(q, k_cache, v_cache, pos, *, kv_map, scale=None):
+    """q [B, H, hd]; caches [B, S, kv, hd]; ``pos`` valid keys per slot
+    ([B]) or shared (scalar). Returns [B, H, hd_v] in q.dtype."""
+    B, H, hd = q.shape
+    S, kv_n = k_cache.shape[1], k_cache.shape[2]
+    g = _check_grouped(H, kv_n, kv_map)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
+    lens = pos.reshape(-1, 1).expand(B, 1)
+    valid = torch.arange(S, device=q.device)[None, None, :] < lens[:, :, None]
+    qf = _scaled(q, scale).reshape(B, 1, kv_n, g, hd)
+    return _attend(qf, k_cache, v_cache, valid, g)[:, 0].to(q.dtype)
+
+
+def flash_decode_chunk(q, k_cache, v_cache, lengths, *, kv_map, scale=None):
+    """q [B, c, H, hd] ragged query block; ``lengths`` [B, c] valid keys per
+    query (0 = masked row -> exact zeros). Returns [B, c, H, hd_v]."""
+    B, c, H, hd = q.shape
+    S, kv_n = k_cache.shape[1], k_cache.shape[2]
+    g = _check_grouped(H, kv_n, kv_map)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=q.device)
+    valid = torch.arange(S, device=q.device)[None, None, :] < lengths[:, :, None]
+    qf = _scaled(q, scale).reshape(B, c, kv_n, g, hd)
+    return _attend(qf, k_cache, v_cache, valid, g).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K2: paged AMS attention
+# ---------------------------------------------------------------------------
+def restore_page(hi, lsb, scale, fmt, k: int, hd: int) -> torch.Tensor:
+    """Packed planes [..., hd_p/2] / [..., gw] / [..., 1] -> [..., hd] f32
+    lattice values times scale."""
+    vals = code_to_value(fmt, codes_from_planes(hi, lsb, k)) * scale
+    return vals[..., :hd]
+
+
+def paged_attention_ams_plain(qf, pool: Dict, lens, block_table, *, page_size: int,
+                              scheme, c: int, g: int) -> torch.Tensor:
+    """Plain torch version of K2. qf [B, kv, R=c*g, hd] f32 (pre-scaled,
+    chunk-major rows), ``pool`` {k, v: {hi, lsb, scale}} [P, page, kv, *],
+    lens [B*c] int32, block_table [B, MP] int32 -> [B, kv, R, hd] f32.
+    Online softmax page by page with the kernel's constants; pages past every
+    row's length contribute exact zeros, so the walk stops there."""
+    if qf.is_cuda:
+        COUNT.plain_on_cuda += 1
+    B, kv_n, R, hd = qf.shape
+    MP = block_table.shape[1]
+    fmt, k = scheme.base, scheme.k
+    row_len = lens.reshape(B, c).repeat_interleave(g, dim=1)[:, None, :, None]  # [B,1,R,1]
+    m = torch.full((B, kv_n, R, 1), NEG_CLAMP, dtype=torch.float32, device=qf.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, kv_n, R, hd), dtype=torch.float32, device=qf.device)
+    max_len = int(lens.max()) if lens.numel() else 0
+    npages = min(MP, -(-max(max_len, 0) // page_size))
+    for i in range(npages):
+        pg = block_table[:, i].long()
+
+        def load(name):
+            pl = pool[name]
+            return restore_page(pl["hi"][pg], pl["lsb"][pg], pl["scale"][pg], fmt, k, hd)
+
+        kb, vb = load("k"), load("v")                       # [B, page, kv, hd]
+        s = torch.einsum("bhrd,bthd->bhrt", qf, kb)
+        k_pos = i * page_size + torch.arange(page_size, device=qf.device)
+        s = s + torch.where(k_pos < row_len, 0.0, NEG_BIG)
+        m_new = torch.clamp(torch.maximum(m, s.amax(dim=-1, keepdim=True)), min=NEG_CLAMP)
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bhrt,bthd->bhrd", p, vb)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-20)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = library("paged_attention").paged_attention_ams
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_k2(qf, pool, lens, block_table, page_size, scheme, c, g):
+    B, kv_n, R, hd = qf.shape
+    if qf.dtype != torch.float32:
+        raise TypeError(f"q must be float32, got {qf.dtype}")
+    if R != c * g or lens.shape != (B * c,) or lens.dtype != torch.int32:
+        raise ValueError(f"rows {R} != c*g = {c}*{g}, or lengths {tuple(lens.shape)} "
+                         f"{lens.dtype} is not [B*c] int32")
+    if block_table.dim() != 2 or block_table.shape[0] != B or block_table.dtype != torch.int32:
+        raise ValueError(f"block_table must be [B={B}, MP] int32, got "
+                         f"{tuple(block_table.shape)} {block_table.dtype}")
+    for name in ("k", "v"):
+        pl = pool[name]
+        P, page, kvp, hb = pl["hi"].shape
+        if (page != page_size or kvp != kv_n or pl["hi"].dtype != torch.int8
+                or pl["lsb"].dtype != torch.int32 or pl["scale"].dtype != torch.float32
+                or pl["lsb"].shape[:3] != (P, page, kv_n)
+                or pl["scale"].shape != (P, page, kv_n, 1) or 2 * hb < hd):
+            raise ValueError(f"pool plane {name!r} does not match q / page size")
+    if scheme.base.name != "e2m2":
+        raise NotImplementedError(f"K2 restores e2m2 pages only, got {scheme.base.name}")
+
+
+def paged_attention_ams(qf, pool: Dict, lens, block_table, *, page_size: int,
+                        scheme, c: int, g: int) -> torch.Tensor:
+    """K2 wrapper (same contract as `paged_attention_ams_plain`). CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise."""
+    _check_k2(qf, pool, lens, block_table, page_size, scheme, c, g)
+    if qf.device.type == "cpu":
+        return paged_attention_ams_plain(qf, pool, lens, block_table, page_size=page_size,
+                                         scheme=scheme, c=c, g=g)
+    check_device(qf)
+    B, kv_n, R, hd = qf.shape
+    if hd > 128 or page_size > 32:
+        raise NotImplementedError(f"K2 takes hd <= 128 and page <= 32, got {hd}, {page_size}")
+    planes = [pool[n][p] for n in ("k", "v") for p in ("hi", "lsb", "scale")]
+    ops = [qf, *planes, block_table, lens]
+    if not all(t.is_contiguous() and t.device == qf.device for t in ops):
+        raise ValueError("K2 operands must be contiguous and on one device")
+    out = torch.empty_like(qf)
+    hb, gw = pool["k"]["hi"].shape[-1], pool["k"]["lsb"].shape[-1]
+    rc = _kernel()(*(t.data_ptr() for t in ops), out.data_ptr(),
+                   B, kv_n, R, hd, hb, gw, scheme.k, page_size, block_table.shape[1],
+                   c, g, stream_ptr(qf.device))
+    if rc != 0:
+        raise RuntimeError(f"paged_attention_ams launch failed: cudaError {rc}")
+    COUNT.launches += 1
+    return out
+
+
+def _fold_q(q, lengths, kv_n: int, scale):
+    """Scale q in q.dtype (the rounding flash_decode applies), fold the GQA
+    groups chunk-major into rows ([B, kv, c*g, hd] f32) and flatten lengths
+    to [B*c] int32."""
+    chunked = q.dim() == 4
+    if not chunked:
+        q = q[:, None]
+        lengths = torch.as_tensor(lengths, dtype=torch.int32, device=q.device)
+        lengths = lengths.reshape(-1, 1).expand(q.shape[0], 1)
+    B, c, H, hd = q.shape
+    if H % kv_n != 0:
+        raise ValueError(f"H={H} not grouped over kv={kv_n}")
+    g = H // kv_n
+    qf = _scaled(q, scale).to(torch.float32)
+    qf = qf.reshape(B, c, kv_n, g, hd).permute(0, 2, 1, 3, 4).reshape(B, kv_n, c * g, hd)
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=q.device).reshape(-1)
+    return qf.contiguous(), lens.contiguous(), chunked, (B, c, H, hd, g)
+
+
+def _unfold_o(o, dims, chunked: bool, dtype):
+    B, c, H, hd, g = dims
+    o = o.reshape(B, H // g, c, g, hd).permute(0, 2, 1, 3, 4).reshape(B, c, H, hd)
+    o = o.to(dtype)
+    return o if chunked else o[:, 0]
+
+
+def fused_paged_attention(q, pool: Dict, lengths, block_table, *, page_size: int,
+                          kv_scheme: Optional[str], scale: Optional[float] = None):
+    """Paged flash-decode over an AMS pool through K2: q [B, H, hd] or
+    [B, c, H, hd] unscaled, lengths [B] or [B, c] valid keys, block_table
+    [B, MP] int32. Returns q's shape in q.dtype."""
+    if kv_scheme is None:
+        raise NotImplementedError(
+            "paged attention over bf16 pages is kernel K3, not ported yet (ROADMAP queue 2)")
+    scheme = get_scheme(kv_scheme)
+    kv_n = pool["k"]["hi"].shape[2]
+    qf, lens, chunked, dims = _fold_q(q, lengths, kv_n, scale)
+    o = paged_attention_ams(qf, pool, lens, block_table.to(torch.int32).contiguous(),
+                            page_size=page_size, scheme=scheme, c=dims[1], g=dims[4])
+    return _unfold_o(o, dims, chunked, q.dtype)

@@ -1,0 +1,129 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with ``ctypes``. Every C
+entry point launches on the stream it is given and returns
+``cudaGetLastError()``; the Python wrappers raise when that is not 0.
+
+Libraries are built at first use into ``_build/`` beside this file (listed
+in ``.gitignore``), named by a hash of the source and the flags, so a
+changed source rebuilds and an unchanged one is reused. `build_all` starts
+one ``nvcc`` per source at once and waits for all of them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = {"ams_matmul": "ams_matmul.cu", "paged_attention": "paged_attention.cu"}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+class KernelCount:
+    """Plain-integer counters one kernel wrapper keeps: ``launches`` grows by
+    one where the wrapper launches its kernel and nowhere else;
+    ``plain_on_cuda`` counts calls of the kernel's plain torch version on
+    CUDA tensors (a serving run on the card must show 0)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+        self.plain_on_cuda = 0
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.plain_on_cuda = 0
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc, /usr/local/cuda/bin/nvcc, or
+    the first ``nvcc`` on PATH. Raises when there is none."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    cands.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in cands:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / SOURCES[name]
+    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile every named source (default: all) that is not built yet, one
+    ``nvcc`` process per source, all started together. Returns
+    ``{name: {"seconds": s, "log": ptxas report}}`` for the sources built
+    now. Raises RuntimeError with the compiler's output if one fails."""
+    names = list(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    report = {}
+    failed = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+        out.with_suffix(".log").write_text(log)
+        report[name] = {"seconds": secs, "log": log}
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return report
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library for one source, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = library_path(name)
+        if not path.exists():
+            build_all([name])
+        lib = _LIBS[name] = ctypes.CDLL(str(path))
+    return lib
+
+
+def check_device(t) -> None:
+    """Raise unless ``t`` lies on a Hopper card the sm_90a kernels run on."""
+    if not t.is_cuda:
+        raise ValueError(f"expected a CUDA tensor, got one on {t.device}")
+    cap = torch.cuda.get_device_capability(t.device)
+    if cap != (9, 0):
+        raise RuntimeError(f"kernels are built for sm_90a; device has sm_{cap[0]}{cap[1]}")
+
+
+def stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,133 @@
+"""EngineConfig: the constructor surface of the serving engine (port of
+src/repro/launch/config.py).
+
+One frozen dataclass carries every constructor-time validation, so a bad
+config fails in one place before any device work. The port adds
+``device`` (default ``"cuda"``) and serves the paged-AMS greedy path only:
+features it does not have yet raise NotImplementedError here, naming their
+ROADMAP item.
+
+    cfg = EngineConfig(arch="qwen2-7b", reduced=False, impl="kernel",
+                       slots=8, capacity=1024, prefill_chunk=16,
+                       cache=CacheConfig(kind="paged_ams", impl="kernel"))
+    eng = ServeEngine(cfg)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+from repro_torch.cache import CacheConfig
+from repro_torch.obs import ObsConfig
+
+IMPLS = ("ref", "fused_ref", "kernel")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Everything a `ServeEngine` needs, in one frozen value.
+
+    arch / reduced / scheme / strategy / seed   model and weights
+    depth         serve only the first ``depth`` layers of the arch at full
+                  width (None = all); smoke runs cut depth this way
+    impl          packed-matmul lowering: ref | fused_ref | kernel (K1)
+    slots / capacity / max_queue / prefill_chunk / token_budget
+                  as in the reference's EngineConfig
+    cache         `CacheConfig(kind="paged_ams", ...)` (its ``impl``
+                  selects the attention lowering: ref | kernel (K2))
+    obs           `ObsConfig` telemetry switchboard
+    device        "cuda" (default) or "cpu"; "cuda" without a card raises
+    mesh / speculate_k   accepted for the reference's surface; anything but
+                  None / 0 raises NotImplementedError
+    """
+
+    arch: str = "qwen2-7b"
+    reduced: bool = True
+    depth: Optional[int] = None
+    scheme: str = "fp5.33-e2m3"
+    strategy: str = "set_lsb"
+    impl: str = "ref"
+    seed: int = 0
+
+    slots: int = 4
+    capacity: int = 128
+    max_queue: Optional[int] = None
+    prefill_chunk: int = 1
+    token_budget: Optional[int] = None
+
+    cache: Optional[CacheConfig] = None
+    obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
+    mesh: Any = None
+    speculate_k: int = 0
+    device: str = "cuda"
+
+    verbose: bool = False
+
+    def __post_init__(self):
+        from repro_torch.configs import get_config, list_archs
+        try:
+            get_config(self.arch)
+        except KeyError:
+            raise ValueError(f"unknown arch {self.arch!r}; one of "
+                             f"{list_archs(assigned_only=False)}") from None
+        if self.depth is not None and self.depth < 1:
+            raise ValueError(f"depth must be >= 1 (or None), got {self.depth}")
+        if self.impl not in IMPLS:
+            raise ValueError(f"unknown impl {self.impl!r}; one of {IMPLS}")
+        if self.slots < 1:
+            raise ValueError(f"slots must be >= 1, got {self.slots}")
+        if self.capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {self.capacity}")
+        if self.prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got {self.prefill_chunk}")
+        if self.token_budget is not None and self.token_budget < 1:
+            raise ValueError(f"token_budget must be >= 1, got {self.token_budget}")
+        if self.max_queue is not None and self.max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1 (or None), got {self.max_queue}")
+        if self.device not in ("cuda", "cpu") and not self.device.startswith("cuda:"):
+            raise ValueError(f"device must be 'cuda', 'cuda:N' or 'cpu', got {self.device!r}")
+        if self.cache is not None and not isinstance(self.cache, CacheConfig):
+            raise TypeError(f"cache must be a CacheConfig, got {type(self.cache).__name__}")
+        if not isinstance(self.obs, ObsConfig):
+            raise TypeError(f"obs must be an ObsConfig, got {type(self.obs).__name__}")
+        if self.speculate_k:
+            raise NotImplementedError("speculative decoding is not ported yet (ROADMAP queue 2)")
+        if self.mesh is not None:
+            raise NotImplementedError("tensor-parallel meshes are not ported yet "
+                                      "(ROADMAP queue 2)")
+        if self.cache is None or self.cache.kind != "paged_ams":
+            kind = "contiguous" if self.cache is None else self.cache.kind
+            raise NotImplementedError(
+                f"the {kind} cache is not ported yet (kernels K3/K4, ROADMAP queue 2); "
+                "pass cache=CacheConfig(kind='paged_ams')")
+        if self.cache.host_spill_pages:
+            raise NotImplementedError("the host spill tier is not ported yet "
+                                      "(preemption with host spill, ROADMAP queue 2)")
+        if self.obs.cost_on:
+            raise NotImplementedError("obs cost accounting is not ported yet (ROADMAP queue 2)")
+
+    @property
+    def step_chunk(self) -> int:
+        return self.prefill_chunk
+
+    @property
+    def resolved_token_budget(self) -> int:
+        """The per-tick token budget enforced (default: every slot can fill
+        its chunk)."""
+        if self.token_budget is not None:
+            return self.token_budget
+        return self.slots * self.step_chunk
+
+    def model_config(self):
+        """The served ModelConfig: the arch, reduced and/or cut in depth."""
+        from repro_torch.configs import get_config
+        cfg = get_config(self.arch)
+        if self.reduced:
+            cfg = cfg.reduced()
+        if self.depth is not None:
+            cfg = dataclasses.replace(cfg, num_layers=min(self.depth, cfg.num_layers))
+        return cfg
+
+    def sized_cache(self) -> CacheConfig:
+        return self.cache.sized(capacity=self.capacity, slots=self.slots)

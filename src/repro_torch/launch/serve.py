@@ -1,0 +1,78 @@
+"""One-shot batched generation through the engine (port of
+src/repro/launch/serve.py).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
+        --reduced --impl kernel --tokens 32 --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from repro_torch.cache import CacheConfig
+from repro_torch.configs import get_config
+
+from .config import EngineConfig
+from .engine import ServeEngine
+
+
+def generate(arch: str, *, reduced=True, scheme="fp5.33-e2m3", strategy="set_lsb",
+             impl="ref", attn_impl="ref", batch=2, prompt_len=16, gen_tokens=16, seed=0,
+             params=None, capacity=None, prompts=None, sampling=None, prefill_chunk=1,
+             page_size=16, device="cuda"):
+    """Submit ``batch`` requests at tick 0 (prompts drawn from ``seed`` unless
+    given as ``prompts`` [batch, prompt_len]) and drain the engine over a
+    paged-AMS cache. Returns (tokens [batch, gen_tokens], stats); streams
+    that stop early are padded with -1."""
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    rng = np.random.default_rng(seed)
+    if prompts is None:
+        prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
+    prompts = np.asarray(prompts, np.int32)
+    batch, prompt_len = prompts.shape
+    cap = capacity or (prompt_len + gen_tokens)
+    eng = ServeEngine(
+        EngineConfig(arch=arch, reduced=reduced, scheme=scheme, strategy=strategy,
+                     impl=impl, slots=batch, capacity=cap, seed=seed,
+                     prefill_chunk=prefill_chunk, device=device, verbose=True,
+                     cache=CacheConfig(kind="paged_ams", page_size=page_size,
+                                       impl=attn_impl)),
+        params=params)
+    per_req = sampling if isinstance(sampling, (list, tuple)) else [sampling] * batch
+    reqs = [eng.submit(prompts[b], gen_tokens, sampling=per_req[b]) for b in range(batch)]
+    stats = eng.run()
+    width = max(r.n_generated for r in reqs)
+    toks = np.full((len(reqs), width), -1, np.int32)
+    for b, r in enumerate(reqs):
+        toks[b, :r.n_generated] = r.tokens
+    return toks, stats
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-7b")
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction, default=True)
+    ap.add_argument("--scheme", default="fp5.33-e2m3")
+    ap.add_argument("--strategy", default="set_lsb")
+    ap.add_argument("--impl", default="ref", help="matmul: ref | fused_ref | kernel")
+    ap.add_argument("--attn-impl", default="ref", help="paged attention: ref | kernel")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt", type=int, default=16)
+    ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--chunk", type=int, default=1, help="prefill chunk")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    toks, stats = generate(args.arch, reduced=args.reduced, scheme=args.scheme,
+                           strategy=args.strategy, impl=args.impl, attn_impl=args.attn_impl,
+                           batch=args.batch, prompt_len=args.prompt, gen_tokens=args.tokens,
+                           prefill_chunk=args.chunk, device=args.device)
+    print("generated tokens:\n", toks)
+    print("stats:", stats)
+
+
+if __name__ == "__main__":
+    main()

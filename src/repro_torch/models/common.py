@@ -1,0 +1,176 @@
+"""Shared model building blocks (port of src/repro/models/common.py).
+
+Parameters are nested dicts of tensors. A "linear" is ``{'w': [K, N]}``
+(+ optional ``'b': [N]``) in high precision, or, after AMS PTQ, the packed
+planes ``{'hi', 'lsb', 'scale'}`` (+ optional ``'b'``); `apply_linear`
+dispatches on which keys are present and, for packed planes, on
+``QuantPolicy.impl``: ``ref`` (dequantize the whole weight), ``fused_ref``
+(K-blocked plain product) or ``kernel`` (K1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.formats import get_scheme
+from repro_torch.core.packing import PackedWeight, make_layout
+from repro_torch.core.policy import QuantPolicy
+from repro_torch.core.rtn import device_table
+
+
+# --------------------------------------------------------------------- init
+def make_linear(gen: torch.Generator, K: int, N: int, bias: bool = False, *,
+                dtype=torch.float32, device="cpu", scale: Optional[float] = None):
+    s = scale if scale is not None else 1.0 / np.sqrt(K)
+    w = torch.randn((K, N), generator=gen, dtype=torch.float32, device=device) * s
+    p = {"w": w.to(dtype)}
+    if bias:
+        p["b"] = torch.zeros((N,), dtype=dtype, device=device)
+    return p
+
+
+def make_norm(d: int, *, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    return torch.ones((d,), dtype=dtype, device=device)
+
+
+# -------------------------------------------------------------------- apply
+def apply_linear(p: Dict[str, Any], x: torch.Tensor,
+                 policy: Optional[QuantPolicy] = None) -> torch.Tensor:
+    """y = x @ W (+b); dispatches plain vs AMS-packed representation."""
+    if "w" in p:
+        y = x @ p["w"].to(x.dtype)
+    else:
+        lay = make_layout(get_scheme(policy.scheme))
+        K = x.shape[-1]
+        N = p["scale"].shape[-1]
+        pw = PackedWeight(p["hi"], p["lsb"], p["scale"], lay, K, N)
+        impl = policy.impl
+        if impl == "ref":
+            from repro_torch.kernels import ref
+            y = x @ ref.dequant_full(pw, torch.float32).to(x.dtype)
+        elif impl == "fused_ref":
+            from repro_torch.kernels import ref
+            lead = x.shape[:-1]
+            y = ref.ams_matmul_blocked(x.reshape(-1, K), pw).reshape(*lead, N).to(x.dtype)
+        elif impl == "kernel":
+            from repro_torch.kernels import ops
+            y = ops.ams_matmul(x, pw).to(x.dtype)
+        else:
+            raise ValueError(f"unknown quant impl {impl!r}")
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + np.float32(eps)) * g.to(torch.float32)).to(x.dtype)
+
+
+# --------------------------------------------------------------------- RoPE
+def rope_angles(positions: torch.Tensor, dim: int, theta: float) -> torch.Tensor:
+    """[..., dim/2] angles for integer positions; the inverse frequencies
+    come from numpy in f32, as in the reference."""
+    inv = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
+    inv = device_table(tuple(np.asarray(inv, np.float32).tolist()), torch.float32,
+                       str(positions.device))
+    return positions.to(torch.float32)[..., None] * inv
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [B, S, H, hd]; positions: [B, S]."""
+    hd = x.shape[-1]
+    ang = rope_angles(positions, hd, theta)
+    cos = torch.cos(ang)[..., None, :].to(x.dtype)
+    sin = torch.sin(ang)[..., None, :].to(x.dtype)
+    x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ----------------------------------------------------------- quantize tree
+def quantize_params(params, policy: QuantPolicy, strategy: Optional[str] = None,
+                    prefix: str = ""):
+    """Offline PTQ pass: replace eligible {'w': [.., K, N]} linears by packed
+    planes; stacked leading dims (layers) are quantized slice by slice.
+    Biases, norms and small tensors stay as they are. ``prefix`` is the path
+    of ``params`` inside the full tree (the policy reads names)."""
+    from repro_torch.core.ams import ams_quantize
+    from repro_torch.core.packing import pack
+
+    scheme = get_scheme(policy.scheme)
+    strategy = strategy or policy.strategy
+    lay = make_layout(scheme)
+
+    def quant_one(w2d):
+        K = w2d.shape[0]
+        wp = torch.nn.functional.pad(w2d.to(torch.float32), (0, 0, 0, lay.padded_k(K) - K))
+        codes, scale = ams_quantize(wp, scheme, strategy)
+        pw = pack(codes, scale, scheme)
+        return {"hi": pw.hi, "lsb": pw.lsb, "scale": pw.scale}
+
+    def quant_stacked(w):
+        if w.dim() == 2:
+            return quant_one(w)
+        parts = [quant_stacked(w[i]) for i in range(w.shape[0])]
+        return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+
+    def visit(path: str, node):
+        if isinstance(node, dict) and "w" in node:
+            w = node["w"]
+            if w.dim() >= 2 and policy.wants(path, tuple(w.shape[-2:])):
+                out = quant_stacked(w)
+                if "b" in node:
+                    out["b"] = node["b"]
+                return out
+            return node
+        if isinstance(node, dict):
+            return {k: visit(f"{path}/{k}", v) for k, v in node.items()}
+        return node
+
+    return visit(prefix, params)
+
+
+@dataclasses.dataclass(frozen=True)
+class Dims:
+    """Derived head/vocab dimensions. Heads are GROUP-MAJOR: q-head slot j
+    belongs to kv group j // gp (the reference's layout at tp=1)."""
+
+    H: int          # padded q-head count
+    H_true: int
+    kv: int         # padded kv-head count
+    kv_true: int
+    hd: int
+    V: int          # padded vocab
+    V_true: int
+
+    @property
+    def gp(self) -> int:
+        return self.H // self.kv
+
+    @property
+    def gt(self) -> int:
+        return self.H_true // self.kv_true
+
+    def head_mask(self, device) -> torch.Tensor:
+        j = torch.arange(self.H, device=device)
+        return ((j // self.gp < self.kv_true) & (j % self.gp < self.gt)).to(torch.float32)
+
+    def vocab_mask_bias(self, device) -> torch.Tensor:
+        """Additive -1e9 bias for padded vocab slots."""
+        j = torch.arange(self.V, device=device)
+        return torch.where(j < self.V_true, 0.0, -1e9).to(torch.float32)
+
+
+def model_dims(cfg, head_dim: Optional[int] = None) -> Dims:
+    """Dims at tensor-parallel degree 1 (the only one the port serves)."""
+    hd = head_dim if head_dim is not None else cfg.head_dim
+    kv_true = max(1, cfg.num_kv_heads)
+    H = cfg.num_heads
+    kv = kv_true if H % kv_true == 0 else H
+    return Dims(H=H, H_true=H, kv=kv, kv_true=kv_true, hd=hd,
+                V=cfg.vocab_size, V_true=cfg.vocab_size)

@@ -1,0 +1,201 @@
+"""Decoder assembly for dense GQA models over paged caches (port of the gqa /
+paged paths of src/repro/models/transformer.py).
+
+Parameters keep the reference's tree: ``embed``, ``layers`` (every leaf
+stacked ``[G, ...]`` over layers), ``final_norm``, ``lm_head``. The
+reference's ``lax.scan`` over stacked layers is a Python loop over views
+``leaf[g]``; the page pools in the cache are stacked the same way and are
+written in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from . import attention as A
+from . import ffn as F
+from .common import Dims, apply_linear, make_linear, make_norm, model_dims, rms_norm
+
+
+def layer_pattern(cfg) -> Tuple[str, ...]:
+    if cfg.family == "hybrid":
+        return cfg.block_pattern
+    if cfg.family == "ssm":
+        return ("mamba",)
+    if cfg.family == "moe":
+        return ("gqa_moe",)
+    if cfg.attention == "mla":
+        return ("mla",)
+    return ("gqa",)
+
+
+def check_paged_support(cfg):
+    """The port serves dense GQA over paged caches only."""
+    pat = layer_pattern(cfg)
+    if pat != ("gqa",):
+        raise NotImplementedError(
+            f"the port serves dense GQA layers only; {cfg.name} has {sorted(set(pat))} "
+            "(MoE/SSM/MLA are ROADMAP queue 2)")
+    if cfg.sliding_window:
+        raise NotImplementedError("sliding-window ring caches are not ported yet")
+    if cfg.num_prefix_embeds:
+        raise NotImplementedError("prefix embeds (modality frontends) are not ported yet")
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def init_block(gen, cfg, dims: Dims, kind: str, *, dtype=torch.float32, device="cpu"):
+    if kind != "gqa":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    kw = dict(dtype=dtype, device=device)
+    return {"ln1": make_norm(cfg.d_model, **kw),
+            "attn": A.init_gqa(gen, cfg, dims, **kw),
+            "ln2": make_norm(cfg.d_model, **kw),
+            "ffn": F.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn_activation, **kw)}
+
+
+def init_embed(gen, cfg, dims: Dims, *, dtype=torch.float32, device="cpu"):
+    w = torch.randn((dims.V, cfg.d_model), generator=gen, dtype=torch.float32,
+                    device=device) * 0.02
+    return {"w": w.to(dtype)}
+
+
+def init_params(seed: int, cfg, *, dtype=torch.float32, device="cpu") -> Dict[str, Any]:
+    """Full parameter tree from ``torch.Generator(device).manual_seed(seed)``
+    (draw order: embed, layer 0..L-1, lm_head). For full-width models on the
+    card use `launch.engine.init_serving_params`, which quantizes layer by
+    layer from the same draws."""
+    check_paged_support(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dims = model_dims(cfg)
+    embed = init_embed(gen, cfg, dims, dtype=dtype, device=device)
+    blocks = [init_block(gen, cfg, dims, "gqa", dtype=dtype, device=device)
+              for _ in range(cfg.num_layers)]
+    return {
+        "embed": embed,
+        "layers": {"sub0": stack_trees(blocks)},
+        "final_norm": make_norm(cfg.d_model, dtype=dtype, device=device),
+        "lm_head": make_linear(gen, cfg.d_model, dims.V, dtype=dtype, device=device),
+    }
+
+
+def stack_trees(trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def make_cache(cfg, *, cache_cfg, device="cpu"):
+    """Zero page pools for every layer, stacked [G, P, page, kv, ...]."""
+    from repro_torch.cache import make_gqa_page_pool
+    check_paged_support(cfg)
+    if cache_cfg is None or not cache_cfg.paged:
+        raise NotImplementedError("contiguous caches need kernel K4, not ported yet "
+                                  "(ROADMAP queue 2)")
+    dims = model_dims(cfg)
+    return {"layers": {"sub0": make_gqa_page_pool(cache_cfg, dims.kv, dims.hd, device=device,
+                                                  lead=(cfg.num_layers,))}}
+
+
+def residual_norm(x, out, g, eps):
+    """(x + out, rms_norm(x + out)): the norm reads the sum of the two bf16
+    operands unrounded in f32, as in the reference's compiled step (XLA
+    fuses the add into the norm's f32 convert); the residual stream keeps
+    the sum rounded to x.dtype."""
+    xf = x.to(torch.float32) + out.to(torch.float32)
+    return x + out, rms_norm(xf, g, eps).to(x.dtype)
+
+
+def block_decode(p, x, pool, pos, cfg, dims, *, policy, block_tables, cache_cfg):
+    """x [B, 1, D] through one paged GQA block. Returns (x, pool)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    out, pool = A.gqa_attn_decode_paged(p["attn"], h, pool, pos, block_tables, cfg, dims,
+                                        policy=policy, cache_cfg=cache_cfg)
+    x, h2 = residual_norm(x, out, p["ln2"], cfg.norm_eps)
+    return x + F.ffn_apply(p["ffn"], h2, cfg.ffn_activation, policy), pool
+
+
+def block_decode_chunk(p, x, pool, pos, nvalid, cfg, dims, *, policy, block_tables,
+                       cache_cfg):
+    """Ragged analogue of `block_decode`: x [B, c, D]."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    out, pool = A.gqa_attn_decode_paged_chunk(p["attn"], h, pool, pos, nvalid, block_tables,
+                                              cfg, dims, policy=policy,
+                                              cache_cfg=cache_cfg)
+    x, h2 = residual_norm(x, out, p["ln2"], cfg.norm_eps)
+    return x + F.ffn_apply(p["ffn"], h2, cfg.ffn_activation, policy), pool
+
+
+def _embed(params, tokens, dtype=torch.bfloat16):
+    return params["embed"]["w"].to(dtype)[tokens.long()]
+
+
+def _head(params, x, cfg, dims, policy=None):
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = apply_linear(params["lm_head"], x, policy)
+    return logits.to(torch.float32) + dims.vocab_mask_bias(x.device)[None, None, :]
+
+
+def _layers(params, cache, fn, x):
+    """Run ``fn(layer_params, x, layer_pool)`` over the stacked layers."""
+    G = tree_leaves(params["layers"])[0].shape[0]
+    for g in range(G):
+        gp = tree_map(lambda t: t[g], params["layers"]["sub0"])
+        gc = tree_map(lambda t: t[g], cache["layers"]["sub0"])
+        x, _ = fn(gp, x, gc)
+    return x
+
+
+def decode_step(params, token, cache, pos, cfg, *, policy=None, dtype=torch.bfloat16,
+                block_tables=None, cache_cfg=None, nvalid=None):
+    """One decode step over paged caches. token [B] with per-slot positions
+    ``pos`` [B] (negative = idle slot, write suppressed), or the ragged
+    multi-token step: token [B, C] with start positions ``pos`` [B] and
+    valid counts ``nvalid`` [B]; logits are taken at each slot's last valid
+    token. Returns (logits [B, V] f32, cache) — the pools are updated in
+    place."""
+    if token.dim() == 2:
+        return _decode_step_chunk(params, token, cache, pos, nvalid, cfg, policy=policy,
+                                  dtype=dtype, block_tables=block_tables,
+                                  cache_cfg=cache_cfg)
+    dims = model_dims(cfg)
+    pos = pos.to(torch.int32)
+    x = _embed(params, token[:, None], dtype)
+
+    def fn(gp, x, pool):
+        return block_decode(gp, x, pool, pos, cfg, dims, policy=policy,
+                            block_tables=block_tables, cache_cfg=cache_cfg)
+
+    x = _layers(params, cache, fn, x)
+    return _head(params, x, cfg, dims, policy)[:, 0], cache
+
+
+def _decode_step_chunk(params, token, cache, pos, nvalid, cfg, *, policy=None,
+                       dtype=torch.bfloat16, block_tables=None, cache_cfg=None):
+    dims = model_dims(cfg)
+    pos = pos.to(torch.int32)
+    nvalid = nvalid.to(torch.int32)
+    x = _embed(params, token, dtype)                                # [B, C, D]
+
+    def fn(gp, x, pool):
+        return block_decode_chunk(gp, x, pool, pos, nvalid, cfg, dims, policy=policy,
+                                  block_tables=block_tables, cache_cfg=cache_cfg)
+
+    x = _layers(params, cache, fn, x)
+    # logits only at each slot's last valid token
+    last = torch.clamp(nvalid - 1, 0, token.shape[1] - 1).long()
+    x_last = x[torch.arange(x.shape[0], device=x.device), last][:, None]    # [B, 1, D]
+    return _head(params, x_last, cfg, dims, policy)[:, 0], cache

@@ -1,0 +1,223 @@
+"""Port parity, the slice as a whole: weights, decode steps and served streams
+of the reduced qwen2-7b, PyTorch port against the JAX package on the CPU.
+
+The JAX side runs as its engine runs it (the decode step compiled by XLA);
+the port reproduces the two places where that compilation changes bf16/f32
+rounding (the KV-scale reciprocal and the residual add fused into the
+norm), so logits and greedy streams agree exactly here.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# tiny shapes: more intra-op threads only contend with the other test workers
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.cache import CacheConfig as JCacheConfig  # noqa: E402
+from repro.configs import get_config  # noqa: E402
+from repro.core.policy import QuantPolicy as JQuantPolicy  # noqa: E402
+from repro.launch.config import EngineConfig as JEngineConfig  # noqa: E402
+from repro.launch.engine import ServeEngine as JServeEngine  # noqa: E402
+from repro.models import decode_step as j_decode_step  # noqa: E402
+from repro.models import init_params as j_init_params  # noqa: E402
+from repro.models import make_cache as j_make_cache  # noqa: E402
+from repro.models.common import quantize_params as j_quantize_params  # noqa: E402
+from repro_torch.cache import CacheConfig  # noqa: E402
+from repro_torch.configs import get_config as t_get_config  # noqa: E402
+from repro_torch.core.policy import QuantPolicy  # noqa: E402
+from repro_torch.launch.config import EngineConfig  # noqa: E402
+from repro_torch.launch.engine import ServeEngine, prepare_params  # noqa: E402
+from repro_torch.launch.sampling import SamplingParams  # noqa: E402
+from repro_torch.models import decode_step, init_params, make_cache  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.models.transformer import tree_leaves  # noqa: E402
+
+SCHEME = "fp5.33-e2m3"
+PAGE, CAP = 8, 32
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    """Unquantized f32 params of the reduced qwen2-7b from the JAX package."""
+    return j_init_params(jax.random.PRNGKey(0), get_config("qwen2-7b").reduced())
+
+
+@pytest.fixture(scope="module")
+def np_params(jax_params):
+    return jax.tree.map(np.asarray, jax_params)
+
+
+def serving_pair(jax_params, np_params):
+    """The reference engine's weight preparation on both sides."""
+    jpol = JQuantPolicy(scheme=SCHEME, impl="fused_ref", min_elements=1 << 10)
+    jp = jax.tree.map(lambda x: x.astype(jnp.bfloat16) if x.ndim >= 2 else x, jax_params)
+    jp = j_quantize_params(jp, jpol)
+    tpol = QuantPolicy(scheme=SCHEME, impl="fused_ref", min_elements=1 << 10)
+    tp = prepare_params(params_from_numpy(np_params), tpol)
+    return jp, jpol, tp, tpol
+
+
+def test_serving_params_bit_equal(jax_params, np_params):
+    jp, _, tp, _ = serving_pair(jax_params, np_params)
+
+    def walk(a, b, path):
+        if isinstance(a, dict):
+            assert set(a) == set(b), path
+            for k in a:
+                walk(a[k], b[k], f"{path}/{k}")
+            return
+        an = np.asarray(a.astype(jnp.float32) if a.dtype == jnp.bfloat16 else a)
+        bn = (b.float() if b.dtype == torch.bfloat16 else b).numpy()
+        assert an.shape == bn.shape and str(b.dtype).endswith(str(a.dtype)), path
+        np.testing.assert_array_equal(an, bn, err_msg=path)
+
+    walk(jp, tp, "")
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_decode_step_logits_match_reference(chunk, jax_params, np_params):
+    cfg = get_config("qwen2-7b").reduced()
+    tcfg = t_get_config("qwen2-7b").reduced()
+    jp, jpol, tp, tpol = serving_pair(jax_params, np_params)
+    B = 3
+    jcc = JCacheConfig(kind="paged_ams", page_size=PAGE).sized(capacity=CAP, slots=B)
+    tcc = CacheConfig(kind="paged_ams", page_size=PAGE).sized(capacity=CAP, slots=B)
+    bt = np.arange(B * jcc.max_pages_per_seq, dtype=np.int32).reshape(B, -1)
+    step = jax.jit(lambda p, tok, c, pos, nv: j_decode_step(
+        p, tok, c, pos, cfg, policy=jpol, block_tables=jnp.asarray(bt), cache_cfg=jcc,
+        nvalid=nv))
+    step1 = jax.jit(lambda p, tok, c, pos: j_decode_step(
+        p, tok, c, pos, cfg, policy=jpol, block_tables=jnp.asarray(bt), cache_cfg=jcc))
+    jc = j_make_cache(cfg, B, CAP, cache_cfg=jcc)
+    tc = make_cache(tcfg, cache_cfg=tcc)
+    rng = np.random.default_rng(chunk)
+    pos = np.array([0, 2, -1], np.int32)                  # slot 2 idle
+    for _ in range(5):
+        tok = rng.integers(0, 512, (B, chunk)).astype(np.int32)
+        nv = np.array([chunk, max(chunk - 1, 1), 0], np.int32)
+        if chunk == 1:
+            lj, jc = step1(jp, jnp.asarray(tok[:, 0]), jc, jnp.asarray(pos))
+            lt, tc = decode_step(tp, torch.from_numpy(tok[:, 0]), tc, torch.from_numpy(pos),
+                                 tcfg, policy=tpol, block_tables=torch.from_numpy(bt),
+                                 cache_cfg=tcc)
+        else:
+            lj, jc = step(jp, jnp.asarray(tok), jc, jnp.asarray(pos), jnp.asarray(nv))
+            lt, tc = decode_step(tp, torch.from_numpy(tok), tc, torch.from_numpy(pos), tcfg,
+                                 policy=tpol, block_tables=torch.from_numpy(bt),
+                                 cache_cfg=tcc, nvalid=torch.from_numpy(nv))
+        # active slots; one bf16 ulp of the largest logits as the tolerance
+        np.testing.assert_allclose(lt.numpy()[:2], np.asarray(lj)[:2], rtol=0, atol=2e-2)
+        pos = pos + np.where(pos >= 0, nv, 0)
+    for n in ("k", "v"):
+        for pl in ("hi", "lsb", "scale"):
+            np.testing.assert_array_equal(
+                np.asarray(jc["layers"]["sub0"][n][pl]).view(np.uint8),
+                tc["layers"]["sub0"][n][pl].numpy().view(np.uint8), err_msg=(n, pl))
+
+
+def workload():
+    """Four requests on two slots; the last one arrives in the queue with
+    the first one's first page (8 tokens) as its prompt prefix."""
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 512, int(n)).astype(np.int32) for n in (13, 9, 17, 11)]
+    prompts[3][:PAGE] = prompts[0][:PAGE]
+    return prompts, [6, 5, 4, 6]
+
+
+def serve(eng, prompts, max_tokens):
+    hs = [eng.submit(p, m) for p, m in zip(prompts, max_tokens)]
+    eng.run()
+    return [list(h.tokens) for h in hs], eng.stats()
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_engine_streams_match_reference(chunk, jax_params, np_params):
+    prompts, max_tokens = workload()
+    jeng = JServeEngine(JEngineConfig(
+        arch="qwen2-7b", reduced=True, scheme=SCHEME, impl="fused_ref", slots=2,
+        capacity=CAP, prefill_chunk=chunk,
+        cache=JCacheConfig(kind="paged_ams", page_size=PAGE, impl="ref")), params=jax_params)
+    want, jstats = serve(jeng, prompts, max_tokens)
+    for impl, attn in (("fused_ref", "ref"), ("kernel", "kernel")):
+        eng = ServeEngine(EngineConfig(
+            arch="qwen2-7b", reduced=True, scheme=SCHEME, impl=impl, slots=2, capacity=CAP,
+            prefill_chunk=chunk, device="cpu",
+            cache=CacheConfig(kind="paged_ams", page_size=PAGE, impl=attn)),
+            params=params_from_numpy(np_params))
+        got, stats = serve(eng, prompts, max_tokens)
+        first = [next((t for t, (a, b) in enumerate(zip(g, w)) if a != b), None)
+                 for g, w in zip(got, want)]
+        assert got == want, f"{impl}/{attn} C={chunk}: first diverging token {first}"
+        assert stats["prefix_hit_pages"] == jstats["prefix_hit_pages"] >= 1
+        for key in ("ticks", "tokens_generated", "ttft_ticks_p50", "latency_ticks_p50"):
+            assert stats[key] == jstats[key], key
+
+
+def test_engine_builds_the_same_params_from_a_seed():
+    """ServeEngine(params=None) initialises and quantizes layer by layer from
+    torch.Generator(seed); that equals quantizing init_params(seed)."""
+    cfg = t_get_config("qwen2-7b").reduced()
+    ec = EngineConfig(reduced=True, impl="fused_ref", slots=2, capacity=CAP, device="cpu",
+                      seed=3, cache=CacheConfig(kind="paged_ams", page_size=PAGE))
+    a = ServeEngine(ec)
+    b = ServeEngine(ec, params=init_params(3, cfg))
+    for x, y in zip(tree_leaves(a.params), tree_leaves(b.params)):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    prompts, max_tokens = workload()
+    assert serve(a, prompts, max_tokens)[0] == serve(b, prompts, max_tokens)[0]
+
+
+def cfg_(**kw):
+    base = dict(reduced=True, slots=2, capacity=CAP, device="cpu",
+                cache=CacheConfig(kind="paged_ams", page_size=PAGE))
+    base.update(kw)
+    return EngineConfig(**base)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(speculate_k=2), "speculative"),
+    (dict(mesh=object()), "mesh"),
+    (dict(cache=None), "contiguous"),
+    (dict(cache=CacheConfig(kind="paged_bf16")), "paged_bf16"),
+    (dict(cache=CacheConfig(kind="paged_ams", host_spill_pages=4)), "host spill"),
+])
+def test_missing_features_raise_not_implemented(kw, match):
+    with pytest.raises(NotImplementedError, match=match):
+        cfg_(**kw)
+
+
+def test_missing_request_features_raise_not_implemented():
+    from repro_torch.obs import ObsConfig
+    with pytest.raises(NotImplementedError, match="cost"):
+        cfg_(obs=ObsConfig(cost=True))
+    eng = ServeEngine(cfg_())
+    with pytest.raises(NotImplementedError, match="threefry"):
+        eng.submit([1, 2, 3], 4, sampling=SamplingParams(temperature=0.7, seed=1))
+    with pytest.raises(NotImplementedError, match="preemption"):
+        eng.submit([1, 2, 3], 4, priority=1)
+    with pytest.raises(NotImplementedError, match="prefix embeds"):
+        eng.submit([1, 2, 3], 4, prefix_embeds=np.zeros((2, 128), np.float32))
+    with pytest.raises(NotImplementedError, match="dense GQA"):
+        ServeEngine(cfg_(arch="minicpm3-4b"))
+
+
+def test_cuda_device_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServeEngine(cfg_(device="cuda"))
+
+
+def test_stop_token_ends_stream_early():
+    eng = ServeEngine(cfg_(impl="kernel"))
+    free = eng.submit(np.arange(5), 6)
+    eng.run()
+    stop = free.tokens[2]
+    eng2 = ServeEngine(cfg_(impl="kernel"))
+    h = eng2.submit(np.arange(5), 6, sampling=SamplingParams(stop_token_ids=(stop,)))
+    assert h.result() == free.tokens[:free.tokens.index(stop) + 1]
+    assert h.finish_reason == "stop"

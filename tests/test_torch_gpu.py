@@ -1,0 +1,171 @@
+"""Tests of the port that need the card, plus import hygiene.
+
+The ``gpu``-marked tests hold the CUDA kernels K1 and K2 against their
+plain torch versions on the card, at small and at Qwen2-7B widths, and run
+the engine end to end through both kernels. Each skips from inside the test
+when ``torch.cuda.is_available()`` is false. The machine with the card has
+no JAX, so this file imports none; run it there alone:
+
+    python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+The hygiene tests run everywhere: no module of the port (and not
+chip_smoke.py) imports jax or the JAX package.
+"""
+
+import ast
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    return torch.device("cuda", 0)
+
+
+def packed(K, N, dev, seed=0):
+    from repro_torch.core.ams import ams_quantize
+    from repro_torch.core.formats import get_scheme
+    from repro_torch.core.packing import make_layout, pack
+
+    scheme = get_scheme("fp5.33-e2m3")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)
+    Kp = make_layout(scheme).padded_k(K)
+    codes, scale = ams_quantize(torch.nn.functional.pad(w, (0, 0, 0, Kp - K)), scheme)
+    return pack(codes, scale, scheme), gen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N,B", [(128, 128, 1), (700, 300, 5), (2048, 640, 33),
+                                   (3584, 512, 8), (3584, 18944, 8), (18944, 3584, 128)])
+def test_k1_kernel_matches_plain(K, N, B):
+    from repro_torch.kernels.ams_matmul import COUNT, ams_matmul_fp533, ams_matmul_fp533_plain
+
+    dev = cuda_device()
+    pw, gen = packed(K, N, dev, seed=K + N)
+    x = torch.zeros((B, pw.hi.shape[0] * 6), device=dev)
+    x[:, :K] = torch.randn((B, K), generator=gen, device=dev)
+    n = COUNT.launches
+    got = ams_matmul_fp533(x, pw.hi, pw.scale)
+    torch.cuda.synchronize()
+    assert COUNT.launches == n + 1
+    want = ams_matmul_fp533_plain(x, pw.hi, pw.scale)
+    # same exact products, f32 sums in another order
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+def test_k1_identity_is_bit_exact():
+    from repro_torch.kernels import ops, ref
+
+    dev = cuda_device()
+    pw, _ = packed(384, 128, dev, seed=16)
+    eye = torch.eye(8, 384, device=dev)
+    assert torch.equal(ops.ams_matmul(eye, pw), ref.dequant_full(pw)[:8])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv,g,hd,page,chunk", [(2, 2, 32, 8, 1), (2, 2, 32, 8, 4),
+                                                (4, 7, 128, 16, 1), (4, 7, 128, 16, 16),
+                                                (1, 3, 7, 8, 2)])
+def test_k2_kernel_matches_plain(kv, g, hd, page, chunk):
+    from repro_torch.core.formats import get_scheme
+    from repro_torch.core.kv_quant import quantize_kv
+    from repro_torch.kernels.attention_template import (
+        COUNT,
+        _fold_q,
+        paged_attention_ams,
+        paged_attention_ams_plain,
+    )
+
+    dev = cuda_device()
+    scheme = get_scheme("fp4.25-e2m2")
+    B, MP = 4, 8
+    P = B * MP
+    gen = torch.Generator(device=dev).manual_seed(hd + chunk)
+    pool = {n: {k: t.contiguous() for k, t in quantize_kv(
+        torch.randn((P, page, kv, hd), generator=gen, device=dev), scheme).items()}
+        for n in ("k", "v")}
+    bt = torch.randperm(P, generator=gen, device=dev).to(torch.int32).reshape(B, MP)
+    ends = torch.tensor([MP * page, 5, 0, 3 * page + 1])         # slot 2 idle
+    j = torch.arange(chunk)
+    nvalid = torch.clamp(torch.tensor([chunk, chunk - 1, 0, 1]), min=0)
+    nvalid = torch.minimum(nvalid, ends)
+    lengths = torch.where(j[None] < nvalid[:, None], ends[:, None] - nvalid[:, None] + j + 1, 0)
+    q = torch.randn((B, chunk, kv * g, hd), generator=gen, device=dev).to(torch.bfloat16)
+    qf, lens, _, _ = _fold_q(q, lengths.to(dev), kv, None)
+    kw = dict(page_size=page, scheme=scheme, c=chunk, g=g)
+    n = COUNT.launches
+    got = paged_attention_ams(qf, pool, lens, bt, **kw)
+    torch.cuda.synchronize()
+    assert COUNT.launches == n + 1
+    want = paged_attention_ams_plain(qf, pool, lens, bt, **kw)
+    assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+    masked = (lengths == 0).repeat_interleave(g, dim=1).to(dev)   # [B, c*g] rows
+    assert bool((got.permute(0, 2, 1, 3)[masked] == 0).all())
+
+
+@pytest.mark.gpu
+def test_engine_on_the_card_runs_both_kernels():
+    from repro_torch.cache import CacheConfig
+    from repro_torch.kernels import ams_matmul, attention_template
+    from repro_torch.launch.config import EngineConfig
+    from repro_torch.launch.engine import ServeEngine
+
+    cuda_device()
+    ams_matmul.COUNT.reset()
+    attention_template.COUNT.reset()
+    eng = ServeEngine(EngineConfig(reduced=True, impl="kernel", slots=2, capacity=32,
+                                   prefill_chunk=4, device="cuda",
+                                   cache=CacheConfig(kind="paged_ams", page_size=8,
+                                                     impl="kernel")))
+    hs = [eng.submit(list(range(1, 12)), 5), eng.submit(list(range(3, 9)), 4)]
+    eng.run()
+    assert [len(h.tokens) for h in hs] == [5, 4]
+    assert ams_matmul.COUNT.launches > 0 and attention_template.COUNT.launches > 0
+    assert ams_matmul.COUNT.plain_on_cuda == attention_template.COUNT.plain_on_cuda == 0
+
+
+# ------------------------------------------------------------ hygiene
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module"
+              and node.args and isinstance(node.args[0], (ast.Constant, ast.JoinedStr))):
+            arg = node.args[0]
+            head = arg.value if isinstance(arg, ast.Constant) else ast.unparse(arg)
+            yield head.strip("f'\"")
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {mod}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, repro_torch.launch.serve, repro_torch.launch.engine, "
+            "repro_torch.kernels.ops, repro_torch.cache.paged_attention, "
+            "repro_torch.models.convert; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+                       timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
