@@ -6,25 +6,34 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. build both CUDA kernels from src/repro_torch/kernels/csrc with nvcc
+  2. build the CUDA kernels from src/repro_torch/kernels/csrc with nvcc
      (one process per source, started together);
   3. K1 (AMS fp533 dequant-matmul) against its plain torch version at every
      Qwen2-7B projection shape, B in {8, 128}: error, kernel / plain / dense
      bf16 torch.matmul times, and the bound from bytes and operations;
-  4. K2 (paged AMS-e2m2 flash-decode) against its plain version at kv=4,
+  4. K1b (AMS planes dequant-matmul), the same for fp4.25-e2m2, plus every
+     other planes scheme at one small ragged shape;
+  5. K2 (paged AMS-e2m2 flash-decode) against its plain version at kv=4,
      g=7, hd=128, page 16, 8 slots, lengths up to 1024, chunk in {1, 16},
      with an idle slot and masked rows that must come out exactly 0;
-  5. the main path: full-width 28-layer Qwen2-7B, FP5.33 weights, paged
-     AMS-e2m2 KV, impl "kernel" for matmuls and attention, serving 10
-     greedy requests (two share a page-aligned prefix) through the
-     continuous-batching engine; launch counts are zeroed just before and
-     read just after, and every kernel must have launched;
-  6. consistency at cut depth (2 layers, full widths): first-tick logits and
-     greedy streams of impl "kernel" against the non-kernel impls
-     ("fused_ref" matmuls, "ref" attention) on the same card.
+  6. K3 (paged flash-decode over bf16 pages), the same;
+  7. the main paths, full-width 28-layer Qwen2-7B served through the
+     continuous-batching engine with impl "kernel" for matmuls and
+     attention: FP5.33 weights over AMS-e2m2 pages (K1, K2; 10 greedy
+     requests, two sharing a page-aligned prefix), FP4.25 weights over
+     AMS-e2m2 pages (K1b, K2) and the FP16 baseline, bf16 weights over bf16
+     pages (K3; 9 requests each, two sharing a prefix). Launch counts are
+     zeroed just before each path and read just after: every kernel of the
+     path must have launched, no other kernel and no plain version on CUDA
+     tensors. Each path then times full-batch decode ticks and profiles
+     them (device-busy ms per tick);
+  8. consistency at cut depth (2 layers, full widths), per path:
+     first-tick logits and greedy streams of impl "kernel" against the
+     non-kernel impls ("fused_ref" matmuls, "ref" attention) on the card.
 
-The line before the last is one JSON object with a row per kernel; the last
-line is ``{"ok": true, "device": {...}}``. Without a CUDA card the script
+A line ``compare {...}`` sets the three paths' decode tick and device-busy
+ms side by side. The line before the last is one JSON object with a row
+per kernel; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA card the script
 exits non-zero and prints no result (``--cpu-rehearsal`` runs the phases on
 the CPU at tiny sizes with the plain versions, skips timing, and also exits
 non-zero).
@@ -33,6 +42,7 @@ non-zero).
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -51,7 +61,28 @@ L2_FLUSH_BYTES = 256 << 20      # rotate operand copies past the 50 MB L2
 
 K1_TOL = 1e-4                   # max |kernel - plain| / max |plain|: f32 order
 K2_TOL = 1e-4                   # same, K2
+# K3: max |kernel - plain| <= K3_P_ULP * max|v| + K3_TOL * max |plain|. Both
+# round p to bf16 at the running max, but scores summed in another f32
+# order can put a p one bf16 ulp (2^-8) apart, which moves an output by at
+# most 2^-8 * max|v| (the p / l weights sum to 1).
+K3_P_ULP = 2.0 ** -8
+K3_TOL = 1e-4
 LOGIT_TOL = 5e-2                # consistency: max |dlogit| / max |logit|
+
+# the served paths: weight scheme, cache kind, the kernels each must launch
+PATHS = {
+    "fp5.33": dict(scheme="fp5.33-e2m3", kind="paged_ams",
+                   kernels=("ams_matmul_fp533", "paged_attention_ams")),
+    "fp4.25": dict(scheme="fp4.25-e2m2", kind="paged_ams",
+                   kernels=("ams_matmul_planes", "paged_attention_ams")),
+    "fp16": dict(scheme="fp16", kind="paged_bf16", kernels=("paged_attention_bf16",)),
+}
+PLANES_SCHEMES = ("fp8", "fp6-e2m3", "fp6-e3m2", "fp5-e2m2", "fp4.5-e2m2", "fp4.33-e2m2",
+                  "fp4-e2m1")
+QWEN_SHAPES = [("wq/wo", 3584, 3584, 2), ("wk/wv", 3584, 512, 2),
+               ("w_gate/w_up", 3584, 18944, 2), ("w_down", 18944, 3584, 1)]
+TINY_SHAPES = [("wq/wo", 128, 128, 2), ("wk/wv", 128, 64, 2),
+               ("w_gate/w_up", 128, 256, 2), ("w_down", 256, 128, 1)]
 
 
 def log(*a):
@@ -107,60 +138,78 @@ def time_loop(torch, fn, iters: int = 5) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-# --------------------------------------------------------------------- K1
-def phase_k1(torch, dev, timed: bool, full: bool):
+# ------------------------------------------------------------ K1 and K1b
+def _packed_weight(torch, dev, gen, scheme_name: str, K: int, N: int):
+    """Packed planes of a random [K, N] weight (K zero-padded to the
+    layout's block, as models.common.quantize_params does) and the bf16
+    weight for the dense yardstick."""
     from repro_torch.core.ams import ams_quantize
     from repro_torch.core.formats import get_scheme
-    from repro_torch.core.packing import pack
-    from repro_torch.kernels.ams_matmul import ams_matmul_fp533, ams_matmul_fp533_plain
+    from repro_torch.core.packing import make_layout, pack
 
-    scheme = get_scheme("fp5.33-e2m3")
-    if full:
-        shapes = [("wq/wo", 3584, 3584, 2), ("wk/wv", 3584, 512, 2),
-                  ("w_gate/w_up", 3584, 18944, 2), ("w_down", 18944, 3584, 1)]
-        batches = (8, 8 * 16)
-    else:
-        shapes = [("wq/wo", 128, 128, 2), ("wk/wv", 128, 64, 2),
-                  ("w_gate/w_up", 128, 256, 2), ("w_down", 256, 128, 1)]
-        batches = (2, 2 * 4)
-    gen = torch.Generator(device=dev).manual_seed(11)
-    rows, max_err = [], 0.0
+    scheme = get_scheme(scheme_name)
+    w = (torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)).to(torch.bfloat16)
+    Kp = make_layout(scheme).padded_k(K)
+    wp = torch.nn.functional.pad(w.float(), (0, 0, 0, Kp - K))
+    return pack(*ams_quantize(wp, scheme), scheme), w
+
+
+def _padded_x(torch, dev, gen, K: int, pw, B: int):
+    x = torch.zeros((B, pw.K), dtype=torch.bfloat16, device=dev)     # pw.K: padded
+    x[:, :K] = torch.randn((B, K), generator=gen, device=dev).to(torch.bfloat16)
+    return x
+
+
+def _check_matmul(torch, tag: str, kernel, plain, x, pw):
+    y_k, y_p = kernel(x, pw), plain(x, pw)
+    err = float((y_k - y_p).abs().max())
+    rel = err / max(float(y_p.abs().max()), 1e-30)
+    if not (rel <= K1_TOL and torch.isfinite(y_k).all()):
+        fail(f"{tag}: max abs err {err:.3e} (rel {rel:.3e} > {K1_TOL})")
+    return err, rel
+
+
+def _matmul_phase(torch, dev, tag: str, scheme: str, gen, kernel, plain, timed: bool,
+                  full: bool):
+    """``kernel`` / ``plain`` (x, PackedWeight) -> y at every Qwen2-7B
+    projection shape, B in {8, 128}: error against the plain version, and
+    when ``timed`` kernel / plain / dense bf16 torch.matmul times; one
+    decode layer (7 projections at B=8) summed, with its bound."""
+    import dataclasses
+
+    shapes = QWEN_SHAPES if full else TINY_SHAPES
+    batches = (8, 8 * 16) if full else (2, 2 * 4)
+    max_err = 0.0
     layer = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "flops": 0.0,
              "dense_ms": 0.0}
-    for K, N, hi, scale, wd, name, mult in _k1_weights(torch, dev, gen, scheme, shapes,
-                                                       ams_quantize, pack):
-        Kp = hi.shape[0] * 6
+    for name, K, N, mult in shapes:
+        pw, wd = _packed_weight(torch, dev, gen, scheme, K, N)
+        wbytes = (pw.hi.numel() + pw.lsb.numel()) * 4
         for B in batches:
-            x = torch.zeros((B, Kp), dtype=torch.bfloat16, device=dev)
-            x[:, :K] = torch.randn((B, K), generator=gen, device=dev).to(torch.bfloat16)
-            y_k = ams_matmul_fp533(x, hi, scale)
-            y_p = ams_matmul_fp533_plain(x, hi, scale)
-            err = float((y_k - y_p).abs().max())
-            rel = err / max(float(y_p.abs().max()), 1e-30)
+            x = _padded_x(torch, dev, gen, K, pw, B)
+            err, rel = _check_matmul(torch, f"{tag} {name} K={K} N={N} B={B}", kernel, plain,
+                                     x, pw)
             max_err = max(max_err, err)
-            if not (rel <= K1_TOL and torch.isfinite(y_k).all()):
-                fail(f"K1 {name} K={K} N={N} B={B}: max abs err {err:.3e} "
-                     f"(rel {rel:.3e} > {K1_TOL})")
-            nbytes = B * Kp * 2 + hi.numel() * 4 + N * 4 + B * N * 4
+            nbytes = x.numel() * 2 + wbytes + N * 4 + B * N * 4
             flops = 2.0 * B * K * N
             bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
-            row = dict(shape=name, K=K, N=N, B=B, max_abs_err=err, rel_err=rel,
-                       bound_ms=bms, bound_by=by)
+            row = dict(scheme=scheme, shape=name, K=K, N=N, B=B, max_abs_err=err,
+                       rel_err=rel, bound_ms=bms, bound_by=by)
             if timed:
-                n = max(1, min(256, math.ceil(L2_FLUSH_BYTES / (hi.numel() * 4))))
-                his = [hi.clone() for _ in range(n)]
+                copies = [dataclasses.replace(pw, hi=pw.hi.clone(), lsb=pw.lsb.clone())
+                          for _ in range(max(1, min(256, math.ceil(L2_FLUSH_BYTES / wbytes))))]
                 wds = [wd.clone() for _ in range(max(1, min(64, math.ceil(
                     L2_FLUSH_BYTES / (wd.numel() * 2)))))]
                 outs = []
                 row["ms"] = time_graph(torch, [
-                    (lambda h=h: outs.append(ams_matmul_fp533(x, h, scale))) for h in his])
+                    (lambda c=c: outs.append(kernel(x, c))) for c in copies])
                 outs.clear()
-                row["plain_ms"] = time_loop(torch, lambda: ams_matmul_fp533_plain(x, hi, scale))
+                row["plain_ms"] = time_loop(torch, lambda: plain(x, pw))
                 xk = x[:, :K].contiguous()
                 row["dense_bf16_ms"] = time_graph(torch, [
                     (lambda w=w: outs.append(torch.matmul(xk, w))) for w in wds])
                 outs.clear()
-                del his, wds
+                del copies, wds
                 if B == batches[0]:
                     layer["ms"] += mult * row["ms"]
                     layer["plain_ms"] += mult * row["plain_ms"]
@@ -168,22 +217,47 @@ def phase_k1(torch, dev, timed: bool, full: bool):
             if B == batches[0]:
                 layer["bytes"] += mult * nbytes
                 layer["flops"] += mult * flops
-            rows.append(row)
-            log("K1 " + json.dumps(row))
+            log(f"{tag} " + json.dumps(row))
     layer["bound_ms"], layer["bound_by"] = bound_ms(layer["bytes"], layer["flops"],
                                                     PEAK_BF16_FLOPS)
-    log(f"K1 one decode layer (7 projections, B={batches[0]}): " + json.dumps(layer))
+    log(f"{tag} one decode layer (7 projections, {scheme}, B={batches[0]}): "
+        + json.dumps(layer))
     return layer, max_err
 
 
-def _k1_weights(torch, dev, gen, scheme, shapes, ams_quantize, pack):
-    for name, K, N, mult in shapes:
-        w = (torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)).to(torch.bfloat16)
-        Kp = -(-K // 6) * 6
-        wp = torch.nn.functional.pad(w.float(), (0, 0, 0, Kp - K))
-        codes, scale = ams_quantize(wp, scheme)
-        pw = pack(codes, scale, scheme)
-        yield K, N, pw.hi.contiguous(), pw.scale.contiguous(), w, name, mult
+def phase_k1(torch, dev, timed: bool, full: bool):
+    from repro_torch.kernels.ams_matmul import ams_matmul_fp533, ams_matmul_fp533_plain
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    return _matmul_phase(torch, dev, "K1", "fp5.33-e2m3", gen,
+                         lambda x, pw: ams_matmul_fp533(x, pw.hi, pw.scale),
+                         lambda x, pw: ams_matmul_fp533_plain(x, pw.hi, pw.scale),
+                         timed, full)
+
+
+def phase_k1b(torch, dev, timed: bool, full: bool):
+    from repro_torch.kernels.ams_matmul import ams_matmul_planes, ams_matmul_planes_plain
+
+    def kernel(x, pw):
+        return ams_matmul_planes(x, pw.hi, pw.lsb, pw.scale, pw.layout)
+
+    def plain(x, pw):
+        return ams_matmul_planes_plain(x, pw.hi, pw.lsb, pw.scale, pw.layout)
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    # every planes scheme but fp4.25 at one small ragged shape
+    K, N = (700, 300) if full else (70, 30)
+    max_err = 0.0
+    for name in PLANES_SCHEMES:
+        pw, _ = _packed_weight(torch, dev, gen, name, K, N)
+        err, rel = _check_matmul(torch, f"K1b {name}", kernel, plain,
+                                 _padded_x(torch, dev, gen, K, pw, 5), pw)
+        max_err = max(max_err, err)
+        log("K1b " + json.dumps(dict(scheme=name, K=K, Kp=pw.K, N=N, B=5, max_abs_err=err,
+                                     rel_err=rel)))
+    layer, err = _matmul_phase(torch, dev, "K1b", "fp4.25-e2m2", gen, kernel, plain, timed,
+                               full)
+    return layer, max(max_err, err)
 
 
 # --------------------------------------------------------------------- K2
@@ -222,11 +296,7 @@ def phase_k2(torch, dev, timed: bool, full: bool):
     ends[1], ends[-1] = max_len, 0
     rows, max_err, decode_row = [], 0.0, None
     for c in chunks:
-        nvalid = np.minimum(rng.integers(1, c + 1, B), ends)
-        nvalid[0] = c
-        nvalid[-1] = 0
-        j = np.arange(c)[None, :]
-        lengths = np.where(j < nvalid[:, None], ends[:, None] - nvalid[:, None] + j + 1, 0)
+        lengths = _chunk_lengths(np, rng, ends, c)
         q = torch.randn((B, c, kv * g, hd), generator=gen, device=dev).to(torch.bfloat16)
         qf, lens, _, _ = _fold_q(q, torch.as_tensor(lengths, device=dev), kv, None)
         kw = dict(page_size=page, scheme=scheme, c=c, g=g)
@@ -266,39 +336,132 @@ def phase_k2(torch, dev, timed: bool, full: bool):
     return decode_row, max_err
 
 
+def _chunk_lengths(np, rng, ends, c: int):
+    """Per-query valid-key counts [B, c] of a chunk that ends at ``ends``
+    per slot: slot 0 fills the chunk, the last slot is idle, the others are
+    ragged (rows past a slot's count are masked: length 0)."""
+    B = len(ends)
+    nvalid = np.minimum(rng.integers(1, c + 1, B), ends)
+    nvalid[0] = c
+    nvalid[-1] = 0
+    j = np.arange(c)[None, :]
+    return np.where(j < nvalid[:, None], ends[:, None] - nvalid[:, None] + j + 1, 0)
+
+
+# --------------------------------------------------------------------- K3
+def phase_k3(torch, dev, timed: bool, full: bool):
+    import numpy as np
+
+    from repro_torch.kernels.attention_template import (
+        _fold_q,
+        paged_attention_bf16,
+        paged_attention_bf16_plain,
+    )
+
+    if full:
+        kv, g, hd, page, B, max_len, chunks = 4, 7, 128, 16, 8, 1024, (1, 16)
+    else:
+        kv, g, hd, page, B, max_len, chunks = 2, 2, 32, 8, 4, 64, (1, 4)
+    MP = max_len // page
+    P = B * MP
+    rng = np.random.default_rng(6)
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def make_pool():
+        return {n: torch.randn((P, page, kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+                for n in ("k", "v")}
+
+    pool = make_pool()
+    vmax = float(pool["v"].float().abs().max())
+    bt = torch.as_tensor(rng.permutation(P).reshape(B, MP).astype(np.int32), device=dev)
+    ends = rng.integers(max_len // 2, max_len + 1, B)
+    ends[1], ends[-1] = max_len, 0
+    rows, max_err, decode_row = [], 0.0, None
+    for c in chunks:
+        lengths = _chunk_lengths(np, rng, ends, c)
+        q = torch.randn((B, c, kv * g, hd), generator=gen, device=dev).to(torch.bfloat16)
+        qf, lens, _, _ = _fold_q(q, torch.as_tensor(lengths, device=dev), kv, None)
+        kw = dict(page_size=page, c=c, g=g)
+        o_k = paged_attention_bf16(qf, pool, lens, bt, **kw)
+        o_p = paged_attention_bf16_plain(qf, pool, lens, bt, **kw)
+        err = float((o_k - o_p).abs().max())
+        tol = K3_P_ULP * vmax + K3_TOL * float(o_p.abs().max())
+        max_err = max(max_err, err)
+        masked = torch.as_tensor(np.repeat(lengths == 0, g, axis=1), device=dev)  # [B, c*g]
+        zero_ok = bool((o_k.permute(0, 2, 1, 3)[masked] == 0).all())
+        if not (err <= tol and zero_ok and torch.isfinite(o_k).all()):
+            fail(f"K3 chunk={c}: max abs err {err:.3e} > {tol:.3e} "
+                 f"or masked rows not exact zeros ({zero_ok})")
+        tok = int(np.sum(np.max(lengths, axis=1)))        # keys each slot's walk needs
+        nbytes = (qf.numel() * 4 + tok * kv * 2 * hd * 2 + bt.numel() * 4
+                  + lens.numel() * 4 + qf.numel() * 4)
+        flops = 4.0 * hd * kv * g * float(lengths.sum())
+        bms, by = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
+        row = dict(chunk=c, kv=kv, g=g, hd=hd, page=page, slots=B,
+                   lengths_max=int(lengths.max()), max_abs_err=err, tolerance=tol,
+                   exact_zero_rows=int(masked.sum()), bound_ms=bms, bound_by=by)
+        if timed:
+            n = max(1, min(64, math.ceil(L2_FLUSH_BYTES / max(1, tok * kv * 2 * hd * 2))))
+            pools = [pool] + [make_pool() for _ in range(n - 1)]
+            outs = []
+            row["ms"] = time_graph(torch, [
+                (lambda p=p: outs.append(paged_attention_bf16(qf, p, lens, bt, **kw)))
+                for p in pools])
+            outs.clear()
+            del pools
+            row["plain_ms"] = time_loop(torch, lambda: paged_attention_bf16_plain(
+                qf, pool, lens, bt, **kw))
+        rows.append(row)
+        if c == 1:
+            decode_row = row
+        log("K3 " + json.dumps(row))
+    return decode_row, max_err
+
+
 # ------------------------------------------------------------- main path
-def phase_serve(torch, dev, full: bool):
+def all_counts():
+    from repro_torch.kernels import ams_matmul, attention_template
+    return (ams_matmul.COUNT, ams_matmul.COUNT_PLANES, attention_template.COUNT,
+            attention_template.COUNT_BF16)
+
+
+def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
+    """Serve one main path through the engine (see the module docstring);
+    the FP5.33 path keeps slice 1's workload, the others a shorter one."""
     import numpy as np
 
     from repro_torch.cache import CacheConfig
-    from repro_torch.kernels import ams_matmul, attention_template
     from repro_torch.launch.config import EngineConfig
     from repro_torch.launch.engine import ServeEngine
 
+    spec = PATHS[path]
     if full:
-        ec = EngineConfig(arch="qwen2-7b", reduced=False, scheme="fp5.33-e2m3",
+        ec = EngineConfig(arch="qwen2-7b", reduced=False, scheme=spec["scheme"],
                           impl="kernel", slots=8, capacity=512, prefill_chunk=16,
-                          cache=CacheConfig(kind="paged_ams", page_size=16, impl="kernel"),
+                          cache=CacheConfig(kind=spec["kind"], page_size=16, impl="kernel"),
                           device=str(dev), seed=0)
-        n_req, plen, max_tokens, shared = 10, (200, 320), 40, 128
+        n_req, plen, max_tokens, shared = ((10, (200, 320), 40, 128) if path == "fp5.33"
+                                           else (9, (96, 192), 24, 64))
     else:
-        ec = EngineConfig(arch="qwen2-7b", reduced=True, scheme="fp5.33-e2m3",
+        ec = EngineConfig(arch="qwen2-7b", reduced=True, scheme=spec["scheme"],
                           impl="kernel", slots=4, capacity=64, prefill_chunk=4,
-                          cache=CacheConfig(kind="paged_ams", page_size=8, impl="kernel"),
+                          cache=CacheConfig(kind=spec["kind"], page_size=8, impl="kernel"),
                           device=str(dev), seed=0)
         n_req, plen, max_tokens, shared = 6, (12, 24), 8, 8
+    gc.collect()                       # engines of earlier phases (see below)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     eng = ServeEngine(ec)
-    log(f"serve: quantize_seconds={eng.quantize_seconds:.3f} layers={eng.cfg.num_layers} "
-        f"d_model={eng.cfg.d_model} d_ff={eng.cfg.d_ff} vocab={eng.cfg.vocab_size}")
+    log(f"serve[{path}]: quantize_seconds={eng.quantize_seconds:.3f} "
+        f"layers={eng.cfg.num_layers} d_model={eng.cfg.d_model} d_ff={eng.cfg.d_ff} "
+        f"vocab={eng.cfg.vocab_size}")
     rng = np.random.default_rng(1234)
     V = eng.cfg.vocab_size
     prompts = [rng.integers(0, V, int(n)).astype(np.int32)
                for n in rng.integers(plen[0], plen[1], n_req)]
     prompts[-1][:shared] = prompts[0][:shared]   # page-aligned shared prefix, admitted late
 
-    counts = (ams_matmul.COUNT, attention_template.COUNT)
+    counts = all_counts()
     for cnt in counts:
         cnt.reset()
     t0 = time.perf_counter()
@@ -319,7 +482,8 @@ def phase_serve(torch, dev, full: bool):
     launches = {cnt.name: cnt.launches for cnt in counts}
     plain_cuda = {cnt.name: cnt.plain_on_cuda for cnt in counts}
     st = eng.stats()
-    res = dict(requests=len(handles), ticks=st["ticks"], tokens=st["tokens_generated"],
+    res = dict(path=path, scheme=spec["scheme"], cache=spec["kind"], requests=len(handles),
+               ticks=st["ticks"], tokens=st["tokens_generated"],
                wall_s=wall, decode_tokens_per_s=(dec_tok / dec_s if dec_s else 0.0),
                decode_ticks=dec_ticks,
                decode_active_slots_mean=(dec_tok / dec_ticks if dec_ticks else 0.0),
@@ -335,19 +499,29 @@ def phase_serve(torch, dev, full: bool):
     bad = [h.rid for h in handles if not h.done or len(h.tokens) != max_tokens
            or not all(0 <= t < V for t in h.tokens)]
     if bad:
-        fail(f"serve: requests {bad} did not finish with {max_tokens} valid tokens")
-    if dev.type == "cuda" and min(launches.values()) <= 0:
-        fail(f"serve: a kernel of the main path never launched: {launches}")
-    if dev.type == "cuda" and max(plain_cuda.values()) != 0:
-        fail(f"serve: plain versions ran on CUDA tensors: {plain_cuda}")
-    if st["prefix_hit_pages"] < 1:
-        fail("serve: the shared prefix never hit the prefix cache")
+        fail(f"serve[{path}]: requests {bad} did not finish with {max_tokens} valid tokens")
     if dev.type == "cuda":
-        profile_decode(torch, eng, rng)
+        idle = [k for k in spec["kernels"] if launches[k] <= 0]
+        stray = [k for k, n in launches.items() if n and k not in spec["kernels"]]
+        if idle or stray:
+            fail(f"serve[{path}]: kernels of the path that never launched {idle}, kernels "
+                 f"of other paths that did {stray}: {launches}")
+        if max(plain_cuda.values()) != 0:
+            fail(f"serve[{path}]: plain versions ran on CUDA tensors: {plain_cuda}")
+    if st["prefix_hit_pages"] < 1:
+        fail(f"serve[{path}]: the shared prefix never hit the prefix cache")
+    if dev.type == "cuda":
+        res["profile"] = profile_decode(torch, eng, rng, path)
+    # the engine's metrics hold closures over it: free the cycle now, so the
+    # next path's peak memory counts only its own tensors
+    del eng, handles
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     return res
 
 
-def profile_decode(torch, eng, rng, ticks: int = 3):
+def profile_decode(torch, eng, rng, path: str, ticks: int = 3):
     """Pure-decode ticks with every slot decoding: first timed plainly
     (decode tick ms and tokens/s at a full batch), then under
     torch.profiler (the device-busy share of wall time and the kernels that
@@ -365,9 +539,10 @@ def profile_decode(torch, eng, rng, ticks: int = 3):
         eng.step()
     torch.cuda.synchronize()
     plain_tick = (time.perf_counter() - t0) / ticks
-    log("decode " + json.dumps(dict(active_slots=eng.active_count, ticks=ticks,
-                                    decode_tick_ms=1e3 * plain_tick,
-                                    decode_tokens_per_s=eng.active_count / plain_tick)))
+    decode = dict(path=path, active_slots=eng.active_count, ticks=ticks,
+                  decode_tick_ms=1e3 * plain_tick,
+                  decode_tokens_per_s=eng.active_count / plain_tick)
+    log("decode " + json.dumps(decode))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ticks):
@@ -384,16 +559,18 @@ def profile_decode(torch, eng, rng, ticks: int = 3):
             n, s = kernels.get(ev.name, (0, 0.0))
             kernels[ev.name] = (n + 1, s + us)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
-    res = dict(ticks=ticks, wall_ms_per_tick=1e3 * wall / ticks,
+    res = dict(path=path, ticks=ticks, wall_ms_per_tick=1e3 * wall / ticks,
                device_busy_ms_per_tick=busy / 1e3 / ticks,
                device_idle_share=max(0.0, 1 - busy / 1e6 / wall),
                kernels_per_tick=sum(n for n, _ in kernels.values()) / ticks,
                top=[dict(name=k[:80], launches_per_tick=n / ticks, ms_per_tick=s / 1e3 / ticks)
                     for k, (n, s) in top])
     log("profile " + json.dumps(res))
+    res["decode_tick_ms"] = decode["decode_tick_ms"]
+    return res
 
 
-def phase_consistency(torch, dev, full: bool):
+def phase_consistency(torch, dev, full: bool, path: str = "fp5.33"):
     import numpy as np
 
     from repro_torch.cache import CacheConfig
@@ -402,19 +579,24 @@ def phase_consistency(torch, dev, full: bool):
     from repro_torch.launch.engine import ServeEngine, init_serving_params
     from repro_torch.models import decode_step, make_cache
 
+    scheme, kind = PATHS[path]["scheme"], PATHS[path]["kind"]
+
     def config(impl, attn):
         base = (dict(reduced=False, depth=2, slots=4, capacity=256, prefill_chunk=16,
-                     cache=CacheConfig(kind="paged_ams", page_size=16, impl=attn))
+                     cache=CacheConfig(kind=kind, page_size=16, impl=attn))
                 if full else
                 dict(reduced=True, slots=2, capacity=64, prefill_chunk=4,
-                     cache=CacheConfig(kind="paged_ams", page_size=8, impl=attn)))
-        return EngineConfig(arch="qwen2-7b", scheme="fp5.33-e2m3", impl=impl,
+                     cache=CacheConfig(kind=kind, page_size=8, impl=attn)))
+        return EngineConfig(arch="qwen2-7b", scheme=scheme, impl=impl,
                             device=str(dev), seed=7, **base)
+
+    def policy(ec):
+        return (None if scheme == "fp16" else
+                QuantPolicy(scheme=scheme, impl=ec.impl, min_elements=1 << 10))
 
     ck, cr = config("kernel", "kernel"), config("fused_ref", "ref")
     cfg = ck.model_config()
-    params = init_serving_params(cfg, QuantPolicy(scheme="fp5.33-e2m3", impl="kernel",
-                                                  min_elements=1 << 10), 7, dev)
+    params = init_serving_params(cfg, policy(ck), 7, dev)
     rng = np.random.default_rng(99)
     n_req, plen, gen_n = (4, 48, 24) if full else (2, 12, 8)
     prompts = rng.integers(0, cfg.vocab_size, (n_req, plen)).astype(np.int32)
@@ -427,10 +609,9 @@ def phase_consistency(torch, dev, full: bool):
         cache = make_cache(cfg, cache_cfg=ccfg, device=dev)
         bt = torch.arange(n_req * ccfg.max_pages_per_seq, dtype=torch.int32,
                           device=dev).reshape(n_req, -1)
-        pol = QuantPolicy(scheme=ec.scheme, impl=ec.impl, min_elements=1 << 10)
         lg, _ = decode_step(params, torch.as_tensor(prompts[:, :C], device=dev), cache,
                             torch.zeros(n_req, dtype=torch.int32, device=dev), cfg,
-                            policy=pol, block_tables=bt, cache_cfg=ccfg,
+                            policy=policy(ec), block_tables=bt, cache_cfg=ccfg,
                             nvalid=torch.full((n_req,), C, dtype=torch.int32, device=dev))
         logits[ec.impl] = lg.float()
     d = float((logits["kernel"] - logits["fused_ref"]).abs().max())
@@ -447,13 +628,13 @@ def phase_consistency(torch, dev, full: bool):
     for i, (a, b) in enumerate(zip(streams["kernel"], streams["fused_ref"])):
         first = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
         diverge.append(first)
-    res = dict(depth=cfg.num_layers, logits_max_abs_diff=d, logits_rel_diff=rel,
+    res = dict(path=path, depth=cfg.num_layers, logits_max_abs_diff=d, logits_rel_diff=rel,
                tolerance=LOGIT_TOL, first_tick_argmax_equal=same_argmax,
                streams_equal=all(x is None for x in diverge),
                first_diverging_token=diverge)
     log("consistency " + json.dumps(res))
     if not rel <= LOGIT_TOL:
-        fail(f"consistency: first-tick logits differ by {rel:.3e} > {LOGIT_TOL}")
+        fail(f"consistency[{path}]: first-tick logits differ by {rel:.3e} > {LOGIT_TOL}")
     return res
 
 
@@ -469,9 +650,12 @@ def main():
     if args.cpu_rehearsal:
         dev = torch.device("cpu")
         phase_k1(torch, dev, timed=False, full=False)
+        phase_k1b(torch, dev, timed=False, full=False)
         phase_k2(torch, dev, timed=False, full=False)
-        phase_serve(torch, dev, full=False)
-        phase_consistency(torch, dev, full=False)
+        phase_k3(torch, dev, timed=False, full=False)
+        for path in PATHS:
+            phase_serve(torch, dev, full=False, path=path)
+            phase_consistency(torch, dev, full=False, path=path)
         log("rehearsal finished on the CPU: no result")
         sys.exit(2)
     if not torch.cuda.is_available():
@@ -497,23 +681,39 @@ def main():
     log(f"build total {time.perf_counter() - t0:.1f}s")
 
     k1, k1_err = phase_k1(torch, dev, timed=True, full=True)
+    k1b, k1b_err = phase_k1b(torch, dev, timed=True, full=True)
     k2, k2_err = phase_k2(torch, dev, timed=True, full=True)
-    serve = phase_serve(torch, dev, full=True)
-    phase_consistency(torch, dev, full=True)
+    k3, k3_err = phase_k3(torch, dev, timed=True, full=True)
+    served = {}
+    for path in PATHS:
+        served[path] = phase_serve(torch, dev, full=True, path=path)
+        phase_consistency(torch, dev, full=True, path=path)
+    log("compare " + json.dumps({
+        path: dict(scheme=r["scheme"], cache=r["cache"],
+                   decode_tick_ms=r["profile"]["decode_tick_ms"],
+                   device_busy_ms_per_tick=r["profile"]["device_busy_ms_per_tick"],
+                   device_idle_share=r["profile"]["device_idle_share"],
+                   kernels_per_tick=r["profile"]["kernels_per_tick"], card=card)
+        for path, r in served.items()}))
+
+    # library_ms is null for every row: no single PyTorch call computes a
+    # dequant-matmul from packed AMS planes, or paged attention through a
+    # block table with the template's masking and rounding
+    def row(name, src, replaces, path, res, err):
+        return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
+                    replaces=replaces, launches=served[path]["launches"][name],
+                    max_abs_err=err, ms=res["ms"], plain_ms=res["plain_ms"],
+                    bound_ms=res["bound_ms"], bound_by=res["bound_by"], library_ms=None)
 
     kernels = [
-        dict(name="ams_matmul_fp533", route="cuda",
-             source="src/repro_torch/kernels/csrc/ams_matmul.cu",
-             replaces="src/repro/kernels/ams_matmul.py:138",
-             launches=serve["launches"]["ams_matmul_fp533"], max_abs_err=k1_err,
-             ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-             bound_by=k1["bound_by"], library_ms=None),
-        dict(name="paged_attention_ams", route="cuda",
-             source="src/repro_torch/kernels/csrc/paged_attention.cu",
-             replaces="src/repro/kernels/attention_template.py:399",
-             launches=serve["launches"]["paged_attention_ams"], max_abs_err=k2_err,
-             ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by=k2["bound_by"], library_ms=None),
+        row("ams_matmul_fp533", "ams_matmul.cu", "src/repro/kernels/ams_matmul.py:138",
+            "fp5.33", k1, k1_err),
+        row("ams_matmul_planes", "ams_matmul.cu", "src/repro/kernels/ams_matmul.py:95",
+            "fp4.25", k1b, k1b_err),
+        row("paged_attention_ams", "paged_attention.cu",
+            "src/repro/kernels/attention_template.py:399", "fp5.33", k2, k2_err),
+        row("paged_attention_bf16", "paged_attention.cu",
+            "src/repro/kernels/attention_template.py:292", "fp16", k3, k3_err),
     ]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,11 +1,13 @@
-"""Paged AMS-quantized KV cache (port of src/repro/cache).
+"""Paged KV cache, bf16 or AMS-quantized pages (port of src/repro/cache).
 
   * `config.CacheConfig`      — cache-mode selection + derived sizes
   * `allocator.PageAllocator` — host-side refcounting free list, block-hash
                                 prefix index, block-table rows
-  * `pool`                    — AMS page pools, in-place insert, page gather
+  * `pool`                    — bf16 and AMS page pools, in-place insert,
+                                page gather
   * `ref`                     — lattice-exact gather-dequantize-attend oracle
-  * `paged_attention`         — kernel K2 walking the block table
+  * `paged_attention`         — kernels K2 (AMS pages) and K3 (bf16 pages)
+                                walking the block table
 
 `paged_attend` dispatches on `CacheConfig.impl` ("ref" | "kernel").
 """

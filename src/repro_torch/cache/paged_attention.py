@@ -1,8 +1,10 @@
-"""Paged attention through kernel K2 (port of src/repro/cache/paged_attention.py).
+"""Paged attention through kernel K2 or K3 (port of src/repro/cache/paged_attention.py).
 
 Unpacks a `CacheConfig` into the template's plain parameters (page size,
-AMS scheme) and calls `kernels.attention_template.fused_paged_attention`,
-which launches K2 on CUDA tensors and runs its plain version on CPU ones.
+AMS scheme, or None for bf16 pages) and calls
+`kernels.attention_template.fused_paged_attention`, which launches K2 (AMS
+pages) or K3 (bf16 pages) on CUDA tensors and runs their plain versions on
+CPU ones.
 """
 
 from __future__ import annotations

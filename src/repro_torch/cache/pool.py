@@ -1,12 +1,14 @@
 """Device page pools: layout, insert, page gather (port of src/repro/cache/pool.py).
 
-One attention layer's decode cache is a pool of fixed-size pages. The AMS
-pool stores `repro_torch.core.kv_quant`'s packed planes with a (page,
-slot-in-page, head) prefix:
+One attention layer's decode cache is a pool of fixed-size pages:
 
-    k/v each {hi    [P, page, kv, hd_p/2]  int8   (2 codes/byte)
-              lsb   [P, page, kv, gw]      int32  (1 bit/k-group)
-              scale [P, page, kv, 1]       f32}
+    bf16 pool : k/v each [P, page, kv, hd]                 bf16
+    AMS pool  : k/v each {hi    [P, page, kv, hd_p/2]  int8   (2 codes/byte)
+                          lsb   [P, page, kv, gw]      int32  (1 bit/k-group)
+                          scale [P, page, kv, 1]       f32}
+
+i.e. the AMS layout is `repro_torch.core.kv_quant`'s packed planes with a
+(page, slot-in-page, head) prefix.
 
 A request's logical position i lives at ``page = block_table[slot, i //
 page_size], offset = i % page_size``. Inserts take a [B, c] token block;
@@ -34,12 +36,13 @@ PLANES = ("hi", "lsb", "scale")
 
 def make_gqa_page_pool(ccfg: CacheConfig, kv: int, hd: int, *, device="cpu",
                        lead: Tuple[int, ...] = ()) -> Dict:
-    """Zero-initialized AMS k/v page pools for one GQA layer (or, with
+    """Zero-initialized k/v page pools for one GQA layer (or, with
     ``lead=(G,)``, for G stacked layers)."""
-    if not ccfg.quantized:
-        raise NotImplementedError(
-            "bf16 page pools need kernel K3, not ported yet (ROADMAP queue 2)")
     P, page = ccfg.num_pages, ccfg.page_size
+    if not ccfg.quantized:
+        shape = (*lead, P, page, kv, hd)
+        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
     scheme = get_scheme(ccfg.kv_scheme)
     hd_p = packed_head_dim(hd, scheme)
     gw = -(-(hd_p // scheme.k) // 32)
@@ -79,6 +82,10 @@ def paged_insert(pool: Dict, k_new: torch.Tensor, v_new: torch.Tensor, pos, bloc
     nvalid = torch.as_tensor(nvalid, dtype=torch.int32, device=k_new.device)
     page, off, ok = _page_offset(pos, nvalid, block_table, ccfg, c)
     page, off = page[ok].long(), off[ok].long()
+    if not ccfg.quantized:
+        for name, new in (("k", k_new), ("v", v_new)):
+            pool[name][page, off] = new[ok].to(pool[name].dtype)
+        return pool
     scheme = get_scheme(ccfg.kv_scheme)
     for name, new in (("k", k_new), ("v", v_new)):
         q = quantize_kv(new, scheme, ccfg.kv_strategy)          # [B, c, kv, *]
@@ -95,8 +102,11 @@ def gather_pages(leaf: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
 
 
 def gather_kv(pool: Dict, block_table, hd: int, ccfg: CacheConfig, dtype=torch.bfloat16):
-    """(k, v) [B, S_max, kv, hd] views of an AMS layer pool, restored to their
-    exact lattice values."""
+    """(k, v) [B, S_max, kv, hd] views of a layer pool in ``dtype``; AMS
+    planes are restored to their exact lattice values."""
+    if not ccfg.quantized:
+        return (gather_pages(pool["k"], block_table).to(dtype),
+                gather_pages(pool["v"], block_table).to(dtype))
     scheme = get_scheme(ccfg.kv_scheme)
     k_pl, v_pl = ({pl: gather_pages(pool[n][pl], block_table) for pl in PLANES}
                   for n in ("k", "v"))

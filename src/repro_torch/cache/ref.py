@@ -2,9 +2,12 @@
 (port of src/repro/cache/ref.py).
 
 Pages are gathered into a per-slot [B, max_pages*page, kv, hd] view through
-the block table, AMS planes are restored to their exact f32 lattice values,
-and the plain `flash_decode` bodies attend with per-slot (or per-query)
-lengths. K2 differs from this only by f32 summation order.
+the block table, AMS planes are restored to their exact f32 lattice values
+(bf16 pages stay in q.dtype, so p is rounded to the pages' type before the
+PV product as in `flash_decode`), and the plain `flash_decode` bodies attend
+with per-slot (or per-query) lengths. K2 differs from this only by f32
+summation order; K3 rounds p at the running max instead of the global one,
+so it agrees to bf16 precision.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ def paged_attention_ref(q, pool, lengths, block_table, ccfg: CacheConfig, *, kv_
     """q [B, H, hd] with lengths [B], or a ragged chunk q [B, c, H, hd] with
     per-query lengths [B, c]; returns q's shape in q.dtype."""
     hd = q.shape[-1]
-    k, v = gather_kv(pool, block_table, hd, ccfg, dtype=torch.float32)
+    dtype = torch.float32 if ccfg.quantized else q.dtype
+    k, v = gather_kv(pool, block_table, hd, ccfg, dtype=dtype)
     if q.dim() == 4:
         return flash_decode_chunk(q, k, v, lengths, kv_map=kv_map, scale=scale)
     return flash_decode(q, k, v, lengths, kv_map=kv_map, scale=scale)

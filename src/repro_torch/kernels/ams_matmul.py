@@ -1,16 +1,19 @@
-"""K1: fused AMS dequantize + matmul, fp533 container (port of
-src/repro/kernels/ams_matmul.py: ams_matmul_padded -> _kernel_fp533).
+"""K1 and K1b: fused AMS dequantize + matmul (port of
+src/repro/kernels/ams_matmul.py: ams_matmul_padded -> _kernel_fp533 for the
+fp533 container, _kernel_planes for the planes container).
 
-`ams_matmul_fp533` is the wrapper: on CUDA tensors it launches the CUDA
-kernel in ``csrc/ams_matmul.cu`` (what bounds it and how its design answers
-that are noted there), on CPU tensors it runs `ams_matmul_fp533_plain`, the
-kernel's plain torch version. Both compute
+`ams_matmul_fp533` (K1) and `ams_matmul_planes` (K1b) are the wrappers: on
+CUDA tensors they launch the CUDA kernels in ``csrc/ams_matmul.cu`` (what
+bounds them and how their design answers that are noted there), on CPU
+tensors they run `ams_matmul_fp533_plain` / `ams_matmul_planes_plain`, the
+kernels' plain torch versions. All compute
 
     y[b, n] = (bf16(x)[b, :] @ DeQ(W)[:, n]) * scale[n]
 
 with f32 accumulation and the per-channel scale applied once at the end.
-Decoded e2m3 weights are exact in bf16 and bf16 x e2m3 products are exact in
-f32, so kernel and plain version differ only by summation order.
+Every base format has at most 3 mantissa bits, so decoded weights are exact
+in bf16 and bf16 x weight products are exact in f32: kernel and plain
+version differ only by summation order.
 """
 
 from __future__ import annotations
@@ -21,11 +24,13 @@ import functools
 import torch
 
 from repro_torch.core.formats import code_to_value, get_format
+from repro_torch.core.packing import PackLayout
 
 from .build import KernelCount, check_device, library, stream_ptr
 
 E2M3 = get_format("e2m3")
 COUNT = KernelCount("ams_matmul_fp533")
+COUNT_PLANES = KernelCount("ams_matmul_planes")
 
 
 def unpack_fp533(hi: torch.Tensor) -> torch.Tensor:
@@ -96,4 +101,93 @@ def ams_matmul_fp533(x: torch.Tensor, hi: torch.Tensor, scale: torch.Tensor) -> 
     if rc != 0:
         raise RuntimeError(f"ams_matmul_fp533 launch failed: cudaError {rc}")
     COUNT.launches += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# K1b: planes container
+# ---------------------------------------------------------------------------
+def unpack_planes(hi: torch.Tensor, lsb: torch.Tensor, lay: PackLayout) -> torch.Tensor:
+    """planes words -> full codes [Kp, N] in position order: field j of word
+    kw (bits j*hi_bits..) is position kw*per_word + j; with k > 1 it is the
+    code's high part and bit (g & 31) of lsb[g >> 5] the shared LSB of
+    group g = position // k."""
+    k, hb, pw = lay.scheme.k, lay.hi_bits, lay.per_word
+    w = hi.to(torch.int64) & 0xFFFFFFFF
+    codes = torch.stack([(w >> (hb * j)) & ((1 << hb) - 1) for j in range(pw)], dim=1)
+    codes = codes.reshape(-1, hi.shape[1])
+    if k == 1:
+        return codes.to(torch.int32)
+    lw = lsb.to(torch.int64) & 0xFFFFFFFF
+    bits = torch.stack([(lw >> j) & 1 for j in range(32)], dim=1).reshape(-1, hi.shape[1])
+    return ((codes << 1) | bits.repeat_interleave(k, dim=0)).to(torch.int32)
+
+
+def ams_matmul_planes_plain(x: torch.Tensor, hi: torch.Tensor, lsb: torch.Tensor,
+                            scale: torch.Tensor, lay: PackLayout) -> torch.Tensor:
+    """Plain torch version of K1b on padded operands: x [B, Kp] (any float
+    type; rounded to bf16 like the kernel), hi [Kp/per_word, N] int32, lsb
+    [Kp/(32k), N] int32 (ignored when k == 1), scale [N] f32 -> f32 [B, N]."""
+    if x.is_cuda:
+        COUNT_PLANES.plain_on_cuda += 1
+    w = code_to_value(lay.scheme.base, unpack_planes(hi, lsb, lay))
+    xb = x.to(torch.bfloat16).to(torch.float32)
+    return (xb @ w) * scale.to(torch.float32)
+
+
+def _check_planes(x, hi, lsb, scale, lay: PackLayout):
+    if lay.container != "planes":
+        raise ValueError(f"K1b takes the planes container, got {lay.container!r}")
+    if x.dim() != 2 or hi.dim() != 2 or lsb.dim() != 2 or scale.dim() != 1:
+        raise ValueError(f"expected x [B, Kp], hi [Kp/{lay.per_word}, N], lsb [r, N], "
+                         f"scale [N]; got {tuple(x.shape)}, {tuple(hi.shape)}, "
+                         f"{tuple(lsb.shape)}, {tuple(scale.shape)}")
+    Kp, N = x.shape[1], hi.shape[1]
+    k = lay.scheme.k
+    if (Kp != lay.per_word * hi.shape[0] or Kp % lay.k_block or scale.shape[0] != N
+            or lsb.shape[1] != N or (k > 1 and lsb.shape[0] != Kp // (32 * k))):
+        raise ValueError(f"shape mismatch for {lay.scheme.name}: x {tuple(x.shape)}, hi "
+                         f"{tuple(hi.shape)}, lsb {tuple(lsb.shape)}, scale {tuple(scale.shape)}")
+    if hi.dtype != torch.int32 or lsb.dtype != torch.int32 or scale.dtype != torch.float32:
+        raise TypeError(f"hi and lsb must be int32 and scale float32, got {hi.dtype}, "
+                        f"{lsb.dtype}, {scale.dtype}")
+    if not x.is_floating_point():
+        raise TypeError(f"x must be floating point, got {x.dtype}")
+    if not (x.device == hi.device == lsb.device == scale.device):
+        raise ValueError(f"operands on different devices: {x.device}, {hi.device}, "
+                         f"{lsb.device}, {scale.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_planes():
+    fn = library("ams_matmul").ams_matmul_planes
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ams_matmul_planes(x: torch.Tensor, hi: torch.Tensor, lsb: torch.Tensor,
+                      scale: torch.Tensor, lay: PackLayout) -> torch.Tensor:
+    """K1b wrapper: x [B, Kp], hi [Kp/per_word, N], lsb [Kp/(32k), N] (any
+    [r, N] when k == 1), scale [N] -> y [B, N] f32. CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise."""
+    _check_planes(x, hi, lsb, scale, lay)
+    if x.device.type == "cpu":
+        return ams_matmul_planes_plain(x, hi, lsb, scale, lay)
+    check_device(x)
+    k, fmt = lay.scheme.k, lay.scheme.base
+    if lay.per_word not in (4, 5, 6, 8) or k > 4:
+        raise NotImplementedError(f"K1b takes per_word in (4, 5, 6, 8) and k <= 4, got "
+                                  f"{lay.per_word}, {k}")
+    if not (hi.is_contiguous() and lsb.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("hi, lsb and scale must be contiguous")
+    B, N = x.shape[0], hi.shape[1]
+    xb = x.to(torch.bfloat16).contiguous()
+    y = torch.empty((B, N), dtype=torch.float32, device=x.device)
+    rc = _kernel_planes()(xb.data_ptr(), hi.data_ptr(), lsb.data_ptr(), scale.data_ptr(),
+                          y.data_ptr(), B, hi.shape[0], N, lay.per_word, lay.hi_bits, k,
+                          fmt.man_bits, fmt.exp_bits, fmt.bias, stream_ptr(x.device))
+    if rc != 0:
+        raise RuntimeError(f"ams_matmul_planes launch failed: cudaError {rc}")
+    COUNT_PLANES.launches += 1
     return y

@@ -1,19 +1,22 @@
-"""Decode attention: plain flash-decode bodies and K2, the paged AMS kernel
-(port of src/repro/kernels/attention_template.py).
+"""Decode attention: plain flash-decode bodies and the paged kernels K2 and
+K3 (port of src/repro/kernels/attention_template.py).
 
   * `flash_decode` / `flash_decode_chunk` — the plain torch reference bodies
     over a [B, S, kv, hd] cache (group-major heads), the oracle the paged
     ``ref`` path attends with.
-  * `fused_paged_attention` — paged flash-decode over an AMS-e2m2 page pool:
-    folds q chunk-major per kv head (`_fold_q`), runs K2 through
-    `paged_attention_ams` and unfolds the result (`_unfold_o`).
-    `paged_attention_ams` launches the CUDA kernel in
-    ``csrc/paged_attention.cu`` on CUDA tensors (bound and design noted
-    there) and runs `paged_attention_ams_plain`, the kernel's plain torch
-    version, on CPU tensors.
+  * `fused_paged_attention` — paged flash-decode over a page pool: folds q
+    chunk-major per kv head (`_fold_q`), runs K2 (`paged_attention_ams`,
+    packed AMS-e2m2 pages) or K3 (`paged_attention_bf16`, bf16 pages) and
+    unfolds the result (`_unfold_o`). The wrappers launch the CUDA kernels
+    in ``csrc/paged_attention.cu`` on CUDA tensors (bound and design noted
+    there) and run their plain torch versions on CPU tensors. As in the TPU
+    template, both share one online-softmax walk (`_paged_online_softmax`)
+    and differ only in how a page of K and V is loaded, and in the type p
+    is rounded to before the PV product (f32 lattice values for AMS, the
+    pool's bf16 for bf16 pages).
 
-The bf16-page pair hook (K3), the contiguous-cache template (K4) and the
-absorbed-MLA stream (K5) are not ported yet (ROADMAP queue 2).
+The contiguous-cache template (K4) and the absorbed-MLA stream (K5) are not
+ported yet (ROADMAP queue 2).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from .build import KernelCount, check_device, library, stream_ptr
 NEG_BIG = -2e30   # additive mask; exp(NEG_BIG - NEG_CLAMP) == 0 exactly
 NEG_CLAMP = -1e30
 COUNT = KernelCount("paged_attention_ams")
+COUNT_BF16 = KernelCount("paged_attention_bf16")
 
 
 def _check_grouped(H: int, kv_n: int, kv_map) -> int:
@@ -100,18 +104,17 @@ def restore_page(hi, lsb, scale, fmt, k: int, hd: int) -> torch.Tensor:
     return vals[..., :hd]
 
 
-def paged_attention_ams_plain(qf, pool: Dict, lens, block_table, *, page_size: int,
-                              scheme, c: int, g: int) -> torch.Tensor:
-    """Plain torch version of K2. qf [B, kv, R=c*g, hd] f32 (pre-scaled,
-    chunk-major rows), ``pool`` {k, v: {hi, lsb, scale}} [P, page, kv, *],
-    lens [B*c] int32, block_table [B, MP] int32 -> [B, kv, R, hd] f32.
-    Online softmax page by page with the kernel's constants; pages past every
-    row's length contribute exact zeros, so the walk stops there."""
-    if qf.is_cuda:
-        COUNT.plain_on_cuda += 1
+def _paged_online_softmax(qf, load, lens, block_table, *, page_size: int, c: int, g: int,
+                          pv_dtype) -> torch.Tensor:
+    """The kernels' shared walk in plain torch (TPU `online_softmax_step`).
+    qf [B, kv, R=c*g, hd] f32 (pre-scaled, chunk-major rows), ``load(pg)``
+    -> (k, v) [B, page, kv, hd] f32 for the page ids ``pg`` [B], lens [B*c]
+    int32, block_table [B, MP] -> [B, kv, R, hd] f32. Online softmax page by
+    page with the kernels' constants; p is rounded to ``pv_dtype`` before
+    the PV product (l sums it unrounded). Pages past every row's length
+    contribute exact zeros, so the walk stops there."""
     B, kv_n, R, hd = qf.shape
     MP = block_table.shape[1]
-    fmt, k = scheme.base, scheme.k
     row_len = lens.reshape(B, c).repeat_interleave(g, dim=1)[:, None, :, None]  # [B,1,R,1]
     m = torch.full((B, kv_n, R, 1), NEG_CLAMP, dtype=torch.float32, device=qf.device)
     l = torch.zeros_like(m)
@@ -119,13 +122,7 @@ def paged_attention_ams_plain(qf, pool: Dict, lens, block_table, *, page_size: i
     max_len = int(lens.max()) if lens.numel() else 0
     npages = min(MP, -(-max(max_len, 0) // page_size))
     for i in range(npages):
-        pg = block_table[:, i].long()
-
-        def load(name):
-            pl = pool[name]
-            return restore_page(pl["hi"][pg], pl["lsb"][pg], pl["scale"][pg], fmt, k, hd)
-
-        kb, vb = load("k"), load("v")                       # [B, page, kv, hd]
+        kb, vb = load(block_table[:, i].long())             # [B, page, kv, hd]
         s = torch.einsum("bhrd,bthd->bhrt", qf, kb)
         k_pos = i * page_size + torch.arange(page_size, device=qf.device)
         s = s + torch.where(k_pos < row_len, 0.0, NEG_BIG)
@@ -133,9 +130,28 @@ def paged_attention_ams_plain(qf, pool: Dict, lens, block_table, *, page_size: i
         p = torch.exp(s - m_new)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1, keepdim=True)
-        acc = acc * corr + torch.einsum("bhrt,bthd->bhrd", p, vb)
+        acc = acc * corr + torch.einsum("bhrt,bthd->bhrd", p.to(pv_dtype).to(torch.float32),
+                                        vb)
         m = m_new
     return acc / torch.clamp(l, min=1e-20)
+
+
+def paged_attention_ams_plain(qf, pool: Dict, lens, block_table, *, page_size: int,
+                              scheme, c: int, g: int) -> torch.Tensor:
+    """Plain torch version of K2. qf [B, kv, R=c*g, hd] f32 (pre-scaled,
+    chunk-major rows), ``pool`` {k, v: {hi, lsb, scale}} [P, page, kv, *],
+    lens [B*c] int32, block_table [B, MP] int32 -> [B, kv, R, hd] f32."""
+    if qf.is_cuda:
+        COUNT.plain_on_cuda += 1
+    hd = qf.shape[-1]
+    fmt, k = scheme.base, scheme.k
+
+    def load(pg):
+        return tuple(restore_page(pool[n]["hi"][pg], pool[n]["lsb"][pg],
+                                  pool[n]["scale"][pg], fmt, k, hd) for n in ("k", "v"))
+
+    return _paged_online_softmax(qf, load, lens, block_table, page_size=page_size, c=c,
+                                 g=g, pv_dtype=torch.float32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -146,7 +162,7 @@ def _kernel():
     return fn
 
 
-def _check_k2(qf, pool, lens, block_table, page_size, scheme, c, g):
+def _check_rows(qf, lens, block_table, c, g):
     B, kv_n, R, hd = qf.shape
     if qf.dtype != torch.float32:
         raise TypeError(f"q must be float32, got {qf.dtype}")
@@ -156,6 +172,11 @@ def _check_k2(qf, pool, lens, block_table, page_size, scheme, c, g):
     if block_table.dim() != 2 or block_table.shape[0] != B or block_table.dtype != torch.int32:
         raise ValueError(f"block_table must be [B={B}, MP] int32, got "
                          f"{tuple(block_table.shape)} {block_table.dtype}")
+
+
+def _check_k2(qf, pool, lens, block_table, page_size, scheme, c, g):
+    _check_rows(qf, lens, block_table, c, g)
+    B, kv_n, R, hd = qf.shape
     for name in ("k", "v"):
         pl = pool[name]
         P, page, kvp, hb = pl["hi"].shape
@@ -195,6 +216,72 @@ def paged_attention_ams(qf, pool: Dict, lens, block_table, *, page_size: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# K3: paged attention over bf16 pages
+# ---------------------------------------------------------------------------
+def paged_attention_bf16_plain(qf, pool: Dict, lens, block_table, *, page_size: int,
+                               c: int, g: int) -> torch.Tensor:
+    """Plain torch version of K3: K2's contract over a bf16 pool {k, v}
+    [P, page, kv, hd]. Pages widen exactly to f32; p is rounded to bf16 at
+    the running max before the PV product (TPU `_load_pair` with
+    ``pv_dtype`` = the pool dtype)."""
+    if qf.is_cuda:
+        COUNT_BF16.plain_on_cuda += 1
+
+    def load(pg):
+        return pool["k"][pg].to(torch.float32), pool["v"][pg].to(torch.float32)
+
+    return _paged_online_softmax(qf, load, lens, block_table, page_size=page_size, c=c,
+                                 g=g, pv_dtype=pool["v"].dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_bf16():
+    fn = library("paged_attention").paged_attention_bf16
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_k3(qf, pool, lens, block_table, page_size, c, g):
+    _check_rows(qf, lens, block_table, c, g)
+    B, kv_n, R, hd = qf.shape
+    for name in ("k", "v"):
+        t = pool[name]
+        if t.dim() != 4 or t.shape[1:] != (page_size, kv_n, hd) or t.dtype != torch.bfloat16:
+            raise ValueError(f"pool {name!r} must be bf16 [P, {page_size}, {kv_n}, {hd}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if pool["k"].shape != pool["v"].shape:
+        raise ValueError("pool k and v differ in shape")
+
+
+def paged_attention_bf16(qf, pool: Dict, lens, block_table, *, page_size: int,
+                         c: int, g: int) -> torch.Tensor:
+    """K3 wrapper (same contract as `paged_attention_bf16_plain`). CPU
+    tensors take the plain version; CUDA tensors launch the kernel or raise."""
+    _check_k3(qf, pool, lens, block_table, page_size, c, g)
+    if qf.device.type == "cpu":
+        return paged_attention_bf16_plain(qf, pool, lens, block_table, page_size=page_size,
+                                          c=c, g=g)
+    check_device(qf)
+    B, kv_n, R, hd = qf.shape
+    if hd > 128 or page_size > 32:
+        raise NotImplementedError(f"K3 takes hd <= 128 and page <= 32, got {hd}, {page_size}")
+    ops = [qf, pool["k"], pool["v"], block_table, lens]
+    if not all(t.is_contiguous() and t.device == qf.device for t in ops):
+        raise ValueError("K3 operands must be contiguous and on one device")
+    if hd % 8 == 0 and (pool["k"].data_ptr() % 16 or pool["v"].data_ptr() % 16):
+        raise ValueError("K3 reads bf16 pages with 16-byte loads: pools must be 16-byte aligned")
+    out = torch.empty_like(qf)
+    rc = _kernel_bf16()(*(t.data_ptr() for t in ops), out.data_ptr(),
+                        B, kv_n, R, hd, page_size, block_table.shape[1], c, g,
+                        stream_ptr(qf.device))
+    if rc != 0:
+        raise RuntimeError(f"paged_attention_bf16 launch failed: cudaError {rc}")
+    COUNT_BF16.launches += 1
+    return out
+
+
 def _fold_q(q, lengths, kv_n: int, scale):
     """Scale q in q.dtype (the rounding flash_decode applies), fold the GQA
     groups chunk-major into rows ([B, kv, c*g, hd] f32) and flatten lengths
@@ -223,15 +310,17 @@ def _unfold_o(o, dims, chunked: bool, dtype):
 
 def fused_paged_attention(q, pool: Dict, lengths, block_table, *, page_size: int,
                           kv_scheme: Optional[str], scale: Optional[float] = None):
-    """Paged flash-decode over an AMS pool through K2: q [B, H, hd] or
+    """Paged flash-decode through K2 (``kv_scheme`` names the AMS pool's
+    scheme) or K3 (``kv_scheme=None``: bf16 pages): q [B, H, hd] or
     [B, c, H, hd] unscaled, lengths [B] or [B, c] valid keys, block_table
     [B, MP] int32. Returns q's shape in q.dtype."""
+    bt = block_table.to(torch.int32).contiguous()
     if kv_scheme is None:
-        raise NotImplementedError(
-            "paged attention over bf16 pages is kernel K3, not ported yet (ROADMAP queue 2)")
-    scheme = get_scheme(kv_scheme)
-    kv_n = pool["k"]["hi"].shape[2]
-    qf, lens, chunked, dims = _fold_q(q, lengths, kv_n, scale)
-    o = paged_attention_ams(qf, pool, lens, block_table.to(torch.int32).contiguous(),
-                            page_size=page_size, scheme=scheme, c=dims[1], g=dims[4])
+        qf, lens, chunked, dims = _fold_q(q, lengths, pool["k"].shape[2], scale)
+        o = paged_attention_bf16(qf, pool, lens, bt, page_size=page_size, c=dims[1],
+                                 g=dims[4])
+    else:
+        qf, lens, chunked, dims = _fold_q(q, lengths, pool["k"]["hi"].shape[2], scale)
+        o = paged_attention_ams(qf, pool, lens, bt, page_size=page_size,
+                                scheme=get_scheme(kv_scheme), c=dims[1], g=dims[4])
     return _unfold_o(o, dims, chunked, q.dtype)

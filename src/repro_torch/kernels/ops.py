@@ -1,9 +1,11 @@
-"""Public wrapper around K1 (port of src/repro/kernels/ops.py).
+"""Public wrapper around K1 and K1b (port of src/repro/kernels/ops.py).
 
-Flattens leading dims and zero-pads K up to the packed rows, so the kernel
-only ever sees [B, Kp] activations; B and N may be ragged (the kernel masks
-its edges), and the result is reshaped back. The TPU tile planner
-(`kernels/tuning.py`) has no counterpart: K1 uses one fixed tile.
+Dispatches on the layout's container (fp533 -> K1, planes -> K1b),
+flattens leading dims and zero-pads K up to the packed rows, so the kernels
+only ever see [B, Kp] activations with hi (and lsb) planes of exactly Kp
+positions; B and N may be ragged (the kernels mask their edges), and the
+result is reshaped back. The TPU tile planner (`kernels/tuning.py`) has no
+counterpart: K1 and K1b use one fixed tile.
 """
 
 from __future__ import annotations
@@ -14,22 +16,28 @@ import torch
 
 from repro_torch.core.packing import PackedWeight
 
-from .ams_matmul import ams_matmul_fp533
+from .ams_matmul import ams_matmul_fp533, ams_matmul_planes
+
+
+def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    return t if t.shape[0] == rows else torch.nn.functional.pad(t, (0, 0, 0, rows - t.shape[0]))
 
 
 def ams_matmul(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
-    """y[..., N] = x[..., K] @ DeQ(W) in f32 through K1 (the kernel on CUDA
-    tensors, its plain version on CPU tensors)."""
+    """y[..., N] = x[..., K] @ DeQ(W) in f32 through K1 (fp533) or K1b
+    (planes): the kernel on CUDA tensors, its plain version on CPU tensors."""
     lay = pw.layout
-    if lay.container != "fp533":
-        raise NotImplementedError(
-            f"ams_matmul for the {lay.container!r} container is kernel K1b, not "
-            "ported yet (ROADMAP queue 2)")
     lead = x.shape[:-1]
     B = math.prod(lead) if lead else 1
-    Kp = 6 * pw.hi.shape[0]
+    Kp = lay.padded_k(pw.K)
     x2 = x.reshape(B, x.shape[-1])
     if x2.shape[1] != Kp:
         x2 = torch.nn.functional.pad(x2, (0, Kp - x2.shape[1]))
-    y = ams_matmul_fp533(x2, pw.hi, pw.scale)
+    hi = _pad_rows(pw.hi, Kp // lay.per_word)
+    if lay.container == "fp533":
+        y = ams_matmul_fp533(x2, hi, pw.scale)
+    else:
+        k = lay.scheme.k
+        lsb = _pad_rows(pw.lsb, Kp // (32 * k)) if k > 1 else pw.lsb
+        y = ams_matmul_planes(x2, hi, lsb, pw.scale, lay)
     return y.reshape(*lead, pw.N)

@@ -3,9 +3,9 @@ src/repro/launch/config.py).
 
 One frozen dataclass carries every constructor-time validation, so a bad
 config fails in one place before any device work. The port adds
-``device`` (default ``"cuda"``) and serves the paged-AMS greedy path only:
-features it does not have yet raise NotImplementedError here, naming their
-ROADMAP item.
+``device`` (default ``"cuda"``) and serves the greedy path over paged
+caches (AMS or bf16 pages) only: features it does not have yet raise
+NotImplementedError here, naming their ROADMAP item.
 
     cfg = EngineConfig(arch="qwen2-7b", reduced=False, impl="kernel",
                        slots=8, capacity=1024, prefill_chunk=16,
@@ -31,11 +31,14 @@ class EngineConfig:
     arch / reduced / scheme / strategy / seed   model and weights
     depth         serve only the first ``depth`` layers of the arch at full
                   width (None = all); smoke runs cut depth this way
-    impl          packed-matmul lowering: ref | fused_ref | kernel (K1)
+    impl          packed-matmul lowering: ref | fused_ref | kernel (K1 for
+                  fp5.33, K1b for the other schemes; "fp16" weights stay
+                  bf16 and multiply with torch.matmul)
     slots / capacity / max_queue / prefill_chunk / token_budget
                   as in the reference's EngineConfig
-    cache         `CacheConfig(kind="paged_ams", ...)` (its ``impl``
-                  selects the attention lowering: ref | kernel (K2))
+    cache         `CacheConfig(kind="paged_ams" | "paged_bf16", ...)` (its
+                  ``impl`` selects the attention lowering: ref | kernel
+                  (K2 for AMS pages, K3 for bf16 pages))
     obs           `ObsConfig` telemetry switchboard
     device        "cuda" (default) or "cpu"; "cuda" without a card raises
     mesh / speculate_k   accepted for the reference's surface; anything but
@@ -96,11 +99,10 @@ class EngineConfig:
         if self.mesh is not None:
             raise NotImplementedError("tensor-parallel meshes are not ported yet "
                                       "(ROADMAP queue 2)")
-        if self.cache is None or self.cache.kind != "paged_ams":
-            kind = "contiguous" if self.cache is None else self.cache.kind
+        if self.cache is None or not self.cache.paged:
             raise NotImplementedError(
-                f"the {kind} cache is not ported yet (kernels K3/K4, ROADMAP queue 2); "
-                "pass cache=CacheConfig(kind='paged_ams')")
+                "the contiguous cache is not ported yet (kernel K4, ROADMAP queue 2); "
+                "pass cache=CacheConfig(kind='paged_ams') or CacheConfig(kind='paged_bf16')")
         if self.cache.host_spill_pages:
             raise NotImplementedError("the host spill tier is not ported yet "
                                       "(preemption with host spill, ROADMAP queue 2)")

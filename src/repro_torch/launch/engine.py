@@ -1,10 +1,12 @@
 """Continuous-batching serving engine over the AMS-quantized model (port of
-src/repro/launch/engine.py, paged-AMS greedy path).
+src/repro/launch/engine.py, greedy path over paged caches).
 
-Weights are AMS-quantized and packed ahead of time; one slot-masked engine
-step (`steps.build_engine_step`) then serves every in-flight request per
-tick. The KV cache is a pool of pages in the packed AMS-e2m2 layout,
-addressed through per-request block tables; admission is gated on the
+Weights are AMS-quantized and packed ahead of time (``scheme="fp16"`` keeps
+them bf16: the FP16 baseline); one slot-masked engine step
+(`steps.build_engine_step`) then serves every in-flight request per tick.
+The KV cache is a pool of pages, in the packed AMS-e2m2 layout
+(``paged_ams``) or in bf16 (``paged_bf16``), addressed through per-request
+block tables; admission is gated on the
 free-page budget (`cache.PageAllocator`), completed prompt pages are
 prefix-cached across requests (a request whose prompt shares a cached
 page-aligned prefix references the same physical pages and starts prefill
@@ -13,13 +15,14 @@ ragged multi-token step under a per-tick token budget. A slot freed by a
 finished request is re-admitted the same tick.
 
 With ``impl="kernel"`` (`QuantPolicy.impl`) every quantized projection runs
-through kernel K1, and with ``CacheConfig(impl="kernel")`` attention reads
-the packed pool through kernel K2.
+through kernel K1 (fp5.33) or K1b (the other schemes), and with
+``CacheConfig(impl="kernel")`` attention reads the pool through kernel K2
+(AMS pages) or K3 (bf16 pages).
 
 Not ported yet, and refused with NotImplementedError: seeded sampling
 (temperature > 0), speculative decoding, priorities and preemption, the
-host spill tier, contiguous and bf16 caches, meshes, prefix embeds, obs
-cost accounting, and the async front end (`step_begin`/`step_end`).
+host spill tier, contiguous caches, meshes, prefix embeds, obs cost
+accounting, and the async front end (`step_begin`/`step_end`).
 """
 
 from __future__ import annotations

@@ -24,8 +24,10 @@ def generate(arch: str, *, reduced=True, scheme="fp5.33-e2m3", strategy="set_lsb
              page_size=16, device="cuda"):
     """Submit ``batch`` requests at tick 0 (prompts drawn from ``seed`` unless
     given as ``prompts`` [batch, prompt_len]) and drain the engine over a
-    paged-AMS cache. Returns (tokens [batch, gen_tokens], stats); streams
-    that stop early are padded with -1."""
+    paged cache: bf16 pages for ``scheme="fp16"``, AMS pages otherwise, as
+    the reference's serving benchmark pairs them.
+    Returns (tokens [batch, gen_tokens], stats); streams that stop early are
+    padded with -1."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -35,11 +37,12 @@ def generate(arch: str, *, reduced=True, scheme="fp5.33-e2m3", strategy="set_lsb
     prompts = np.asarray(prompts, np.int32)
     batch, prompt_len = prompts.shape
     cap = capacity or (prompt_len + gen_tokens)
+    cache_kind = "paged_bf16" if scheme == "fp16" else "paged_ams"
     eng = ServeEngine(
         EngineConfig(arch=arch, reduced=reduced, scheme=scheme, strategy=strategy,
                      impl=impl, slots=batch, capacity=cap, seed=seed,
                      prefill_chunk=prefill_chunk, device=device, verbose=True,
-                     cache=CacheConfig(kind="paged_ams", page_size=page_size,
+                     cache=CacheConfig(kind=cache_kind, page_size=page_size,
                                        impl=attn_impl)),
         params=params)
     per_req = sampling if isinstance(sampling, (list, tuple)) else [sampling] * batch

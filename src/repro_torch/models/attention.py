@@ -1,9 +1,10 @@
 """GQA attention over a paged KV cache (port of the paged paths of
 src/repro/models/attention.py).
 
-Each tick's K/V vectors are quantized once and written into the layer's
-page pool (`cache.paged_insert`, in place), then every query attends the
-block table through `cache.paged_attend` (``ref`` oracle or kernel K2).
+Each tick's K/V vectors are written into the layer's page pool
+(`cache.paged_insert`, in place; AMS pools quantize each vector once), then
+every query attends the block table through `cache.paged_attend` (``ref``
+oracle, or kernel K2 for AMS pages and K3 for bf16 pages).
 Chunked steps carry intra-chunk causality in per-query lengths: query j
 of a chunk inserted at ``pos`` sees ``pos + j + 1`` keys.
 """

@@ -99,7 +99,8 @@ def stack_trees(trees):
 
 
 def make_cache(cfg, *, cache_cfg, device="cpu"):
-    """Zero page pools for every layer, stacked [G, P, page, kv, ...]."""
+    """Zero page pools (bf16 or AMS planes) for every layer, stacked
+    [G, P, page, kv, ...]."""
     from repro_torch.cache import make_gqa_page_pool
     check_paged_support(cfg)
     if cache_cfg is None or not cache_cfg.paged:

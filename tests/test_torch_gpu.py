@@ -1,8 +1,8 @@
 """Tests of the port that need the card, plus import hygiene.
 
-The ``gpu``-marked tests hold the CUDA kernels K1 and K2 against their
-plain torch versions on the card, at small and at Qwen2-7B widths, and run
-the engine end to end through both kernels. Each skips from inside the test
+The ``gpu``-marked tests hold the CUDA kernels K1, K1b, K2 and K3 against
+their plain torch versions on the card, at small and at Qwen2-7B widths,
+and run the engine end to end through each path's kernels. Each skips from inside the test
 when ``torch.cuda.is_available()`` is false. The machine with the card has
 no JAX, so this file imports none; run it there alone:
 
@@ -32,12 +32,12 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def packed(K, N, dev, seed=0):
+def packed(K, N, dev, seed=0, scheme="fp5.33-e2m3"):
     from repro_torch.core.ams import ams_quantize
     from repro_torch.core.formats import get_scheme
     from repro_torch.core.packing import make_layout, pack
 
-    scheme = get_scheme("fp5.33-e2m3")
+    scheme = get_scheme(scheme)
     gen = torch.Generator(device=dev).manual_seed(seed)
     w = torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)
     Kp = make_layout(scheme).padded_k(K)
@@ -74,6 +74,98 @@ def test_k1_identity_is_bit_exact():
     assert torch.equal(ops.ams_matmul(eye, pw), ref.dequant_full(pw)[:8])
 
 
+PLANES_SCHEMES = ("fp8", "fp6-e2m3", "fp6-e3m2", "fp5-e2m2", "fp4.5-e2m2", "fp4.33-e2m2",
+                  "fp4.25-e2m2", "fp4-e2m1")
+
+
+def _k1b_case(scheme, K, N, B, dev):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ams_matmul import COUNT_PLANES, ams_matmul_planes_plain
+
+    pw, gen = packed(K, N, dev, seed=K + N, scheme=scheme)
+    x = torch.randn((B, K), generator=gen, device=dev)
+    n = COUNT_PLANES.launches
+    got = ops.ams_matmul(x, pw)
+    torch.cuda.synchronize()
+    assert COUNT_PLANES.launches == n + 1
+    Kp = pw.layout.padded_k(K)
+    want = ams_matmul_planes_plain(torch.nn.functional.pad(x, (0, Kp - K)), pw.hi,
+                                   pw.lsb, pw.scale, pw.layout)
+    # same exact products, f32 sums in another order
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", PLANES_SCHEMES)
+def test_k1b_kernel_matches_plain_every_scheme(scheme):
+    _k1b_case(scheme, 700, 300, 5, cuda_device())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N,B", [(3584, 3584, 8), (3584, 512, 128), (3584, 18944, 8),
+                                   (18944, 3584, 128), (1, 40, 2)])
+def test_k1b_fp425_kernel_matches_plain(K, N, B):
+    _k1b_case("fp4.25-e2m2", K, N, B, cuda_device())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["fp4.25-e2m2", "fp8", "fp6-e3m2"])
+def test_k1b_identity_is_bit_exact(scheme):
+    from repro_torch.kernels import ops, ref
+
+    dev = cuda_device()
+    pw, _ = packed(384, 128, dev, seed=16, scheme=scheme)
+    eye = torch.eye(8, 384, device=dev)
+    assert torch.equal(ops.ams_matmul(eye, pw), ref.dequant_full(pw)[:8])
+
+
+def _paged_case(kv, g, hd, page, chunk, dev, gen):
+    """Block table over 4 slots x 8 pages, lengths with a full slot, a
+    short one, an idle one and a ragged one; q folded as the template does."""
+    from repro_torch.kernels.attention_template import _fold_q
+
+    B, MP = 4, 8
+    bt = torch.randperm(B * MP, generator=gen, device=dev).to(torch.int32).reshape(B, MP)
+    ends = torch.tensor([MP * page, 5, 0, 3 * page + 1])         # slot 2 idle
+    j = torch.arange(chunk)
+    nvalid = torch.clamp(torch.tensor([chunk, chunk - 1, 0, 1]), min=0)
+    nvalid = torch.minimum(nvalid, ends)
+    lengths = torch.where(j[None] < nvalid[:, None], ends[:, None] - nvalid[:, None] + j + 1, 0)
+    q = torch.randn((B, chunk, kv * g, hd), generator=gen, device=dev).to(torch.bfloat16)
+    qf, lens, _, _ = _fold_q(q, lengths.to(dev), kv, None)
+    masked = (lengths == 0).repeat_interleave(g, dim=1).to(dev)   # [B, c*g] rows
+    return qf, lens, bt, masked
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv,g,hd,page,chunk", [(2, 2, 32, 8, 1), (2, 2, 32, 8, 4),
+                                                (4, 7, 128, 16, 1), (4, 7, 128, 16, 16),
+                                                (1, 3, 7, 8, 2)])
+def test_k3_kernel_matches_plain(kv, g, hd, page, chunk):
+    from repro_torch.kernels.attention_template import (
+        COUNT_BF16,
+        paged_attention_bf16,
+        paged_attention_bf16_plain,
+    )
+
+    dev = cuda_device()
+    gen = torch.Generator(device=dev).manual_seed(hd + chunk + 1)
+    pool = {n: torch.randn((32, page, kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+            for n in ("k", "v")}
+    qf, lens, bt, masked = _paged_case(kv, g, hd, page, chunk, dev, gen)
+    kw = dict(page_size=page, c=chunk, g=g)
+    n = COUNT_BF16.launches
+    got = paged_attention_bf16(qf, pool, lens, bt, **kw)
+    torch.cuda.synchronize()
+    assert COUNT_BF16.launches == n + 1
+    want = paged_attention_bf16_plain(qf, pool, lens, bt, **kw)
+    # p is rounded to bf16 in both; scores summed in another order can put
+    # p one bf16 ulp (2^-8) apart, moving the output by at most 2^-8 max|v|
+    tol = 2 ** -8 * float(pool["v"].float().abs().max()) + 1e-4 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+    assert bool((got.permute(0, 2, 1, 3)[masked] == 0).all())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv,g,hd,page,chunk", [(2, 2, 32, 8, 1), (2, 2, 32, 8, 4),
                                                 (4, 7, 128, 16, 1), (4, 7, 128, 16, 16),
@@ -83,27 +175,17 @@ def test_k2_kernel_matches_plain(kv, g, hd, page, chunk):
     from repro_torch.core.kv_quant import quantize_kv
     from repro_torch.kernels.attention_template import (
         COUNT,
-        _fold_q,
         paged_attention_ams,
         paged_attention_ams_plain,
     )
 
     dev = cuda_device()
     scheme = get_scheme("fp4.25-e2m2")
-    B, MP = 4, 8
-    P = B * MP
     gen = torch.Generator(device=dev).manual_seed(hd + chunk)
     pool = {n: {k: t.contiguous() for k, t in quantize_kv(
-        torch.randn((P, page, kv, hd), generator=gen, device=dev), scheme).items()}
+        torch.randn((32, page, kv, hd), generator=gen, device=dev), scheme).items()}
         for n in ("k", "v")}
-    bt = torch.randperm(P, generator=gen, device=dev).to(torch.int32).reshape(B, MP)
-    ends = torch.tensor([MP * page, 5, 0, 3 * page + 1])         # slot 2 idle
-    j = torch.arange(chunk)
-    nvalid = torch.clamp(torch.tensor([chunk, chunk - 1, 0, 1]), min=0)
-    nvalid = torch.minimum(nvalid, ends)
-    lengths = torch.where(j[None] < nvalid[:, None], ends[:, None] - nvalid[:, None] + j + 1, 0)
-    q = torch.randn((B, chunk, kv * g, hd), generator=gen, device=dev).to(torch.bfloat16)
-    qf, lens, _, _ = _fold_q(q, lengths.to(dev), kv, None)
+    qf, lens, bt, masked = _paged_case(kv, g, hd, page, chunk, dev, gen)
     kw = dict(page_size=page, scheme=scheme, c=chunk, g=g)
     n = COUNT.launches
     got = paged_attention_ams(qf, pool, lens, bt, **kw)
@@ -111,7 +193,6 @@ def test_k2_kernel_matches_plain(kv, g, hd, page, chunk):
     assert COUNT.launches == n + 1
     want = paged_attention_ams_plain(qf, pool, lens, bt, **kw)
     assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
-    masked = (lengths == 0).repeat_interleave(g, dim=1).to(dev)   # [B, c*g] rows
     assert bool((got.permute(0, 2, 1, 3)[masked] == 0).all())
 
 
@@ -134,6 +215,34 @@ def test_engine_on_the_card_runs_both_kernels():
     assert [len(h.tokens) for h in hs] == [5, 4]
     assert ams_matmul.COUNT.launches > 0 and attention_template.COUNT.launches > 0
     assert ams_matmul.COUNT.plain_on_cuda == attention_template.COUNT.plain_on_cuda == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme,kind", [("fp4.25-e2m2", "paged_ams"), ("fp16", "paged_bf16")])
+def test_engine_on_the_card_new_paths(scheme, kind):
+    """FP4.25 weights over AMS pages run K1b and K2 (K1 never launches); the
+    FP16 baseline over bf16 pages runs K3 (no AMS kernel launches)."""
+    from repro_torch.cache import CacheConfig
+    from repro_torch.kernels import ams_matmul, attention_template
+    from repro_torch.launch.config import EngineConfig
+    from repro_torch.launch.engine import ServeEngine
+
+    cuda_device()
+    counts = (ams_matmul.COUNT, ams_matmul.COUNT_PLANES, attention_template.COUNT,
+              attention_template.COUNT_BF16)
+    for cnt in counts:
+        cnt.reset()
+    eng = ServeEngine(EngineConfig(reduced=True, scheme=scheme, impl="kernel", slots=2,
+                                   capacity=32, prefill_chunk=4, device="cuda",
+                                   cache=CacheConfig(kind=kind, page_size=8, impl="kernel")))
+    hs = [eng.submit(list(range(1, 12)), 5), eng.submit(list(range(3, 9)), 4)]
+    eng.run()
+    assert [len(h.tokens) for h in hs] == [5, 4]
+    launched = {cnt.name for cnt in counts if cnt.launches > 0}
+    want = ({"ams_matmul_planes", "paged_attention_ams"} if scheme != "fp16"
+            else {"paged_attention_bf16"})
+    assert launched == want
+    assert all(cnt.plain_on_cuda == 0 for cnt in counts)
 
 
 # ------------------------------------------------------------ hygiene

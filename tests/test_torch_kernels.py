@@ -1,4 +1,5 @@
-"""Port parity, kernels: K1 (AMS fp533 matmul) and K2 (paged AMS attention).
+"""Port parity, kernels: K1 / K1b (AMS matmul, fp533 / planes containers), K2
+(paged AMS attention) and K3 (paged attention over bf16 pages).
 
 On the CPU each wrapper runs its kernel's plain torch version; these tests
 hold the plain versions against the JAX package's Pallas kernels in
@@ -106,10 +107,81 @@ def test_fused_ref_and_ref_match_reference(scheme, K, N, B):
         np.asarray(j_ref.ams_matmul_ref(jnp.asarray(x), q.packed)), rtol=1e-5, atol=1e-5)
 
 
-def test_k1_planes_container_is_not_ported():
+PLANES_SCHEMES = ("fp8", "fp6-e2m3", "fp6-e3m2", "fp5-e2m2", "fp4.5-e2m2", "fp4.33-e2m2",
+                  "fp4.25-e2m2", "fp4-e2m1")
+
+
+@pytest.mark.parametrize("scheme", PLANES_SCHEMES)
+@pytest.mark.parametrize("K,N,B", [(300, 130, 5), (1, 40, 2), (700, 257, 9)])
+def test_k1b_plain_matches_pallas_interpret(scheme, K, N, B):
+    """Every planes scheme (per_word 4/5/6/8, k 1-4, biases 1/3/7) at ragged
+    B/K/N through ops.ams_matmul -> K1b's plain version, against the JAX
+    planes kernel in interpret mode."""
+    q, pw = packed_pair(K, N, scheme, seed=K + N)
+    assert pw.layout.container == "planes"
+    x = np.random.default_rng(B).standard_normal((B, K)).astype(np.float32)
+    want = j_ops.ams_matmul(jnp.asarray(x), q.packed, interpret=True)
+    launches = t_k1.COUNT_PLANES.launches
+    got = t_ops.ams_matmul(torch.from_numpy(x), pw)
+    assert t_k1.COUNT_PLANES.launches == launches   # CPU tensors: no launch
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("scheme", ["fp4.25-e2m2", "fp8", "fp6-e3m2"])
+def test_k1b_decode_bit_exact_identity(scheme):
+    """One-hot activations read the restored fp4.25 (and e4m3 / e3m2) weight
+    rows back exactly: K1b's plain decode equals the reference's table
+    decode and its Pallas kernel bit for bit."""
+    K, N = 384, 128
+    q, pw = packed_pair(K, N, scheme, seed=16)
+    eye = np.eye(8, K, dtype=np.float32)
+    got = t_ops.ams_matmul(torch.from_numpy(eye), pw).numpy()
+    want = np.asarray(j_ref.dequant_full(q.packed))[:8]
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, t_ref.dequant_full(pw).numpy()[:8])
+    pallas = np.asarray(j_ops.ams_matmul(jnp.asarray(eye), q.packed, interpret=True))
+    np.testing.assert_array_equal(got, pallas)
+
+
+@pytest.mark.parametrize("scheme", PLANES_SCHEMES)
+def test_planes_layouts_match_reference_at_qwen_widths(scheme):
+    """Every planes scheme's layout equals the reference's, and K pads alike
+    at the Qwen2-7B widths (fp4.25: k_block = lcm(8, 128) = 128, which
+    divides both)."""
+    from repro.core.packing import make_layout as j_make_layout
+    jl, tl = j_make_layout(get_scheme(scheme)), make_layout(t_get_scheme(scheme))
+    assert (tl.container, tl.hi_bits, tl.per_word, tl.k_block) == (
+        jl.container, jl.hi_bits, jl.per_word, jl.k_block)
+    for K in (3584, 18944):
+        assert tl.padded_k(K) == jl.padded_k(K)
+    if scheme == "fp4.25-e2m2":
+        assert tl.k_block == 128 and (tl.padded_k(3584), tl.padded_k(18944)) == (3584, 18944)
+
+
+@pytest.mark.parametrize("scheme", PLANES_SCHEMES)
+def test_fused_ref_matches_reference_every_planes_scheme(scheme):
+    """The fused_ref path (K-blocked product) for every planes scheme at a
+    ragged shape, against the reference's blocked product."""
+    q, pw = packed_pair(999, 160, scheme, seed=17)
+    x = np.random.default_rng(17).standard_normal((6, 999)).astype(np.float32)
+    np.testing.assert_allclose(
+        t_ref.ams_matmul_blocked(torch.from_numpy(x), pw).numpy(),
+        np.asarray(j_ref.ams_matmul_blocked(jnp.asarray(x), q.packed)), rtol=1e-5, atol=1e-5)
+
+
+def test_k1b_wrapper_checks_shapes():
     _, pw = packed_pair(256, 64, "fp4.25-e2m2")
-    with pytest.raises(NotImplementedError, match="K1b"):
-        t_ops.ams_matmul(torch.zeros((1, 256)), pw)
+    lay = pw.layout
+    with pytest.raises(ValueError):                 # K not a multiple of k_block
+        t_k1.ams_matmul_planes(torch.zeros((2, 255)), pw.hi, pw.lsb, pw.scale, lay)
+    with pytest.raises(ValueError):                 # lsb rows != Kp / (32k)
+        t_k1.ams_matmul_planes(torch.zeros((2, 256)), pw.hi, pw.lsb[:1], pw.scale, lay)
+    with pytest.raises(TypeError):
+        t_k1.ams_matmul_planes(torch.zeros((2, 256)), pw.hi, pw.lsb.float(), pw.scale, lay)
+    _, p533 = packed_pair(96, 64)
+    with pytest.raises(ValueError, match="planes"):
+        t_k1.ams_matmul_planes(torch.zeros((2, 96)), p533.hi, p533.lsb, p533.scale,
+                               p533.layout)
 
 
 def test_k1_wrapper_checks_shapes():
@@ -204,8 +276,100 @@ def test_k2_plain_matches_pallas_interpret():
     np.testing.assert_allclose(got, want, atol=2e-6, rtol=1e-6)
 
 
-def test_k2_bf16_pages_are_not_ported():
-    with pytest.raises(NotImplementedError, match="K3"):
-        t_k2.fused_paged_attention(torch.zeros((1, 2, 8)), {}, torch.ones(1, dtype=torch.int32),
-                                   torch.zeros((1, 1), dtype=torch.int32), page_size=8,
-                                   kv_scheme=None)
+# ------------------------------------------------------------------- K3
+def filled_bf16_pools(c=4, seed=3):
+    """filled_pools' inserts into bf16 page pools."""
+    ccfg_j = JCacheConfig(kind="paged_bf16", page_size=PAGE, num_pages=14,
+                          max_pages_per_seq=MP)
+    ccfg_t = CacheConfig(kind="paged_bf16", page_size=PAGE, num_pages=14,
+                         max_pages_per_seq=MP)
+    rng = np.random.default_rng(seed)
+    bt = rng.permutation(14)[:12].reshape(3, MP).astype(np.int32)
+    pj = j_make_pool(ccfg_j, KV, HD)
+    pt = make_gqa_page_pool(ccfg_t, KV, HD)
+    insert = jax.jit(lambda pool, k, v, pos, bt, nv: j_insert(pool, k, v, pos, bt, ccfg_j,
+                                                              nvalid=nv))
+    for start in range(0, 24, c):
+        kn = rng.standard_normal((3, c, KV, HD)).astype(np.float32)
+        vn = rng.standard_normal((3, c, KV, HD)).astype(np.float32)
+        pos = np.array([start, start + 1, -1], np.int32)
+        nvalid = np.array([c, c - 1, 0], np.int32)
+        pj = insert(pj, jnp.asarray(kn, jnp.bfloat16), jnp.asarray(vn, jnp.bfloat16),
+                    jnp.asarray(pos), jnp.asarray(bt), jnp.asarray(nvalid))
+        pt = paged_insert(pt, torch.from_numpy(kn).to(torch.bfloat16),
+                          torch.from_numpy(vn).to(torch.bfloat16), torch.from_numpy(pos),
+                          torch.from_numpy(bt), ccfg_t, nvalid=torch.from_numpy(nvalid))
+    return pj, pt, bt, ccfg_j, ccfg_t
+
+
+@pytest.mark.parametrize("c", [1, 4])
+def test_paged_insert_bf16_pool_bytes_equal(c):
+    pj, pt, *_ = filled_bf16_pools(c=c)
+    for n in ("k", "v"):
+        assert pt[n].dtype == torch.bfloat16 and pt[n].shape == pj[n].shape
+        np.testing.assert_array_equal(np.asarray(pj[n]).view(np.uint16),
+                                      pt[n].view(torch.int16).numpy().view(np.uint16),
+                                      err_msg=n)
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_k3_plain_matches_pallas_interpret(chunk):
+    """K3's plain version against the JAX template's bf16-page lowering
+    (_load_pair, p rounded to bf16 at the running max, page by page): the
+    same rounding points, so only f32 summation order differs; a score one
+    f32 ulp apart can round p to a neighbouring bf16 value, which moves an
+    output by at most 2^-8 of one p * |v| term."""
+    pj, pt, bt, _, _ = filled_bf16_pools(c=2, seed=8)
+    q, lengths = query(chunk, seed=9)
+    want = np.asarray(j_fused(jnp.asarray(q), pj, jnp.asarray(lengths), jnp.asarray(bt),
+                              page_size=PAGE, kv_scheme=None, interpret=True))
+    launches = t_k2.COUNT_BF16.launches
+    got = t_k2.fused_paged_attention(torch.from_numpy(q), pt, torch.from_numpy(lengths),
+                                     torch.from_numpy(bt), page_size=PAGE,
+                                     kv_scheme=None).numpy()
+    assert t_k2.COUNT_BF16.launches == launches    # CPU tensors: no launch
+    np.testing.assert_allclose(got, want, atol=2e-6, rtol=1e-6)
+    assert np.all(got[2] == 0)                      # idle slot
+    if chunk > 1:
+        assert np.all(got[0, 3] == 0)               # masked row
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_k3_plain_matches_ref_oracle(chunk):
+    """Against the gather -> attend oracle in q's dtype (bf16 q: p rounded
+    to bf16 at the GLOBAL max, the reference's own 2e-3/2e-2 bf16-page
+    tolerance), and the port's oracle against the reference's."""
+    pj, pt, bt, ccfg_j, ccfg_t = filled_bf16_pools()
+    q, lengths = query(chunk)
+    kvm = kv_index_map(H, H, KV)
+    qj, qt = jnp.asarray(q, jnp.bfloat16), torch.from_numpy(q).to(torch.bfloat16)
+    want = np.asarray(j_paged_ref(qj, pj, jnp.asarray(lengths), jnp.asarray(bt), ccfg_j,
+                                  kv_map=kvm).astype(jnp.float32))
+    got = t_k2.fused_paged_attention(qt, pt, torch.from_numpy(lengths), torch.from_numpy(bt),
+                                     page_size=PAGE, kv_scheme=None)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2e-3, rtol=2e-2)
+    assert np.all(got.float().numpy()[2] == 0)
+    ref_t = paged_attention_ref(qt, pt, torch.from_numpy(lengths), torch.from_numpy(bt),
+                                ccfg_t, kv_map=kvm)
+    assert ref_t.dtype == torch.bfloat16
+    # same rounding points as the reference's oracle: f32 sums in another order
+    np.testing.assert_allclose(ref_t.float().numpy(), want, atol=1e-2, rtol=1e-2)
+
+
+def test_k3_wrapper_checks_shapes():
+    _, pt, bt, _, _ = filled_bf16_pools()
+    qf = torch.zeros((3, KV, 4, HD))
+    lens = torch.ones(3, dtype=torch.int32)
+    bt = torch.from_numpy(bt)
+    with pytest.raises(ValueError, match="bf16"):    # page size differs from the pool's
+        t_k2.paged_attention_bf16(qf, pt, lens, bt, page_size=PAGE * 2, c=1, g=4)
+    with pytest.raises(ValueError, match="bf16"):    # f32 pool
+        t_k2.paged_attention_bf16(qf, {n: t.float() for n, t in pt.items()}, lens, bt,
+                                  page_size=PAGE, c=1, g=4)
+    with pytest.raises(ValueError, match="rows"):    # R != c * g
+        t_k2.paged_attention_bf16(qf, pt, lens, bt, page_size=PAGE, c=1, g=2)
+    with pytest.raises(TypeError):
+        t_k2.paged_attention_bf16(qf.double(), pt, lens, bt, page_size=PAGE, c=1, g=4)
+    out = t_k2.paged_attention_bf16(qf, pt, lens, bt, page_size=PAGE, c=1, g=4)
+    assert out.shape == qf.shape and out.dtype == torch.float32
