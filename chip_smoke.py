@@ -17,21 +17,29 @@ Phases, each fatal on failure:
      g=7, hd=128, page 16, 8 slots, lengths up to 1024, chunk in {1, 16},
      with an idle slot and masked rows that must come out exactly 0;
   6. K3 (paged flash-decode over bf16 pages), the same;
-  7. the main paths, full-width 28-layer Qwen2-7B served through the
-     continuous-batching engine with impl "kernel" for matmuls and
-     attention: FP5.33 weights over AMS-e2m2 pages (K1, K2; 10 greedy
-     requests, two sharing a page-aligned prefix), FP4.25 weights over
-     AMS-e2m2 pages (K1b, K2) and the FP16 baseline, bf16 weights over bf16
-     pages (K3; 9 requests each, two sharing a prefix). Launch counts are
-     zeroed just before each path and read just after: every kernel of the
-     path must have launched, no other kernel and no plain version on CUDA
-     tensors. Each path then times full-batch decode ticks and profiles
-     them (device-busy ms per tick);
-  8. consistency at cut depth (2 layers, full widths), per path:
+  7. K4 (contiguous-cache flash-decode, GQA) at Qwen2-7B shapes (kv=4, g=7,
+     hd=128, 8 slots, lengths up to 1024, chunk in {1, 16}) and K5 (the
+     absorbed-MLA stream) at MiniCPM3-4B shapes (one stream of 256 + 32
+     columns shared by 40 heads, values its first 256), each against its
+     plain version element by element within what p's bf16 rounding allows,
+     with the torch SDPA call of the same attention timed beside them;
+  8. the main paths, served through the continuous-batching engine with
+     impl "kernel" for matmuls and attention: full-width 28-layer Qwen2-7B
+     with FP5.33 weights over AMS-e2m2 pages (K1, K2; 10 greedy requests,
+     two sharing a page-aligned prefix), FP4.25 weights over AMS-e2m2 pages
+     (K1b, K2), the FP16 baseline, bf16 weights over bf16 pages (K3), and
+     FP5.33 weights over the contiguous cache (K1, K4); full-width 62-layer
+     MiniCPM3-4B with FP5.33 weights over its contiguous MLA stream (K1,
+     K5); 9 requests each on the last four (two sharing a prefix on the
+     paged ones). Launch counts are zeroed just before each path and read
+     just after: every kernel of the path must have launched, no other
+     kernel and no plain version on CUDA tensors. Each path then times
+     full-batch decode ticks and profiles them (device-busy ms per tick);
+  9. consistency at cut depth (2 layers, full widths), per path:
      first-tick logits and greedy streams of impl "kernel" against the
      non-kernel impls ("fused_ref" matmuls, "ref" attention) on the card.
 
-A line ``compare {...}`` sets the three paths' decode tick and device-busy
+A line ``compare {...}`` sets the five paths' decode tick and device-busy
 ms side by side. The line before the last is one JSON object with a row
 per kernel; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA card the script
 exits non-zero and prints no result (``--cpu-rehearsal`` runs the phases on
@@ -67,15 +75,26 @@ K2_TOL = 1e-4                   # same, K2
 # most 2^-8 * max|v| (the p / l weights sum to 1).
 K3_P_ULP = 2.0 ** -8
 K3_TOL = 1e-4
+# K4 / K5, element by element: |kernel - plain| <= (CONTIG_P_REL + K3_TOL) * A,
+# A = sum_i bf16(p_i) |v_i| / l, the plain walk over |v| with the same p.
+# A p one bf16 ulp apart differs by at most 2^-7 of itself (8 significant
+# bits), so the flips move an output by at most 2^-7 * A; the f32 orders of
+# the sums stay below 1e-4 * A.
+CONTIG_P_REL = 2.0 ** -7
 LOGIT_TOL = 5e-2                # consistency: max |dlogit| / max |logit|
 
-# the served paths: weight scheme, cache kind, the kernels each must launch
+# the served paths: model, weight scheme, cache kind, the kernels each must launch
 PATHS = {
-    "fp5.33": dict(scheme="fp5.33-e2m3", kind="paged_ams",
+    "fp5.33": dict(arch="qwen2-7b", scheme="fp5.33-e2m3", kind="paged_ams",
                    kernels=("ams_matmul_fp533", "paged_attention_ams")),
-    "fp4.25": dict(scheme="fp4.25-e2m2", kind="paged_ams",
+    "fp4.25": dict(arch="qwen2-7b", scheme="fp4.25-e2m2", kind="paged_ams",
                    kernels=("ams_matmul_planes", "paged_attention_ams")),
-    "fp16": dict(scheme="fp16", kind="paged_bf16", kernels=("paged_attention_bf16",)),
+    "fp16": dict(arch="qwen2-7b", scheme="fp16", kind="paged_bf16",
+                 kernels=("paged_attention_bf16",)),
+    "contig-fp5.33": dict(arch="qwen2-7b", scheme="fp5.33-e2m3", kind="contiguous",
+                          kernels=("ams_matmul_fp533", "contiguous_attention")),
+    "mla-fp5.33": dict(arch="minicpm3-4b", scheme="fp5.33-e2m3", kind="contiguous",
+                       kernels=("ams_matmul_fp533", "contiguous_attention_mla")),
 }
 PLANES_SCHEMES = ("fp8", "fp6-e2m3", "fp6-e3m2", "fp5-e2m2", "fp4.5-e2m2", "fp4.33-e2m2",
                   "fp4-e2m1")
@@ -94,8 +113,10 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def bound_ms(nbytes: float, flops: float, peak_flops: float):
-    tb, tf = nbytes / PEAK_BYTES_PER_S, flops / peak_flops
+def bound_ms(nbytes: float, *work):
+    """The larger of the bytes' time at the memory rate and the operations'
+    time, ``work`` being (flops, peak rate of their type) pairs."""
+    tb, tf = nbytes / PEAK_BYTES_PER_S, sum(f / peak for f, peak in work)
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
@@ -192,7 +213,7 @@ def _matmul_phase(torch, dev, tag: str, scheme: str, gen, kernel, plain, timed: 
             max_err = max(max_err, err)
             nbytes = x.numel() * 2 + wbytes + N * 4 + B * N * 4
             flops = 2.0 * B * K * N
-            bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+            bms, by = bound_ms(nbytes, (flops, PEAK_BF16_FLOPS))
             row = dict(scheme=scheme, shape=name, K=K, N=N, B=B, max_abs_err=err,
                        rel_err=rel, bound_ms=bms, bound_by=by)
             if timed:
@@ -218,8 +239,8 @@ def _matmul_phase(torch, dev, tag: str, scheme: str, gen, kernel, plain, timed: 
                 layer["bytes"] += mult * nbytes
                 layer["flops"] += mult * flops
             log(f"{tag} " + json.dumps(row))
-    layer["bound_ms"], layer["bound_by"] = bound_ms(layer["bytes"], layer["flops"],
-                                                    PEAK_BF16_FLOPS)
+    layer["bound_ms"], layer["bound_by"] = bound_ms(layer["bytes"],
+                                                    (layer["flops"], PEAK_BF16_FLOPS))
     log(f"{tag} one decode layer (7 projections, {scheme}, B={batches[0]}): "
         + json.dumps(layer))
     return layer, max_err
@@ -313,8 +334,8 @@ def phase_k2(torch, dev, timed: bool, full: bool):
         tok = int(np.sum(np.max(lengths, axis=1)))        # keys each slot's walk needs
         nbytes = (qf.numel() * 4 + tok * kv * 2 * (hd // 2 + 4 + 4) + bt.numel() * 4
                   + lens.numel() * 4 + qf.numel() * 4)
-        flops = 4.0 * hd * kv * g * float(lengths.sum())
-        bms, by = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
+        flops = 4.0 * hd * kv * g * float(lengths.sum())      # f32 p times f32 v
+        bms, by = bound_ms(nbytes, (flops, PEAK_F32_FLOPS))
         row = dict(chunk=c, kv=kv, g=g, hd=hd, page=page, slots=B,
                    lengths_max=int(lengths.max()), max_abs_err=err, rel_err=rel,
                    exact_zero_rows=int(masked.sum()), bound_ms=bms, bound_by=by)
@@ -346,6 +367,15 @@ def _chunk_lengths(np, rng, ends, c: int):
     nvalid[-1] = 0
     j = np.arange(c)[None, :]
     return np.where(j < nvalid[:, None], ends[:, None] - nvalid[:, None] + j + 1, 0)
+
+
+def attention_work(hd: int, hd_v: int, row_keys: float, q_peak: float):
+    """The operations of attention over a bf16 cache that rounds p to bf16,
+    over ``row_keys`` (query row, visible key) pairs: q.k at ``q_peak`` (the
+    f32 rate where q stays unrounded f32, the bf16 rate where it holds bf16
+    values), and bf16(p) * bf16 v summed in f32, a bf16 tensor-core product,
+    at the bf16 rate."""
+    return (2.0 * hd * row_keys, q_peak), (2.0 * hd_v * row_keys, PEAK_BF16_FLOPS)
 
 
 # --------------------------------------------------------------------- K3
@@ -395,8 +425,8 @@ def phase_k3(torch, dev, timed: bool, full: bool):
         tok = int(np.sum(np.max(lengths, axis=1)))        # keys each slot's walk needs
         nbytes = (qf.numel() * 4 + tok * kv * 2 * hd * 2 + bt.numel() * 4
                   + lens.numel() * 4 + qf.numel() * 4)
-        flops = 4.0 * hd * kv * g * float(lengths.sum())
-        bms, by = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
+        bms, by = bound_ms(nbytes, *attention_work(hd, hd, kv * g * float(lengths.sum()),
+                                                    PEAK_BF16_FLOPS))   # q rounded to bf16
         row = dict(chunk=c, kv=kv, g=g, hd=hd, page=page, slots=B,
                    lengths_max=int(lengths.max()), max_abs_err=err, tolerance=tol,
                    exact_zero_rows=int(masked.sum()), bound_ms=bms, bound_by=by)
@@ -418,16 +448,140 @@ def phase_k3(torch, dev, timed: bool, full: bool):
     return decode_row, max_err
 
 
+# ------------------------------------------------------------ K4 and K5
+def _library_attention(torch, q, k, v, lengths, scale):
+    """One torch SDPA call of the same attention: q [B, c, H, hd] bf16
+    (unscaled), k / v [B, S, kv, *] (views of the cache), a boolean mask of
+    each query's valid keys. p is not rounded to bf16 at the block max, so
+    it computes the function up to that rounding."""
+    import torch.nn.functional as F
+
+    S = k.shape[1]
+    mask = (torch.arange(S, device=q.device)[None, None, None, :]
+            < lengths[:, None, :, None])                               # [B, 1, c, S]
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                          v.transpose(1, 2), attn_mask=mask, scale=scale,
+                                          enable_gqa=True)
+
+
+def _contiguous_phase(torch, dev, tag: str, timed: bool, full: bool, mla: bool):
+    """K4 (``mla`` False: separate K and V at Qwen2-7B shapes) or K5 (one
+    MiniCPM3-4B stream, values its first hd_v columns) against its plain
+    version: 8 slots, lengths up to 1024 (one slot idle, one full), chunk 1
+    and 16, the reference's key block."""
+    import numpy as np
+
+    from repro_torch.kernels import attention_template as T
+    from repro_torch.kernels.tuning import reference_block_kv
+
+    if mla:
+        kv, g, hd, hd_v, scale = (1, 40, 288, 256, 1 / math.sqrt(96)) if full else \
+            (1, 4, 48, 32, 1 / math.sqrt(32))
+    else:
+        kv, g, hd, hd_v, scale = (4, 7, 128, 128, None) if full else (2, 2, 32, 32, None)
+    B, S, chunks = (8, 1024, (1, 16)) if full else (4, 64, (1, 4))
+    rng = np.random.default_rng(7 if mla else 8)
+    gen = torch.Generator(device=dev).manual_seed(7 if mla else 8)
+
+    def make_caches():
+        n = 1 if mla else 2
+        return [torch.randn((B, S, kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(n)]
+
+    caches = make_caches()
+    v_of = (lambda cs: cs[0][..., :hd_v]) if mla else (lambda cs: cs[1])
+    v_abs = v_of(caches).abs().contiguous()
+    ends = rng.integers(S // 2, S + 1, B)
+    ends[1], ends[-1] = S, 0
+    rows, max_err, decode_row = [], 0.0, None
+    for c in chunks:
+        lengths = _chunk_lengths(np, rng, ends, c)
+        lengths_t = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+        q = torch.randn((B, c, kv * g, hd), generator=gen, device=dev).to(torch.bfloat16)
+        qf, lens, _, _ = T._fold_q(q, lengths_t, kv, scale, round_scaled=False)
+        bk = reference_block_kv(rows=c * g, hd=hd, hd_v=hd_v, s_max=S)
+        kw = dict(c=c, g=g, block_kv=bk)
+        if mla:
+            kw["hd_v"] = hd_v
+
+            def kernel(cs):
+                return T.contiguous_attention_mla(qf, cs[0], lens, **kw)
+
+            def plain(cs):
+                return T.contiguous_attention_mla_plain(qf, cs[0], lens, **kw)
+        else:
+            def kernel(cs):
+                return T.contiguous_attention(qf, cs[0], cs[1], lens, **kw)
+
+            def plain(cs):
+                return T.contiguous_attention_plain(qf, cs[0], cs[1], lens, **kw)
+        o_k, o_p = kernel(caches), plain(caches)
+        # A = sum_i bf16(p_i) |v_i| / l: K4's plain walk over |v| with the same p
+        tol = (CONTIG_P_REL + K3_TOL) * T.contiguous_attention_plain(
+            qf, caches[0], v_abs, lens, c=c, g=g, block_kv=bk)
+        diff = (o_k - o_p).abs()
+        err = float(diff.max())
+        over = float((diff / tol.clamp(min=1e-30)).max())      # <= 1: within tolerance
+        max_err = max(max_err, err)
+        masked = torch.as_tensor(np.repeat(lengths == 0, g, axis=1), device=dev)  # [B, c*g]
+        zero_ok = bool((o_k.permute(0, 2, 1, 3)[masked] == 0).all())
+        if not (bool((diff <= tol).all()) and zero_ok and torch.isfinite(o_k).all()):
+            fail(f"{tag} chunk={c}: max abs err {err:.3e}, {over:.3g}x its element's "
+                 f"tolerance, or masked rows not exact zeros ({zero_ok})")
+        tok = int(np.sum(np.max(lengths, axis=1)))        # keys each slot's walk needs
+        key_bytes = tok * kv * 2 * (hd if mla else hd + hd_v)     # K5: V is inside K
+        nbytes = qf.numel() * 4 + key_bytes + lens.numel() * 4 + o_k.numel() * 4
+        bms, by = bound_ms(nbytes, *attention_work(hd, hd_v, kv * g * float(lengths.sum()),
+                                                    PEAK_F32_FLOPS))    # q unrounded f32
+        row = dict(chunk=c, kv=kv, g=g, hd=hd, hd_v=hd_v, slots=B, S=S, block_kv=bk,
+                   lengths_max=int(lengths.max()), max_abs_err=err,
+                   tolerance_median=float(tol[tol > 0].median()),
+                   tolerance_min=float(tol[tol > 0].min()), err_over_tolerance=over,
+                   exact_zero_rows=int(masked.sum()), bound_ms=bms, bound_by=by)
+        if timed:
+            n = max(1, min(64, math.ceil(L2_FLUSH_BYTES / max(1, key_bytes))))
+            sets = [caches] + [make_caches() for _ in range(n - 1)]
+            outs = []
+            row["ms"] = time_graph(torch, [(lambda cs=cs: outs.append(kernel(cs)))
+                                           for cs in sets])
+            outs.clear()
+            row["plain_ms"] = time_loop(torch, lambda: plain(caches))
+            try:
+                row["library_ms"] = time_graph(torch, [
+                    (lambda cs=cs: outs.append(_library_attention(
+                        torch, q, cs[0], v_of(cs), lengths_t, scale))) for cs in sets])
+            except RuntimeError as e:     # no SDPA backend takes these shapes
+                row["library_ms"], row["library_error"] = None, str(e).splitlines()[0]
+            outs.clear()
+            del sets
+        rows.append(row)
+        if c == 1:
+            decode_row = row
+        log(f"{tag} " + json.dumps(row))
+    return decode_row, max_err
+
+
+def phase_k4(torch, dev, timed: bool, full: bool):
+    return _contiguous_phase(torch, dev, "K4", timed, full, mla=False)
+
+
+def phase_k5(torch, dev, timed: bool, full: bool):
+    return _contiguous_phase(torch, dev, "K5", timed, full, mla=True)
+
+
 # ------------------------------------------------------------- main path
 def all_counts():
     from repro_torch.kernels import ams_matmul, attention_template
     return (ams_matmul.COUNT, ams_matmul.COUNT_PLANES, attention_template.COUNT,
-            attention_template.COUNT_BF16)
+            attention_template.COUNT_BF16, attention_template.COUNT_CONTIG,
+            attention_template.COUNT_MLA)
 
 
 def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
     """Serve one main path through the engine (see the module docstring);
-    the FP5.33 path keeps slice 1's workload, the others a shorter one."""
+    the FP5.33 path keeps slice 1's workload, the others a shorter one. A
+    shared prompt prefix is given to the paged paths only (the contiguous
+    cache has no prefix cache, as in the reference)."""
     import numpy as np
 
     from repro_torch.cache import CacheConfig
@@ -435,15 +589,16 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
     from repro_torch.launch.engine import ServeEngine
 
     spec = PATHS[path]
+    paged = spec["kind"] != "contiguous"
     if full:
-        ec = EngineConfig(arch="qwen2-7b", reduced=False, scheme=spec["scheme"],
+        ec = EngineConfig(arch=spec["arch"], reduced=False, scheme=spec["scheme"],
                           impl="kernel", slots=8, capacity=512, prefill_chunk=16,
                           cache=CacheConfig(kind=spec["kind"], page_size=16, impl="kernel"),
                           device=str(dev), seed=0)
         n_req, plen, max_tokens, shared = ((10, (200, 320), 40, 128) if path == "fp5.33"
                                            else (9, (96, 192), 24, 64))
     else:
-        ec = EngineConfig(arch="qwen2-7b", reduced=True, scheme=spec["scheme"],
+        ec = EngineConfig(arch=spec["arch"], reduced=True, scheme=spec["scheme"],
                           impl="kernel", slots=4, capacity=64, prefill_chunk=4,
                           cache=CacheConfig(kind=spec["kind"], page_size=8, impl="kernel"),
                           device=str(dev), seed=0)
@@ -459,7 +614,8 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
     V = eng.cfg.vocab_size
     prompts = [rng.integers(0, V, int(n)).astype(np.int32)
                for n in rng.integers(plen[0], plen[1], n_req)]
-    prompts[-1][:shared] = prompts[0][:shared]   # page-aligned shared prefix, admitted late
+    if paged:
+        prompts[-1][:shared] = prompts[0][:shared]   # page-aligned shared prefix, admitted late
 
     counts = all_counts()
     for cnt in counts:
@@ -482,15 +638,16 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
     launches = {cnt.name: cnt.launches for cnt in counts}
     plain_cuda = {cnt.name: cnt.plain_on_cuda for cnt in counts}
     st = eng.stats()
-    res = dict(path=path, scheme=spec["scheme"], cache=spec["kind"], requests=len(handles),
+    res = dict(path=path, arch=spec["arch"], scheme=spec["scheme"], cache=spec["kind"],
+               requests=len(handles),
                ticks=st["ticks"], tokens=st["tokens_generated"],
                wall_s=wall, decode_tokens_per_s=(dec_tok / dec_s if dec_s else 0.0),
                decode_ticks=dec_ticks,
                decode_active_slots_mean=(dec_tok / dec_ticks if dec_ticks else 0.0),
                decode_tick_ms=(1e3 * dec_s / dec_ticks if dec_ticks else 0.0),
                decode_ms_median=st["decode_ms_median"], launches=launches,
-               plain_calls_on_cuda=plain_cuda, prefix_hit_pages=st["prefix_hit_pages"],
-               cached_token_frac=st["cached_token_frac"],
+               plain_calls_on_cuda=plain_cuda, prefix_hit_pages=st.get("prefix_hit_pages"),
+               cached_token_frac=st.get("cached_token_frac"),
                quantize_seconds=eng.quantize_seconds,
                kv_bytes_per_token=st["kv_bytes_per_token"])
     if dev.type == "cuda":
@@ -508,7 +665,7 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
                  f"of other paths that did {stray}: {launches}")
         if max(plain_cuda.values()) != 0:
             fail(f"serve[{path}]: plain versions ran on CUDA tensors: {plain_cuda}")
-    if st["prefix_hit_pages"] < 1:
+    if paged and st["prefix_hit_pages"] < 1:
         fail(f"serve[{path}]: the shared prefix never hit the prefix cache")
     if dev.type == "cuda":
         res["profile"] = profile_decode(torch, eng, rng, path)
@@ -579,7 +736,7 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33"):
     from repro_torch.launch.engine import ServeEngine, init_serving_params
     from repro_torch.models import decode_step, make_cache
 
-    scheme, kind = PATHS[path]["scheme"], PATHS[path]["kind"]
+    arch, scheme, kind = (PATHS[path][k] for k in ("arch", "scheme", "kind"))
 
     def config(impl, attn):
         base = (dict(reduced=False, depth=2, slots=4, capacity=256, prefill_chunk=16,
@@ -587,7 +744,7 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33"):
                 if full else
                 dict(reduced=True, slots=2, capacity=64, prefill_chunk=4,
                      cache=CacheConfig(kind=kind, page_size=8, impl=attn)))
-        return EngineConfig(arch="qwen2-7b", scheme=scheme, impl=impl,
+        return EngineConfig(arch=arch, scheme=scheme, impl=impl,
                             device=str(dev), seed=7, **base)
 
     def policy(ec):
@@ -606,9 +763,9 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33"):
     logits = {}
     for ec in (ck, cr):
         ccfg = ec.sized_cache()
-        cache = make_cache(cfg, cache_cfg=ccfg, device=dev)
-        bt = torch.arange(n_req * ccfg.max_pages_per_seq, dtype=torch.int32,
-                          device=dev).reshape(n_req, -1)
+        cache = make_cache(cfg, n_req, ec.capacity, cache_cfg=ccfg, device=dev)
+        bt = (torch.arange(n_req * ccfg.max_pages_per_seq, dtype=torch.int32,
+                           device=dev).reshape(n_req, -1) if ccfg.paged else None)
         lg, _ = decode_step(params, torch.as_tensor(prompts[:, :C], device=dev), cache,
                             torch.zeros(n_req, dtype=torch.int32, device=dev), cfg,
                             policy=policy(ec), block_tables=bt, cache_cfg=ccfg,
@@ -653,6 +810,8 @@ def main():
         phase_k1b(torch, dev, timed=False, full=False)
         phase_k2(torch, dev, timed=False, full=False)
         phase_k3(torch, dev, timed=False, full=False)
+        phase_k4(torch, dev, timed=False, full=False)
+        phase_k5(torch, dev, timed=False, full=False)
         for path in PATHS:
             phase_serve(torch, dev, full=False, path=path)
             phase_consistency(torch, dev, full=False, path=path)
@@ -684,26 +843,30 @@ def main():
     k1b, k1b_err = phase_k1b(torch, dev, timed=True, full=True)
     k2, k2_err = phase_k2(torch, dev, timed=True, full=True)
     k3, k3_err = phase_k3(torch, dev, timed=True, full=True)
+    k4, k4_err = phase_k4(torch, dev, timed=True, full=True)
+    k5, k5_err = phase_k5(torch, dev, timed=True, full=True)
     served = {}
     for path in PATHS:
         served[path] = phase_serve(torch, dev, full=True, path=path)
         phase_consistency(torch, dev, full=True, path=path)
     log("compare " + json.dumps({
-        path: dict(scheme=r["scheme"], cache=r["cache"],
+        path: dict(arch=r["arch"], scheme=r["scheme"], cache=r["cache"],
                    decode_tick_ms=r["profile"]["decode_tick_ms"],
                    device_busy_ms_per_tick=r["profile"]["device_busy_ms_per_tick"],
                    device_idle_share=r["profile"]["device_idle_share"],
                    kernels_per_tick=r["profile"]["kernels_per_tick"], card=card)
         for path, r in served.items()}))
 
-    # library_ms is null for every row: no single PyTorch call computes a
-    # dequant-matmul from packed AMS planes, or paged attention through a
-    # block table with the template's masking and rounding
+    # library_ms: K4 / K5 against one torch SDPA call with the equivalent
+    # boolean mask; null for K1-K3, because no single PyTorch call computes
+    # a dequant-matmul from packed AMS planes, or paged attention through a
+    # block table
     def row(name, src, replaces, path, res, err):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
                     replaces=replaces, launches=served[path]["launches"][name],
                     max_abs_err=err, ms=res["ms"], plain_ms=res["plain_ms"],
-                    bound_ms=res["bound_ms"], bound_by=res["bound_by"], library_ms=None)
+                    bound_ms=res["bound_ms"], bound_by=res["bound_by"],
+                    library_ms=res.get("library_ms"))
 
     kernels = [
         row("ams_matmul_fp533", "ams_matmul.cu", "src/repro/kernels/ams_matmul.py:138",
@@ -714,6 +877,10 @@ def main():
             "src/repro/kernels/attention_template.py:399", "fp5.33", k2, k2_err),
         row("paged_attention_bf16", "paged_attention.cu",
             "src/repro/kernels/attention_template.py:292", "fp16", k3, k3_err),
+        row("contiguous_attention", "contiguous_attention.cu",
+            "src/repro/kernels/attention_template.py:472", "contig-fp5.33", k4, k4_err),
+        row("contiguous_attention_mla", "contiguous_attention.cu",
+            "src/repro/kernels/attention_template.py:299", "mla-fp5.33", k5, k5_err),
     ]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

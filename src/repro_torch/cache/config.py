@@ -36,8 +36,8 @@ class CacheConfig:
     kv_scheme: str = "fp4.25-e2m2"   # AMS scheme for paged_ams pages
     kv_strategy: str = "set_lsb"     # mantissa-sharing strategy at insert
     impl: str = "ref"                # ref | kernel (the hand-written CUDA
-    #                                  paged-attention kernel; its plain
-    #                                  torch version on CPU tensors)
+    #                                  attention kernels K2-K5; their plain
+    #                                  torch versions on CPU tensors)
     prefix_cache: bool = True        # share completed prompt pages across
     #                                  requests (paged modes; see
     #                                  docs/paged_cache.md §Prefix caching)
@@ -57,7 +57,7 @@ class CacheConfig:
         if self.page_size < 1:
             raise ValueError("page_size must be >= 1")
         if self.impl not in ("ref", "kernel"):
-            raise ValueError(f"unknown paged-attention impl {self.impl!r}")
+            raise ValueError(f"unknown attention impl {self.impl!r}")
         if self.host_spill_pages < 0:
             raise ValueError("host_spill_pages must be >= 0")
 

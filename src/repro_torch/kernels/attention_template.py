@@ -1,22 +1,28 @@
-"""Decode attention: plain flash-decode bodies and the paged kernels K2 and
-K3 (port of src/repro/kernels/attention_template.py).
+"""Decode attention: plain flash-decode bodies, the paged kernels K2 and K3
+and the contiguous-cache kernels K4 and K5 (port of
+src/repro/kernels/attention_template.py).
 
   * `flash_decode` / `flash_decode_chunk` — the plain torch reference bodies
-    over a [B, S, kv, hd] cache (group-major heads), the oracle the paged
-    ``ref`` path attends with.
+    over a [B, S, kv, hd] cache (group-major heads): the ``ref`` lowering of
+    contiguous caches and the oracle the paged ``ref`` path attends with.
   * `fused_paged_attention` — paged flash-decode over a page pool: folds q
     chunk-major per kv head (`_fold_q`), runs K2 (`paged_attention_ams`,
     packed AMS-e2m2 pages) or K3 (`paged_attention_bf16`, bf16 pages) and
-    unfolds the result (`_unfold_o`). The wrappers launch the CUDA kernels
-    in ``csrc/paged_attention.cu`` on CUDA tensors (bound and design noted
-    there) and run their plain torch versions on CPU tensors. As in the TPU
-    template, both share one online-softmax walk (`_paged_online_softmax`)
-    and differ only in how a page of K and V is loaded, and in the type p
-    is rounded to before the PV product (f32 lattice values for AMS, the
-    pool's bf16 for bf16 pages).
+    unfolds the result (`_unfold_o`).
+  * `fused_contiguous_attention` — the same template over a contiguous
+    [B, S, kv, hd] cache: K4 (`contiguous_attention`, separate K and V, the
+    GQA cache) or K5 (`contiguous_attention_mla`, one absorbed-MLA stream
+    whose values are the first ``hd_v`` columns of the keys), walking the
+    keys in the reference's ``block_kv`` blocks (`tuning.reference_block_kv`).
+  * `attend_contiguous` — the dispatch the model cores call (``ref`` or
+    ``kernel``).
 
-The contiguous-cache template (K4) and the absorbed-MLA stream (K5) are not
-ported yet (ROADMAP queue 2).
+The wrappers launch the CUDA kernels in ``csrc/`` on CUDA tensors (bound and
+design noted there) and run their plain torch versions on CPU tensors. As in
+the TPU template, all four kernels share one online-softmax walk
+(`_online_softmax`) and differ only in how a block of K and V is loaded,
+and in the type p is rounded to before the PV product (f32 lattice values
+for AMS pages, the cache's bf16 otherwise).
 """
 
 from __future__ import annotations
@@ -32,11 +38,14 @@ from repro_torch.core.formats import code_to_value, get_scheme
 from repro_torch.core.kv_quant import codes_from_planes
 
 from .build import KernelCount, check_device, library, stream_ptr
+from .tuning import reference_block_kv
 
 NEG_BIG = -2e30   # additive mask; exp(NEG_BIG - NEG_CLAMP) == 0 exactly
 NEG_CLAMP = -1e30
 COUNT = KernelCount("paged_attention_ams")
 COUNT_BF16 = KernelCount("paged_attention_bf16")
+COUNT_CONTIG = KernelCount("contiguous_attention")
+COUNT_MLA = KernelCount("contiguous_attention_mla")
 
 
 def _check_grouped(H: int, kv_n: int, kv_map) -> int:
@@ -63,10 +72,14 @@ def _attend(qf, k, v, valid, g):
     return o.reshape(B, c, kv_n * g, v.shape[-1])
 
 
+def _scale_factor(q: torch.Tensor, scale: Optional[float]) -> torch.Tensor:
+    """The softmax scale (default 1/sqrt(hd)) as a scalar in q.dtype."""
+    scale = scale if scale is not None else 1.0 / np.sqrt(q.shape[-1])
+    return torch.tensor(np.float32(scale), dtype=q.dtype, device=q.device)
+
+
 def _scaled(q: torch.Tensor, scale: Optional[float]) -> torch.Tensor:
-    hd = q.shape[-1]
-    scale = scale if scale is not None else 1.0 / np.sqrt(hd)
-    return q * torch.tensor(np.float32(scale), dtype=q.dtype, device=q.device)
+    return q * _scale_factor(q, scale)
 
 
 def flash_decode(q, k_cache, v_cache, pos, *, kv_map, scale=None):
@@ -104,27 +117,26 @@ def restore_page(hi, lsb, scale, fmt, k: int, hd: int) -> torch.Tensor:
     return vals[..., :hd]
 
 
-def _paged_online_softmax(qf, load, lens, block_table, *, page_size: int, c: int, g: int,
-                          pv_dtype) -> torch.Tensor:
+def _online_softmax(qf, load, lens, *, block: int, nblocks: int, hd_v: int, c: int, g: int,
+                    pv_dtype) -> torch.Tensor:
     """The kernels' shared walk in plain torch (TPU `online_softmax_step`).
-    qf [B, kv, R=c*g, hd] f32 (pre-scaled, chunk-major rows), ``load(pg)``
-    -> (k, v) [B, page, kv, hd] f32 for the page ids ``pg`` [B], lens [B*c]
-    int32, block_table [B, MP] -> [B, kv, R, hd] f32. Online softmax page by
-    page with the kernels' constants; p is rounded to ``pv_dtype`` before
-    the PV product (l sums it unrounded). Pages past every row's length
-    contribute exact zeros, so the walk stops there."""
+    qf [B, kv, R=c*g, hd] f32 (pre-scaled, chunk-major rows), ``load(i)`` ->
+    (k [B, block, kv, hd], v [B, block, kv, hd_v]) f32 for key block i (a
+    page, or ``block`` rows of a contiguous cache), lens [B*c] int32 ->
+    [B, kv, R, hd_v] f32. Online softmax block by block with the kernels'
+    constants; p is rounded to ``pv_dtype`` before the PV product (l sums it
+    unrounded). Blocks past every row's length contribute exact zeros, so
+    the walk stops there."""
     B, kv_n, R, hd = qf.shape
-    MP = block_table.shape[1]
     row_len = lens.reshape(B, c).repeat_interleave(g, dim=1)[:, None, :, None]  # [B,1,R,1]
     m = torch.full((B, kv_n, R, 1), NEG_CLAMP, dtype=torch.float32, device=qf.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros((B, kv_n, R, hd), dtype=torch.float32, device=qf.device)
+    acc = torch.zeros((B, kv_n, R, hd_v), dtype=torch.float32, device=qf.device)
     max_len = int(lens.max()) if lens.numel() else 0
-    npages = min(MP, -(-max(max_len, 0) // page_size))
-    for i in range(npages):
-        kb, vb = load(block_table[:, i].long())             # [B, page, kv, hd]
+    for i in range(min(nblocks, -(-max(max_len, 0) // block))):
+        kb, vb = load(i)
         s = torch.einsum("bhrd,bthd->bhrt", qf, kb)
-        k_pos = i * page_size + torch.arange(page_size, device=qf.device)
+        k_pos = i * block + torch.arange(block, device=qf.device)
         s = s + torch.where(k_pos < row_len, 0.0, NEG_BIG)
         m_new = torch.clamp(torch.maximum(m, s.amax(dim=-1, keepdim=True)), min=NEG_CLAMP)
         p = torch.exp(s - m_new)
@@ -134,6 +146,15 @@ def _paged_online_softmax(qf, load, lens, block_table, *, page_size: int, c: int
                                         vb)
         m = m_new
     return acc / torch.clamp(l, min=1e-20)
+
+
+def _paged_online_softmax(qf, load, lens, block_table, *, page_size: int, c: int, g: int,
+                          pv_dtype) -> torch.Tensor:
+    """`_online_softmax` page by page: ``load(pg)`` -> (k, v) [B, page, kv,
+    hd] f32 for the page ids ``pg`` [B] of block_table [B, MP]."""
+    return _online_softmax(qf, lambda i: load(block_table[:, i].long()), lens,
+                           block=page_size, nblocks=block_table.shape[1], hd_v=qf.shape[-1],
+                           c=c, g=g, pv_dtype=pv_dtype)
 
 
 def paged_attention_ams_plain(qf, pool: Dict, lens, block_table, *, page_size: int,
@@ -282,10 +303,14 @@ def paged_attention_bf16(qf, pool: Dict, lens, block_table, *, page_size: int,
     return out
 
 
-def _fold_q(q, lengths, kv_n: int, scale):
-    """Scale q in q.dtype (the rounding flash_decode applies), fold the GQA
-    groups chunk-major into rows ([B, kv, c*g, hd] f32) and flatten lengths
-    to [B*c] int32."""
+def _fold_q(q, lengths, kv_n: int, scale, *, round_scaled: bool = True):
+    """Scale q, fold the GQA groups chunk-major into rows ([B, kv, c*g, hd]
+    f32) and flatten lengths to [B*c] int32. With ``round_scaled`` the
+    scaled q is rounded to q.dtype (the rounding flash_decode applies, and
+    the paged path of the compiled reference keeps); without it q is scaled
+    in f32 by the scale rounded to q.dtype, as the compiled reference's
+    contiguous path does (XLA drops the bf16 rounding between the multiply
+    and the kernel's f32 input)."""
     chunked = q.dim() == 4
     if not chunked:
         q = q[:, None]
@@ -295,15 +320,17 @@ def _fold_q(q, lengths, kv_n: int, scale):
     if H % kv_n != 0:
         raise ValueError(f"H={H} not grouped over kv={kv_n}")
     g = H // kv_n
-    qf = _scaled(q, scale).to(torch.float32)
+    factor = _scale_factor(q, scale)
+    qf = (q * factor).to(torch.float32) if round_scaled else q.float() * factor.float()
     qf = qf.reshape(B, c, kv_n, g, hd).permute(0, 2, 1, 3, 4).reshape(B, kv_n, c * g, hd)
     lens = torch.as_tensor(lengths, dtype=torch.int32, device=q.device).reshape(-1)
     return qf.contiguous(), lens.contiguous(), chunked, (B, c, H, hd, g)
 
 
 def _unfold_o(o, dims, chunked: bool, dtype):
-    B, c, H, hd, g = dims
-    o = o.reshape(B, H // g, c, g, hd).permute(0, 2, 1, 3, 4).reshape(B, c, H, hd)
+    B, c, H, _, g = dims
+    hd_v = o.shape[-1]
+    o = o.reshape(B, H // g, c, g, hd_v).permute(0, 2, 1, 3, 4).reshape(B, c, H, hd_v)
     o = o.to(dtype)
     return o if chunked else o[:, 0]
 
@@ -324,3 +351,160 @@ def fused_paged_attention(q, pool: Dict, lengths, block_table, *, page_size: int
         o = paged_attention_ams(qf, pool, lens, bt, page_size=page_size,
                                 scheme=get_scheme(kv_scheme), c=dims[1], g=dims[4])
     return _unfold_o(o, dims, chunked, q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K4 and K5: contiguous caches
+# ---------------------------------------------------------------------------
+def _contiguous_walk(qf, k_cache, v_cache, lens, *, c: int, g: int, block_kv: int,
+                     hd_v: int) -> torch.Tensor:
+    """`_online_softmax` over the ``block_kv`` blocks of a contiguous cache
+    [B, S, kv, hd]; ``v_cache`` None: the values are the keys' first
+    ``hd_v`` columns (the absorbed-MLA stream). p is rounded to the cache's
+    type before the PV product (TPU ``pv_dtype`` = cache dtype)."""
+    S = k_cache.shape[1]
+
+    def load(i):
+        kb = k_cache[:, i * block_kv:(i + 1) * block_kv].to(torch.float32)
+        if v_cache is None:
+            return kb, kb[..., :hd_v]
+        return kb, v_cache[:, i * block_kv:(i + 1) * block_kv].to(torch.float32)
+
+    pv_dtype = (k_cache if v_cache is None else v_cache).dtype
+    return _online_softmax(qf, load, lens, block=block_kv, nblocks=S // block_kv, hd_v=hd_v,
+                           c=c, g=g, pv_dtype=pv_dtype)
+
+
+def contiguous_attention_plain(qf, k_cache, v_cache, lens, *, c: int, g: int,
+                               block_kv: int) -> torch.Tensor:
+    """Plain torch version of K4. qf [B, kv, R=c*g, hd] f32 (pre-scaled,
+    chunk-major rows), k/v caches [B, S, kv, hd], lens [B*c] int32 valid
+    keys per query -> [B, kv, R, hd] f32. The keys are walked in blocks of
+    ``block_kv`` (a divisor of S); p is rounded to the cache's type at each
+    block's running max, as the TPU kernel does."""
+    if qf.is_cuda:
+        COUNT_CONTIG.plain_on_cuda += 1
+    return _contiguous_walk(qf, k_cache, v_cache, lens, c=c, g=g, block_kv=block_kv,
+                            hd_v=v_cache.shape[-1])
+
+
+def contiguous_attention_mla_plain(qf, cache, lens, *, c: int, g: int, block_kv: int,
+                                   hd_v: int) -> torch.Tensor:
+    """Plain torch version of K5: K4's walk over one absorbed-MLA stream
+    ``cache`` [B, S, kv, hd] whose values are its first ``hd_v`` columns ->
+    [B, kv, R, hd_v] f32."""
+    if qf.is_cuda:
+        COUNT_MLA.plain_on_cuda += 1
+    return _contiguous_walk(qf, cache, None, lens, c=c, g=g, block_kv=block_kv, hd_v=hd_v)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_contig(name: str, n_ptr: int, n_int: int):
+    fn = getattr(library("contiguous_attention"), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_contig(qf, caches, lens, c, g, block_kv, hd_v):
+    B, kv_n, R, hd = qf.shape
+    if qf.dtype != torch.float32:
+        raise TypeError(f"q must be float32, got {qf.dtype}")
+    if R != c * g or lens.shape != (B * c,) or lens.dtype != torch.int32:
+        raise ValueError(f"rows {R} != c*g = {c}*{g}, or lengths {tuple(lens.shape)} "
+                         f"{lens.dtype} is not [B*c] int32")
+    S = caches[0].shape[1]
+    for t, width in zip(caches, (hd, hd_v)):
+        if t.dim() != 4 or t.shape[0] != B or t.shape[1] != S or t.shape[2] != kv_n \
+                or t.shape[3] != width:
+            raise ValueError(f"cache must be [B={B}, S, kv={kv_n}, {width}], got "
+                             f"{tuple(t.shape)}")
+    if not 1 <= hd_v <= hd or block_kv < 1 or S % block_kv:
+        raise ValueError(f"need 1 <= hd_v={hd_v} <= hd={hd} and block_kv={block_kv} dividing "
+                         f"S={S}")
+
+
+def _launch_contig(name, count, qf, caches, lens, hd_v, c, g, block_kv):
+    """Launch K4 / K5 on CUDA tensors: bf16 caches, contiguous operands."""
+    check_device(qf)
+    B, kv_n, R, hd = qf.shape
+    if any(t.dtype != torch.bfloat16 for t in caches):
+        raise ValueError(f"{name} reads bf16 caches, got {[t.dtype for t in caches]}")
+    ops = [qf, *caches, lens]
+    if not all(t.is_contiguous() and t.device == qf.device for t in ops):
+        raise ValueError(f"{name} operands must be contiguous and on one device")
+    out = torch.empty((B, kv_n, R, hd_v), dtype=torch.float32, device=qf.device)
+    ints = [B, caches[0].shape[1], kv_n, R, hd, hd_v, block_kv, c, g]
+    rc = _kernel_contig(name, len(ops) + 1, len(ints))(
+        *(t.data_ptr() for t in ops), out.data_ptr(), *ints, stream_ptr(qf.device))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    count.launches += 1
+    return out
+
+
+def contiguous_attention(qf, k_cache, v_cache, lens, *, c: int, g: int,
+                         block_kv: int) -> torch.Tensor:
+    """K4 wrapper (same contract as `contiguous_attention_plain`). CPU
+    tensors take the plain version; CUDA tensors launch the kernel or raise."""
+    _check_contig(qf, (k_cache, v_cache), lens, c, g, block_kv, v_cache.shape[-1])
+    if qf.device.type == "cpu":
+        return contiguous_attention_plain(qf, k_cache, v_cache, lens, c=c, g=g,
+                                          block_kv=block_kv)
+    return _launch_contig("contiguous_attention", COUNT_CONTIG, qf, (k_cache, v_cache), lens,
+                          v_cache.shape[-1], c, g, block_kv)
+
+
+def contiguous_attention_mla(qf, cache, lens, *, c: int, g: int, block_kv: int,
+                             hd_v: int) -> torch.Tensor:
+    """K5 wrapper (same contract as `contiguous_attention_mla_plain`). CPU
+    tensors take the plain version; CUDA tensors launch the kernel or raise."""
+    _check_contig(qf, (cache,), lens, c, g, block_kv, hd_v)
+    if qf.device.type == "cpu":
+        return contiguous_attention_mla_plain(qf, cache, lens, c=c, g=g, block_kv=block_kv,
+                                              hd_v=hd_v)
+    return _launch_contig("contiguous_attention_mla", COUNT_MLA, qf, (cache,), lens, hd_v, c,
+                          g, block_kv)
+
+
+def fused_contiguous_attention(q, k_cache, lengths, *, v_cache=None,
+                               value_slice: Optional[int] = None,
+                               block_kv: Optional[int] = None, scale: Optional[float] = None):
+    """Contiguous-cache flash-decode through K4 (``v_cache`` given) or K5
+    (``value_slice``: values are the first ``value_slice`` columns of the
+    keys, the absorbed-MLA stream): q [B, H, hd] or [B, c, H, hd] unscaled,
+    k_cache [B, S, kv, hd], lengths [B] or [B, c] valid keys. ``block_kv``
+    defaults to the reference's plan (`tuning.reference_block_kv`) and must
+    divide S. Returns q's shape (last dim hd_v) in q.dtype."""
+    if (v_cache is None) == (value_slice is None):
+        raise ValueError("need exactly one of v_cache and value_slice")
+    S, kv_n = k_cache.shape[1], k_cache.shape[2]
+    qf, lens, chunked, dims = _fold_q(q, lengths, kv_n, scale, round_scaled=False)
+    B, c, H, hd, g = dims
+    hd_v = v_cache.shape[-1] if v_cache is not None else value_slice
+    if block_kv is None:
+        block_kv = reference_block_kv(rows=c * g, hd=hd, hd_v=hd_v, s_max=S)
+    if v_cache is not None:
+        o = contiguous_attention(qf, k_cache, v_cache, lens, c=c, g=g, block_kv=block_kv)
+    else:
+        o = contiguous_attention_mla(qf, k_cache, lens, c=c, g=g, block_kv=block_kv,
+                                     hd_v=hd_v)
+    return _unfold_o(o, dims, chunked, q.dtype)
+
+
+def attend_contiguous(q, k_cache, v_cache, lengths, *, kv_map, scale=None, impl: str = "ref",
+                      value_slice: Optional[int] = None):
+    """Decode attention over a contiguous cache, routed by ``impl``: ``ref``
+    is `flash_decode` / `flash_decode_chunk` (``v_cache`` are the values;
+    for MLA the [..., :r_kv] view of the stream), ``kernel`` is
+    `fused_contiguous_attention` (K4, or K5 with ``value_slice``). q [B, H,
+    hd] with lengths [B], or [B, c, H, hd] with per-query lengths [B, c]."""
+    if impl == "ref":
+        fn = flash_decode if q.dim() == 3 else flash_decode_chunk
+        return fn(q, k_cache, v_cache, lengths, kv_map=kv_map, scale=scale)
+    if impl != "kernel":
+        raise ValueError(f"unknown contiguous attention impl {impl!r}")
+    _check_grouped(q.shape[-2], k_cache.shape[2], kv_map)
+    return fused_contiguous_attention(
+        q, k_cache, lengths, v_cache=None if value_slice is not None else v_cache,
+        value_slice=value_slice, scale=scale)

@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = {"ams_matmul": "ams_matmul.cu", "paged_attention": "paged_attention.cu"}
+SOURCES = {"ams_matmul": "ams_matmul.cu", "paged_attention": "paged_attention.cu",
+           "contiguous_attention": "contiguous_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -3,13 +3,14 @@ src/repro/launch/config.py).
 
 One frozen dataclass carries every constructor-time validation, so a bad
 config fails in one place before any device work. The port adds
-``device`` (default ``"cuda"``) and serves the greedy path over paged
-caches (AMS or bf16 pages) only: features it does not have yet raise
+``device`` (default ``"cuda"``) and serves the greedy path over contiguous
+caches (the default, ``cache=None``; dense GQA and MLA) and paged caches
+(AMS or bf16 pages; dense GQA): features it does not have yet raise
 NotImplementedError here, naming their ROADMAP item.
 
     cfg = EngineConfig(arch="qwen2-7b", reduced=False, impl="kernel",
                        slots=8, capacity=1024, prefill_chunk=16,
-                       cache=CacheConfig(kind="paged_ams", impl="kernel"))
+                       cache=CacheConfig(kind="contiguous", impl="kernel"))
     eng = ServeEngine(cfg)
 """
 
@@ -36,9 +37,11 @@ class EngineConfig:
                   bf16 and multiply with torch.matmul)
     slots / capacity / max_queue / prefill_chunk / token_budget
                   as in the reference's EngineConfig
-    cache         `CacheConfig(kind="paged_ams" | "paged_bf16", ...)` (its
-                  ``impl`` selects the attention lowering: ref | kernel
-                  (K2 for AMS pages, K3 for bf16 pages))
+    cache         `CacheConfig(kind="contiguous" | "paged_ams" | "paged_bf16",
+                  ...)`; None = the contiguous default. Its ``impl``
+                  selects the attention lowering: ref | kernel (K4 for a
+                  contiguous GQA cache, K5 for the MLA stream, K2 for AMS
+                  pages, K3 for bf16 pages)
     obs           `ObsConfig` telemetry switchboard
     device        "cuda" (default) or "cpu"; "cuda" without a card raises
     mesh / speculate_k   accepted for the reference's surface; anything but
@@ -99,11 +102,7 @@ class EngineConfig:
         if self.mesh is not None:
             raise NotImplementedError("tensor-parallel meshes are not ported yet "
                                       "(ROADMAP queue 2)")
-        if self.cache is None or not self.cache.paged:
-            raise NotImplementedError(
-                "the contiguous cache is not ported yet (kernel K4, ROADMAP queue 2); "
-                "pass cache=CacheConfig(kind='paged_ams') or CacheConfig(kind='paged_bf16')")
-        if self.cache.host_spill_pages:
+        if self.cache is not None and self.cache.host_spill_pages:
             raise NotImplementedError("the host spill tier is not ported yet "
                                       "(preemption with host spill, ROADMAP queue 2)")
         if self.obs.cost_on:
@@ -132,4 +131,7 @@ class EngineConfig:
         return cfg
 
     def sized_cache(self) -> CacheConfig:
-        return self.cache.sized(capacity=self.capacity, slots=self.slots)
+        """The composed CacheConfig (or the contiguous default), with pool
+        sizes derived from (slots, capacity) for paged kinds."""
+        ccfg = self.cache if self.cache is not None else CacheConfig()
+        return ccfg.sized(capacity=self.capacity, slots=self.slots) if ccfg.paged else ccfg

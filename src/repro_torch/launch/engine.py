@@ -1,28 +1,34 @@
 """Continuous-batching serving engine over the AMS-quantized model (port of
-src/repro/launch/engine.py, greedy path over paged caches).
+src/repro/launch/engine.py, greedy path).
 
 Weights are AMS-quantized and packed ahead of time (``scheme="fp16"`` keeps
 them bf16: the FP16 baseline); one slot-masked engine step
-(`steps.build_engine_step`) then serves every in-flight request per tick.
-The KV cache is a pool of pages, in the packed AMS-e2m2 layout
-(``paged_ams``) or in bf16 (``paged_bf16``), addressed through per-request
-block tables; admission is gated on the
-free-page budget (`cache.PageAllocator`), completed prompt pages are
-prefix-cached across requests (a request whose prompt shares a cached
-page-aligned prefix references the same physical pages and starts prefill
-at the cached length), and prefill is chunked into the decode batch as a
-ragged multi-token step under a per-tick token budget. A slot freed by a
-finished request is re-admitted the same tick.
+(`steps.build_engine_step`) then serves every in-flight request per tick,
+with prefill chunked into the decode batch as a ragged multi-token step
+under a per-tick token budget. A slot freed by a finished request is
+re-admitted the same tick. The KV cache is either
+
+  * contiguous (the default, ``cache=None``): a fixed [slots, capacity]
+    bf16 cache per layer (GQA K and V, or MLA's compressed stream);
+    admission is by free slot, and a slot is zeroed when a request is placed
+    in it;
+  * paged (dense GQA): a pool of pages in the packed AMS-e2m2 layout
+    (``paged_ams``) or in bf16 (``paged_bf16``), addressed through
+    per-request block tables; admission is gated on the free-page budget
+    (`cache.PageAllocator`), and completed prompt pages are prefix-cached
+    across requests (a request whose prompt shares a cached page-aligned
+    prefix references the same physical pages and starts prefill at the
+    cached length).
 
 With ``impl="kernel"`` (`QuantPolicy.impl`) every quantized projection runs
 through kernel K1 (fp5.33) or K1b (the other schemes), and with
-``CacheConfig(impl="kernel")`` attention reads the pool through kernel K2
-(AMS pages) or K3 (bf16 pages).
+``CacheConfig(impl="kernel")`` attention runs kernel K4 (contiguous GQA
+cache), K5 (MLA stream), K2 (AMS pages) or K3 (bf16 pages).
 
 Not ported yet, and refused with NotImplementedError: seeded sampling
 (temperature > 0), speculative decoding, priorities and preemption, the
-host spill tier, contiguous caches, meshes, prefix embeds, obs cost
-accounting, and the async front end (`step_begin`/`step_end`).
+host spill tier, meshes, prefix embeds, obs cost accounting, and the async
+front end (`step_begin`/`step_end`).
 """
 
 from __future__ import annotations
@@ -42,12 +48,14 @@ from repro_torch.cache import (
 )
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.models import make_cache, model_dims, quantize_params
+from repro_torch.models import make_cache, model_dims, quantize_params, reset_cache_slot
 from repro_torch.models.common import make_linear, make_norm
 from repro_torch.models.transformer import (
-    check_paged_support,
+    check_serving_support,
+    check_support,
     init_block,
     init_embed,
+    layer_pattern,
     tree_map,
 )
 from repro_torch.obs import NULL_REGISTRY, MetricsRegistry, TraceRecorder
@@ -104,14 +112,15 @@ def init_serving_params(cfg, quant: Optional[QuantPolicy], seed: int, device):
     initialised and quantized one layer at a time so a full-width model never
     exists in f32 (Qwen2-7B would need about 30 GB). Same draws, same result
     as ``prepare_params(init_params(seed, cfg), quant)``."""
-    check_paged_support(cfg)
+    check_serving_support(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     dims = model_dims(cfg)
+    kind = layer_pattern(cfg)[0]
     embed = {"w": init_embed(gen, cfg, dims, device=device)["w"].to(torch.bfloat16)}
     L = cfg.num_layers
     layers = None
     for g in range(L):
-        blk = tree_map(_to_bf16, init_block(gen, cfg, dims, "gqa", device=device))
+        blk = tree_map(_to_bf16, init_block(gen, cfg, dims, kind, device=device))
         if quant is not None:
             blk = quantize_params(blk, quant, prefix="/layers/sub0")
         if layers is None:
@@ -182,7 +191,8 @@ class ServeEngine:
         ec = self.config = config
         self.device = resolve_device(ec.device)
         cfg = ec.model_config()
-        check_paged_support(cfg)
+        ccfg = self.cache_cfg = ec.sized_cache()
+        check_support(cfg, ccfg)            # before the weights are made
         self.cfg = cfg
         self.scheme = ec.scheme
         self.slots = slots = ec.slots
@@ -190,7 +200,6 @@ class ServeEngine:
         self.chunk = ec.prefill_chunk
         self.step_chunk = ec.step_chunk
         self.token_budget = ec.resolved_token_budget
-        ccfg = self.cache_cfg = ec.sized_cache()
         self.obs = ec.obs
         self.metrics = MetricsRegistry() if self.obs.enabled else NULL_REGISTRY
         self.trace = TraceRecorder(enabled=self.obs.trace_on)
@@ -214,12 +223,19 @@ class ServeEngine:
             print(f"[ptq] {ec.scheme} ({ec.strategy}) in {self.quantize_seconds:.1f}s",
                   flush=True)
         self.params = params
-        self.cache = make_cache(cfg, cache_cfg=ccfg, device=self.device)
-        self._step = build_engine_step(cfg, self.rcfg, ccfg, chunk=self.step_chunk)
+        self.cache = make_cache(cfg, slots, ec.capacity, cache_cfg=ccfg, device=self.device)
+        self._step = build_engine_step(cfg, self.rcfg, ccfg)
 
-        self.alloc = PageAllocator(ccfg.num_pages, ccfg.page_size, metrics=self.metrics)
-        self.block_tables = np.zeros((slots, ccfg.max_pages_per_seq), np.int32)
-        eff_cap = min(ccfg.max_pages_per_seq, ccfg.num_pages) * ccfg.page_size
+        if ccfg.paged:
+            self.alloc: Optional[PageAllocator] = PageAllocator(
+                ccfg.num_pages, ccfg.page_size, metrics=self.metrics)
+            self.block_tables = np.zeros((slots, ccfg.max_pages_per_seq), np.int32)
+            # a request can never outgrow its block-table row or the pool
+            eff_cap = min(ccfg.max_pages_per_seq, ccfg.num_pages) * ccfg.page_size
+        else:
+            self.alloc = None
+            self.block_tables = None
+            eff_cap = ec.capacity
         self.sched = FIFOScheduler(eff_cap, max_queue=ec.max_queue, metrics=self.metrics)
         self.active: List[Optional[Request]] = [None] * slots
         self.fed = np.zeros(slots, np.int32)
@@ -283,7 +299,7 @@ class ServeEngine:
         rid = next(self._rid)
         req = Request(rid=rid, prompt=prompt, max_tokens=max_tokens, sampling=sp)
         ccfg = self.cache_cfg
-        if ccfg.prefix_cache:
+        if ccfg.paged and ccfg.prefix_cache:
             req.page_hashes = prefix_page_hashes(req.prompt, ccfg.page_size, ccfg.content_key)
         self.sched.submit(req, self.tick)
         if self.trace.enabled:
@@ -303,9 +319,12 @@ class ServeEngine:
 
     # ------------------------------------------------------------ admission
     def _admit(self) -> int:
-        """Admit queued requests into free slots, gated on the cache-aware
-        free-page budget (only uncached pages charge it) and on the per-tick
-        token budget. Returns the count placed."""
+        """Admit queued requests into free slots, under the per-tick token
+        budget. Paged: gated on the cache-aware free-page budget (only
+        uncached pages charge it), and the slot gets the request's
+        block-table row. Contiguous: the slot's cache rows are zeroed.
+        Returns the count placed."""
+        paged = self.cache_cfg.paged
         ps = self.cache_cfg.page_size
 
         def fits(r):
@@ -322,11 +341,15 @@ class ServeEngine:
 
         free = [s for s, r in enumerate(self.active) if r is None]
         room = self.token_budget - self.active_count
-        placed = self.sched.admit(free, self.tick, fits=fits, max_admit=max(0, room))
+        placed = self.sched.admit(free, self.tick, fits=fits if paged else None,
+                                  max_admit=max(0, room))
         for slot, req in placed:
-            self.block_tables[slot] = self.alloc.block_table_row(req.rid,
-                                                                 self.block_tables.shape[1])
-            self._m_cached.inc(req.cached_len)
+            if paged:
+                self.block_tables[slot] = self.alloc.block_table_row(
+                    req.rid, self.block_tables.shape[1])
+                self._m_cached.inc(req.cached_len)
+            else:
+                reset_cache_slot(self.cache, slot)
             self._m_prompt.inc(req.prompt_len)
             if self.trace.enabled:
                 self.trace.end(req.rid + 1, "queued",
@@ -408,16 +431,13 @@ class ServeEngine:
             self.trace.begin(0, "device_step", args={"tokens_fed": fed,
                                                      "active": self.active_count})
         dev = self.device
-        pos_t = torch.as_tensor(pos, device=dev)
-        bt_t = torch.as_tensor(self.block_tables, device=dev)
-        if self.step_chunk > 1:
-            outs = self._step(self.params, torch.as_tensor(token, device=dev), pos_t,
-                              torch.as_tensor(nvalid, device=dev), self.cache, bt_t,
-                              self.samp)
-        else:
-            outs = self._step(self.params, torch.as_tensor(token[:, 0], device=dev), pos_t,
-                              self.cache, bt_t, self.samp)
-        next_tok, done, self.cache = outs
+        chunked = self.step_chunk > 1
+        next_tok, done, self.cache = self._step(
+            self.params, torch.as_tensor(token if chunked else token[:, 0], device=dev),
+            torch.as_tensor(pos, device=dev), self.cache, self.samp,
+            nvalid=torch.as_tensor(nvalid, device=dev) if chunked else None,
+            block_tables=(None if self.block_tables is None
+                          else torch.as_tensor(self.block_tables, device=dev)))
         next_tok = next_tok.cpu().numpy()                # waits for the device
         done = done.cpu().numpy()
         if tracing:
@@ -459,8 +479,9 @@ class ServeEngine:
                 finished.append(req)
                 self.active[s] = None
                 clear_slot(self.samp, s)
-                self.alloc.free(req.rid)
-                self.block_tables[s] = 0
+                if self.alloc is not None:
+                    self.alloc.free(req.rid)
+                    self.block_tables[s] = 0
                 (self._m_fin_stop if req.finish_reason == "stop" else self._m_fin_len).inc()
                 self._m_ttft.observe(req.ttft_ticks)
                 self._m_lat.observe(req.latency_ticks)
@@ -498,7 +519,10 @@ class ServeEngine:
 
     # ----------------------------------------------------------- accounting
     def kv_bytes_per_token(self) -> int:
-        """Cache bytes one token occupies across all layers."""
+        """Cache bytes one token occupies across all layers, by the
+        reference's formula (bf16 K and V of kv x hd per layer, or the
+        packed AMS planes; an MLA model is counted by its kv heads x head_dim
+        as well, as the reference counts it)."""
         dims = model_dims(self.cfg)
         return self.cfg.num_layers * pool_bytes_per_token(dims.kv, dims.hd, self.cache_cfg)
 
@@ -542,9 +566,11 @@ class ServeEngine:
             "queue_depth": self.sched.queue_depth,
             "kv_bytes_per_token": self.kv_bytes_per_token(),
             "kv_compression_vs_bf16": self.kv_compression_vs_bf16(),
-            "free_pages": self.alloc.free_pages,
         }
-        out.update(self.alloc.stats())
-        prompt_toks = self._m_prompt.value
-        out["cached_token_frac"] = self._m_cached.value / prompt_toks if prompt_toks else 0.0
+        if self.alloc is not None:
+            out["free_pages"] = self.alloc.free_pages
+            out.update(self.alloc.stats())
+            prompt_toks = self._m_prompt.value
+            out["cached_token_frac"] = (self._m_cached.value / prompt_toks
+                                        if prompt_toks else 0.0)
         return out

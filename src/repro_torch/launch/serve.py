@@ -2,7 +2,11 @@
 src/repro/launch/serve.py).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
-        --reduced --impl kernel --tokens 32 --device cuda
+        --reduced --impl kernel --attn-impl kernel --tokens 32 --device cuda
+
+The cache is the contiguous default, as in the reference; ``--cache paged``
+serves paged caches instead (bf16 pages for ``--scheme fp16``, AMS pages for
+the quantized schemes).
 """
 
 from __future__ import annotations
@@ -21,11 +25,13 @@ from .engine import ServeEngine
 def generate(arch: str, *, reduced=True, scheme="fp5.33-e2m3", strategy="set_lsb",
              impl="ref", attn_impl="ref", batch=2, prompt_len=16, gen_tokens=16, seed=0,
              params=None, capacity=None, prompts=None, sampling=None, prefill_chunk=1,
-             page_size=16, device="cuda"):
+             cache="contiguous", page_size=16, device="cuda"):
     """Submit ``batch`` requests at tick 0 (prompts drawn from ``seed`` unless
-    given as ``prompts`` [batch, prompt_len]) and drain the engine over a
-    paged cache: bf16 pages for ``scheme="fp16"``, AMS pages otherwise, as
-    the reference's serving benchmark pairs them.
+    given as ``prompts`` [batch, prompt_len]) and drain the engine. The
+    cache is contiguous by default, as in the reference's ``generate``;
+    ``cache="paged"`` pairs bf16 pages with ``scheme="fp16"`` and AMS pages
+    with the quantized schemes, as the reference's serving benchmark pairs
+    them. ``attn_impl`` selects the attention lowering (ref | kernel).
     Returns (tokens [batch, gen_tokens], stats); streams that stop early are
     padded with -1."""
     cfg = get_config(arch)
@@ -37,13 +43,17 @@ def generate(arch: str, *, reduced=True, scheme="fp5.33-e2m3", strategy="set_lsb
     prompts = np.asarray(prompts, np.int32)
     batch, prompt_len = prompts.shape
     cap = capacity or (prompt_len + gen_tokens)
-    cache_kind = "paged_bf16" if scheme == "fp16" else "paged_ams"
+    if cache == "contiguous":
+        ccfg = CacheConfig(kind="contiguous", impl=attn_impl)
+    elif cache == "paged":
+        ccfg = CacheConfig(kind="paged_bf16" if scheme == "fp16" else "paged_ams",
+                           page_size=page_size, impl=attn_impl)
+    else:
+        raise ValueError(f"cache must be 'contiguous' or 'paged', got {cache!r}")
     eng = ServeEngine(
         EngineConfig(arch=arch, reduced=reduced, scheme=scheme, strategy=strategy,
                      impl=impl, slots=batch, capacity=cap, seed=seed,
-                     prefill_chunk=prefill_chunk, device=device, verbose=True,
-                     cache=CacheConfig(kind=cache_kind, page_size=page_size,
-                                       impl=attn_impl)),
+                     prefill_chunk=prefill_chunk, device=device, verbose=True, cache=ccfg),
         params=params)
     per_req = sampling if isinstance(sampling, (list, tuple)) else [sampling] * batch
     reqs = [eng.submit(prompts[b], gen_tokens, sampling=per_req[b]) for b in range(batch)]
@@ -62,7 +72,10 @@ def main():
     ap.add_argument("--scheme", default="fp5.33-e2m3")
     ap.add_argument("--strategy", default="set_lsb")
     ap.add_argument("--impl", default="ref", help="matmul: ref | fused_ref | kernel")
-    ap.add_argument("--attn-impl", default="ref", help="paged attention: ref | kernel")
+    ap.add_argument("--attn-impl", default="ref", help="attention: ref | kernel")
+    ap.add_argument("--cache", default="contiguous", choices=("contiguous", "paged"),
+                    help="KV cache: contiguous (default) or paged (AMS pages; bf16 "
+                         "pages for --scheme fp16)")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt", type=int, default=16)
     ap.add_argument("--tokens", type=int, default=16)
@@ -72,7 +85,7 @@ def main():
     toks, stats = generate(args.arch, reduced=args.reduced, scheme=args.scheme,
                            strategy=args.strategy, impl=args.impl, attn_impl=args.attn_impl,
                            batch=args.batch, prompt_len=args.prompt, gen_tokens=args.tokens,
-                           prefill_chunk=args.chunk, device=args.device)
+                           prefill_chunk=args.chunk, cache=args.cache, device=args.device)
     print("generated tokens:\n", toks)
     print("stats:", stats)
 

@@ -2,46 +2,41 @@
 src/repro/launch/steps.py: build_engine_step and engine_step_signature).
 
 The reference jits one slot-masked program per engine; PyTorch runs
-eagerly, so the step is a plain function with the same argument contract:
+eagerly, so the step is a plain function with the same arguments:
 
-    step(params, token [B] | [B, C], pos [B][, nvalid [B]], cache,
-         block_tables [B, MP], sampling) -> (next_token [B], done [B], cache)
+    step(params, token [B] | [B, C], pos [B], cache, sampling, *,
+         nvalid [B] = None, block_tables [B, MP] = None)
+        -> (next_token [B], done [B], cache)
 
 ``pos`` holds each slot's start position (negative = idle slot, its cache
 write suppressed); with ``chunk`` = C > 1 every slot feeds a ragged block of
-up to C tokens and ``nvalid`` its valid count. The epilogue is the greedy
-draw with in-step termination (`sampling.sample_tokens`). The page pools in
-``cache`` are written in place and returned.
+up to C tokens and ``nvalid`` its valid count; ``block_tables`` is taken by
+paged caches only. The epilogue is the greedy draw with in-step termination
+(`sampling.sample_tokens`). The caches are written in place and returned.
 """
 
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.models import check_paged_support, decode_step
+from repro_torch.models import decode_step
 
 from .sampling import sample_tokens
 
 
-def build_engine_step(cfg: ModelConfig, rcfg: RunConfig, cache_cfg, chunk: int = 1):
-    """Returns the step function for this (model, run, cache, chunk)."""
-    check_paged_support(cfg)
-    if cache_cfg is None or not cache_cfg.paged:
-        raise NotImplementedError("the engine step serves paged caches only (ROADMAP queue 2)")
+def build_engine_step(cfg: ModelConfig, rcfg: RunConfig, cache_cfg):
+    """Returns the step function for this (model, run, cache); one function
+    serves one-token and chunked ticks (`decode_step` reads the token's
+    shape). Which layers the cache holds was checked where the cache was
+    made (`models.make_cache`)."""
     policy = rcfg.quant if rcfg.quantized else None
 
-    def run(params, token, pos, nvalid, cache, block_tables, sampling):
+    def step(params, token, pos, cache, sampling, *, nvalid=None, block_tables=None):
         logits, cache = decode_step(params, token, cache, pos, cfg, policy=policy,
                                     block_tables=block_tables, cache_cfg=cache_cfg,
                                     nvalid=nvalid)
         next_token, done = sample_tokens(logits, sampling)
         return next_token, done, cache
 
-    if chunk > 1:
-        def step(params, token, pos, nvalid, cache, block_tables, sampling):
-            return run(params, token, pos, nvalid, cache, block_tables, sampling)
-    else:
-        def step(params, token, pos, cache, block_tables, sampling):
-            return run(params, token, pos, None, cache, block_tables, sampling)
     return step
 
 

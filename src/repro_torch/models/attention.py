@@ -1,12 +1,21 @@
-"""GQA attention over a paged KV cache (port of the paged paths of
+"""Decode attention: GQA over paged or contiguous caches and absorbed MLA
+over a contiguous compressed stream (port of the decode paths of
 src/repro/models/attention.py).
 
-Each tick's K/V vectors are written into the layer's page pool
-(`cache.paged_insert`, in place; AMS pools quantize each vector once), then
-every query attends the block table through `cache.paged_attend` (``ref``
-oracle, or kernel K2 for AMS pages and K3 for bf16 pages).
-Chunked steps carry intra-chunk causality in per-query lengths: query j
-of a chunk inserted at ``pos`` sees ``pos + j + 1`` keys.
+Each tick's K/V vectors are written into the layer's cache in place: a page
+pool (`cache.paged_insert`; AMS pools quantize each vector once) or a
+contiguous [B, S, kv, hd] cache (`cache_insert` / `cache_insert_chunk`).
+Then every query attends: paged caches through `cache.paged_attend`
+(``ref`` oracle, or kernel K2 for AMS pages and K3 for bf16 pages),
+contiguous ones through `kernels.attention_template.attend_contiguous`
+(``ref`` flash-decode, or kernel K4 for GQA and K5 for the MLA stream).
+Chunked steps carry intra-chunk causality in per-query lengths: query j of
+a chunk inserted at ``pos`` sees ``pos + j + 1`` keys.
+
+MLA runs in the absorbed form: q_nope is folded through W_uk into the
+compressed space, scores and values are taken directly against the cached
+stream [kv_lora | rope] (one kv head shared by all heads; the values are
+its first kv_lora columns), and W_uv lifts the result back per head.
 """
 
 from __future__ import annotations
@@ -15,8 +24,9 @@ import numpy as np
 import torch
 
 from repro_torch.cache import paged_attend, paged_insert
+from repro_torch.kernels.attention_template import attend_contiguous
 
-from .common import apply_linear, apply_rope, make_linear
+from .common import apply_linear, apply_rope, make_linear, make_norm, materialize_weight, rms_norm
 
 
 def kv_index_map(H_pad: int, H_true: int, kv: int) -> np.ndarray:
@@ -95,3 +105,201 @@ def gqa_attn_decode_paged_chunk(p, x, pool, pos, nvalid, block_tables, cfg, dims
                                    cache_cfg=cache_cfg)
     o = o * dims.head_mask(o.device)[None, None, :, None].to(o.dtype)
     return apply_linear(p["wo"], o.reshape(B, c, dims.H * dims.hd), policy), pool
+
+
+# ---------------------------------------------------------------------------
+# Contiguous caches
+# ---------------------------------------------------------------------------
+def cache_insert_chunk(cache, new, pos, nvalid):
+    """Write a ragged chunk ``new`` [B, c, kv, hd] into ``cache`` [B, S, kv,
+    hd] in place at per-slot start positions ``pos`` [B]: slot b writes
+    positions pos[b] .. pos[b] + nvalid[b] - 1. Rows at index >= nvalid[b],
+    rows past S and whole slots with pos < 0 leave the cache bit-unchanged.
+    One gather and one scatter, no host sync: a dropped row writes, at its
+    slot's first row index, the value that index gets anyway (the slot's
+    first new row, or the old value when the slot writes nothing), so
+    duplicate indices always carry equal values. Returns ``cache``."""
+    B, c = new.shape[0], new.shape[1]
+    S = cache.shape[1]
+    pos = pos.to(torch.int32)
+    j = torch.arange(c, dtype=torch.int32, device=cache.device)[None, :]
+    p = pos[:, None] + j                                        # [B, c]
+    ok = (pos[:, None] >= 0) & (j < nvalid.to(torch.int32)[:, None]) & (p < S)
+    anchor = torch.clamp(pos, 0, S - 1).long()                  # [B]
+    b_idx = torch.arange(B, device=cache.device)
+    new = new.to(cache.dtype)
+    first = torch.where(ok[:, :1, None, None], new[:, :1], cache[b_idx, anchor][:, None])
+    vals = torch.where(ok[..., None, None], new, first)
+    idx = torch.where(ok, p.long(), anchor[:, None])
+    cache[b_idx[:, None], idx] = vals
+    return cache
+
+
+def cache_insert(cache, new, pos):
+    """Insert ``new`` [B, 1, kv, hd] at per-slot positions ``pos`` [B] (or
+    one scalar position for every slot) into ``cache`` [B, S, kv, hd] in
+    place; a negative position (idle slot) writes nothing. Returns
+    ``cache``."""
+    B = cache.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=cache.device).reshape(-1).expand(B)
+    return cache_insert_chunk(cache, new, pos, torch.ones_like(pos))
+
+
+def gqa_decode_core(q, k_new, v_new, cache_k, cache_v, pos, *, kv_map, scale=None,
+                    impl="ref"):
+    """Insert + attend. q [B, H, hd]; k/v_new [B, 1, kv, hd]; caches
+    [B, S, kv, hd] (written in place)."""
+    cache_insert(cache_k, k_new, pos)
+    cache_insert(cache_v, v_new, pos)
+    o = attend_contiguous(q, cache_k, cache_v, pos + 1, kv_map=kv_map, scale=scale,
+                          impl=impl)
+    return o, cache_k, cache_v
+
+
+def gqa_attn_decode(p, x, cache_k, cache_v, pos, cfg, dims, *, policy=None, attn_impl="ref"):
+    """One-token decode over a contiguous cache: x [B, 1, D], pos [B].
+    Returns (out, (cache_k, cache_v))."""
+    B = x.shape[0]
+    q, k, v = gqa_qkv(p, x, cfg, dims, pos[:, None], policy)
+    kvm = kv_index_map(dims.H, dims.H_true, dims.kv)
+    o, cache_k, cache_v = gqa_decode_core(q[:, 0], k, v, cache_k, cache_v, pos, kv_map=kvm,
+                                          impl=attn_impl)
+    o = o * dims.head_mask(o.device)[None, :, None].to(o.dtype)
+    return apply_linear(p["wo"], o.reshape(B, 1, dims.H * dims.hd), policy), (cache_k, cache_v)
+
+
+def gqa_decode_core_chunk(q, k_new, v_new, cache_k, cache_v, pos, nvalid, *, kv_map,
+                          scale=None, impl="ref"):
+    """Chunked insert + attend. q [B, c, H, hd]; k/v_new [B, c, kv, hd]. Keys
+    land first, then every query attends with its own length."""
+    cache_insert_chunk(cache_k, k_new, pos, nvalid)
+    cache_insert_chunk(cache_v, v_new, pos, nvalid)
+    lengths = chunk_lengths(pos, nvalid, q.shape[1])
+    o = attend_contiguous(q, cache_k, cache_v, lengths, kv_map=kv_map, scale=scale,
+                          impl=impl)
+    return o, cache_k, cache_v
+
+
+def gqa_attn_decode_chunk(p, x, cache_k, cache_v, pos, nvalid, cfg, dims, *, policy=None,
+                          attn_impl="ref"):
+    """Ragged decode over a contiguous cache: x [B, c, D], start positions
+    ``pos`` [B], valid counts ``nvalid`` [B]. Returns (out [B, c, D],
+    (cache_k, cache_v)); rows past a slot's nvalid are exact no-ops."""
+    B, c, _ = x.shape
+    positions = torch.clamp(pos[:, None] + torch.arange(c, dtype=torch.int32,
+                                                        device=x.device), min=0)
+    q, k, v = gqa_qkv(p, x, cfg, dims, positions, policy)
+    kvm = kv_index_map(dims.H, dims.H_true, dims.kv)
+    o, cache_k, cache_v = gqa_decode_core_chunk(q, k, v, cache_k, cache_v, pos, nvalid,
+                                                kv_map=kvm, impl=attn_impl)
+    o = o * dims.head_mask(o.device)[None, None, :, None].to(o.dtype)
+    return apply_linear(p["wo"], o.reshape(B, c, dims.H * dims.hd), policy), (cache_k, cache_v)
+
+
+# ---------------------------------------------------------------------------
+# MLA (absorbed form)
+# ---------------------------------------------------------------------------
+def init_mla(gen, cfg, dims, *, dtype=torch.float32, device="cpu"):
+    D = cfg.d_model
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    H = dims.H
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "wq_a": make_linear(gen, D, r_q, **kw),
+        "q_a_norm": make_norm(r_q, **kw),
+        "wq_b": make_linear(gen, r_q, H * (dn + dr), **kw),
+        "wkv_a": make_linear(gen, D, r_kv + dr, **kw),
+        "kv_a_norm": make_norm(r_kv, **kw),
+        # absorbed decompression factors, stored per head
+        "w_uk": make_linear(gen, r_kv, H * dn, **kw),      # key-nope
+        "w_uv": make_linear(gen, r_kv, H * dv, **kw),      # value
+        "wo": make_linear(gen, H * dv, D, **kw),
+    }
+
+
+def _mla_q_eff(p, x, cfg, dims, positions, policy):
+    """Absorbed query: q_eff [B, S, H, r_kv + dr]."""
+    B, S, _ = x.shape
+    H = dims.H
+    dn = cfg.qk_nope_dim
+    r_kv = cfg.kv_lora_rank
+    cq = rms_norm(apply_linear(p["wq_a"], x, policy), p["q_a_norm"], cfg.norm_eps)
+    q = apply_linear(p["wq_b"], cq, policy).reshape(B, S, H, -1)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    w_uk = materialize_weight(p["w_uk"], r_kv, q_nope.dtype, policy).reshape(r_kv, H, dn)
+    q_c = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)
+    return torch.cat([q_c, q_rope], dim=-1)
+
+
+def _mla_kv_stream(p, x, cfg, positions, policy):
+    """Compressed KV stream [B, S, r_kv + dr] (the decode cache)."""
+    r_kv = cfg.kv_lora_rank
+    ckv = apply_linear(p["wkv_a"], x, policy)
+    c, k_rope = ckv[..., :r_kv], ckv[..., r_kv:]
+    c = rms_norm(c, p["kv_a_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return torch.cat([c, k_rope], dim=-1)
+
+
+def _mla_out(p, attn_c, cfg, dims, policy):
+    """attn_c [B, S, H, r_kv] attention-weighted compressed values."""
+    B, S, H, r_kv = attn_c.shape
+    dv = cfg.v_head_dim
+    w_uv = materialize_weight(p["w_uv"], r_kv, attn_c.dtype, policy).reshape(r_kv, H, dv)
+    o = torch.einsum("bshr,rhd->bshd", attn_c, w_uv)
+    o = o * dims.head_mask(o.device)[None, None, :, None].to(o.dtype)
+    return apply_linear(p["wo"], o.reshape(B, S, H * dv), policy)
+
+
+def _mla_scale(cfg) -> float:
+    return 1.0 / np.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+
+
+def mla_decode_core(q_eff, kv_new, cache_kv, pos, *, r_kv, scale, impl="ref"):
+    """q_eff [B, H, r_kv+dr]; kv_new [B, 1, 1, r_kv+dr]; cache_kv [B, S, 1,
+    r_kv+dr] (written in place). The kernel path reads the values from the
+    same stream (``value_slice=r_kv``): V costs no extra read."""
+    cache_insert(cache_kv, kv_new, pos)
+    kvm = np.zeros((q_eff.shape[1],), np.int32)
+    o_c = attend_contiguous(q_eff, cache_kv, cache_kv[..., :r_kv], pos + 1, kv_map=kvm,
+                            scale=scale, impl=impl, value_slice=r_kv)
+    return o_c, cache_kv
+
+
+def mla_attn_decode(p, x, cache_kv, pos, cfg, dims, *, policy=None, attn_impl="ref"):
+    """One-token MLA decode: x [B, 1, D]; cache_kv [B, S, 1, r_kv+dr]; pos [B]."""
+    positions = pos[:, None]
+    q_eff = _mla_q_eff(p, x, cfg, dims, positions, policy)[:, 0]       # [B, H, r+dr]
+    kv = _mla_kv_stream(p, x, cfg, positions, policy)                  # [B, 1, r+dr]
+    o_c, cache_kv = mla_decode_core(q_eff, kv[:, :, None, :], cache_kv, pos,
+                                    r_kv=cfg.kv_lora_rank, scale=_mla_scale(cfg),
+                                    impl=attn_impl)
+    return _mla_out(p, o_c[:, None], cfg, dims, policy), cache_kv
+
+
+def mla_decode_core_chunk(q_eff, kv_new, cache_kv, pos, nvalid, *, r_kv, scale, impl="ref"):
+    """Chunked absorbed-MLA core. q_eff [B, c, H, r_kv+dr]; kv_new [B, c, 1,
+    r_kv+dr]; cache_kv [B, S, 1, r_kv+dr] (written in place)."""
+    cache_insert_chunk(cache_kv, kv_new, pos, nvalid)
+    kvm = np.zeros((q_eff.shape[2],), np.int32)
+    lengths = chunk_lengths(pos, nvalid, q_eff.shape[1])
+    o_c = attend_contiguous(q_eff, cache_kv, cache_kv[..., :r_kv], lengths, kv_map=kvm,
+                            scale=scale, impl=impl, value_slice=r_kv)
+    return o_c, cache_kv
+
+
+def mla_attn_decode_chunk(p, x, cache_kv, pos, nvalid, cfg, dims, *, policy=None,
+                          attn_impl="ref"):
+    """Ragged multi-token MLA decode: x [B, c, D]; same contract as
+    `gqa_attn_decode_chunk` on the compressed stream."""
+    B, c, _ = x.shape
+    positions = torch.clamp(pos[:, None] + torch.arange(c, dtype=torch.int32,
+                                                        device=x.device), min=0)
+    q_eff = _mla_q_eff(p, x, cfg, dims, positions, policy)              # [B, c, H, r+dr]
+    kv = _mla_kv_stream(p, x, cfg, positions, policy)                   # [B, c, r+dr]
+    o_c, cache_kv = mla_decode_core_chunk(q_eff, kv[:, :, None, :], cache_kv, pos, nvalid,
+                                          r_kv=cfg.kv_lora_rank, scale=_mla_scale(cfg),
+                                          impl=attn_impl)
+    return _mla_out(p, o_c, cfg, dims, policy), cache_kv

@@ -66,6 +66,19 @@ def apply_linear(p: Dict[str, Any], x: torch.Tensor,
     return y
 
 
+def materialize_weight(p: Dict[str, Any], K: int, dtype,
+                       policy: Optional[QuantPolicy] = None) -> torch.Tensor:
+    """The [K, N] weight in ``dtype``, dequantizing packed planes if needed
+    (the absorbed MLA einsums use the weight outside a matmul; the packed
+    planes are still what stays in memory)."""
+    if "w" in p:
+        return p["w"].to(dtype)
+    from repro_torch.kernels import ref
+    lay = make_layout(get_scheme(policy.scheme))
+    pw = PackedWeight(p["hi"], p["lsb"], p["scale"], lay, K, p["scale"].shape[-1])
+    return ref.dequant_full(pw, torch.float32).to(dtype)
+
+
 def rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)

@@ -1,11 +1,12 @@
-"""Decoder assembly for dense GQA models over paged caches (port of the gqa /
-paged paths of src/repro/models/transformer.py).
+"""Decoder assembly for dense GQA models (paged or contiguous caches) and
+absorbed-MLA models (contiguous caches) (port of the gqa / mla decode paths
+of src/repro/models/transformer.py).
 
 Parameters keep the reference's tree: ``embed``, ``layers`` (every leaf
 stacked ``[G, ...]`` over layers), ``final_norm``, ``lm_head``. The
 reference's ``lax.scan`` over stacked layers is a Python loop over views
-``leaf[g]``; the page pools in the cache are stacked the same way and are
-written in place.
+``leaf[g]``; the caches (page pools, or contiguous [B, S, ...] slot caches)
+are stacked the same way and are written in place.
 """
 
 from __future__ import annotations
@@ -31,17 +32,30 @@ def layer_pattern(cfg) -> Tuple[str, ...]:
     return ("gqa",)
 
 
-def check_paged_support(cfg):
-    """The port serves dense GQA over paged caches only."""
+def check_serving_support(cfg):
+    """The port serves dense GQA and absorbed-MLA layers, without sliding
+    windows or prefix embeds."""
     pat = layer_pattern(cfg)
-    if pat != ("gqa",):
+    if pat not in (("gqa",), ("mla",)):
         raise NotImplementedError(
-            f"the port serves dense GQA layers only; {cfg.name} has {sorted(set(pat))} "
-            "(MoE/SSM/MLA are ROADMAP queue 2)")
+            f"the port serves dense GQA and MLA layers only; {cfg.name} has "
+            f"{sorted(set(pat))} (MoE/SSM are ROADMAP queue 2)")
     if cfg.sliding_window:
         raise NotImplementedError("sliding-window ring caches are not ported yet")
     if cfg.num_prefix_embeds:
         raise NotImplementedError("prefix embeds (modality frontends) are not ported yet")
+
+
+def check_support(cfg, cache_cfg=None):
+    """The one rule of which layers a cache kind holds: contiguous caches
+    (``cache_cfg`` None or contiguous) every layer the port serves, paged
+    caches dense GQA layers only (MLA's compressed stream keeps its
+    contiguous layout, as in the reference)."""
+    check_serving_support(cfg)
+    if cache_cfg is not None and cache_cfg.paged and layer_pattern(cfg) != ("gqa",):
+        raise NotImplementedError(
+            f"paged caches serve dense GQA layers only; {cfg.name} has "
+            f"{sorted(set(layer_pattern(cfg)))}: serve it over a contiguous cache")
 
 
 def tree_map(fn, tree):
@@ -57,11 +71,12 @@ def tree_leaves(tree):
 
 
 def init_block(gen, cfg, dims: Dims, kind: str, *, dtype=torch.float32, device="cpu"):
-    if kind != "gqa":
+    if kind not in ("gqa", "mla"):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     kw = dict(dtype=dtype, device=device)
+    init_attn = A.init_gqa if kind == "gqa" else A.init_mla
     return {"ln1": make_norm(cfg.d_model, **kw),
-            "attn": A.init_gqa(gen, cfg, dims, **kw),
+            "attn": init_attn(gen, cfg, dims, **kw),
             "ln2": make_norm(cfg.d_model, **kw),
             "ffn": F.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn_activation, **kw)}
 
@@ -77,11 +92,12 @@ def init_params(seed: int, cfg, *, dtype=torch.float32, device="cpu") -> Dict[st
     (draw order: embed, layer 0..L-1, lm_head). For full-width models on the
     card use `launch.engine.init_serving_params`, which quantizes layer by
     layer from the same draws."""
-    check_paged_support(cfg)
+    check_serving_support(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     dims = model_dims(cfg)
+    kind = layer_pattern(cfg)[0]
     embed = init_embed(gen, cfg, dims, dtype=dtype, device=device)
-    blocks = [init_block(gen, cfg, dims, "gqa", dtype=dtype, device=device)
+    blocks = [init_block(gen, cfg, dims, kind, dtype=dtype, device=device)
               for _ in range(cfg.num_layers)]
     return {
         "embed": embed,
@@ -98,17 +114,44 @@ def stack_trees(trees):
     return torch.stack(trees)
 
 
-def make_cache(cfg, *, cache_cfg, device="cpu"):
-    """Zero page pools (bf16 or AMS planes) for every layer, stacked
-    [G, P, page, kv, ...]."""
-    from repro_torch.cache import make_gqa_page_pool
-    check_paged_support(cfg)
-    if cache_cfg is None or not cache_cfg.paged:
-        raise NotImplementedError("contiguous caches need kernel K4, not ported yet "
-                                  "(ROADMAP queue 2)")
+def block_cache_shape(cfg, dims: Dims, kind: str, B: int, cap: int, *,
+                      dtype=torch.bfloat16, device="cpu", lead=()):
+    """Zero contiguous cache leaves of one block kind: ``{"k", "v"}`` [*lead,
+    B, cap, kv, hd] for GQA, ``{"kv"}`` [*lead, B, cap, 1, r_kv + dr] (the
+    compressed stream) for MLA."""
+    kw = dict(dtype=dtype, device=device)
+    if kind == "mla":
+        c = cfg.kv_lora_rank + cfg.qk_rope_dim
+        return {"kv": torch.zeros((*lead, B, cap, 1, c), **kw)}
+    shape = (*lead, B, cap, dims.kv, dims.hd)
+    return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+
+
+def make_cache(cfg, B: int = 0, cap: int = 0, *, cache_cfg=None, dtype=torch.bfloat16,
+               device="cpu"):
+    """Zero caches for every layer, stacked over layers: page pools (bf16 or
+    AMS planes, [G, P, page, kv, ...]) for a paged ``cache_cfg``, else the
+    fixed [G, B, cap, ...] slot layout."""
+    check_support(cfg, cache_cfg)
     dims = model_dims(cfg)
-    return {"layers": {"sub0": make_gqa_page_pool(cache_cfg, dims.kv, dims.hd, device=device,
-                                                  lead=(cfg.num_layers,))}}
+    if cache_cfg is not None and cache_cfg.paged:
+        from repro_torch.cache import make_gqa_page_pool
+        return {"layers": {"sub0": make_gqa_page_pool(cache_cfg, dims.kv, dims.hd,
+                                                      device=device,
+                                                      lead=(cfg.num_layers,))}}
+    if B < 1 or cap < 1:
+        raise ValueError(f"a contiguous cache needs slots and capacity >= 1, got {B}, {cap}")
+    return {"layers": {"sub0": block_cache_shape(cfg, dims, layer_pattern(cfg)[0], B, cap,
+                                                 dtype=dtype, device=device,
+                                                 lead=(cfg.num_layers,))}}
+
+
+def reset_cache_slot(cache, slot: int):
+    """Zero batch row ``slot`` of every contiguous cache leaf in place (slot
+    reuse in the engine; stacked leaves carry the batch at axis 1)."""
+    for leaf in tree_leaves(cache["layers"]):
+        leaf[:, slot].zero_()
+    return cache
 
 
 def residual_norm(x, out, g, eps):
@@ -120,24 +163,51 @@ def residual_norm(x, out, g, eps):
     return x + out, rms_norm(xf, g, eps).to(x.dtype)
 
 
-def block_decode(p, x, pool, pos, cfg, dims, *, policy, block_tables, cache_cfg):
-    """x [B, 1, D] through one paged GQA block. Returns (x, pool)."""
+def _attn_impl(cache_cfg) -> str:
+    """Contiguous-cache attention lowering (``ref`` | ``kernel``)."""
+    return cache_cfg.impl if cache_cfg is not None else "ref"
+
+
+def block_decode(p, x, cache, pos, kind, cfg, dims, *, policy, block_tables, cache_cfg):
+    """x [B, 1, D] through one block: MLA over its compressed stream, GQA
+    over a page pool or a contiguous cache (all written in place). Returns
+    (x, cache)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    out, pool = A.gqa_attn_decode_paged(p["attn"], h, pool, pos, block_tables, cfg, dims,
-                                        policy=policy, cache_cfg=cache_cfg)
+    if kind == "mla":
+        out, ckv = A.mla_attn_decode(p["attn"], h, cache["kv"], pos, cfg, dims, policy=policy,
+                                     attn_impl=_attn_impl(cache_cfg))
+        cache = {"kv": ckv}
+    elif cache_cfg is not None and cache_cfg.paged:
+        out, cache = A.gqa_attn_decode_paged(p["attn"], h, cache, pos, block_tables, cfg,
+                                             dims, policy=policy, cache_cfg=cache_cfg)
+    else:
+        out, (ck, cv) = A.gqa_attn_decode(p["attn"], h, cache["k"], cache["v"], pos, cfg,
+                                          dims, policy=policy,
+                                          attn_impl=_attn_impl(cache_cfg))
+        cache = {"k": ck, "v": cv}
     x, h2 = residual_norm(x, out, p["ln2"], cfg.norm_eps)
-    return x + F.ffn_apply(p["ffn"], h2, cfg.ffn_activation, policy), pool
+    return x + F.ffn_apply(p["ffn"], h2, cfg.ffn_activation, policy), cache
 
 
-def block_decode_chunk(p, x, pool, pos, nvalid, cfg, dims, *, policy, block_tables,
+def block_decode_chunk(p, x, cache, pos, nvalid, kind, cfg, dims, *, policy, block_tables,
                        cache_cfg):
     """Ragged analogue of `block_decode`: x [B, c, D]."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    out, pool = A.gqa_attn_decode_paged_chunk(p["attn"], h, pool, pos, nvalid, block_tables,
-                                              cfg, dims, policy=policy,
-                                              cache_cfg=cache_cfg)
+    if kind == "mla":
+        out, ckv = A.mla_attn_decode_chunk(p["attn"], h, cache["kv"], pos, nvalid, cfg, dims,
+                                           policy=policy, attn_impl=_attn_impl(cache_cfg))
+        cache = {"kv": ckv}
+    elif cache_cfg is not None and cache_cfg.paged:
+        out, cache = A.gqa_attn_decode_paged_chunk(p["attn"], h, cache, pos, nvalid,
+                                                   block_tables, cfg, dims, policy=policy,
+                                                   cache_cfg=cache_cfg)
+    else:
+        out, (ck, cv) = A.gqa_attn_decode_chunk(p["attn"], h, cache["k"], cache["v"], pos,
+                                                nvalid, cfg, dims, policy=policy,
+                                                attn_impl=_attn_impl(cache_cfg))
+        cache = {"k": ck, "v": cv}
     x, h2 = residual_norm(x, out, p["ln2"], cfg.norm_eps)
-    return x + F.ffn_apply(p["ffn"], h2, cfg.ffn_activation, policy), pool
+    return x + F.ffn_apply(p["ffn"], h2, cfg.ffn_activation, policy), cache
 
 
 def _embed(params, tokens, dtype=torch.bfloat16):
@@ -151,7 +221,7 @@ def _head(params, x, cfg, dims, policy=None):
 
 
 def _layers(params, cache, fn, x):
-    """Run ``fn(layer_params, x, layer_pool)`` over the stacked layers."""
+    """Run ``fn(layer_params, x, layer_cache)`` over the stacked layers."""
     G = tree_leaves(params["layers"])[0].shape[0]
     for g in range(G):
         gp = tree_map(lambda t: t[g], params["layers"]["sub0"])
@@ -162,22 +232,24 @@ def _layers(params, cache, fn, x):
 
 def decode_step(params, token, cache, pos, cfg, *, policy=None, dtype=torch.bfloat16,
                 block_tables=None, cache_cfg=None, nvalid=None):
-    """One decode step over paged caches. token [B] with per-slot positions
-    ``pos`` [B] (negative = idle slot, write suppressed), or the ragged
-    multi-token step: token [B, C] with start positions ``pos`` [B] and
-    valid counts ``nvalid`` [B]; logits are taken at each slot's last valid
-    token. Returns (logits [B, V] f32, cache) — the pools are updated in
-    place."""
+    """One decode step. token [B] with per-slot positions ``pos`` [B]
+    (negative = idle slot, write suppressed), or the ragged multi-token
+    step: token [B, C] with start positions ``pos`` [B] and valid counts
+    ``nvalid`` [B]; logits are taken at each slot's last valid token. A
+    paged ``cache_cfg`` reads page pools through ``block_tables`` [B, MP];
+    otherwise the cache is the contiguous slot layout. Returns (logits
+    [B, V] f32, cache) — the caches are updated in place."""
     if token.dim() == 2:
         return _decode_step_chunk(params, token, cache, pos, nvalid, cfg, policy=policy,
                                   dtype=dtype, block_tables=block_tables,
                                   cache_cfg=cache_cfg)
     dims = model_dims(cfg)
+    kind = layer_pattern(cfg)[0]
     pos = pos.to(torch.int32)
     x = _embed(params, token[:, None], dtype)
 
-    def fn(gp, x, pool):
-        return block_decode(gp, x, pool, pos, cfg, dims, policy=policy,
+    def fn(gp, x, c):
+        return block_decode(gp, x, c, pos, kind, cfg, dims, policy=policy,
                             block_tables=block_tables, cache_cfg=cache_cfg)
 
     x = _layers(params, cache, fn, x)
@@ -187,12 +259,13 @@ def decode_step(params, token, cache, pos, cfg, *, policy=None, dtype=torch.bflo
 def _decode_step_chunk(params, token, cache, pos, nvalid, cfg, *, policy=None,
                        dtype=torch.bfloat16, block_tables=None, cache_cfg=None):
     dims = model_dims(cfg)
+    kind = layer_pattern(cfg)[0]
     pos = pos.to(torch.int32)
     nvalid = nvalid.to(torch.int32)
     x = _embed(params, token, dtype)                                # [B, C, D]
 
-    def fn(gp, x, pool):
-        return block_decode_chunk(gp, x, pool, pos, nvalid, cfg, dims, policy=policy,
+    def fn(gp, x, c):
+        return block_decode_chunk(gp, x, c, pos, nvalid, kind, cfg, dims, policy=policy,
                                   block_tables=block_tables, cache_cfg=cache_cfg)
 
     x = _layers(params, cache, fn, x)

@@ -258,7 +258,6 @@ def cfg_(**kw):
 @pytest.mark.parametrize("kw,match", [
     (dict(speculate_k=2), "speculative"),
     (dict(mesh=object()), "mesh"),
-    (dict(cache=None), "K4"),
     (dict(cache=CacheConfig(kind="paged_ams", host_spill_pages=4)), "host spill"),
 ])
 def test_missing_features_raise_not_implemented(kw, match):
@@ -300,19 +299,25 @@ def test_entry_points_default_to_the_card():
             generate("qwen2-7b", scheme=scheme, batch=1, prompt_len=4, gen_tokens=1)
 
 
+@pytest.mark.parametrize("cache", ["paged", None], ids=["paged", "default"])
 @pytest.mark.parametrize("scheme", ["fp16", "fp4.25-e2m2"])
-def test_serve_generate_pairs_cache_with_scheme(scheme):
-    """serve.generate serves fp16 weights over bf16 pages and quantized ones
-    over AMS pages; kernel impls on CPU tensors run the plain versions and
-    give the non-kernel impls' tokens."""
+def test_serve_generate_pairs_cache_with_scheme(scheme, cache):
+    """serve.generate with ``cache="paged"`` serves fp16 weights over bf16
+    pages and quantized ones over AMS pages; by default it serves the
+    contiguous bf16 cache for every scheme, as the reference's generate
+    does. Kernel impls on CPU tensors run the plain versions and give the
+    non-kernel impls' tokens."""
     from repro_torch.launch.serve import generate
     kw = dict(scheme=scheme, batch=2, prompt_len=6, gen_tokens=3, prefill_chunk=4,
-              device="cpu")
+              device="cpu", **({} if cache is None else dict(cache=cache)))
     toks, stats = generate("qwen2-7b", impl="kernel", attn_impl="kernel", **kw)
-    want = "paged_bf16" if scheme == "fp16" else "paged_ams"
+    want = ("contiguous" if cache is None else
+            "paged_bf16" if scheme == "fp16" else "paged_ams")
     # reduced qwen2-7b: 2 layers x (k, v) x 2 kv heads x hd 32, in bf16 (2 bytes per
     # value) or packed AMS-e2m2 (16 hi bytes + 4 lsb bytes + 4 scale bytes per vector)
-    assert stats["kv_bytes_per_token"] == {"paged_bf16": 512, "paged_ams": 192}[want]
+    assert stats["kv_bytes_per_token"] == {"contiguous": 512, "paged_bf16": 512,
+                                           "paged_ams": 192}[want]
+    assert ("free_pages" in stats) == (cache == "paged")
     ref, _ = generate("qwen2-7b", impl="fused_ref", attn_impl="ref", **kw)
     assert toks.shape == (2, 3) and (toks == ref).all()
 

@@ -1,8 +1,9 @@
 """Tests of the port that need the card, plus import hygiene.
 
-The ``gpu``-marked tests hold the CUDA kernels K1, K1b, K2 and K3 against
-their plain torch versions on the card, at small and at Qwen2-7B widths,
-and run the engine end to end through each path's kernels. Each skips from inside the test
+The ``gpu``-marked tests hold the CUDA kernels K1, K1b, K2, K3, K4 and K5
+against their plain torch versions on the card, at small and at Qwen2-7B /
+MiniCPM3-4B widths, and run the engine end to end through each path's
+kernels. Each skips from inside the test
 when ``torch.cuda.is_available()`` is false. The machine with the card has
 no JAX, so this file imports none; run it there alone:
 
@@ -196,6 +197,110 @@ def test_k2_kernel_matches_plain(kv, g, hd, page, chunk):
     assert bool((got.permute(0, 2, 1, 3)[masked] == 0).all())
 
 
+def _contiguous_case(kv, g, hd, S, chunk, dev, gen):
+    """4 slots over a [4, S] cache: a full slot, a short one, an idle one and
+    a ragged one; q folded as the template does."""
+    from repro_torch.kernels.attention_template import _fold_q
+
+    ends = torch.tensor([S, 5, 0, S // 2 + 1])                  # slot 2 idle
+    j = torch.arange(chunk)
+    nvalid = torch.minimum(torch.clamp(torch.tensor([chunk, chunk - 1, 0, 1]), min=0), ends)
+    lengths = torch.where(j[None] < nvalid[:, None], ends[:, None] - nvalid[:, None] + j + 1, 0)
+    q = torch.randn((4, chunk, kv * g, hd), generator=gen, device=dev).to(torch.bfloat16)
+    qf, lens, _, _ = _fold_q(q, lengths.to(dev), kv, None)
+    masked = (lengths == 0).repeat_interleave(g, dim=1).to(dev)   # [B, c*g] rows
+    return qf, lens, masked
+
+
+def _check_contiguous(got, want, qf, k, v, lens, masked, **kw):
+    """Element by element within what p's rounding allows: p is rounded to
+    bf16 in both, and scores summed in another f32 order can put a p one
+    bf16 ulp apart, at most 2^-7 of itself, which moves an output by at most
+    2^-7 * A, A = sum_i bf16(p_i) |v_i| / l (the plain walk over |v| with
+    the same p); the f32 orders of the sums stay below 1e-4 * A."""
+    from repro_torch.kernels.attention_template import contiguous_attention_plain
+
+    kw.pop("hd_v", None)
+    tol = (2 ** -7 + 1e-4) * contiguous_attention_plain(qf, k, v.abs().contiguous(), lens,
+                                                         **kw)
+    assert bool(((got - want).abs() <= tol).all())
+    assert bool((got.permute(0, 2, 1, 3)[masked] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv,g,hd,S,chunk,block_kv", [
+    (2, 2, 32, 64, 1, 64), (2, 2, 32, 64, 4, 16), (4, 7, 128, 1024, 1, 1024),
+    (4, 7, 128, 1024, 16, 1024), (4, 7, 128, 1024, 16, 128), (1, 3, 7, 40, 2, 8)])
+def test_k4_kernel_matches_plain(kv, g, hd, S, chunk, block_kv):
+    from repro_torch.kernels.attention_template import (
+        COUNT_CONTIG,
+        contiguous_attention,
+        contiguous_attention_plain,
+    )
+
+    dev = cuda_device()
+    gen = torch.Generator(device=dev).manual_seed(hd + chunk + 2)
+    k, v = (torch.randn((4, S, kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    qf, lens, masked = _contiguous_case(kv, g, hd, S, chunk, dev, gen)
+    kw = dict(c=chunk, g=g, block_kv=block_kv)
+    n = COUNT_CONTIG.launches
+    got = contiguous_attention(qf, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    assert COUNT_CONTIG.launches == n + 1
+    _check_contiguous(got, contiguous_attention_plain(qf, k, v, lens, **kw), qf, k, v, lens,
+                      masked, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv,g,hd,hd_v,S,chunk,block_kv", [
+    (1, 4, 48, 32, 64, 1, 64), (1, 4, 48, 32, 64, 4, 16), (1, 40, 288, 256, 1024, 1, 1024),
+    (1, 40, 288, 256, 1024, 16, 1024), (1, 40, 288, 256, 1024, 16, 256),
+    (2, 3, 20, 12, 40, 2, 8)])
+def test_k5_kernel_matches_plain(kv, g, hd, hd_v, S, chunk, block_kv):
+    from repro_torch.kernels.attention_template import (
+        COUNT_MLA,
+        contiguous_attention_mla,
+        contiguous_attention_mla_plain,
+    )
+
+    dev = cuda_device()
+    gen = torch.Generator(device=dev).manual_seed(hd + chunk + 3)
+    cache = torch.randn((4, S, kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    qf, lens, masked = _contiguous_case(kv, g, hd, S, chunk, dev, gen)
+    kw = dict(c=chunk, g=g, block_kv=block_kv, hd_v=hd_v)
+    n = COUNT_MLA.launches
+    got = contiguous_attention_mla(qf, cache, lens, **kw)
+    torch.cuda.synchronize()
+    assert COUNT_MLA.launches == n + 1 and got.shape == (4, kv, chunk * g, hd_v)
+    _check_contiguous(got, contiguous_attention_mla_plain(qf, cache, lens, **kw), qf, cache,
+                      cache[..., :hd_v], lens, masked, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mla,hd,hd_v", [(False, 160, 160), (False, 136, 64),
+                                         (True, 320, 256), (True, 288, 264)])
+def test_contiguous_launch_raises_past_its_widths(mla, hd, hd_v):
+    """K4 takes hd, hd_v <= 128 (the widest served GQA head) and K5 hd <= 288,
+    hd_v <= 256 (MiniCPM3-4B's stream): wider heads make the launch fail, and
+    the wrapper raises instead of falling back to the plain version."""
+    from repro_torch.kernels import attention_template as T
+
+    dev = cuda_device()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    qf, lens, _ = _contiguous_case(1, 2, hd, 16, 1, dev, gen)
+    k = torch.randn((4, 16, 1, hd), generator=gen, device=dev).to(torch.bfloat16)
+    count = T.COUNT_MLA if mla else T.COUNT_CONTIG
+    n, plain = count.launches, count.plain_on_cuda
+    with pytest.raises(RuntimeError, match="launch failed"):
+        if mla:
+            T.contiguous_attention_mla(qf, k, lens, c=1, g=2, block_kv=16, hd_v=hd_v)
+        else:
+            v = torch.randn((4, 16, 1, hd_v), generator=gen, device=dev).to(torch.bfloat16)
+            T.contiguous_attention(qf, k, v, lens, c=1, g=2, block_kv=16)
+    assert (count.launches, count.plain_on_cuda) == (n, plain)
+
+
 @pytest.mark.gpu
 def test_engine_on_the_card_runs_both_kernels():
     from repro_torch.cache import CacheConfig
@@ -242,6 +347,34 @@ def test_engine_on_the_card_new_paths(scheme, kind):
     want = ({"ams_matmul_planes", "paged_attention_ams"} if scheme != "fp16"
             else {"paged_attention_bf16"})
     assert launched == want
+    assert all(cnt.plain_on_cuda == 0 for cnt in counts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kernel", [("qwen2-7b", "contiguous_attention"),
+                                         ("minicpm3-4b", "contiguous_attention_mla")])
+def test_engine_on_the_card_contiguous_paths(arch, kernel):
+    """The default contiguous cache: FP5.33 weights run K1, and attention
+    K4 (GQA) or K5 (the MLA stream); no other kernel launches."""
+    from repro_torch.cache import CacheConfig
+    from repro_torch.kernels import ams_matmul, attention_template
+    from repro_torch.launch.config import EngineConfig
+    from repro_torch.launch.engine import ServeEngine
+
+    cuda_device()
+    counts = (ams_matmul.COUNT, ams_matmul.COUNT_PLANES, attention_template.COUNT,
+              attention_template.COUNT_BF16, attention_template.COUNT_CONTIG,
+              attention_template.COUNT_MLA)
+    for cnt in counts:
+        cnt.reset()
+    eng = ServeEngine(EngineConfig(arch=arch, reduced=True, impl="kernel", slots=2,
+                                   capacity=32, prefill_chunk=4, device="cuda",
+                                   cache=CacheConfig(impl="kernel")))
+    hs = [eng.submit(list(range(1, 12)), 5), eng.submit(list(range(3, 9)), 4),
+          eng.submit(list(range(5, 14)), 3)]
+    eng.run()
+    assert [len(h.tokens) for h in hs] == [5, 4, 3]
+    assert {cnt.name for cnt in counts if cnt.launches > 0} == {"ams_matmul_fp533", kernel}
     assert all(cnt.plain_on_cuda == 0 for cnt in counts)
 
 
