@@ -23,7 +23,13 @@ Phases, each fatal on failure:
      columns shared by 40 heads, values its first 256), each against its
      plain version element by element within what p's bf16 rounding allows,
      with the torch SDPA call of the same attention timed beside them;
-  8. the main paths, served through the continuous-batching engine with
+  8. K5p (the paged absorbed-MLA stream, which no served path reaches) at
+     MiniCPM3-4B's attention widths, on bf16 and AMS-e2m2 pages that
+     cache.pool fills: 8 slots, lengths up to 1024, chunk in {1, 16}, page
+     16 and 32, driven through `fused_paged_attention(value_slice=...)`
+     with the launch counts zeroed around it, then each hook against its
+     plain version (AMS within K2's tolerance, bf16 within K3's rule);
+  9. the main paths, served through the continuous-batching engine with
      impl "kernel" for matmuls and attention: full-width 28-layer Qwen2-7B
      with FP5.33 weights over AMS-e2m2 pages (K1, K2; 10 greedy requests,
      two sharing a page-aligned prefix), FP4.25 weights over AMS-e2m2 pages
@@ -35,9 +41,9 @@ Phases, each fatal on failure:
      just after: every kernel of the path must have launched, no other
      kernel and no plain version on CUDA tensors. Each path then times
      full-batch decode ticks and profiles them (device-busy ms per tick);
-  9. consistency at cut depth (2 layers, full widths), per path:
-     first-tick logits and greedy streams of impl "kernel" against the
-     non-kernel impls ("fused_ref" matmuls, "ref" attention) on the card.
+  10. consistency at cut depth (2 layers, full widths), per path:
+      first-tick logits and greedy streams of impl "kernel" against the
+      non-kernel impls ("fused_ref" matmuls, "ref" attention) on the card.
 
 A line ``compare {...}`` sets the five paths' decode tick and device-busy
 ms side by side. The line before the last is one JSON object with a row
@@ -369,13 +375,14 @@ def _chunk_lengths(np, rng, ends, c: int):
     return np.where(j < nvalid[:, None], ends[:, None] - nvalid[:, None] + j + 1, 0)
 
 
-def attention_work(hd: int, hd_v: int, row_keys: float, q_peak: float):
-    """The operations of attention over a bf16 cache that rounds p to bf16,
-    over ``row_keys`` (query row, visible key) pairs: q.k at ``q_peak`` (the
-    f32 rate where q stays unrounded f32, the bf16 rate where it holds bf16
-    values), and bf16(p) * bf16 v summed in f32, a bf16 tensor-core product,
-    at the bf16 rate."""
-    return (2.0 * hd * row_keys, q_peak), (2.0 * hd_v * row_keys, PEAK_BF16_FLOPS)
+def attention_work(hd: int, hd_v: int, row_keys: float, q_peak: float,
+                   pv_peak: float = PEAK_BF16_FLOPS):
+    """The operations of attention over ``row_keys`` (query row, visible
+    key) pairs: q.k at ``q_peak`` (the f32 rate where q stays unrounded f32,
+    the bf16 rate where it holds bf16 values), and p.v at ``pv_peak``: by
+    default bf16(p) * bf16 v summed in f32, a bf16 tensor-core product, at
+    the bf16 rate; the f32 rate where p stays f32 (AMS pages)."""
+    return (2.0 * hd * row_keys, q_peak), (2.0 * hd_v * row_keys, pv_peak)
 
 
 # --------------------------------------------------------------------- K3
@@ -569,12 +576,150 @@ def phase_k5(torch, dev, timed: bool, full: bool):
     return _contiguous_phase(torch, dev, "K5", timed, full, mla=True)
 
 
+# -------------------------------------------------------------------- K5p
+K5P_SCHEME = "fp4.25-e2m2"      # the CacheConfig default kv_scheme
+K5P_KERNELS = {"bf16": "paged_attention_stream_bf16", "ams": "paged_attention_stream_ams"}
+
+
+def phase_k5p(torch, dev, timed: bool, full: bool):
+    """K5p, the paged absorbed-MLA stream, at MiniCPM3-4B's attention widths
+    (40 heads on one stream of 256 + 32 columns, values its first 256, the
+    model's softmax scale), on bf16 pages and AMS-e2m2 pages that
+    cache.pool builds and fills: 8 slots, lengths up to 1024 (one slot
+    idle, one full), chunk 1 and 16, pages of 16 (the CacheConfig default)
+    and 32 (the kernel's limit). First the entry a user calls,
+    `fused_paged_attention(value_slice=...)`, over every case, with the
+    launch counts zeroed just before and read just after (no served path
+    reaches K5p: the reference pages no MLA cache, and neither does the
+    port); then each hook's wrapper against its plain version on the same
+    folded inputs (those launches are not counted), with times and bounds.
+    Returns the decode rows (page 16) by hook, the errors and the launches."""
+    import numpy as np
+
+    from repro_torch.cache import CacheConfig, make_gqa_page_pool, paged_insert
+    from repro_torch.configs import get_config
+    from repro_torch.core.formats import get_scheme
+    from repro_torch.kernels import attention_template as T
+    from repro_torch.models.attention import _mla_scale
+
+    cfg = get_config("minicpm3-4b")
+    if not full:
+        cfg = cfg.reduced()
+    g, hd, hd_v = cfg.num_heads, cfg.kv_lora_rank + cfg.qk_rope_dim, cfg.kv_lora_rank
+    scale = _mla_scale(cfg)
+    B, max_len, page_sizes, chunks = ((8, 1024, (16, 32), (1, 16)) if full
+                                      else (4, 64, (8, 4), (1, 4)))
+    scheme = get_scheme(K5P_SCHEME)
+    rng = np.random.default_rng(9)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    # slot lengths (after this tick's insert); the last slot is idle
+    ends = rng.integers(max_len // 2, max_len + 1, B)
+    ends[1], ends[-1] = max_len, 0
+    tokens = torch.randn((B, max_len, 1, hd), generator=gen, device=dev).to(torch.bfloat16)
+
+    cases = []                        # (hook, page, chunk, pool, bt, q, lengths)
+    for page in page_sizes:
+        MP = max_len // page
+        bt = torch.as_tensor(rng.permutation(B * MP).reshape(B, MP).astype(np.int32),
+                             device=dev)
+        for hook, kind in (("bf16", "paged_bf16"), ("ams", "paged_ams")):
+            ccfg = CacheConfig(kind=kind, page_size=page, num_pages=B * MP,
+                               max_pages_per_seq=MP, kv_scheme=K5P_SCHEME)
+            pool = make_gqa_page_pool(ccfg, 1, hd, device=dev)
+            # one insert of every slot's tokens; the stream path never reads v
+            paged_insert(pool, tokens, tokens, torch.zeros(B, dtype=torch.int32, device=dev),
+                         bt, ccfg, nvalid=torch.as_tensor(ends, dtype=torch.int32, device=dev))
+            pool = {"k": pool["k"]}
+            for c in chunks:
+                lengths = _chunk_lengths(np, rng, ends, c)
+                q = torch.randn((B, c, g, hd), generator=gen, device=dev).to(torch.bfloat16)
+                cases.append((hook, page, c, pool, bt, q, lengths))
+
+    # the entry a user calls, every case once, launch counts zeroed around it
+    counts = all_counts()
+    for cnt in counts:
+        cnt.reset()
+    entry_out = [T.fused_paged_attention(
+        q, pool, torch.as_tensor(lengths, device=dev), bt, page_size=page,
+        kv_scheme=K5P_SCHEME if hook == "ams" else None, value_slice=hd_v, scale=scale)
+        for hook, page, c, pool, bt, q, lengths in cases]
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    launches = {cnt.name: cnt.launches for cnt in counts}
+    plain_cuda = {cnt.name: cnt.plain_on_cuda for cnt in counts}
+    log("K5p entry " + json.dumps(dict(cases=len(cases), launches=launches,
+                                       plain_calls_on_cuda=plain_cuda)))
+    if dev.type == "cuda":
+        want = {name: sum(1 for case in cases if case[0] == hook)
+                for hook, name in K5P_KERNELS.items()}
+        if any(launches[k] != n for k, n in want.items()) or \
+                sum(launches.values()) != len(cases) or max(plain_cuda.values()) != 0:
+            fail(f"K5p: the entry did not launch each hook's kernel once per case: {launches}, "
+                 f"plain versions on CUDA tensors: {plain_cuda}")
+
+    rows, max_err, decode = [], {"bf16": 0.0, "ams": 0.0}, {}
+    for (hook, page, c, pool, bt, q, lengths), o_entry in zip(cases, entry_out):
+        qf, lens, chunked, dims = T._fold_q(q, torch.as_tensor(lengths, device=dev), 1, scale)
+        kw = dict(page_size=page, c=c, g=g, hd_v=hd_v)
+        if hook == "bf16":
+            kernel, plain = T.paged_attention_stream_bf16, T.paged_attention_stream_bf16_plain
+        else:
+            kernel, plain = T.paged_attention_stream_ams, T.paged_attention_stream_ams_plain
+            kw["scheme"] = scheme
+        o_k = kernel(qf, pool, lens, bt, **kw)
+        o_p = plain(qf, pool, lens, bt, **kw)
+        err = float((o_k - o_p).abs().max())
+        ymax = float(o_p.abs().max())
+        if hook == "bf16":            # K3's rule: p rounded to bf16 in both
+            tol = K3_P_ULP * float(pool["k"][..., :hd_v].float().abs().max()) + K3_TOL * ymax
+        else:
+            tol = K2_TOL * max(ymax, 1e-30)
+        max_err[hook] = max(max_err[hook], err)
+        masked = torch.as_tensor(np.repeat(lengths == 0, g, axis=1), device=dev)  # [B, c*g]
+        zero_ok = bool((o_k.permute(0, 2, 1, 3)[masked] == 0).all())
+        same = bool(torch.equal(T._unfold_o(o_k, dims, chunked, q.dtype), o_entry))
+        if not (err <= tol and zero_ok and same and torch.isfinite(o_k).all()):
+            fail(f"K5p {hook} page={page} chunk={c}: max abs err {err:.3e} > {tol:.3e}, masked "
+                 f"rows not exact zeros ({zero_ok}) or the entry's output differs ({same})")
+        tok = int(np.sum(np.max(lengths, axis=1)))        # keys each slot's walk needs
+        per_token = 2 * hd if hook == "bf16" else (
+            pool["k"]["hi"].shape[-1] + 4 * pool["k"]["lsb"].shape[-1] + 4)
+        nbytes = (qf.numel() * 4 + tok * per_token + bt.numel() * 4 + lens.numel() * 4
+                  + o_k.numel() * 4)
+        # q holds bf16 values (scaled in bf16); p.v in f32 on AMS pages
+        pv_peak = PEAK_BF16_FLOPS if hook == "bf16" else PEAK_F32_FLOPS
+        bms, by = bound_ms(nbytes, *attention_work(hd, hd_v, g * float(lengths.sum()),
+                                                    PEAK_BF16_FLOPS, pv_peak))
+        row = dict(hook=hook, page=page, chunk=c, heads=g, hd=hd, hd_v=hd_v, slots=B,
+                   lengths_max=int(lengths.max()), bytes_per_token=per_token,
+                   max_abs_err=err, tolerance=tol, exact_zero_rows=int(masked.sum()),
+                   entry_equals_kernel=same, bound_ms=bms, bound_by=by)
+        if timed:
+            leaf = pool["k"]
+            n = max(1, min(64, math.ceil(L2_FLUSH_BYTES / max(1, tok * per_token))))
+            copies = [pool] + [{"k": leaf.clone() if hook == "bf16" else
+                                {k: t.clone() for k, t in leaf.items()}} for _ in range(n - 1)]
+            outs = []
+            row["ms"] = time_graph(torch, [
+                (lambda p=p: outs.append(kernel(qf, p, lens, bt, **kw))) for p in copies])
+            outs.clear()
+            del copies
+            row["plain_ms"] = time_loop(torch, lambda: plain(qf, pool, lens, bt, **kw))
+            row["factor_over_bound"] = row["ms"] / bms
+        rows.append(row)
+        if page == page_sizes[0] and c == 1:
+            decode[hook] = row
+        log("K5p " + json.dumps(row))
+    return decode, max_err, {hook: launches[name] for hook, name in K5P_KERNELS.items()}
+
+
 # ------------------------------------------------------------- main path
 def all_counts():
     from repro_torch.kernels import ams_matmul, attention_template
     return (ams_matmul.COUNT, ams_matmul.COUNT_PLANES, attention_template.COUNT,
             attention_template.COUNT_BF16, attention_template.COUNT_CONTIG,
-            attention_template.COUNT_MLA)
+            attention_template.COUNT_MLA, attention_template.COUNT_STREAM_BF16,
+            attention_template.COUNT_STREAM_AMS)
 
 
 def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
@@ -812,6 +957,7 @@ def main():
         phase_k3(torch, dev, timed=False, full=False)
         phase_k4(torch, dev, timed=False, full=False)
         phase_k5(torch, dev, timed=False, full=False)
+        phase_k5p(torch, dev, timed=False, full=False)
         for path in PATHS:
             phase_serve(torch, dev, full=False, path=path)
             phase_consistency(torch, dev, full=False, path=path)
@@ -845,6 +991,7 @@ def main():
     k3, k3_err = phase_k3(torch, dev, timed=True, full=True)
     k4, k4_err = phase_k4(torch, dev, timed=True, full=True)
     k5, k5_err = phase_k5(torch, dev, timed=True, full=True)
+    k5p, k5p_err, k5p_launches = phase_k5p(torch, dev, timed=True, full=True)
     served = {}
     for path in PATHS:
         served[path] = phase_serve(torch, dev, full=True, path=path)
@@ -858,12 +1005,15 @@ def main():
         for path, r in served.items()}))
 
     # library_ms: K4 / K5 against one torch SDPA call with the equivalent
-    # boolean mask; null for K1-K3, because no single PyTorch call computes
-    # a dequant-matmul from packed AMS planes, or paged attention through a
-    # block table
-    def row(name, src, replaces, path, res, err):
+    # boolean mask; null for K1-K3 and K5p, because no single PyTorch call
+    # computes a dequant-matmul from packed AMS planes, or paged attention
+    # through a block table. launches: the count on the path's served run;
+    # K5p, which no served path reaches, its phase's run of the entry
+    # (path null)
+    def row(name, src, replaces, path, res, err, launches=None):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
-                    replaces=replaces, launches=served[path]["launches"][name],
+                    replaces=replaces, path=path,
+                    launches=served[path]["launches"][name] if path else launches,
                     max_abs_err=err, ms=res["ms"], plain_ms=res["plain_ms"],
                     bound_ms=res["bound_ms"], bound_by=res["bound_by"],
                     library_ms=res.get("library_ms"))
@@ -881,6 +1031,12 @@ def main():
             "src/repro/kernels/attention_template.py:472", "contig-fp5.33", k4, k4_err),
         row("contiguous_attention_mla", "contiguous_attention.cu",
             "src/repro/kernels/attention_template.py:299", "mla-fp5.33", k5, k5_err),
+        row("paged_attention_stream_bf16", "paged_attention.cu",
+            "src/repro/kernels/attention_template.py:299", None, k5p["bf16"], k5p_err["bf16"],
+            k5p_launches["bf16"]),
+        row("paged_attention_stream_ams", "paged_attention.cu",
+            "src/repro/kernels/attention_template.py:309", None, k5p["ams"], k5p_err["ams"],
+            k5p_launches["ams"]),
     ]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

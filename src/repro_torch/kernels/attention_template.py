@@ -1,5 +1,5 @@
-"""Decode attention: plain flash-decode bodies, the paged kernels K2 and K3
-and the contiguous-cache kernels K4 and K5 (port of
+"""Decode attention: plain flash-decode bodies, the paged kernels K2, K3 and
+K5p and the contiguous-cache kernels K4 and K5 (port of
 src/repro/kernels/attention_template.py).
 
   * `flash_decode` / `flash_decode_chunk` — the plain torch reference bodies
@@ -7,8 +7,11 @@ src/repro/kernels/attention_template.py).
     contiguous caches and the oracle the paged ``ref`` path attends with.
   * `fused_paged_attention` — paged flash-decode over a page pool: folds q
     chunk-major per kv head (`_fold_q`), runs K2 (`paged_attention_ams`,
-    packed AMS-e2m2 pages) or K3 (`paged_attention_bf16`, bf16 pages) and
-    unfolds the result (`_unfold_o`).
+    packed AMS pages of e2m2 or e2m1 codes) or K3 (`paged_attention_bf16`,
+    bf16 pages), or with ``value_slice`` K5p (`paged_attention_stream_bf16`
+    / `paged_attention_stream_ams`: one absorbed-MLA stream pool whose
+    values are the first ``value_slice`` columns of the keys), and unfolds
+    the result (`_unfold_o`).
   * `fused_contiguous_attention` — the same template over a contiguous
     [B, S, kv, hd] cache: K4 (`contiguous_attention`, separate K and V, the
     GQA cache) or K5 (`contiguous_attention_mla`, one absorbed-MLA stream
@@ -19,7 +22,7 @@ src/repro/kernels/attention_template.py).
 
 The wrappers launch the CUDA kernels in ``csrc/`` on CUDA tensors (bound and
 design noted there) and run their plain torch versions on CPU tensors. As in
-the TPU template, all four kernels share one online-softmax walk
+the TPU template, all the kernels share one online-softmax walk
 (`_online_softmax`) and differ only in how a block of K and V is loaded,
 and in the type p is rounded to before the PV product (f32 lattice values
 for AMS pages, the cache's bf16 otherwise).
@@ -44,6 +47,8 @@ NEG_BIG = -2e30   # additive mask; exp(NEG_BIG - NEG_CLAMP) == 0 exactly
 NEG_CLAMP = -1e30
 COUNT = KernelCount("paged_attention_ams")
 COUNT_BF16 = KernelCount("paged_attention_bf16")
+COUNT_STREAM_BF16 = KernelCount("paged_attention_stream_bf16")
+COUNT_STREAM_AMS = KernelCount("paged_attention_stream_ams")
 COUNT_CONTIG = KernelCount("contiguous_attention")
 COUNT_MLA = KernelCount("contiguous_attention_mla")
 
@@ -149,12 +154,14 @@ def _online_softmax(qf, load, lens, *, block: int, nblocks: int, hd_v: int, c: i
 
 
 def _paged_online_softmax(qf, load, lens, block_table, *, page_size: int, c: int, g: int,
-                          pv_dtype) -> torch.Tensor:
-    """`_online_softmax` page by page: ``load(pg)`` -> (k, v) [B, page, kv,
-    hd] f32 for the page ids ``pg`` [B] of block_table [B, MP]."""
+                          pv_dtype, hd_v: Optional[int] = None) -> torch.Tensor:
+    """`_online_softmax` page by page: ``load(pg)`` -> (k [B, page, kv, hd],
+    v [B, page, kv, hd_v]) f32 for the page ids ``pg`` [B] of block_table
+    [B, MP]; ``hd_v`` defaults to hd."""
     return _online_softmax(qf, lambda i: load(block_table[:, i].long()), lens,
-                           block=page_size, nblocks=block_table.shape[1], hd_v=qf.shape[-1],
-                           c=c, g=g, pv_dtype=pv_dtype)
+                           block=page_size, nblocks=block_table.shape[1],
+                           hd_v=qf.shape[-1] if hd_v is None else hd_v, c=c, g=g,
+                           pv_dtype=pv_dtype)
 
 
 def paged_attention_ams_plain(qf, pool: Dict, lens, block_table, *, page_size: int,
@@ -176,11 +183,20 @@ def paged_attention_ams_plain(qf, pool: Dict, lens, block_table, *, page_size: i
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = library("paged_attention").paged_attention_ams
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+def _kernel_paged(name: str, n_ptr: int, n_int: int):
+    fn = getattr(library("paged_attention"), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch_paged(name: str, count: KernelCount, ptrs, ints, device) -> None:
+    """Call one C entry point of csrc/paged_attention.cu; raise unless the
+    launch succeeded, and count it when it did."""
+    rc = _kernel_paged(name, len(ptrs), len(ints))(*ptrs, *ints, stream_ptr(device))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    count.launches += 1
 
 
 def _check_rows(qf, lens, block_table, c, g):
@@ -195,10 +211,11 @@ def _check_rows(qf, lens, block_table, c, g):
                          f"{tuple(block_table.shape)} {block_table.dtype}")
 
 
-def _check_k2(qf, pool, lens, block_table, page_size, scheme, c, g):
-    _check_rows(qf, lens, block_table, c, g)
-    B, kv_n, R, hd = qf.shape
-    for name in ("k", "v"):
+def _check_planes(pool, names, kv_n, hd, page_size, scheme):
+    """The AMS planes of ``pool[name]`` match q's kv heads and width and the
+    page size; the scheme's codes fit the nibble plane (4 hi bits + the
+    shared LSB: e2m2 and e2m1, the bases the kernels decode)."""
+    for name in names:
         pl = pool[name]
         P, page, kvp, hb = pl["hi"].shape
         if (page != page_size or kvp != kv_n or pl["hi"].dtype != torch.int8
@@ -206,8 +223,25 @@ def _check_k2(qf, pool, lens, block_table, page_size, scheme, c, g):
                 or pl["lsb"].shape[:3] != (P, page, kv_n)
                 or pl["scale"].shape != (P, page, kv_n, 1) or 2 * hb < hd):
             raise ValueError(f"pool plane {name!r} does not match q / page size")
-    if scheme.base.name != "e2m2":
-        raise NotImplementedError(f"K2 restores e2m2 pages only, got {scheme.base.name}")
+    if scheme.base.total_bits > 5:
+        raise NotImplementedError(f"AMS pages hold codes of at most 5 bits, got "
+                                  f"{scheme.base.name}")
+
+
+def _check_k2(qf, pool, lens, block_table, page_size, scheme, c, g):
+    _check_rows(qf, lens, block_table, c, g)
+    _check_planes(pool, ("k", "v"), qf.shape[1], qf.shape[3], page_size, scheme)
+
+
+def _check_operands(name, qf, ops):
+    if not all(t.is_contiguous() and t.device == qf.device for t in ops):
+        raise ValueError(f"{name} operands must be contiguous and on one device")
+
+
+def _check_aligned(name, hd, pages):
+    if hd % 8 == 0 and any(t.data_ptr() % 16 for t in pages):
+        raise ValueError(f"{name} reads bf16 pages with 16-byte loads: pools must be 16-byte "
+                         f"aligned")
 
 
 def paged_attention_ams(qf, pool: Dict, lens, block_table, *, page_size: int,
@@ -224,16 +258,12 @@ def paged_attention_ams(qf, pool: Dict, lens, block_table, *, page_size: int,
         raise NotImplementedError(f"K2 takes hd <= 128 and page <= 32, got {hd}, {page_size}")
     planes = [pool[n][p] for n in ("k", "v") for p in ("hi", "lsb", "scale")]
     ops = [qf, *planes, block_table, lens]
-    if not all(t.is_contiguous() and t.device == qf.device for t in ops):
-        raise ValueError("K2 operands must be contiguous and on one device")
+    _check_operands("K2", qf, ops)
     out = torch.empty_like(qf)
     hb, gw = pool["k"]["hi"].shape[-1], pool["k"]["lsb"].shape[-1]
-    rc = _kernel()(*(t.data_ptr() for t in ops), out.data_ptr(),
-                   B, kv_n, R, hd, hb, gw, scheme.k, page_size, block_table.shape[1],
-                   c, g, stream_ptr(qf.device))
-    if rc != 0:
-        raise RuntimeError(f"paged_attention_ams launch failed: cudaError {rc}")
-    COUNT.launches += 1
+    _launch_paged("paged_attention_ams", COUNT, [t.data_ptr() for t in ops + [out]],
+                  [B, kv_n, R, hd, hb, gw, scheme.k, scheme.base.man_bits, page_size,
+                   block_table.shape[1], c, g], qf.device)
     return out
 
 
@@ -256,22 +286,17 @@ def paged_attention_bf16_plain(qf, pool: Dict, lens, block_table, *, page_size: 
                                  g=g, pv_dtype=pool["v"].dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_bf16():
-    fn = library("paged_attention").paged_attention_bf16
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _check_k3(qf, pool, lens, block_table, page_size, c, g):
-    _check_rows(qf, lens, block_table, c, g)
-    B, kv_n, R, hd = qf.shape
-    for name in ("k", "v"):
+def _check_bf16_pages(pool, names, kv_n, hd, page_size):
+    for name in names:
         t = pool[name]
         if t.dim() != 4 or t.shape[1:] != (page_size, kv_n, hd) or t.dtype != torch.bfloat16:
             raise ValueError(f"pool {name!r} must be bf16 [P, {page_size}, {kv_n}, {hd}], got "
                              f"{t.dtype} {tuple(t.shape)}")
+
+
+def _check_k3(qf, pool, lens, block_table, page_size, c, g):
+    _check_rows(qf, lens, block_table, c, g)
+    _check_bf16_pages(pool, ("k", "v"), qf.shape[1], qf.shape[3], page_size)
     if pool["k"].shape != pool["v"].shape:
         raise ValueError("pool k and v differ in shape")
 
@@ -289,17 +314,114 @@ def paged_attention_bf16(qf, pool: Dict, lens, block_table, *, page_size: int,
     if hd > 128 or page_size > 32:
         raise NotImplementedError(f"K3 takes hd <= 128 and page <= 32, got {hd}, {page_size}")
     ops = [qf, pool["k"], pool["v"], block_table, lens]
-    if not all(t.is_contiguous() and t.device == qf.device for t in ops):
-        raise ValueError("K3 operands must be contiguous and on one device")
-    if hd % 8 == 0 and (pool["k"].data_ptr() % 16 or pool["v"].data_ptr() % 16):
-        raise ValueError("K3 reads bf16 pages with 16-byte loads: pools must be 16-byte aligned")
+    _check_operands("K3", qf, ops)
+    _check_aligned("K3", hd, (pool["k"], pool["v"]))
     out = torch.empty_like(qf)
-    rc = _kernel_bf16()(*(t.data_ptr() for t in ops), out.data_ptr(),
-                        B, kv_n, R, hd, page_size, block_table.shape[1], c, g,
-                        stream_ptr(qf.device))
-    if rc != 0:
-        raise RuntimeError(f"paged_attention_bf16 launch failed: cudaError {rc}")
-    COUNT_BF16.launches += 1
+    _launch_paged("paged_attention_bf16", COUNT_BF16, [t.data_ptr() for t in ops + [out]],
+                  [B, kv_n, R, hd, page_size, block_table.shape[1], c, g], qf.device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K5p: the paged absorbed-MLA stream (values = the first hd_v key columns)
+# ---------------------------------------------------------------------------
+def paged_attention_stream_bf16_plain(qf, pool: Dict, lens, block_table, *, page_size: int,
+                                      c: int, g: int, hd_v: int) -> torch.Tensor:
+    """Plain torch version of K5p on bf16 pages: K3's walk over one stream
+    ``pool["k"]`` [P, page, kv, hd] bf16, loaded once per page, whose values
+    are its first ``hd_v`` columns; p is rounded to the pool's bf16 at the
+    running max (TPU `_make_load_stream`, ``pv_dtype`` = the pool dtype) ->
+    [B, kv, R, hd_v] f32. ``pool["v"]`` is never read."""
+    if qf.is_cuda:
+        COUNT_STREAM_BF16.plain_on_cuda += 1
+
+    def load(pg):
+        k = pool["k"][pg].to(torch.float32)
+        return k, k[..., :hd_v]
+
+    return _paged_online_softmax(qf, load, lens, block_table, page_size=page_size, c=c,
+                                 g=g, pv_dtype=pool["k"].dtype, hd_v=hd_v)
+
+
+def paged_attention_stream_ams_plain(qf, pool: Dict, lens, block_table, *, page_size: int,
+                                     scheme, c: int, g: int, hd_v: int) -> torch.Tensor:
+    """Plain torch version of K5p on AMS pages: only the K planes
+    ``pool["k"]`` {hi, lsb, scale} are restored, and the first ``hd_v``
+    restored columns are the values; p stays f32 (TPU `_make_load_ams` with
+    ``hd_v``) -> [B, kv, R, hd_v] f32."""
+    if qf.is_cuda:
+        COUNT_STREAM_AMS.plain_on_cuda += 1
+    hd = qf.shape[-1]
+    pl = pool["k"]
+
+    def load(pg):
+        k = restore_page(pl["hi"][pg], pl["lsb"][pg], pl["scale"][pg], scheme.base, scheme.k,
+                         hd)
+        return k, k[..., :hd_v]
+
+    return _paged_online_softmax(qf, load, lens, block_table, page_size=page_size, c=c,
+                                 g=g, pv_dtype=torch.float32, hd_v=hd_v)
+
+
+def _check_stream(qf, lens, block_table, c, g, hd_v):
+    _check_rows(qf, lens, block_table, c, g)
+    hd = qf.shape[-1]
+    if not 1 <= hd_v <= hd:
+        raise ValueError(f"need 1 <= value_slice={hd_v} <= hd={hd}")
+
+
+def _check_stream_widths(hd, hd_v, page_size):
+    """The widths K5p's one instantiation takes: MiniCPM3-4B's 256 + 32."""
+    if hd > 288 or hd_v > 256 or page_size > 32:
+        raise NotImplementedError(f"K5p takes hd <= 288, value_slice <= 256 and page <= 32, "
+                                  f"got {hd}, {hd_v}, {page_size}")
+
+
+def paged_attention_stream_bf16(qf, pool: Dict, lens, block_table, *, page_size: int,
+                                c: int, g: int, hd_v: int) -> torch.Tensor:
+    """K5p wrapper on bf16 pages (same contract as
+    `paged_attention_stream_bf16_plain`). CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    B, kv_n, R, hd = qf.shape
+    _check_bf16_pages(pool, ("k",), kv_n, hd, page_size)
+    _check_stream(qf, lens, block_table, c, g, hd_v)
+    if qf.device.type == "cpu":
+        return paged_attention_stream_bf16_plain(qf, pool, lens, block_table,
+                                                 page_size=page_size, c=c, g=g, hd_v=hd_v)
+    check_device(qf)
+    _check_stream_widths(hd, hd_v, page_size)
+    ops = [qf, pool["k"], block_table, lens]
+    _check_operands("K5p", qf, ops)
+    _check_aligned("K5p", hd, (pool["k"],))
+    out = torch.empty((B, kv_n, R, hd_v), dtype=torch.float32, device=qf.device)
+    _launch_paged("paged_attention_stream_bf16", COUNT_STREAM_BF16,
+                  [x.data_ptr() for x in ops + [out]],
+                  [B, kv_n, R, hd, hd_v, page_size, block_table.shape[1], c, g], qf.device)
+    return out
+
+
+def paged_attention_stream_ams(qf, pool: Dict, lens, block_table, *, page_size: int,
+                               scheme, c: int, g: int, hd_v: int) -> torch.Tensor:
+    """K5p wrapper on AMS pages (same contract as
+    `paged_attention_stream_ams_plain`). CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    B, kv_n, R, hd = qf.shape
+    _check_planes(pool, ("k",), kv_n, hd, page_size, scheme)
+    _check_stream(qf, lens, block_table, c, g, hd_v)
+    if qf.device.type == "cpu":
+        return paged_attention_stream_ams_plain(qf, pool, lens, block_table,
+                                                page_size=page_size, scheme=scheme, c=c, g=g,
+                                                hd_v=hd_v)
+    check_device(qf)
+    _check_stream_widths(hd, hd_v, page_size)
+    pl = pool["k"]
+    ops = [qf, pl["hi"], pl["lsb"], pl["scale"], block_table, lens]
+    _check_operands("K5p", qf, ops)
+    out = torch.empty((B, kv_n, R, hd_v), dtype=torch.float32, device=qf.device)
+    _launch_paged("paged_attention_stream_ams", COUNT_STREAM_AMS,
+                  [x.data_ptr() for x in ops + [out]],
+                  [B, kv_n, R, hd, hd_v, pl["hi"].shape[-1], pl["lsb"].shape[-1], scheme.k,
+                   scheme.base.man_bits, page_size, block_table.shape[1], c, g], qf.device)
     return out
 
 
@@ -336,20 +458,28 @@ def _unfold_o(o, dims, chunked: bool, dtype):
 
 
 def fused_paged_attention(q, pool: Dict, lengths, block_table, *, page_size: int,
-                          kv_scheme: Optional[str], scale: Optional[float] = None):
+                          kv_scheme: Optional[str], value_slice: Optional[int] = None,
+                          scale: Optional[float] = None):
     """Paged flash-decode through K2 (``kv_scheme`` names the AMS pool's
-    scheme) or K3 (``kv_scheme=None``: bf16 pages): q [B, H, hd] or
-    [B, c, H, hd] unscaled, lengths [B] or [B, c] valid keys, block_table
-    [B, MP] int32. Returns q's shape in q.dtype."""
+    scheme) or K3 (``kv_scheme=None``: bf16 pages), or with ``value_slice``
+    through K5p: the pool's ``k`` is one absorbed-MLA stream whose first
+    ``value_slice`` columns are the values (``pool["v"]`` is never read).
+    q [B, H, hd] or [B, c, H, hd] unscaled, lengths [B] or [B, c] valid
+    keys, block_table [B, MP] int32. Returns q's shape (last dim
+    ``value_slice`` when given) in q.dtype."""
     bt = block_table.to(torch.int32).contiguous()
-    if kv_scheme is None:
-        qf, lens, chunked, dims = _fold_q(q, lengths, pool["k"].shape[2], scale)
-        o = paged_attention_bf16(qf, pool, lens, bt, page_size=page_size, c=dims[1],
-                                 g=dims[4])
+    k_leaf = pool["k"] if kv_scheme is None else pool["k"]["hi"]
+    qf, lens, chunked, dims = _fold_q(q, lengths, k_leaf.shape[2], scale)
+    kw = dict(page_size=page_size, c=dims[1], g=dims[4])
+    if kv_scheme is not None:
+        kw["scheme"] = get_scheme(kv_scheme)
+    if value_slice is not None:
+        stream = paged_attention_stream_bf16 if kv_scheme is None else paged_attention_stream_ams
+        o = stream(qf, pool, lens, bt, hd_v=value_slice, **kw)
+    elif kv_scheme is None:
+        o = paged_attention_bf16(qf, pool, lens, bt, **kw)
     else:
-        qf, lens, chunked, dims = _fold_q(q, lengths, pool["k"]["hi"].shape[2], scale)
-        o = paged_attention_ams(qf, pool, lens, bt, page_size=page_size,
-                                scheme=get_scheme(kv_scheme), c=dims[1], g=dims[4])
+        o = paged_attention_ams(qf, pool, lens, bt, **kw)
     return _unfold_o(o, dims, chunked, q.dtype)
 
 

@@ -1,9 +1,9 @@
 """Tests of the port that need the card, plus import hygiene.
 
-The ``gpu``-marked tests hold the CUDA kernels K1, K1b, K2, K3, K4 and K5
-against their plain torch versions on the card, at small and at Qwen2-7B /
-MiniCPM3-4B widths, and run the engine end to end through each path's
-kernels. Each skips from inside the test
+The ``gpu``-marked tests hold the CUDA kernels K1, K1b, K2, K3, K4, K5 and
+K5p against their plain torch versions on the card, at small and at
+Qwen2-7B / MiniCPM3-4B widths, and run the engine end to end through each
+path's kernels. Each skips from inside the test
 when ``torch.cuda.is_available()`` is false. The machine with the card has
 no JAX, so this file imports none; run it there alone:
 
@@ -195,6 +195,116 @@ def test_k2_kernel_matches_plain(kv, g, hd, page, chunk):
     want = paged_attention_ams_plain(qf, pool, lens, bt, **kw)
     assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
     assert bool((got.permute(0, 2, 1, 3)[masked] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme,kv,g,hd,page,chunk", [
+    ("fp4-e2m1", 4, 7, 128, 16, 1), ("fp4-e2m1", 2, 2, 32, 8, 4),
+    ("fp4.33-e2m2", 4, 7, 128, 16, 16), ("fp5-e2m2", 1, 3, 7, 8, 2)])
+def test_k2_kernel_matches_plain_on_other_schemes(scheme, kv, g, hd, page, chunk):
+    """K2 over AMS pages of e2m1 codes (k = 1: the LSB plane holds each
+    code's mantissa bit) and of e2m2 codes shared by k = 3 and 1."""
+    from repro_torch.core.formats import get_scheme
+    from repro_torch.core.kv_quant import quantize_kv
+    from repro_torch.kernels.attention_template import (
+        COUNT,
+        paged_attention_ams,
+        paged_attention_ams_plain,
+    )
+
+    dev = cuda_device()
+    scheme = get_scheme(scheme)
+    gen = torch.Generator(device=dev).manual_seed(hd + chunk + 4)
+    pool = {n: {k: t.contiguous() for k, t in quantize_kv(
+        torch.randn((32, page, kv, hd), generator=gen, device=dev), scheme).items()}
+        for n in ("k", "v")}
+    qf, lens, bt, masked = _paged_case(kv, g, hd, page, chunk, dev, gen)
+    kw = dict(page_size=page, scheme=scheme, c=chunk, g=g)
+    n = COUNT.launches
+    got = paged_attention_ams(qf, pool, lens, bt, **kw)
+    torch.cuda.synchronize()
+    assert COUNT.launches == n + 1
+    want = paged_attention_ams_plain(qf, pool, lens, bt, **kw)
+    assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+    assert bool((got.permute(0, 2, 1, 3)[masked] == 0).all())
+
+
+def _stream_pool(kind, page, hd, dev, gen):
+    """A K5p stream pool of 32 pages, kv = 1: bf16 pages, or AMS-e2m2 planes
+    (fp4.25-e2m2, the CacheConfig default) with only the ``k`` leaf."""
+    from repro_torch.core.formats import get_scheme
+    from repro_torch.core.kv_quant import quantize_kv
+
+    x = torch.randn((32, page, 1, hd), generator=gen, device=dev)
+    if kind == "bf16":
+        return {"k": x.to(torch.bfloat16)}
+    return {"k": {k: t.contiguous()
+                  for k, t in quantize_kv(x, get_scheme("fp4.25-e2m2")).items()}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,hd_v,g", [(72, 64, 4), (288, 256, 40)])
+@pytest.mark.parametrize("page", [4, 16, 32])
+@pytest.mark.parametrize("chunk", [1, 16])
+@pytest.mark.parametrize("kind", ["bf16", "ams"])
+def test_k5p_kernel_matches_plain(kind, chunk, page, hd, hd_v, g):
+    """K5p, the paged absorbed-MLA stream, against its plain version: AMS
+    pages within 1e-4 of max |y| (f32 order), bf16 pages within K3's rule
+    (p rounded to bf16 in both; a score summed in another order can put p
+    one bf16 ulp apart, moving the output by at most 2^-8 max|v|)."""
+    from repro_torch.core.formats import get_scheme
+    from repro_torch.kernels import attention_template as T
+
+    dev = cuda_device()
+    gen = torch.Generator(device=dev).manual_seed(hd + chunk + page)
+    pool = _stream_pool(kind, page, hd, dev, gen)
+    qf, lens, bt, masked = _paged_case(1, g, hd, page, chunk, dev, gen)
+    kw = dict(page_size=page, c=chunk, g=g, hd_v=hd_v)
+    if kind == "bf16":
+        kernel, plain, count = (T.paged_attention_stream_bf16,
+                                T.paged_attention_stream_bf16_plain, T.COUNT_STREAM_BF16)
+    else:
+        kw["scheme"] = get_scheme("fp4.25-e2m2")
+        kernel, plain, count = (T.paged_attention_stream_ams,
+                                T.paged_attention_stream_ams_plain, T.COUNT_STREAM_AMS)
+    n = count.launches
+    got = kernel(qf, pool, lens, bt, **kw)
+    torch.cuda.synchronize()
+    assert count.launches == n + 1 and got.shape == (4, 1, chunk * g, hd_v)
+    want = plain(qf, pool, lens, bt, **kw)
+    if kind == "bf16":
+        vmax = float(pool["k"][..., :hd_v].float().abs().max())
+        tol = 2 ** -8 * vmax + 1e-4 * float(want.abs().max())
+    else:
+        tol = 1e-4 * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+    assert bool((got.permute(0, 2, 1, 3)[masked] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "ams"])
+@pytest.mark.parametrize("hd,hd_v,page", [(320, 256, 16), (288, 264, 16), (288, 256, 64)])
+def test_k5p_raises_past_its_widths(kind, hd, hd_v, page):
+    """K5p takes hd <= 288, value_slice <= 256 and page <= 32 (MiniCPM3-4B's
+    stream): past them the wrapper raises instead of launching or falling
+    back to the plain version."""
+    from repro_torch.core.formats import get_scheme
+    from repro_torch.kernels import attention_template as T
+
+    dev = cuda_device()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    pool = _stream_pool(kind, page, hd, dev, gen)
+    qf, lens, bt, _ = _paged_case(1, 2, hd, page, 1, dev, gen)
+    kw = dict(page_size=page, c=1, g=2, hd_v=hd_v)
+    if kind == "bf16":
+        fn, count = T.paged_attention_stream_bf16, T.COUNT_STREAM_BF16
+    else:
+        fn, count = T.paged_attention_stream_ams, T.COUNT_STREAM_AMS
+        kw["scheme"] = get_scheme("fp4.25-e2m2")
+    n, plain = count.launches, count.plain_on_cuda
+    with pytest.raises(NotImplementedError, match="K5p takes"):
+        fn(qf, pool, lens, bt, **kw)
+    assert (count.launches, count.plain_on_cuda) == (n, plain)
 
 
 def _contiguous_case(kv, g, hd, S, chunk, dev, gen):
