@@ -3,14 +3,19 @@
 
     python3 chip_smoke.py                  # on a machine with the card
     python3 chip_smoke.py --cpu-rehearsal  # tiny sizes, plain versions, CPU
+    python3 chip_smoke.py --phases k1,k4 [--from DIR]   # some kernel phases
+        # alone on the card, this checkout's or those of the checkout at DIR
+        # (a parent commit unpacked), to compare two versions in one call
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from src/repro_torch/kernels/csrc with nvcc
-     (one process per source, started together);
+     (one process per source, started together), and print ptxas's
+     registers, shared memory and spills for K1's and K4's kernels;
   3. K1 (AMS fp533 dequant-matmul) against its plain torch version at every
      Qwen2-7B projection shape, B in {8, 128}: error, kernel / plain / dense
-     bf16 torch.matmul times, and the bound from bytes and operations;
+     bf16 torch.matmul times, and the bound from bytes and operations; one
+     layer's 7 projections summed at each B (decode and a prefill chunk);
   4. K1b (AMS planes dequant-matmul), the same for fp4.25-e2m2, plus every
      other planes scheme at one small ragged shape;
   5. K2 (paged AMS-e2m2 flash-decode) against its plain version at kv=4,
@@ -207,8 +212,8 @@ def _matmul_phase(torch, dev, tag: str, scheme: str, gen, kernel, plain, timed: 
     shapes = QWEN_SHAPES if full else TINY_SHAPES
     batches = (8, 8 * 16) if full else (2, 2 * 4)
     max_err = 0.0
-    layer = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "flops": 0.0,
-             "dense_ms": 0.0}
+    layers = {B: {"B": B, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0,
+                  "flops": 0.0, "dense_ms": 0.0} for B in batches}
     for name, K, N, mult in shapes:
         pw, wd = _packed_weight(torch, dev, gen, scheme, K, N)
         wbytes = (pw.hi.numel() + pw.lsb.numel()) * 4
@@ -237,19 +242,18 @@ def _matmul_phase(torch, dev, tag: str, scheme: str, gen, kernel, plain, timed: 
                     (lambda w=w: outs.append(torch.matmul(xk, w))) for w in wds])
                 outs.clear()
                 del copies, wds
-                if B == batches[0]:
-                    layer["ms"] += mult * row["ms"]
-                    layer["plain_ms"] += mult * row["plain_ms"]
-                    layer["dense_ms"] += mult * row["dense_bf16_ms"]
-            if B == batches[0]:
-                layer["bytes"] += mult * nbytes
-                layer["flops"] += mult * flops
+                layers[B]["ms"] += mult * row["ms"]
+                layers[B]["plain_ms"] += mult * row["plain_ms"]
+                layers[B]["dense_ms"] += mult * row["dense_bf16_ms"]
+            layers[B]["bytes"] += mult * nbytes
+            layers[B]["flops"] += mult * flops
             log(f"{tag} " + json.dumps(row))
-    layer["bound_ms"], layer["bound_by"] = bound_ms(layer["bytes"],
-                                                    (layer["flops"], PEAK_BF16_FLOPS))
-    log(f"{tag} one decode layer (7 projections, {scheme}, B={batches[0]}): "
-        + json.dumps(layer))
-    return layer, max_err
+    for B, layer in layers.items():
+        layer["bound_ms"], layer["bound_by"] = bound_ms(layer["bytes"],
+                                                        (layer["flops"], PEAK_BF16_FLOPS))
+        what = "one decode layer" if B == batches[0] else "one prefill-chunk layer"
+        log(f"{tag} {what} (7 projections, {scheme}, B={B}): " + json.dumps(layer))
+    return layers[batches[0]], max_err
 
 
 def phase_k1(torch, dev, timed: bool, full: bool):
@@ -940,11 +944,71 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33"):
     return res
 
 
+def ptxas_report(build, kernels=("ams_matmul_fp533_kernel", "k4_kernel")):
+    """One line per instantiation of the named kernels from the build's
+    ``-Xptxas -v`` logs: registers, shared memory, stack and spills."""
+    rows = []
+    for name in build.SOURCES:
+        logf = build.library_path(name).with_suffix(".log")
+        if not logf.exists():
+            continue
+        fn, props = None, ""
+        for ln in logf.read_text().splitlines():
+            if "Function properties for" in ln:
+                fn, props = ln.split("Function properties for")[-1].strip(), ""
+            elif fn and "stack frame" in ln:
+                props = ln.strip()
+            elif fn and "Used" in ln and "registers" in ln:
+                if any(k in fn for k in kernels):
+                    rows.append(f"{fn}: {ln.split('Used', 1)[1].strip()}; {props}")
+                fn = None
+    for r in rows:
+        log(f"ptxas {r}")
+    if not rows:
+        fail("no ptxas report for the K1 / K4 kernels")
+
+
+PHASES = ("k1", "k1b", "k2", "k3", "k4", "k5", "k5p")
+
+
+def run_phases(torch, names, other):
+    """Time some kernel phases alone on the card (one process per checkout,
+    so two versions compare in one call: parent, change, change, parent);
+    ``other`` is the root of another checkout whose chip_smoke.py phases
+    (and kernels) run instead of this one's."""
+    import importlib.util
+
+    mod = sys.modules[__name__]
+    if other:
+        root = Path(other).resolve()
+        sys.path.insert(0, str(root / "src"))
+        spec = importlib.util.spec_from_file_location("chip_smoke_other", root / "chip_smoke.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    from repro_torch.kernels import build
+
+    log(f"phases of {Path(mod.__file__).resolve().parent}, kernels from "
+        f"{Path(build.__file__).resolve().parent}")
+    t0 = time.perf_counter()
+    build.build_all()
+    log(f"build {time.perf_counter() - t0:.1f}s")
+    if not other:
+        ptxas_report(build)
+    dev = torch.device("cuda", 0)
+    for n in names:
+        res = getattr(mod, f"phase_{n}")(torch, dev, timed=True, full=True)
+        log(f"phase {n} " + json.dumps(res[0], default=str))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run every phase on the CPU at tiny sizes (plain versions, no "
                          "timing) and exit non-zero")
+    ap.add_argument("--phases", help="time only these kernel phases on the card, comma-"
+                    f"separated from {','.join(PHASES)}, and print no result")
+    ap.add_argument("--from", dest="other", help="with --phases: run the phases and kernels "
+                    "of the checkout at this root instead (a parent commit, unpacked)")
     args = ap.parse_args()
 
     import torch
@@ -965,9 +1029,6 @@ def main():
         sys.exit(2)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
-    from repro_torch.kernels import build
-
-    dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False     # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -977,6 +1038,15 @@ def main():
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    if args.phases:
+        names = args.phases.split(",")
+        if not set(names) <= set(PHASES):
+            fail(f"unknown phases {names}; choose from {PHASES}")
+        run_phases(torch, names, args.other)
+        return
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
     report = build.build_all()
@@ -984,6 +1054,7 @@ def main():
         regs = [ln.strip() for ln in r["log"].splitlines() if "registers" in ln]
         log(f"build {name}: {r['seconds']:.1f}s; {' | '.join(regs)}")
     log(f"build total {time.perf_counter() - t0:.1f}s")
+    ptxas_report(build)
 
     k1, k1_err = phase_k1(torch, dev, timed=True, full=True)
     k1b, k1b_err = phase_k1b(torch, dev, timed=True, full=True)

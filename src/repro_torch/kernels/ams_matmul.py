@@ -27,6 +27,7 @@ from repro_torch.core.formats import code_to_value, get_format
 from repro_torch.core.packing import PackLayout
 
 from .build import KernelCount, check_device, library, stream_ptr
+from .tuning import plan_ams_matmul
 
 E2M3 = get_format("e2m3")
 COUNT = KernelCount("ams_matmul_fp533")
@@ -77,7 +78,7 @@ def _check(x, hi, scale):
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = library("ams_matmul").ams_matmul_fp533
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -85,7 +86,7 @@ def _kernel():
 def ams_matmul_fp533(x: torch.Tensor, hi: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """K1 wrapper: x [B, Kp], hi [Kp/6, N] int32, scale [N] f32 -> y [B, N]
     f32. CPU tensors take the plain version; CUDA tensors launch the kernel
-    or raise."""
+    (tiles and K split from `tuning.plan_ams_matmul`) or raise."""
     _check(x, hi, scale)
     if x.device.type == "cpu":
         return ams_matmul_fp533_plain(x, hi, scale)
@@ -96,8 +97,12 @@ def ams_matmul_fp533(x: torch.Tensor, hi: torch.Tensor, scale: torch.Tensor) -> 
     B, N = x.shape[0], hi.shape[1]
     xb = x.to(torch.bfloat16).contiguous()
     y = torch.empty((B, N), dtype=torch.float32, device=x.device)
+    if B == 0 or N == 0 or hi.shape[0] == 0:     # nothing to launch: y is 0
+        return y.zero_()
+    plan = plan_ams_matmul(B, hi.shape[0], N)
     rc = fn(xb.data_ptr(), hi.data_ptr(), scale.data_ptr(), y.data_ptr(),
-            B, hi.shape[0], N, stream_ptr(x.device))
+            B, hi.shape[0], N, plan.tn, plan.nt, plan.cluster, plan.split_words,
+            stream_ptr(x.device))
     if rc != 0:
         raise RuntimeError(f"ams_matmul_fp533 launch failed: cudaError {rc}")
     COUNT.launches += 1

@@ -41,7 +41,7 @@ from repro_torch.core.formats import code_to_value, get_scheme
 from repro_torch.core.kv_quant import codes_from_planes
 
 from .build import KernelCount, check_device, library, stream_ptr
-from .tuning import reference_block_kv
+from .tuning import plan_contiguous_attention, reference_block_kv
 
 NEG_BIG = -2e30   # additive mask; exp(NEG_BIG - NEG_CLAMP) == 0 exactly
 NEG_CLAMP = -1e30
@@ -554,8 +554,9 @@ def _check_contig(qf, caches, lens, c, g, block_kv, hd_v):
                          f"S={S}")
 
 
-def _launch_contig(name, count, qf, caches, lens, hd_v, c, g, block_kv):
-    """Launch K4 / K5 on CUDA tensors: bf16 caches, contiguous operands."""
+def _launch_contig(name, count, qf, caches, lens, hd_v, c, g, block_kv, plan=()):
+    """Launch K4 / K5 on CUDA tensors: bf16 caches, contiguous operands;
+    ``plan`` are the extra ints of the kernel's launch plan (K4's)."""
     check_device(qf)
     B, kv_n, R, hd = qf.shape
     if any(t.dtype != torch.bfloat16 for t in caches):
@@ -564,7 +565,7 @@ def _launch_contig(name, count, qf, caches, lens, hd_v, c, g, block_kv):
     if not all(t.is_contiguous() and t.device == qf.device for t in ops):
         raise ValueError(f"{name} operands must be contiguous and on one device")
     out = torch.empty((B, kv_n, R, hd_v), dtype=torch.float32, device=qf.device)
-    ints = [B, caches[0].shape[1], kv_n, R, hd, hd_v, block_kv, c, g]
+    ints = [B, caches[0].shape[1], kv_n, R, hd, hd_v, block_kv, c, g, *plan]
     rc = _kernel_contig(name, len(ops) + 1, len(ints))(
         *(t.data_ptr() for t in ops), out.data_ptr(), *ints, stream_ptr(qf.device))
     if rc != 0:
@@ -576,13 +577,17 @@ def _launch_contig(name, count, qf, caches, lens, hd_v, c, g, block_kv):
 def contiguous_attention(qf, k_cache, v_cache, lens, *, c: int, g: int,
                          block_kv: int) -> torch.Tensor:
     """K4 wrapper (same contract as `contiguous_attention_plain`). CPU
-    tensors take the plain version; CUDA tensors launch the kernel or raise."""
+    tensors take the plain version; CUDA tensors launch the kernel (cluster
+    and score plan from `tuning.plan_contiguous_attention`) or raise."""
     _check_contig(qf, (k_cache, v_cache), lens, c, g, block_kv, v_cache.shape[-1])
     if qf.device.type == "cpu":
         return contiguous_attention_plain(qf, k_cache, v_cache, lens, c=c, g=g,
                                           block_kv=block_kv)
+    B, kv_n, R, _ = qf.shape
+    plan = plan_contiguous_attention(max(B, 1), kv_n, max(R, 1), block_kv)
     return _launch_contig("contiguous_attention", COUNT_CONTIG, qf, (k_cache, v_cache), lens,
-                          v_cache.shape[-1], c, g, block_kv)
+                          v_cache.shape[-1], c, g, block_kv,
+                          (plan.cluster, plan.score_keys, int(not plan.scores_fit)))
 
 
 def contiguous_attention_mla(qf, cache, lens, *, c: int, g: int, block_kv: int,

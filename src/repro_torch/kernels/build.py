@@ -6,9 +6,10 @@ entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; the Python wrappers raise when that is not 0.
 
 Libraries are built at first use into ``_build/`` beside this file (listed
-in ``.gitignore``), named by a hash of the source and the flags, so a
-changed source rebuilds and an unchanged one is reused. `build_all` starts
-one ``nvcc`` per source at once and waits for all of them.
+in ``.gitignore``), named by a hash of the source, the shared ``*.cuh``
+headers and the flags, so a changed source or header rebuilds and an
+unchanged one is reused. `build_all` starts one ``nvcc`` per source at once
+and waits for all of them.
 """
 
 from __future__ import annotations
@@ -67,8 +68,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The built library of one source, named by a hash of the source, the
+    headers beside it and the flags."""
+    text = (CSRC / SOURCES[name]).read_bytes()
+    text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 

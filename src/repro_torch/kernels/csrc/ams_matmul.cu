@@ -10,123 +10,410 @@
 // plus the group's shared mantissa LSB at bit 15).
 //
 // Bound: at decode (B = slots) the kernel streams 4/6 byte per weight once
-// and does 2*B flops per weight, far below the H100's flops-per-byte
-// balance, so it is bound by device-memory bytes. At prefill rows
-// (B = slots * chunk) it does all of its FMAs on CUDA cores, not tensor
-// cores, and becomes bound by those operations.
+// and does 2*B operations per weight, far below the H100's operations per
+// byte, so it is bound by device-memory bytes; at prefill rows (B = slots *
+// chunk = 128) the products approach the bf16 tensor-core rate.
 //
-// Design: one block = 32 output columns x 8 rows of x. Each of the 8 warps
-// walks a disjoint, interleaved subset of the packed K words; lane n of a
-// warp reads hi[kw, n0 + n], so a warp reads 128 contiguous bytes per word
-// row (coalesced in the [Kp/6, N] layout). x is staged in shared memory per
-// chunk of K, rounded to bf16 by the wrapper and widened here to f32; all
-// lanes read the same x element, a shared-memory broadcast. Each word is
-// restored to six f32 values with the same SHIFT/AND/OR sequence as
-// decode_codes_to_f32 (IEEE bit pattern for normals, exact M * 2^-3 for
-// subnormals), so products bf16 x e2m3 are exact in f32 and the result
-// differs from the reference only by summation order. The 8 warps' partial
-// sums are reduced through shared memory and scaled once by scale[n].
-// Known weak spots (left for later work): CUDA-core FMAs instead of
-// tensor cores at prefill rows, and only N/32 blocks per row tile (16 for
-// N = 512).
+// Design (sm_90a):
+//  * Products on the tensor cores with swapped operands, as the TPU kernel
+//    does a bf16 x bf16 -> f32 dot on the decoded lattice: mma.sync
+//    m16n8k16 with A = 16 output columns x 16 K of the decoded weight and
+//    B = 16 K x 8 rows of x, so 8 decode rows fill n = 8 exactly and 128
+//    prefill rows take 16 n-tiles. Decoded e2m3 values have at most 3
+//    mantissa bits and x is rounded to bf16, so every product is exact and
+//    the result differs from the plain version only in the f32 order.
+//  * The decode goes straight into A fragments (the hook `Fp533Decode`,
+//    described there): 8 word rows are one k-group of 48 K; the thread with
+//    lane quad index t owns word rows 2t and 2t+1 of two adjacent columns,
+//    i.e. K positions 12t .. 12t+11 of the group. One 32-bit operation
+//    decodes a value of both 16-bit halves of a word into a bf16x2 (~16
+//    instructions per word). The K order inside the group is free as long
+//    as x's B fragments follow it; they are permuted from three 8-byte
+//    shared loads with byte permutes.
+//  * With one n-tile (decode) the 3 k-steps of a group accumulate into 3
+//    independent accumulator sets, so the mma.sync chain stays short.
+//  * The card is filled at every projection shape by the plan of
+//    kernels/tuning.plan_ams_matmul: tiles of 64 columns (32 for the
+//    narrowest projections, 128 at 16 n-tiles, where one x tile then feeds
+//    twice the columns) x 8*NT rows, K split on k-group boundaries over a
+//    thread-block cluster of up to 8 CTAs. The CTAs' partial sums meet in
+//    distributed shared memory; each rank finishes a share of the tile,
+//    summing the ranks' partials in rank order (deterministic: no atomics),
+//    and applies scale[n] once.
+//  * Bytes in flight: a ring of 4 stages of word rows (and x's matching K
+//    slice), 16-byte cp.async for the weights (4 bytes at ragged N) and the
+//    widest x copy its row stride allows; three stages stay in flight while
+//    one is decoded (~36 KB per CTA at decode, 4 CTAs per SM).
+// Shared-memory strides are padded so the fragment loads are free of bank
+// conflicts (weight rows TN + 4 words, x rows = 16 mod 64 bf16).
+// Known limit: at decode the kernel is bound by instruction issue, not
+// bytes: ~24 instructions per word (the decode, x's fragments, the copies),
+// plus per-CTA fixed costs (the ring's prologue, the cluster reduction).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90_async.cuh"
+
+namespace cg = cooperative_groups;
+
+// K1b's fixed tile (below)
 #define K1_COLS 32
 #define K1_WARPS 8
 #define K1_ROWS 8
 #define K1_CHUNK_WORDS 64
 
-// e2m3, bias 1: code = S << 5 | E << 3 | M
-__device__ __forceinline__ float decode_e2m3(int code) {
-  const int M = code & 7;
-  const int E = (code >> 3) & 3;
-  const int S = (code >> 5) & 1;
-  float v;
-  if (E == 0) {
-    v = (float)M * 0.125f;                          // M * 2^(1 - 1 - 3)
-  } else {
-    v = __int_as_float(((E - 1 + 127) << 23) | (M << 20));
-  }
-  return S ? -v : v;
-}
+#define K1_STAGES 4
 
-__global__ void __launch_bounds__(K1_WARPS * 32)
-ams_matmul_fp533_kernel(const __nv_bfloat16* __restrict__ x,
-                        const int32_t* __restrict__ hi,
-                        const float* __restrict__ scale,
-                        float* __restrict__ y, int B, int Kw, int N) {
-  __shared__ float xs[K1_ROWS][K1_CHUNK_WORDS * 6];
-  __shared__ float red[K1_WARPS][K1_ROWS][K1_COLS];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * K1_COLS + lane;
-  const int b0 = blockIdx.y * K1_ROWS;
-  const int64_t Kp = (int64_t)Kw * 6;
-  float acc[K1_ROWS];
+// The decode hook: one k-group of packed word rows in shared memory -> the
+// thread's A fragments of its 3 k-steps, and x's 12 K positions -> the
+// matching B fragments. Another container (the planes of K1b) plugs in with
+// its own kGroupWords (word rows per 48 K) and the same two functions.
+//
+// fp533: the two 16-bit halves of a word have the same layout, so one
+// 32-bit operation decodes value j of both halves at once, straight into a
+// bf16x2 (K positions j and 3 + j of the word): for each half the bf16 bits
+// S << 15 | (E << 3 | M) << 4 are 2^-126 times the e2m3 value (bias 1) for
+// E > 0 and, as a subnormal bf16, for E = 0 alike; one bf16x2 multiply by
+// 2^126 (exact: subnormals are kept) gives the values. The thread's 12 K
+// positions (words W0 = 0..5 and W1 = 6..11) fill its k-step slots in the
+// order 0 3 1 4 | 2 5 6 9 | 7 10 8 11, which x's B fragments follow.
+struct Fp533Decode {
+  static constexpr int kGroupWords = 8;
+
+  // {value j of half 0, value j of half 1} of word w, j = 0, 1, 2
+  __device__ __forceinline__ static void word_pairs(uint32_t w, uint32_t* p) {
+    const __nv_bfloat162 two126 = __halves2bfloat162(__ushort_as_bfloat16(0x7E80),
+                                                     __ushort_as_bfloat16(0x7E80));
+    const uint32_t lsb = (w >> 11) & 0x00100010u;          // shared LSB -> mantissa bit 0
+    uint32_t r[3];
+    r[0] = ((w << 5) & 0x01E001E0u) | ((w << 11) & 0x80008000u) | lsb;
+    r[1] = (w & 0x01E001E0u) | ((w << 6) & 0x80008000u) | lsb;
+    r[2] = ((w >> 5) & 0x01E001E0u) | ((w << 1) & 0x80008000u) | lsb;
 #pragma unroll
-  for (int r = 0; r < K1_ROWS; ++r) acc[r] = 0.f;
-
-  for (int c0 = 0; c0 < Kw; c0 += K1_CHUNK_WORDS) {
-    const int cw = min(K1_CHUNK_WORDS, Kw - c0);
-    const int ck = cw * 6;
-    __syncthreads();
-    for (int i = threadIdx.x; i < K1_ROWS * ck; i += blockDim.x) {
-      const int r = i / ck, kk = i - r * ck;
-      const int b = b0 + r;
-      xs[r][kk] = (b < B) ? __bfloat162float(x[(int64_t)b * Kp + (int64_t)c0 * 6 + kk])
-                          : 0.f;
+    for (int j = 0; j < 3; ++j) {
+      const __nv_bfloat162 v = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&r[j]), two126);
+      p[j] = *reinterpret_cast<const uint32_t*>(&v);
     }
-    __syncthreads();
-    if (n < N) {
-      for (int w = warp; w < cw; w += K1_WARPS) {
-        const uint32_t word = (uint32_t)hi[(int64_t)(c0 + w) * N + n];
-        float v[6];
+  }
+
+  // ws: the group's first word row, ld: words per row, col: the thread's
+  // first column (it owns col and col + 1, A rows g and g + 8)
+  __device__ __forceinline__ static void fragments(const uint32_t* ws, int ld, int t, int col,
+                                                   uint32_t (&a)[3][4]) {
+    const uint2 r0 = *reinterpret_cast<const uint2*>(ws + (2 * t) * ld + col);
+    const uint2 r1 = *reinterpret_cast<const uint2*>(ws + (2 * t + 1) * ld + col);
+    uint32_t c0[6], c1[6];               // per column: W0's pairs 0..2, W1's pairs 0..2
+    word_pairs(r0.x, c0);
+    word_pairs(r1.x, c0 + 3);
+    word_pairs(r0.y, c1);
+    word_pairs(r1.y, c1 + 3);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int half = (int)((word >> (16 * h)) & 0xFFFFu);
-          const int shared_bit = (half >> 15) & 1;
+    for (int s = 0; s < 3; ++s) {
+      a[s][0] = c0[2 * s];               // rows g (column col) and g + 8 (col + 1),
+      a[s][1] = c1[2 * s];               // k slots 2t, 2t+1 and 2t+8, 2t+9
+      a[s][2] = c0[2 * s + 1];
+      a[s][3] = c1[2 * s + 1];
+    }
+  }
+
+  // xr: x's 12 K positions of the thread (natural order, 8-byte aligned)
+  __device__ __forceinline__ static void x_fragments(const __nv_bfloat16* xr,
+                                                     uint32_t (&b)[3][2]) {
+    const uint2 q0 = *reinterpret_cast<const uint2*>(xr);
+    const uint2 q1 = *reinterpret_cast<const uint2*>(xr + 4);
+    const uint2 q2 = *reinterpret_cast<const uint2*>(xr + 8);
+    // pairs of K positions: (0,3) (1,4) | (2,5) (6,9) | (7,10) (8,11)
+    b[0][0] = __byte_perm(q0.x, q0.y, 0x7610);
+    b[0][1] = __byte_perm(q0.x, q1.x, 0x5432);
+    b[1][0] = __byte_perm(q0.y, q1.x, 0x7610);
+    b[1][1] = __byte_perm(q1.y, q2.x, 0x7610);
+    b[2][0] = __byte_perm(q1.y, q2.y, 0x5432);
+    b[2][1] = __byte_perm(q2.x, q2.y, 0x7610);
+  }
+};
+
+template <int WN, int NT>
+struct K1Shape {
+  static constexpr int TN = 16 * WN;                         // columns per CTA
+  static constexpr int BT = 8 * NT;                          // rows per CTA
+  static constexpr int THREADS = 32 * WN;
+  static constexpr int RW = NT >= 16 ? 8 : (NT >= 4 ? 16 : 32);   // word rows per stage
+  static constexpr int WS = TN + 4;                          // words per smem weight row
+  static constexpr int XS = RW * 6 + (((16 - RW * 6) % 64) + 64) % 64;   // bf16 per x row
+  static constexpr int STAGE_BYTES = RW * WS * 4 + BT * XS * 2;
+  static constexpr int RED_BYTES = TN * BT * 4;
+  static constexpr int SMEM = (K1_STAGES * STAGE_BYTES > RED_BYTES) ? K1_STAGES * STAGE_BYTES
+                                                                     : RED_BYTES;
+};
+
+template <int WN, int NT, int XV, class Dec>
+__global__ void __launch_bounds__(32 * WN)
+ams_matmul_fp533_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ hi,
+                        const float* __restrict__ scale, float* __restrict__ y, int B, int Kw,
+                        int N, int split_words, int wvec) {
+  using S = K1Shape<WN, NT>;
+  constexpr int TN = S::TN, BT = S::BT, RW = S::RW, WS = S::WS, XS = S::XS;
+  constexpr int NTH = S::THREADS;
+  extern __shared__ __align__(16) unsigned char k1_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int CL = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = (blockIdx.x / CL) * TN;
+  const int b0 = blockIdx.y * BT;
+  const int k0 = rank * split_words;
+  const int k1 = min(k0 + split_words, Kw);
+  const int64_t Kx = (int64_t)Kw * 6;                        // x row stride
+  const int nstage = k1 > k0 ? (k1 - k0 + RW - 1) / RW : 0;
+
+  auto stage_w = [&](int st) {
+    return reinterpret_cast<uint32_t*>(k1_smem + st * S::STAGE_BYTES);
+  };
+  auto stage_x = [&](int st) {
+    return reinterpret_cast<__nv_bfloat16*>(k1_smem + st * S::STAGE_BYTES + RW * WS * 4);
+  };
+
+  // The copies of a stage are fixed per thread, so their addresses are
+  // worked out once: the weights' 16-byte copies (rows wr, wr + 8, ...,
+  // columns wc .. wc+3) and x's copies of XV bytes. Up to 16 rows, a thread
+  // keeps one row (row tid % BT, copies tid / BT, + NTH / BT, ... of its
+  // XCPR), so a warp's copies cover a few rows' contiguous bytes; with more
+  // rows, consecutive threads take consecutive copies of a row (tid, tid +
+  // NTH, ... of the BT x XCPR).
+  constexpr int WPR = TN / 4;                                // 16-byte copies per row
+  const int wr = tid / WPR, wc = (tid % WPR) * 4;
+  const bool wcol = n0 + wc < N;
+  const int32_t* wbase = hi + (int64_t)(k0 + wr) * N + n0 + wc;
+  constexpr int XPER = XV / 2;                               // bf16 per x copy
+  constexpr int XCPR = RW * 6 / XPER;                        // x copies per row
+  constexpr int XSTEP = NTH / BT;                            // threads per x row
+  constexpr int XCH = (XCPR + XSTEP - 1) / XSTEP;            // x copies per thread
+  static_assert(BT <= NTH && NTH % BT == 0, "x rows per thread");
+  const int xr = tid % BT, xc = tid / BT;
+  const bool xrow = b0 + xr < B;
+  const __nv_bfloat16* xbase = x + (int64_t)(xrow ? b0 + xr : 0) * Kx + xc * XPER;
+  const int xdst = xr * XS + xc * XPER;
+
+  // one stage: word rows [w0, w0 + RW) of the tile's columns, and x's K
+  // positions [6 w0, 6 w0 + 6 RW) of the tile's rows; out of range -> zeros
+  auto load = [&](int it) {
+    const int slot = it % K1_STAGES;
+    const int w0 = k0 + it * RW;
+    uint32_t* ws = stage_w(slot);
+    if (wvec == 16) {
+      const int32_t* wp = wbase + (int64_t)it * RW * N;
 #pragma unroll
-          for (int j = 0; j < 3; ++j)
-            v[3 * h + j] = decode_e2m3((((half >> (5 * j)) & 0x1F) << 1) | shared_bit);
+      for (int u = 0; u < RW / 8; ++u) {
+        const bool ok = (w0 + wr + 8 * u < k1) && wcol;
+        cp_async16(ws + (wr + 8 * u) * WS + wc, ok ? (const void*)(wp + (int64_t)u * 8 * N)
+                                                   : (const void*)hi, ok);
+      }
+    } else {
+      for (int i = tid; i < RW * TN; i += NTH) {
+        const int r = i / TN, c = i - r * TN;
+        const bool ok = (w0 + r < k1) && (n0 + c < N);
+        cp_async_bytes<4>(ws + r * WS + c,
+                       ok ? (const void*)(hi + (int64_t)(w0 + r) * N + n0 + c) : (const void*)hi,
+                       ok);
+      }
+    }
+    const int kbeg = 6 * w0, kend = 6 * k1;
+    if (BT <= 16) {
+      __nv_bfloat16* xs = stage_x(slot) + xdst;
+      const __nv_bfloat16* xp = xbase + kbeg;
+#pragma unroll
+      for (int u = 0; u < XCH; ++u) {
+        const int c = xc + u * XSTEP;
+        if (XCPR % XSTEP == 0 || c < XCPR) {
+          const bool ok = xrow && (kbeg + c * XPER < kend);
+          cp_async_bytes<XV>(xs + u * XSTEP * XPER,
+                           ok ? (const void*)(xp + u * XSTEP * XPER) : (const void*)x, ok);
         }
+      }
+    } else {
+      __nv_bfloat16* xs = stage_x(slot);
 #pragma unroll
-        for (int r = 0; r < K1_ROWS; ++r) {
-          const float* xr = &xs[r][w * 6];
-#pragma unroll
-          for (int j = 0; j < 6; ++j) acc[r] = fmaf(xr[j], v[j], acc[r]);
+      for (int u = 0; u < (BT * XCPR + NTH - 1) / NTH; ++u) {
+        const int i = tid + u * NTH;
+        if ((BT * XCPR) % NTH == 0 || i < BT * XCPR) {
+          const int r = i / XCPR, k = (i % XCPR) * XPER;
+          const bool ok = (b0 + r < B) && (kbeg + k < kend);
+          cp_async_bytes<XV>(xs + r * XS + k,
+                           ok ? (const void*)(x + (b0 + r) * Kx + kbeg + k) : (const void*)x,
+                           ok);
         }
       }
     }
-  }
+  };
+
+  // NA accumulator sets, one per k-step class (s % NA): with few n-tiles
+  // this breaks the chain of dependent mma.sync through one accumulator
+  constexpr int NA = NT == 1 ? 3 : (NT == 2 ? 2 : 1);
+  float acc[NA][NT][4];
 #pragma unroll
-  for (int r = 0; r < K1_ROWS; ++r) red[warp][r][lane] = acc[r];
-  __syncthreads();
-  // 256 threads <-> 8 rows x 32 columns of output
-  const int r = threadIdx.x / K1_COLS;
-  const int c = threadIdx.x % K1_COLS;
-  const int on = blockIdx.x * K1_COLS + c;
-  const int ob = b0 + r;
-  if (on < N && ob < B) {
-    float s = 0.f;
+  for (int u = 0; u < NA; ++u)
 #pragma unroll
-    for (int w = 0; w < K1_WARPS; ++w) s += red[w][r][c];
-    y[(int64_t)ob * N + on] = s * scale[on];
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[u][j][e] = 0.f;
+
+#pragma unroll 1
+  for (int it = 0; it < K1_STAGES - 1; ++it) {
+    if (it < nstage) load(it);
+    cp_async_commit();
   }
+  for (int it = 0; it < nstage; ++it) {
+    cp_async_wait<K1_STAGES - 2>();
+    __syncthreads();                  // stage it landed; stage it - 1 fully read
+    if (it + K1_STAGES - 1 < nstage) load(it + K1_STAGES - 1);
+    cp_async_commit();
+    const uint32_t* ws = stage_w(it % K1_STAGES);
+    const __nv_bfloat16* xs = stage_x(it % K1_STAGES);
+    const int w0 = k0 + it * RW;
+#pragma unroll
+    for (int gr = 0; gr < RW / Dec::kGroupWords; ++gr) {
+      if (w0 + gr * Dec::kGroupWords >= k1) break;
+      uint32_t a[3][4];
+      Dec::fragments(ws + gr * Dec::kGroupWords * WS, WS, t, warp * 16 + 2 * g, a);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t bx[3][2];
+        Dec::x_fragments(xs + (8 * j + g) * XS + gr * 48 + 12 * t, bx);
+#pragma unroll
+        for (int s = 0; s < 3; ++s) mma_bf16(acc[s % NA][j], a[s], bx[s][0], bx[s][1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                    // the ring is free: reuse it for the partials
+
+  // partials red[col][row]: C row g <-> column 2g, row g + 8 <-> column 2g + 1
+  float* red = reinterpret_cast<float*>(k1_smem);
+  const int cl = warp * 16 + 2 * g;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[e] = acc[0][j][e];
+#pragma unroll
+      for (int u = 1; u < NA; ++u) v[e] += acc[u][j][e];
+    }
+    const int r = 8 * j + 2 * t;
+    *reinterpret_cast<float2*>(red + cl * BT + r) = make_float2(v[0], v[1]);
+    *reinterpret_cast<float2*>(red + (cl + 1) * BT + r) = make_float2(v[2], v[3]);
+  }
+  cluster.sync();
+  // rank q finishes every CL-th run of NTH (column, 4 rows) cells of the tile
+  // (column fastest): all the ranks' partials loaded first, then summed in
+  // rank order
+  for (int e = tid + rank * NTH; e < TN * (BT / 4); e += CL * NTH) {
+    const int r4 = e / TN, c = e - r4 * TN;
+    float4 part[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (q < CL)
+        part[q] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(red, q) + c * BT +
+                                                   4 * r4);
+    float4 s = part[0];
+#pragma unroll
+    for (int i = 1; i < 8; ++i) {
+      if (i < CL) {
+        s.x += part[i].x;
+        s.y += part[i].y;
+        s.z += part[i].z;
+        s.w += part[i].w;
+      }
+    }
+    const int n = n0 + c;
+    if (n < N) {
+      const float sc = scale[n];
+      const float sv[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int b = b0 + 4 * r4 + i;
+        if (b < B) y[(int64_t)b * N + n] = sv[i] * sc;
+      }
+    }
+  }
+  cluster.sync();                     // no CTA leaves while its partials are read
 }
 
-extern "C" int ams_matmul_fp533(const void* x, const void* hi, const void* scale,
-                                void* y, int B, int Kw, int N, void* stream) {
-  if (B <= 0 || N <= 0) return (int)cudaSuccess;
-  dim3 grid((N + K1_COLS - 1) / K1_COLS, (B + K1_ROWS - 1) / K1_ROWS);
-  dim3 block(K1_WARPS * 32);
-  ams_matmul_fp533_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const int32_t*)hi, (const float*)scale, (float*)y,
-      B, Kw, N);
+template <int WN, int NT, int XV>
+static int launch_fp533(const void* x, const void* hi, const void* scale, void* y, int B,
+                        int Kw, int N, int cluster, int split_words, cudaStream_t stream) {
+  using S = K1Shape<WN, NT>;
+  auto kernel = ams_matmul_fp533_kernel<WN, NT, XV, Fp533Decode>;
+  static bool configured = false;         // once per instantiation
+  if (S::SMEM > 48 * 1024 && !configured) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const int wvec = (N % 4 == 0 && (uintptr_t)hi % 16 == 0) ? 16 : 4;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((N + S::TN - 1) / S::TN) * cluster, (B + S::BT - 1) / S::BT, 1);
+  cfg.blockDim = dim3(S::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = S::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, (const __nv_bfloat16*)x, (const int32_t*)hi, (const float*)scale,
+      (float*)y, B, Kw, N, split_words, wvec);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// x's copies: the widest of 16, 8 or 4 bytes its row stride (12 Kw bytes)
+// and base allow
+template <int WN, int NT>
+static int launch_fp533_xv(const void* x, const void* hi, const void* scale, void* y, int B,
+                           int Kw, int N, int cluster, int split_words, cudaStream_t s) {
+  const uintptr_t xp = (uintptr_t)x;
+  const int64_t row_bytes = (int64_t)Kw * 12;
+  if (row_bytes % 16 == 0 && xp % 16 == 0)
+    return launch_fp533<WN, NT, 16>(x, hi, scale, y, B, Kw, N, cluster, split_words, s);
+  if (row_bytes % 8 == 0 && xp % 8 == 0)
+    return launch_fp533<WN, NT, 8>(x, hi, scale, y, B, Kw, N, cluster, split_words, s);
+  return launch_fp533<WN, NT, 4>(x, hi, scale, y, B, Kw, N, cluster, split_words, s);
+}
+
+// The plan (tn, nt, cluster, split_words) comes from
+// kernels/tuning.plan_ams_matmul; a plan that does not cover Kw with
+// k-group-aligned splits, one per rank, is refused.
+extern "C" int ams_matmul_fp533(const void* x, const void* hi, const void* scale, void* y,
+                                int B, int Kw, int N, int tn, int nt, int cluster,
+                                int split_words, void* stream) {
+  if (B <= 0 || N <= 0) return (int)cudaSuccess;
+  if (Kw < 1 || cluster < 1 || cluster > 8 || split_words < 1 ||
+      split_words % Fp533Decode::kGroupWords || (int64_t)cluster * split_words < Kw ||
+      (int64_t)(cluster - 1) * split_words >= Kw)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  // the tiles tuning.plan_ams_matmul chooses: 32 or 64 columns up to 8
+  // n-tiles, 128 columns at 16
+#define K1_TILE(TN_, NT_)                                                                 \
+  case TN_ * 100 + NT_:                                                                   \
+    return launch_fp533_xv<TN_ / 16, NT_>(x, hi, scale, y, B, Kw, N, cluster, split_words, s);
+  switch (tn * 100 + nt) {
+    K1_TILE(32, 1) K1_TILE(32, 2) K1_TILE(32, 4) K1_TILE(32, 8)
+    K1_TILE(64, 1) K1_TILE(64, 2) K1_TILE(64, 4) K1_TILE(64, 8)
+    K1_TILE(128, 16)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef K1_TILE
 }
 
 // ---------------------------------------------------------------------------

@@ -4,8 +4,9 @@ Dispatches on the layout's container (fp533 -> K1, planes -> K1b),
 flattens leading dims and zero-pads K up to the packed rows, so the kernels
 only ever see [B, Kp] activations with hi (and lsb) planes of exactly Kp
 positions; B and N may be ragged (the kernels mask their edges), and the
-result is reshaped back. The TPU tile planner (`kernels/tuning.py`) has no
-counterpart: K1 and K1b use one fixed tile.
+result is reshaped back. K1's tiles and K split come from the Hopper planner
+`kernels/tuning.plan_ams_matmul` (the TPU tile planner has no counterpart);
+K1b uses one fixed tile.
 """
 
 from __future__ import annotations

@@ -66,6 +66,29 @@ def test_k1_kernel_matches_plain(K, N, B):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("K,N,B", [(700, 520, 200), (2560, 288, 8), (3584, 3584, 128)])
+def test_k1_planned_shapes_match_plain(K, N, B):
+    """K1 over two row tiles (B = 200), ragged 64-column tiles (N = 520), the
+    32-column tile (MiniCPM3-4B's kv_a, N = 288) and a clustered K split at
+    prefill rows; two launches give the same bits (fixed reduction order)."""
+    from repro_torch.kernels.ams_matmul import ams_matmul_fp533, ams_matmul_fp533_plain
+    from repro_torch.kernels.tuning import plan_ams_matmul
+
+    dev = cuda_device()
+    pw, gen = packed(K, N, dev, seed=K + N + B)
+    x = torch.zeros((B, pw.hi.shape[0] * 6), device=dev)
+    x[:, :K] = torch.randn((B, K), generator=gen, device=dev)
+    plan = plan_ams_matmul(B, pw.hi.shape[0], N)
+    assert plan.cluster > 1 or plan.row_tiles > 1
+    got = ams_matmul_fp533(x, pw.hi, pw.scale)
+    again = ams_matmul_fp533(x, pw.hi, pw.scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = ams_matmul_fp533_plain(x, pw.hi, pw.scale)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.gpu
 def test_k1_identity_is_bit_exact():
     from repro_torch.kernels import ops, ref
 
@@ -360,6 +383,86 @@ def test_k4_kernel_matches_plain(kv, g, hd, S, chunk, block_kv):
     assert COUNT_CONTIG.launches == n + 1
     _check_contiguous(got, contiguous_attention_plain(qf, k, v, lens, **kw), qf, k, v, lens,
                       masked, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv,g,hd,S,chunk,block_kv,fit", [
+    (2, 2, 128, 16384, 1, 16384, False), (4, 7, 128, 8192, 4, 2048, True),
+    (1, 3, 20, 16384, 2, 16384, False)])
+def test_k4_plan_routes_match_plain(kv, g, hd, S, chunk, block_kv, fit):
+    """K4's two routes: a share of 16 rows x 2048 keys does not fit in shared
+    memory (the scores are recomputed in a second pass), and S = 8192 in
+    blocks of 2048 keeps them (four blocks, one cluster max per block)."""
+    from repro_torch.kernels.attention_template import (
+        contiguous_attention,
+        contiguous_attention_plain,
+    )
+    from repro_torch.kernels.tuning import plan_contiguous_attention
+
+    dev = cuda_device()
+    gen = torch.Generator(device=dev).manual_seed(S + chunk)
+    k, v = (torch.randn((4, S, kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    qf, lens, masked = _contiguous_case(kv, g, hd, S, chunk, dev, gen)
+    assert plan_contiguous_attention(4, kv, chunk * g, block_kv).scores_fit == fit
+    kw = dict(c=chunk, g=g, block_kv=block_kv)
+    got = contiguous_attention(qf, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    _check_contiguous(got, contiguous_attention_plain(qf, k, v, lens, **kw), qf, k, v, lens,
+                      masked, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_k4_rows_shorter_than_the_split(chunk):
+    """Every row sees fewer keys than the cluster has ranks, so most ranks'
+    shares hold no visible key: they must add exact zeros, not NaN; two
+    launches give the same bits."""
+    from repro_torch.kernels.attention_template import (
+        _fold_q,
+        contiguous_attention,
+        contiguous_attention_plain,
+    )
+    from repro_torch.kernels.tuning import plan_contiguous_attention
+
+    dev = cuda_device()
+    kv, g, hd, S = 4, 7, 128, 1024
+    gen = torch.Generator(device=dev).manual_seed(31 + chunk)
+    k, v = (torch.randn((8, S, kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    lengths = torch.tensor([[1 + (b + j) % 3 if b != 3 else 0 for j in range(chunk)]
+                            for b in range(8)])
+    q = torch.randn((8, chunk, kv * g, hd), generator=gen, device=dev).to(torch.bfloat16)
+    qf, lens, _, _ = _fold_q(q, lengths.to(dev), kv, None, round_scaled=False)
+    assert plan_contiguous_attention(8, kv, chunk * g, S).cluster > int(lengths.max())
+    kw = dict(c=chunk, g=g, block_kv=S)
+    got = contiguous_attention(qf, k, v, lens, **kw)
+    again = contiguous_attention(qf, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    masked = (lengths == 0).repeat_interleave(g, dim=1).to(dev)
+    _check_contiguous(got, contiguous_attention_plain(qf, k, v, lens, **kw), qf, k, v, lens,
+                      masked, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [1, 16])
+def test_k4_is_deterministic(chunk):
+    """The cluster's partial sums meet in a fixed rank order: two launches at
+    Qwen2-7B shapes give the same bits."""
+    from repro_torch.kernels.attention_template import COUNT_CONTIG, contiguous_attention
+
+    dev = cuda_device()
+    gen = torch.Generator(device=dev).manual_seed(40 + chunk)
+    k, v = (torch.randn((4, 1024, 4, 128), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    qf, lens, _ = _contiguous_case(4, 7, 128, 1024, chunk, dev, gen)
+    kw = dict(c=chunk, g=7, block_kv=1024)
+    n = COUNT_CONTIG.launches
+    a = contiguous_attention(qf, k, v, lens, **kw)
+    b = contiguous_attention(qf, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    assert COUNT_CONTIG.launches == n + 2 and torch.equal(a, b)
 
 
 @pytest.mark.gpu
