@@ -19,8 +19,9 @@ Phases, each fatal on failure:
   4. K1b (AMS planes dequant-matmul), the same for fp4.25-e2m2, plus every
      other planes scheme at one small ragged shape;
   5. K2 (paged AMS-e2m2 flash-decode) against its plain version at kv=4,
-     g=7, hd=128, page 16, 8 slots, lengths up to 1024, chunk in {1, 16},
-     with an idle slot and masked rows that must come out exactly 0;
+     g=7, hd=128, pages of 16, 64 and 128 tokens, 8 slots, lengths up to
+     1024, chunk in {1, 16}, with an idle slot and masked rows that must
+     come out exactly 0;
   6. K3 (paged flash-decode over bf16 pages), the same;
   7. K4 (contiguous-cache flash-decode, GQA) at Qwen2-7B shapes (kv=4, g=7,
      hd=128, 8 slots, lengths up to 1024, chunk in {1, 16}) and K5 (the
@@ -30,8 +31,8 @@ Phases, each fatal on failure:
      with the torch SDPA call of the same attention timed beside them;
   8. K5p (the paged absorbed-MLA stream, which no served path reaches) at
      MiniCPM3-4B's attention widths, on bf16 and AMS-e2m2 pages that
-     cache.pool fills: 8 slots, lengths up to 1024, chunk in {1, 16}, page
-     16 and 32, driven through `fused_paged_attention(value_slice=...)`
+     cache.pool fills: 8 slots, lengths up to 1024, chunk in {1, 16}, pages
+     of 16, 32, 64 and 128, driven through `fused_paged_attention(value_slice=...)`
      with the launch counts zeroed around it, then each hook against its
      plain version (AMS within K2's tolerance, bf16 within K3's rule);
   9. the main paths, served through the continuous-batching engine with
@@ -48,7 +49,10 @@ Phases, each fatal on failure:
      full-batch decode ticks and profiles them (device-busy ms per tick);
   10. consistency at cut depth (2 layers, full widths), per path:
       first-tick logits and greedy streams of impl "kernel" against the
-      non-kernel impls ("fused_ref" matmuls, "ref" attention) on the card.
+      non-kernel impls ("fused_ref" matmuls, "ref" attention) on the card,
+      the kernel engine's streams launching every kernel of its path; the
+      FP4.25 path once more over pages of 64 tokens (K1b and K2's walk of a
+      page in two sub-tiles).
 
 A line ``compare {...}`` sets the five paths' decode tick and device-busy
 ms side by side. The line before the last is one JSON object with a row
@@ -113,6 +117,10 @@ QWEN_SHAPES = [("wq/wo", 3584, 3584, 2), ("wk/wv", 3584, 512, 2),
                ("w_gate/w_up", 3584, 18944, 2), ("w_down", 18944, 3584, 1)]
 TINY_SHAPES = [("wq/wo", 128, 128, 2), ("wk/wv", 128, 64, 2),
                ("w_gate/w_up", 128, 256, 2), ("w_down", 256, 128, 1)]
+# page sizes of the K2 / K3 phases: the CacheConfig default (timed against a
+# parent checkout), then pages walked in 2 and 4 sub-tiles of 32 tokens
+PAGES = (16, 64, 128)
+TINY_PAGES = (8, 32)
 
 
 def log(*a):
@@ -305,28 +313,22 @@ def phase_k2(torch, dev, timed: bool, full: bool):
 
     scheme = get_scheme("fp4.25-e2m2")
     if full:
-        kv, g, hd, page, B, max_len, chunks = 4, 7, 128, 16, 8, 1024, (1, 16)
+        kv, g, hd, pages, B, max_len, chunks = 4, 7, 128, PAGES, 8, 1024, (1, 16)
     else:
-        kv, g, hd, page, B, max_len, chunks = 2, 2, 32, 8, 4, 64, (1, 4)
-    MP = max_len // page
-    P = B * MP
+        kv, g, hd, pages, B, max_len, chunks = 2, 2, 32, TINY_PAGES, 4, 64, (1, 4)
     rng = np.random.default_rng(5)
     gen = torch.Generator(device=dev).manual_seed(5)
 
-    def make_pool():
+    def make_pool(P, page):
         pl = {}
         for n in ("k", "v"):
             x = torch.randn((P, page, kv, hd), generator=gen, device=dev)
             pl[n] = {k: t.contiguous() for k, t in quantize_kv(x, scheme).items()}
         return pl
 
-    pool = make_pool()
-    bt = torch.as_tensor(rng.permutation(P).reshape(B, MP).astype(np.int32), device=dev)
-    # slot lengths (after this tick's insert); the last slot is idle
-    ends = rng.integers(max_len // 2, max_len + 1, B)
-    ends[1], ends[-1] = max_len, 0
     rows, max_err, decode_row = [], 0.0, None
-    for c in chunks:
+    for page, c, pool, bt, ends in _paged_cases(torch, np, dev, rng, pages, chunks, B, max_len,
+                                                make_pool):
         lengths = _chunk_lengths(np, rng, ends, c)
         q = torch.randn((B, c, kv * g, hd), generator=gen, device=dev).to(torch.bfloat16)
         qf, lens, _, _ = _fold_q(q, torch.as_tensor(lengths, device=dev), kv, None)
@@ -351,7 +353,7 @@ def phase_k2(torch, dev, timed: bool, full: bool):
                    exact_zero_rows=int(masked.sum()), bound_ms=bms, bound_by=by)
         if timed:
             n = max(1, min(64, math.ceil(L2_FLUSH_BYTES / max(1, tok * kv * 2 * 72))))
-            pools = [pool] + [make_pool() for _ in range(n - 1)]
+            pools = [pool] + [make_pool(bt.numel(), page) for _ in range(n - 1)]
             outs = []
             row["ms"] = time_graph(torch, [
                 (lambda p=p: outs.append(paged_attention_ams(qf, p, lens, bt, **kw)))
@@ -361,10 +363,29 @@ def phase_k2(torch, dev, timed: bool, full: bool):
             row["plain_ms"] = time_loop(torch, lambda: paged_attention_ams_plain(
                 qf, pool, lens, bt, **kw))
         rows.append(row)
-        if c == 1:
+        if page == pages[0] and c == 1:
             decode_row = row
         log("K2 " + json.dumps(row))
     return decode_row, max_err
+
+
+def _paged_cases(torch, np, dev, rng, pages, chunks, B: int, max_len: int, make_pool):
+    """(page, chunk, pool, block table, slot lengths) of a paged phase: per
+    page size a pool of B * max_len / page pages from ``make_pool(P,
+    page)`` and a random block table; the slot lengths (after this tick's
+    insert: one slot full, the last idle) are drawn once, at the first page
+    size, so every page size sees the same keys."""
+    ends = None
+    for page in pages:
+        MP = max_len // page
+        pool = make_pool(B * MP, page)
+        bt = torch.as_tensor(rng.permutation(B * MP).reshape(B, MP).astype(np.int32),
+                             device=dev)
+        if ends is None:
+            ends = rng.integers(max_len // 2, max_len + 1, B)
+            ends[1], ends[-1] = max_len, 0
+        for c in chunks:
+            yield page, c, pool, bt, ends
 
 
 def _chunk_lengths(np, rng, ends, c: int):
@@ -400,25 +421,20 @@ def phase_k3(torch, dev, timed: bool, full: bool):
     )
 
     if full:
-        kv, g, hd, page, B, max_len, chunks = 4, 7, 128, 16, 8, 1024, (1, 16)
+        kv, g, hd, pages, B, max_len, chunks = 4, 7, 128, PAGES, 8, 1024, (1, 16)
     else:
-        kv, g, hd, page, B, max_len, chunks = 2, 2, 32, 8, 4, 64, (1, 4)
-    MP = max_len // page
-    P = B * MP
+        kv, g, hd, pages, B, max_len, chunks = 2, 2, 32, TINY_PAGES, 4, 64, (1, 4)
     rng = np.random.default_rng(6)
     gen = torch.Generator(device=dev).manual_seed(6)
 
-    def make_pool():
+    def make_pool(P, page):
         return {n: torch.randn((P, page, kv, hd), generator=gen, device=dev).to(torch.bfloat16)
                 for n in ("k", "v")}
 
-    pool = make_pool()
-    vmax = float(pool["v"].float().abs().max())
-    bt = torch.as_tensor(rng.permutation(P).reshape(B, MP).astype(np.int32), device=dev)
-    ends = rng.integers(max_len // 2, max_len + 1, B)
-    ends[1], ends[-1] = max_len, 0
     rows, max_err, decode_row = [], 0.0, None
-    for c in chunks:
+    for page, c, pool, bt, ends in _paged_cases(torch, np, dev, rng, pages, chunks, B, max_len,
+                                                make_pool):
+        vmax = float(pool["v"].float().abs().max())
         lengths = _chunk_lengths(np, rng, ends, c)
         q = torch.randn((B, c, kv * g, hd), generator=gen, device=dev).to(torch.bfloat16)
         qf, lens, _, _ = _fold_q(q, torch.as_tensor(lengths, device=dev), kv, None)
@@ -443,7 +459,7 @@ def phase_k3(torch, dev, timed: bool, full: bool):
                    exact_zero_rows=int(masked.sum()), bound_ms=bms, bound_by=by)
         if timed:
             n = max(1, min(64, math.ceil(L2_FLUSH_BYTES / max(1, tok * kv * 2 * hd * 2))))
-            pools = [pool] + [make_pool() for _ in range(n - 1)]
+            pools = [pool] + [make_pool(bt.numel(), page) for _ in range(n - 1)]
             outs = []
             row["ms"] = time_graph(torch, [
                 (lambda p=p: outs.append(paged_attention_bf16(qf, p, lens, bt, **kw)))
@@ -453,7 +469,7 @@ def phase_k3(torch, dev, timed: bool, full: bool):
             row["plain_ms"] = time_loop(torch, lambda: paged_attention_bf16_plain(
                 qf, pool, lens, bt, **kw))
         rows.append(row)
-        if c == 1:
+        if page == pages[0] and c == 1:
             decode_row = row
         log("K3 " + json.dumps(row))
     return decode_row, max_err
@@ -590,8 +606,9 @@ def phase_k5p(torch, dev, timed: bool, full: bool):
     (40 heads on one stream of 256 + 32 columns, values its first 256, the
     model's softmax scale), on bf16 pages and AMS-e2m2 pages that
     cache.pool builds and fills: 8 slots, lengths up to 1024 (one slot
-    idle, one full), chunk 1 and 16, pages of 16 (the CacheConfig default)
-    and 32 (the kernel's limit). First the entry a user calls,
+    idle, one full), chunk 1 and 16, pages of 16 (the CacheConfig default),
+    32 (one sub-tile of the kernel's walk), 64 and 128 (two and four). First
+    the entry a user calls,
     `fused_paged_attention(value_slice=...)`, over every case, with the
     launch counts zeroed just before and read just after (no served path
     reaches K5p: the reference pages no MLA cache, and neither does the
@@ -611,8 +628,8 @@ def phase_k5p(torch, dev, timed: bool, full: bool):
         cfg = cfg.reduced()
     g, hd, hd_v = cfg.num_heads, cfg.kv_lora_rank + cfg.qk_rope_dim, cfg.kv_lora_rank
     scale = _mla_scale(cfg)
-    B, max_len, page_sizes, chunks = ((8, 1024, (16, 32), (1, 16)) if full
-                                      else (4, 64, (8, 4), (1, 4)))
+    B, max_len, page_sizes, chunks = ((8, 1024, (16, 32, 64, 128), (1, 16)) if full
+                                      else (4, 64, (8, 4, 32), (1, 4)))
     scheme = get_scheme(K5P_SCHEME)
     rng = np.random.default_rng(9)
     gen = torch.Generator(device=dev).manual_seed(9)
@@ -849,6 +866,9 @@ def profile_decode(torch, eng, rng, path: str, ticks: int = 3):
                   decode_tick_ms=1e3 * plain_tick,
                   decode_tokens_per_s=eng.active_count / plain_tick)
     log("decode " + json.dumps(decode))
+    # keys each decoding slot attends over in the profiled ticks
+    keys = [int(eng.fed[s]) + 1 + i for i in range(ticks)
+            for s, r in enumerate(eng.active) if r is not None]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ticks):
@@ -865,7 +885,8 @@ def profile_decode(torch, eng, rng, path: str, ticks: int = 3):
             n, s = kernels.get(ev.name, (0, 0.0))
             kernels[ev.name] = (n + 1, s + us)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
-    res = dict(path=path, ticks=ticks, wall_ms_per_tick=1e3 * wall / ticks,
+    res = dict(path=path, ticks=ticks, context_keys=[min(keys), max(keys)],
+               wall_ms_per_tick=1e3 * wall / ticks,
                device_busy_ms_per_tick=busy / 1e3 / ticks,
                device_idle_share=max(0.0, 1 - busy / 1e6 / wall),
                kernels_per_tick=sum(n for n, _ in kernels.values()) / ticks,
@@ -876,7 +897,8 @@ def profile_decode(torch, eng, rng, path: str, ticks: int = 3):
     return res
 
 
-def phase_consistency(torch, dev, full: bool, path: str = "fp5.33"):
+def phase_consistency(torch, dev, full: bool, path: str = "fp5.33", page: int = 0):
+    """``page``: the paged cache's page size (0: 16 at full width, 8 tiny)."""
     import numpy as np
 
     from repro_torch.cache import CacheConfig
@@ -886,13 +908,14 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33"):
     from repro_torch.models import decode_step, make_cache
 
     arch, scheme, kind = (PATHS[path][k] for k in ("arch", "scheme", "kind"))
+    page = page or (16 if full else 8)
 
     def config(impl, attn):
         base = (dict(reduced=False, depth=2, slots=4, capacity=256, prefill_chunk=16,
-                     cache=CacheConfig(kind=kind, page_size=16, impl=attn))
+                     cache=CacheConfig(kind=kind, page_size=page, impl=attn))
                 if full else
                 dict(reduced=True, slots=2, capacity=64, prefill_chunk=4,
-                     cache=CacheConfig(kind=kind, page_size=8, impl=attn)))
+                     cache=CacheConfig(kind=kind, page_size=page, impl=attn)))
         return EngineConfig(arch=arch, scheme=scheme, impl=impl,
                             device=str(dev), seed=7, **base)
 
@@ -924,12 +947,17 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33"):
     rel = d / float(logits["fused_ref"].abs().max())
     same_argmax = bool((logits["kernel"].argmax(-1) == logits["fused_ref"].argmax(-1)).all())
 
-    streams = {}
+    streams, launches = {}, {}
     for ec in (ck, cr):
         eng = ServeEngine(ec, params=params)
         hs = [eng.submit(p, gen_n) for p in prompts]
+        counts = all_counts()
+        for cnt in counts:
+            cnt.reset()
         eng.run()
         streams[ec.impl] = [h.tokens for h in hs]
+        if ec is ck:
+            launches = {cnt.name: cnt.launches for cnt in counts if cnt.launches}
     diverge = []
     for i, (a, b) in enumerate(zip(streams["kernel"], streams["fused_ref"])):
         first = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
@@ -937,16 +965,24 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33"):
     res = dict(path=path, depth=cfg.num_layers, logits_max_abs_diff=d, logits_rel_diff=rel,
                tolerance=LOGIT_TOL, first_tick_argmax_equal=same_argmax,
                streams_equal=all(x is None for x in diverge),
-               first_diverging_token=diverge)
+               first_diverging_token=diverge, kernel_launches=launches)
+    if kind != "contiguous":
+        res["page_size"] = page
     log("consistency " + json.dumps(res))
     if not rel <= LOGIT_TOL:
         fail(f"consistency[{path}]: first-tick logits differ by {rel:.3e} > {LOGIT_TOL}")
+    if dev.type == "cuda" and sorted(launches) != sorted(PATHS[path]["kernels"]):
+        fail(f"consistency[{path}]: the kernel engine's streams launched {launches}, not "
+             f"every kernel of the path and no other")
     return res
 
 
-def ptxas_report(build, kernels=("ams_matmul_fp533_kernel", "k4_kernel")):
+def ptxas_report(build, kernels=("ams_matmul_mma_kernel", "ams_matmul_planes_kernel",
+                                 "k4_kernel", "paged_attention_kernel")):
     """One line per instantiation of the named kernels from the build's
-    ``-Xptxas -v`` logs: registers, shared memory, stack and spills."""
+    ``-Xptxas -v`` logs: registers, shared memory, stack and spills (K1 and
+    K1b's tensor-core kernel, one line per decode hook, tile and x copy;
+    K1b's CUDA-core kernel; K4; the paged walk of K2, K3 and K5p)."""
     rows = []
     for name in build.SOURCES:
         logf = build.library_path(name).with_suffix(".log")
@@ -965,7 +1001,7 @@ def ptxas_report(build, kernels=("ams_matmul_fp533_kernel", "k4_kernel")):
     for r in rows:
         log(f"ptxas {r}")
     if not rows:
-        fail("no ptxas report for the K1 / K4 kernels")
+        fail("no ptxas report for the K1 / K1b / K4 / paged kernels")
 
 
 PHASES = ("k1", "k1b", "k2", "k3", "k4", "k5", "k5p")
@@ -1025,6 +1061,7 @@ def main():
         for path in PATHS:
             phase_serve(torch, dev, full=False, path=path)
             phase_consistency(torch, dev, full=False, path=path)
+        phase_consistency(torch, dev, full=False, path="fp4.25", page=16)
         log("rehearsal finished on the CPU: no result")
         sys.exit(2)
     if not torch.cuda.is_available():
@@ -1067,6 +1104,7 @@ def main():
     for path in PATHS:
         served[path] = phase_serve(torch, dev, full=True, path=path)
         phase_consistency(torch, dev, full=True, path=path)
+    phase_consistency(torch, dev, full=True, path="fp4.25", page=64)
     log("compare " + json.dumps({
         path: dict(arch=r["arch"], scheme=r["scheme"], cache=r["cache"],
                    decode_tick_ms=r["profile"]["decode_tick_ms"],

@@ -254,8 +254,8 @@ def paged_attention_ams(qf, pool: Dict, lens, block_table, *, page_size: int,
                                          scheme=scheme, c=c, g=g)
     check_device(qf)
     B, kv_n, R, hd = qf.shape
-    if hd > 128 or page_size > 32:
-        raise NotImplementedError(f"K2 takes hd <= 128 and page <= 32, got {hd}, {page_size}")
+    if hd > 128:
+        raise NotImplementedError(f"K2 takes hd <= 128, got {hd}")
     planes = [pool[n][p] for n in ("k", "v") for p in ("hi", "lsb", "scale")]
     ops = [qf, *planes, block_table, lens]
     _check_operands("K2", qf, ops)
@@ -311,8 +311,8 @@ def paged_attention_bf16(qf, pool: Dict, lens, block_table, *, page_size: int,
                                           c=c, g=g)
     check_device(qf)
     B, kv_n, R, hd = qf.shape
-    if hd > 128 or page_size > 32:
-        raise NotImplementedError(f"K3 takes hd <= 128 and page <= 32, got {hd}, {page_size}")
+    if hd > 128:
+        raise NotImplementedError(f"K3 takes hd <= 128, got {hd}")
     ops = [qf, pool["k"], pool["v"], block_table, lens]
     _check_operands("K3", qf, ops)
     _check_aligned("K3", hd, (pool["k"], pool["v"]))
@@ -370,11 +370,11 @@ def _check_stream(qf, lens, block_table, c, g, hd_v):
         raise ValueError(f"need 1 <= value_slice={hd_v} <= hd={hd}")
 
 
-def _check_stream_widths(hd, hd_v, page_size):
+def _check_stream_widths(hd, hd_v):
     """The widths K5p's one instantiation takes: MiniCPM3-4B's 256 + 32."""
-    if hd > 288 or hd_v > 256 or page_size > 32:
-        raise NotImplementedError(f"K5p takes hd <= 288, value_slice <= 256 and page <= 32, "
-                                  f"got {hd}, {hd_v}, {page_size}")
+    if hd > 288 or hd_v > 256:
+        raise NotImplementedError(f"K5p takes hd <= 288 and value_slice <= 256, got {hd}, "
+                                  f"{hd_v}")
 
 
 def paged_attention_stream_bf16(qf, pool: Dict, lens, block_table, *, page_size: int,
@@ -389,7 +389,7 @@ def paged_attention_stream_bf16(qf, pool: Dict, lens, block_table, *, page_size:
         return paged_attention_stream_bf16_plain(qf, pool, lens, block_table,
                                                  page_size=page_size, c=c, g=g, hd_v=hd_v)
     check_device(qf)
-    _check_stream_widths(hd, hd_v, page_size)
+    _check_stream_widths(hd, hd_v)
     ops = [qf, pool["k"], block_table, lens]
     _check_operands("K5p", qf, ops)
     _check_aligned("K5p", hd, (pool["k"],))
@@ -413,7 +413,7 @@ def paged_attention_stream_ams(qf, pool: Dict, lens, block_table, *, page_size: 
                                                 page_size=page_size, scheme=scheme, c=c, g=g,
                                                 hd_v=hd_v)
     check_device(qf)
-    _check_stream_widths(hd, hd_v, page_size)
+    _check_stream_widths(hd, hd_v)
     pl = pool["k"]
     ops = [qf, pl["hi"], pl["lsb"], pl["scale"], block_table, lens]
     _check_operands("K5p", qf, ops)

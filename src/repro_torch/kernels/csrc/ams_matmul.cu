@@ -1,36 +1,42 @@
-// K1: fused AMS-Quant dequantize + matmul for the fp533 container.
+// K1 and K1b: fused AMS-Quant dequantize + matmul.
 //
 // Replaces src/repro/kernels/ams_matmul.py: ams_matmul_padded ->
-// _kernel_fp533 (+ _unpack_fp533, decode_codes_to_f32).
+// _kernel_fp533 (K1: + _unpack_fp533, decode_codes_to_f32) and
+// _kernel_planes (K1b: + _unpack_planes).
 //
 //   y[b, n] = (sum_k bf16(x[b, k]) * DeQ(W)[k, n]) * scale[n]
 //
-// W is fp5.33-e2m3: each int32 word of hi[Kp/6, N] holds 6 consecutive
+// K1: W is fp5.33-e2m3: each int32 word of hi[Kp/6, N] holds 6 consecutive
 // K positions of one column (two 16-bit halves, each three 5-bit high parts
-// plus the group's shared mantissa LSB at bit 15).
+// plus the group's shared mantissa LSB at bit 15). K1b: the planes
+// container, hi[Kp/PW, N] with PW = 32 / hi_bits codes per word and a
+// separate lsb plane (see `PlanesDecode` and, for the schemes it does not
+// take, `ams_matmul_planes_kernel` below).
 //
-// Bound: at decode (B = slots) the kernel streams 4/6 byte per weight once
-// and does 2*B operations per weight, far below the H100's operations per
-// byte, so it is bound by device-memory bytes; at prefill rows (B = slots *
-// chunk = 128) the products approach the bf16 tensor-core rate.
+// Bound: at decode (B = slots) the kernel streams 4/6 byte (fp4.25: 4.25/8)
+// per weight once and does 2*B operations per weight, far below the H100's
+// operations per byte, so it is bound by device-memory bytes; at prefill
+// rows (B = slots * chunk = 128) the products approach the bf16
+// tensor-core rate.
 //
-// Design (sm_90a):
+// Design (sm_90a), one kernel template `ams_matmul_mma_kernel` behind a
+// decode hook per container (`Fp533Decode`; `PlanesDecode` for the planes
+// of per_word 8, i.e. fp4.25, fp4.33, fp4.5 and fp4):
 //  * Products on the tensor cores with swapped operands, as the TPU kernel
 //    does a bf16 x bf16 -> f32 dot on the decoded lattice: mma.sync
 //    m16n8k16 with A = 16 output columns x 16 K of the decoded weight and
 //    B = 16 K x 8 rows of x, so 8 decode rows fill n = 8 exactly and 128
-//    prefill rows take 16 n-tiles. Decoded e2m3 values have at most 3
-//    mantissa bits and x is rounded to bf16, so every product is exact and
-//    the result differs from the plain version only in the f32 order.
-//  * The decode goes straight into A fragments (the hook `Fp533Decode`,
-//    described there): 8 word rows are one k-group of 48 K; the thread with
-//    lane quad index t owns word rows 2t and 2t+1 of two adjacent columns,
-//    i.e. K positions 12t .. 12t+11 of the group. One 32-bit operation
-//    decodes a value of both 16-bit halves of a word into a bf16x2 (~16
-//    instructions per word). The K order inside the group is free as long
-//    as x's B fragments follow it; they are permuted from three 8-byte
-//    shared loads with byte permutes.
-//  * With one n-tile (decode) the 3 k-steps of a group accumulate into 3
+//    prefill rows take 16 n-tiles. Decoded values have at most 3 mantissa
+//    bits and x is rounded to bf16, so every product is exact and the
+//    result differs from the plain version only in the f32 order.
+//  * The decode goes straight into A fragments (the hooks, described
+//    there): 8 word rows are one k-group (48 K for fp533, 64 for the
+//    planes); the thread with lane quad index t owns word rows 2t and 2t+1
+//    of two adjacent columns. One 32-bit operation decodes two values of a
+//    word into a bf16x2 (~16 instructions per fp533 word). The K order
+//    inside the group is free as long as x's B fragments follow it; they
+//    are permuted from shared loads with byte permutes.
+//  * With one n-tile (decode) the k-steps of a group accumulate into
 //    independent accumulator sets, so the mma.sync chain stays short.
 //  * The card is filled at every projection shape by the plan of
 //    kernels/tuning.plan_ams_matmul: tiles of 64 columns (32 for the
@@ -40,15 +46,20 @@
 //    distributed shared memory; each rank finishes a share of the tile,
 //    summing the ranks' partials in rank order (deterministic: no atomics),
 //    and applies scale[n] once.
-//  * Bytes in flight: a ring of 4 stages of word rows (and x's matching K
-//    slice), 16-byte cp.async for the weights (4 bytes at ragged N) and the
+//  * Bytes in flight: a ring of 4 stages of word rows (with the planes,
+//    the lsb rows they take their LSBs from: a rank whose split ends inside
+//    an lsb row reads that row, as the next rank does) and x's matching K
+//    slice, 16-byte cp.async for the weights (4 bytes at ragged N) and the
 //    widest x copy its row stride allows; three stages stay in flight while
-//    one is decoded (~36 KB per CTA at decode, 4 CTAs per SM).
+//    one is decoded (~48 KB per CTA at decode for fp533, ~54 KB for the
+//    planes; 4 CTAs per SM).
 // Shared-memory strides are padded so the fragment loads are free of bank
-// conflicts (weight rows TN + 4 words, x rows = 16 mod 64 bf16).
+// conflicts (weight rows TN + 4 words, x rows = 16 (fp533) or 8 (planes)
+// mod 64 bf16).
 // Known limit: at decode the kernel is bound by instruction issue, not
-// bytes: ~24 instructions per word (the decode, x's fragments, the copies),
-// plus per-CTA fixed costs (the ring's prologue, the cluster reduction).
+// bytes: ~24 instructions per fp533 word (the decode, x's fragments, the
+// copies), plus per-CTA fixed costs (the ring's prologue, the cluster
+// reduction).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -68,10 +79,13 @@ namespace cg = cooperative_groups;
 
 #define K1_STAGES 4
 
-// The decode hook: one k-group of packed word rows in shared memory -> the
-// thread's A fragments of its 3 k-steps, and x's 12 K positions -> the
-// matching B fragments. Another container (the planes of K1b) plugs in with
-// its own kGroupWords (word rows per 48 K) and the same two functions.
+// The decode hooks: one k-group of kGroupWords packed word rows in shared
+// memory -> the thread's A fragments of its kSteps k-steps, and x's
+// 2 * kPerWord K positions of the thread -> the matching B fragments.
+// kPerWord: K positions per word; kShare: K positions per shared-LSB group
+// of a separate lsb plane that rides in the ring beside the word rows (0:
+// none); kXMod: the x row stride mod 64 bf16 that keeps the fragment loads
+// free of bank conflicts.
 //
 // fp533: the two 16-bit halves of a word have the same layout, so one
 // 32-bit operation decodes value j of both halves at once, straight into a
@@ -83,6 +97,10 @@ namespace cg = cooperative_groups;
 // order 0 3 1 4 | 2 5 6 9 | 7 10 8 11, which x's B fragments follow.
 struct Fp533Decode {
   static constexpr int kGroupWords = 8;
+  static constexpr int kPerWord = 6;
+  static constexpr int kSteps = 3;                  // 48 K per group
+  static constexpr int kShare = 0;
+  static constexpr int kXMod = 16;
 
   // {value j of half 0, value j of half 1} of word w, j = 0, 1, 2
   __device__ __forceinline__ static void word_pairs(uint32_t w, uint32_t* p) {
@@ -101,9 +119,11 @@ struct Fp533Decode {
   }
 
   // ws: the group's first word row, ld: words per row, col: the thread's
-  // first column (it owns col and col + 1, A rows g and g + 8)
-  __device__ __forceinline__ static void fragments(const uint32_t* ws, int ld, int t, int col,
-                                                   uint32_t (&a)[3][4]) {
+  // first column (it owns col and col + 1, A rows g and g + 8); the lsb
+  // arguments of the hook signature are unused (the LSB is in the word)
+  __device__ __forceinline__ static void fragments(const uint32_t* ws, const uint32_t*, int ld,
+                                                   int t, int col, int, int,
+                                                   uint32_t (&a)[kSteps][4]) {
     const uint2 r0 = *reinterpret_cast<const uint2*>(ws + (2 * t) * ld + col);
     const uint2 r1 = *reinterpret_cast<const uint2*>(ws + (2 * t + 1) * ld + col);
     uint32_t c0[6], c1[6];               // per column: W0's pairs 0..2, W1's pairs 0..2
@@ -112,7 +132,7 @@ struct Fp533Decode {
     word_pairs(r0.y, c1);
     word_pairs(r1.y, c1 + 3);
 #pragma unroll
-    for (int s = 0; s < 3; ++s) {
+    for (int s = 0; s < kSteps; ++s) {
       a[s][0] = c0[2 * s];               // rows g (column col) and g + 8 (col + 1),
       a[s][1] = c1[2 * s];               // k slots 2t, 2t+1 and 2t+8, 2t+9
       a[s][2] = c0[2 * s + 1];
@@ -122,7 +142,7 @@ struct Fp533Decode {
 
   // xr: x's 12 K positions of the thread (natural order, 8-byte aligned)
   __device__ __forceinline__ static void x_fragments(const __nv_bfloat16* xr,
-                                                     uint32_t (&b)[3][2]) {
+                                                     uint32_t (&b)[kSteps][2]) {
     const uint2 q0 = *reinterpret_cast<const uint2*>(xr);
     const uint2 q1 = *reinterpret_cast<const uint2*>(xr + 4);
     const uint2 q2 = *reinterpret_cast<const uint2*>(xr + 8);
@@ -136,15 +156,127 @@ struct Fp533Decode {
   }
 };
 
-template <int WN, int NT>
+// planes with 4-bit hi fields (per_word 8): e2m2 codes whose mantissa LSB
+// is shared by KS = 2, 3 or 4 K positions (fp4.5, fp4.33, fp4.25), or full
+// e2m1 codes (KS = 1, fp4). Field j of a word (K position j) sits at bit
+// 4j, so fields j and j + 4 are exactly 16 bits apart and one 32-bit
+// shift-and-mask builds the bf16x2 of K positions j and j + 4: the field's
+// low 3 bits (E and the top mantissa bit; e2m1: E and M) go to bf16 bits
+// 6..8 and its sign to bit 15, the shared LSB (e2m2) to bit 5, so the bf16
+// is S << 15 | (E << m | M) << (7 - m), 2^-126 times the value (bias 1 for
+// both), normals and subnormals alike: one bf16x2 multiply by 2^126, as in
+// fp533. The thread's 16 K positions (words W0 = 0..7 and W1 = 8..15) fill
+// its k-step slots in the order 0 4 1 5 | 2 6 3 7 | 8 12 9 13 | 10 14 11 15.
+// The LSB of K position p is bit (g & 31) of lsb row g >> 5, g = p / KS;
+// a word's 8 positions take the bits from G0 = 8 kw / KS on (two bits of
+// one lsb word for fp4.25, the same for the word's four pairs).
+template <int KS>
+struct PlanesDecode {
+  static constexpr int kGroupWords = 8;
+  static constexpr int kPerWord = 8;
+  static constexpr int kSteps = 4;                  // 64 K per group
+  static constexpr int kShare = KS > 1 ? KS : 0;
+  static constexpr int kXMod = 8;
+
+  // the lsb bits of word row kw (the lsb rows in shared memory start at
+  // global row lr0) for columns col and col + 1, from group G0 = 8 kw / KS
+  // on (b0, b1), and the word's first position's place in its group (ph)
+  __device__ __forceinline__ static void lsb_bits(const uint32_t* ls, int ld, int col, int kw,
+                                                  int lr0, uint32_t& b0, uint32_t& b1,
+                                                  int& ph) {
+    const int G0 = (8 * kw) / KS;
+    ph = KS == 3 ? 8 * kw - KS * G0 : 0;             // 8 kw is a multiple of 2 and 4
+    const int off = G0 & 31;
+    const uint32_t* lr = ls + ((G0 >> 5) - lr0) * ld + col;
+    const uint2 lo = *reinterpret_cast<const uint2*>(lr);
+    b0 = lo.x >> off;
+    b1 = lo.y >> off;
+    if (KS == 3 && ((8 * kw + 7) / KS) >> 5 != G0 >> 5) {   // runs into the next lsb row
+      const uint2 hi = *reinterpret_cast<const uint2*>(lr + ld);
+      b0 |= hi.x << (32 - off);
+      b1 |= hi.y << (32 - off);
+    }
+  }
+
+  // {field j, field j + 4} of word w as bf16x2 values, j = 0..3
+  __device__ __forceinline__ static void word_pairs(uint32_t w, uint32_t bits, int ph,
+                                                    uint32_t* p) {
+    const __nv_bfloat162 two126 = __halves2bfloat162(__ushort_as_bfloat16(0x7E80),
+                                                     __ushort_as_bfloat16(0x7E80));
+    uint32_t r[4];
+    r[0] = ((w << 6) & 0x01C001C0u) | ((w << 12) & 0x80008000u);
+    r[1] = ((w << 2) & 0x01C001C0u) | ((w << 8) & 0x80008000u);
+    r[2] = ((w >> 2) & 0x01C001C0u) | ((w << 4) & 0x80008000u);
+    r[3] = ((w >> 6) & 0x01C001C0u) | (w & 0x80008000u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (KS > 1)
+        r[j] |= (((bits >> ((ph + j) / KS)) & 1u) << 5) |
+                (((bits >> ((ph + j + 4) / KS)) & 1u) << 21);
+      const __nv_bfloat162 v = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&r[j]), two126);
+      p[j] = *reinterpret_cast<const uint32_t*>(&v);
+    }
+  }
+
+  // ws: the group's first word row (global row kw), ls: the stage's lsb
+  // rows (global row lr0 first), ld: words per row, col: the thread's first
+  // column (it owns col and col + 1)
+  __device__ __forceinline__ static void fragments(const uint32_t* ws, const uint32_t* ls,
+                                                   int ld, int t, int col, int kw, int lr0,
+                                                   uint32_t (&a)[kSteps][4]) {
+    const uint2 r0 = *reinterpret_cast<const uint2*>(ws + (2 * t) * ld + col);
+    const uint2 r1 = *reinterpret_cast<const uint2*>(ws + (2 * t + 1) * ld + col);
+    uint32_t l00 = 0u, l01 = 0u, l10 = 0u, l11 = 0u;      // [word row][column]
+    int ph0 = 0, ph1 = 0;
+    if constexpr (KS > 1) {
+      lsb_bits(ls, ld, col, kw + 2 * t, lr0, l00, l01, ph0);
+      lsb_bits(ls, ld, col, kw + 2 * t + 1, lr0, l10, l11, ph1);
+    }
+    uint32_t c0[8], c1[8];               // per column: W0's pairs 0..3, W1's pairs 0..3
+    word_pairs(r0.x, l00, ph0, c0);
+    word_pairs(r1.x, l10, ph1, c0 + 4);
+    word_pairs(r0.y, l01, ph0, c1);
+    word_pairs(r1.y, l11, ph1, c1 + 4);
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      a[s][0] = c0[2 * s];
+      a[s][1] = c1[2 * s];
+      a[s][2] = c0[2 * s + 1];
+      a[s][3] = c1[2 * s + 1];
+    }
+  }
+
+  // xr: x's 16 K positions of the thread (natural order, 16-byte aligned)
+  __device__ __forceinline__ static void x_fragments(const __nv_bfloat16* xr,
+                                                     uint32_t (&b)[kSteps][2]) {
+    const uint4 q0 = *reinterpret_cast<const uint4*>(xr);
+    const uint4 q1 = *reinterpret_cast<const uint4*>(xr + 8);
+    // pairs of K positions: (0,4) (1,5) | (2,6) (3,7) | (8,12) (9,13) | (10,14) (11,15)
+    b[0][0] = __byte_perm(q0.x, q0.z, 0x5410);
+    b[0][1] = __byte_perm(q0.x, q0.z, 0x7632);
+    b[1][0] = __byte_perm(q0.y, q0.w, 0x5410);
+    b[1][1] = __byte_perm(q0.y, q0.w, 0x7632);
+    b[2][0] = __byte_perm(q1.x, q1.z, 0x5410);
+    b[2][1] = __byte_perm(q1.x, q1.z, 0x7632);
+    b[3][0] = __byte_perm(q1.y, q1.w, 0x5410);
+    b[3][1] = __byte_perm(q1.y, q1.w, 0x7632);
+  }
+};
+
+// The ring's layout per stage: RW word rows, LR lsb rows (the most a run of
+// RW word rows starting on a group boundary can touch), then x's K slice
+template <int WN, int NT, class Dec>
 struct K1Shape {
   static constexpr int TN = 16 * WN;                         // columns per CTA
   static constexpr int BT = 8 * NT;                          // rows per CTA
   static constexpr int THREADS = 32 * WN;
   static constexpr int RW = NT >= 16 ? 8 : (NT >= 4 ? 16 : 32);   // word rows per stage
+  static constexpr int LSB_K = 32 * (Dec::kShare ? Dec::kShare : 1);   // K per lsb row
+  static constexpr int LR = Dec::kShare ? (RW * Dec::kPerWord + LSB_K - 1) / LSB_K + 1 : 0;
   static constexpr int WS = TN + 4;                          // words per smem weight row
-  static constexpr int XS = RW * 6 + (((16 - RW * 6) % 64) + 64) % 64;   // bf16 per x row
-  static constexpr int STAGE_BYTES = RW * WS * 4 + BT * XS * 2;
+  static constexpr int XK = RW * Dec::kPerWord;              // x's K positions per stage
+  static constexpr int XS = XK + (((Dec::kXMod - XK) % 64) + 64) % 64;   // bf16 per x row
+  static constexpr int STAGE_BYTES = (RW + LR) * WS * 4 + BT * XS * 2;
   static constexpr int RED_BYTES = TN * BT * 4;
   static constexpr int SMEM = (K1_STAGES * STAGE_BYTES > RED_BYTES) ? K1_STAGES * STAGE_BYTES
                                                                      : RED_BYTES;
@@ -152,12 +284,13 @@ struct K1Shape {
 
 template <int WN, int NT, int XV, class Dec>
 __global__ void __launch_bounds__(32 * WN)
-ams_matmul_fp533_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ hi,
-                        const float* __restrict__ scale, float* __restrict__ y, int B, int Kw,
-                        int N, int split_words, int wvec) {
-  using S = K1Shape<WN, NT>;
-  constexpr int TN = S::TN, BT = S::BT, RW = S::RW, WS = S::WS, XS = S::XS;
-  constexpr int NTH = S::THREADS;
+ams_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ hi,
+                      const int32_t* __restrict__ lsb, const float* __restrict__ scale,
+                      float* __restrict__ y, int B, int Kw, int N, int Lrows,
+                      int split_words, int wvec) {
+  using S = K1Shape<WN, NT, Dec>;
+  constexpr int TN = S::TN, BT = S::BT, RW = S::RW, LR = S::LR, WS = S::WS, XS = S::XS;
+  constexpr int NTH = S::THREADS, PW = Dec::kPerWord, KSTEPS = Dec::kSteps;
   extern __shared__ __align__(16) unsigned char k1_smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -168,15 +301,20 @@ ams_matmul_fp533_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __re
   const int b0 = blockIdx.y * BT;
   const int k0 = rank * split_words;
   const int k1 = min(k0 + split_words, Kw);
-  const int64_t Kx = (int64_t)Kw * 6;                        // x row stride
+  const int64_t Kx = (int64_t)Kw * PW;                       // x row stride
   const int nstage = k1 > k0 ? (k1 - k0 + RW - 1) / RW : 0;
 
   auto stage_w = [&](int st) {
     return reinterpret_cast<uint32_t*>(k1_smem + st * S::STAGE_BYTES);
   };
-  auto stage_x = [&](int st) {
-    return reinterpret_cast<__nv_bfloat16*>(k1_smem + st * S::STAGE_BYTES + RW * WS * 4);
+  auto stage_l = [&](int st) {
+    return reinterpret_cast<uint32_t*>(k1_smem + st * S::STAGE_BYTES + RW * WS * 4);
   };
+  auto stage_x = [&](int st) {
+    return reinterpret_cast<__nv_bfloat16*>(k1_smem + st * S::STAGE_BYTES + (RW + LR) * WS * 4);
+  };
+  // the lsb row of word row w's first K position
+  auto lsb_row = [&](int w) { return LR ? (PW * w) / S::LSB_K : 0; };
 
   // The copies of a stage are fixed per thread, so their addresses are
   // worked out once: the weights' 16-byte copies (rows wr, wr + 8, ...,
@@ -190,7 +328,7 @@ ams_matmul_fp533_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __re
   const bool wcol = n0 + wc < N;
   const int32_t* wbase = hi + (int64_t)(k0 + wr) * N + n0 + wc;
   constexpr int XPER = XV / 2;                               // bf16 per x copy
-  constexpr int XCPR = RW * 6 / XPER;                        // x copies per row
+  constexpr int XCPR = RW * PW / XPER;                       // x copies per row
   constexpr int XSTEP = NTH / BT;                            // threads per x row
   constexpr int XCH = (XCPR + XSTEP - 1) / XSTEP;            // x copies per thread
   static_assert(BT <= NTH && NTH % BT == 0, "x rows per thread");
@@ -199,8 +337,9 @@ ams_matmul_fp533_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __re
   const __nv_bfloat16* xbase = x + (int64_t)(xrow ? b0 + xr : 0) * Kx + xc * XPER;
   const int xdst = xr * XS + xc * XPER;
 
-  // one stage: word rows [w0, w0 + RW) of the tile's columns, and x's K
-  // positions [6 w0, 6 w0 + 6 RW) of the tile's rows; out of range -> zeros
+  // one stage: word rows [w0, w0 + RW) of the tile's columns, the lsb rows
+  // they take their LSBs from, and x's K positions [PW w0, PW (w0 + RW)) of
+  // the tile's rows; out of range -> zeros
   auto load = [&](int it) {
     const int slot = it % K1_STAGES;
     const int w0 = k0 + it * RW;
@@ -222,7 +361,28 @@ ams_matmul_fp533_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __re
                        ok);
       }
     }
-    const int kbeg = 6 * w0, kend = 6 * k1;
+    if (LR) {
+      uint32_t* ls = stage_l(slot);
+      const int lr0 = lsb_row(w0);
+      if (wvec == 16) {
+        for (int i = tid; i < LR * WPR; i += NTH) {
+          const int r = i / WPR, c = (i - r * WPR) * 4;
+          const bool ok = (lr0 + r < Lrows) && (n0 + c < N);
+          cp_async16(ls + r * WS + c,
+                     ok ? (const void*)(lsb + (int64_t)(lr0 + r) * N + n0 + c)
+                        : (const void*)lsb, ok);
+        }
+      } else {
+        for (int i = tid; i < LR * TN; i += NTH) {
+          const int r = i / TN, c = i - r * TN;
+          const bool ok = (lr0 + r < Lrows) && (n0 + c < N);
+          cp_async_bytes<4>(ls + r * WS + c,
+                            ok ? (const void*)(lsb + (int64_t)(lr0 + r) * N + n0 + c)
+                               : (const void*)lsb, ok);
+        }
+      }
+    }
+    const int kbeg = PW * w0, kend = PW * k1;
     if (BT <= 16) {
       __nv_bfloat16* xs = stage_x(slot) + xdst;
       const __nv_bfloat16* xp = xbase + kbeg;
@@ -253,7 +413,7 @@ ams_matmul_fp533_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __re
 
   // NA accumulator sets, one per k-step class (s % NA): with few n-tiles
   // this breaks the chain of dependent mma.sync through one accumulator
-  constexpr int NA = NT == 1 ? 3 : (NT == 2 ? 2 : 1);
+  constexpr int NA = NT == 1 ? KSTEPS : (NT == 2 ? 2 : 1);
   float acc[NA][NT][4];
 #pragma unroll
   for (int u = 0; u < NA; ++u)
@@ -273,19 +433,22 @@ ams_matmul_fp533_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __re
     if (it + K1_STAGES - 1 < nstage) load(it + K1_STAGES - 1);
     cp_async_commit();
     const uint32_t* ws = stage_w(it % K1_STAGES);
+    const uint32_t* ls = stage_l(it % K1_STAGES);
     const __nv_bfloat16* xs = stage_x(it % K1_STAGES);
     const int w0 = k0 + it * RW;
+    const int lr0 = lsb_row(w0);
 #pragma unroll
     for (int gr = 0; gr < RW / Dec::kGroupWords; ++gr) {
       if (w0 + gr * Dec::kGroupWords >= k1) break;
-      uint32_t a[3][4];
-      Dec::fragments(ws + gr * Dec::kGroupWords * WS, WS, t, warp * 16 + 2 * g, a);
+      uint32_t a[KSTEPS][4];
+      Dec::fragments(ws + gr * Dec::kGroupWords * WS, ls, WS, t, warp * 16 + 2 * g,
+                     w0 + gr * Dec::kGroupWords, lr0, a);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        uint32_t bx[3][2];
-        Dec::x_fragments(xs + (8 * j + g) * XS + gr * 48 + 12 * t, bx);
+        uint32_t bx[KSTEPS][2];
+        Dec::x_fragments(xs + (8 * j + g) * XS + gr * Dec::kGroupWords * PW + 2 * PW * t, bx);
 #pragma unroll
-        for (int s = 0; s < 3; ++s) mma_bf16(acc[s % NA][j], a[s], bx[s][0], bx[s][1]);
+        for (int s = 0; s < KSTEPS; ++s) mma_bf16(acc[s % NA][j], a[s], bx[s][0], bx[s][1]);
       }
     }
   }
@@ -344,11 +507,12 @@ ams_matmul_fp533_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __re
   cluster.sync();                     // no CTA leaves while its partials are read
 }
 
-template <int WN, int NT, int XV>
-static int launch_fp533(const void* x, const void* hi, const void* scale, void* y, int B,
-                        int Kw, int N, int cluster, int split_words, cudaStream_t stream) {
-  using S = K1Shape<WN, NT>;
-  auto kernel = ams_matmul_fp533_kernel<WN, NT, XV, Fp533Decode>;
+template <int WN, int NT, int XV, class Dec>
+static int launch_mma(const void* x, const void* hi, const void* lsb, const void* scale,
+                      void* y, int B, int Kw, int N, int Lrows, int cluster, int split_words,
+                      cudaStream_t stream) {
+  using S = K1Shape<WN, NT, Dec>;
+  auto kernel = ams_matmul_mma_kernel<WN, NT, XV, Dec>;
   static bool configured = false;         // once per instantiation
   if (S::SMEM > 48 * 1024 && !configured) {
     const cudaError_t e =
@@ -356,7 +520,9 @@ static int launch_fp533(const void* x, const void* hi, const void* scale, void* 
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  const int wvec = (N % 4 == 0 && (uintptr_t)hi % 16 == 0) ? 16 : 4;
+  const bool w16 = N % 4 == 0 && (uintptr_t)hi % 16 == 0 &&
+                   (S::LR == 0 || (uintptr_t)lsb % 16 == 0);
+  const int wvec = w16 ? 16 : 4;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(((N + S::TN - 1) / S::TN) * cluster, (B + S::BT - 1) / S::BT, 1);
   cfg.blockDim = dim3(S::THREADS, 1, 1);
@@ -370,8 +536,8 @@ static int launch_fp533(const void* x, const void* hi, const void* scale, void* 
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kernel, (const __nv_bfloat16*)x, (const int32_t*)hi, (const float*)scale,
-      (float*)y, B, Kw, N, split_words, wvec);
+      &cfg, kernel, (const __nv_bfloat16*)x, (const int32_t*)hi, (const int32_t*)lsb,
+      (const float*)scale, (float*)y, B, Kw, N, Lrows, split_words, wvec);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -384,43 +550,91 @@ static int launch_fp533_xv(const void* x, const void* hi, const void* scale, voi
   const uintptr_t xp = (uintptr_t)x;
   const int64_t row_bytes = (int64_t)Kw * 12;
   if (row_bytes % 16 == 0 && xp % 16 == 0)
-    return launch_fp533<WN, NT, 16>(x, hi, scale, y, B, Kw, N, cluster, split_words, s);
+    return launch_mma<WN, NT, 16, Fp533Decode>(x, hi, nullptr, scale, y, B, Kw, N, 0, cluster,
+                                               split_words, s);
   if (row_bytes % 8 == 0 && xp % 8 == 0)
-    return launch_fp533<WN, NT, 8>(x, hi, scale, y, B, Kw, N, cluster, split_words, s);
-  return launch_fp533<WN, NT, 4>(x, hi, scale, y, B, Kw, N, cluster, split_words, s);
+    return launch_mma<WN, NT, 8, Fp533Decode>(x, hi, nullptr, scale, y, B, Kw, N, 0, cluster,
+                                              split_words, s);
+  return launch_mma<WN, NT, 4, Fp533Decode>(x, hi, nullptr, scale, y, B, Kw, N, 0, cluster,
+                                            split_words, s);
 }
 
+// A plan that does not cover Kw with k-group-aligned splits, one per rank,
+// is refused
+static bool bad_plan(int Kw, int cluster, int split_words) {
+  return Kw < 1 || cluster < 1 || cluster > 8 || split_words < 1 || split_words % 8 ||
+         (int64_t)cluster * split_words < Kw || (int64_t)(cluster - 1) * split_words >= Kw;
+}
+
+// the tiles tuning.plan_ams_matmul chooses: 32 or 64 columns up to 8
+// n-tiles, 128 columns at 16
+#define K1_TILES(LAUNCH)                                                                  \
+  switch (tn * 100 + nt) {                                                                \
+    case 3201: return LAUNCH(2, 1);                                                       \
+    case 3202: return LAUNCH(2, 2);                                                       \
+    case 3204: return LAUNCH(2, 4);                                                       \
+    case 3208: return LAUNCH(2, 8);                                                       \
+    case 6401: return LAUNCH(4, 1);                                                       \
+    case 6402: return LAUNCH(4, 2);                                                       \
+    case 6404: return LAUNCH(4, 4);                                                       \
+    case 6408: return LAUNCH(4, 8);                                                       \
+    case 12816: return LAUNCH(8, 16);                                                     \
+    default: return (int)cudaErrorInvalidValue;                                           \
+  }
+
 // The plan (tn, nt, cluster, split_words) comes from
-// kernels/tuning.plan_ams_matmul; a plan that does not cover Kw with
-// k-group-aligned splits, one per rank, is refused.
+// kernels/tuning.plan_ams_matmul.
 extern "C" int ams_matmul_fp533(const void* x, const void* hi, const void* scale, void* y,
                                 int B, int Kw, int N, int tn, int nt, int cluster,
                                 int split_words, void* stream) {
   if (B <= 0 || N <= 0) return (int)cudaSuccess;
-  if (Kw < 1 || cluster < 1 || cluster > 8 || split_words < 1 ||
-      split_words % Fp533Decode::kGroupWords || (int64_t)cluster * split_words < Kw ||
-      (int64_t)(cluster - 1) * split_words >= Kw)
-    return (int)cudaErrorInvalidValue;
+  if (bad_plan(Kw, cluster, split_words)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  // the tiles tuning.plan_ams_matmul chooses: 32 or 64 columns up to 8
-  // n-tiles, 128 columns at 16
-#define K1_TILE(TN_, NT_)                                                                 \
-  case TN_ * 100 + NT_:                                                                   \
-    return launch_fp533_xv<TN_ / 16, NT_>(x, hi, scale, y, B, Kw, N, cluster, split_words, s);
-  switch (tn * 100 + nt) {
-    K1_TILE(32, 1) K1_TILE(32, 2) K1_TILE(32, 4) K1_TILE(32, 8)
-    K1_TILE(64, 1) K1_TILE(64, 2) K1_TILE(64, 4) K1_TILE(64, 8)
-    K1_TILE(128, 16)
+#define FP533_TILE(WN_, NT_) \
+  launch_fp533_xv<WN_, NT_>(x, hi, scale, y, B, Kw, N, cluster, split_words, s)
+  K1_TILES(FP533_TILE)
+#undef FP533_TILE
+}
+
+template <int KS>
+static int launch_planes_mma(const void* x, const void* hi, const void* lsb, const void* scale,
+                             void* y, int B, int Kw, int N, int Lrows, int tn, int nt,
+                             int cluster, int split_words, cudaStream_t s) {
+#define PLANES_TILE(WN_, NT_)                                                               \
+  launch_mma<WN_, NT_, 16, PlanesDecode<KS>>(x, hi, lsb, scale, y, B, Kw, N, Lrows, cluster, \
+                                             split_words, s)
+  K1_TILES(PLANES_TILE)
+#undef PLANES_TILE
+}
+
+// K1b on the tensor cores: the planes of per_word 8 (4-bit hi fields) with
+// k = 1 (e2m1 codes) or k = 2, 3, 4 (e2m2 codes, lsb [Lrows, N]); x's rows
+// (16 Kw bytes) must start 16-byte aligned. The plan comes from
+// kernels/tuning.plan_ams_matmul(container="planes").
+extern "C" int ams_matmul_planes_mma(const void* x, const void* hi, const void* lsb,
+                                     const void* scale, void* y, int B, int Kw, int N,
+                                     int Lrows, int k, int tn, int nt, int cluster,
+                                     int split_words, void* stream) {
+  if (B <= 0 || N <= 0) return (int)cudaSuccess;
+  if (bad_plan(Kw, cluster, split_words) || (uintptr_t)x % 16) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (k) {
+    case 1: return launch_planes_mma<1>(x, hi, lsb, scale, y, B, Kw, N, Lrows, tn, nt, cluster,
+                                        split_words, s);
+    case 2: return launch_planes_mma<2>(x, hi, lsb, scale, y, B, Kw, N, Lrows, tn, nt, cluster,
+                                        split_words, s);
+    case 3: return launch_planes_mma<3>(x, hi, lsb, scale, y, B, Kw, N, Lrows, tn, nt, cluster,
+                                        split_words, s);
+    case 4: return launch_planes_mma<4>(x, hi, lsb, scale, y, B, Kw, N, Lrows, tn, nt, cluster,
+                                        split_words, s);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef K1_TILE
 }
 
 // ---------------------------------------------------------------------------
-// K1b: the same product for the planes container (every scheme but fp5.33).
-//
-// Replaces src/repro/kernels/ams_matmul.py: ams_matmul_padded ->
-// _kernel_planes (+ _unpack_planes, decode_codes_to_f32).
+// K1b on CUDA cores: the planes container for the schemes `PlanesDecode`
+// does not take (hi fields not 16 bits apart: per_word 4, 5 and 6, i.e.
+// fp8, fp6-e2m3, fp6-e3m2, fp5-e2m2 and the planes of fp5.33-e2m3).
 //
 // hi[Kp/PW, N] packs PW = 32 / hi_bits codes of one column per int32 word
 // (field j of word kw at bit j * hi_bits holds K position kw * PW + j);
@@ -433,11 +647,10 @@ extern "C" int ams_matmul_fp533(const void* x, const void* hi, const void* scale
 // the values are exact in bf16 and bf16 x value is exact in f32: the kernel
 // differs from its plain version only by summation order.
 //
-// Bound and design as K1: bytes at decode (fp4.25 reads 4.25/8 byte per
-// weight), CUDA-core FMAs at prefill rows. One block = 32 columns x 8 rows,
+// Bound as K1: bytes at decode; CUDA-core FMAs at prefill rows. One block = 32 columns x 8 rows,
 // warps take interleaved words of a K chunk, lane n reads hi[kw, n0 + n].
-// The chunk's lsb words (one serves 32k K positions, 16 hi rows for
-// fp4.25) are staged once per block in shared memory beside x.
+// The chunk's lsb words (one serves 32k K positions) are staged once per
+// block in shared memory beside x.
 
 #define K1B_LSB_ROWS 12   // lsb rows a chunk can touch (see the static_assert)
 
@@ -567,8 +780,9 @@ static int launch_planes_k(int k, const void* x, const void* hi, const void* lsb
   }
 }
 
-// per_word in {4, 5, 6, 8}, k in {1, 2, 3, 4}; anything else is refused
-// with cudaErrorInvalidValue (the Python wrapper checks first).
+// per_word in {4, 5, 6} (per_word 8 goes through ams_matmul_planes_mma), k
+// in {1, 2, 3, 4}; anything else is refused with cudaErrorInvalidValue (the
+// Python wrapper checks first).
 extern "C" int ams_matmul_planes(const void* x, const void* hi, const void* lsb,
                                  const void* scale, void* y, int B, int Kw, int N,
                                  int per_word, int hi_bits, int k, int man_bits,
@@ -587,7 +801,6 @@ extern "C" int ams_matmul_planes(const void* x, const void* hi, const void* lsb,
     case 4: return launch_planes_k<4>(k, x, hi, lsb, scale, y, B, Kw, N, hi_bits, fmt, s);
     case 5: return launch_planes_k<5>(k, x, hi, lsb, scale, y, B, Kw, N, hi_bits, fmt, s);
     case 6: return launch_planes_k<6>(k, x, hi, lsb, scale, y, B, Kw, N, hi_bits, fmt, s);
-    case 8: return launch_planes_k<8>(k, x, hi, lsb, scale, y, B, Kw, N, hi_bits, fmt, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -4,9 +4,10 @@ Dispatches on the layout's container (fp533 -> K1, planes -> K1b),
 flattens leading dims and zero-pads K up to the packed rows, so the kernels
 only ever see [B, Kp] activations with hi (and lsb) planes of exactly Kp
 positions; B and N may be ragged (the kernels mask their edges), and the
-result is reshaped back. K1's tiles and K split come from the Hopper planner
+result is reshaped back. The tiles and K split of K1, and of K1b on the
+tensor cores (4-bit planes), come from the Hopper planner
 `kernels/tuning.plan_ams_matmul` (the TPU tile planner has no counterpart);
-K1b uses one fixed tile.
+K1b's CUDA-core kernel (the other planes schemes) uses one fixed tile.
 """
 
 from __future__ import annotations

@@ -133,7 +133,41 @@ def test_k1b_fp425_kernel_matches_plain(K, N, B):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("scheme", ["fp4.25-e2m2", "fp8", "fp6-e3m2"])
+@pytest.mark.parametrize("scheme,K,N,B", [
+    ("fp4.25-e2m2", 3584, 3584, 8), ("fp4.25-e2m2", 3584, 512, 8),
+    ("fp4.25-e2m2", 3584, 18944, 8), ("fp4.25-e2m2", 18944, 3584, 8),
+    ("fp4.25-e2m2", 3584, 3584, 128), ("fp4.25-e2m2", 3584, 512, 128),
+    ("fp4.25-e2m2", 3584, 18944, 128), ("fp4.25-e2m2", 18944, 3584, 128),
+    ("fp4.25-e2m2", 700, 520, 200), ("fp4.33-e2m2", 3584, 3584, 8),
+    ("fp4.33-e2m2", 2560, 288, 33), ("fp4.5-e2m2", 3584, 520, 16), ("fp4-e2m1", 3584, 3584, 8)])
+def test_k1b_planned_shapes_match_plain(scheme, K, N, B):
+    """K1b on the tensor cores at every Qwen2-7B projection shape at B = 8
+    and 128, two row tiles (B = 200), ragged 64-column tiles (N = 520), the
+    32-column tile (N = 288), and the other 4-bit schemes (fp4.33: k-groups
+    across lsb rows and a ragged last k-group); two launches give the same
+    bits (fixed reduction order)."""
+    from repro_torch.kernels.ams_matmul import (
+        ams_matmul_planes,
+        ams_matmul_planes_plain,
+        planes_on_tensor_cores,
+    )
+
+    dev = cuda_device()
+    pw, gen = packed(K, N, dev, seed=K + N + B, scheme=scheme)
+    assert planes_on_tensor_cores(pw.layout)
+    x = torch.zeros((B, pw.hi.shape[0] * 8), device=dev)
+    x[:, :K] = torch.randn((B, K), generator=gen, device=dev)
+    got = ams_matmul_planes(x, pw.hi, pw.lsb, pw.scale, pw.layout)
+    again = ams_matmul_planes(x, pw.hi, pw.lsb, pw.scale, pw.layout)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = ams_matmul_planes_plain(x, pw.hi, pw.lsb, pw.scale, pw.layout)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["fp4.25-e2m2", "fp8", "fp6-e3m2", "fp4.5-e2m2",
+                                    "fp4.33-e2m2", "fp4-e2m1"])
 def test_k1b_identity_is_bit_exact(scheme):
     from repro_torch.kernels import ops, ref
 
@@ -141,6 +175,15 @@ def test_k1b_identity_is_bit_exact(scheme):
     pw, _ = packed(384, 128, dev, seed=16, scheme=scheme)
     eye = torch.eye(8, 384, device=dev)
     assert torch.equal(ops.ams_matmul(eye, pw), ref.dequant_full(pw)[:8])
+
+
+# pages the paged kernels walk in 2 (48: the second ragged), 4 and 10
+# sub-tiles of 32 tokens (300: the scores of the last two, past the 256 a
+# warp keeps, recomputed in the second pass), at Qwen2-7B's widths and a
+# narrow odd head
+WIDE_PAGES = [(4, 7, 128, 48, 1), (4, 7, 128, 64, 1), (4, 7, 128, 64, 16),
+              (4, 7, 128, 128, 1), (4, 7, 128, 128, 16), (4, 7, 128, 300, 1),
+              (1, 3, 7, 48, 2), (1, 3, 7, 300, 2)]
 
 
 def _paged_case(kv, g, hd, page, chunk, dev, gen):
@@ -164,7 +207,7 @@ def _paged_case(kv, g, hd, page, chunk, dev, gen):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv,g,hd,page,chunk", [(2, 2, 32, 8, 1), (2, 2, 32, 8, 4),
                                                 (4, 7, 128, 16, 1), (4, 7, 128, 16, 16),
-                                                (1, 3, 7, 8, 2)])
+                                                (1, 3, 7, 8, 2), *WIDE_PAGES])
 def test_k3_kernel_matches_plain(kv, g, hd, page, chunk):
     from repro_torch.kernels.attention_template import (
         COUNT_BF16,
@@ -193,7 +236,7 @@ def test_k3_kernel_matches_plain(kv, g, hd, page, chunk):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv,g,hd,page,chunk", [(2, 2, 32, 8, 1), (2, 2, 32, 8, 4),
                                                 (4, 7, 128, 16, 1), (4, 7, 128, 16, 16),
-                                                (1, 3, 7, 8, 2)])
+                                                (1, 3, 7, 8, 2), *WIDE_PAGES])
 def test_k2_kernel_matches_plain(kv, g, hd, page, chunk):
     from repro_torch.core.formats import get_scheme
     from repro_torch.core.kv_quant import quantize_kv
@@ -267,7 +310,7 @@ def _stream_pool(kind, page, hd, dev, gen):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("hd,hd_v,g", [(72, 64, 4), (288, 256, 40)])
-@pytest.mark.parametrize("page", [4, 16, 32])
+@pytest.mark.parametrize("page", [4, 16, 32, 48, 64, 128, 300])
 @pytest.mark.parametrize("chunk", [1, 16])
 @pytest.mark.parametrize("kind", ["bf16", "ams"])
 def test_k5p_kernel_matches_plain(kind, chunk, page, hd, hd_v, g):
@@ -306,11 +349,13 @@ def test_k5p_kernel_matches_plain(kind, chunk, page, hd, hd_v, g):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["bf16", "ams"])
-@pytest.mark.parametrize("hd,hd_v,page", [(320, 256, 16), (288, 264, 16), (288, 256, 64)])
+@pytest.mark.parametrize("hd,hd_v,page", [(320, 256, 16), (288, 264, 16)])
 def test_k5p_raises_past_its_widths(kind, hd, hd_v, page):
-    """K5p takes hd <= 288, value_slice <= 256 and page <= 32 (MiniCPM3-4B's
-    stream): past them the wrapper raises instead of launching or falling
-    back to the plain version."""
+    """K5p takes hd <= 288 and value_slice <= 256 (MiniCPM3-4B's stream),
+    pages of any size (the page-64 case that raised before is now matched
+    against the plain version in test_k5p_kernel_matches_plain): past those
+    widths the wrapper raises instead of launching or falling back to the
+    plain version."""
     from repro_torch.core.formats import get_scheme
     from repro_torch.kernels import attention_template as T
 
@@ -537,9 +582,11 @@ def test_engine_on_the_card_runs_both_kernels():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("scheme,kind", [("fp4.25-e2m2", "paged_ams"), ("fp16", "paged_bf16")])
-def test_engine_on_the_card_new_paths(scheme, kind):
+@pytest.mark.parametrize("page", [8, 64])
+def test_engine_on_the_card_new_paths(scheme, kind, page):
     """FP4.25 weights over AMS pages run K1b and K2 (K1 never launches); the
-    FP16 baseline over bf16 pages runs K3 (no AMS kernel launches)."""
+    FP16 baseline over bf16 pages runs K3 (no AMS kernel launches); pages of
+    8 tokens and of 64 (walked in two sub-tiles)."""
     from repro_torch.cache import CacheConfig
     from repro_torch.kernels import ams_matmul, attention_template
     from repro_torch.launch.config import EngineConfig
@@ -551,8 +598,8 @@ def test_engine_on_the_card_new_paths(scheme, kind):
     for cnt in counts:
         cnt.reset()
     eng = ServeEngine(EngineConfig(reduced=True, scheme=scheme, impl="kernel", slots=2,
-                                   capacity=32, prefill_chunk=4, device="cuda",
-                                   cache=CacheConfig(kind=kind, page_size=8, impl="kernel")))
+                                   capacity=4 * page, prefill_chunk=4, device="cuda",
+                                   cache=CacheConfig(kind=kind, page_size=page, impl="kernel")))
     hs = [eng.submit(list(range(1, 12)), 5), eng.submit(list(range(3, 9)), 4)]
     eng.run()
     assert [len(h.tokens) for h in hs] == [5, 4]

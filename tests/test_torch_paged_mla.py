@@ -69,15 +69,18 @@ def filled_pools(kind, kv, hd, page, *, kv_scheme="fp4.25-e2m2", seed=0, stream=
     return pj, pt, bt
 
 
-def query(H, hd, chunk, seed=1):
+def query(H, hd, chunk, seed=1, span=1):
     """q and lengths: slot 2 idle; at chunk 4, slot 1's last two rows and
-    all of slot 2's are masked (length 0)."""
+    all of slot 2's are masked (length 0). ``span`` > 1 stretches the
+    lengths over ``span`` times as many keys (wide pages)."""
     rng = np.random.default_rng(seed)
     if chunk == 1:
         return (rng.standard_normal((B, H, hd)).astype(np.float32),
-                np.array([13, 7, 0], np.int32))
-    return (rng.standard_normal((B, chunk, H, hd)).astype(np.float32),
-            np.array([[10, 11, 12, 13], [5, 6, 0, 0], [0, 0, 0, 0]], np.int32))
+                np.array([13, 7, 0], np.int32) * span)
+    lengths = np.array([[10, 11, 12, 13], [5, 6, 0, 0], [0, 0, 0, 0]], np.int32)
+    if span > 1:
+        lengths = np.where(lengths > 0, lengths + 13 * (span - 1), 0).astype(np.int32)
+    return rng.standard_normal((B, chunk, H, hd)).astype(np.float32), lengths
 
 
 def assert_pools_bit_equal(pj, pt, names=("k", "v")):
@@ -132,7 +135,7 @@ def k5p_case(kind, widths, chunk, q_dtype, kv_scheme="fp4.25-e2m2"):
     H, hd, hd_v, page = (widths[k] for k in ("H", "hd", "hd_v", "page"))
     pj, pt, bt = filled_pools(kind, 1, hd, page, kv_scheme=kv_scheme)
     assert_pools_bit_equal(pj, pt)
-    q, lengths = query(H, hd, chunk)
+    q, lengths = query(H, hd, chunk, span=widths.get("span", 1))
     scheme = kv_scheme if kind == "paged_ams" else None
     jd, td = (jnp.float32, torch.float32) if q_dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
     want = j_fused(jnp.asarray(q, jd), pj, jnp.asarray(lengths), jnp.asarray(bt),
@@ -171,6 +174,21 @@ def test_k5p_matches_pallas_interpret(kind, chunk, q_dtype):
 def test_k5p_matches_pallas_interpret_at_minicpm3_widths(kind):
     """40 heads on one stream of 256 + 32 columns, values its first 256."""
     got, want, lengths, extra = k5p_case(kind, MINICPM3, 4, "f32")
+    assert_close(got, want, extra)
+    assert np.all(got[lengths == 0] == 0)
+
+
+WIDE = dict(SMALL, page=64, span=12)                 # pages the kernel walks in 2 sub-tiles
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+@pytest.mark.parametrize("kind", KINDS)
+def test_k5p_at_page_64_matches_pallas_interpret(kind, chunk):
+    """Pages of 64 tokens (the Pallas kernel takes a whole page as one
+    block; the CUDA walk takes it in two sub-tiles of 32 with one max per
+    page), lengths up to 156 keys: over three pages."""
+    got, want, lengths, extra = k5p_case(kind, WIDE, chunk, "f32")
+    assert lengths.max() > 2 * WIDE["page"]
     assert_close(got, want, extra)
     assert np.all(got[lengths == 0] == 0)
 
@@ -248,6 +266,24 @@ def test_k2_page_schemes_match_pallas_interpret(kv_scheme, chunk):
                                   torch.from_numpy(bt), page_size=4,
                                   kv_scheme=kv_scheme).numpy()
     assert T.COUNT.launches == launches
+    np.testing.assert_allclose(got, want, atol=2e-6, rtol=1e-6)
+    assert np.all(got[lengths == 0] == 0)
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+@pytest.mark.parametrize("kv_scheme", ["fp4.25-e2m2", "fp4-e2m1"])
+def test_k2_at_page_64_matches_pallas_interpret(kv_scheme, chunk):
+    """K2 over AMS pages of 64 tokens at GQA widths (2 kv heads, g = 4),
+    lengths up to 156 keys: over three pages."""
+    pj, pt, bt = filled_pools("paged_ams", 2, 32, 64, kv_scheme=kv_scheme, stream=False)
+    assert_pools_bit_equal(pj, pt)
+    q, lengths = query(8, 32, chunk, seed=3, span=12)
+    assert lengths.max() > 128
+    want = np.asarray(j_fused(jnp.asarray(q), pj, jnp.asarray(lengths), jnp.asarray(bt),
+                              page_size=64, kv_scheme=kv_scheme, interpret=True))
+    got = T.fused_paged_attention(torch.from_numpy(q), pt, torch.from_numpy(lengths),
+                                  torch.from_numpy(bt), page_size=64,
+                                  kv_scheme=kv_scheme).numpy()
     np.testing.assert_allclose(got, want, atol=2e-6, rtol=1e-6)
     assert np.all(got[lengths == 0] == 0)
 

@@ -1,14 +1,20 @@
-"""The Hopper launch plans of K1 and K4 (`repro_torch.kernels.tuning`), on the CPU.
+"""The Hopper launch plans of K1, K1b and K4 (`repro_torch.kernels.tuning`),
+and torch emulations of what the CUDA kernels rely on, on the CPU.
 
-`plan_ams_matmul` tiles K1's output and splits K over a thread-block
-cluster; `plan_contiguous_attention` and `attention_shares` split K4's key
-blocks over a cluster. These tests hold the plans to what the kernels rely
-on (every word row and every key in exactly one split, k-group aligned K
+`plan_ams_matmul` tiles K1's and K1b's output and splits K over a
+thread-block cluster; `plan_contiguous_attention` and `attention_shares`
+split K4's key blocks over a cluster. These tests hold the plans to what the
+kernels rely on (every word row and every key in exactly one split, every
+lsb row read by the ranks whose word rows need it, k-group aligned K
 splits, clusters of at most 8, enough CTAs to fill the card at the served
 shapes, scores that fit in shared memory at every served shape), and check
-the argument that makes K4's split exact up to the f32 order: a torch
-emulation of the split walk (here, not in the package) against
-`contiguous_attention_plain` within K4's element rule.
+three arguments with torch emulations (here, not in the package): K4's
+split walk against `contiguous_attention_plain` within K4's element rule;
+the paged walk of K2 / K3 / K5p in sub-tiles of 32 tokens (the page's max
+formed over every sub-tile before any p) against `_paged_online_softmax`;
+and K1b's `PlanesDecode` hook (the bit operations that turn 4-bit planes
+into bf16x2 values, the lsb bits each word takes, the order x's fragments
+follow) against `code_to_value`, bit for bit.
 """
 
 import math
@@ -20,9 +26,13 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.formats import code_to_value, get_scheme  # noqa: E402
+from repro_torch.core.packing import make_layout  # noqa: E402
+from repro_torch.kernels.ams_matmul import planes_on_tensor_cores, unpack_planes  # noqa: E402
 from repro_torch.kernels.attention_template import (  # noqa: E402
     NEG_BIG,
     NEG_CLAMP,
+    _paged_online_softmax,
     contiguous_attention_plain,
 )
 from repro_torch.kernels.tuning import (  # noqa: E402
@@ -31,6 +41,8 @@ from repro_torch.kernels.tuning import (  # noqa: E402
     MAX_CLUSTER,
     SMS,
     attention_shares,
+    k1_lsb_rows,
+    k1_stage_rows,
     plan_ams_matmul,
     plan_contiguous_attention,
     reference_block_kv,
@@ -83,6 +95,169 @@ def test_k1_plan_fills_the_card_at_decode(arch, name, K, N):
     plan = plan_ams_matmul(8, math.ceil(K / 6), N)
     want = SMS if arch == "qwen2-7b" and name not in ("wk", "wv") else 64
     assert plan.ctas >= want, plan
+
+
+# ------------------------------------------------------------------ K1b
+PLANES_4BIT = ("fp4.5-e2m2", "fp4.33-e2m2", "fp4.25-e2m2", "fp4-e2m1")
+
+
+def test_tensor_core_planes_are_the_4bit_schemes():
+    from repro_torch.core.formats import SCHEMES
+
+    on = {n for n, sc in SCHEMES.items()
+          if make_layout(sc).container == "planes" and planes_on_tensor_cores(make_layout(sc))}
+    assert on == set(PLANES_4BIT)
+    assert not planes_on_tensor_cores(make_layout(get_scheme("fp5.33-e2m3"), "planes"))
+
+
+def _lsb_rows_read(lo: int, hi: int, k: int):
+    """The lsb rows K1b's rank reads for word rows [lo, hi): those of the
+    groups of K positions [8 lo, 8 hi)."""
+    return range((8 * lo // k) >> 5, ((8 * hi - 1) // k >> 5) + 1)
+
+
+@pytest.mark.parametrize("scheme", ["fp4.5-e2m2", "fp4.33-e2m2", "fp4.25-e2m2"])
+@pytest.mark.parametrize("B,K,N", [(1, 128, 1), (5, 700, 300), (8, 3584, 512), (33, 2048, 640),
+                                   (128, 18944, 3584), (8, 3584, 18944), (200, 700, 520)])
+def test_k1b_plan_covers_every_hi_and_lsb_row_once(scheme, B, K, N):
+    """Every word row in exactly one rank, on 64-K boundaries; every lsb row
+    read by a rank that needs it, by two only where a split falls inside
+    it (its 32 k positions then belong to both ranks' word rows)."""
+    lay = make_layout(get_scheme(scheme))
+    k = lay.scheme.k
+    Kp = lay.padded_k(K)
+    Kw, Lrows = Kp // 8, Kp // (32 * k)
+    plan = plan_ams_matmul(B, Kw, N, container="planes", k=k)
+    hi_seen, lsb_seen = np.zeros(Kw, dtype=int), np.zeros(Lrows, dtype=int)
+    for lo, hi in plan.splits(Kw):
+        assert lo < hi and lo % K1_GROUP_WORDS == 0
+        hi_seen[lo:hi] += 1
+        for r in _lsb_rows_read(lo, hi, k):
+            lsb_seen[r] += 1
+    assert (hi_seen == 1).all()
+    assert (lsb_seen >= 1).all()
+    cut = {(8 * lo) // (32 * k) for lo, _ in plan.splits(Kw)[1:] if (8 * lo) % (32 * k)}
+    assert set(np.nonzero(lsb_seen == 2)[0]) <= cut and lsb_seen.max() <= 2
+    assert 1 <= plan.cluster <= MAX_CLUSTER and plan.ctas >= 1
+
+
+@pytest.mark.parametrize("k", [2, 3, 4])
+@pytest.mark.parametrize("nt", [1, 2, 4, 8, 16])
+def test_k1b_stage_holds_the_lsb_rows_its_word_rows_read(nt, k):
+    """A ring stage of RW word rows starting on any k-group boundary reads
+    at most `k1_lsb_rows` lsb rows (the rows the kernel copies per stage)."""
+    rw = k1_stage_rows(nt)
+    most = max(len(_lsb_rows_read(w0, w0 + rw, k)) for w0 in range(0, 96 * k, K1_GROUP_WORDS))
+    assert most <= k1_lsb_rows(rw, k)
+
+
+QWEN = [p for p in PROJECTIONS if p[0] == "qwen2-7b"]
+
+
+@pytest.mark.parametrize("arch,name,K,N", QWEN, ids=[n for _, n, _, _ in QWEN])
+def test_k1b_plan_fills_the_card_at_decode(arch, name, K, N):
+    """fp4.25 at Qwen2-7B's projections, B = 8 (8 decoding slots): at least
+    one CTA per SM, at least 64 for wk/wv."""
+    plan = plan_ams_matmul(8, K // 8, N, container="planes", k=4)
+    assert plan.ctas >= (64 if name in ("wk", "wv") else SMS), plan
+
+
+def _u32(t):
+    return t & 0xFFFFFFFF
+
+
+def _bf16_bits_to_f32(bits):
+    """16-bit bf16 patterns (int64) -> f32 values, exactly."""
+    v = _u32(bits << 16)
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32).view(torch.float32)
+
+
+def _planes_lsb_bits(lsb, kw: int, k: int):
+    """PlanesDecode::lsb_bits for every column: the lsb bits of word row kw
+    from group G0 = 8 kw / k on, and the word's phase in its group."""
+    G0 = 8 * kw // k
+    ph = 8 * kw - k * G0 if k == 3 else 0
+    off = G0 & 31
+    bits = lsb[G0 >> 5] >> off
+    if k == 3 and ((8 * kw + 7) // k) >> 5 != G0 >> 5:
+        bits = _u32(bits | (lsb[(G0 >> 5) + 1] << (32 - off)))
+    return bits, ph
+
+
+def _planes_word_pairs(w, bits, ph: int, k: int):
+    """PlanesDecode::word_pairs for every column: the bf16x2 words of fields
+    (j, j + 4), j = 0..3, and their values (multiplied by 2^126 in f32)."""
+    r = [_u32(((w << 6) & 0x01C001C0) | ((w << 12) & 0x80008000)),
+         _u32(((w << 2) & 0x01C001C0) | ((w << 8) & 0x80008000)),
+         _u32(((w >> 2) & 0x01C001C0) | ((w << 4) & 0x80008000)),
+         _u32(((w >> 6) & 0x01C001C0) | (w & 0x80008000))]
+    if k > 1:
+        r = [rj | (((bits >> ((ph + j) // k)) & 1) << 5)
+             | (((bits >> ((ph + j + 4) // k)) & 1) << 21) for j, rj in enumerate(r)]
+    two126 = torch.tensor(2.0 ** 126, dtype=torch.float32)
+    return [(_bf16_bits_to_f32(rj & 0xFFFF) * two126, _bf16_bits_to_f32(rj >> 16) * two126)
+            for rj in r]
+
+
+@pytest.mark.parametrize("scheme", PLANES_4BIT)
+def test_k1b_planes_decode_is_code_to_value_bit_for_bit(scheme):
+    """Every 4-bit hi field at every field position of a word, with either
+    LSB bit, at every phase of a word in its k-group (k = 3: 8 kw mod 3)
+    and across lsb rows: PlanesDecode's pairs (fields j and j + 4 as one
+    bf16x2) equal `code_to_value` of the unpacked codes, bit for bit."""
+    sc = get_scheme(scheme)
+    lay = make_layout(sc)
+    k = sc.k
+    Kw, n = 48, 16                   # 384 K positions: 3 to 6 lsb rows, every phase
+    field = (torch.arange(Kw)[:, None, None] + torch.arange(8)[None, :, None]
+             + torch.arange(n)[None, None, :]) % 16                      # [Kw, 8, n]
+    words = (field << (4 * torch.arange(8))[None, :, None]).sum(dim=1)   # [Kw, n]
+    words = torch.cat([words, words], dim=1)                             # columns n + c: same
+    if k > 1:
+        gen = torch.Generator().manual_seed(k)
+        rows = Kw * 8 // (32 * k)
+        lsb = torch.randint(0, 2 ** 32, (rows, n), generator=gen, dtype=torch.int64)
+        lsb = torch.cat([lsb, _u32(~lsb)], dim=1)                        # ... with LSBs flipped
+    else:
+        lsb = torch.zeros((0, 2 * n), dtype=torch.int64)
+    wrap = lambda t: torch.where(t >= 2 ** 31, t - 2 ** 32, t).to(torch.int32)  # noqa: E731
+    want = code_to_value(sc.base, unpack_planes(wrap(words), wrap(lsb), lay))  # [8 Kw, 2n]
+    for kw in range(Kw):
+        bits, ph = _planes_lsb_bits(lsb, kw, k) if k > 1 else (None, 0)
+        for j, (lo, hi) in enumerate(_planes_word_pairs(words[kw], bits, ph, k)):
+            for got, pos in ((lo, 8 * kw + j), (hi, 8 * kw + j + 4)):
+                assert torch.equal(got.view(torch.int32), want[pos].view(torch.int32)), \
+                    (kw, j, pos)
+
+
+def _byte_perm(a: int, b: int, sel: int) -> int:
+    """CUDA's __byte_perm(a, b, sel) (selector nibbles 0-7)."""
+    src = [(a >> (8 * i)) & 0xFF for i in range(4)] + [(b >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(src[(sel >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+
+def test_k1b_x_fragments_follow_the_pair_order():
+    """For every k-step s and quad index t, the K positions of x's B
+    fragments (PlanesDecode::x_fragments: two 16-byte loads and byte
+    permutes) are those of the weight pairs in the A fragments (a[s][0]:
+    pair 2s, a[s][2]: pair 2s + 1 of the thread's 8 pairs, words W0 = rows
+    2t, W1 = 2t + 1): each mma.sync sums x[p] * w[p] over matching p."""
+    for t in range(4):
+        base = 16 * t                                        # the thread's 16 K positions
+        pairs = [(base + j, base + j + 4) for j in range(4)] + \
+                [(base + 8 + j, base + 12 + j) for j in range(4)]
+        xr = [base + i for i in range(16)]                  # bf16 holding its own position
+        q = [xr[2 * i] | (xr[2 * i + 1] << 16) for i in range(8)]   # the 32-bit words loaded
+        q0x, q0y, q0z, q0w, q1x, q1y, q1z, q1w = q
+        b = [[_byte_perm(q0x, q0z, 0x5410), _byte_perm(q0x, q0z, 0x7632)],
+             [_byte_perm(q0y, q0w, 0x5410), _byte_perm(q0y, q0w, 0x7632)],
+             [_byte_perm(q1x, q1z, 0x5410), _byte_perm(q1x, q1z, 0x7632)],
+             [_byte_perm(q1y, q1w, 0x5410), _byte_perm(q1y, q1w, 0x7632)]]
+        for s in range(4):
+            for e in range(2):
+                assert (b[s][e] & 0xFFFF, b[s][e] >> 16) == pairs[2 * s + e], (t, s, e)
+        covered = sorted(p for pr in pairs for p in pr)
+        assert covered == xr
 
 
 # ------------------------------------------------------------------ K4
@@ -204,3 +379,93 @@ def test_k4_split_walk_matches_the_plain_walk(cluster, nblocks, chunk):
     masked = torch.from_numpy(np.repeat(lengths == 0, g, axis=1))         # [B, c*g]
     assert bool((got.permute(0, 2, 1, 3)[masked] == 0).all())
     assert int(masked.sum()) > 0
+
+
+# ------------------------------------------------- K2 / K3 / K5p sub-tiles
+PA_TILE, PA_WARPS = 32, 8
+
+
+def _subtile_walk(qf, load, lens, block_table, *, page_size, c, g, pv_dtype, tile=PA_TILE):
+    """The paged kernels' walk in plain torch: per page, pass 1 takes the
+    scores of every sub-tile of ``tile`` tokens that a block of 8 rows can
+    see (sub-tiles past every row of the block are skipped) and their max;
+    pass 2 forms p at that max, sub-tile by sub-tile, sums it and its PV
+    product in sub-tile order. Returns the output and, per page, bf16(p) of
+    the sub-tiles walked ([B, kv, R, page] with -1 where none)."""
+    B, kv_n, R, hd = qf.shape
+    row_len = lens.reshape(B, c).repeat_interleave(g, dim=1)[:, None, :]   # [B, 1, R]
+    block_len = torch.stack([row_len[..., r0:r0 + PA_WARPS].amax(dim=-1)
+                             for r0 in range(0, R, PA_WARPS)], dim=-1)
+    block_len = block_len.repeat_interleave(PA_WARPS, dim=-1)[..., :R]    # [B, 1, R]
+    m = torch.full((B, kv_n, R, 1), NEG_CLAMP)
+    l = torch.zeros_like(m)
+    acc, ps = None, []
+    for i in range(-(-int(lens.max()) // page_size)):
+        kb, vb = load(block_table[:, i].long())
+        s = torch.einsum("bhrd,bthd->bhrt", qf, kb)
+        k_pos = i * page_size + torch.arange(page_size)
+        s = s + torch.where(k_pos < row_len[..., None], 0.0, NEG_BIG)
+        walked = (torch.arange(page_size) // tile * tile)[None, None, None, :] < \
+            (block_len - i * page_size)[..., None]                            # [B, 1, R, page]
+        tiles = range(0, page_size, tile)
+        s_max = torch.stack([torch.where(walked[..., t0:t0 + tile], s[..., t0:t0 + tile],
+                                         -torch.inf).amax(dim=-1) for t0 in tiles]).amax(dim=0)
+        m_new = torch.clamp(torch.maximum(m, s_max[..., None]), min=NEG_CLAMP)
+        corr = torch.exp(m - m_new)
+        acc = torch.zeros((B, kv_n, R, vb.shape[-1])) if acc is None else acc * corr
+        p_sum = torch.zeros_like(l)
+        p_bits = torch.full(s.shape, -1.0)
+        for t0 in tiles:
+            w = walked[..., t0:t0 + tile]
+            p = torch.where(w, torch.exp(s[..., t0:t0 + tile] - m_new), 0.0)
+            p_sum = p_sum + p.sum(dim=-1, keepdim=True)
+            pv = p.to(pv_dtype).float()
+            acc = acc + torch.einsum("bhrt,bthd->bhrd", pv, vb[:, t0:t0 + tile])
+            p_bits[..., t0:t0 + tile] = torch.where(w, pv, -1.0)
+        l = l * corr + p_sum
+        m = m_new
+        ps.append(p_bits)
+    return acc / torch.clamp(l, min=1e-20), ps
+
+
+@pytest.mark.parametrize("pv", ["f32", "bf16"])
+@pytest.mark.parametrize("chunk", [1, 4])
+@pytest.mark.parametrize("page", [48, 64, 128])
+def test_paged_subtile_walk_matches_the_plain_walk(page, chunk, pv):
+    """Pages wider than one sub-tile of 32 tokens (48: a ragged second
+    sub-tile): forming the page's max over every sub-tile before any p gives
+    the plain walk's bf16(p) bit for bit (the same walk with one tile per
+    page), and outputs within the kernels' tolerance (K2: 1e-4 of max |y|;
+    K3: 2^-8 max |v| + 1e-4 max |y|); masked rows and the idle slot are
+    exact zeros. Slot 1 sees 3 keys; slot 3's last sub-tile is skipped."""
+    kv, g, hd, MP = 2, 3, 16, 4
+    pv_dtype = torch.float32 if pv == "f32" else torch.bfloat16
+    rng = np.random.default_rng(page + chunk)
+    B, P = 4, 4 * MP
+    pool = {n: torch.from_numpy(rng.standard_normal((P, page, kv, hd), dtype=np.float32))
+            .to(torch.bfloat16).float() for n in ("k", "v")}
+    bt = torch.from_numpy(rng.permutation(P).reshape(B, MP).astype(np.int32))
+    ends = np.array([MP * page, 3, 0, 2 * page + 5])
+    nvalid = np.minimum(np.array([chunk, max(chunk - 1, 1), 0, 1]), ends)
+    j = np.arange(chunk)[None]
+    lengths = np.where(j < nvalid[:, None], ends[:, None] - nvalid[:, None] + j + 1, 0)
+    lens = torch.from_numpy(lengths.reshape(-1).astype(np.int32))
+    qf = torch.from_numpy(rng.standard_normal((B, kv, chunk * g, hd), dtype=np.float32) / 2)
+
+    def load(pg):
+        return pool["k"][pg], pool["v"][pg]
+
+    kw = dict(page_size=page, c=chunk, g=g, pv_dtype=pv_dtype)
+    got, p_tiles = _subtile_walk(qf, load, lens, bt, **kw)
+    _, p_pages = _subtile_walk(qf, load, lens, bt, tile=page, **kw)
+    for pt, pp in zip(p_tiles, p_pages):
+        walked = pt >= 0
+        assert torch.equal(pt[walked].view(torch.int32), pp[walked].view(torch.int32))
+        assert bool((pp[~walked & (pp >= 0)] == 0).all())      # skipped keys: p is 0
+    want = _paged_online_softmax(qf, load, lens, bt, **kw)
+    ymax = float(want.abs().max())
+    tol = 1e-4 * ymax if pv == "f32" else 2 ** -8 * float(pool["v"].abs().max()) + 1e-4 * ymax
+    assert float((got - want).abs().max()) <= tol
+    masked = torch.from_numpy(np.repeat(lengths == 0, g, axis=1))            # [B, c*g]
+    assert int(masked.sum()) > 0
+    assert bool((got.permute(0, 2, 1, 3)[masked] == 0).all())
