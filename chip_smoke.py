@@ -11,7 +11,8 @@ Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from src/repro_torch/kernels/csrc with nvcc
      (one process per source, started together), and print ptxas's
-     registers, shared memory and spills for K1's and K4's kernels;
+     registers, shared memory and spills for K1's, K2's, K4's and K5's
+     kernels and the paged walk of K3 and K5p;
   3. K1 (AMS fp533 dequant-matmul) against its plain torch version at every
      Qwen2-7B projection shape, B in {8, 128}: error, kernel / plain / dense
      bf16 torch.matmul times, and the bound from bytes and operations; one
@@ -45,8 +46,11 @@ Phases, each fatal on failure:
      K5); 9 requests each on the last four (two sharing a prefix on the
      paged ones). Launch counts are zeroed just before each path and read
      just after: every kernel of the path must have launched, no other
-     kernel and no plain version on CUDA tensors. Each path then times
-     full-batch decode ticks and profiles them (device-busy ms per tick);
+     kernel and no plain version on CUDA tensors. Each path prints the
+     bytes of the weights a decode step reads (projections and lm_head) and
+     their time at the memory rate, then times full-batch decode ticks over
+     the served context lengths (about 200-360 keys) and profiles them
+     (device-busy ms per tick);
   10. consistency at cut depth (2 layers, full widths), per path:
       first-tick logits and greedy streams of impl "kernel" against the
       non-kernel impls ("fused_ref" matmuls, "ref" attention) on the card,
@@ -310,6 +314,7 @@ def phase_k2(torch, dev, timed: bool, full: bool):
         paged_attention_ams,
         paged_attention_ams_plain,
     )
+    from repro_torch.kernels.tuning import plan_paged_attention
 
     scheme = get_scheme("fp4.25-e2m2")
     if full:
@@ -348,9 +353,11 @@ def phase_k2(torch, dev, timed: bool, full: bool):
                   + lens.numel() * 4 + qf.numel() * 4)
         flops = 4.0 * hd * kv * g * float(lengths.sum())      # f32 p times f32 v
         bms, by = bound_ms(nbytes, (flops, PEAK_F32_FLOPS))
+        plan = plan_paged_attention(B, kv, c * g, bt.shape[1] * page)
         row = dict(chunk=c, kv=kv, g=g, hd=hd, page=page, slots=B,
                    lengths_max=int(lengths.max()), max_abs_err=err, rel_err=rel,
-                   exact_zero_rows=int(masked.sum()), bound_ms=bms, bound_by=by)
+                   exact_zero_rows=int(masked.sum()), bound_ms=bms, bound_by=by,
+                   rows_per_cta=plan.rows, cluster=plan.cluster, ctas=plan.ctas(B, kv))
         if timed:
             n = max(1, min(64, math.ceil(L2_FLUSH_BYTES / max(1, tok * kv * 2 * 72))))
             pools = [pool] + [make_pool(bt.numel(), page) for _ in range(n - 1)]
@@ -499,7 +506,7 @@ def _contiguous_phase(torch, dev, tag: str, timed: bool, full: bool, mla: bool):
     import numpy as np
 
     from repro_torch.kernels import attention_template as T
-    from repro_torch.kernels.tuning import reference_block_kv
+    from repro_torch.kernels.tuning import plan_mla_attention, reference_block_kv
 
     if mla:
         kv, g, hd, hd_v, scale = (1, 40, 288, 256, 1 / math.sqrt(96)) if full else \
@@ -530,6 +537,7 @@ def _contiguous_phase(torch, dev, tag: str, timed: bool, full: bool, mla: bool):
         kw = dict(c=c, g=g, block_kv=bk)
         if mla:
             kw["hd_v"] = hd_v
+            plan = plan_mla_attention(B, kv, c * g, bk)
 
             def kernel(cs):
                 return T.contiguous_attention_mla(qf, cs[0], lens, **kw)
@@ -565,6 +573,8 @@ def _contiguous_phase(torch, dev, tag: str, timed: bool, full: bool, mla: bool):
                    tolerance_median=float(tol[tol > 0].median()),
                    tolerance_min=float(tol[tol > 0].min()), err_over_tolerance=over,
                    exact_zero_rows=int(masked.sum()), bound_ms=bms, bound_by=by)
+        if mla:
+            row.update(cluster=plan.cluster, ctas=plan.ctas(B, kv), resident=plan.resident)
         if timed:
             n = max(1, min(64, math.ceil(L2_FLUSH_BYTES / max(1, key_bytes))))
             sets = [caches] + [make_caches() for _ in range(n - 1)]
@@ -776,6 +786,10 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
     log(f"serve[{path}]: quantize_seconds={eng.quantize_seconds:.3f} "
         f"layers={eng.cfg.num_layers} d_model={eng.cfg.d_model} d_ff={eng.cfg.d_ff} "
         f"vocab={eng.cfg.vocab_size}")
+    wbytes = weight_bytes(eng.params)
+    log("weights " + json.dumps(dict(path=path, arch=spec["arch"], scheme=spec["scheme"],
+                                     depth=eng.cfg.num_layers, bytes=wbytes,
+                                     floor_ms=1e3 * wbytes["total"] / PEAK_BYTES_PER_S)))
     rng = np.random.default_rng(1234)
     V = eng.cfg.vocab_size
     prompts = [rng.integers(0, V, int(n)).astype(np.int32)
@@ -835,6 +849,13 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
         fail(f"serve[{path}]: the shared prefix never hit the prefix cache")
     if dev.type == "cuda":
         res["profile"] = profile_decode(torch, eng, rng, path)
+    else:                              # rehearse the profile's prefill at tiny lengths
+        fill_for_decode(eng, rng, (eng.capacity // 4, eng.capacity // 2), 7)
+        for _ in range(7):
+            eng.step()
+        if eng.active_count != eng.slots:
+            fail(f"serve[{path}]: {eng.active_count} of {eng.slots} slots decoded")
+        eng.run()
     # the engine's metrics hold closures over it: free the cycle now, so the
     # next path's peak memory counts only its own tensors
     del eng, handles
@@ -844,17 +865,55 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
     return res
 
 
+def weight_bytes(params):
+    """Bytes of the weights one decode step reads: every per-layer leaf
+    (packed projections with their scales, norms) and the lm_head; the
+    embedding table is gathered a row per token, so it is left out."""
+    from repro_torch.models.transformer import tree_leaves
+
+    def total(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    layers, head = total(params["layers"]), total(params["lm_head"])
+    return dict(layers=layers, lm_head=head, total=layers + head)
+
+
+PROFILE_PROMPT = (200, 340)      # prompt tokens of the profiled requests: the served range
+
+
+def fill_for_decode(eng, rng, prompt, decode_ticks: int):
+    """Submit one request per slot with a prompt of ``prompt`` = (lo, hi)
+    tokens and run the ticks that admit and prefill them, so that every
+    slot then decodes for ``decode_ticks`` more ticks: a request may
+    generate while longer prompts still prefill, so each may generate as
+    many tokens as the prefill ticks of the two lengths differ, on top.
+    Returns the prefill ticks."""
+    V = eng.cfg.vocab_size
+    spread = -(-prompt[1] // eng.chunk) - (-(-prompt[0] // eng.chunk))
+    max_tokens = decode_ticks + spread + 2
+    if not prompt[1] + max_tokens <= eng.capacity:
+        raise ValueError(f"capacity {eng.capacity} does not hold the profiled prompts")
+    for n in rng.integers(prompt[0], prompt[1] + 1, eng.slots):
+        eng.submit(rng.integers(0, V, int(n)).astype("int32"), max_tokens)
+    ticks = 0
+    while len(eng.sched) or any(r is not None and eng.fed[s] < r.prompt_len
+                                for s, r in enumerate(eng.active)):
+        eng.step()
+        ticks += 1
+    if eng.active_count != eng.slots:
+        fail(f"only {eng.active_count} of {eng.slots} slots decode after the prefill")
+    return ticks
+
+
 def profile_decode(torch, eng, rng, path: str, ticks: int = 3):
-    """Pure-decode ticks with every slot decoding: first timed plainly
-    (decode tick ms and tokens/s at a full batch), then under
-    torch.profiler (the device-busy share of wall time and the kernels that
-    take it)."""
+    """Pure-decode ticks with every slot decoding, over the context lengths
+    the served workloads reach (prompts of 200-340 tokens, prefilled
+    first): first timed plainly (decode tick ms and tokens/s at a full
+    batch), then under torch.profiler (the device-busy share of wall time
+    and the kernels that take it)."""
     from torch.profiler import ProfilerActivity, profile
 
-    V = eng.cfg.vocab_size
-    for _ in range(eng.slots):
-        eng.submit(rng.integers(0, V, eng.chunk).astype("int32"), 2 * ticks + 3)
-    eng.step()                                    # the one prefill tick
+    fill_for_decode(eng, rng, PROFILE_PROMPT, 2 * ticks + 1)
     eng.step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -862,6 +921,8 @@ def profile_decode(torch, eng, rng, path: str, ticks: int = 3):
         eng.step()
     torch.cuda.synchronize()
     plain_tick = (time.perf_counter() - t0) / ticks
+    if eng.active_count != eng.slots:
+        fail(f"profile[{path}]: {eng.active_count} of {eng.slots} slots decoded")
     decode = dict(path=path, active_slots=eng.active_count, ticks=ticks,
                   decode_tick_ms=1e3 * plain_tick,
                   decode_tokens_per_s=eng.active_count / plain_tick)
@@ -875,6 +936,8 @@ def profile_decode(torch, eng, rng, path: str, ticks: int = 3):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    if eng.active_count != eng.slots:
+        fail(f"profile[{path}]: {eng.active_count} of {eng.slots} slots decoded while profiled")
     eng.run()
     kernels = {}
     busy = 0.0
@@ -978,11 +1041,12 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33", page: int = 
 
 
 def ptxas_report(build, kernels=("ams_matmul_mma_kernel", "ams_matmul_planes_kernel",
-                                 "k4_kernel", "paged_attention_kernel")):
+                                 "k4_kernel", "k5_kernel", "k2_kernel",
+                                 "paged_attention_kernel")):
     """One line per instantiation of the named kernels from the build's
     ``-Xptxas -v`` logs: registers, shared memory, stack and spills (K1 and
     K1b's tensor-core kernel, one line per decode hook, tile and x copy;
-    K1b's CUDA-core kernel; K4; the paged walk of K2, K3 and K5p)."""
+    K1b's CUDA-core kernel; K4; K5; K2; the paged walk of K3 and K5p)."""
     rows = []
     for name in build.SOURCES:
         logf = build.library_path(name).with_suffix(".log")
@@ -1001,7 +1065,7 @@ def ptxas_report(build, kernels=("ams_matmul_mma_kernel", "ams_matmul_planes_ker
     for r in rows:
         log(f"ptxas {r}")
     if not rows:
-        fail("no ptxas report for the K1 / K1b / K4 / paged kernels")
+        fail("no ptxas report for the K1 / K1b / K2 / K4 / K5 / paged kernels")
 
 
 PHASES = ("k1", "k1b", "k2", "k3", "k4", "k5", "k5p")

@@ -41,7 +41,12 @@ from repro_torch.core.formats import code_to_value, get_scheme
 from repro_torch.core.kv_quant import codes_from_planes
 
 from .build import KernelCount, check_device, library, stream_ptr
-from .tuning import plan_contiguous_attention, reference_block_kv
+from .tuning import (
+    plan_contiguous_attention,
+    plan_mla_attention,
+    plan_paged_attention,
+    reference_block_kv,
+)
 
 NEG_BIG = -2e30   # additive mask; exp(NEG_BIG - NEG_CLAMP) == 0 exactly
 NEG_CLAMP = -1e30
@@ -247,7 +252,8 @@ def _check_aligned(name, hd, pages):
 def paged_attention_ams(qf, pool: Dict, lens, block_table, *, page_size: int,
                         scheme, c: int, g: int) -> torch.Tensor:
     """K2 wrapper (same contract as `paged_attention_ams_plain`). CPU tensors
-    take the plain version; CUDA tensors launch the kernel or raise."""
+    take the plain version; CUDA tensors launch the kernel (row tile and
+    cluster from `tuning.plan_paged_attention`) or raise."""
     _check_k2(qf, pool, lens, block_table, page_size, scheme, c, g)
     if qf.device.type == "cpu":
         return paged_attention_ams_plain(qf, pool, lens, block_table, page_size=page_size,
@@ -261,9 +267,11 @@ def paged_attention_ams(qf, pool: Dict, lens, block_table, *, page_size: int,
     _check_operands("K2", qf, ops)
     out = torch.empty_like(qf)
     hb, gw = pool["k"]["hi"].shape[-1], pool["k"]["lsb"].shape[-1]
+    MP = block_table.shape[1]
+    plan = plan_paged_attention(max(B, 1), kv_n, max(R, 1), max(MP * page_size, 1))
     _launch_paged("paged_attention_ams", COUNT, [t.data_ptr() for t in ops + [out]],
-                  [B, kv_n, R, hd, hb, gw, scheme.k, scheme.base.man_bits, page_size,
-                   block_table.shape[1], c, g], qf.device)
+                  [B, kv_n, R, hd, hb, gw, scheme.k, scheme.base.man_bits, page_size, MP, c,
+                   g, plan.rows, plan.cluster], qf.device)
     return out
 
 
@@ -556,7 +564,7 @@ def _check_contig(qf, caches, lens, c, g, block_kv, hd_v):
 
 def _launch_contig(name, count, qf, caches, lens, hd_v, c, g, block_kv, plan=()):
     """Launch K4 / K5 on CUDA tensors: bf16 caches, contiguous operands;
-    ``plan`` are the extra ints of the kernel's launch plan (K4's)."""
+    ``plan`` are the extra ints of the kernel's launch plan."""
     check_device(qf)
     B, kv_n, R, hd = qf.shape
     if any(t.dtype != torch.bfloat16 for t in caches):
@@ -593,13 +601,16 @@ def contiguous_attention(qf, k_cache, v_cache, lens, *, c: int, g: int,
 def contiguous_attention_mla(qf, cache, lens, *, c: int, g: int, block_kv: int,
                              hd_v: int) -> torch.Tensor:
     """K5 wrapper (same contract as `contiguous_attention_mla_plain`). CPU
-    tensors take the plain version; CUDA tensors launch the kernel or raise."""
+    tensors take the plain version; CUDA tensors launch the kernel (cluster
+    from `tuning.plan_mla_attention`) or raise."""
     _check_contig(qf, (cache,), lens, c, g, block_kv, hd_v)
     if qf.device.type == "cpu":
         return contiguous_attention_mla_plain(qf, cache, lens, c=c, g=g, block_kv=block_kv,
                                               hd_v=hd_v)
+    B, kv_n, R, _ = qf.shape
+    plan = plan_mla_attention(max(B, 1), kv_n, max(R, 1), block_kv)
     return _launch_contig("contiguous_attention_mla", COUNT_MLA, qf, (cache,), lens, hd_v, c,
-                          g, block_kv)
+                          g, block_kv, (plan.cluster,))
 
 
 def fused_contiguous_attention(q, k_cache, lengths, *, v_cache=None,

@@ -54,17 +54,37 @@
 //    the first pass keeps only the max and the second recomputes the scores
 //    of each step's two tiles before forming p, as the old walk did.
 //
-// K5 (`contiguous_attention_mla`, `contiguous_attention_kernel` with the
-// StreamRows hook) keeps its first design: per (slot b, kv head h, tile of 8
-// folded query rows), one warp per row, each lane holding hd/32 dims of q and
-// hd_v/32 of the accumulator; a block is read twice, in sub-tiles of 32 keys
-// widened exactly to f32 in shared memory (16-byte loads): pass 1 takes each
-// row's max, pass 2 recomputes the scores and adds bf16(p) * v. V is the
-// first hd_v columns of the K sub-tile already in shared memory. Its bound is
-// the operations, 2 * (hd + hd_v) per row and key (40 heads share one
-// stream). Known weak spots: the scores of a block are computed twice,
-// every row tile re-reads the keys, and the shuffle reductions per key are
-// serial (wgmma for the 40 heads sharing one stream is later work).
+// K5 (`contiguous_attention_mla`, `k5_kernel`): K4's design widened to the
+// absorbed-MLA stream. MiniCPM3-4B puts 40 heads on one stream of 256 + 32
+// columns whose values are its first 256, so each key feeds 40 rows x
+// 2 * (288 + 256) operations at decode: the operations bound it, and the
+// first design (one warp per row, 5 row tiles of 8 per slot, every key read
+// twice per tile and widened to f32, serial shuffle sums) reached 1/236 of
+// that bound. Design:
+//  * One CTA holds 48 folded rows (three m16 tiles: all 40 heads of a slot
+//    at decode), so each 32-key tile is loaded once (16-byte cp.async,
+//    bf16, never widened) and serves every head; chunks of 16 queries (640
+//    rows) take 14 row groups.
+//  * A cluster of up to 8 CTAs (the portable size; the plan in
+//    kernels/tuning.plan_mla_attention) splits each key block as K4's
+//    does: 8 slots at decode run 64 CTAs, not 40 one-warp-per-row blocks.
+//    A share of up to 128 keys stays resident in a 4-tile ring from the
+//    scores to the p.v product (one read of every key per block); longer
+//    shares stream through the ring twice and recompute their scores.
+//  * q arrives unrounded in f32 and sits in shared memory as three bf16
+//    parts (85 KB); scores are computed once on the tensor cores (mma.sync
+//    m16n8k16, each warp 16 keys x 48 rows per step of 64 keys, 18 k-steps
+//    of 16 at hd 288) and kept in shared memory; the block max is shared
+//    through DSMEM, so p is rounded to bf16 at the plain walk's m_new.
+//  * bf16(p) . v runs on the tensor cores with v = columns 0 .. hd_v - 1 of
+//    the key tiles already in shared memory (ldmatrix.trans), each warp
+//    holding a 64-column band of the 48 x 256 f32 accumulator in registers.
+//  * The ranks' (l, acc) meet in distributed shared memory and are summed
+//    in rank order (deterministic, one launch).
+//  * 195 KB of shared memory: one CTA per SM.
+// Known weak spots: at the served block of 512 keys a rank holds 32-64 keys,
+// so its fixed costs (the q split, the max exchange, the combine) dominate;
+// chunks of 16 run 896 CTAs in 6.8 waves of one per SM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -76,186 +96,8 @@
 
 namespace cg = cooperative_groups;
 
-#define CA_WARPS 8
-#define CA_TILE 32            // keys per shared-memory sub-tile: one per lane
 #define NEG_BIG (-2e30f)
 #define NEG_CLAMP (-1e30f)
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Rows t0 .. t0+n-1 of head h of slot b of a [B, S, kv, W] bf16 cache ->
-// dst[i * W + d] f32 (exact), with 16-byte loads when ``vec``.
-__device__ __forceinline__ void widen_rows(float* __restrict__ dst,
-                                           const __nv_bfloat16* __restrict__ src, int b,
-                                           int t0, int n, int S, int kv, int h, int W,
-                                           bool vec) {
-  if (vec) {                            // 8 bf16 per thread and load
-    const int vpr = W >> 3;
-    for (int i = threadIdx.x; i < n * vpr; i += blockDim.x) {
-      const int t = i / vpr, d = (i - t * vpr) << 3;
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          src + (((int64_t)b * S + t0 + t) * kv + h) * W + d);
-      const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(p2[j]);
-        dst[t * W + d + 2 * j] = f.x;
-        dst[t * W + d + 2 * j + 1] = f.y;
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < n * W; i += blockDim.x) {
-      const int t = i / W, d = i - t * W;
-      dst[i] = __bfloat162float(src[(((int64_t)b * S + t0 + t) * kv + h) * W + d]);
-    }
-  }
-}
-
-// K5: one stream [B, S, kv, hd]; the values are the first hd_v columns of
-// the key tile already in shared memory
-struct StreamRows {
-  const __nv_bfloat16* k;
-  bool kvec;
-  static constexpr bool kStream = true;
-
-  __device__ __forceinline__ void keys(float* Ks, int b, int t0, int n, int S, int kv, int h,
-                                       int hd) const {
-    widen_rows(Ks, k, b, t0, n, S, kv, h, hd, kvec);
-  }
-  __device__ __forceinline__ void values(float*, int, int, int, int, int, int, int) const {}
-};
-
-// Lane t gets the masked score of key t0 + t (-inf past the sub-tile).
-template <int DPL>
-__device__ __forceinline__ float tile_scores(const float (&qr)[DPL], const float* Ks, int n,
-                                             int hd, int t0, int len, int lane) {
-  float my_s = 0.f;
-  for (int t = 0; t < n; ++t) {
-    float part = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      const int d = lane + 32 * j;
-      if (d < hd) part = fmaf(qr[j], Ks[t * hd + d], part);
-    }
-    part = warp_sum(part);
-    if (lane == t) my_s = part;
-  }
-  return (lane < n) ? my_s + ((t0 + lane < len) ? 0.f : NEG_BIG) : -INFINITY;
-}
-
-template <int DPL, int VPL, class Rows>
-__global__ void __launch_bounds__(CA_WARPS * 32)
-contiguous_attention_kernel(const float* __restrict__ q, const Rows rows,
-                            const int32_t* __restrict__ lengths, float* __restrict__ out,
-                            int S, int kv, int R, int hd, int hd_v, int block_kv, int c,
-                            int g) {
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;                                        // [CA_TILE][hd]
-  float* Vs = Rows::kStream ? smem : smem + CA_TILE * hd;  // [CA_TILE][ldv]
-  const int ldv = Rows::kStream ? hd : hd_v;
-  __shared__ int maxlen_s;
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row = blockIdx.z * CA_WARPS + warp;
-  const bool has_row = row < R;
-  const int len = has_row ? lengths[(int64_t)b * c + row / g] : 0;
-
-  if (threadIdx.x == 0) maxlen_s = 0;
-  __syncthreads();
-  if (lane == 0 && has_row && len > 0) atomicMax(&maxlen_s, len);
-  __syncthreads();
-  const int nkeys = min(maxlen_s, S);
-
-  const int64_t qo = (((int64_t)b * kv + h) * R + row) * hd;
-  const int64_t oo = (((int64_t)b * kv + h) * R + row) * hd_v;
-  float qr[DPL], acc[VPL];
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) {
-    const int d = lane + 32 * j;
-    qr[j] = (has_row && d < hd) ? q[qo + d] : 0.f;
-  }
-#pragma unroll
-  for (int j = 0; j < VPL; ++j) acc[j] = 0.f;
-  float m = NEG_CLAMP, l = 0.f;
-
-  for (int b0 = 0; b0 < nkeys; b0 += block_kv) {
-    const int b1 = min(b0 + block_kv, nkeys);
-    // pass 1: each row's max over the block's scores
-    float bmax = -INFINITY;
-    for (int t0 = b0; t0 < b1; t0 += CA_TILE) {
-      const int n = min(CA_TILE, b1 - t0);
-      __syncthreads();                   // previous sub-tile fully consumed
-      rows.keys(Ks, b, t0, n, S, kv, h, hd);
-      __syncthreads();
-      if (has_row) bmax = fmaxf(bmax, tile_scores<DPL>(qr, Ks, n, hd, t0, len, lane));
-    }
-    const float m_new = fmaxf(fmaxf(m, warp_max(bmax)), NEG_CLAMP);
-    const float corr = expf(m - m_new);
-    l *= corr;
-#pragma unroll
-    for (int j = 0; j < VPL; ++j) acc[j] *= corr;
-    // pass 2: p at the block's max, bf16(p) * v into the accumulator
-    for (int t0 = b0; t0 < b1; t0 += CA_TILE) {
-      const int n = min(CA_TILE, b1 - t0);
-      __syncthreads();
-      rows.keys(Ks, b, t0, n, S, kv, h, hd);
-      rows.values(Vs, b, t0, n, S, kv, h, hd_v);
-      __syncthreads();
-      if (has_row) {                     // warp-uniform
-        const float s = tile_scores<DPL>(qr, Ks, n, hd, t0, len, lane);
-        const float p = (lane < n) ? expf(s - m_new) : 0.f;
-        l += warp_sum(p);
-        const float pv = __bfloat162float(__float2bfloat16(p));   // pv_dtype = bf16
-        for (int t = 0; t < n; ++t) {
-          const float pt = __shfl_sync(0xffffffffu, pv, t);
-#pragma unroll
-          for (int j = 0; j < VPL; ++j) {
-            const int d = lane + 32 * j;
-            if (d < hd_v) acc[j] = fmaf(pt, Vs[t * ldv + d], acc[j]);
-          }
-        }
-      }
-    }
-    m = m_new;
-  }
-  if (has_row) {
-    const float den = fmaxf(l, 1e-20f);
-#pragma unroll
-    for (int j = 0; j < VPL; ++j) {
-      const int d = lane + 32 * j;
-      if (d < hd_v) out[oo + d] = acc[j] / den;
-    }
-  }
-}
-
-template <int DPL, int VPL, class Rows>
-static int launch(const void* q, const Rows& rows, const void* lengths, void* out, int B,
-                  int S, int kv, int R, int hd, int hd_v, int block_kv, int c, int g,
-                  void* stream) {
-  if (hd > 32 * DPL || hd_v > 32 * VPL) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * CA_TILE * (hd + (Rows::kStream ? 0 : hd_v));
-  auto kernel = contiguous_attention_kernel<DPL, VPL, Rows>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(B, kv, (R + CA_WARPS - 1) / CA_WARPS);
-  kernel<<<grid, CA_WARPS * 32, smem, (cudaStream_t)stream>>>(
-      (const float*)q, rows, (const int32_t*)lengths, (float*)out, S, kv, R, hd, hd_v,
-      block_kv, c, g);
-  return (int)cudaGetLastError();
-}
 
 static bool vec16(const void* p, int W) {
   return (W & 7) == 0 && ((uintptr_t)p & 15) == 0;
@@ -701,6 +543,471 @@ static int k4_launch(const void* q, const void* k, const void* v, const void* le
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K5: the absorbed-MLA stream, K4's design widened to one 288-wide stream
+// ---------------------------------------------------------------------------
+#define K5_MT 3                     // m16 row tiles per CTA
+#define K5_ROWS (16 * K5_MT)        // folded query rows per CTA (40 heads at decode)
+#define K5_WARPS 4
+#define K5_TK 32                    // keys per ring tile
+#define K5_HDP 288                  // widest stream (MiniCPM3-4B: 256 + 32)
+#define K5_HVP 256                  // widest value slice
+#define K5_LDK (K5_HDP + 8)         // bf16 per smem key or q row: 592 B, conflict-free ldmatrix
+#define K5_NS 4                     // ring slots: a share of up to 128 keys stays resident
+#define K5_LDS (K5_NS * K5_TK + 4)  // f32 per score row
+#define K5_LDP (2 * K5_TK + 8)      // bf16 per p row: two tiles a step
+#define K5_LDO (K5_HVP + 4)         // f32 per output row
+#define K5_MAX_CLUSTER 8            // the portable cluster size
+#define K5_QB 9                     // q loads in flight per thread
+
+__device__ __forceinline__ void k5_ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// Rows t0 .. t0+31 (those < t_end; zeros past it) of head h of slot b of a
+// [B, S, kv, W] bf16 stream -> dst[key][K5_LDK], zeros past W: all K5_HDP
+// dims with 16-byte cp.async when ``vec``, [0, Wp) with plain loads
+// otherwise.
+__device__ __forceinline__ void k5_load_tile(__nv_bfloat16* dst,
+                                             const __nv_bfloat16* __restrict__ src, int b,
+                                             int t0, int t_end, int S, int kv, int h, int W,
+                                             int Wp, bool vec) {
+  if (vec) {
+    constexpr int CPR = K5_HDP / 8;              // 16-byte chunks per row
+    for (int i = threadIdx.x; i < K5_TK * CPR; i += K5_WARPS * 32) {
+      const int r = i / CPR, d = (i - r * CPR) * 8;
+      const bool ok = (t0 + r < t_end) && (d < W);
+      cp_async16(dst + r * K5_LDK + d,
+                 ok ? src + (((int64_t)b * S + t0 + r) * kv + h) * W + d : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < K5_TK * Wp; i += K5_WARPS * 32) {
+      const int r = i / Wp, d = i - r * Wp;
+      dst[r * K5_LDK + d] = (t0 + r < t_end && d < W)
+                                ? src[(((int64_t)b * S + t0 + r) * kv + h) * W + d]
+                                : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(K5_WARPS * 32, 1)
+k5_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
+          const int32_t* __restrict__ lengths, float* __restrict__ out, int S, int kv, int R,
+          int hd, int hd_v, int block_kv, int c, int g, int kvec, int qvec) {
+  extern __shared__ __align__(16) unsigned char k5_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(k5_smem);    // [3][48][K5_LDK]
+  __nv_bfloat16* ring = qs + 3 * K5_ROWS * K5_LDK;                  // [NS][32][K5_LDK]
+  float* Ssm = reinterpret_cast<float*>(ring + K5_NS * K5_TK * K5_LDK);   // [48][K5_LDS]
+  __nv_bfloat16* Psm = reinterpret_cast<__nv_bfloat16*>(Ssm + K5_ROWS * K5_LDS);  // [48][LDP]
+  float* small = reinterpret_cast<float*>(Psm + K5_ROWS * K5_LDP);
+  float* mrow = small;                     // [48] running max
+  float* corr = small + K5_ROWS;           // [48] exp(m - m_new) of this block
+  float* cmax = small + 2 * K5_ROWS;       // [2][48] this CTA's block maxima, by block parity
+  float* wmax = small + 4 * K5_ROWS;       // [4][48] per warp
+  float* lsum = small + 8 * K5_ROWS;       // [48] this CTA's l
+  int* lens = reinterpret_cast<int*>(small + 9 * K5_ROWS);   // [48]
+  float* Osm = reinterpret_cast<float*>(ring);                // [48][K5_LDO] after the walk
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int CL = (int)cluster.num_blocks();
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int row0 = (blockIdx.x / CL) * K5_ROWS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t = lane & 3;
+
+  if (tid < K5_ROWS) {
+    const int row = row0 + tid;
+    lens[tid] = row < R ? lengths[(int64_t)b * c + row / g] : 0;
+    mrow[tid] = NEG_CLAMP;
+  }
+  __syncthreads();
+  int maxlen = 0;
+#pragma unroll
+  for (int i = 0; i < K5_ROWS; ++i) maxlen = max(maxlen, lens[i]);
+  const int nkeys = min(maxlen, S);
+  const int nks = (hd + 15) >> 4;
+  const int wk = 16 * nks;                   // key dims loaded (zeros past hd)
+
+  // the current block: this rank's keys [lo, hi) in ntile tiles, its load
+  // items (resident: the share's tiles, loaded once and serving both
+  // passes; else pass 2 loads them again, items ntile .. 2 ntile - 1) and
+  // how many are issued; item i sits in ring slot i % K5_NS
+  int lo = 0, hi = 0, ntile = 0, total = 0, issued = 0;
+  auto plan_block = [&](int b0) {
+    const int b1 = min(b0 + block_kv, nkeys);
+    const int sh = ((b1 - b0 + CL - 1) / CL + K5_TK - 1) / K5_TK * K5_TK;
+    lo = min(b0 + rank * sh, b1);
+    hi = min(lo + sh, b1);
+    ntile = (hi - lo + K5_TK - 1) / K5_TK;
+    total = ntile <= K5_NS ? ntile : 2 * ntile;
+    issued = 0;
+  };
+  auto tile = [&](int item) { return ring + (item % K5_NS) * (K5_TK * K5_LDK); };
+  auto issue = [&](int upto) {               // items [issued, min(total, upto))
+    for (; issued < min(total, upto); ++issued) {
+      const int j = issued < ntile ? issued : issued - ntile;
+      k5_load_tile(tile(issued), kc, b, lo + j * K5_TK, hi, S, kv, h, hd, wk, kvec);
+      cp_async_commit();
+    }
+  };
+  // the first block's tiles are in flight while q is split
+  if (nkeys > 0) {
+    plan_block(0);
+    issue(K5_NS);
+  }
+  // q -> three bf16 parts (hi + mid + lo, exact to f32's 24 bits) in shared
+  // memory, zeros past hd (up to whole k-steps) and past R; K5_QB loads in
+  // flight per thread
+  {
+    const float* qb = q + ((int64_t)b * kv + h) * R * hd;
+    const int per = qvec ? 4 : 1;                   // f32 per load
+    const int nq = wk / per;                        // loads per row
+    const int nitems = K5_ROWS * nq;
+    for (int e0 = tid; e0 < nitems; e0 += K5_QB * K5_WARPS * 32) {
+      float4 xv[K5_QB];
+#pragma unroll
+      for (int u = 0; u < K5_QB; ++u) {
+        const int e = e0 + u * K5_WARPS * 32;
+        const int r = e / nq, d = (e - r * nq) * per;
+        xv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (e < nitems && row0 + r < R && d < hd) {
+          const float* src = qb + (int64_t)(row0 + r) * hd + d;
+          if (qvec)
+            xv[u] = *reinterpret_cast<const float4*>(src);
+          else
+            xv[u].x = *src;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < K5_QB; ++u) {
+        const int e = e0 + u * K5_WARPS * 32;
+        if (e < nitems) {
+          const int r = e / nq, d = (e - r * nq) * per;
+          const float x[4] = {xv[u].x, xv[u].y, xv[u].z, xv[u].w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (i < per) {
+              __nv_bfloat16 pq[3];
+              k4_split(x[i], pq);
+#pragma unroll
+              for (int pp = 0; pp < 3; ++pp) qs[(pp * K5_ROWS + r) * K5_LDK + d + i] = pq[pp];
+            }
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  int len_r[2 * K5_MT];                      // the thread's score rows 16 mt + gq (+ 8)
+#pragma unroll
+  for (int j = 0; j < 2 * K5_MT; ++j) len_r[j] = lens[16 * (j >> 1) + gq + 8 * (j & 1)];
+
+  // p . v accumulator: warp w holds value dims [64 w, 64 w + 64) of all 48 rows
+  float acc[K5_MT][8][4];
+#pragma unroll
+  for (int mt = 0; mt < K5_MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+  float lpart[K5_MT] = {0.f, 0.f, 0.f};      // rows prow + 16 i, keys pk .. pk+7 of a step
+  const int prow = tid >> 3, pk = (tid & 7) * 8;
+  const int d0 = 64 * warp;
+
+  int blk = 0;
+  for (int b0 = 0; b0 < nkeys; b0 += block_kv, ++blk) {
+    if (blk > 0) plan_block(b0);
+    const bool resident = ntile <= K5_NS;
+    auto acquire = [&](int u0, int u1) {
+      __syncthreads();
+      issue(u0 + K5_NS);
+      k4_wait_pending(issued - 1 - u1);
+      __syncthreads();
+    };
+    // scores of a step's nt2 tiles (warp w: keys 16 w .. 16 w + 15 of the
+    // step, two n8 tiles) -> running maxima; stored at Ssm[row][soff + key]
+    // when ``store``
+    float mx[2 * K5_MT];
+#pragma unroll
+    for (int j = 0; j < 2 * K5_MT; ++j) mx[j] = -INFINITY;
+    auto scores = [&](int key0, const __nv_bfloat16* TA, const __nv_bfloat16* TB, int nt2,
+                      int soff, bool store) {
+      if (16 * warp >= nt2 * K5_TK) return;                      // warp-uniform
+      const __nv_bfloat16* kb = ((warp >> 1) ? TB : TA) +
+                                (16 * (warp & 1) + (lane & 7) + 8 * (lane >> 4)) * K5_LDK +
+                                8 * ((lane >> 3) & 1);
+      const __nv_bfloat16* qa = qs + (lane & 15) * K5_LDK + 8 * (lane >> 4);
+      // one accumulator per q part, summed in a fixed order
+      float sp[3][K5_MT][2][4];
+#pragma unroll
+      for (int pp = 0; pp < 3; ++pp)
+#pragma unroll
+        for (int mt = 0; mt < K5_MT; ++mt)
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sp[pp][mt][n][e] = 0.f;
+#pragma unroll 2
+      for (int ks = 0; ks < nks; ++ks) {
+        uint32_t bk[4];                      // b0, b1 of keys 0-7, then of keys 8-15
+        k5_ldmatrix_x4(bk, kb + 16 * ks);
+#pragma unroll
+        for (int pp = 0; pp < 3; ++pp) {
+#pragma unroll
+          for (int mt = 0; mt < K5_MT; ++mt) {
+            uint32_t a[4];
+            k5_ldmatrix_x4(a, qa + (pp * K5_ROWS + 16 * mt) * K5_LDK + 16 * ks);
+            mma_bf16(sp[pp][mt][0], a, bk[0], bk[1]);
+            mma_bf16(sp[pp][mt][1], a, bk[2], bk[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < K5_MT; ++mt) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int kk = 16 * warp + 8 * n + 2 * t;               // key of the step
+          float s[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = key0 + kk + (e & 1);
+            const int len = len_r[2 * mt + (e >> 1)];
+            const float v = (sp[2][mt][n][e] + sp[1][mt][n][e]) + sp[0][mt][n][e];
+            s[e] = key >= hi ? -INFINITY : v + (key < len ? 0.f : NEG_BIG);
+          }
+          mx[2 * mt] = fmaxf(mx[2 * mt], fmaxf(s[0], s[1]));
+          mx[2 * mt + 1] = fmaxf(mx[2 * mt + 1], fmaxf(s[2], s[3]));
+          if (store) {
+            float* sr = Ssm + (16 * mt + gq) * K5_LDS + soff + kk;
+            *reinterpret_cast<float2*>(sr) = make_float2(s[0], s[1]);
+            *reinterpret_cast<float2*>(sr + 8 * K5_LDS) = make_float2(s[2], s[3]);
+          }
+        }
+      }
+    };
+
+    // pass 1, two tiles a step: the share's scores (kept when resident) and
+    // their maxima
+    for (int i = 0; i < ntile; i += 2) {
+      acquire(i, min(i + 1, ntile - 1));
+      scores(lo + i * K5_TK, tile(i), tile(i + 1), min(2, ntile - i), i * K5_TK, resident);
+    }
+    // the cluster's block max: every CTA forms p at the plain walk's m_new
+#pragma unroll
+    for (int j = 0; j < 2 * K5_MT; ++j) {
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int j = 0; j < 2 * K5_MT; ++j)
+        wmax[warp * K5_ROWS + 16 * (j >> 1) + gq + 8 * (j & 1)] = mx[j];
+    }
+    __syncthreads();
+    float* cm = cmax + (blk & 1) * K5_ROWS;
+    if (tid < K5_ROWS) {
+      float m = wmax[tid];
+#pragma unroll
+      for (int w = 1; w < K5_WARPS; ++w) m = fmaxf(m, wmax[w * K5_ROWS + tid]);
+      cm[tid] = m;
+    }
+    cluster.sync();
+    if (tid < K5_ROWS) {
+      float m = mrow[tid];
+      for (int r = 0; r < CL; ++r) m = fmaxf(m, cluster.map_shared_rank(cm, r)[tid]);
+      m = fmaxf(m, NEG_CLAMP);
+      corr[tid] = expf(mrow[tid] - m);
+      mrow[tid] = m;
+    }
+    __syncthreads();
+    float mnew[K5_MT];
+#pragma unroll
+    for (int mt = 0; mt < K5_MT; ++mt) {
+      const float ca = corr[16 * mt + gq], cb = corr[16 * mt + gq + 8];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        acc[mt][n][0] *= ca;
+        acc[mt][n][1] *= ca;
+        acc[mt][n][2] *= cb;
+        acc[mt][n][3] *= cb;
+      }
+      lpart[mt] *= corr[prow + 16 * mt];
+      mnew[mt] = mrow[prow + 16 * mt];
+    }
+    // pass 2, two tiles a step: p = exp(s - m_new), l += p, acc += bf16(p) . v,
+    // v being the first hd_v columns of the key tiles
+    for (int j = 0; j < ntile; j += 2) {
+      const int nt2 = min(2, ntile - j);
+      int ia = j, soff = j * K5_TK;
+      if (resident) {
+        __syncthreads();                  // the previous step's p is consumed
+      } else {
+        ia = ntile + j;
+        soff = 0;
+        acquire(ia, ia + nt2 - 1);
+        scores(lo + j * K5_TK, tile(ia), tile(ia + 1), nt2, 0, true);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int mt = 0; mt < K5_MT; ++mt) {
+        __nv_bfloat16 pb[8];
+        if (pk < nt2 * K5_TK) {
+          const float* sr = Ssm + (prow + 16 * mt) * K5_LDS + soff + pk;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float p = expf(sr[e] - mnew[mt]);
+            lpart[mt] += p;
+            pb[e] = __float2bfloat16_rn(p);              // pv_dtype = bf16
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) pb[e] = __float2bfloat16_rn(0.f);
+        }
+        uint4 w4;
+        w4.x = k4_pack(pb[0], pb[1]);
+        w4.y = k4_pack(pb[2], pb[3]);
+        w4.z = k4_pack(pb[4], pb[5]);
+        w4.w = k4_pack(pb[6], pb[7]);
+        *reinterpret_cast<uint4*>(Psm + (prow + 16 * mt) * K5_LDP + pk) = w4;
+      }
+      __syncthreads();
+      if (d0 < hd_v) {
+        const int mi = lane >> 3, r8 = lane & 7;
+#pragma unroll
+        for (int kk = 0; kk < 2 * K5_TK / 16; ++kk) {
+          if (kk < nt2 * (K5_TK / 16)) {
+            // V rows 16 kk .. 16 kk + 15 of the step: tile kk / 2 of it
+            const __nv_bfloat16* Vt = tile(ia + (kk >> 1)) + ((kk & 1) * 16) * K5_LDK;
+            uint32_t a[K5_MT][4];
+#pragma unroll
+            for (int mt = 0; mt < K5_MT; ++mt)
+              k5_ldmatrix_x4(a[mt], Psm + (16 * mt + (lane & 15)) * K5_LDP + 16 * kk +
+                                        8 * (lane >> 4));
+#pragma unroll
+            for (int np = 0; np < 4; ++np) {
+              if (d0 + 16 * np < hd_v) {
+                uint32_t bv[4];
+                k4_ldmatrix_x4_trans(
+                    bv, Vt + ((mi & 1) * 8 + r8) * K5_LDK + d0 + 16 * np + (mi >> 1) * 8);
+#pragma unroll
+                for (int mt = 0; mt < K5_MT; ++mt) {
+                  mma_bf16(acc[mt][2 * np], a[mt], bv[0], bv[1]);
+                  mma_bf16(acc[mt][2 * np + 1], a[mt], bv[2], bv[3]);
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();                  // the ring, scores and p are free for the next block
+  }
+
+  // this CTA's (l, acc) -> shared memory; the ranks' partials summed in rank
+  // order by the rank that finishes each output
+#pragma unroll
+  for (int mt = 0; mt < K5_MT; ++mt) {
+#pragma unroll
+    for (int o = 1; o <= 4; o <<= 1) lpart[mt] += __shfl_xor_sync(0xffffffffu, lpart[mt], o);
+  }
+  if ((tid & 7) == 0) {
+#pragma unroll
+    for (int mt = 0; mt < K5_MT; ++mt) lsum[prow + 16 * mt] = lpart[mt];
+  }
+  cp_async_wait<0>();
+  __syncthreads();                    // the ring is free: reuse it for acc
+  if (d0 < hd_v) {
+#pragma unroll
+    for (int mt = 0; mt < K5_MT; ++mt) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float* o = Osm + (16 * mt + gq) * K5_LDO + d0 + 8 * n + 2 * t;
+        *reinterpret_cast<float2*>(o) = make_float2(acc[mt][n][0], acc[mt][n][1]);
+        *reinterpret_cast<float2*>(o + 8 * K5_LDO) = make_float2(acc[mt][n][2], acc[mt][n][3]);
+      }
+    }
+  }
+  cluster.sync();
+  // rank q finishes every CL-th run of 128 (row, 4 dims) cells: the ranks'
+  // partials loaded first, then summed in rank order
+  const int nrow = min(K5_ROWS, R - row0);
+  const int dq = (hd_v + 3) >> 2;
+  for (int e = tid + rank * K5_WARPS * 32; e < nrow * dq; e += CL * K5_WARPS * 32) {
+    const int r = e / dq, d = (e - r * dq) * 4;
+    float4 part[K5_MAX_CLUSTER];
+    float lp[K5_MAX_CLUSTER];
+#pragma unroll
+    for (int q2 = 0; q2 < K5_MAX_CLUSTER; ++q2) {
+      if (q2 < CL) {
+        part[q2] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(Osm, q2) +
+                                                     r * K5_LDO + d);
+        lp[q2] = cluster.map_shared_rank(lsum, q2)[r];
+      }
+    }
+    float4 s = part[0];
+    float l = lp[0];
+#pragma unroll
+    for (int q2 = 1; q2 < K5_MAX_CLUSTER; ++q2) {
+      if (q2 < CL) {
+        s.x += part[q2].x;
+        s.y += part[q2].y;
+        s.z += part[q2].z;
+        s.w += part[q2].w;
+        l += lp[q2];
+      }
+    }
+    const float den = fmaxf(l, 1e-20f);
+    const float sv[4] = {s.x, s.y, s.z, s.w};
+    float* o = out + (((int64_t)b * kv + h) * R + row0 + r) * hd_v;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (d + i < hd_v) o[d + i] = sv[i] / den;
+  }
+  cluster.sync();                     // no CTA leaves while its partials are read
+}
+
+static size_t k5_smem_bytes() {
+  return (size_t)3 * K5_ROWS * K5_LDK * 2 + (size_t)K5_NS * K5_TK * K5_LDK * 2 +
+         (size_t)K5_ROWS * K5_LDS * 4 + (size_t)K5_ROWS * K5_LDP * 2 + 10 * K5_ROWS * 4;
+}
+
+static int k5_launch(const void* q, const void* k, const void* lengths, void* out, int B,
+                     int S, int kv, int R, int hd, int hd_v, int block_kv, int c, int g,
+                     int cluster, void* stream) {
+  if (hd > K5_HDP || hd_v > K5_HVP || hd_v > hd || cluster < 1 || cluster > K5_MAX_CLUSTER)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = k5_smem_bytes();
+  static bool ready = false;            // the kernel's attributes are set once
+  if (!ready) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(k5_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * ((R + K5_ROWS - 1) / K5_ROWS), kv, B);
+  cfg.blockDim = dim3(K5_WARPS * 32, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int qvec = (hd & 3) == 0 && ((uintptr_t)q & 15) == 0;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, k5_kernel, (const float*)q, (const __nv_bfloat16*)k, (const int32_t*)lengths,
+      (float*)out, S, kv, R, hd, hd_v, block_kv, c, g, (int)vec16(k, hd), qvec);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 // The plan (cluster, score_keys, two_pass) comes from
 // kernels/tuning.plan_contiguous_attention; hd and hd_v up to 128, the widest
 // GQA head a served config has (wider heads get cudaErrorInvalidValue).
@@ -715,12 +1022,15 @@ extern "C" int contiguous_attention(const void* q, const void* k, const void* v,
                    score_keys, two_pass, stream);
 }
 
+// The cluster comes from kernels/tuning.plan_mla_attention; hd up to 288 and
+// hd_v up to 256 (MiniCPM3-4B's stream; wider gets cudaErrorInvalidValue).
 extern "C" int contiguous_attention_mla(const void* q, const void* cache, const void* lengths,
                                         void* out, int B, int S, int kv, int R, int hd,
-                                        int hd_v, int block_kv, int c, int g, void* stream) {
+                                        int hd_v, int block_kv, int c, int g, int cluster,
+                                        void* stream) {
   const int bad = check_args(B, S, kv, R, hd, hd_v, block_kv, c, g);
-  if (bad || hd_v > hd) return bad ? bad : (int)cudaErrorInvalidValue;
+  if (bad) return bad;
   if (B == 0 || R == 0) return (int)cudaSuccess;
-  StreamRows rows{(const __nv_bfloat16*)cache, vec16(cache, hd)};
-  return launch<9, 8>(q, rows, lengths, out, B, S, kv, R, hd, hd_v, block_kv, c, g, stream);
+  return k5_launch(q, cache, lengths, out, B, S, kv, R, hd, hd_v, block_kv, c, g, cluster,
+                   stream);
 }

@@ -58,7 +58,7 @@ def reference_block_kv(*, rows: int, hd: int, hd_v: Optional[int] = None, s_max:
 
 
 # ---------------------------------------------------------------------------
-# Hopper plans for K1, K1b and K4 (no counterpart in the reference, whose tiles
+# Hopper plans for K1, K1b, K2, K4 and K5 (no counterpart in the reference, whose tiles
 # are planned for a TPU core). Each wrapper passes its plan to the kernel as
 # plain ints; the kernels take the plan as given.
 # ---------------------------------------------------------------------------
@@ -209,3 +209,74 @@ def plan_contiguous_attention(B: int, kv: int, R: int, block_kv: int,
     share = _share(block_kv, cluster)
     fit = ATT_ROWS * share * 4 <= ATT_SCORE_BYTES
     return AttentionPlan(cluster, row_tiles, share, fit, share if fit else 2 * ATT_TILE_KEYS)
+
+
+MLA_ROWS = 48              # folded query rows per K5 CTA: three m16 tiles
+MLA_RESIDENT_KEYS = 128    # keys of a share K5's ring holds at once (4 tiles of 32)
+
+
+@dataclass(frozen=True)
+class MlaPlan:
+    """K5's launch: per (slot, kv head, group of 48 rows) a cluster of
+    ``cluster`` CTAs splits each key block (`attention_shares`); a share of
+    ``share_keys`` stays resident in shared memory between the scores and
+    the p.v product when ``resident`` (one read of the keys per block),
+    else the keys stream through the ring twice and the scores are
+    recomputed in the second pass."""
+    cluster: int
+    row_groups: int
+    share_keys: int
+    resident: bool
+
+    def ctas(self, B: int, kv: int) -> int:
+        return B * kv * self.row_groups * self.cluster
+
+
+def plan_mla_attention(B: int, kv: int, R: int, block_kv: int, sms: int = SMS) -> MlaPlan:
+    """Cluster plan of K5 for B slots x kv heads x R folded rows over key
+    blocks of ``block_kv``. A CTA takes ~190 KB of shared memory, so one
+    fits an SM: enough ranks for one CTA per SM, and at least enough that a
+    share (whole tiles of 32 keys) stays resident, at most the portable 8
+    and no more than the block has tiles."""
+    if min(B, kv, R, block_kv) < 1:
+        raise ValueError(f"empty attention B={B} kv={kv} R={R} block_kv={block_kv}")
+    row_groups = _cdiv(R, MLA_ROWS)
+    fill = _cdiv(sms, B * kv * row_groups)
+    keep = _cdiv(block_kv, MLA_RESIDENT_KEYS)
+    cluster = max(1, min(MAX_CLUSTER, _cdiv(block_kv, ATT_TILE_KEYS), max(fill, keep)))
+    share = _share(block_kv, cluster)
+    return MlaPlan(cluster, row_groups, share, share <= MLA_RESIDENT_KEYS)
+
+
+PAGED_SUB_KEYS = 32        # tokens of one K2 sub-tile (restored together)
+PAGED_ROW_TILES = (8, 16)  # folded query rows per K2 CTA the kernel is built for
+
+
+@dataclass(frozen=True)
+class PagedPlan:
+    """K2's launch: per (slot, kv head, tile of ``rows`` folded rows) a
+    cluster of ``cluster`` CTAs splits the tokens the tile's rows can see
+    into contiguous shares of whole 32-token sub-tiles (`attention_shares`
+    over [0, tokens)); each rank keeps its own (m, l, acc) and the ranks
+    merge them in rank order."""
+    rows: int
+    row_tiles: int
+    cluster: int
+
+    def ctas(self, B: int, kv: int) -> int:
+        return B * kv * self.row_tiles * self.cluster
+
+
+def plan_paged_attention(B: int, kv: int, R: int, max_keys: int,
+                         sms: int = SMS) -> PagedPlan:
+    """Row tile and cluster of K2 for B slots x kv heads x R folded rows over
+    at most ``max_keys`` tokens per slot (block table width x page size):
+    8 rows where they hold R (decode, g <= 8), else 16; ranks for about two
+    CTAs per SM (at most 8, and no more than the sub-tiles a slot holds)."""
+    if min(B, kv, R, max_keys) < 1:
+        raise ValueError(f"empty attention B={B} kv={kv} R={R} max_keys={max_keys}")
+    rows = next((r for r in PAGED_ROW_TILES if r >= R), PAGED_ROW_TILES[-1])
+    row_tiles = _cdiv(R, rows)
+    cluster = max(1, min(MAX_CLUSTER, _cdiv(max_keys, PAGED_SUB_KEYS),
+                         _cdiv(2 * sms, B * kv * row_tiles)))
+    return PagedPlan(rows, row_tiles, cluster)

@@ -266,10 +266,16 @@ def test_k2_kernel_matches_plain(kv, g, hd, page, chunk):
 @pytest.mark.gpu
 @pytest.mark.parametrize("scheme,kv,g,hd,page,chunk", [
     ("fp4-e2m1", 4, 7, 128, 16, 1), ("fp4-e2m1", 2, 2, 32, 8, 4),
-    ("fp4.33-e2m2", 4, 7, 128, 16, 16), ("fp5-e2m2", 1, 3, 7, 8, 2)])
+    ("fp4.33-e2m2", 4, 7, 128, 16, 16), ("fp5-e2m2", 1, 3, 7, 8, 2),
+    ("fp4-e2m1", 4, 7, 128, 48, 16), ("fp4-e2m1", 4, 7, 128, 128, 1),
+    ("fp4.5-e2m2", 4, 7, 128, 16, 1), ("fp4.5-e2m2", 4, 7, 128, 64, 16),
+    ("fp4.33-e2m2", 4, 7, 128, 48, 1), ("fp4.33-e2m2", 4, 7, 128, 128, 16),
+    ("fp4.33-e2m2", 1, 3, 7, 64, 2)])
 def test_k2_kernel_matches_plain_on_other_schemes(scheme, kv, g, hd, page, chunk):
     """K2 over AMS pages of e2m1 codes (k = 1: the LSB plane holds each
-    code's mantissa bit) and of e2m2 codes shared by k = 3 and 1."""
+    code's mantissa bit) and of e2m2 codes shared by k = 2, 3 and 1, at
+    Qwen2-7B's widths over pages of 16 to 128 tokens (fp4.33's rows of 66
+    hi bytes are copied byte by byte: not 16-byte aligned)."""
     from repro_torch.core.formats import get_scheme
     from repro_torch.core.kv_quant import quantize_kv
     from repro_torch.kernels.attention_template import (
@@ -293,6 +299,37 @@ def test_k2_kernel_matches_plain_on_other_schemes(scheme, kv, g, hd, page, chunk
     want = paged_attention_ams_plain(qf, pool, lens, bt, **kw)
     assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
     assert bool((got.permute(0, 2, 1, 3)[masked] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page,chunk", [(16, 1), (16, 16), (128, 1), (128, 16)])
+def test_k2_is_deterministic(page, chunk):
+    """The ranks' (m, l, acc) merge in a fixed rank order: two launches at
+    Qwen2-7B shapes (8 slots, lengths up to 1024) give the same bits."""
+    from repro_torch.core.formats import get_scheme
+    from repro_torch.core.kv_quant import quantize_kv
+    from repro_torch.kernels.attention_template import COUNT, _fold_q, paged_attention_ams
+    from repro_torch.kernels.tuning import plan_paged_attention
+
+    dev = cuda_device()
+    scheme = get_scheme("fp4.25-e2m2")
+    gen = torch.Generator(device=dev).manual_seed(50 + page + chunk)
+    MP, B = 1024 // page, 8
+    pool = {n: {k: t.contiguous() for k, t in quantize_kv(
+        torch.randn((B * MP, page, 4, 128), generator=gen, device=dev), scheme).items()}
+        for n in ("k", "v")}
+    bt = torch.randperm(B * MP, generator=gen, device=dev).to(torch.int32).reshape(B, MP)
+    ends = torch.tensor([1024, 700, 1, 0, 513, 1000, 64, 999])
+    lengths = torch.clamp(ends[:, None] - chunk + 1 + torch.arange(chunk)[None], min=0)
+    q = torch.randn((B, chunk, 28, 128), generator=gen, device=dev).to(torch.bfloat16)
+    qf, lens, _, _ = _fold_q(q, lengths.to(dev), 4, None)
+    assert plan_paged_attention(B, 4, 7 * chunk, 1024).cluster > 1
+    kw = dict(page_size=page, scheme=scheme, c=chunk, g=7)
+    n = COUNT.launches
+    a = paged_attention_ams(qf, pool, lens, bt, **kw)
+    b = paged_attention_ams(qf, pool, lens, bt, **kw)
+    torch.cuda.synchronize()
+    assert COUNT.launches == n + 2 and torch.equal(a, b)
 
 
 def _stream_pool(kind, page, hd, dev, gen):
@@ -514,8 +551,14 @@ def test_k4_is_deterministic(chunk):
 @pytest.mark.parametrize("kv,g,hd,hd_v,S,chunk,block_kv", [
     (1, 4, 48, 32, 64, 1, 64), (1, 4, 48, 32, 64, 4, 16), (1, 40, 288, 256, 1024, 1, 1024),
     (1, 40, 288, 256, 1024, 16, 1024), (1, 40, 288, 256, 1024, 16, 256),
-    (2, 3, 20, 12, 40, 2, 8)])
+    (2, 3, 20, 12, 40, 2, 8), (1, 40, 288, 256, 512, 1, 512), (1, 40, 288, 256, 512, 16, 512),
+    (1, 40, 288, 256, 4096, 1, 4096), (1, 40, 288, 256, 4096, 4, 2048),
+    (1, 13, 72, 64, 200, 4, 200)])
 def test_k5_kernel_matches_plain(kv, g, hd, hd_v, S, chunk, block_kv):
+    """K5 at MiniCPM3-4B's widths (decode and chunk 16 over the phase's and
+    the served path's blocks; blocks of 2048 and 4096 whose shares stream
+    through the ring twice) and at small ones (two row groups of 48 at 13
+    heads x 4 queries), element by element within p's rounding."""
     from repro_torch.kernels.attention_template import (
         COUNT_MLA,
         contiguous_attention_mla,
@@ -533,6 +576,32 @@ def test_k5_kernel_matches_plain(kv, g, hd, hd_v, S, chunk, block_kv):
     assert COUNT_MLA.launches == n + 1 and got.shape == (4, kv, chunk * g, hd_v)
     _check_contiguous(got, contiguous_attention_mla_plain(qf, cache, lens, **kw), qf, cache,
                       cache[..., :hd_v], lens, masked, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [1, 16])
+def test_k5_is_deterministic(chunk):
+    """The cluster's partial sums meet in a fixed rank order: two launches at
+    MiniCPM3-4B shapes give the same bits, which also match the plain
+    version."""
+    from repro_torch.kernels.attention_template import (
+        COUNT_MLA,
+        contiguous_attention_mla,
+        contiguous_attention_mla_plain,
+    )
+
+    dev = cuda_device()
+    gen = torch.Generator(device=dev).manual_seed(68 + chunk)
+    cache = torch.randn((4, 1024, 1, 288), generator=gen, device=dev).to(torch.bfloat16)
+    qf, lens, masked = _contiguous_case(1, 40, 288, 1024, chunk, dev, gen)
+    kw = dict(c=chunk, g=40, block_kv=1024, hd_v=256)
+    n = COUNT_MLA.launches
+    a = contiguous_attention_mla(qf, cache, lens, **kw)
+    b = contiguous_attention_mla(qf, cache, lens, **kw)
+    torch.cuda.synchronize()
+    assert COUNT_MLA.launches == n + 2 and torch.equal(a, b)
+    _check_contiguous(a, contiguous_attention_mla_plain(qf, cache, lens, **kw), qf, cache,
+                      cache[..., :256], lens, masked, **kw)
 
 
 @pytest.mark.gpu

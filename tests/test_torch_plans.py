@@ -1,20 +1,27 @@
-"""The Hopper launch plans of K1, K1b and K4 (`repro_torch.kernels.tuning`),
-and torch emulations of what the CUDA kernels rely on, on the CPU.
+"""The Hopper launch plans of K1, K1b, K2, K4 and K5
+(`repro_torch.kernels.tuning`), and torch emulations of what the CUDA
+kernels rely on, on the CPU.
 
 `plan_ams_matmul` tiles K1's and K1b's output and splits K over a
-thread-block cluster; `plan_contiguous_attention` and `attention_shares`
-split K4's key blocks over a cluster. These tests hold the plans to what the
-kernels rely on (every word row and every key in exactly one split, every
-lsb row read by the ranks whose word rows need it, k-group aligned K
-splits, clusters of at most 8, enough CTAs to fill the card at the served
-shapes, scores that fit in shared memory at every served shape), and check
-three arguments with torch emulations (here, not in the package): K4's
-split walk against `contiguous_attention_plain` within K4's element rule;
-the paged walk of K2 / K3 / K5p in sub-tiles of 32 tokens (the page's max
-formed over every sub-tile before any p) against `_paged_online_softmax`;
-and K1b's `PlanesDecode` hook (the bit operations that turn 4-bit planes
-into bf16x2 values, the lsb bits each word takes, the order x's fragments
-follow) against `code_to_value`, bit for bit.
+thread-block cluster; `plan_contiguous_attention` / `plan_mla_attention` and
+`attention_shares` split K4's / K5's key blocks over a cluster;
+`plan_paged_attention` splits K2's visible tokens. These tests hold the
+plans to what the kernels rely on (every word row, key and token in exactly
+one split, every lsb row read by the ranks whose word rows need it,
+k-group aligned K splits, clusters of at most 8, enough CTAs to fill the
+card at the served shapes, scores that fit in shared memory and K5 shares
+that stay resident at every served shape), and check the arguments with
+torch emulations (here, not in the package): K4's and K5's split walks
+against `contiguous_attention_plain` / `contiguous_attention_mla_plain`
+within their element rule (K5's bf16(p) bit for bit the one-rank walk's;
+forming p at a rank-local max is caught); K2's token split with each
+rank's own running max and the rank-order (m, l, acc) merge against
+`_paged_online_softmax` (an unweighted merge is caught); the paged walk of
+K3 / K5p in sub-tiles of 32 tokens (the page's max formed over every
+sub-tile before any p) against `_paged_online_softmax`; and K1b's
+`PlanesDecode` hook (the bit operations that turn 4-bit planes into bf16x2
+values, the lsb bits each word takes, the order x's fragments follow)
+against `code_to_value`, bit for bit.
 """
 
 import math
@@ -33,18 +40,25 @@ from repro_torch.kernels.attention_template import (  # noqa: E402
     NEG_BIG,
     NEG_CLAMP,
     _paged_online_softmax,
+    contiguous_attention_mla_plain,
     contiguous_attention_plain,
 )
 from repro_torch.kernels.tuning import (  # noqa: E402
     ATT_ROWS,
     K1_GROUP_WORDS,
     MAX_CLUSTER,
+    MLA_RESIDENT_KEYS,
+    MLA_ROWS,
+    PAGED_ROW_TILES,
+    PAGED_SUB_KEYS,
     SMS,
     attention_shares,
     k1_lsb_rows,
     k1_stage_rows,
     plan_ams_matmul,
     plan_contiguous_attention,
+    plan_mla_attention,
+    plan_paged_attention,
     reference_block_kv,
 )
 
@@ -381,12 +395,12 @@ def test_k4_split_walk_matches_the_plain_walk(cluster, nblocks, chunk):
     assert int(masked.sum()) > 0
 
 
-# ------------------------------------------------- K2 / K3 / K5p sub-tiles
+# ------------------------------------------------------ K3 / K5p sub-tiles
 PA_TILE, PA_WARPS = 32, 8
 
 
 def _subtile_walk(qf, load, lens, block_table, *, page_size, c, g, pv_dtype, tile=PA_TILE):
-    """The paged kernels' walk in plain torch: per page, pass 1 takes the
+    """The walk of K3 and K5p (`paged_attention_kernel`) in plain torch: per page, pass 1 takes the
     scores of every sub-tile of ``tile`` tokens that a block of 8 rows can
     see (sub-tiles past every row of the block are skipped) and their max;
     pass 2 forms p at that max, sub-tile by sub-tile, sums it and its PV
@@ -469,3 +483,283 @@ def test_paged_subtile_walk_matches_the_plain_walk(page, chunk, pv):
     masked = torch.from_numpy(np.repeat(lengths == 0, g, axis=1))            # [B, c*g]
     assert int(masked.sum()) > 0
     assert bool((got.permute(0, 2, 1, 3)[masked] == 0).all())
+
+
+# ------------------------------------------------------------------ K5
+MLA_SERVED = [(slots, capacity, chunk) for slots in (1, 4, 8) for capacity in (256, 512, 1024)
+              for chunk in (1, 16)]
+
+
+@pytest.mark.parametrize("slots,capacity,chunk", MLA_SERVED)
+def test_k5_plan_covers_every_key_once_and_stays_resident(slots, capacity, chunk):
+    """MiniCPM3-4B (one stream, 40 heads, hd 288 / 256) with the reference's
+    block plan at the served slots, capacities and chunks: the ranks' shares
+    cover every key of a block once, every share stays resident in the
+    4-tile ring (one read of each key per block), the row groups hold every
+    folded row, at most 8 ranks (the portable cluster)."""
+    R = 40 * chunk
+    bk = reference_block_kv(rows=R, hd=288, hd_v=256, s_max=capacity)
+    plan = plan_mla_attention(slots, 1, R, bk)
+    assert 1 <= plan.cluster <= MAX_CLUSTER and plan.resident
+    assert plan.share_keys <= MLA_RESIDENT_KEYS and plan.row_groups * MLA_ROWS >= R
+    for b1 in (bk, bk - 1, 1):                   # a full block and ragged visible ends
+        covered = np.zeros(bk, dtype=int)
+        for lo, hi in attention_shares(0, b1, plan.cluster):
+            assert hi - lo <= plan.share_keys
+            covered[lo:hi] += 1
+        assert (covered[:b1] == 1).all() and covered[b1:].sum() == 0
+
+
+def test_k5_plan_fills_the_card_at_decode():
+    """8 slots at decode (one row group each): 64 CTAs at the portable cluster
+    of 8, which one slot alone does not exceed either (one CTA per SM: ~190
+    KB of shared memory each); a long block streams its keys twice."""
+    assert plan_mla_attention(8, 1, 40, 1024).ctas(8, 1) == 64
+    assert plan_mla_attention(1, 1, 40, 1024).cluster == MAX_CLUSTER
+    assert plan_mla_attention(8, 1, 640, 1024).ctas(8, 1) >= SMS
+    assert not plan_mla_attention(8, 1, 40, 4096).resident
+
+
+def _mla_split_walk(qf, cache, lens, *, c, g, block_kv, hd_v, cluster, local_max=False):
+    """K5's split argument in plain torch: per (slot, head, group of 48
+    rows) the block's scores are formed once; each rank takes its share
+    (`attention_shares`), the ranks share the block max (``local_max``: the
+    mutation, each rank its own max, rescaled when the ranks meet), p =
+    exp(s - m_new) is rounded to bf16 for p . v (v = the keys' first hd_v
+    columns), and the ranks' (l, acc) are added in rank order. Returns the
+    output and bf16(p) of every block ([B, kv, R, S], -1 where not walked)."""
+    B, kv_n, R, hd = qf.shape
+    S = cache.shape[1]
+    out = torch.zeros((B, kv_n, R, hd_v))
+    p_all = torch.full((B, kv_n, R, S), -1.0)
+    row_len = lens.reshape(B, c).repeat_interleave(g, dim=1)             # [B, R]
+    for b in range(B):
+        for h in range(kv_n):
+            for r0 in range(0, R, MLA_ROWS):
+                rows = slice(r0, min(R, r0 + MLA_ROWS))
+                q = qf[b, h, rows]
+                ln = row_len[b, rows]
+                n = q.shape[0]
+                m = torch.full((n, 1), NEG_CLAMP)
+                ms = [m.clone() for _ in range(cluster)]
+                l_r = [torch.zeros((n, 1)) for _ in range(cluster)]
+                acc_r = [torch.zeros((n, hd_v)) for _ in range(cluster)]
+                for b0 in range(0, min(int(ln.max()), S), block_kv):
+                    b1 = min(b0 + block_kv, int(ln.max()), S)
+                    kb = cache[b, b0:b1, h].float()
+                    s = q @ kb.T + torch.where(torch.arange(b0, b1)[None] < ln[:, None], 0.0,
+                                               NEG_BIG)
+                    m_new = torch.clamp(torch.maximum(m, s.amax(dim=-1, keepdim=True)),
+                                        min=NEG_CLAMP)
+                    for i, (lo, hi) in enumerate(attention_shares(b0, b1, cluster)):
+                        sr = s[:, lo - b0:hi - b0]
+                        mr = m_new
+                        if local_max:
+                            smax = sr.amax(dim=-1, keepdim=True) if hi > lo else ms[i]
+                            mr = torch.clamp(torch.maximum(ms[i], smax), min=NEG_CLAMP)
+                        corr = torch.exp((ms[i] if local_max else m) - mr)
+                        p = torch.exp(sr - mr)
+                        pb = p.to(torch.bfloat16).float()
+                        l_r[i] = l_r[i] * corr + p.sum(dim=-1, keepdim=True)
+                        acc_r[i] = acc_r[i] * corr + pb @ kb[lo - b0:hi - b0, :hd_v]
+                        ms[i] = mr
+                        p_all[b, h, rows, lo:hi] = pb
+                    m = m_new
+                acc, l = torch.zeros_like(acc_r[0]), torch.zeros_like(l_r[0])
+                m_star = torch.stack(ms).amax(dim=0) if local_max else m
+                for i in range(cluster):
+                    w = torch.exp(ms[i] - m_star) if local_max else 1.0
+                    acc, l = acc + w * acc_r[i], l + w * l_r[i]
+                out[b, h, rows] = acc / torch.clamp(l, min=1e-20)
+    return out, p_all
+
+
+def _mla_case(kv, g, hd, S, chunk, seed):
+    rng = np.random.default_rng(seed)
+    cache = torch.from_numpy(rng.standard_normal((4, S, kv, hd), dtype=np.float32)).to(
+        torch.bfloat16)
+    ends = np.array([S, 3, 0, S // 2 + 7])
+    nvalid = np.minimum(np.array([chunk, max(chunk - 1, 1), 0, 1]), ends)
+    j = np.arange(chunk)[None]
+    lengths = np.where(j < nvalid[:, None], ends[:, None] - nvalid[:, None] + j + 1, 0)
+    lens = torch.from_numpy(lengths.reshape(-1).astype(np.int32))
+    qf = torch.from_numpy(rng.standard_normal((4, kv, chunk * g, hd), dtype=np.float32)
+                          / math.sqrt(hd))
+    masked = torch.from_numpy(np.repeat(lengths == 0, g, axis=1))          # [B, c*g]
+    return qf, cache, lens, masked
+
+
+MLA_WALKS = [(1, 40, 288, 256, 256, 1, 256), (1, 40, 288, 256, 256, 2, 64),
+             (1, 4, 48, 32, 160, 1, 160), (1, 4, 48, 32, 160, 4, 32),
+             (2, 13, 20, 12, 96, 4, 48)]
+
+
+@pytest.mark.parametrize("kv,g,hd,hd_v,S,chunk,block_kv", MLA_WALKS)
+def test_k5_split_walk_matches_the_plain_walk(kv, g, hd, hd_v, S, chunk, block_kv):
+    """The split changes only the f32 order of the sums: bf16(p) bit for bit
+    the one-rank walk's (p formed at the cluster's block max), outputs within
+    K5's element rule (2^-7 + 1e-4) * A of `contiguous_attention_mla_plain`,
+    A = sum bf16(p)|v| / l; masked rows and the idle slot exact zeros.
+    MiniCPM3-4B's widths (one and four key blocks, 40 heads: a row group of
+    48 and, at chunk 2, a second) and small ones (13 heads x 4 queries: two
+    row groups)."""
+    qf, cache, lens, masked = _mla_case(kv, g, hd, S, chunk, hd + S + chunk)
+    R = chunk * g
+    plan = plan_mla_attention(4, kv, R, block_kv)
+    kw = dict(c=chunk, g=g, block_kv=block_kv, hd_v=hd_v)
+    got, p_split = _mla_split_walk(qf, cache, lens, cluster=max(plan.cluster, 3), **kw)
+    _, p_one = _mla_split_walk(qf, cache, lens, cluster=1, **kw)
+    assert torch.equal(p_split.view(torch.int32), p_one.view(torch.int32))
+    want = contiguous_attention_mla_plain(qf, cache, lens, **kw)
+    kw.pop("hd_v")
+    tol = (2 ** -7 + 1e-4) * contiguous_attention_plain(
+        qf, cache, cache[..., :hd_v].abs().contiguous(), lens, **kw)
+    assert bool(((got - want).abs() <= tol).all())
+    assert int(masked.sum()) > 0
+    assert bool((got.permute(0, 2, 1, 3)[masked] == 0).all())
+
+
+def test_k5_split_walk_mutation_is_caught():
+    """Forming p at each rank's own running max (and rescaling when the ranks
+    meet) moves bf16(p) off the plain walk's rounding points: the bit check
+    of `test_k5_split_walk_matches_the_plain_walk` fails."""
+    qf, cache, lens, _ = _mla_case(1, 40, 288, 256, 1, 7)
+    kw = dict(c=1, g=40, block_kv=256, hd_v=256)
+    _, p_bad = _mla_split_walk(qf, cache, lens, cluster=8, local_max=True, **kw)
+    _, p_one = _mla_split_walk(qf, cache, lens, cluster=1, **kw)
+    assert not torch.equal(p_bad.view(torch.int32), p_one.view(torch.int32))
+
+
+# ------------------------------------------------------------------ K2
+@pytest.mark.parametrize("slots,chunk,max_keys", [(8, 1, 512), (8, 1, 1024), (8, 16, 1024),
+                                                  (4, 1, 256), (1, 1, 64), (8, 4, 40960)])
+def test_k2_plan_covers_every_token_once(slots, chunk, max_keys):
+    """Qwen2-7B (kv 4, g 7): the row tiles hold every folded row; for any
+    count of visible tokens the ranks' shares (whole 32-token sub-tiles but
+    the last, contiguous, in rank order) cover each token once."""
+    R = 7 * chunk
+    plan = plan_paged_attention(slots, 4, R, max_keys)
+    assert plan.rows in PAGED_ROW_TILES and plan.rows * plan.row_tiles >= R
+    assert 1 <= plan.cluster <= MAX_CLUSTER
+    for ntok in (0, 1, 31, 32, 33, 100, max_keys - 1, max_keys):
+        covered = np.zeros(max(ntok, 1), dtype=int)
+        for i, (lo, hi) in enumerate(attention_shares(0, ntok, plan.cluster)):
+            if hi > lo and hi < ntok:
+                assert (hi - lo) % PAGED_SUB_KEYS == 0
+            covered[lo:hi] += 1
+        assert (covered[:ntok] == 1).all()
+
+
+def test_k2_plan_fills_the_card_at_decode():
+    """8 slots x 4 kv heads at decode: 256 CTAs (about two per SM), at chunk
+    16 two ranks per tile of 16 rows."""
+    plan = plan_paged_attention(8, 4, 7, 1024)
+    assert plan.rows == 8 and plan.ctas(8, 4) >= 2 * SMS - 32 and plan.cluster == MAX_CLUSTER
+    assert plan_paged_attention(8, 4, 112, 1024).ctas(8, 4) >= 2 * SMS
+
+
+def _k2_split_walk(qf, load_tok, lens, *, c, g, max_keys, cluster, rows, unweighted=False):
+    """K2's split argument in plain torch: per (slot, head, tile of ``rows``
+    rows) the visible tokens [0, n) are split into the ranks' shares of
+    whole 32-token sub-tiles; each rank walks its share sub-tile by
+    sub-tile with its own running max (p in f32), and the ranks' (m, l, acc)
+    merge in rank order: weights exp(m_r - m*) (``unweighted``: the
+    mutation, none). ``load_tok(b, toks)`` -> (k, v) [len(toks), kv, hd]."""
+    B, kv_n, R, hd = qf.shape
+    out = torch.zeros_like(qf)
+    row_len = lens.reshape(B, c).repeat_interleave(g, dim=1)             # [B, R]
+    for b in range(B):
+        for r0 in range(0, R, rows):
+            sl = slice(r0, min(R, r0 + rows))
+            ln = row_len[b, sl]
+            ntok = min(int(ln.max()), max_keys)
+            parts = []
+            for lo, hi in attention_shares(0, ntok, cluster):
+                q = qf[b, :, sl]                                        # [kv, n, hd]
+                m = torch.full((kv_n, q.shape[1], 1), NEG_CLAMP)
+                l = torch.zeros_like(m)
+                acc = torch.zeros_like(q)
+                for t0 in range(lo, hi, PAGED_SUB_KEYS):
+                    toks = torch.arange(t0, min(t0 + PAGED_SUB_KEYS, hi))
+                    kt, vt = load_tok(b, toks)
+                    s = torch.einsum("hrd,thd->hrt", q, kt)
+                    s = s + torch.where(toks[None, None] < ln[None, :, None], 0.0, NEG_BIG)
+                    m_new = torch.clamp(torch.maximum(m, s.amax(dim=-1, keepdim=True)),
+                                        min=NEG_CLAMP)
+                    p = torch.exp(s - m_new)
+                    corr = torch.exp(m - m_new)
+                    l = l * corr + p.sum(dim=-1, keepdim=True)
+                    acc = acc * corr + torch.einsum("hrt,thd->hrd", p, vt)
+                    m = m_new
+                parts.append((m, l, acc))
+            m_star = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+            num, den = torch.zeros_like(parts[0][2]), torch.zeros_like(parts[0][1])
+            for m, l, acc in parts:
+                w = 1.0 if unweighted else torch.exp(m - m_star)
+                num, den = num + w * acc, den + w * l
+            out[b, :, sl] = num / torch.clamp(den, min=1e-20)
+    return out
+
+
+def _k2_case(page, chunk, seed):
+    """AMS-e2m2 pages (fp4.25) of 2 kv heads x hd 16, 4 slots x 4 pages;
+    slot lengths 0, 1 and a page boundary - 1 / + 1 (chunked: the queries
+    of a slot end there)."""
+    from repro_torch.core.formats import get_scheme
+    from repro_torch.core.kv_quant import quantize_kv
+    from repro_torch.kernels.attention_template import restore_page
+
+    kv, g, hd, MP, B = 2, 3, 16, 4, 4
+    rng = np.random.default_rng(seed)
+    scheme = get_scheme("fp4.25-e2m2")
+    pool = {n: quantize_kv(torch.from_numpy(rng.standard_normal((B * MP, page, kv, hd),
+                                                                  dtype=np.float32)), scheme)
+            for n in ("k", "v")}
+    bt = torch.from_numpy(rng.permutation(B * MP).reshape(B, MP).astype(np.int32))
+    ends = np.array([0, 1, page - 1, 2 * page + 1])
+    nvalid = np.minimum(np.array([0, 1, chunk, chunk]), ends)
+    j = np.arange(chunk)[None]
+    lengths = np.where(j < nvalid[:, None], ends[:, None] - nvalid[:, None] + j + 1, 0)
+    lens = torch.from_numpy(lengths.reshape(-1).astype(np.int32))
+    qf = torch.from_numpy(rng.standard_normal((B, kv, chunk * g, hd), dtype=np.float32) / 2)
+    full = {n: restore_page(pool[n]["hi"], pool[n]["lsb"], pool[n]["scale"], scheme.base,
+                            scheme.k, hd) for n in ("k", "v")}          # [P, page, kv, hd]
+
+    def load_page(pg):
+        return full["k"][pg], full["v"][pg]
+
+    def load_tok(b, toks):
+        pg = bt[b, toks // page].long()
+        return full["k"][pg, toks % page], full["v"][pg, toks % page]
+
+    masked = torch.from_numpy(np.repeat(lengths == 0, g, axis=1))          # [B, c*g]
+    return qf, lens, bt, load_page, load_tok, masked, dict(c=chunk, g=g, max_keys=MP * page)
+
+
+@pytest.mark.parametrize("chunk", [1, 3])
+@pytest.mark.parametrize("page", [16, 48, 64, 128])
+def test_k2_split_walk_matches_the_plain_walk(page, chunk):
+    """Each rank's own running max and the rank-order (m, l, acc) merge give
+    `_paged_online_softmax`'s output within f32 rounding (1e-4 of max |y|,
+    K2's tolerance), with exact zeros for masked rows and the idle slot, at
+    the plan's cluster and at 3 ranks, pages of 16 (two per sub-tile) to
+    128 (four sub-tiles per page)."""
+    qf, lens, bt, load_page, load_tok, masked, kw = _k2_case(page, chunk, page + chunk)
+    want = _paged_online_softmax(qf, load_page, lens, bt, page_size=page, c=kw["c"],
+                                 g=kw["g"], pv_dtype=torch.float32)
+    plan = plan_paged_attention(4, 2, qf.shape[2], kw["max_keys"])
+    for cluster in (plan.cluster, 3):
+        got = _k2_split_walk(qf, load_tok, lens, cluster=cluster, rows=plan.rows, **kw)
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+        assert bool((got.permute(0, 2, 1, 3)[masked] == 0).all())
+    assert int(masked.sum()) > 0
+
+
+def test_k2_split_walk_mutation_is_caught():
+    """Merging the ranks' partials without their exp(m_r - m*) weights is
+    far outside K2's tolerance."""
+    qf, lens, bt, load_page, load_tok, _, kw = _k2_case(16, 1, 5)
+    want = _paged_online_softmax(qf, load_page, lens, bt, page_size=16, c=1, g=kw["g"],
+                                 pv_dtype=torch.float32)
+    bad = _k2_split_walk(qf, load_tok, lens, cluster=3, rows=8, unweighted=True, **kw)
+    assert float((bad - want).abs().max()) > 1e-4 * float(want.abs().max())
