@@ -11,14 +11,16 @@ Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from src/repro_torch/kernels/csrc with nvcc
      (one process per source, started together), and print ptxas's
-     registers, shared memory and spills for K1's, K2's, K4's and K5's
-     kernels and the paged walk of K3 and K5p;
+     registers, shared memory and spills for K1's, K1b's, K2's, K3's, K4's,
+     K5's and K5p's kernels;
   3. K1 (AMS fp533 dequant-matmul) against its plain torch version at every
      Qwen2-7B projection shape, B in {8, 128}: error, kernel / plain / dense
      bf16 torch.matmul times, and the bound from bytes and operations; one
      layer's 7 projections summed at each B (decode and a prefill chunk);
   4. K1b (AMS planes dequant-matmul), the same for fp4.25-e2m2, plus every
-     other planes scheme at one small ragged shape;
+     other planes scheme at one small ragged shape, and one decode layer of
+     fp6-e2m3 on K1b's CUDA-core kernel (per_word 4 / 5 / 6, no served
+     path), its 7 launches counted, timed against its bound and dense bf16;
   5. K2 (paged AMS-e2m2 flash-decode) against its plain version at kv=4,
      g=7, hd=128, pages of 16, 64 and 128 tokens, 8 slots, lengths up to
      1024, chunk in {1, 16}, with an idle slot and masked rows that must
@@ -214,15 +216,18 @@ def _check_matmul(torch, tag: str, kernel, plain, x, pw):
 
 
 def _matmul_phase(torch, dev, tag: str, scheme: str, gen, kernel, plain, timed: bool,
-                  full: bool):
+                  full: bool, decode_only: bool = False):
     """``kernel`` / ``plain`` (x, PackedWeight) -> y at every Qwen2-7B
-    projection shape, B in {8, 128}: error against the plain version, and
-    when ``timed`` kernel / plain / dense bf16 torch.matmul times; one
-    decode layer (7 projections at B=8) summed, with its bound."""
+    projection shape, B in {8, 128} (8 alone with ``decode_only``): error
+    against the plain version, and when ``timed`` kernel / plain / dense
+    bf16 torch.matmul times; one decode layer (7 projections at B=8) summed,
+    with its bound."""
     import dataclasses
 
     shapes = QWEN_SHAPES if full else TINY_SHAPES
     batches = (8, 8 * 16) if full else (2, 2 * 4)
+    if decode_only:
+        batches = batches[:1]
     max_err = 0.0
     layers = {B: {"B": B, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0,
                   "flops": 0.0, "dense_ms": 0.0} for B in batches}
@@ -300,7 +305,48 @@ def phase_k1b(torch, dev, timed: bool, full: bool):
                                      rel_err=rel)))
     layer, err = _matmul_phase(torch, dev, "K1b", "fp4.25-e2m2", gen, kernel, plain, timed,
                                full)
-    return layer, max(max_err, err)
+    return layer, max(max_err, err), _k1b_cuda_cores(torch, dev, gen, kernel, plain, timed, full)
+
+
+K1B_CC_SCHEME = "fp6-e2m3"      # per_word 5: K1b's CUDA-core kernel
+
+
+def _k1b_cuda_cores(torch, dev, gen, kernel, plain, timed: bool, full: bool):
+    """K1b's CUDA-core kernel (`ams_matmul_planes_kernel`, the planes of
+    per_word 4 / 5 / 6), which no served path reaches: one decode layer of
+    fp6-e2m3 weights at Qwen2-7B's shapes, first its 7 projections through
+    the wrapper with the launch counts zeroed just before and read just
+    after, then each shape against its plain version with times, the bound
+    and dense bf16. Returns the layer's row, the error and the launches."""
+    from repro_torch.core.formats import get_scheme
+    from repro_torch.core.packing import make_layout
+    from repro_torch.kernels.ams_matmul import COUNT_PLANES, planes_on_tensor_cores
+
+    if planes_on_tensor_cores(make_layout(get_scheme(K1B_CC_SCHEME))):
+        fail(f"K1b: {K1B_CC_SCHEME} does not take the CUDA-core kernel")
+    shapes = QWEN_SHAPES if full else TINY_SHAPES
+    B = 8 if full else 2
+    layer = []
+    for name, K, N, mult in shapes:
+        pw, _ = _packed_weight(torch, dev, gen, K1B_CC_SCHEME, K, N)
+        layer += [(pw, _padded_x(torch, dev, gen, K, pw, B))] * mult
+    counts = all_counts()
+    for cnt in counts:
+        cnt.reset()
+    for pw, x in layer:
+        kernel(x, pw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    launches = {cnt.name: cnt.launches for cnt in counts}
+    log("K1b cuda-core entry " + json.dumps(dict(scheme=K1B_CC_SCHEME, B=B, launches=launches)))
+    if dev.type == "cuda" and (launches[COUNT_PLANES.name] != len(layer)
+                               or sum(launches.values()) != len(layer)):
+        fail(f"K1b: one {K1B_CC_SCHEME} decode layer did not launch the planes kernel once per "
+             f"projection: {launches}")
+    del layer
+    row, err = _matmul_phase(torch, dev, "K1b-cc", K1B_CC_SCHEME, gen, kernel, plain, timed,
+                             full, decode_only=True)
+    return dict(layer=row, err=err, launches=launches[COUNT_PLANES.name])
 
 
 # --------------------------------------------------------------------- K2
@@ -617,8 +663,7 @@ def phase_k5p(torch, dev, timed: bool, full: bool):
     model's softmax scale), on bf16 pages and AMS-e2m2 pages that
     cache.pool builds and fills: 8 slots, lengths up to 1024 (one slot
     idle, one full), chunk 1 and 16, pages of 16 (the CacheConfig default),
-    32 (one sub-tile of the kernel's walk), 64 and 128 (two and four). First
-    the entry a user calls,
+    32, 64 and 128. First the entry a user calls,
     `fused_paged_attention(value_slice=...)`, over every case, with the
     launch counts zeroed just before and read just after (no served path
     reaches K5p: the reference pages no MLA cache, and neither does the
@@ -1041,12 +1086,12 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33", page: int = 
 
 
 def ptxas_report(build, kernels=("ams_matmul_mma_kernel", "ams_matmul_planes_kernel",
-                                 "k4_kernel", "k5_kernel", "k2_kernel",
-                                 "paged_attention_kernel")):
+                                 "k4_kernel", "k5_kernel", "k2_kernel", "k3_kernel",
+                                 "k5p_kernel")):
     """One line per instantiation of the named kernels from the build's
     ``-Xptxas -v`` logs: registers, shared memory, stack and spills (K1 and
     K1b's tensor-core kernel, one line per decode hook, tile and x copy;
-    K1b's CUDA-core kernel; K4; K5; K2; the paged walk of K3 and K5p)."""
+    K1b's CUDA-core kernel; K4; K5; K2; K3; K5p on bf16 and AMS pages)."""
     rows = []
     for name in build.SOURCES:
         logf = build.library_path(name).with_suffix(".log")
@@ -1065,7 +1110,7 @@ def ptxas_report(build, kernels=("ams_matmul_mma_kernel", "ams_matmul_planes_ker
     for r in rows:
         log(f"ptxas {r}")
     if not rows:
-        fail("no ptxas report for the K1 / K1b / K2 / K4 / K5 / paged kernels")
+        fail("no ptxas report for the K1 / K1b / K2 / K3 / K4 / K5 / K5p kernels")
 
 
 PHASES = ("k1", "k1b", "k2", "k3", "k4", "k5", "k5p")
@@ -1158,7 +1203,7 @@ def main():
     ptxas_report(build)
 
     k1, k1_err = phase_k1(torch, dev, timed=True, full=True)
-    k1b, k1b_err = phase_k1b(torch, dev, timed=True, full=True)
+    k1b, k1b_err, k1b_cc = phase_k1b(torch, dev, timed=True, full=True)
     k2, k2_err = phase_k2(torch, dev, timed=True, full=True)
     k3, k3_err = phase_k3(torch, dev, timed=True, full=True)
     k4, k4_err = phase_k4(torch, dev, timed=True, full=True)
@@ -1181,8 +1226,8 @@ def main():
     # boolean mask; null for K1-K3 and K5p, because no single PyTorch call
     # computes a dequant-matmul from packed AMS planes, or paged attention
     # through a block table. launches: the count on the path's served run;
-    # K5p, which no served path reaches, its phase's run of the entry
-    # (path null)
+    # K5p and K1b's CUDA-core kernel, which no served path reaches, their
+    # phases' runs of the entry (path null)
     def row(name, src, replaces, path, res, err, launches=None):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
                     replaces=replaces, path=path,
@@ -1196,6 +1241,9 @@ def main():
             "fp5.33", k1, k1_err),
         row("ams_matmul_planes", "ams_matmul.cu", "src/repro/kernels/ams_matmul.py:95",
             "fp4.25", k1b, k1b_err),
+        row("ams_matmul_planes_cuda_cores", "ams_matmul.cu",
+            "src/repro/kernels/ams_matmul.py:95", None, k1b_cc["layer"], k1b_cc["err"],
+            k1b_cc["launches"]),
         row("paged_attention_ams", "paged_attention.cu",
             "src/repro/kernels/attention_template.py:399", "fp5.33", k2, k2_err),
         row("paged_attention_bf16", "paged_attention.cu",

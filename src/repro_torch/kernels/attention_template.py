@@ -45,6 +45,8 @@ from .tuning import (
     plan_contiguous_attention,
     plan_mla_attention,
     plan_paged_attention,
+    plan_paged_bf16_attention,
+    plan_paged_mla_attention,
     reference_block_kv,
 )
 
@@ -312,7 +314,8 @@ def _check_k3(qf, pool, lens, block_table, page_size, c, g):
 def paged_attention_bf16(qf, pool: Dict, lens, block_table, *, page_size: int,
                          c: int, g: int) -> torch.Tensor:
     """K3 wrapper (same contract as `paged_attention_bf16_plain`). CPU
-    tensors take the plain version; CUDA tensors launch the kernel or raise."""
+    tensors take the plain version; CUDA tensors launch the kernel (cluster
+    and score buffer from `tuning.plan_paged_bf16_attention`) or raise."""
     _check_k3(qf, pool, lens, block_table, page_size, c, g)
     if qf.device.type == "cpu":
         return paged_attention_bf16_plain(qf, pool, lens, block_table, page_size=page_size,
@@ -325,8 +328,12 @@ def paged_attention_bf16(qf, pool: Dict, lens, block_table, *, page_size: int,
     _check_operands("K3", qf, ops)
     _check_aligned("K3", hd, (pool["k"], pool["v"]))
     out = torch.empty_like(qf)
+    MP = block_table.shape[1]
+    plan = plan_paged_bf16_attention(max(B, 1), kv_n, max(R, 1), max(MP * page_size, 1),
+                                     page_size)
     _launch_paged("paged_attention_bf16", COUNT_BF16, [t.data_ptr() for t in ops + [out]],
-                  [B, kv_n, R, hd, page_size, block_table.shape[1], c, g], qf.device)
+                  [B, kv_n, R, hd, page_size, MP, c, g, plan.cluster, plan.score_keys],
+                  qf.device)
     return out
 
 
@@ -389,7 +396,8 @@ def paged_attention_stream_bf16(qf, pool: Dict, lens, block_table, *, page_size:
                                 c: int, g: int, hd_v: int) -> torch.Tensor:
     """K5p wrapper on bf16 pages (same contract as
     `paged_attention_stream_bf16_plain`). CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    version; CUDA tensors launch the kernel (cluster from
+    `tuning.plan_paged_mla_attention`) or raise."""
     B, kv_n, R, hd = qf.shape
     _check_bf16_pages(pool, ("k",), kv_n, hd, page_size)
     _check_stream(qf, lens, block_table, c, g, hd_v)
@@ -402,9 +410,11 @@ def paged_attention_stream_bf16(qf, pool: Dict, lens, block_table, *, page_size:
     _check_operands("K5p", qf, ops)
     _check_aligned("K5p", hd, (pool["k"],))
     out = torch.empty((B, kv_n, R, hd_v), dtype=torch.float32, device=qf.device)
+    MP = block_table.shape[1]
+    plan = plan_paged_mla_attention(max(B, 1), kv_n, max(R, 1), max(MP * page_size, 1))
     _launch_paged("paged_attention_stream_bf16", COUNT_STREAM_BF16,
                   [x.data_ptr() for x in ops + [out]],
-                  [B, kv_n, R, hd, hd_v, page_size, block_table.shape[1], c, g], qf.device)
+                  [B, kv_n, R, hd, hd_v, page_size, MP, c, g, plan.cluster], qf.device)
     return out
 
 
@@ -412,7 +422,8 @@ def paged_attention_stream_ams(qf, pool: Dict, lens, block_table, *, page_size: 
                                scheme, c: int, g: int, hd_v: int) -> torch.Tensor:
     """K5p wrapper on AMS pages (same contract as
     `paged_attention_stream_ams_plain`). CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    version; CUDA tensors launch the kernel (cluster from
+    `tuning.plan_paged_mla_attention`) or raise."""
     B, kv_n, R, hd = qf.shape
     _check_planes(pool, ("k",), kv_n, hd, page_size, scheme)
     _check_stream(qf, lens, block_table, c, g, hd_v)
@@ -426,10 +437,12 @@ def paged_attention_stream_ams(qf, pool: Dict, lens, block_table, *, page_size: 
     ops = [qf, pl["hi"], pl["lsb"], pl["scale"], block_table, lens]
     _check_operands("K5p", qf, ops)
     out = torch.empty((B, kv_n, R, hd_v), dtype=torch.float32, device=qf.device)
+    MP = block_table.shape[1]
+    plan = plan_paged_mla_attention(max(B, 1), kv_n, max(R, 1), max(MP * page_size, 1))
     _launch_paged("paged_attention_stream_ams", COUNT_STREAM_AMS,
                   [x.data_ptr() for x in ops + [out]],
                   [B, kv_n, R, hd, hd_v, pl["hi"].shape[-1], pl["lsb"].shape[-1], scheme.k,
-                   scheme.base.man_bits, page_size, block_table.shape[1], c, g], qf.device)
+                   scheme.base.man_bits, page_size, MP, c, g, plan.cluster], qf.device)
     return out
 
 

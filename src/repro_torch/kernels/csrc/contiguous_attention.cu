@@ -123,39 +123,6 @@ static int check_args(int B, int S, int kv, int R, int hd, int hd_v, int block_k
 #define K4_LDO (K4_HDP + 4)   // f32 per smem output row
 #define K4_NS 8               // ring slots of one 32-key K or V tile
 
-// wait until at most n of the committed groups are pending (0 <= n < K4_NS)
-__device__ __forceinline__ void k4_wait_pending(int n) {
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    case 6: cp_async_wait<6>(); break;
-    default: cp_async_wait<7>(); break;
-  }
-}
-
-__device__ __forceinline__ void k4_ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ uint32_t k4_pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// x = hi + mid + lo, each bf16 (exact to f32's 24 significant bits)
-__device__ __forceinline__ void k4_split(float x, __nv_bfloat16 (&p)[3]) {
-  p[0] = __float2bfloat16_rn(x);
-  const float r1 = x - __bfloat162float(p[0]);
-  p[1] = __float2bfloat16_rn(r1);
-  p[2] = __float2bfloat16_rn(r1 - __bfloat162float(p[1]));
-}
-
 // Rows t0 .. t0+31 (those < t_end; zeros past it) of head h of slot b of a
 // [B, S, kv, W] bf16 cache -> dst[key][K4_LDK], zeros past W: dims
 // [0, K4_HDP) with 16-byte cp.async when ``vec``, [0, Wp) with plain loads
@@ -247,10 +214,10 @@ k4_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       __nv_bfloat16 p0[3], p1[3];
-      k4_split(qraw[ks][e][0], p0);
-      k4_split(qraw[ks][e][1], p1);
+      split_bf16x3(qraw[ks][e][0], p0);
+      split_bf16x3(qraw[ks][e][1], p1);
 #pragma unroll
-      for (int pp = 0; pp < 3; ++pp) qa[pp][ks][e] = k4_pack(p0[pp], p1[pp]);
+      for (int pp = 0; pp < 3; ++pp) qa[pp][ks][e] = pack_bf16x2(p0[pp], p1[pp]);
     }
   }
 
@@ -295,7 +262,7 @@ k4_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
         }
         cp_async_commit();
       }
-      k4_wait_pending(issued - 1 - u1);
+      cp_async_wait_pending(issued - 1 - u1);
       __syncthreads();
     };
     // scores of the tile's 32 keys (warp w: keys 8w .. 8w+7) -> running
@@ -410,10 +377,10 @@ k4_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
           for (int e = 0; e < 8; ++e) pb[e] = __float2bfloat16_rn(0.f);
         }
         uint4 w4;
-        w4.x = k4_pack(pb[0], pb[1]);
-        w4.y = k4_pack(pb[2], pb[3]);
-        w4.z = k4_pack(pb[4], pb[5]);
-        w4.w = k4_pack(pb[6], pb[7]);
+        w4.x = pack_bf16x2(pb[0], pb[1]);
+        w4.y = pack_bf16x2(pb[2], pb[3]);
+        w4.z = pack_bf16x2(pb[4], pb[5]);
+        w4.w = pack_bf16x2(pb[6], pb[7]);
         *reinterpret_cast<uint4*>(Psm + prow * K4_LDP + pk) = w4;
       }
       __syncthreads();
@@ -435,7 +402,7 @@ k4_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
 #pragma unroll
             for (int np = 0; np < 2; ++np) {
               uint32_t bv[4];
-              k4_ldmatrix_x4_trans(
+              ldmatrix_x4_trans(
                   bv, Vt + ((mi & 1) * 8 + r) * K4_LDK + d0 + 16 * np + (mi >> 1) * 8);
               mma_bf16(acc[2 * np], a, bv[0], bv[1]);
               mma_bf16(acc[2 * np + 1], a, bv[2], bv[3]);
@@ -559,13 +526,6 @@ static int k4_launch(const void* q, const void* k, const void* v, const void* le
 #define K5_LDO (K5_HVP + 4)         // f32 per output row
 #define K5_MAX_CLUSTER 8            // the portable cluster size
 #define K5_QB 9                     // q loads in flight per thread
-
-__device__ __forceinline__ void k5_ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
 
 // Rows t0 .. t0+31 (those < t_end; zeros past it) of head h of slot b of a
 // [B, S, kv, W] bf16 stream -> dst[key][K5_LDK], zeros past W: all K5_HDP
@@ -692,7 +652,7 @@ k5_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
           for (int i = 0; i < 4; ++i) {
             if (i < per) {
               __nv_bfloat16 pq[3];
-              k4_split(x[i], pq);
+              split_bf16x3(x[i], pq);
 #pragma unroll
               for (int pp = 0; pp < 3; ++pp) qs[(pp * K5_ROWS + r) * K5_LDK + d + i] = pq[pp];
             }
@@ -725,7 +685,7 @@ k5_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
     auto acquire = [&](int u0, int u1) {
       __syncthreads();
       issue(u0 + K5_NS);
-      k4_wait_pending(issued - 1 - u1);
+      cp_async_wait_pending(issued - 1 - u1);
       __syncthreads();
     };
     // scores of a step's nt2 tiles (warp w: keys 16 w .. 16 w + 15 of the
@@ -754,13 +714,13 @@ k5_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
 #pragma unroll 2
       for (int ks = 0; ks < nks; ++ks) {
         uint32_t bk[4];                      // b0, b1 of keys 0-7, then of keys 8-15
-        k5_ldmatrix_x4(bk, kb + 16 * ks);
+        ldmatrix_x4(bk, kb + 16 * ks);
 #pragma unroll
         for (int pp = 0; pp < 3; ++pp) {
 #pragma unroll
           for (int mt = 0; mt < K5_MT; ++mt) {
             uint32_t a[4];
-            k5_ldmatrix_x4(a, qa + (pp * K5_ROWS + 16 * mt) * K5_LDK + 16 * ks);
+            ldmatrix_x4(a, qa + (pp * K5_ROWS + 16 * mt) * K5_LDK + 16 * ks);
             mma_bf16(sp[pp][mt][0], a, bk[0], bk[1]);
             mma_bf16(sp[pp][mt][1], a, bk[2], bk[3]);
           }
@@ -868,10 +828,10 @@ k5_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
           for (int e = 0; e < 8; ++e) pb[e] = __float2bfloat16_rn(0.f);
         }
         uint4 w4;
-        w4.x = k4_pack(pb[0], pb[1]);
-        w4.y = k4_pack(pb[2], pb[3]);
-        w4.z = k4_pack(pb[4], pb[5]);
-        w4.w = k4_pack(pb[6], pb[7]);
+        w4.x = pack_bf16x2(pb[0], pb[1]);
+        w4.y = pack_bf16x2(pb[2], pb[3]);
+        w4.z = pack_bf16x2(pb[4], pb[5]);
+        w4.w = pack_bf16x2(pb[6], pb[7]);
         *reinterpret_cast<uint4*>(Psm + (prow + 16 * mt) * K5_LDP + pk) = w4;
       }
       __syncthreads();
@@ -885,13 +845,13 @@ k5_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
             uint32_t a[K5_MT][4];
 #pragma unroll
             for (int mt = 0; mt < K5_MT; ++mt)
-              k5_ldmatrix_x4(a[mt], Psm + (16 * mt + (lane & 15)) * K5_LDP + 16 * kk +
+              ldmatrix_x4(a[mt], Psm + (16 * mt + (lane & 15)) * K5_LDP + 16 * kk +
                                         8 * (lane >> 4));
 #pragma unroll
             for (int np = 0; np < 4; ++np) {
               if (d0 + 16 * np < hd_v) {
                 uint32_t bv[4];
-                k4_ldmatrix_x4_trans(
+                ldmatrix_x4_trans(
                     bv, Vt + ((mi & 1) * 8 + r8) * K5_LDK + d0 + 16 * np + (mi >> 1) * 8);
 #pragma unroll
                 for (int mt = 0; mt < K5_MT; ++mt) {

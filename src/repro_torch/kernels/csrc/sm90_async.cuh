@@ -1,9 +1,11 @@
 // Hopper building blocks shared by the kernels of this directory: cp.async
-// copies into shared memory, their groups, and the bf16 tensor-core product
-// mma.sync m16n8k16 with f32 accumulation.
+// copies into shared memory, their groups, ldmatrix, the bf16 tensor-core
+// product mma.sync m16n8k16 with f32 accumulation, and the split of an f32
+// operand into three bf16 parts that product takes exactly.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 // 16 bytes global -> shared, or 16 zero bytes when !pred (src is not read)
@@ -31,6 +33,47 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// wait until at most n of the committed groups are pending (0 <= n, at most 7
+// counted: more waits for 7)
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// x = hi + mid + lo, each bf16 (exact to f32's 24 significant bits)
+__device__ __forceinline__ void split_bf16x3(float x, __nv_bfloat16 (&p)[3]) {
+  p[0] = __float2bfloat16_rn(x);
+  const float r1 = x - __bfloat162float(p[0]);
+  p[1] = __float2bfloat16_rn(r1);
+  p[2] = __float2bfloat16_rn(r1 - __bfloat162float(p[1]));
 }
 
 // d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate

@@ -58,7 +58,7 @@ def reference_block_kv(*, rows: int, hd: int, hd_v: Optional[int] = None, s_max:
 
 
 # ---------------------------------------------------------------------------
-# Hopper plans for K1, K1b, K2, K4 and K5 (no counterpart in the reference, whose tiles
+# Hopper plans for K1, K1b, K2, K3, K4, K5 and K5p (no counterpart in the reference, whose tiles
 # are planned for a TPU core). Each wrapper passes its plan to the kernel as
 # plain ints; the kernels take the plan as given.
 # ---------------------------------------------------------------------------
@@ -280,3 +280,97 @@ def plan_paged_attention(B: int, kv: int, R: int, max_keys: int,
     cluster = max(1, min(MAX_CLUSTER, _cdiv(max_keys, PAGED_SUB_KEYS),
                          _cdiv(2 * sms, B * kv * row_tiles)))
     return PagedPlan(rows, row_tiles, cluster)
+
+
+K3_SCORE_KEYS_MAX = 512    # widest share whose f32 scores a K3 CTA keeps (32 KiB)
+
+
+@dataclass(frozen=True)
+class PagedBf16Plan:
+    """K3's launch: per (slot, kv head, tile of 16 rows) a cluster of
+    ``cluster`` CTAs walks the tokens the tile's rows can see in segments of
+    whole pages (`paged_segments`), each split into the ranks' shares
+    (`attention_shares`); a rank keeps its share's f32 scores, at most
+    ``score_keys`` of them, so a segment holds at most cluster x
+    score_keys tokens."""
+    row_tiles: int
+    cluster: int
+    score_keys: int
+
+    def ctas(self, B: int, kv: int) -> int:
+        return B * kv * self.row_tiles * self.cluster
+
+
+def plan_paged_bf16_attention(B: int, kv: int, R: int, max_keys: int, page: int,
+                              sms: int = SMS) -> PagedBf16Plan:
+    """Cluster and score buffer of K3 for B slots x kv heads x R folded rows
+    over at most ``max_keys`` tokens per slot (block table width x page
+    size) in pages of ``page``: ranks for about four CTAs per SM (at most 8,
+    no more than the 32-token tiles a slot holds), more where a page is
+    wider than 512 tokens (a segment holds whole pages, and a page wider
+    than one is walked in parts, its rest scanned twice); the score buffer
+    holds a rank's share of all ``max_keys`` tokens, at most 512 (longer
+    slots take more segments). Two CTAs fit an SM up to shares of about 400
+    keys: at chunk 16 over 1024 keys three ranks ran 0.106 ms where two
+    (one CTA per SM) ran 0.146 (NVIDIA H100, `chip_smoke.py --phases k3`)."""
+    if min(B, kv, R, max_keys, page) < 1:
+        raise ValueError(f"empty attention B={B} kv={kv} R={R} max_keys={max_keys} page={page}")
+    row_tiles = _cdiv(R, ATT_ROWS)
+    cluster = max(1, min(MAX_CLUSTER, _cdiv(max_keys, ATT_TILE_KEYS),
+                         _cdiv(4 * sms, B * kv * row_tiles)))
+    cluster = min(MAX_CLUSTER, max(cluster, _cdiv(page, K3_SCORE_KEYS_MAX)))
+    return PagedBf16Plan(row_tiles, cluster, min(K3_SCORE_KEYS_MAX, _share(max_keys, cluster)))
+
+
+@dataclass(frozen=True)
+class PagedMlaPlan:
+    """K5p's launch: per (slot, kv head, group of 48 rows) a cluster of
+    ``cluster`` CTAs walks the tokens the group's rows can see in segments of
+    at most cluster x 128 tokens (`paged_segments`; whole pages on bf16
+    pages), each split into the ranks' shares (`attention_shares`), which
+    stay resident from the scores to p . v."""
+    row_groups: int
+    cluster: int
+
+    def ctas(self, B: int, kv: int) -> int:
+        return B * kv * self.row_groups * self.cluster
+
+
+def plan_paged_mla_attention(B: int, kv: int, R: int, max_keys: int,
+                             sms: int = SMS) -> PagedMlaPlan:
+    """Cluster plan of K5p for B slots x kv heads x R folded rows over at
+    most ``max_keys`` tokens per slot: as K5's (`plan_mla_attention`), enough
+    ranks for one CTA per SM and at least enough that every share of the
+    ``max_keys`` tokens stays resident (128 keys), at most the portable 8
+    and no more than the 32-token tiles a slot holds. A bf16 page wider than
+    the ranks' shares hold (1024 tokens at 8) is walked in parts of 64 keys
+    a rank, two ring slots left to scan the page's rest."""
+    if min(B, kv, R, max_keys) < 1:
+        raise ValueError(f"empty attention B={B} kv={kv} R={R} max_keys={max_keys}")
+    row_groups = _cdiv(R, MLA_ROWS)
+    fill = _cdiv(sms, B * kv * row_groups)
+    keep = _cdiv(max_keys, MLA_RESIDENT_KEYS)
+    cluster = max(1, min(MAX_CLUSTER, _cdiv(max_keys, ATT_TILE_KEYS), max(fill, keep)))
+    return PagedMlaPlan(row_groups, cluster)
+
+
+def paged_segments(ntok: int, page: int, cluster: int, share_keys: int,
+                   whole_pages: bool = True):
+    """The segments [s0, s1) in which K3 and K5p walk a tile's ``ntok``
+    visible tokens: at most cluster x share_keys tokens each, the last cut
+    at ``ntok``; with ``whole_pages`` (bf16 pages, whose p is rounded at the
+    page max) as many whole pages as fit, or for a page wider than that
+    parts of it, the last ending with it. One exchange of maxima between
+    the ranks per segment."""
+    cap = cluster * share_keys
+    segs, s0 = [], 0
+    while s0 < ntok:
+        if not whole_pages:
+            s1 = s0 + cap
+        elif page <= cap:
+            s1 = s0 + cap // page * page
+        else:
+            s1 = min(s0 + cap, (s0 // page + 1) * page)
+        segs.append((s0, min(s1, ntok)))
+        s0 = segs[-1][1]
+    return segs

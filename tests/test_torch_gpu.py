@@ -204,11 +204,24 @@ def _paged_case(kv, g, hd, page, chunk, dev, gen):
     return qf, lens, bt, masked
 
 
+# K3's own cases: pages of 4 (one rank: a slot holds one 32-token tile), 48
+# at chunk 16, 300 at chunk 16 over 8 kv heads (three ranks whose score
+# buffers hold 512 keys: two segments of five pages, pages split between
+# the ranks), and 4608, wider than the 4096 tokens 8 ranks' buffers hold
+# (each page walked in two segments, its rest scanned for its max first)
+K3_PAGES = [(1, 3, 7, 4, 1), (4, 7, 128, 4, 16), (4, 7, 128, 48, 16), (8, 7, 64, 300, 16),
+            (8, 7, 64, 16, 16), (1, 3, 7, 4608, 2), (4, 7, 128, 4608, 4)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv,g,hd,page,chunk", [(2, 2, 32, 8, 1), (2, 2, 32, 8, 4),
                                                 (4, 7, 128, 16, 1), (4, 7, 128, 16, 16),
-                                                (1, 3, 7, 8, 2), *WIDE_PAGES])
+                                                (1, 3, 7, 8, 2), *WIDE_PAGES, *K3_PAGES])
 def test_k3_kernel_matches_plain(kv, g, hd, page, chunk):
+    """K3 against its plain version at pages of 4 to 300 tokens, chunks 1 to
+    16, Qwen2-7B's widths and narrow odd heads, where the plan splits a
+    tile's tokens over 1, 2 and 8 ranks
+    (`test_k3_card_cases_take_one_two_and_eight_ranks`)."""
     from repro_torch.kernels.attention_template import (
         COUNT_BF16,
         paged_attention_bf16,
@@ -332,6 +345,47 @@ def test_k2_is_deterministic(page, chunk):
     assert COUNT.launches == n + 2 and torch.equal(a, b)
 
 
+def test_k3_card_cases_take_one_two_and_eight_ranks():
+    """The shapes of `test_k3_kernel_matches_plain` (4 slots x 8 pages) give
+    K3's plan clusters of 1, 2 and 8 ranks, more than one segment, and
+    pages wider than a segment."""
+    from repro_torch.kernels.tuning import paged_segments, plan_paged_bf16_attention
+
+    cases = [(2, 2, 32, 8, 1), (4, 7, 128, 16, 1), *WIDE_PAGES, *K3_PAGES]
+    plans = {c: plan_paged_bf16_attention(4, c[0], c[1] * c[4], 8 * c[3], c[3]) for c in cases}
+    assert {1, 2, 8} <= {p.cluster for p in plans.values()}
+    assert max(len(paged_segments(8 * c[3], c[3], p.cluster, p.score_keys))
+               for c, p in plans.items()) > 1
+    assert any(c[3] > p.cluster * p.score_keys for c, p in plans.items())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page,chunk", [(16, 1), (16, 16), (128, 1), (128, 16)])
+def test_k3_is_deterministic(page, chunk):
+    """The ranks' (m, l, acc) merge in a fixed rank order: two launches at
+    Qwen2-7B shapes (8 slots, lengths up to 1024) give the same bits."""
+    from repro_torch.kernels.attention_template import COUNT_BF16, _fold_q, paged_attention_bf16
+    from repro_torch.kernels.tuning import plan_paged_bf16_attention
+
+    dev = cuda_device()
+    gen = torch.Generator(device=dev).manual_seed(60 + page + chunk)
+    MP, B = 1024 // page, 8
+    pool = {n: torch.randn((B * MP, page, 4, 128), generator=gen, device=dev).to(torch.bfloat16)
+            for n in ("k", "v")}
+    bt = torch.randperm(B * MP, generator=gen, device=dev).to(torch.int32).reshape(B, MP)
+    ends = torch.tensor([1024, 700, 1, 0, 513, 1000, 64, 999])
+    lengths = torch.clamp(ends[:, None] - chunk + 1 + torch.arange(chunk)[None], min=0)
+    q = torch.randn((B, chunk, 28, 128), generator=gen, device=dev).to(torch.bfloat16)
+    qf, lens, _, _ = _fold_q(q, lengths.to(dev), 4, None)
+    assert plan_paged_bf16_attention(B, 4, 7 * chunk, 1024, page).cluster > 1
+    kw = dict(page_size=page, c=chunk, g=7)
+    n = COUNT_BF16.launches
+    a = paged_attention_bf16(qf, pool, lens, bt, **kw)
+    b = paged_attention_bf16(qf, pool, lens, bt, **kw)
+    torch.cuda.synchronize()
+    assert COUNT_BF16.launches == n + 2 and torch.equal(a, b)
+
+
 def _stream_pool(kind, page, hd, dev, gen):
     """A K5p stream pool of 32 pages, kv = 1: bf16 pages, or AMS-e2m2 planes
     (fp4.25-e2m2, the CacheConfig default) with only the ``k`` leaf."""
@@ -347,14 +401,19 @@ def _stream_pool(kind, page, hd, dev, gen):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("hd,hd_v,g", [(72, 64, 4), (288, 256, 40)])
-@pytest.mark.parametrize("page", [4, 16, 32, 48, 64, 128, 300])
+@pytest.mark.parametrize("page", [4, 8, 16, 32, 48, 64, 128, 300, 1100])
 @pytest.mark.parametrize("chunk", [1, 16])
 @pytest.mark.parametrize("kind", ["bf16", "ams"])
 def test_k5p_kernel_matches_plain(kind, chunk, page, hd, hd_v, g):
     """K5p, the paged absorbed-MLA stream, against its plain version: AMS
     pages within 1e-4 of max |y| (f32 order), bf16 pages within K3's rule
     (p rounded to bf16 in both; a score summed in another order can put p
-    one bf16 ulp apart, moving the output by at most 2^-8 max|v|)."""
+    one bf16 ulp apart, moving the output by at most 2^-8 max|v|). Over 4
+    slots x 8 pages the plan takes 1 rank at pages of 4, 2 at 8 and 8 from
+    16 on; pages of 300 take three segments (on bf16 pages of three whole
+    pages each); bf16 pages of 1100, wider than 8 ranks' 128 keys each,
+    take three segments each, their rest scanned for the page's max
+    first."""
     from repro_torch.core.formats import get_scheme
     from repro_torch.kernels import attention_template as T
 
@@ -382,6 +441,72 @@ def test_k5p_kernel_matches_plain(kind, chunk, page, hd, hd_v, g):
         tol = 1e-4 * max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= tol
     assert bool((got.permute(0, 2, 1, 3)[masked] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme,page,chunk", [("fp4-e2m1", 16, 1), ("fp4-e2m1", 48, 16),
+                                               ("fp4.33-e2m2", 16, 16), ("fp4.5-e2m2", 64, 1)])
+@pytest.mark.parametrize("hd,hd_v,g", [(72, 64, 4), (288, 256, 40)])
+def test_k5p_kernel_matches_plain_on_other_schemes(scheme, page, chunk, hd, hd_v, g):
+    """K5p over AMS pages of e2m1 codes (k = 1: the LSB plane holds each
+    code's mantissa bit) and of e2m2 codes shared by k = 3 and 2, within
+    1e-4 of max |y| of its plain version."""
+    from repro_torch.core.formats import get_scheme
+    from repro_torch.core.kv_quant import quantize_kv
+    from repro_torch.kernels import attention_template as T
+
+    dev = cuda_device()
+    gen = torch.Generator(device=dev).manual_seed(hd + chunk + page + 3)
+    sch = get_scheme(scheme)
+    pool = {"k": {k: t.contiguous() for k, t in quantize_kv(
+        torch.randn((32, page, 1, hd), generator=gen, device=dev), sch).items()}}
+    qf, lens, bt, masked = _paged_case(1, g, hd, page, chunk, dev, gen)
+    kw = dict(page_size=page, c=chunk, g=g, hd_v=hd_v, scheme=sch)
+    n = T.COUNT_STREAM_AMS.launches
+    got = T.paged_attention_stream_ams(qf, pool, lens, bt, **kw)
+    torch.cuda.synchronize()
+    assert T.COUNT_STREAM_AMS.launches == n + 1
+    want = T.paged_attention_stream_ams_plain(qf, pool, lens, bt, **kw)
+    assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+    assert bool((got.permute(0, 2, 1, 3)[masked] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "ams"])
+@pytest.mark.parametrize("page,chunk", [(16, 1), (16, 16), (128, 1), (128, 16)])
+def test_k5p_is_deterministic(kind, page, chunk):
+    """The ranks' (m, l, acc) merge in a fixed rank order: two launches at
+    MiniCPM3-4B's widths (8 slots, lengths up to 1024) give the same bits."""
+    from repro_torch.core.formats import get_scheme
+    from repro_torch.kernels import attention_template as T
+    from repro_torch.kernels.tuning import plan_paged_mla_attention
+
+    dev = cuda_device()
+    gen = torch.Generator(device=dev).manual_seed(70 + page + chunk)
+    MP, B = 1024 // page, 8
+    x = torch.randn((B * MP, page, 1, 288), generator=gen, device=dev)
+    if kind == "bf16":
+        pool, fn, count = {"k": x.to(torch.bfloat16)}, T.paged_attention_stream_bf16, \
+            T.COUNT_STREAM_BF16
+        kw = {}
+    else:
+        from repro_torch.core.kv_quant import quantize_kv
+
+        scheme = get_scheme("fp4.25-e2m2")
+        pool = {"k": {k: t.contiguous() for k, t in quantize_kv(x, scheme).items()}}
+        fn, count, kw = T.paged_attention_stream_ams, T.COUNT_STREAM_AMS, dict(scheme=scheme)
+    bt = torch.randperm(B * MP, generator=gen, device=dev).to(torch.int32).reshape(B, MP)
+    ends = torch.tensor([1024, 700, 1, 0, 513, 1000, 64, 999])
+    lengths = torch.clamp(ends[:, None] - chunk + 1 + torch.arange(chunk)[None], min=0)
+    q = torch.randn((B, chunk, 40, 288), generator=gen, device=dev).to(torch.bfloat16)
+    qf, lens, _, _ = T._fold_q(q, lengths.to(dev), 1, 1 / math.sqrt(96))
+    assert plan_paged_mla_attention(B, 1, 40 * chunk, 1024).cluster > 1
+    kw.update(page_size=page, c=chunk, g=40, hd_v=256)
+    n = count.launches
+    a = fn(qf, pool, lens, bt, **kw)
+    b = fn(qf, pool, lens, bt, **kw)
+    torch.cuda.synchronize()
+    assert count.launches == n + 2 and torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -1,12 +1,14 @@
-"""The Hopper launch plans of K1, K1b, K2, K4 and K5
+"""The Hopper launch plans of K1, K1b, K2, K3, K4, K5 and K5p
 (`repro_torch.kernels.tuning`), and torch emulations of what the CUDA
 kernels rely on, on the CPU.
 
 `plan_ams_matmul` tiles K1's and K1b's output and splits K over a
 thread-block cluster; `plan_contiguous_attention` / `plan_mla_attention` and
 `attention_shares` split K4's / K5's key blocks over a cluster;
-`plan_paged_attention` splits K2's visible tokens. These tests hold the
-plans to what the kernels rely on (every word row, key and token in exactly
+`plan_paged_attention` splits K2's visible tokens,
+`plan_paged_bf16_attention` / `plan_paged_mla_attention` and
+`paged_segments` K3's / K5p's. These tests hold the plans to what the
+kernels rely on (every word row, key and token in exactly
 one split, every lsb row read by the ranks whose word rows need it,
 k-group aligned K splits, clusters of at most 8, enough CTAs to fill the
 card at the served shapes, scores that fit in shared memory and K5 shares
@@ -16,10 +18,13 @@ against `contiguous_attention_plain` / `contiguous_attention_mla_plain`
 within their element rule (K5's bf16(p) bit for bit the one-rank walk's;
 forming p at a rank-local max is caught); K2's token split with each
 rank's own running max and the rank-order (m, l, acc) merge against
-`_paged_online_softmax` (an unweighted merge is caught); the paged walk of
-K3 / K5p in sub-tiles of 32 tokens (the page's max formed over every
-sub-tile before any p) against `_paged_online_softmax`; and K1b's
-`PlanesDecode` hook (the bit operations that turn 4-bit planes into bf16x2
+`_paged_online_softmax` (an unweighted merge is caught); the page-max
+contract on pages walked in sub-tiles of 32 tokens (the page's max formed
+over every sub-tile before any p); K3's and K5p's token splits against
+`_paged_online_softmax` (bf16 pages: the one-exchange prefix max, bf16(p)
+bit for bit the plain walk's, a rank-local max caught; AMS pages: each
+rank's own max and the rank-order merge, an unweighted merge caught); and
+K1b's `PlanesDecode` hook (the bit operations that turn 4-bit planes into bf16x2
 values, the lsb bits each word takes, the order x's fragments follow)
 against `code_to_value`, bit for bit.
 """
@@ -46,6 +51,7 @@ from repro_torch.kernels.attention_template import (  # noqa: E402
 from repro_torch.kernels.tuning import (  # noqa: E402
     ATT_ROWS,
     K1_GROUP_WORDS,
+    K3_SCORE_KEYS_MAX,
     MAX_CLUSTER,
     MLA_RESIDENT_KEYS,
     MLA_ROWS,
@@ -55,10 +61,13 @@ from repro_torch.kernels.tuning import (  # noqa: E402
     attention_shares,
     k1_lsb_rows,
     k1_stage_rows,
+    paged_segments,
     plan_ams_matmul,
     plan_contiguous_attention,
     plan_mla_attention,
     plan_paged_attention,
+    plan_paged_bf16_attention,
+    plan_paged_mla_attention,
     reference_block_kv,
 )
 
@@ -400,11 +409,11 @@ PA_TILE, PA_WARPS = 32, 8
 
 
 def _subtile_walk(qf, load, lens, block_table, *, page_size, c, g, pv_dtype, tile=PA_TILE):
-    """The walk of K3 and K5p (`paged_attention_kernel`) in plain torch: per page, pass 1 takes the
-    scores of every sub-tile of ``tile`` tokens that a block of 8 rows can
-    see (sub-tiles past every row of the block are skipped) and their max;
-    pass 2 forms p at that max, sub-tile by sub-tile, sums it and its PV
-    product in sub-tile order. Returns the output and, per page, bf16(p) of
+    """The page-max contract on pages walked in sub-tiles, in plain torch:
+    per page, pass 1 takes the scores of every sub-tile of ``tile`` tokens
+    that a block of 8 rows can see (sub-tiles past every row of the block
+    are skipped) and their max; pass 2 forms p at that max, sub-tile by
+    sub-tile, sums it and its PV product in sub-tile order. Returns the output and, per page, bf16(p) of
     the sub-tiles walked ([B, kv, R, page] with -1 where none)."""
     B, kv_n, R, hd = qf.shape
     row_len = lens.reshape(B, c).repeat_interleave(g, dim=1)[:, None, :]   # [B, 1, R]
@@ -762,4 +771,332 @@ def test_k2_split_walk_mutation_is_caught():
     want = _paged_online_softmax(qf, load_page, lens, bt, page_size=16, c=1, g=kw["g"],
                                  pv_dtype=torch.float32)
     bad = _k2_split_walk(qf, load_tok, lens, cluster=3, rows=8, unweighted=True, **kw)
+    assert float((bad - want).abs().max()) > 1e-4 * float(want.abs().max())
+
+
+# ------------------------------------------------------------- K3 and K5p
+@pytest.mark.parametrize("slots,chunk,max_keys,page", [(8, 1, 1024, 16), (8, 16, 1024, 16),
+                                                       (8, 1, 512, 64), (4, 16, 256, 16),
+                                                       (1, 1, 40960, 16), (8, 4, 4096, 4096),
+                                                       (4, 1, 32, 4), (2, 1, 20000, 5000)])
+def test_k3_plan_covers_every_token_once(slots, chunk, max_keys, page):
+    """Qwen2-7B (kv 4, g 7): the 16-row tiles hold every folded row; at most
+    8 ranks, no more than the 32-token tiles a slot holds; a segment holds
+    whole pages, or parts of one page wider than cluster x score_keys
+    tokens, and the segments' shares cover each visible token once, none
+    wider than the score buffer."""
+    R = 7 * chunk
+    plan = plan_paged_bf16_attention(slots, 4, R, max_keys, page)
+    assert plan.row_tiles * ATT_ROWS >= R and plan.row_tiles * ATT_ROWS - R < ATT_ROWS
+    assert 1 <= plan.cluster <= min(MAX_CLUSTER, -(-max_keys // PAGED_SUB_KEYS))
+    assert plan.score_keys % PAGED_SUB_KEYS == 0 and plan.score_keys <= K3_SCORE_KEYS_MAX
+    cap = plan.cluster * plan.score_keys
+    for ntok in (0, 1, page - 1, page + 1, max_keys - 1, max_keys):
+        covered = np.zeros(max(ntok, 1), dtype=int)
+        segs = paged_segments(ntok, page, plan.cluster, plan.score_keys)
+        for s0, s1 in segs:
+            assert s1 - s0 <= cap
+            assert s0 % page == 0 if page <= cap else s0 // page == (s1 - 1) // page
+            for lo, hi in attention_shares(s0, s1, plan.cluster):
+                assert hi - lo <= plan.score_keys
+                covered[lo:hi] += 1
+        assert (covered[:ntok] == 1).all()
+
+
+def test_k3_plan_fills_the_card_at_decode():
+    """8 slots x 4 kv heads at decode: 256 CTAs of 128-key shares (about two
+    per SM, as K2); at chunk 16 three ranks per 16-row tile, 672 CTAs of
+    352-key shares (two fit an SM); a page of 4096 tokens takes all 8 ranks
+    and one segment, a wider one segments of its own."""
+    plan = plan_paged_bf16_attention(8, 4, 7, 1024, 16)
+    assert plan.cluster == MAX_CLUSTER and plan.ctas(8, 4) == 256 and plan.score_keys == 128
+    chunk = plan_paged_bf16_attention(8, 4, 112, 1024, 16)
+    assert chunk.ctas(8, 4) >= 4 * SMS and chunk.score_keys <= 384
+    wide = plan_paged_bf16_attention(64, 4, 112, 4096, 4096)
+    assert wide.cluster == MAX_CLUSTER and wide.cluster * wide.score_keys == 4096
+    assert paged_segments(10000, 5000, MAX_CLUSTER, K3_SCORE_KEYS_MAX) == [
+        (0, 4096), (4096, 5000), (5000, 9096), (9096, 10000)]
+
+
+@pytest.mark.parametrize("slots,chunk,max_keys", [(8, 1, 1024), (8, 16, 1024), (1, 1, 64),
+                                                  (4, 4, 40960), (4, 1, 32)])
+def test_k5p_plan_keeps_every_share_resident(slots, chunk, max_keys):
+    """MiniCPM3-4B (one stream, 40 heads): the 48-row groups hold every
+    folded row; at most 8 ranks, no more than the 32-token tiles a slot
+    holds; every share of a segment stays resident (128 keys); a bf16 page
+    wider than 1024 tokens is walked in parts of 64 keys a rank."""
+    R = 40 * chunk
+    plan = plan_paged_mla_attention(slots, 1, R, max_keys)
+    assert plan.row_groups * MLA_ROWS >= R
+    assert 1 <= plan.cluster <= min(MAX_CLUSTER, -(-max_keys // PAGED_SUB_KEYS))
+    for page in (16, 48, 128):
+        if page > max_keys:
+            continue
+        for whole in (True, False):
+            for s0, s1 in paged_segments(max_keys, page, plan.cluster, MLA_RESIDENT_KEYS, whole):
+                assert all(hi - lo <= MLA_RESIDENT_KEYS
+                           for lo, hi in attention_shares(s0, s1, plan.cluster))
+    big = plan_paged_mla_attention(slots, 1, R, 8 * 1100)
+    assert big.cluster == MAX_CLUSTER and big.cluster * MLA_RESIDENT_KEYS < 1100
+    assert paged_segments(2200, 1100, big.cluster, MLA_RESIDENT_KEYS // 2)[:3] == [
+        (0, 512), (512, 1024), (1024, 1100)]
+    assert plan_paged_mla_attention(8, 1, 40, 1024).ctas(8, 1) == 64
+
+
+def _paged_scores(qf, pool_k, lens, bt, *, page, c, g):
+    """The masked scores of every folded row and token of every slot, [B,
+    kv, R, MP * page] (-2e30 added past a row's length), from one einsum:
+    the split walk and the plain walk below index the same f32 scores."""
+    B, kv_n, R, hd = qf.shape
+    T = bt.shape[1] * page
+    toks = torch.arange(T)
+    k = pool_k[bt[:, toks // page].long(), toks % page]                  # [B, T, kv, hd]
+    row_len = lens.reshape(B, c).repeat_interleave(g, dim=1)            # [B, R]
+    s = torch.einsum("bhrd,bthd->bhrt", qf, k)
+    return s + torch.where(toks[None, None, None] < row_len[:, None, :, None], 0.0, NEG_BIG)
+
+
+def _plain_page_p(S, page):
+    """bf16(p) of the plain walk at every (row, token) of S: p = exp(s - m),
+    m the clamped running max at the end of the token's page."""
+    T = S.shape[-1]
+    padded = torch.nn.functional.pad(S, (0, -T % page), value=-math.inf)
+    pages = padded.reshape(*S.shape[:-1], -1, page).amax(dim=-1)
+    m = torch.clamp(torch.cummax(pages, dim=-1).values, min=NEG_CLAMP)
+    m = m.repeat_interleave(page, dim=-1)[..., :T]
+    return torch.exp(S - m).to(torch.bfloat16).float()
+
+
+def _paged_split_walk(S, V, lens, *, c, g, page, max_keys, cluster, share_keys, rows,
+                      ams=False, local_max=False, unweighted=False):
+    """K3's and K5p's split in plain torch, in the kernels' order. Per (slot,
+    head, tile of ``rows`` rows) the visible tokens are walked in segments
+    (`paged_segments`: whole pages on bf16 pages), each split into the
+    ranks' shares (`attention_shares`). bf16 pages: each rank publishes its
+    share's max and its first page's max; a rank's base is the running max
+    of the segments walked and the lower ranks' share maxima, on its last
+    page also the first-page maxima of the higher ranks that share it; m at
+    a token is the max of the base and the rank's prefix max up to its
+    page's last share token, and p is rounded to bf16 there (``local_max``:
+    the mutation, the lower and higher ranks' maxima left out); a page
+    wider than a segment takes its max whole in its first segment (the
+    ranks also scan the page's rest), and p at it. AMS pages:
+    each rank's own max, p in f32. Steps of 64 tokens: l += p w, acc +=
+    (bf16(p) or p) w . v, w = exp(m - m_step), both rescaled by exp(m_prev -
+    m_step); the ranks' (m, l, acc) merge in rank order with weights
+    exp(m_r - m*) (``unweighted``: the mutation, none). S [B, kv, R, T] the
+    masked scores, V [B, T, kv, hd_v] the values in token order. Returns the
+    output and p (bf16 pages: bf16(p)) of every walked (row, token), -1
+    elsewhere."""
+    B, kv_n, R, T = S.shape
+    hd_v = V.shape[-1]
+    out = torch.zeros((B, kv_n, R, hd_v))
+    p_all = torch.full(S.shape, -1.0)
+    row_len = lens.reshape(B, c).repeat_interleave(g, dim=1)             # [B, R]
+    ninf = -math.inf
+    for b in range(B):
+        for h in range(kv_n):
+            for r0 in range(0, R, rows):
+                sl = slice(r0, min(R, r0 + rows))
+                nr = sl.stop - r0
+                ntok = min(int(row_len[b, sl].max()), max_keys)
+                mrun = torch.full((nr,), ninf)
+                m_r = [torch.full((nr,), NEG_CLAMP) for _ in range(cluster)]
+                l_r = [torch.zeros(nr) for _ in range(cluster)]
+                acc_r = [torch.zeros((nr, hd_v)) for _ in range(cluster)]
+                wide = not ams and page > cluster * share_keys
+                for s0, s1 in paged_segments(ntok, page, cluster, share_keys, not ams):
+                    shares = attention_shares(s0, s1, cluster)
+                    s_sh = [S[b, h, sl, lo:hi] for lo, hi in shares]
+                    smax = [x.amax(dim=-1) if x.shape[1] else torch.full((nr,), ninf)
+                            for x in s_sh]
+                    pend = min((s0 // page + 1) * page, ntok)
+                    if wide and s0 % page == 0 and pend > s1:     # the page's rest
+                        smax.append(S[b, h, sl, s1:pend].amax(dim=-1))
+                    first = [x[:, :min((lo // page + 1) * page, hi) - lo].amax(dim=-1)
+                             if hi > lo else torch.full((nr,), ninf)
+                             for x, (lo, hi) in zip(s_sh, shares)]
+                    for i, (lo, hi) in enumerate(shares):
+                        n = hi - lo
+                        if n == 0:
+                            continue
+                        s = s_sh[i]
+                        if ams:
+                            m = torch.clamp(torch.maximum(mrun, smax[i]), min=NEG_CLAMP)
+                            m = m[:, None].expand(nr, n)
+                        elif wide:
+                            m = torch.stack([mrun, *smax]).amax(dim=0)
+                            m = torch.clamp(m, min=NEG_CLAMP)[:, None].expand(nr, n)
+                        else:
+                            base, hx = mrun.clone(), torch.full((nr,), ninf)
+                            if not local_max:
+                                for q in range(i):
+                                    base = torch.maximum(base, smax[q])
+                                pe = ((hi - 1) // page + 1) * page
+                                for q in range(i + 1, cluster):
+                                    lq, hq = shares[q]
+                                    if lq < hq and lq < pe:
+                                        hx = torch.maximum(hx, first[q])
+                            toks = torch.arange(lo, hi)
+                            e = torch.clamp((toks // page + 1) * page, max=hi) - 1 - lo
+                            last = (toks // page) == (hi - 1) // page
+                            bb = torch.where(last[None], torch.maximum(base, hx)[:, None],
+                                             base[:, None])
+                            cm = torch.cummax(s, dim=-1).values
+                            m = torch.clamp(torch.maximum(cm[:, e], bb), min=NEG_CLAMP)
+                        p = torch.exp(s - m)
+                        pw = p if ams else p.to(torch.bfloat16).float()
+                        p_all[b, h, sl, lo:hi] = pw
+                        v = V[b, lo:hi, h]
+                        for k0 in range(0, n, 64):
+                            k1 = min(k0 + 64, n)
+                            mstep = m[:, k1 - 1]
+                            corr = torch.exp(m_r[i] - mstep)
+                            w = torch.exp(m[:, k0:k1] - mstep[:, None])
+                            l_r[i] = l_r[i] * corr + (p[:, k0:k1] * w).sum(dim=-1)
+                            acc_r[i] = acc_r[i] * corr[:, None] + (pw[:, k0:k1] * w) @ v[k0:k1]
+                            m_r[i] = mstep
+                    mrun = torch.stack([mrun, *smax]).amax(dim=0)
+                mx = torch.clamp(torch.stack(m_r).amax(dim=0), min=NEG_CLAMP)
+                num, den = torch.zeros((nr, hd_v)), torch.zeros(nr)
+                for i in range(cluster):
+                    w = torch.ones(nr) if unweighted else torch.exp(m_r[i] - mx)
+                    num, den = num + w[:, None] * acc_r[i], den + w * l_r[i]
+                out[b, h, sl] = num / torch.clamp(den, min=1e-20)[:, None]
+    return out, p_all
+
+
+def _paged_split_case(kind, page, chunk, seed, kv=2, g=3, hd=16, hd_v=None):
+    """5 slots x 4 pages of ``page`` tokens, lengths 0 (idle), 1, page - 1,
+    page + 1 and full (chunked: the queries of a slot end there), kv heads
+    of bf16 pages (``kind`` "bf16": values separate, or the stream's first
+    ``hd_v`` columns when given) or AMS-e2m2 pages (``kind`` "ams", fp4.25:
+    a stream, values its first ``hd_v`` restored columns). Returns qf, lens,
+    bt, the masked scores, the values in token order, a page loader for
+    `_paged_online_softmax` and the masked rows."""
+    from repro_torch.core.formats import get_scheme
+    from repro_torch.core.kv_quant import quantize_kv
+    from repro_torch.kernels.attention_template import restore_page
+
+    MP, B = 4, 5
+    rng = np.random.default_rng(seed)
+    x = {n: torch.from_numpy(rng.standard_normal((B * MP, page, kv, hd), dtype=np.float32))
+         for n in ("k", "v")}
+    if kind == "ams":
+        scheme = get_scheme("fp4.25-e2m2")
+        pl = quantize_kv(x["k"], scheme)
+        k = restore_page(pl["hi"], pl["lsb"], pl["scale"], scheme.base, scheme.k, hd)
+    else:
+        k = x["k"].to(torch.bfloat16).float()
+    v = k[..., :hd_v] if hd_v is not None else x["v"].to(torch.bfloat16).float()
+    bt = torch.from_numpy(rng.permutation(B * MP).reshape(B, MP).astype(np.int32))
+    ends = np.array([0, 1, page - 1, page + 1, MP * page])
+    nvalid = np.minimum(np.array([0, 1, chunk, chunk, chunk]), ends)
+    j = np.arange(chunk)[None]
+    lengths = np.where(j < nvalid[:, None], ends[:, None] - nvalid[:, None] + j + 1, 0)
+    lens = torch.from_numpy(lengths.reshape(-1).astype(np.int32))
+    qf = torch.from_numpy(rng.standard_normal((B, kv, chunk * g, hd), dtype=np.float32)
+                          / math.sqrt(hd))
+    S = _paged_scores(qf, k, lens, bt, page=page, c=chunk, g=g)
+    toks = torch.arange(MP * page)
+    V = v[bt[:, toks // page].long(), toks % page]                       # [B, T, kv, hd_v]
+
+    def load_page(pg):
+        return k[pg], v[pg]
+
+    masked = torch.from_numpy(np.repeat(lengths == 0, g, axis=1))          # [B, c*g]
+    return qf, lens, bt, S, V, load_page, masked
+
+
+def _split_plans(plan_cluster, plan_keys):
+    """The plan's (cluster, share keys) and narrow ones: segments of one or
+    a few pages, shares that split a page between ranks, pages wider than a
+    segment (their parts walked at the whole page's max)."""
+    return [(plan_cluster, plan_keys), (3, 64), (2, 32), (1, 32)]
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+@pytest.mark.parametrize("page", [16, 48, 64, 128])
+def test_k3_split_walk_matches_the_plain_walk(page, chunk):
+    """K3's prefix-max split: bf16(p) bit for bit the plain walk's (p at the
+    running max of its page), outputs within K3's rule (2^-8 max |v| + 1e-4
+    max |y|) of `_paged_online_softmax`, exact zeros on masked rows and the
+    idle slot; at the plan's cluster and score buffer and at narrow ones
+    whose segments hold a few pages, whose shares split a page, or whose
+    segments are narrower than a page."""
+    qf, lens, bt, S, V, load_page, masked = _paged_split_case("bf16", page, chunk, page + chunk)
+    kw = dict(c=chunk, g=3, page=page, max_keys=4 * page, rows=ATT_ROWS)
+    want = _paged_online_softmax(qf, load_page, lens, bt, page_size=page, c=chunk, g=3,
+                                 pv_dtype=torch.bfloat16)
+    plan = plan_paged_bf16_attention(5, 2, 3 * chunk, 4 * page, page)
+    p_plain = _plain_page_p(S, page)
+    tol = 2 ** -8 * float(V.abs().max()) + 1e-4 * float(want.abs().max())
+    for cluster, keys in _split_plans(plan.cluster, plan.score_keys):
+        got, p_split = _paged_split_walk(S, V, lens, cluster=cluster, share_keys=keys, **kw)
+        walked = p_split >= 0
+        assert torch.equal(p_split[walked].view(torch.int32), p_plain[walked].view(torch.int32))
+        assert float((got - want).abs().max()) <= tol
+        assert bool((got.permute(0, 2, 1, 3)[masked] == 0).all())
+    assert int(masked.sum()) > 0
+
+
+def test_k3_split_walk_mutation_is_caught():
+    """Rounding p at the rank-local max (without the lower ranks' share maxima
+    and the higher ranks' first-page maxima) moves bf16(p) off the plain
+    walk's rounding points: the bit check of
+    `test_k3_split_walk_matches_the_plain_walk` fails."""
+    qf, lens, bt, S, V, _, _ = _paged_split_case("bf16", 48, 4, 11)
+    kw = dict(c=4, g=3, page=48, max_keys=192, rows=ATT_ROWS, cluster=3, share_keys=64)
+    _, p_bad = _paged_split_walk(S, V, lens, local_max=True, **kw)
+    walked = p_bad >= 0
+    assert not torch.equal(p_bad[walked].view(torch.int32),
+                           _plain_page_p(S, 48)[walked].view(torch.int32))
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+@pytest.mark.parametrize("page", [16, 48, 64, 128])
+@pytest.mark.parametrize("kind", ["bf16", "ams"])
+def test_k5p_split_walk_matches_the_plain_walk(kind, page, chunk):
+    """K5p's split with 48-row groups (40 heads on one stream, values its
+    first columns; chunk 4: 160 rows in four groups, the last ragged). bf16
+    pages: the prefix max of K3, bf16(p) bit for bit the plain walk's and
+    outputs within K3's rule; AMS pages: each rank's own max and the
+    rank-order merge, within 1e-4 of max |y| (K2's tolerance). Masked rows
+    and the idle slot are exact zeros."""
+    qf, lens, bt, S, V, load_page, masked = _paged_split_case(
+        kind, page, chunk, 3 * page + chunk, kv=1, g=40, hd=24, hd_v=16)
+    pv = torch.float32 if kind == "ams" else torch.bfloat16
+    want = _paged_online_softmax(qf, load_page, lens, bt, page_size=page, c=chunk, g=40,
+                                 pv_dtype=pv, hd_v=16)
+    ymax = float(want.abs().max())
+    tol = 1e-4 * ymax if kind == "ams" else 2 ** -8 * float(V.abs().max()) + 1e-4 * ymax
+    plan = plan_paged_mla_attention(5, 1, 40 * chunk, 4 * page)
+    kw = dict(c=chunk, g=40, page=page, max_keys=4 * page, rows=MLA_ROWS, ams=kind == "ams")
+    for cluster, keys in _split_plans(plan.cluster, MLA_RESIDENT_KEYS):
+        got, p_split = _paged_split_walk(S, V, lens, cluster=cluster, share_keys=keys, **kw)
+        if kind == "bf16":
+            walked = p_split >= 0
+            assert torch.equal(p_split[walked].view(torch.int32),
+                               _plain_page_p(S, page)[walked].view(torch.int32))
+        assert float((got - want).abs().max()) <= tol
+        assert bool((got.permute(0, 2, 1, 3)[masked] == 0).all())
+    assert int(masked.sum()) > 0
+
+
+def test_k5p_split_walk_mutations_are_caught():
+    """bf16 pages: p at the rank-local max moves bf16(p) off the plain walk's;
+    AMS pages: merging the ranks' partials without their exp(m_r - m*)
+    weights is far outside K2's tolerance."""
+    qf, lens, bt, S, V, _, _ = _paged_split_case("bf16", 64, 1, 5, kv=1, g=40, hd=24, hd_v=16)
+    kw = dict(c=1, g=40, page=64, max_keys=256, rows=MLA_ROWS, cluster=3, share_keys=64)
+    _, p_bad = _paged_split_walk(S, V, lens, local_max=True, **kw)
+    walked = p_bad >= 0
+    assert not torch.equal(p_bad[walked].view(torch.int32),
+                           _plain_page_p(S, 64)[walked].view(torch.int32))
+    qf, lens, bt, S, V, load_page, _ = _paged_split_case("ams", 16, 1, 6, kv=1, g=40, hd=24,
+                                                         hd_v=16)
+    want = _paged_online_softmax(qf, load_page, lens, bt, page_size=16, c=1, g=40,
+                                 pv_dtype=torch.float32, hd_v=16)
+    kw.update(page=16, max_keys=64, ams=True, share_keys=32)
+    bad, _ = _paged_split_walk(S, V, lens, unweighted=True, **kw)
     assert float((bad - want).abs().max()) > 1e-4 * float(want.abs().max())
