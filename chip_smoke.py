@@ -18,9 +18,11 @@ Phases, each fatal on failure:
      bf16 torch.matmul times, and the bound from bytes and operations; one
      layer's 7 projections summed at each B (decode and a prefill chunk);
   4. K1b (AMS planes dequant-matmul), the same for fp4.25-e2m2, plus every
-     other planes scheme at one small ragged shape, and one decode layer of
-     fp6-e2m3 on K1b's CUDA-core kernel (per_word 4 / 5 / 6, no served
-     path), its 7 launches counted, timed against its bound and dense bf16;
+     other planes scheme at one small ragged shape, and, for each decode
+     hook that no served path reaches (per_word 4 / 5 / 6: fp8, fp6-e2m3,
+     fp5-e2m2), one decode layer's 7 launches counted and every Qwen2-7B
+     projection at B in {8, 128} against the plain version, one decode and
+     one prefill-chunk layer timed against their bounds and dense bf16;
   5. K2 (paged AMS-e2m2 flash-decode) against its plain version at kv=4,
      g=7, hd=128, pages of 16, 64 and 128 tokens, 8 slots, lengths up to
      1024, chunk in {1, 16}, with an idle slot and masked rows that must
@@ -58,7 +60,8 @@ Phases, each fatal on failure:
       non-kernel impls ("fused_ref" matmuls, "ref" attention) on the card,
       the kernel engine's streams launching every kernel of its path; the
       FP4.25 path once more over pages of 64 tokens (K1b and K2's walk of a
-      page in two sub-tiles).
+      page in two sub-tiles), and once with fp6-e2m3 weights (K1b's per_word
+      5 hook, K2).
 
 A line ``compare {...}`` sets the five paths' decode tick and device-busy
 ms side by side. The line before the last is one JSON object with a row
@@ -305,30 +308,34 @@ def phase_k1b(torch, dev, timed: bool, full: bool):
                                      rel_err=rel)))
     layer, err = _matmul_phase(torch, dev, "K1b", "fp4.25-e2m2", gen, kernel, plain, timed,
                                full)
-    return layer, max(max_err, err), _k1b_cuda_cores(torch, dev, gen, kernel, plain, timed, full)
+    wide = {s: _k1b_hook(torch, dev, gen, s, kernel, plain, timed, full) for s in K1B_WIDE}
+    return layer, max(max_err, err), wide
 
 
-K1B_CC_SCHEME = "fp6-e2m3"      # per_word 5: K1b's CUDA-core kernel
+# one scheme per decode hook of K1b that no served path reaches: per_word 4,
+# 5 and 6 (the paper's fp8, fp6 and fp5)
+K1B_WIDE = ("fp8", "fp6-e2m3", "fp5-e2m2")
 
 
-def _k1b_cuda_cores(torch, dev, gen, kernel, plain, timed: bool, full: bool):
-    """K1b's CUDA-core kernel (`ams_matmul_planes_kernel`, the planes of
-    per_word 4 / 5 / 6), which no served path reaches: one decode layer of
-    fp6-e2m3 weights at Qwen2-7B's shapes, first its 7 projections through
-    the wrapper with the launch counts zeroed just before and read just
-    after, then each shape against its plain version with times, the bound
-    and dense bf16. Returns the layer's row, the error and the launches."""
+def _k1b_hook(torch, dev, gen, scheme: str, kernel, plain, timed: bool, full: bool):
+    """One of K1b's decode hooks that no served path reaches: one decode
+    layer of ``scheme`` weights at Qwen2-7B's shapes, first its 7
+    projections through the wrapper with the launch counts zeroed just
+    before and read just after, then each shape at B 8 and 128 against its
+    plain version with times, the bound and dense bf16. Returns the decode
+    layer's row, the error, the launches and the per_word."""
     from repro_torch.core.formats import get_scheme
     from repro_torch.core.packing import make_layout
     from repro_torch.kernels.ams_matmul import COUNT_PLANES, planes_on_tensor_cores
 
-    if planes_on_tensor_cores(make_layout(get_scheme(K1B_CC_SCHEME))):
-        fail(f"K1b: {K1B_CC_SCHEME} does not take the CUDA-core kernel")
+    lay = make_layout(get_scheme(scheme))
+    if not planes_on_tensor_cores(lay):
+        fail(f"K1b: {scheme} has no decode hook")
     shapes = QWEN_SHAPES if full else TINY_SHAPES
     B = 8 if full else 2
     layer = []
     for name, K, N, mult in shapes:
-        pw, _ = _packed_weight(torch, dev, gen, K1B_CC_SCHEME, K, N)
+        pw, _ = _packed_weight(torch, dev, gen, scheme, K, N)
         layer += [(pw, _padded_x(torch, dev, gen, K, pw, B))] * mult
     counts = all_counts()
     for cnt in counts:
@@ -338,15 +345,18 @@ def _k1b_cuda_cores(torch, dev, gen, kernel, plain, timed: bool, full: bool):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     launches = {cnt.name: cnt.launches for cnt in counts}
-    log("K1b cuda-core entry " + json.dumps(dict(scheme=K1B_CC_SCHEME, B=B, launches=launches)))
+    plain_cuda = sum(cnt.plain_on_cuda for cnt in counts)
+    log("K1b entry " + json.dumps(dict(scheme=scheme, per_word=lay.per_word, B=B,
+                                       launches=launches, plain_calls_on_cuda=plain_cuda)))
     if dev.type == "cuda" and (launches[COUNT_PLANES.name] != len(layer)
-                               or sum(launches.values()) != len(layer)):
-        fail(f"K1b: one {K1B_CC_SCHEME} decode layer did not launch the planes kernel once per "
-             f"projection: {launches}")
+                               or sum(launches.values()) != len(layer) or plain_cuda):
+        fail(f"K1b: one {scheme} decode layer did not launch the planes kernel once per "
+             f"projection: {launches}, plain versions on CUDA tensors {plain_cuda}")
     del layer
-    row, err = _matmul_phase(torch, dev, "K1b-cc", K1B_CC_SCHEME, gen, kernel, plain, timed,
-                             full, decode_only=True)
-    return dict(layer=row, err=err, launches=launches[COUNT_PLANES.name])
+    row, err = _matmul_phase(torch, dev, f"K1b-pw{lay.per_word}", scheme, gen, kernel, plain,
+                             timed, full)
+    return dict(layer=row, err=err, launches=launches[COUNT_PLANES.name],
+                per_word=lay.per_word)
 
 
 # --------------------------------------------------------------------- K2
@@ -1005,8 +1015,10 @@ def profile_decode(torch, eng, rng, path: str, ticks: int = 3):
     return res
 
 
-def phase_consistency(torch, dev, full: bool, path: str = "fp5.33", page: int = 0):
-    """``page``: the paged cache's page size (0: 16 at full width, 8 tiny)."""
+def phase_consistency(torch, dev, full: bool, path: str = "fp5.33", page: int = 0,
+                      scheme: str = ""):
+    """``page``: the paged cache's page size (0: 16 at full width, 8 tiny);
+    ``scheme``: weights other than the path's (its kernels the same)."""
     import numpy as np
 
     from repro_torch.cache import CacheConfig
@@ -1015,7 +1027,8 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33", page: int = 
     from repro_torch.launch.engine import ServeEngine, init_serving_params
     from repro_torch.models import decode_step, make_cache
 
-    arch, scheme, kind = (PATHS[path][k] for k in ("arch", "scheme", "kind"))
+    arch, kind = PATHS[path]["arch"], PATHS[path]["kind"]
+    scheme = scheme or PATHS[path]["scheme"]
     page = page or (16 if full else 8)
 
     def config(impl, attn):
@@ -1070,7 +1083,8 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33", page: int = 
     for i, (a, b) in enumerate(zip(streams["kernel"], streams["fused_ref"])):
         first = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
         diverge.append(first)
-    res = dict(path=path, depth=cfg.num_layers, logits_max_abs_diff=d, logits_rel_diff=rel,
+    res = dict(path=path, scheme=scheme, depth=cfg.num_layers, logits_max_abs_diff=d,
+               logits_rel_diff=rel,
                tolerance=LOGIT_TOL, first_tick_argmax_equal=same_argmax,
                streams_equal=all(x is None for x in diverge),
                first_diverging_token=diverge, kernel_launches=launches)
@@ -1078,20 +1092,21 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33", page: int = 
         res["page_size"] = page
     log("consistency " + json.dumps(res))
     if not rel <= LOGIT_TOL:
-        fail(f"consistency[{path}]: first-tick logits differ by {rel:.3e} > {LOGIT_TOL}")
+        fail(f"consistency[{path}, {scheme}]: first-tick logits differ by {rel:.3e} > "
+             f"{LOGIT_TOL}")
     if dev.type == "cuda" and sorted(launches) != sorted(PATHS[path]["kernels"]):
-        fail(f"consistency[{path}]: the kernel engine's streams launched {launches}, not "
-             f"every kernel of the path and no other")
+        fail(f"consistency[{path}, {scheme}]: the kernel engine's streams launched "
+             f"{launches}, not every kernel of the path and no other")
     return res
 
 
-def ptxas_report(build, kernels=("ams_matmul_mma_kernel", "ams_matmul_planes_kernel",
-                                 "k4_kernel", "k5_kernel", "k2_kernel", "k3_kernel",
-                                 "k5p_kernel")):
+def ptxas_report(build, kernels=("ams_matmul_mma_kernel", "k4_kernel", "k5_kernel",
+                                 "k2_kernel", "k3_kernel", "k5p_kernel")):
     """One line per instantiation of the named kernels from the build's
     ``-Xptxas -v`` logs: registers, shared memory, stack and spills (K1 and
-    K1b's tensor-core kernel, one line per decode hook, tile and x copy;
-    K1b's CUDA-core kernel; K4; K5; K2; K3; K5p on bf16 and AMS pages)."""
+    K1b's kernel, one line per decode hook (`Fp533Decode`,
+    `PlanesDecode<HB, KS>`), tile and x copy; K4; K5; K2; K3; K5p on bf16
+    and AMS pages)."""
     rows = []
     for name in build.SOURCES:
         logf = build.library_path(name).with_suffix(".log")
@@ -1171,6 +1186,7 @@ def main():
             phase_serve(torch, dev, full=False, path=path)
             phase_consistency(torch, dev, full=False, path=path)
         phase_consistency(torch, dev, full=False, path="fp4.25", page=16)
+        phase_consistency(torch, dev, full=False, path="fp4.25", scheme="fp6-e2m3")
         log("rehearsal finished on the CPU: no result")
         sys.exit(2)
     if not torch.cuda.is_available():
@@ -1203,7 +1219,7 @@ def main():
     ptxas_report(build)
 
     k1, k1_err = phase_k1(torch, dev, timed=True, full=True)
-    k1b, k1b_err, k1b_cc = phase_k1b(torch, dev, timed=True, full=True)
+    k1b, k1b_err, k1b_wide = phase_k1b(torch, dev, timed=True, full=True)
     k2, k2_err = phase_k2(torch, dev, timed=True, full=True)
     k3, k3_err = phase_k3(torch, dev, timed=True, full=True)
     k4, k4_err = phase_k4(torch, dev, timed=True, full=True)
@@ -1214,6 +1230,7 @@ def main():
         served[path] = phase_serve(torch, dev, full=True, path=path)
         phase_consistency(torch, dev, full=True, path=path)
     phase_consistency(torch, dev, full=True, path="fp4.25", page=64)
+    phase_consistency(torch, dev, full=True, path="fp4.25", scheme="fp6-e2m3")
     log("compare " + json.dumps({
         path: dict(arch=r["arch"], scheme=r["scheme"], cache=r["cache"],
                    decode_tick_ms=r["profile"]["decode_tick_ms"],
@@ -1226,8 +1243,8 @@ def main():
     # boolean mask; null for K1-K3 and K5p, because no single PyTorch call
     # computes a dequant-matmul from packed AMS planes, or paged attention
     # through a block table. launches: the count on the path's served run;
-    # K5p and K1b's CUDA-core kernel, which no served path reaches, their
-    # phases' runs of the entry (path null)
+    # K5p and K1b's per_word 4 / 5 / 6 hooks, which no served path reaches,
+    # their phases' runs of the entry (path null)
     def row(name, src, replaces, path, res, err, launches=None):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
                     replaces=replaces, path=path,
@@ -1241,9 +1258,9 @@ def main():
             "fp5.33", k1, k1_err),
         row("ams_matmul_planes", "ams_matmul.cu", "src/repro/kernels/ams_matmul.py:95",
             "fp4.25", k1b, k1b_err),
-        row("ams_matmul_planes_cuda_cores", "ams_matmul.cu",
-            "src/repro/kernels/ams_matmul.py:95", None, k1b_cc["layer"], k1b_cc["err"],
-            k1b_cc["launches"]),
+        *[row(f"ams_matmul_planes_pw{r['per_word']}_{sc}", "ams_matmul.cu",
+              "src/repro/kernels/ams_matmul.py:95", None, r["layer"], r["err"], r["launches"])
+          for sc, r in k1b_wide.items()],
         row("paged_attention_ams", "paged_attention.cu",
             "src/repro/kernels/attention_template.py:399", "fp5.33", k2, k2_err),
         row("paged_attention_bf16", "paged_attention.cu",

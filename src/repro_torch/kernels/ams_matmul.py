@@ -3,13 +3,13 @@ src/repro/kernels/ams_matmul.py: ams_matmul_padded -> _kernel_fp533 for the
 fp533 container, _kernel_planes for the planes container).
 
 `ams_matmul_fp533` (K1) and `ams_matmul_planes` (K1b) are the wrappers: on
-CUDA tensors they launch the CUDA kernels in ``csrc/ams_matmul.cu`` (what
-bounds them and how their design answers that are noted there), on CPU
+CUDA tensors they launch the CUDA kernel in ``csrc/ams_matmul.cu`` (what
+bounds it and how its design answers that are noted there), on CPU
 tensors they run `ams_matmul_fp533_plain` / `ams_matmul_planes_plain`, the
-kernels' plain torch versions. K1 and, for the planes of 4-bit hi fields
-(fp4.25, fp4.33, fp4.5, fp4), K1b run one tensor-core kernel behind a
-decode hook per container, planned by `tuning.plan_ams_matmul`; K1b's other
-schemes keep a CUDA-core kernel. All compute
+kernels' plain torch versions. K1 and K1b run one tensor-core kernel
+behind a decode hook per container (fp533; the planes of every hi width
+from 4 to 8 bits, i.e. per_word 8, 6, 5 and 4), planned by
+`tuning.plan_ams_matmul`. All compute
 
     y[b, n] = (bf16(x)[b, :] @ DeQ(W)[:, n]) * scale[n]
 
@@ -167,65 +167,59 @@ def _check_planes(x, hi, lsb, scale, lay: PackLayout):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_planes():
-    fn = library("ams_matmul").ams_matmul_planes
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
 def _kernel_planes_mma():
     fn = library("ams_matmul").ams_matmul_planes_mma
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def planes_on_tensor_cores(lay: PackLayout) -> bool:
-    """Whether K1b takes ``lay`` through the tensor-core kernel's
-    `PlanesDecode` hook: 4-bit hi fields (per_word 8) of e2m2 codes with a
-    shared LSB (k = 2, 3, 4) or of whole e2m1 codes (k = 1), bias 1. The
-    other planes schemes go through the CUDA-core kernel."""
-    fmt, k = lay.scheme.base, lay.scheme.k
-    return (lay.per_word == 8 and lay.hi_bits == 4 and fmt.exp_bits == 2 and fmt.bias == 1
-            and ((fmt.man_bits == 2 and 2 <= k <= 4) or (fmt.man_bits == 1 and k == 1)))
+    """Whether K1b's tensor-core kernel takes ``lay``: a decode hook exists
+    for hi fields of 4 to 8 bits (per_word 8, 6, 5, 4) with a shared-LSB
+    group k of at most 4, over a base format at its standard bias, i.e.
+    every planes layout of a registered scheme (fp5.33-e2m3 packed as planes
+    too). Not taken: 3-bit fields (e2m1 with k > 1, per_word 10) and k > 4."""
+    fmt = lay.scheme.base
+    return (lay.per_word in (4, 5, 6, 8) and 4 <= lay.hi_bits <= 8 and lay.scheme.k <= 4
+            and fmt.bias == (1 << (fmt.exp_bits - 1)) - 1)
 
 
 def ams_matmul_planes(x: torch.Tensor, hi: torch.Tensor, lsb: torch.Tensor,
                       scale: torch.Tensor, lay: PackLayout) -> torch.Tensor:
     """K1b wrapper: x [B, Kp], hi [Kp/per_word, N], lsb [Kp/(32k), N] (any
     [r, N] when k == 1), scale [N] -> y [B, N] f32. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise: the tensor-core
-    kernel where `planes_on_tensor_cores`, the CUDA-core one otherwise."""
+    plain version; CUDA tensors launch the kernel (tiles and K split from
+    `tuning.plan_ams_matmul`) or raise. The kernel reads x as bf16 rows at a
+    stride of a multiple of 8 (16-byte copies): x is taken as it is when it
+    has that layout (a view of wider rows too), else copied into it once."""
     _check_planes(x, hi, lsb, scale, lay)
     if x.device.type == "cpu":
         return ams_matmul_planes_plain(x, hi, lsb, scale, lay)
     check_device(x)
     k, fmt = lay.scheme.k, lay.scheme.base
-    mma = planes_on_tensor_cores(lay)
-    if not mma and (lay.per_word not in (4, 5, 6) or k > 4):
-        raise NotImplementedError(f"K1b takes the 4-bit planes of e2m2 / e2m1 codes, or "
-                                  f"per_word in (4, 5, 6) and k <= 4; got {lay.per_word}, {k}")
+    if not planes_on_tensor_cores(lay):
+        raise NotImplementedError(f"K1b takes per_word in (4, 5, 6, 8) and k <= 4; got "
+                                  f"{lay.per_word}, {k}")
     if not (hi.is_contiguous() and lsb.is_contiguous() and scale.is_contiguous()):
         raise ValueError("hi, lsb and scale must be contiguous")
     B, N, Kw = x.shape[0], hi.shape[1], hi.shape[0]
-    xb = x.to(torch.bfloat16).contiguous()
     y = torch.empty((B, N), dtype=torch.float32, device=x.device)
-    if mma:
-        if B == 0 or N == 0 or Kw == 0:      # nothing to launch: y is 0
-            return y.zero_()
-        if xb.data_ptr() % 16:               # the kernel copies x in 16-byte pieces
-            xb = xb.clone()
-        plan = plan_ams_matmul(B, Kw, N, container="planes", k=k)
-        rc = _kernel_planes_mma()(xb.data_ptr(), hi.data_ptr(), lsb.data_ptr(),
-                                  scale.data_ptr(), y.data_ptr(), B, Kw, N,
-                                  lsb.shape[0] if k > 1 else 0, k, plan.tn, plan.nt,
-                                  plan.cluster, plan.split_words, stream_ptr(x.device))
-    else:
-        rc = _kernel_planes()(xb.data_ptr(), hi.data_ptr(), lsb.data_ptr(), scale.data_ptr(),
-                              y.data_ptr(), B, Kw, N, lay.per_word, lay.hi_bits, k,
-                              fmt.man_bits, fmt.exp_bits, fmt.bias, stream_ptr(x.device))
+    if B == 0 or N == 0 or Kw == 0:          # nothing to launch: y is 0
+        return y.zero_()
+    Kp = x.shape[1]
+    ldx = x.stride(0) if B > 1 else -(-Kp // 8) * 8
+    if not (x.dtype == torch.bfloat16 and x.stride(1) == 1 and ldx % 8 == 0 and ldx >= Kp
+            and x.data_ptr() % 16 == 0):
+        ldx = -(-Kp // 8) * 8
+        xb = torch.empty((B, ldx), dtype=torch.bfloat16, device=x.device)
+        xb[:, :Kp].copy_(x)                  # columns past Kp are never read
+        x = xb
+    plan = plan_ams_matmul(B, Kw, N, container="planes", k=k, per_word=lay.per_word)
+    rc = _kernel_planes_mma()(x.data_ptr(), hi.data_ptr(), lsb.data_ptr(), scale.data_ptr(),
+                              y.data_ptr(), B, Kw, N, lsb.shape[0] if k > 1 else 0, ldx,
+                              lay.hi_bits, k, fmt.man_bits, fmt.bias, plan.tn, plan.nt,
+                              plan.cluster, plan.split_words, stream_ptr(x.device))
     if rc != 0:
         raise RuntimeError(f"ams_matmul_planes launch failed: cudaError {rc}")
     COUNT_PLANES.launches += 1

@@ -9,19 +9,23 @@
 // K1: W is fp5.33-e2m3: each int32 word of hi[Kp/6, N] holds 6 consecutive
 // K positions of one column (two 16-bit halves, each three 5-bit high parts
 // plus the group's shared mantissa LSB at bit 15). K1b: the planes
-// container, hi[Kp/PW, N] with PW = 32 / hi_bits codes per word and a
-// separate lsb plane (see `PlanesDecode` and, for the schemes it does not
-// take, `ams_matmul_planes_kernel` below).
+// container, hi[Kp/PW, N] with PW = 32 / HB codes of HB bits per word (field
+// j of word kw at bit HB * j holds K position PW * kw + j); with a shared
+// LSB (k > 1) the field is the code's high part and lsb[Kp/(32k), N] holds
+// one LSB per k-group (group g = position / k at bit g & 31 of row g >> 5).
 //
-// Bound: at decode (B = slots) the kernel streams 4/6 byte (fp4.25: 4.25/8)
-// per weight once and does 2*B operations per weight, far below the H100's
-// operations per byte, so it is bound by device-memory bytes; at prefill
-// rows (B = slots * chunk = 128) the products approach the bf16
-// tensor-core rate.
+// Bound: at decode (B = slots) the kernel streams HB/8 byte (fp533: 5.33/8;
+// shared LSBs add 1/(8k)) per weight once and does 2*B operations per
+// weight, far below the H100's operations per byte, so it is bound by
+// device-memory bytes; at prefill rows (B = slots * chunk = 128) the
+// products approach the bf16 tensor-core rate.
 //
 // Design (sm_90a), one kernel template `ams_matmul_mma_kernel` behind a
-// decode hook per container (`Fp533Decode`; `PlanesDecode` for the planes
-// of per_word 8, i.e. fp4.25, fp4.33, fp4.5 and fp4):
+// decode hook per container: `Fp533Decode`, and `PlanesDecode<HB, KS, M>`
+// for the planes of every hi width HB = 4..8, shared-LSB group KS = 1..4
+// and base format of M mantissa bits (fp4.25 / 4.33 / 4.5 / fp4: HB 4; fp5
+// and fp5.33 as planes: HB 5; fp6: HB 6; fp8: HB 8; the other base formats'
+// layouts alike):
 //  * Products on the tensor cores with swapped operands, as the TPU kernel
 //    does a bf16 x bf16 -> f32 dot on the decoded lattice: mma.sync
 //    m16n8k16 with A = 16 output columns x 16 K of the decoded weight and
@@ -30,12 +34,13 @@
 //    bits and x is rounded to bf16, so every product is exact and the
 //    result differs from the plain version only in the f32 order.
 //  * The decode goes straight into A fragments (the hooks, described
-//    there): 8 word rows are one k-group (48 K for fp533, 64 for the
-//    planes); the thread with lane quad index t owns word rows 2t and 2t+1
-//    of two adjacent columns. One 32-bit operation decodes two values of a
-//    word into a bf16x2 (~16 instructions per fp533 word). The K order
-//    inside the group is free as long as x's B fragments follow it; they
-//    are permuted from shared loads with byte permutes.
+//    there): a k-group is one block of 8 word rows (two for PW = 5, whose
+//    two words hold 10 K, not a multiple of the 4 K a fragment takes per
+//    column and k-step); the thread with lane quad index t owns word rows 2t
+//    and 2t+1 of each block, of two adjacent columns. A few 32-bit
+//    operations decode two values of a word into a bf16x2. The K order
+//    inside the group is free as long as x's B fragments follow it; they are
+//    permuted from shared loads with byte permutes (`x_pairs`).
 //  * With one n-tile (decode) the k-steps of a group accumulate into
 //    independent accumulator sets, so the mma.sync chain stays short.
 //  * The card is filled at every projection shape by the plan of
@@ -50,12 +55,13 @@
 //    the lsb rows they take their LSBs from: a rank whose split ends inside
 //    an lsb row reads that row, as the next rank does) and x's matching K
 //    slice, 16-byte cp.async for the weights (4 bytes at ragged N) and the
-//    widest x copy its row stride allows; three stages stay in flight while
-//    one is decoded (~48 KB per CTA at decode for fp533, ~54 KB for the
-//    planes; 4 CTAs per SM).
+//    widest x copy its row stride allows (the planes take x's rows at a
+//    stride of a multiple of 8 bf16, so 16 bytes; a copy that runs past the
+//    split's last K position reads only up to it and zero-fills the rest);
+//    three stages stay in flight while one is decoded (~48 KB per CTA at
+//    decode for fp533, ~54 KB for the 4-bit planes; 4 CTAs per SM).
 // Shared-memory strides are padded so the fragment loads are free of bank
-// conflicts (weight rows TN + 4 words, x rows = 16 (fp533) or 8 (planes)
-// mod 64 bf16).
+// conflicts (weight rows TN + 4 words, x rows by each hook's kXMod).
 // Known limit: at decode the kernel is bound by instruction issue, not
 // bytes: ~24 instructions per fp533 word (the decode, x's fragments, the
 // copies), plus per-CTA fixed costs (the ring's prologue, the cluster
@@ -71,21 +77,76 @@
 
 namespace cg = cooperative_groups;
 
-// K1b's fixed tile (below)
-#define K1_COLS 32
-#define K1_WARPS 8
-#define K1_ROWS 8
-#define K1_CHUNK_WORDS 64
-
 #define K1_STAGES 4
 
+// x global -> shared: XV bytes, of which the first `bytes` are read and the
+// rest zero-filled (0: all zeros; src is then not read)
+template <int XV>
+__device__ __forceinline__ void cp_async_x(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (XV == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+                 "n"(XV), "r"(bytes));
+}
+
+// x's pairs of K positions for the pair order of the hooks below, from the
+// thread's 2 * PW K positions of one block in natural order (xr: 16-byte
+// aligned for PW 8 and 4, 8 for PW 6, 4 for PW 5): bf16x2 of (lo, hi)
+template <int PW>
+__device__ __forceinline__ void x_pairs(const __nv_bfloat16* xr, uint32_t* p) {
+  if constexpr (PW == 8) {
+    const uint4 q0 = *reinterpret_cast<const uint4*>(xr);
+    const uint4 q1 = *reinterpret_cast<const uint4*>(xr + 8);
+    // (0,4) (1,5) (2,6) (3,7) (8,12) (9,13) (10,14) (11,15)
+    p[0] = __byte_perm(q0.x, q0.z, 0x5410);
+    p[1] = __byte_perm(q0.x, q0.z, 0x7632);
+    p[2] = __byte_perm(q0.y, q0.w, 0x5410);
+    p[3] = __byte_perm(q0.y, q0.w, 0x7632);
+    p[4] = __byte_perm(q1.x, q1.z, 0x5410);
+    p[5] = __byte_perm(q1.x, q1.z, 0x7632);
+    p[6] = __byte_perm(q1.y, q1.w, 0x5410);
+    p[7] = __byte_perm(q1.y, q1.w, 0x7632);
+  } else if constexpr (PW == 6) {
+    const uint2 q0 = *reinterpret_cast<const uint2*>(xr);
+    const uint2 q1 = *reinterpret_cast<const uint2*>(xr + 4);
+    const uint2 q2 = *reinterpret_cast<const uint2*>(xr + 8);
+    // (0,3) (1,4) (2,5) (6,9) (7,10) (8,11)
+    p[0] = __byte_perm(q0.x, q0.y, 0x7610);
+    p[1] = __byte_perm(q0.x, q1.x, 0x5432);
+    p[2] = __byte_perm(q0.y, q1.x, 0x7610);
+    p[3] = __byte_perm(q1.y, q2.x, 0x7610);
+    p[4] = __byte_perm(q1.y, q2.y, 0x5432);
+    p[5] = __byte_perm(q2.x, q2.y, 0x7610);
+  } else if constexpr (PW == 5) {
+    const uint32_t* u = reinterpret_cast<const uint32_t*>(xr);
+    const uint32_t u0 = u[0], u1 = u[1], u2 = u[2], u3 = u[3], u4 = u[4];
+    // (0,3) (1,4) (5,8) (6,9) (2,7)
+    p[0] = __byte_perm(u0, u1, 0x7610);
+    p[1] = __byte_perm(u0, u2, 0x5432);
+    p[2] = __byte_perm(u2, u4, 0x5432);
+    p[3] = __byte_perm(u3, u4, 0x7610);
+    p[4] = __byte_perm(u1, u3, 0x7610);
+  } else {
+    static_assert(PW == 4, "x_pairs: PW in 4, 5, 6, 8");
+    const uint4 q = *reinterpret_cast<const uint4*>(xr);
+    // (0,2) (1,3) (4,6) (5,7)
+    p[0] = __byte_perm(q.x, q.y, 0x5410);
+    p[1] = __byte_perm(q.x, q.y, 0x7632);
+    p[2] = __byte_perm(q.z, q.w, 0x5410);
+    p[3] = __byte_perm(q.z, q.w, 0x7632);
+  }
+}
+
 // The decode hooks: one k-group of kGroupWords packed word rows in shared
-// memory -> the thread's A fragments of its kSteps k-steps, and x's
-// 2 * kPerWord K positions of the thread -> the matching B fragments.
-// kPerWord: K positions per word; kShare: K positions per shared-LSB group
-// of a separate lsb plane that rides in the ring beside the word rows (0:
-// none); kXMod: the x row stride mod 64 bf16 that keeps the fragment loads
-// free of bank conflicts.
+// memory -> the thread's A fragments of its kSteps k-steps, and x's K
+// positions of the thread -> the matching B fragments. kPerWord: K
+// positions per word; kShare: K positions per shared-LSB group of a
+// separate lsb plane that rides in the ring beside the word rows (0: none);
+// kXMod, kXPeriod: the x row stride mod kXPeriod bf16 that keeps the
+// fragment loads free of bank conflicts.
 //
 // fp533: the two 16-bit halves of a word have the same layout, so one
 // 32-bit operation decodes value j of both halves at once, straight into a
@@ -101,6 +162,7 @@ struct Fp533Decode {
   static constexpr int kSteps = 3;                  // 48 K per group
   static constexpr int kShare = 0;
   static constexpr int kXMod = 16;
+  static constexpr int kXPeriod = 64;
 
   // {value j of half 0, value j of half 1} of word w, j = 0, 1, 2
   __device__ __forceinline__ static void word_pairs(uint32_t w, uint32_t* p) {
@@ -140,80 +202,144 @@ struct Fp533Decode {
     }
   }
 
-  // xr: x's 12 K positions of the thread (natural order, 8-byte aligned)
-  __device__ __forceinline__ static void x_fragments(const __nv_bfloat16* xr,
+  // xg: x's K positions of the group in the thread's row (8-byte aligned)
+  __device__ __forceinline__ static void x_fragments(const __nv_bfloat16* xg, int t,
                                                      uint32_t (&b)[kSteps][2]) {
-    const uint2 q0 = *reinterpret_cast<const uint2*>(xr);
-    const uint2 q1 = *reinterpret_cast<const uint2*>(xr + 4);
-    const uint2 q2 = *reinterpret_cast<const uint2*>(xr + 8);
-    // pairs of K positions: (0,3) (1,4) | (2,5) (6,9) | (7,10) (8,11)
-    b[0][0] = __byte_perm(q0.x, q0.y, 0x7610);
-    b[0][1] = __byte_perm(q0.x, q1.x, 0x5432);
-    b[1][0] = __byte_perm(q0.y, q1.x, 0x7610);
-    b[1][1] = __byte_perm(q1.y, q2.x, 0x7610);
-    b[2][0] = __byte_perm(q1.y, q2.y, 0x5432);
-    b[2][1] = __byte_perm(q2.x, q2.y, 0x7610);
+    uint32_t p[2 * kSteps];
+    x_pairs<6>(xg + 12 * t, p);
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      b[s][0] = p[2 * s];
+      b[s][1] = p[2 * s + 1];
+    }
   }
 };
 
-// planes with 4-bit hi fields (per_word 8): e2m2 codes whose mantissa LSB
-// is shared by KS = 2, 3 or 4 K positions (fp4.5, fp4.33, fp4.25), or full
-// e2m1 codes (KS = 1, fp4). Field j of a word (K position j) sits at bit
-// 4j, so fields j and j + 4 are exactly 16 bits apart and one 32-bit
-// shift-and-mask builds the bf16x2 of K positions j and j + 4: the field's
-// low 3 bits (E and the top mantissa bit; e2m1: E and M) go to bf16 bits
-// 6..8 and its sign to bit 15, the shared LSB (e2m2) to bit 5, so the bf16
-// is S << 15 | (E << m | M) << (7 - m), 2^-126 times the value (bias 1 for
-// both), normals and subnormals alike: one bf16x2 multiply by 2^126, as in
-// fp533. The thread's 16 K positions (words W0 = 0..7 and W1 = 8..15) fill
-// its k-step slots in the order 0 4 1 5 | 2 6 3 7 | 8 12 9 13 | 10 14 11 15.
-// The LSB of K position p is bit (g & 31) of lsb row g >> 5, g = p / KS;
-// a word's 8 positions take the bits from G0 = 8 kw / KS on (two bits of
-// one lsb word for fp4.25, the same for the word's four pairs).
-template <int KS>
+// The planes of HB-bit fields, PW = 32 / HB per word, shared-LSB group KS
+// (1: whole codes), of the base format with M mantissa bits and HB - M - 1
+// (KS = 1) or HB - M (KS > 1) exponent bits at the standard bias 2^(e-1) -
+// 1. The value trick of fp533 holds for every base format: the bf16 bits
+// S << 15 | (E << M | Mant) << (7 - M) are 2^-(127 - bias) times the code's
+// value, normals and subnormals alike, so one bf16x2 multiply by
+// 2^(127 - bias) gives two exact values. A field holds the code's magnitude
+// E << M | Mant (KS = 1) or its high part (KS > 1, the LSB from the lsb
+// plane) in its low HB - 1 bits and the sign above them. The format is a
+// template constant, so every shift and mask is an immediate.
+//  * Pairs 16 bits apart: field j pairs with field j + kLift. Where the two
+//    are not 16 bits apart already (HB 4: fields j, j + 4; HB 8: j, j + 2)
+//    one lift moves the fields from kLift on into the upper half at the
+//    offsets of fields 0, 1, ... (HB 5: + 1 bit, as fp533's halves; HB 7:
+//    + 2; HB 6: - 2, fields 3, 4 under fields 0, 1). Each pair is then two
+//    shifts and two masks: the magnitudes to bf16 bit kDm, the signs to
+//    15; with KS > 1 the pair's two LSBs to bit kDst. HB 6 leaves field 2,
+//    which pairs with field 2 of the block's other word.
+//  * Words per thread: the thread's two words of a block give 2 PW K
+//    positions, PW pairs per column; a k-step takes two. PW 5 gives 5, so
+//    its k-group is two blocks (16 word rows, 80 K, 5 k-steps).
+//  * Shared LSBs: the LSB of K position p is bit (g & 31) of lsb row g >>
+//    5, g = p / KS; a word's PW positions take the bits from G0 = PW kw / KS
+//    on, the first at phase ph = PW kw - KS G0 of its group (0 wherever KS
+//    divides PW), and may run into the next lsb row.
+// The thread's pairs, per block of words W0 = 0..PW-1, W1 = PW..2PW-1 in
+// x's order: W0's (j, j + kLift), W1's, then HB 6's (2, PW + 2); x's B
+// fragments follow (`x_pairs`).
+template <int HB, int KS, int M>
 struct PlanesDecode {
-  static constexpr int kGroupWords = 8;
-  static constexpr int kPerWord = 8;
-  static constexpr int kSteps = 4;                  // 64 K per group
+  static constexpr int E = HB - M - (KS == 1 ? 1 : 0);      // exponent bits
+  // the base formats of core/formats.py: e2m1, e2m2, e2m3, e3m2, e3m3, e4m3, e5m2
+  static constexpr bool kFormat = HB >= 4 && HB <= 8 && KS >= 1 && KS <= 4 &&
+                                  ((E == 2 && M >= 1 && M <= 3) || (E == 3 && M >= 2 && M <= 3) ||
+                                   (E == 4 && M == 3) || (E == 5 && M == 2));
+  static constexpr int kBias = kFormat ? (1 << (E - 1)) - 1 : 0;
+  static constexpr int kDst = 7 - M;                         // bf16 bit of the mantissa LSB
+  static constexpr int kDm = kDst + (KS > 1 ? 1 : 0);        // ... of the field's magnitude
+  static constexpr uint32_t kMag2 = (((1u << (HB - 1)) - 1u) * 0x00010001u) << kDm;
+  static constexpr int PW = 32 / HB;
+  static constexpr int kPerWord = PW;
+  static constexpr int kBlocks = PW == 5 ? 2 : 1;            // 8-row blocks per k-group
+  static constexpr int kGroupWords = 8 * kBlocks;
+  static constexpr int kSteps = kBlocks * PW / 2;
   static constexpr int kShare = KS > 1 ? KS : 0;
-  static constexpr int kXMod = 8;
+  static constexpr int kXMod = PW == 4 ? 32 : (PW == 6 ? 16 : 8);
+  static constexpr int kXPeriod = PW == 5 ? 16 : 64;
+  static constexpr int kLift = PW == 8 ? 4 : (PW == 4 ? 2 : 3);
+  static constexpr int kShift = 16 - HB * kLift;             // the lift, in bits
+  static constexpr int kPairs = PW - kLift;                  // pairs within a word
+  static constexpr bool kPhased = KS > 1 && PW % KS != 0;
+  static constexpr bool kMayCross = KS > 1 && !(PW % KS == 0 && 32 % (PW / KS) == 0);
+
+  __device__ __forceinline__ static uint32_t lift(uint32_t w) {
+    if constexpr (kShift == 0)
+      return w;
+    else if constexpr (kShift > 0)
+      return (w & 0xFFFFu) | ((w << kShift) & 0xFFFF0000u);
+    else
+      return (w & 0xFFFFu) | ((w >> -kShift) & 0xFFFF0000u);
+  }
+
+  __device__ __forceinline__ static uint32_t shift(uint32_t v, int s) {   // s > 0: right
+    return s >= 0 ? v >> s : v << -s;
+  }
+
+  // the bf16x2 bits (before the LSBs and the multiply) of the fields at
+  // bits p and p + 16 of v (p is a constant once the callers' loops unroll)
+  __device__ __forceinline__ static uint32_t pair_bits(uint32_t v, int p) {
+    return (shift(v, p - kDm) & kMag2) | (shift(v, p + HB - 16) & 0x80008000u);
+  }
+
+  // the shared LSBs of the pair's positions ja (of a word with lsb bits ba
+  // from its phase pha) and jb, at bf16 bits kDst and kDst + 16
+  __device__ __forceinline__ static uint32_t lsb_pair(uint32_t ba, int pha, int ja, uint32_t bb,
+                                                      int phb, int jb) {
+    return (((ba >> ((pha + ja) / KS)) & 1u) | (((bb >> ((phb + jb) / KS)) & 1u) << 16)) << kDst;
+  }
 
   // the lsb bits of word row kw (the lsb rows in shared memory start at
-  // global row lr0) for columns col and col + 1, from group G0 = 8 kw / KS
+  // global row lr0) for columns col and col + 1, from group G0 = PW kw / KS
   // on (b0, b1), and the word's first position's place in its group (ph)
   __device__ __forceinline__ static void lsb_bits(const uint32_t* ls, int ld, int col, int kw,
                                                   int lr0, uint32_t& b0, uint32_t& b1,
                                                   int& ph) {
-    const int G0 = (8 * kw) / KS;
-    ph = KS == 3 ? 8 * kw - KS * G0 : 0;             // 8 kw is a multiple of 2 and 4
+    const int G0 = (PW * kw) / KS;
+    ph = kPhased ? PW * kw - KS * G0 : 0;
     const int off = G0 & 31;
     const uint32_t* lr = ls + ((G0 >> 5) - lr0) * ld + col;
     const uint2 lo = *reinterpret_cast<const uint2*>(lr);
     b0 = lo.x >> off;
     b1 = lo.y >> off;
-    if (KS == 3 && ((8 * kw + 7) / KS) >> 5 != G0 >> 5) {   // runs into the next lsb row
+    if (kMayCross && ((PW * kw + PW - 1) / KS) >> 5 != G0 >> 5) {   // runs into the next row
       const uint2 hi = *reinterpret_cast<const uint2*>(lr + ld);
       b0 |= hi.x << (32 - off);
       b1 |= hi.y << (32 - off);
     }
   }
 
-  // {field j, field j + 4} of word w as bf16x2 values, j = 0..3
-  __device__ __forceinline__ static void word_pairs(uint32_t w, uint32_t bits, int ph,
-                                                    uint32_t* p) {
-    const __nv_bfloat162 two126 = __halves2bfloat162(__ushort_as_bfloat16(0x7E80),
-                                                     __ushort_as_bfloat16(0x7E80));
-    uint32_t r[4];
-    r[0] = ((w << 6) & 0x01C001C0u) | ((w << 12) & 0x80008000u);
-    r[1] = ((w << 2) & 0x01C001C0u) | ((w << 8) & 0x80008000u);
-    r[2] = ((w >> 2) & 0x01C001C0u) | ((w << 4) & 0x80008000u);
-    r[3] = ((w >> 6) & 0x01C001C0u) | (w & 0x80008000u);
+  // the PW values of words w0 (row 2t of a block) and w1 (row 2t + 1) of one
+  // column as bf16x2 pairs, in x's order
+  __device__ __forceinline__ static void block_pairs(uint32_t w0, uint32_t w1, uint32_t b0,
+                                                     uint32_t b1, int ph0, int ph1, uint32_t* p) {
+    const __nv_bfloat16 m = __ushort_as_bfloat16((unsigned short)((254 - kBias) << 7));
+    const __nv_bfloat162 mul = __halves2bfloat162(m, m);       // 2^(127 - bias)
+    const uint32_t v0 = lift(w0), v1 = lift(w1);
+    uint32_t r[PW];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if constexpr (KS > 1)
-        r[j] |= (((bits >> ((ph + j) / KS)) & 1u) << 5) |
-                (((bits >> ((ph + j + 4) / KS)) & 1u) << 21);
-      const __nv_bfloat162 v = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&r[j]), two126);
+    for (int j = 0; j < kPairs; ++j) {
+      r[j] = pair_bits(v0, HB * j);
+      r[kPairs + j] = pair_bits(v1, HB * j);
+      if constexpr (KS > 1) {
+        r[j] |= lsb_pair(b0, ph0, j, b0, ph0, j + kLift);
+        r[kPairs + j] |= lsb_pair(b1, ph1, j, b1, ph1, j + kLift);
+      }
+    }
+#pragma unroll
+    for (int j = kPairs; j < kLift; ++j) {               // HB 6: field 2 of w0 and w1
+      const uint32_t c = ((w0 >> (HB * j)) & 0xFFFFu) | ((w1 << (16 - HB * j)) & 0xFFFF0000u);
+      r[kPairs + j] = pair_bits(c, 0);
+      if constexpr (KS > 1) r[kPairs + j] |= lsb_pair(b0, ph0, j, b1, ph1, j);
+    }
+#pragma unroll
+    for (int j = 0; j < PW; ++j) {
+      const __nv_bfloat162 v = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&r[j]), mul);
       p[j] = *reinterpret_cast<const uint32_t*>(&v);
     }
   }
@@ -224,19 +350,21 @@ struct PlanesDecode {
   __device__ __forceinline__ static void fragments(const uint32_t* ws, const uint32_t* ls,
                                                    int ld, int t, int col, int kw, int lr0,
                                                    uint32_t (&a)[kSteps][4]) {
-    const uint2 r0 = *reinterpret_cast<const uint2*>(ws + (2 * t) * ld + col);
-    const uint2 r1 = *reinterpret_cast<const uint2*>(ws + (2 * t + 1) * ld + col);
-    uint32_t l00 = 0u, l01 = 0u, l10 = 0u, l11 = 0u;      // [word row][column]
-    int ph0 = 0, ph1 = 0;
-    if constexpr (KS > 1) {
-      lsb_bits(ls, ld, col, kw + 2 * t, lr0, l00, l01, ph0);
-      lsb_bits(ls, ld, col, kw + 2 * t + 1, lr0, l10, l11, ph1);
+    uint32_t c0[2 * kSteps], c1[2 * kSteps];      // per column: the group's pairs, x's order
+#pragma unroll
+    for (int blk = 0; blk < kBlocks; ++blk) {
+      const int r = 8 * blk + 2 * t;
+      const uint2 r0 = *reinterpret_cast<const uint2*>(ws + r * ld + col);
+      const uint2 r1 = *reinterpret_cast<const uint2*>(ws + (r + 1) * ld + col);
+      uint32_t l00 = 0u, l01 = 0u, l10 = 0u, l11 = 0u;    // [word row][column]
+      int ph0 = 0, ph1 = 0;
+      if constexpr (KS > 1) {
+        lsb_bits(ls, ld, col, kw + r, lr0, l00, l01, ph0);
+        lsb_bits(ls, ld, col, kw + r + 1, lr0, l10, l11, ph1);
+      }
+      block_pairs(r0.x, r1.x, l00, l10, ph0, ph1, c0 + PW * blk);
+      block_pairs(r0.y, r1.y, l01, l11, ph0, ph1, c1 + PW * blk);
     }
-    uint32_t c0[8], c1[8];               // per column: W0's pairs 0..3, W1's pairs 0..3
-    word_pairs(r0.x, l00, ph0, c0);
-    word_pairs(r1.x, l10, ph1, c0 + 4);
-    word_pairs(r0.y, l01, ph0, c1);
-    word_pairs(r1.y, l11, ph1, c1 + 4);
 #pragma unroll
     for (int s = 0; s < kSteps; ++s) {
       a[s][0] = c0[2 * s];
@@ -246,51 +374,54 @@ struct PlanesDecode {
     }
   }
 
-  // xr: x's 16 K positions of the thread (natural order, 16-byte aligned)
-  __device__ __forceinline__ static void x_fragments(const __nv_bfloat16* xr,
+  // xg: x's K positions of the group in the thread's row (natural order)
+  __device__ __forceinline__ static void x_fragments(const __nv_bfloat16* xg, int t,
                                                      uint32_t (&b)[kSteps][2]) {
-    const uint4 q0 = *reinterpret_cast<const uint4*>(xr);
-    const uint4 q1 = *reinterpret_cast<const uint4*>(xr + 8);
-    // pairs of K positions: (0,4) (1,5) | (2,6) (3,7) | (8,12) (9,13) | (10,14) (11,15)
-    b[0][0] = __byte_perm(q0.x, q0.z, 0x5410);
-    b[0][1] = __byte_perm(q0.x, q0.z, 0x7632);
-    b[1][0] = __byte_perm(q0.y, q0.w, 0x5410);
-    b[1][1] = __byte_perm(q0.y, q0.w, 0x7632);
-    b[2][0] = __byte_perm(q1.x, q1.z, 0x5410);
-    b[2][1] = __byte_perm(q1.x, q1.z, 0x7632);
-    b[3][0] = __byte_perm(q1.y, q1.w, 0x5410);
-    b[3][1] = __byte_perm(q1.y, q1.w, 0x7632);
+    uint32_t p[2 * kSteps];
+#pragma unroll
+    for (int blk = 0; blk < kBlocks; ++blk) x_pairs<PW>(xg + 8 * PW * blk + 2 * PW * t, p + PW * blk);
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      b[s][0] = p[2 * s];
+      b[s][1] = p[2 * s + 1];
+    }
   }
 };
 
-// The ring's layout per stage: RW word rows, LR lsb rows (the most a run of
-// RW word rows starting on a group boundary can touch), then x's K slice
+// The ring's layout per stage: RW word rows (at least one k-group), LR lsb
+// rows (the most a run of RW word rows starting on a group boundary can
+// touch), then x's K slice
 template <int WN, int NT, class Dec>
 struct K1Shape {
   static constexpr int TN = 16 * WN;                         // columns per CTA
   static constexpr int BT = 8 * NT;                          // rows per CTA
   static constexpr int THREADS = 32 * WN;
-  static constexpr int RW = NT >= 16 ? 8 : (NT >= 4 ? 16 : 32);   // word rows per stage
+  static constexpr int RW0 = NT >= 16 ? 8 : (NT >= 4 ? 16 : 32);
+  static constexpr int RW = RW0 > Dec::kGroupWords ? RW0 : Dec::kGroupWords;   // word rows per stage
   static constexpr int LSB_K = 32 * (Dec::kShare ? Dec::kShare : 1);   // K per lsb row
   static constexpr int LR = Dec::kShare ? (RW * Dec::kPerWord + LSB_K - 1) / LSB_K + 1 : 0;
   static constexpr int WS = TN + 4;                          // words per smem weight row
   static constexpr int XK = RW * Dec::kPerWord;              // x's K positions per stage
-  static constexpr int XS = XK + (((Dec::kXMod - XK) % 64) + 64) % 64;   // bf16 per x row
+  static constexpr int XS = XK + (((Dec::kXMod - XK) % Dec::kXPeriod) + Dec::kXPeriod) %
+                                     Dec::kXPeriod;           // bf16 per x row
   static constexpr int STAGE_BYTES = (RW + LR) * WS * 4 + BT * XS * 2;
   static constexpr int RED_BYTES = TN * BT * 4;
   static constexpr int SMEM = (K1_STAGES * STAGE_BYTES > RED_BYTES) ? K1_STAGES * STAGE_BYTES
                                                                      : RED_BYTES;
 };
 
+// x [B, ldx] bf16 (K positions [0, PW Kw) of each row used), hi [Kw, N],
+// lsb [Lrows, N] (with a shared LSB), scale [N] -> y [B, N] f32
 template <int WN, int NT, int XV, class Dec>
 __global__ void __launch_bounds__(32 * WN)
 ams_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ hi,
                       const int32_t* __restrict__ lsb, const float* __restrict__ scale,
-                      float* __restrict__ y, int B, int Kw, int N, int Lrows,
+                      float* __restrict__ y, int B, int Kw, int N, int Lrows, int ldx,
                       int split_words, int wvec) {
   using S = K1Shape<WN, NT, Dec>;
   constexpr int TN = S::TN, BT = S::BT, RW = S::RW, LR = S::LR, WS = S::WS, XS = S::XS;
   constexpr int NTH = S::THREADS, PW = Dec::kPerWord, KSTEPS = Dec::kSteps;
+  constexpr int GW = Dec::kGroupWords;
   extern __shared__ __align__(16) unsigned char k1_smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -301,7 +432,7 @@ ams_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __rest
   const int b0 = blockIdx.y * BT;
   const int k0 = rank * split_words;
   const int k1 = min(k0 + split_words, Kw);
-  const int64_t Kx = (int64_t)Kw * PW;                       // x row stride
+  const int64_t Kx = ldx;                                    // x row stride
   const int nstage = k1 > k0 ? (k1 - k0 + RW - 1) / RW : 0;
 
   auto stage_w = [&](int st) {
@@ -332,6 +463,7 @@ ams_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __rest
   constexpr int XSTEP = NTH / BT;                            // threads per x row
   constexpr int XCH = (XCPR + XSTEP - 1) / XSTEP;            // x copies per thread
   static_assert(BT <= NTH && NTH % BT == 0, "x rows per thread");
+  static_assert(RW % GW == 0 && (RW * PW) % XPER == 0, "a stage holds whole groups");
   const int xr = tid % BT, xc = tid / BT;
   const bool xrow = b0 + xr < B;
   const __nv_bfloat16* xbase = x + (int64_t)(xrow ? b0 + xr : 0) * Kx + xc * XPER;
@@ -390,9 +522,9 @@ ams_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __rest
       for (int u = 0; u < XCH; ++u) {
         const int c = xc + u * XSTEP;
         if (XCPR % XSTEP == 0 || c < XCPR) {
-          const bool ok = xrow && (kbeg + c * XPER < kend);
-          cp_async_bytes<XV>(xs + u * XSTEP * XPER,
-                           ok ? (const void*)(xp + u * XSTEP * XPER) : (const void*)x, ok);
+          const int n = xrow ? min(XPER, max(kend - kbeg - c * XPER, 0)) : 0;
+          cp_async_x<XV>(xs + u * XSTEP * XPER, n ? (const void*)(xp + u * XSTEP * XPER)
+                                                  : (const void*)x, 2 * n);
         }
       }
     } else {
@@ -402,10 +534,9 @@ ams_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __rest
         const int i = tid + u * NTH;
         if ((BT * XCPR) % NTH == 0 || i < BT * XCPR) {
           const int r = i / XCPR, k = (i % XCPR) * XPER;
-          const bool ok = (b0 + r < B) && (kbeg + k < kend);
-          cp_async_bytes<XV>(xs + r * XS + k,
-                           ok ? (const void*)(x + (b0 + r) * Kx + kbeg + k) : (const void*)x,
-                           ok);
+          const int n = b0 + r < B ? min(XPER, max(kend - kbeg - k, 0)) : 0;
+          cp_async_x<XV>(xs + r * XS + k, n ? (const void*)(x + (b0 + r) * Kx + kbeg + k)
+                                            : (const void*)x, 2 * n);
         }
       }
     }
@@ -438,15 +569,14 @@ ams_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __rest
     const int w0 = k0 + it * RW;
     const int lr0 = lsb_row(w0);
 #pragma unroll
-    for (int gr = 0; gr < RW / Dec::kGroupWords; ++gr) {
-      if (w0 + gr * Dec::kGroupWords >= k1) break;
+    for (int gr = 0; gr < RW / GW; ++gr) {
+      if (w0 + gr * GW >= k1) break;
       uint32_t a[KSTEPS][4];
-      Dec::fragments(ws + gr * Dec::kGroupWords * WS, ls, WS, t, warp * 16 + 2 * g,
-                     w0 + gr * Dec::kGroupWords, lr0, a);
+      Dec::fragments(ws + gr * GW * WS, ls, WS, t, warp * 16 + 2 * g, w0 + gr * GW, lr0, a);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         uint32_t bx[KSTEPS][2];
-        Dec::x_fragments(xs + (8 * j + g) * XS + gr * Dec::kGroupWords * PW + 2 * PW * t, bx);
+        Dec::x_fragments(xs + (8 * j + g) * XS + gr * GW * PW, t, bx);
 #pragma unroll
         for (int s = 0; s < KSTEPS; ++s) mma_bf16(acc[s % NA][j], a[s], bx[s][0], bx[s][1]);
       }
@@ -509,8 +639,8 @@ ams_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __rest
 
 template <int WN, int NT, int XV, class Dec>
 static int launch_mma(const void* x, const void* hi, const void* lsb, const void* scale,
-                      void* y, int B, int Kw, int N, int Lrows, int cluster, int split_words,
-                      cudaStream_t stream) {
+                      void* y, int B, int Kw, int N, int Lrows, int ldx, int cluster,
+                      int split_words, cudaStream_t stream) {
   using S = K1Shape<WN, NT, Dec>;
   auto kernel = ams_matmul_mma_kernel<WN, NT, XV, Dec>;
   static bool configured = false;         // once per instantiation
@@ -537,7 +667,7 @@ static int launch_mma(const void* x, const void* hi, const void* lsb, const void
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, kernel, (const __nv_bfloat16*)x, (const int32_t*)hi, (const int32_t*)lsb,
-      (const float*)scale, (float*)y, B, Kw, N, Lrows, split_words, wvec);
+      (const float*)scale, (float*)y, B, Kw, N, Lrows, ldx, split_words, wvec);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -550,19 +680,19 @@ static int launch_fp533_xv(const void* x, const void* hi, const void* scale, voi
   const uintptr_t xp = (uintptr_t)x;
   const int64_t row_bytes = (int64_t)Kw * 12;
   if (row_bytes % 16 == 0 && xp % 16 == 0)
-    return launch_mma<WN, NT, 16, Fp533Decode>(x, hi, nullptr, scale, y, B, Kw, N, 0, cluster,
-                                               split_words, s);
+    return launch_mma<WN, NT, 16, Fp533Decode>(x, hi, nullptr, scale, y, B, Kw, N, 0, 6 * Kw,
+                                               cluster, split_words, s);
   if (row_bytes % 8 == 0 && xp % 8 == 0)
-    return launch_mma<WN, NT, 8, Fp533Decode>(x, hi, nullptr, scale, y, B, Kw, N, 0, cluster,
-                                              split_words, s);
-  return launch_mma<WN, NT, 4, Fp533Decode>(x, hi, nullptr, scale, y, B, Kw, N, 0, cluster,
-                                            split_words, s);
+    return launch_mma<WN, NT, 8, Fp533Decode>(x, hi, nullptr, scale, y, B, Kw, N, 0, 6 * Kw,
+                                              cluster, split_words, s);
+  return launch_mma<WN, NT, 4, Fp533Decode>(x, hi, nullptr, scale, y, B, Kw, N, 0, 6 * Kw,
+                                            cluster, split_words, s);
 }
 
-// A plan that does not cover Kw with k-group-aligned splits, one per rank,
-// is refused
-static bool bad_plan(int Kw, int cluster, int split_words) {
-  return Kw < 1 || cluster < 1 || cluster > 8 || split_words < 1 || split_words % 8 ||
+// A plan that does not cover Kw with k-group-aligned splits (groups of
+// `group` word rows), one per rank, is refused
+static bool bad_plan(int Kw, int cluster, int split_words, int group) {
+  return Kw < 1 || cluster < 1 || cluster > 8 || split_words < 1 || split_words % group ||
          (int64_t)cluster * split_words < Kw || (int64_t)(cluster - 1) * split_words >= Kw;
 }
 
@@ -588,7 +718,7 @@ extern "C" int ams_matmul_fp533(const void* x, const void* hi, const void* scale
                                 int B, int Kw, int N, int tn, int nt, int cluster,
                                 int split_words, void* stream) {
   if (B <= 0 || N <= 0) return (int)cudaSuccess;
-  if (bad_plan(Kw, cluster, split_words)) return (int)cudaErrorInvalidValue;
+  if (bad_plan(Kw, cluster, split_words, 8)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define FP533_TILE(WN_, NT_) \
   launch_fp533_xv<WN_, NT_>(x, hi, scale, y, B, Kw, N, cluster, split_words, s)
@@ -596,211 +726,76 @@ extern "C" int ams_matmul_fp533(const void* x, const void* hi, const void* scale
 #undef FP533_TILE
 }
 
-template <int KS>
+template <int HB, int KS, int M>
 static int launch_planes_mma(const void* x, const void* hi, const void* lsb, const void* scale,
-                             void* y, int B, int Kw, int N, int Lrows, int tn, int nt,
+                             void* y, int B, int Kw, int N, int Lrows, int ldx, int tn, int nt,
                              int cluster, int split_words, cudaStream_t s) {
-#define PLANES_TILE(WN_, NT_)                                                               \
-  launch_mma<WN_, NT_, 16, PlanesDecode<KS>>(x, hi, lsb, scale, y, B, Kw, N, Lrows, cluster, \
-                                             split_words, s)
-  K1_TILES(PLANES_TILE)
+  if constexpr (!PlanesDecode<HB, KS, M>::kFormat) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+#define PLANES_TILE(WN_, NT_)                                                                  \
+  launch_mma<WN_, NT_, 16, PlanesDecode<HB, KS, M>>(x, hi, lsb, scale, y, B, Kw, N, Lrows,     \
+                                                    ldx, cluster, split_words, s)
+    K1_TILES(PLANES_TILE)
 #undef PLANES_TILE
+  }
 }
 
-// K1b on the tensor cores: the planes of per_word 8 (4-bit hi fields) with
-// k = 1 (e2m1 codes) or k = 2, 3, 4 (e2m2 codes, lsb [Lrows, N]); x's rows
-// (16 Kw bytes) must start 16-byte aligned. The plan comes from
-// kernels/tuning.plan_ams_matmul(container="planes").
+#define PLANES_ARGS x, hi, lsb, scale, y, B, Kw, N, Lrows, ldx, tn, nt, cluster, split_words, s
+
+template <int HB, int KS>
+static int launch_planes_m(int man_bits, const void* x, const void* hi, const void* lsb,
+                           const void* scale, void* y, int B, int Kw, int N, int Lrows, int ldx,
+                           int tn, int nt, int cluster, int split_words, cudaStream_t s) {
+  switch (man_bits) {
+    case 1: return launch_planes_mma<HB, KS, 1>(PLANES_ARGS);
+    case 2: return launch_planes_mma<HB, KS, 2>(PLANES_ARGS);
+    case 3: return launch_planes_mma<HB, KS, 3>(PLANES_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int HB>
+static int launch_planes_k(int k, int man_bits, const void* x, const void* hi, const void* lsb,
+                           const void* scale, void* y, int B, int Kw, int N, int Lrows, int ldx,
+                           int tn, int nt, int cluster, int split_words, cudaStream_t s) {
+  switch (k) {
+    case 1: return launch_planes_m<HB, 1>(man_bits, PLANES_ARGS);
+    case 2: return launch_planes_m<HB, 2>(man_bits, PLANES_ARGS);
+    case 3: return launch_planes_m<HB, 3>(man_bits, PLANES_ARGS);
+    case 4: return launch_planes_m<HB, 4>(man_bits, PLANES_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K1b: the planes of hi_bits in 4..8 (per_word 8, 6, 5, 4, 4) with k = 1
+// (whole codes) or k = 2, 3, 4 (lsb [Lrows, N]) of a base format of
+// core/formats.py (man_bits mantissa bits, the standard bias: anything else
+// is refused); x [B, ldx] bf16, K positions [0, per_word Kw) of each row
+// read, ldx a multiple of 8 and the base 16-byte aligned. The plan comes
+// from kernels/tuning.plan_ams_matmul(container="planes").
 extern "C" int ams_matmul_planes_mma(const void* x, const void* hi, const void* lsb,
                                      const void* scale, void* y, int B, int Kw, int N,
-                                     int Lrows, int k, int tn, int nt, int cluster,
-                                     int split_words, void* stream) {
+                                     int Lrows, int ldx, int hi_bits, int k, int man_bits,
+                                     int bias, int tn, int nt, int cluster, int split_words,
+                                     void* stream) {
   if (B <= 0 || N <= 0) return (int)cudaSuccess;
-  if (bad_plan(Kw, cluster, split_words) || (uintptr_t)x % 16) return (int)cudaErrorInvalidValue;
+  const int e = hi_bits - man_bits - (k == 1 ? 1 : 0);
+  if (hi_bits < 4 || hi_bits > 8 || e < 2 || e > 5 || bias != (1 << (e - 1)) - 1)
+    return (int)cudaErrorInvalidValue;
+  const int per_word = 32 / hi_bits;
+  if (bad_plan(Kw, cluster, split_words, per_word == 5 ? 16 : 8) || (uintptr_t)x % 16 ||
+      ldx % 8 || (int64_t)ldx < (int64_t)per_word * Kw)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (k) {
-    case 1: return launch_planes_mma<1>(x, hi, lsb, scale, y, B, Kw, N, Lrows, tn, nt, cluster,
-                                        split_words, s);
-    case 2: return launch_planes_mma<2>(x, hi, lsb, scale, y, B, Kw, N, Lrows, tn, nt, cluster,
-                                        split_words, s);
-    case 3: return launch_planes_mma<3>(x, hi, lsb, scale, y, B, Kw, N, Lrows, tn, nt, cluster,
-                                        split_words, s);
-    case 4: return launch_planes_mma<4>(x, hi, lsb, scale, y, B, Kw, N, Lrows, tn, nt, cluster,
-                                        split_words, s);
+  switch (hi_bits) {
+    case 4: return launch_planes_k<4>(k, man_bits, PLANES_ARGS);
+    case 5: return launch_planes_k<5>(k, man_bits, PLANES_ARGS);
+    case 6: return launch_planes_k<6>(k, man_bits, PLANES_ARGS);
+    case 7: return launch_planes_k<7>(k, man_bits, PLANES_ARGS);
+    case 8: return launch_planes_k<8>(k, man_bits, PLANES_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// ---------------------------------------------------------------------------
-// K1b on CUDA cores: the planes container for the schemes `PlanesDecode`
-// does not take (hi fields not 16 bits apart: per_word 4, 5 and 6, i.e.
-// fp8, fp6-e2m3, fp6-e3m2, fp5-e2m2 and the planes of fp5.33-e2m3).
-//
-// hi[Kp/PW, N] packs PW = 32 / hi_bits codes of one column per int32 word
-// (field j of word kw at bit j * hi_bits holds K position kw * PW + j);
-// with k > 1 the field is the code's high part and lsb[Kp/(32k), N] holds
-// one shared mantissa LSB per k-group, 32 groups per word (group g = kpos/k
-// at bit g & 31 of row g >> 5). Codes are decoded with the generic
-// sign/exponent/mantissa sequence of decode_codes_to_f32 for the format's
-// (man_bits, exp_bits, bias): normals from their IEEE bits, subnormals as
-// M * 2^(1 - bias - m). Every base format has at most 3 mantissa bits, so
-// the values are exact in bf16 and bf16 x value is exact in f32: the kernel
-// differs from its plain version only by summation order.
-//
-// Bound as K1: bytes at decode; CUDA-core FMAs at prefill rows. One block = 32 columns x 8 rows,
-// warps take interleaved words of a K chunk, lane n reads hi[kw, n0 + n].
-// The chunk's lsb words (one serves 32k K positions) are staged once per
-// block in shared memory beside x.
-
-#define K1B_LSB_ROWS 12   // lsb rows a chunk can touch (see the static_assert)
-
-struct FpFormat {
-  int man_bits, man_mask, exp_mask, sign_shift, norm_off;
-  float sub_scale;  // 2^(1 - bias - man_bits)
-};
-
-__device__ __forceinline__ float decode_code(int code, const FpFormat& f) {
-  const int M = code & f.man_mask;
-  const int E = (code >> f.man_bits) & f.exp_mask;
-  const float v = (E == 0) ? (float)M * f.sub_scale
-                           : __int_as_float(((E + f.norm_off) << 23) | (M << (23 - f.man_bits)));
-  return ((code >> f.sign_shift) & 1) ? -v : v;
-}
-
-template <int PW, int KS>
-__global__ void __launch_bounds__(K1_WARPS * 32)
-ams_matmul_planes_kernel(const __nv_bfloat16* __restrict__ x,
-                         const int32_t* __restrict__ hi,
-                         const int32_t* __restrict__ lsb,
-                         const float* __restrict__ scale,
-                         float* __restrict__ y, int B, int Kw, int N, int hb,
-                         FpFormat fmt) {
-  static_assert(KS == 1 || K1_CHUNK_WORDS * PW / (32 * KS) + 2 <= K1B_LSB_ROWS,
-                "a chunk's lsb rows must fit the staging buffer");
-  __shared__ float xs[K1_ROWS][K1_CHUNK_WORDS * PW];
-  __shared__ uint32_t ls[K1B_LSB_ROWS][K1_COLS];
-  __shared__ float red[K1_WARPS][K1_ROWS][K1_COLS];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * K1_COLS + lane;
-  const int b0 = blockIdx.y * K1_ROWS;
-  const int64_t Kp = (int64_t)Kw * PW;
-  const uint32_t hmask = (1u << hb) - 1u;
-  float acc[K1_ROWS];
-#pragma unroll
-  for (int r = 0; r < K1_ROWS; ++r) acc[r] = 0.f;
-
-  for (int c0 = 0; c0 < Kw; c0 += K1_CHUNK_WORDS) {
-    const int cw = min(K1_CHUNK_WORDS, Kw - c0);
-    const int ck = cw * PW;
-    const int lr0 = (c0 * PW) / (32 * KS);
-    __syncthreads();
-    for (int i = threadIdx.x; i < K1_ROWS * ck; i += blockDim.x) {
-      const int r = i / ck, kk = i - r * ck;
-      const int b = b0 + r;
-      xs[r][kk] = (b < B) ? __bfloat162float(x[(int64_t)b * Kp + (int64_t)c0 * PW + kk])
-                          : 0.f;
-    }
-    if (KS > 1) {
-      const int nl = ((c0 + cw) * PW - 1) / (32 * KS) - lr0 + 1;
-      for (int i = threadIdx.x; i < nl * K1_COLS; i += blockDim.x) {
-        const int r = i / K1_COLS, cc = i - r * K1_COLS;
-        const int col = blockIdx.x * K1_COLS + cc;
-        ls[r][cc] = (col < N) ? (uint32_t)lsb[(int64_t)(lr0 + r) * N + col] : 0u;
-      }
-    }
-    __syncthreads();
-    if (n < N) {
-      for (int w = warp; w < cw; w += K1_WARPS) {
-        const uint32_t word = (uint32_t)hi[(int64_t)(c0 + w) * N + n];
-        const int kpos0 = (c0 + w) * PW;
-        uint32_t lw0 = 0u, lw1 = 0u;
-        int row0 = 0;
-        if (KS > 1) {       // a word's fields span at most two lsb words
-          row0 = (kpos0 / KS) >> 5;
-          lw0 = ls[row0 - lr0][lane];
-          lw1 = ls[(((kpos0 + PW - 1) / KS) >> 5) - lr0][lane];
-        }
-        float v[PW];
-#pragma unroll
-        for (int j = 0; j < PW; ++j) {
-          int code = (int)((word >> (j * hb)) & hmask);
-          if (KS > 1) {
-            const int g = (kpos0 + j) / KS;
-            const uint32_t lw = ((g >> 5) == row0) ? lw0 : lw1;
-            code = (code << 1) | (int)((lw >> (g & 31)) & 1u);
-          }
-          v[j] = decode_code(code, fmt);
-        }
-#pragma unroll
-        for (int r = 0; r < K1_ROWS; ++r) {
-          const float* xr = &xs[r][w * PW];
-#pragma unroll
-          for (int j = 0; j < PW; ++j) acc[r] = fmaf(xr[j], v[j], acc[r]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < K1_ROWS; ++r) red[warp][r][lane] = acc[r];
-  __syncthreads();
-  const int r = threadIdx.x / K1_COLS;
-  const int c = threadIdx.x % K1_COLS;
-  const int on = blockIdx.x * K1_COLS + c;
-  const int ob = b0 + r;
-  if (on < N && ob < B) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < K1_WARPS; ++w) s += red[w][r][c];
-    y[(int64_t)ob * N + on] = s * scale[on];
-  }
-}
-
-template <int PW, int KS>
-static int launch_planes(const void* x, const void* hi, const void* lsb, const void* scale,
-                         void* y, int B, int Kw, int N, int hb, FpFormat fmt,
-                         cudaStream_t stream) {
-  dim3 grid((N + K1_COLS - 1) / K1_COLS, (B + K1_ROWS - 1) / K1_ROWS);
-  ams_matmul_planes_kernel<PW, KS><<<grid, K1_WARPS * 32, 0, stream>>>(
-      (const __nv_bfloat16*)x, (const int32_t*)hi, (const int32_t*)lsb,
-      (const float*)scale, (float*)y, B, Kw, N, hb, fmt);
-  return (int)cudaGetLastError();
-}
-
-template <int PW>
-static int launch_planes_k(int k, const void* x, const void* hi, const void* lsb,
-                           const void* scale, void* y, int B, int Kw, int N, int hb,
-                           FpFormat fmt, cudaStream_t stream) {
-  switch (k) {
-    case 1: return launch_planes<PW, 1>(x, hi, lsb, scale, y, B, Kw, N, hb, fmt, stream);
-    case 2: return launch_planes<PW, 2>(x, hi, lsb, scale, y, B, Kw, N, hb, fmt, stream);
-    case 3: return launch_planes<PW, 3>(x, hi, lsb, scale, y, B, Kw, N, hb, fmt, stream);
-    case 4: return launch_planes<PW, 4>(x, hi, lsb, scale, y, B, Kw, N, hb, fmt, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// per_word in {4, 5, 6} (per_word 8 goes through ams_matmul_planes_mma), k
-// in {1, 2, 3, 4}; anything else is refused with cudaErrorInvalidValue (the
-// Python wrapper checks first).
-extern "C" int ams_matmul_planes(const void* x, const void* hi, const void* lsb,
-                                 const void* scale, void* y, int B, int Kw, int N,
-                                 int per_word, int hi_bits, int k, int man_bits,
-                                 int exp_bits, int bias, void* stream) {
-  if (B <= 0 || N <= 0) return (int)cudaSuccess;
-  if (hi_bits * per_word > 32) return (int)cudaErrorInvalidValue;
-  FpFormat fmt;
-  fmt.man_bits = man_bits;
-  fmt.man_mask = (1 << man_bits) - 1;
-  fmt.exp_mask = (1 << exp_bits) - 1;
-  fmt.sign_shift = man_bits + exp_bits;
-  fmt.norm_off = 127 - bias;
-  fmt.sub_scale = ldexpf(1.0f, 1 - bias - man_bits);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (per_word) {
-    case 4: return launch_planes_k<4>(k, x, hi, lsb, scale, y, B, Kw, N, hi_bits, fmt, s);
-    case 5: return launch_planes_k<5>(k, x, hi, lsb, scale, y, B, Kw, N, hi_bits, fmt, s);
-    case 6: return launch_planes_k<6>(k, x, hi, lsb, scale, y, B, Kw, N, hi_bits, fmt, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
+#undef PLANES_ARGS

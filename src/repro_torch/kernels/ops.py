@@ -4,10 +4,9 @@ Dispatches on the layout's container (fp533 -> K1, planes -> K1b),
 flattens leading dims and zero-pads K up to the packed rows, so the kernels
 only ever see [B, Kp] activations with hi (and lsb) planes of exactly Kp
 positions; B and N may be ragged (the kernels mask their edges), and the
-result is reshaped back. The tiles and K split of K1, and of K1b on the
-tensor cores (4-bit planes), come from the Hopper planner
-`kernels/tuning.plan_ams_matmul` (the TPU tile planner has no counterpart);
-K1b's CUDA-core kernel (the other planes schemes) uses one fixed tile.
+result is reshaped back. The tiles and K split of K1 and K1b come from the
+Hopper planner `kernels/tuning.plan_ams_matmul` (the TPU tile planner has
+no counterpart).
 """
 
 from __future__ import annotations

@@ -67,49 +67,74 @@ MAX_CLUSTER = 8            # the portable thread-block cluster size
 SM_SMEM_BYTES = 233472     # shared memory of one SM (228 KB)
 CTA_SMEM_RESERVED = 1024   # shared memory the hardware reserves per CTA
 
-K1_GROUP_WORDS = 8         # word rows of one k-group (fp533: 48 K, planes: 64 K)
+K1_GROUP_WORDS = 8         # word rows of a k-group (fp533: 48 K); 16 at per_word 5
 K1_ROW_TILES = (1, 2, 4, 8, 16)   # 8-row n-tiles per CTA the kernel is built for
 K1_MIN_CTAS = 64           # fewest CTAs K1 accepts before narrowing its tile
 K1_STAGES = 4              # stages of the kernel's cp.async ring
+# x's shared-memory row stride per K positions per word (fp533: 6) of the
+# decode hook: (residue, modulus) in bf16 that keeps its fragment loads free
+# of bank conflicts (kXMod, kXPeriod in csrc/ams_matmul.cu)
+K1_X_STRIDE = {4: (32, 64), 5: (8, 16), 6: (16, 64), 8: (8, 64)}
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def k1_stage_rows(nt: int) -> int:
-    """Word rows per stage of K1's ring at ``nt`` n-tiles."""
-    return 8 if nt >= 16 else (16 if nt >= 4 else 32)
+def _per_word(container: str, per_word: Optional[int]) -> int:
+    if container not in ("fp533", "planes"):
+        raise ValueError(f"unknown container {container!r}")
+    if per_word is None:
+        return 6 if container == "fp533" else 8
+    if (container == "fp533" and per_word != 6) or per_word not in K1_X_STRIDE:
+        raise ValueError(f"no K1 decode hook for {container} with per_word {per_word}")
+    return per_word
 
 
-def k1_lsb_rows(rw: int, k: int) -> int:
-    """lsb rows a K1b stage copies: the most that ``rw`` word rows of 4-bit
-    planes (8 K each) starting on a k-group boundary can take their LSBs
+def k1_group_words(per_word: int = 8) -> int:
+    """Word rows of one k-group of K1 / K1b: 8, or 16 at per_word 5 (a
+    thread's two words hold 10 K, a k-step takes 4 per column, so a thread
+    owns four words: 20 K, 5 k-steps)."""
+    return 16 if per_word == 5 else K1_GROUP_WORDS
+
+
+def k1_stage_rows(nt: int, per_word: int = 8) -> int:
+    """Word rows per stage of K1's ring at ``nt`` n-tiles (at least one
+    k-group)."""
+    return max(8 if nt >= 16 else (16 if nt >= 4 else 32), k1_group_words(per_word))
+
+
+def k1_lsb_rows(rw: int, k: int, per_word: int = 8) -> int:
+    """lsb rows a K1b stage copies: the most that ``rw`` word rows of
+    ``per_word`` K each, starting on a k-group boundary, can take their LSBs
     from, one lsb row serving 32 k positions."""
-    return (rw * 8 + 32 * k - 1) // (32 * k) + 1
+    return (rw * per_word + 32 * k - 1) // (32 * k) + 1
 
 
-def k1_ring_bytes(tn: int, nt: int, container: str = "fp533", k: int = 1) -> int:
+def k1_ring_bytes(tn: int, nt: int, container: str = "fp533", k: int = 1,
+                  per_word: Optional[int] = None) -> int:
     """Shared memory of one K1 / K1b CTA (`K1Shape` in csrc/ams_matmul.cu):
     the 4-stage ring, each stage holding its word rows (TN + 4 words each),
     for the planes with k > 1 the lsb rows they take their LSBs from, and
-    x's K slice (rows padded to 16 or 8 mod 64 bf16), or the partial sums'
-    tile when that is larger."""
-    per_word, xmod = (6, 16) if container == "fp533" else (8, 8)
-    rw = k1_stage_rows(nt)
-    lr = k1_lsb_rows(rw, k) if container == "planes" and k > 1 else 0
-    xk = rw * per_word
-    xs = xk + (xmod - xk) % 64
+    x's K slice (rows padded per `K1_X_STRIDE`), or the partial sums' tile
+    when that is larger. ``per_word``: K positions per word (default 6 for
+    fp533, 8 for the planes)."""
+    pw = _per_word(container, per_word)
+    xmod, period = K1_X_STRIDE[pw]
+    rw = k1_stage_rows(nt, pw)
+    lr = k1_lsb_rows(rw, k, pw) if container == "planes" and k > 1 else 0
+    xk = rw * pw
+    xs = xk + (xmod - xk) % period
     stage = (rw + lr) * (tn + 4) * 4 + 8 * nt * xs * 2
     return max(K1_STAGES * stage, tn * 8 * nt * 4)
 
 
 @dataclass(frozen=True)
 class MatmulPlan:
-    """The launch of K1 (and of K1b on the tensor cores): ``col_tiles`` x
-    ``row_tiles`` output tiles of ``tn`` columns x ``8 * nt`` rows, each
-    reduced over K by a cluster of ``cluster`` CTAs; rank r takes packed
-    word rows [r * split_words, min((r + 1) * split_words, Kw))."""
+    """The launch of K1 and K1b: ``col_tiles`` x ``row_tiles`` output tiles
+    of ``tn`` columns x ``8 * nt`` rows, each reduced over K by a cluster of
+    ``cluster`` CTAs; rank r takes packed word rows [r * split_words,
+    min((r + 1) * split_words, Kw))."""
     tn: int
     nt: int
     row_tiles: int
@@ -127,35 +152,36 @@ class MatmulPlan:
 
 
 def plan_ams_matmul(B: int, Kw: int, N: int, container: str = "fp533", k: int = 1,
-                    sms: int = SMS) -> MatmulPlan:
+                    per_word: Optional[int] = None, sms: int = SMS) -> MatmulPlan:
     """Tile plan of K1 for x [B, 6 Kw] against fp533 words [Kw, N], or of
-    K1b (``container="planes"``, shared-LSB group ``k``) for x [B, 8 Kw]
-    against 4-bit planes [Kw, N]: the smallest row tile that holds B (16
-    n-tiles of 8 rows at most, more row tiles past 128 rows); 64 columns
-    per CTA, 128 at 16 n-tiles (each x tile then feeds twice the columns),
-    32 where 64 gives fewer than 64 CTAs even at the largest cluster; K
-    split over a cluster of up to 8 CTAs, on k-group boundaries (8 words),
-    until every SM holds as many CTAs as fit at once: 4 (2 at 16 n-tiles),
-    fewer where their rings (`k1_ring_bytes`) do not fit an SM's shared
-    memory together."""
+    K1b (``container="planes"``, ``per_word`` K positions per word, 8 by
+    default, shared-LSB group ``k``) for x [B, per_word Kw] against planes
+    [Kw, N]: the smallest row tile that holds B (16 n-tiles of 8 rows at
+    most, more row tiles past 128 rows); 64 columns per CTA, 128 at 16
+    n-tiles (each x tile then feeds twice the columns), 32 where 64 gives
+    fewer than 64 CTAs even at the largest cluster; K split over a cluster
+    of up to 8 CTAs, on k-group boundaries (`k1_group_words`), until every
+    SM holds as many CTAs as fit at once: 4 (2 at 16 n-tiles), fewer where
+    their rings (`k1_ring_bytes`) do not fit an SM's shared memory
+    together."""
     if B < 1 or Kw < 1 or N < 1:
         raise ValueError(f"empty matmul B={B} Kw={Kw} N={N}")
-    if container not in ("fp533", "planes"):
-        raise ValueError(f"unknown container {container!r}")
+    pw = _per_word(container, per_word)
+    gw = k1_group_words(pw)
     nt = next((t for t in K1_ROW_TILES if 8 * t >= B), K1_ROW_TILES[-1])
     row_tiles = _cdiv(B, 8 * nt)
-    groups = _cdiv(Kw, K1_GROUP_WORDS)
+    groups = _cdiv(Kw, gw)
     if nt == K1_ROW_TILES[-1]:
         tn = 128
     else:
         tn = 64 if _cdiv(N, 64) * row_tiles * min(MAX_CLUSTER, groups) >= K1_MIN_CTAS else 32
-    fit = SM_SMEM_BYTES // (k1_ring_bytes(tn, nt, container, k) + CTA_SMEM_RESERVED)
+    fit = SM_SMEM_BYTES // (k1_ring_bytes(tn, nt, container, k, pw) + CTA_SMEM_RESERVED)
     resident = max(1, min(2 if nt == K1_ROW_TILES[-1] else 4, fit))
     col_tiles = _cdiv(N, tn)
     cluster = max(1, min(MAX_CLUSTER, groups, _cdiv(resident * sms, col_tiles * row_tiles)))
     per = _cdiv(groups, cluster)               # k-groups per rank
     cluster = _cdiv(groups, per)               # no rank left without words
-    return MatmulPlan(tn, nt, row_tiles, col_tiles, cluster, per * K1_GROUP_WORDS)
+    return MatmulPlan(tn, nt, row_tiles, col_tiles, cluster, per * gw)
 
 
 ATT_ROWS = 16              # folded query rows per CTA: one m16 tile

@@ -33,17 +33,19 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def packed(K, N, dev, seed=0, scheme="fp5.33-e2m3"):
+def packed(K, N, dev, seed=0, scheme="fp5.33-e2m3", container=None):
+    """A random [K, N] weight packed by ``scheme`` (a registered name or an
+    AMSFormat) into ``container`` (the scheme's default when None)."""
     from repro_torch.core.ams import ams_quantize
     from repro_torch.core.formats import get_scheme
     from repro_torch.core.packing import make_layout, pack
 
-    scheme = get_scheme(scheme)
+    scheme = get_scheme(scheme) if isinstance(scheme, str) else scheme
     gen = torch.Generator(device=dev).manual_seed(seed)
     w = torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)
-    Kp = make_layout(scheme).padded_k(K)
+    Kp = make_layout(scheme, container).padded_k(K)
     codes, scale = ams_quantize(torch.nn.functional.pad(w, (0, 0, 0, Kp - K)), scheme)
-    return pack(codes, scale, scheme), gen
+    return pack(codes, scale, scheme, container), gen
 
 
 @pytest.mark.gpu
@@ -132,6 +134,9 @@ def test_k1b_fp425_kernel_matches_plain(K, N, B):
     _k1b_case("fp4.25-e2m2", K, N, B, cuda_device())
 
 
+QWEN_PROJ = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("scheme,K,N,B", [
     ("fp4.25-e2m2", 3584, 3584, 8), ("fp4.25-e2m2", 3584, 512, 8),
@@ -139,13 +144,16 @@ def test_k1b_fp425_kernel_matches_plain(K, N, B):
     ("fp4.25-e2m2", 3584, 3584, 128), ("fp4.25-e2m2", 3584, 512, 128),
     ("fp4.25-e2m2", 3584, 18944, 128), ("fp4.25-e2m2", 18944, 3584, 128),
     ("fp4.25-e2m2", 700, 520, 200), ("fp4.33-e2m2", 3584, 3584, 8),
-    ("fp4.33-e2m2", 2560, 288, 33), ("fp4.5-e2m2", 3584, 520, 16), ("fp4-e2m1", 3584, 3584, 8)])
+    ("fp4.33-e2m2", 2560, 288, 33), ("fp4.5-e2m2", 3584, 520, 16), ("fp4-e2m1", 3584, 3584, 8)]
+    + [(sc, K, N, B) for sc in ("fp8", "fp6-e2m3", "fp5-e2m2") for B in (8, 128)
+       for K, N in QWEN_PROJ]
+    + [("fp6-e2m3", 700, 520, 200), ("fp6-e3m2", 2560, 288, 33), ("fp8", 3584, 520, 16)])
 def test_k1b_planned_shapes_match_plain(scheme, K, N, B):
     """K1b on the tensor cores at every Qwen2-7B projection shape at B = 8
-    and 128, two row tiles (B = 200), ragged 64-column tiles (N = 520), the
-    32-column tile (N = 288), and the other 4-bit schemes (fp4.33: k-groups
-    across lsb rows and a ragged last k-group); two launches give the same
-    bits (fixed reduction order)."""
+    and 128 (fp4.25, fp8, fp6-e2m3, fp5-e2m2), two row tiles (B = 200),
+    ragged 64-column tiles (N = 520), the 32-column tile (N = 288), and the
+    other schemes (fp4.33: k-groups across lsb rows and a ragged last
+    k-group); two launches give the same bits (fixed reduction order)."""
     from repro_torch.kernels.ams_matmul import (
         ams_matmul_planes,
         ams_matmul_planes_plain,
@@ -155,7 +163,7 @@ def test_k1b_planned_shapes_match_plain(scheme, K, N, B):
     dev = cuda_device()
     pw, gen = packed(K, N, dev, seed=K + N + B, scheme=scheme)
     assert planes_on_tensor_cores(pw.layout)
-    x = torch.zeros((B, pw.hi.shape[0] * 8), device=dev)
+    x = torch.zeros((B, pw.hi.shape[0] * pw.layout.per_word), device=dev)
     x[:, :K] = torch.randn((B, K), generator=gen, device=dev)
     got = ams_matmul_planes(x, pw.hi, pw.lsb, pw.scale, pw.layout)
     again = ams_matmul_planes(x, pw.hi, pw.lsb, pw.scale, pw.layout)
@@ -167,7 +175,7 @@ def test_k1b_planned_shapes_match_plain(scheme, K, N, B):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("scheme", ["fp4.25-e2m2", "fp8", "fp6-e3m2", "fp4.5-e2m2",
-                                    "fp4.33-e2m2", "fp4-e2m1"])
+                                    "fp4.33-e2m2", "fp4-e2m1", "fp6-e2m3", "fp5-e2m2"])
 def test_k1b_identity_is_bit_exact(scheme):
     from repro_torch.kernels import ops, ref
 
@@ -175,6 +183,84 @@ def test_k1b_identity_is_bit_exact(scheme):
     pw, _ = packed(384, 128, dev, seed=16, scheme=scheme)
     eye = torch.eye(8, 384, device=dev)
     assert torch.equal(ops.ams_matmul(eye, pw), ref.dequant_full(pw)[:8])
+
+
+def _wide_planes():
+    """(name, AMSFormat) of every base format and k <= 4 whose planes have
+    per_word 4, 5 or 6 (fp8, fp6, fp5, fp5.33 as planes, e4m3 k = 2, e3m3
+    k = 3, ...)."""
+    from repro_torch.core.formats import FORMATS, AMSFormat
+    from repro_torch.core.packing import make_layout
+
+    return [(f"{n}-k{k}", AMSFormat(f, k)) for n, f in FORMATS.items() for k in range(1, 5)
+            if make_layout(AMSFormat(f, k), "planes").per_word in (4, 5, 6)]
+
+
+WIDE_PLANES = _wide_planes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,sc", WIDE_PLANES, ids=[n for n, _ in WIDE_PLANES])
+def test_k1b_wide_layouts_match_plain(name, sc):
+    """Every per_word 4 / 5 / 6 layout through its decode hook: against the
+    plain version at a ragged shape (K = 700, N = 300, B = 5) and over a
+    cluster split with two row tiles (K = 2000, N = 520, B = 200); an
+    identity weight bit-exact."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ams_matmul import ams_matmul_planes, ams_matmul_planes_plain
+
+    dev = cuda_device()
+    for K, N, B in ((700, 300, 5), (2000, 520, 200)):
+        pw, gen = packed(K, N, dev, seed=K + N + B, scheme=sc, container="planes")
+        x = torch.zeros((B, pw.hi.shape[0] * pw.layout.per_word), device=dev)
+        x[:, :K] = torch.randn((B, K), generator=gen, device=dev)
+        got = ams_matmul_planes(x, pw.hi, pw.lsb, pw.scale, pw.layout)
+        want = ams_matmul_planes_plain(x, pw.hi, pw.lsb, pw.scale, pw.layout)
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), (K, N, B)
+    pw, _ = packed(384, 128, dev, seed=16, scheme=sc, container="planes")
+    eye = torch.eye(8, 384, device=dev)
+    assert torch.equal(ops.ams_matmul(eye, pw), ref.dequant_full(pw)[:8])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme,K", [("fp6-e2m3", 3584), ("fp5-e2m2", 700), ("fp8", 700),
+                                      ("fp4.25-e2m2", 700)])
+def test_k1b_reads_x_rows_only_up_to_kp(scheme, K):
+    """x as bf16 rows of a wider buffer (a view, stride a multiple of 8)
+    whose columns past Kp hold NaN: the kernel takes the view as it is and
+    reads no column past Kp (the copy that runs past it zero-fills), so
+    the result equals the plain version's on x[:, :Kp]."""
+    from repro_torch.kernels.ams_matmul import ams_matmul_planes, ams_matmul_planes_plain
+
+    dev = cuda_device()
+    pw, gen = packed(K, 520, dev, seed=K, scheme=scheme)
+    Kp = pw.hi.shape[0] * pw.layout.per_word
+    wide = torch.full((9, -(-Kp // 8) * 8 + 8), float("nan"), dtype=torch.bfloat16, device=dev)
+    wide[:, :Kp] = 0
+    wide[:, :K] = torch.randn((9, K), generator=gen, device=dev).to(torch.bfloat16)
+    x = wide[:, :Kp]
+    got = ams_matmul_planes(x, pw.hi, pw.lsb, pw.scale, pw.layout)
+    want = ams_matmul_planes_plain(x, pw.hi, pw.lsb, pw.scale, pw.layout)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["fp8", "fp6-e2m3", "fp5-e2m2"])
+def test_k1b_launches_once_per_call_without_plain(scheme):
+    """One launch per call on CUDA tensors and no call of the plain version,
+    through the layer wrapper (x of K columns, padded by the wrapper)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ams_matmul import COUNT_PLANES
+
+    dev = cuda_device()
+    pw, gen = packed(3584, 512, dev, seed=3, scheme=scheme)
+    x = torch.randn((8, 3584), generator=gen, device=dev)
+    n, plain = COUNT_PLANES.launches, COUNT_PLANES.plain_on_cuda
+    for _ in range(3):
+        ops.ams_matmul(x, pw)
+    torch.cuda.synchronize()
+    assert COUNT_PLANES.launches == n + 3 and COUNT_PLANES.plain_on_cuda == plain
 
 
 # pages the paged kernels walk in 2 (48: the second ragged), 4 and 10

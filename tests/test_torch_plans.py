@@ -24,9 +24,11 @@ over every sub-tile before any p); K3's and K5p's token splits against
 `_paged_online_softmax` (bf16 pages: the one-exchange prefix max, bf16(p)
 bit for bit the plain walk's, a rank-local max caught; AMS pages: each
 rank's own max and the rank-order merge, an unweighted merge caught); and
-K1b's `PlanesDecode` hook (the bit operations that turn 4-bit planes into bf16x2
-values, the lsb bits each word takes, the order x's fragments follow)
-against `code_to_value`, bit for bit.
+K1b's `PlanesDecode<HB, KS, M>` hook for every hi width (the lift and bit
+operations that turn planes into bf16x2 values, the lsb bits each word
+takes, the order x's fragments follow) against `code_to_value`, bit for
+bit, the ring's shared memory against the planner's, and a bank model of
+the fragment loads.
 """
 
 import math
@@ -125,12 +127,18 @@ PLANES_4BIT = ("fp4.5-e2m2", "fp4.33-e2m2", "fp4.25-e2m2", "fp4-e2m1")
 
 
 def test_tensor_core_planes_are_the_4bit_schemes():
-    from repro_torch.core.formats import SCHEMES
+    """Every planes layout of a registered scheme goes through the
+    tensor-core kernel, fp5.33-e2m3 packed as planes too (per_word 6);
+    3-bit fields (e2m1 with a shared LSB, per_word 10) and k > 4 do not."""
+    from repro_torch.core.formats import SCHEMES, AMSFormat, get_format
 
     on = {n for n, sc in SCHEMES.items()
           if make_layout(sc).container == "planes" and planes_on_tensor_cores(make_layout(sc))}
-    assert on == set(PLANES_4BIT)
-    assert not planes_on_tensor_cores(make_layout(get_scheme("fp5.33-e2m3"), "planes"))
+    assert on == {n for n, sc in SCHEMES.items() if make_layout(sc).container == "planes"}
+    assert set(PLANES_4BIT) < on and {"fp8", "fp6-e2m3", "fp6-e3m2", "fp5-e2m2"} < on
+    assert planes_on_tensor_cores(make_layout(get_scheme("fp5.33-e2m3"), "planes"))
+    assert not planes_on_tensor_cores(make_layout(AMSFormat(get_format("e2m1"), 2)))
+    assert not planes_on_tensor_cores(make_layout(AMSFormat(get_format("e2m2"), 5)))
 
 
 def _lsb_rows_read(lo: int, hi: int, k: int):
@@ -195,62 +203,165 @@ def _bf16_bits_to_f32(bits):
     return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32).view(torch.float32)
 
 
-def _planes_lsb_bits(lsb, kw: int, k: int):
-    """PlanesDecode::lsb_bits for every column: the lsb bits of word row kw
-    from group G0 = 8 kw / k on, and the word's phase in its group."""
-    G0 = 8 * kw // k
-    ph = 8 * kw - k * G0 if k == 3 else 0
+def _hook(hb: int):
+    """PlanesDecode<HB, KS>'s constants: (PW, kLift, kShift, kPairs)."""
+    pw = 32 // hb
+    lift = {8: 4, 4: 2}.get(pw, 3)
+    return pw, lift, 16 - hb * lift, pw - lift
+
+
+def _shift(v, s: int):
+    """PlanesDecode::shift: v shifted right by s (left by -s when s < 0)."""
+    return v >> s if s >= 0 else _u32(v << -s)
+
+
+def _planes_lsb_bits(lsb, kw, k: int, pw: int = 8):
+    """PlanesDecode::lsb_bits for every column of word rows kw (a tensor):
+    the lsb bits from group G0 = pw kw / k on, and the word's phase in its
+    group; the kernel's compile-time claims (no phase where k divides pw, no
+    second lsb row where a word's groups align with 32) hold."""
+    G0 = pw * kw // k
+    ph = pw * kw - k * G0
     off = G0 & 31
-    bits = lsb[G0 >> 5] >> off
-    if k == 3 and ((8 * kw + 7) // k) >> 5 != G0 >> 5:
-        bits = _u32(bits | (lsb[(G0 >> 5) + 1] << (32 - off)))
+    bits = lsb[G0 >> 5] >> off[:, None]
+    cross = ((pw * kw + pw - 1) // k) >> 5 != G0 >> 5
+    if pw % k == 0:
+        assert (ph == 0).all()
+        if 32 % (pw // k) == 0:
+            assert not cross.any()
+    nxt = lsb[torch.clamp((G0 >> 5) + 1, max=lsb.shape[0] - 1)]
+    up = (32 - off).clamp(max=31)[:, None]            # off = 0 never crosses
+    bits = torch.where(cross[:, None], _u32(bits | (nxt << up)), bits)
     return bits, ph
 
 
-def _planes_word_pairs(w, bits, ph: int, k: int):
-    """PlanesDecode::word_pairs for every column: the bf16x2 words of fields
-    (j, j + 4), j = 0..3, and their values (multiplied by 2^126 in f32)."""
-    r = [_u32(((w << 6) & 0x01C001C0) | ((w << 12) & 0x80008000)),
-         _u32(((w << 2) & 0x01C001C0) | ((w << 8) & 0x80008000)),
-         _u32(((w >> 2) & 0x01C001C0) | ((w << 4) & 0x80008000)),
-         _u32(((w >> 6) & 0x01C001C0) | (w & 0x80008000))]
+def _planes_block_pairs(w0, w1, b0, b1, ph0, ph1, hb: int, k: int, fmt):
+    """PlanesDecode<HB, KS, M>::block_pairs for words w0 (row 2t of a block)
+    and w1 (row 2t + 1), every column: the lift, two shifts and two masks per
+    pair, the LSBs (k > 1) and the multiply by 2^(127 - bias) (in f32:
+    exact, as the bf16x2 multiply is). Returns [(lo, hi, pa, pb)] in x's
+    order: the values and their K positions within the block (w0: 0..pw-1,
+    w1: pw..2pw-1)."""
+    pw, lift, shift, pairs = _hook(hb)
+    dst = 7 - fmt.man_bits
+    dm = dst + (1 if k > 1 else 0)
+    mag2 = (((1 << (hb - 1)) - 1) * 0x00010001) << dm
+
+    def lifted(w):
+        if shift == 0:
+            return w
+        moved = (w << shift) if shift > 0 else (w >> -shift)
+        return (w & 0xFFFF) | (moved & 0xFFFF0000)
+
+    def pair_bits(v, p):
+        return (_shift(v, p - dm) & mag2) | (_shift(v, p + hb - 16) & 0x80008000)
+
+    def lsb_pair(ba, pha, ja, bb, phb, jb):
+        lo = (ba >> ((pha + ja) // k)[:, None]) & 1
+        hi = (bb >> ((phb + jb) // k)[:, None]) & 1
+        return (lo | (hi << 16)) << dst
+
+    v0, v1 = lifted(w0), lifted(w1)
+    out = []
+    for word, v, bb, ph, base in ((w0, v0, b0, ph0, 0), (w1, v1, b1, ph1, pw)):
+        for j in range(pairs):
+            r = pair_bits(v, hb * j)
+            if k > 1:
+                r = r | lsb_pair(bb, ph, j, bb, ph, j + lift)
+            out.append((r, base + j, base + j + lift))
+    for j in range(pairs, lift):                      # HB 6: field 2 of w0 and w1
+        c = ((w0 >> (hb * j)) & 0xFFFF) | ((w1 << (16 - hb * j)) & 0xFFFF0000)
+        r = pair_bits(c, 0)
+        if k > 1:
+            r = r | lsb_pair(b0, ph0, j, b1, ph1, j)
+        out.append((r, j, pw + j))
+    mul = torch.tensor(2.0 ** (127 - fmt.bias), dtype=torch.float32)
+    return [(_bf16_bits_to_f32(r & 0xFFFF) * mul, _bf16_bits_to_f32(r >> 16) * mul, pa, pb)
+            for r, pa, pb in out]
+
+
+def _check_planes_decode(sc, lay):
+    """Every hi field value at every field position of a word (columns c:
+    value (kw + j + c) mod 2^hb), with either LSB (columns n + c: the lsb
+    words flipped), at every phase of a word in its k-group and across lsb
+    rows: PlanesDecode's pairs equal `code_to_value` of the unpacked codes,
+    bit for bit, and cover every K position once."""
+    hb, pw, k = lay.hi_bits, lay.per_word, sc.k
+    n = max(16, 1 << hb)
+    kw0 = 32 * k // math.gcd(pw, 32 * k)             # word rows per whole lsb row
+    Kw = kw0 * -(-48 // kw0)
+    Kw += Kw % 2
+    field = (torch.arange(Kw)[:, None, None] + torch.arange(pw)[None, :, None]
+             + torch.arange(n)[None, None, :]) % (1 << hb)                 # [Kw, pw, n]
+    words = (field << (hb * torch.arange(pw))[None, :, None]).sum(dim=1)   # [Kw, n]
+    words = torch.cat([words, words], dim=1)
     if k > 1:
-        r = [rj | (((bits >> ((ph + j) // k)) & 1) << 5)
-             | (((bits >> ((ph + j + 4) // k)) & 1) << 21) for j, rj in enumerate(r)]
-    two126 = torch.tensor(2.0 ** 126, dtype=torch.float32)
-    return [(_bf16_bits_to_f32(rj & 0xFFFF) * two126, _bf16_bits_to_f32(rj >> 16) * two126)
-            for rj in r]
+        gen = torch.Generator().manual_seed(k + 10 * hb)
+        lsb = torch.randint(0, 2 ** 32, (Kw * pw // (32 * k), n), generator=gen,
+                            dtype=torch.int64)
+        lsb = torch.cat([lsb, _u32(~lsb)], dim=1)
+    else:
+        lsb = torch.zeros((0, 2 * n), dtype=torch.int64)
+    wrap = lambda t: torch.where(t >= 2 ** 31, t - 2 ** 32, t).to(torch.int32)  # noqa: E731
+    want = code_to_value(sc.base, unpack_planes(wrap(words), wrap(lsb), lay))  # [pw Kw, 2n]
+    kw = torch.arange(0, Kw, 2)                                  # rows 2t of the blocks
+    if k > 1:
+        b0, ph0 = _planes_lsb_bits(lsb, kw, k, pw)
+        b1, ph1 = _planes_lsb_bits(lsb, kw + 1, k, pw)
+    else:
+        b0 = b1 = None
+        ph0 = ph1 = torch.zeros_like(kw)
+    seen = torch.zeros(pw * Kw, dtype=torch.int64)
+    for lo, hi, pa, pb in _planes_block_pairs(words[0::2], words[1::2], b0, b1, ph0, ph1, hb,
+                                              k, sc.base):
+        for got, p in ((lo, pa), (hi, pb)):
+            pos = pw * kw + p
+            assert torch.equal(got.view(torch.int32), want[pos].view(torch.int32)), \
+                (sc.name, p)
+            seen[pos] += 1
+    assert (seen == 1).all()
 
 
 @pytest.mark.parametrize("scheme", PLANES_4BIT)
 def test_k1b_planes_decode_is_code_to_value_bit_for_bit(scheme):
-    """Every 4-bit hi field at every field position of a word, with either
-    LSB bit, at every phase of a word in its k-group (k = 3: 8 kw mod 3)
-    and across lsb rows: PlanesDecode's pairs (fields j and j + 4 as one
-    bf16x2) equal `code_to_value` of the unpacked codes, bit for bit."""
+    """The 4-bit planes (PlanesDecode<4, KS>: fields j and j + 4 16 bits
+    apart, no lift), every field value, LSB and phase, bit for bit."""
     sc = get_scheme(scheme)
-    lay = make_layout(sc)
-    k = sc.k
-    Kw, n = 48, 16                   # 384 K positions: 3 to 6 lsb rows, every phase
-    field = (torch.arange(Kw)[:, None, None] + torch.arange(8)[None, :, None]
-             + torch.arange(n)[None, None, :]) % 16                      # [Kw, 8, n]
-    words = (field << (4 * torch.arange(8))[None, :, None]).sum(dim=1)   # [Kw, n]
-    words = torch.cat([words, words], dim=1)                             # columns n + c: same
-    if k > 1:
-        gen = torch.Generator().manual_seed(k)
-        rows = Kw * 8 // (32 * k)
-        lsb = torch.randint(0, 2 ** 32, (rows, n), generator=gen, dtype=torch.int64)
-        lsb = torch.cat([lsb, _u32(~lsb)], dim=1)                        # ... with LSBs flipped
-    else:
-        lsb = torch.zeros((0, 2 * n), dtype=torch.int64)
-    wrap = lambda t: torch.where(t >= 2 ** 31, t - 2 ** 32, t).to(torch.int32)  # noqa: E731
-    want = code_to_value(sc.base, unpack_planes(wrap(words), wrap(lsb), lay))  # [8 Kw, 2n]
-    for kw in range(Kw):
-        bits, ph = _planes_lsb_bits(lsb, kw, k) if k > 1 else (None, 0)
-        for j, (lo, hi) in enumerate(_planes_word_pairs(words[kw], bits, ph, k)):
-            for got, pos in ((lo, 8 * kw + j), (hi, 8 * kw + j + 4)):
-                assert torch.equal(got.view(torch.int32), want[pos].view(torch.int32)), \
-                    (kw, j, pos)
+    _check_planes_decode(sc, make_layout(sc))
+
+
+def _wide_planes():
+    """(name, scheme, layout) of every base format and k <= 4 whose planes
+    have per_word 4, 5 or 6."""
+    from repro_torch.core.formats import FORMATS, AMSFormat
+
+    out = []
+    for fname, fmt in FORMATS.items():
+        for k in range(1, 5):
+            sc = AMSFormat(fmt, k)
+            lay = make_layout(sc, "planes")
+            if lay.per_word in (4, 5, 6):
+                out.append((f"{fname}-k{k}", sc, lay))
+    return out
+
+
+WIDE_PLANES = _wide_planes()
+
+
+def test_wide_planes_cover_the_named_layouts():
+    names = {n for n, _, _ in WIDE_PLANES}
+    assert {"e4m3-k1", "e2m3-k1", "e3m2-k1", "e2m2-k1", "e2m3-k3", "e4m3-k2",
+            "e3m3-k3", "e5m2-k1"} <= names
+    assert {lay.per_word for _, _, lay in WIDE_PLANES} == {4, 5, 6}
+    assert {lay.hi_bits for _, _, lay in WIDE_PLANES} == {5, 6, 7, 8}
+
+
+@pytest.mark.parametrize("name,sc,lay", WIDE_PLANES, ids=[n for n, _, _ in WIDE_PLANES])
+def test_k1b_wide_planes_decode_is_code_to_value_bit_for_bit(name, sc, lay):
+    """PlanesDecode<HB, KS> for per_word 4 (HB 7, 8), 5 (HB 6: fields 3, 4
+    lifted under 0, 1, field 2 paired across the block's words) and 6 (HB
+    5: fp533's lift): every field value, LSB and phase, bit for bit."""
+    _check_planes_decode(sc, lay)
 
 
 def _byte_perm(a: int, b: int, sel: int) -> int:
@@ -281,6 +392,168 @@ def test_k1b_x_fragments_follow_the_pair_order():
                 assert (b[s][e] & 0xFFFF, b[s][e] >> 16) == pairs[2 * s + e], (t, s, e)
         covered = sorted(p for pr in pairs for p in pr)
         assert covered == xr
+
+
+def _x_pairs(pw: int, q):
+    """x_pairs<PW>: the byte permutes of the thread's 32-bit words q (x's
+    2 PW bf16 of one block, two per word, low half first)."""
+    bp = _byte_perm
+    if pw == 8:
+        return [bp(q[0], q[2], 0x5410), bp(q[0], q[2], 0x7632), bp(q[1], q[3], 0x5410),
+                bp(q[1], q[3], 0x7632), bp(q[4], q[6], 0x5410), bp(q[4], q[6], 0x7632),
+                bp(q[5], q[7], 0x5410), bp(q[5], q[7], 0x7632)]
+    if pw == 6:
+        return [bp(q[0], q[1], 0x7610), bp(q[0], q[2], 0x5432), bp(q[1], q[2], 0x7610),
+                bp(q[3], q[4], 0x7610), bp(q[3], q[5], 0x5432), bp(q[4], q[5], 0x7610)]
+    if pw == 5:
+        return [bp(q[0], q[1], 0x7610), bp(q[0], q[2], 0x5432), bp(q[2], q[4], 0x5432),
+                bp(q[3], q[4], 0x7610), bp(q[1], q[3], 0x7610)]
+    return [bp(q[0], q[1], 0x5410), bp(q[0], q[1], 0x7632), bp(q[2], q[3], 0x5410),
+            bp(q[2], q[3], 0x7632)]
+
+
+@pytest.mark.parametrize("hb", [5, 6, 7, 8])
+def test_k1b_wide_x_fragments_follow_the_pair_order(hb):
+    """For per_word 6, 5 and 4: the K positions of x's B fragments (x_pairs
+    over each block of the thread's words, k-step s taking pairs 2s and
+    2s + 1 of the group) are those of PlanesDecode's pairs in the A
+    fragments, and each of the thread's K positions appears once."""
+    pw, lift, _, pairs = _hook(hb)
+    blocks = 2 if pw == 5 else 1
+    for t in range(4):
+        hook, xs = [], []
+        for blk in range(blocks):
+            base = 8 * pw * blk + 2 * pw * t                   # the block's x offset
+            hook += [(base + j, base + j + lift) for j in range(pairs)]
+            hook += [(base + pw + j, base + pw + j + lift) for j in range(pairs)]
+            hook += [(base + j, base + pw + j) for j in range(pairs, lift)]
+            xr = [base + i for i in range(2 * pw)]
+            q = [xr[2 * i] | (xr[2 * i + 1] << 16) for i in range(pw)]
+            xs += [(v & 0xFFFF, v >> 16) for v in _x_pairs(pw, q)]
+        assert xs == hook, (hb, t)
+        assert len(hook) % 2 == 0 and len(hook) // 2 == blocks * pw // 2     # kSteps
+        assert sorted(p for pr in hook for p in pr) == sorted(
+            8 * pw * blk + 2 * pw * t + i for blk in range(blocks) for i in range(2 * pw))
+
+
+def _phases(addrs, width: int):
+    """Shared-memory wavefronts of one warp-wide load of ``width`` bytes per
+    lane at byte addresses ``addrs``: the warp splits into phases of 128
+    bytes (32 lanes at 4 bytes, 16 at 8, 8 at 16); a phase costs as many
+    wavefronts as lanes that hit one bank at distinct addresses."""
+    lanes = 128 // width
+    total = 0
+    for ph in range(0, 32, lanes):
+        banks = {}
+        for a in addrs[ph:ph + lanes]:
+            for w in range(a // 4, (a + width) // 4):
+                banks.setdefault(w % 32, set()).add(w)
+        total += max(len(v) for v in banks.values())
+    return total
+
+
+def _x_loads(pw: int, xs: int):
+    """The byte addresses of each x_pairs<PW> load of a warp (lane g, t
+    reads row g of x, the block's 2 PW bf16 at 2 PW t) and its width."""
+    width, n = {8: (16, 2), 6: (8, 3), 5: (4, 5), 4: (16, 1)}[pw]
+    return [([2 * (g * xs + 2 * pw * t) + width * i for g in range(8) for t in range(4)], width)
+            for i in range(n)]
+
+
+def _k1_shape(pw: int, k: int, tn: int, nt: int, fp533: bool = False):
+    """K1Shape<WN, NT, Dec> of csrc/ams_matmul.cu, restated from its
+    constants: (RW, LR, XS, ring bytes)."""
+    gw = 16 if pw == 5 else 8
+    rw = max(8 if nt >= 16 else (16 if nt >= 4 else 32), gw)
+    share = 0 if fp533 or k == 1 else k
+    lsb_k = 32 * (share or 1)
+    lr = (rw * pw + lsb_k - 1) // lsb_k + 1 if share else 0
+    xmod, period = (16, 64) if fp533 else {4: (32, 64), 5: (8, 16), 6: (16, 64), 8: (8, 64)}[pw]
+    xk = rw * pw
+    xs = xk + ((xmod - xk) % period + period) % period
+    stage = (rw + lr) * (tn + 4) * 4 + 8 * nt * xs * 2
+    return rw, lr, xs, max(4 * stage, tn * 8 * nt * 4)
+
+
+TILES = [(32, 1), (32, 2), (32, 4), (32, 8), (64, 1), (64, 2), (64, 4), (64, 8), (128, 16)]
+
+
+@pytest.mark.parametrize("pw", [4, 5, 6, 8])
+def test_k1b_ring_bytes_match_k1shape_and_loads_are_conflict_free(pw):
+    """`k1_ring_bytes` (what the planner fits on an SM) equals K1Shape's
+    ring at every tile and k; a stage holds whole k-groups; x's fragment
+    loads (x_pairs at the hook's row stride) and the weight fragments'
+    8-byte loads (rows 2t, 2t + 1 of a block, columns 2g, stride TN + 4)
+    take the fewest wavefronts the widths allow."""
+    from repro_torch.kernels.tuning import k1_group_words, k1_ring_bytes
+
+    for tn, nt in TILES:
+        for k in (1, 2, 3, 4):
+            rw, lr, xs, ring = _k1_shape(pw, k, tn, nt)
+            assert k1_ring_bytes(tn, nt, "planes", k, pw) == ring, (tn, nt, k)
+            assert k1_stage_rows(nt, pw) == rw and rw % k1_group_words(pw) == 0
+            if k > 1:
+                assert k1_lsb_rows(rw, k, pw) == lr
+            for addrs, width in _x_loads(pw, xs):
+                assert _phases(addrs, width) == 32 * width // 128, (tn, nt, xs, width)
+        ws = tn + 4
+        for r in range(2):                                      # rows 2t and 2t + 1
+            addrs = [4 * ((2 * t + r) * ws + 2 * g) for g in range(8) for t in range(4)]
+            assert _phases(addrs, 8) == 2
+    for tn, nt in TILES:                                        # K1 (fp533) unchanged
+        assert k1_ring_bytes(tn, nt) == _k1_shape(6, 1, tn, nt, fp533=True)[3]
+
+
+WIDE_SCHEMES = ["fp8", "fp6-e2m3", "fp6-e3m2", "fp5-e2m2"]
+
+
+@pytest.mark.parametrize("name,k,pw", [("fp8", 1, 4), ("fp6-e2m3", 1, 5), ("fp6-e3m2", 1, 5),
+                                       ("fp5-e2m2", 1, 6), ("fp5.33-planes", 3, 6),
+                                       ("e4m3-k2", 2, 4), ("e3m3-k3", 3, 5), ("e3m3-k4", 4, 5),
+                                       ("e3m2-k4", 4, 6)])
+@pytest.mark.parametrize("B,K,N", [(1, 5, 1), (5, 700, 300), (8, 3584, 512), (33, 2048, 640),
+                                   (128, 18944, 3584), (8, 3584, 18944), (200, 700, 520)])
+def test_k1b_wide_plan_covers_every_hi_and_lsb_row_once(name, k, pw, B, K, N):
+    """per_word 4, 5 and 6: every word row in exactly one rank, splits on
+    k-group boundaries (16 word rows at per_word 5, 8 otherwise); every lsb
+    row read by a rank that needs it; a ring stage starting on any k-group
+    boundary reads at most the lsb rows it copies."""
+    from repro_torch.kernels.tuning import k1_group_words
+
+    k_block = pw if k == 1 else math.lcm(pw, 32 * k)
+    Kp = -(-K // k_block) * k_block
+    Kw = Kp // pw
+    gw = k1_group_words(pw)
+    plan = plan_ams_matmul(B, Kw, N, container="planes", k=k, per_word=pw)
+    assert plan.split_words % gw == 0 and 1 <= plan.cluster <= MAX_CLUSTER
+    hi_seen = np.zeros(Kw, dtype=int)
+    lsb_seen = np.zeros(max(Kp // (32 * k), 1), dtype=int)
+    for lo, hi in plan.splits(Kw):
+        assert lo < hi and lo % gw == 0
+        hi_seen[lo:hi] += 1
+        if k > 1:
+            for r in range((pw * lo // k) >> 5, ((pw * hi - 1) // k >> 5) + 1):
+                lsb_seen[r] += 1
+    assert (hi_seen == 1).all()
+    if k > 1:
+        assert (lsb_seen >= 1).all()
+        assert Kw % gw == 0          # k > 1: the last k-group is whole (no LSB past the end)
+        rw = k1_stage_rows(plan.nt, pw)              # a stage's lsb rows fit its buffer
+        for w0 in range(0, Kw, gw):
+            rows = ((pw * w0 // k) >> 5, ((pw * (w0 + rw) - 1) // k) >> 5)
+            assert rows[1] - rows[0] + 1 <= k1_lsb_rows(rw, k, pw)
+    assert plan.tn * plan.col_tiles >= N and 8 * plan.nt * plan.row_tiles >= B
+
+
+@pytest.mark.parametrize("scheme", WIDE_SCHEMES)
+@pytest.mark.parametrize("arch,name,K,N", QWEN, ids=[n for _, n, _, _ in QWEN])
+def test_k1b_wide_plan_fills_the_card_at_decode(scheme, arch, name, K, N):
+    """fp8, fp6 and fp5 at Qwen2-7B's projections, B = 8: at least one CTA
+    per SM, at least 64 for wk/wv."""
+    lay = make_layout(get_scheme(scheme))
+    plan = plan_ams_matmul(8, lay.padded_k(K) // lay.per_word, N, container="planes", k=1,
+                           per_word=lay.per_word)
+    assert plan.ctas >= (64 if name in ("wk", "wv") else SMS), plan
 
 
 # ------------------------------------------------------------------ K4
