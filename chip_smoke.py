@@ -50,12 +50,24 @@ Phases, each fatal on failure:
      K5); 9 requests each on the last four (two sharing a prefix on the
      paged ones). Launch counts are zeroed just before each path and read
      just after: every kernel of the path must have launched, no other
-     kernel and no plain version on CUDA tensors. Each path prints the
-     bytes of the weights a decode step reads (projections and lm_head) and
-     their time at the memory rate, then times full-batch decode ticks over
-     the served context lengths (about 200-360 keys) and profiles them
-     (device-busy ms per tick);
-  10. consistency at cut depth (2 layers, full widths), per path:
+     kernel and no plain version on CUDA tensors. Every tick replays a CUDA
+     graph of the engine step (one per chunk width; capture seconds and the
+     graph pool's bytes are printed), and each replay adds the launch
+     counts its capture recorded. Each path prints the bytes of the
+     weights a decode step reads (projections and lm_head) and their time
+     at the memory rate, then times full-batch decode ticks over the served
+     context lengths (about 200-360 keys), graph ticks and eager ticks
+     (the step function on the same inputs) in turns, one replay's device
+     time from CUDA events, and profiles both kinds of tick (device-busy
+     ms, idle share and kernels per tick; the profiler's launches of the
+     path's kernels in the graph ticks must equal the counted ones);
+  10. graph against eager at cut depth (2 layers, full widths), per path:
+      two engines from one seed serve the same requests in lockstep, one
+      replaying its graphs, one running the eager step; tokens after every
+      tick and every cache byte must be equal; then one eager step runs
+      under torch.cuda.set_sync_debug_mode("error");
+  11. consistency at cut depth (2 layers, full widths), per path (both
+      engines replay graphs):
       first-tick logits and greedy streams of impl "kernel" against the
       non-kernel impls ("fused_ref" matmuls, "ref" attention) on the card,
       the kernel engine's streams launching every kernel of its path; the
@@ -63,12 +75,13 @@ Phases, each fatal on failure:
       page in two sub-tiles), and once with fp6-e2m3 weights (K1b's per_word
       5 hook, K2).
 
-A line ``compare {...}`` sets the five paths' decode tick and device-busy
-ms side by side. The line before the last is one JSON object with a row
-per kernel; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA card the script
-exits non-zero and prints no result (``--cpu-rehearsal`` runs the phases on
-the CPU at tiny sizes with the plain versions, skips timing, and also exits
-non-zero).
+A line ``compare {...}`` sets the five paths' graph and eager decode
+ticks, replay ms, device-busy ms, idle shares, gaps inside ticks and
+kernels per tick side by side. The line before the last is one JSON
+object with a row per kernel; the last line is ``{"ok": true, "device":
+{...}}``. Without a CUDA card the script exits non-zero and prints no
+result (``--cpu-rehearsal`` runs the phases on the CPU at tiny sizes with
+the plain versions, skips timing, and also exits non-zero).
 """
 
 from __future__ import annotations
@@ -887,6 +900,7 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
                kv_bytes_per_token=st["kv_bytes_per_token"])
     if dev.type == "cuda":
         res["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        res["graph"] = graph_stats(eng)
     log("serve " + json.dumps(res))
     bad = [h.rid for h in handles if not h.done or len(h.tokens) != max_tokens
            or not all(0 <= t < V for t in h.tokens)]
@@ -960,58 +974,190 @@ def fill_for_decode(eng, rng, prompt, decode_ticks: int):
     return ticks
 
 
-def profile_decode(torch, eng, rng, path: str, ticks: int = 3):
-    """Pure-decode ticks with every slot decoding, over the context lengths
-    the served workloads reach (prompts of 200-340 tokens, prefilled
-    first): first timed plainly (decode tick ms and tokens/s at a full
-    batch), then under torch.profiler (the device-busy share of wall time
-    and the kernels that take it)."""
+def graph_stats(eng):
+    """Capture seconds per chunk width and the bytes of the engine's graph
+    memory pool."""
+    return dict(capture_seconds={str(w): t for w, t in eng.graphs.capture_seconds.items()},
+                pool_bytes=eng.graphs.pool_bytes)
+
+
+# the symbol of each counted kernel, as the profiler names its launches
+KERNEL_SYMBOLS = {"ams_matmul_fp533": "ams_matmul_mma_kernel",
+                  "ams_matmul_planes": "ams_matmul_mma_kernel",
+                  "paged_attention_ams": "k2_kernel", "paged_attention_bf16": "k3_kernel",
+                  "contiguous_attention": "k4_kernel", "contiguous_attention_mla": "k5_kernel"}
+
+
+def _profiled_ticks(torch, eng, ticks: int, eager: bool, path: str):
+    """``ticks`` decode ticks under torch.profiler: device-busy ms and idle
+    share per tick, the device's idle time between events inside ticks,
+    kernels per tick, the top kernels, and each path kernel's launches as
+    the profiler saw them and as the counts add up."""
     from torch.profiler import ProfilerActivity, profile
 
-    fill_for_decode(eng, rng, PROFILE_PROMPT, 2 * ticks + 1)
-    eng.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(ticks):
-        eng.step()
-    torch.cuda.synchronize()
-    plain_tick = (time.perf_counter() - t0) / ticks
-    if eng.active_count != eng.slots:
-        fail(f"profile[{path}]: {eng.active_count} of {eng.slots} slots decoded")
-    decode = dict(path=path, active_slots=eng.active_count, ticks=ticks,
-                  decode_tick_ms=1e3 * plain_tick,
-                  decode_tokens_per_s=eng.active_count / plain_tick)
-    log("decode " + json.dumps(decode))
-    # keys each decoding slot attends over in the profiled ticks
-    keys = [int(eng.fed[s]) + 1 + i for i in range(ticks)
-            for s, r in enumerate(eng.active) if r is not None]
+    counts = {c.name: c for c in all_counts()}
+    before = {k: counts[k].launches for k in PATHS[path]["kernels"]}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ticks):
-            eng.step()
+            eng.step(eager=eager)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    if eng.active_count != eng.slots:
-        fail(f"profile[{path}]: {eng.active_count} of {eng.slots} slots decoded while profiled")
-    eng.run()
     kernels = {}
     busy = 0.0
+    spans = []
     for ev in prof.events():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
             us = ev.time_range.elapsed_us()
             busy += us
-            n, s = kernels.get(ev.name, (0, 0.0))
-            kernels[ev.name] = (n + 1, s + us)
+            spans.append((ev.time_range.start, ev.time_range.end))
+            n, t = kernels.get(ev.name, (0, 0.0))
+            kernels[ev.name] = (n + 1, t + us)
+    # device idle between consecutive device events; the ``ticks`` - 1
+    # widest gaps are the host's work between ticks, the rest lie inside
+    gaps, end = [], None
+    for a, b in sorted(spans):
+        if end is not None and a > end:
+            gaps.append(a - end)
+        end = b if end is None else max(end, b)
+    inside = sorted(gaps)[:max(0, len(gaps) - (ticks - 1))]
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
-    res = dict(path=path, ticks=ticks, context_keys=[min(keys), max(keys)],
-               wall_ms_per_tick=1e3 * wall / ticks,
-               device_busy_ms_per_tick=busy / 1e3 / ticks,
-               device_idle_share=max(0.0, 1 - busy / 1e6 / wall),
-               kernels_per_tick=sum(n for n, _ in kernels.values()) / ticks,
-               top=[dict(name=k[:80], launches_per_tick=n / ticks, ms_per_tick=s / 1e3 / ticks)
-                    for k, (n, s) in top])
+    seen = {k: sum(n for name, (n, _) in kernels.items() if KERNEL_SYMBOLS[k] in name) / ticks
+            for k in before}
+    counted = {k: (counts[k].launches - before[k]) / ticks for k in before}
+    return dict(wall_ms_per_tick=1e3 * wall / ticks,
+                device_busy_ms_per_tick=busy / 1e3 / ticks,
+                device_idle_share=max(0.0, 1 - busy / 1e6 / wall),
+                kernels_per_tick=sum(n for n, _ in kernels.values()) / ticks,
+                gaps_inside_ticks_ms_per_tick=sum(inside) / 1e3 / ticks,
+                path_launches_per_tick=dict(profiler=seen, counted=counted),
+                top=[dict(name=k[:80], launches_per_tick=n / ticks, ms_per_tick=t / 1e3 / ticks)
+                     for k, (n, t) in top])
+
+
+def profile_decode(torch, eng, rng, path: str, ticks: int = 3, timed: int = 5):
+    """Pure-decode ticks with every slot decoding, over the context lengths
+    the served workloads reach (prompts of 200-340 tokens, prefilled
+    first): graph ticks (`ServeEngine.step`, a CUDA graph replay) and eager
+    ticks (`step(eager=True)`, the step function on the same static inputs)
+    timed in turns over the same state (decode tick ms and tokens/s at a
+    full batch), the device time of one graph replay from CUDA events, then
+    both under torch.profiler (device-busy ms, idle share, kernels per
+    tick; the profiler's launches of the path's kernels must equal the
+    counts the replays added)."""
+    fill_for_decode(eng, rng, PROFILE_PROMPT, 2 * (timed + ticks) + 3)
+    eng.step()
+    eng.step(eager=True)
+    tick = {False: 0.0, True: 0.0}
+    for _ in range(timed):
+        for eager in (False, True):
+            t0 = time.perf_counter()
+            eng.step(eager=eager)
+            tick[eager] += time.perf_counter() - t0
+    if eng.active_count != eng.slots:
+        fail(f"profile[{path}]: {eng.active_count} of {eng.slots} slots decoded")
+    # one replay's device time on the last tick's inputs (a replay rewrites
+    # the cache entries that tick wrote with the same values)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(timed):
+        eng.graphs(1)
+    e1.record()
+    e1.synchronize()
+    replay_ms = e0.elapsed_time(e1) / timed
+    decode = dict(path=path, active_slots=eng.active_count, ticks=timed,
+                  decode_tick_ms=1e3 * tick[False] / timed,
+                  eager_tick_ms=1e3 * tick[True] / timed, replay_ms=replay_ms,
+                  # the share of a graph tick spent outside its replay's
+                  # device span (staging, launch, read-back, bookkeeping)
+                  outside_replay_share=1 - replay_ms / (1e3 * tick[False] / timed),
+                  decode_tokens_per_s=eng.active_count * timed / tick[False],
+                  eager_tokens_per_s=eng.active_count * timed / tick[True])
+    log("decode " + json.dumps(decode))
+    # keys each decoding slot attends over in the profiled ticks
+    keys = [int(eng.fed[s]) + 1 + i for i in range(2 * ticks)
+            for s, r in enumerate(eng.active) if r is not None]
+    res = dict(path=path, ticks=ticks, context_keys=[min(keys), max(keys)])
+    for name, eager in (("graph", False), ("eager", True)):
+        res[name] = _profiled_ticks(torch, eng, ticks, eager, path)
+    if eng.active_count != eng.slots:
+        fail(f"profile[{path}]: {eng.active_count} of {eng.slots} slots decoded while profiled")
+    eng.run()
     log("profile " + json.dumps(res))
-    res["decode_tick_ms"] = decode["decode_tick_ms"]
+    g = res["graph"]
+    if g["kernels_per_tick"] <= 0:
+        fail(f"profile[{path}]: the profiler saw no kernel of the graph replays")
+    seen, counted = g["path_launches_per_tick"]["profiler"], g["path_launches_per_tick"]["counted"]
+    if seen != counted or min(counted.values()) <= 0:
+        fail(f"profile[{path}]: launches per graph tick: profiler {seen}, counts {counted}")
+    res.update(decode)
+    return res
+
+
+def phase_graph(torch, dev, full: bool, path: str = "fp5.33"):
+    """Graph replays against the eager step at cut depth (2 layers, full
+    widths): two engines from one seed serve the same requests in lockstep
+    (prefill and decode ticks mixed), one replaying its CUDA graphs, the
+    other running the step function (`step(eager=True)`); tokens after
+    every tick and every cache byte at the end must be equal. Then one
+    eager step runs under ``torch.cuda.set_sync_debug_mode("error")``."""
+    import numpy as np
+
+    from repro_torch.cache import CacheConfig
+    from repro_torch.launch.config import EngineConfig
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.launch.steps import run_step
+    from repro_torch.models.transformer import tree_leaves
+
+    spec = PATHS[path]
+    base = (dict(reduced=False, depth=2, slots=4, capacity=256, prefill_chunk=16)
+            if full else dict(reduced=True, slots=2, capacity=64, prefill_chunk=4))
+    ec = EngineConfig(arch=spec["arch"], scheme=spec["scheme"], impl="kernel",
+                      cache=CacheConfig(kind=spec["kind"], page_size=16 if full else 8,
+                                        impl="kernel"),
+                      device=str(dev), seed=11, **base)
+    graphed, eager = ServeEngine(ec), ServeEngine(ec)
+    rng = np.random.default_rng(5)
+    V = graphed.cfg.vocab_size
+    n_req, plen, gen_n = (6, (20, 120), 12) if full else (3, (5, 14), 4)
+    for n in rng.integers(plen[0], plen[1], n_req):
+        p = rng.integers(0, V, int(n)).astype(np.int32)
+        graphed.submit(p, gen_n)
+        eager.submit(p, gen_n)
+    ticks, first = 0, None
+    while graphed.has_work or eager.has_work:
+        graphed.step()
+        eager.step(eager=True)
+        ticks += 1
+        a = [list(r.tokens) if r is not None else None for r in graphed.active]
+        b = [list(r.tokens) if r is not None else None for r in eager.active]
+        if first is None and a != b:
+            first = ticks
+    streams_equal = [r.tokens for r in graphed.finished] == [r.tokens for r in eager.finished]
+    caches_equal = all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                       for x, y in zip(tree_leaves(graphed.cache), tree_leaves(eager.cache)))
+    res = dict(path=path, depth=graphed.cfg.num_layers, ticks=ticks,
+               requests=len(graphed.finished), streams_equal=streams_equal,
+               caches_equal=caches_equal, first_diverging_tick=first)
+    if dev.type == "cuda":
+        res["graph"] = graph_stats(graphed)
+        torch.cuda.synchronize()
+        graphed.inputs.send()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run_step(graphed._step, graphed.params, graphed.cache, graphed.inputs,
+                     graphed.samp, graphed.step_chunk)
+        except RuntimeError as e:
+            fail(f"graph[{path}]: the eager step synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        res["sync_free_step"] = True
+    log("graph " + json.dumps(res))
+    if not (streams_equal and caches_equal and first is None):
+        fail(f"graph[{path}]: graph replays and the eager step differ: {res}")
+    del graphed, eager
+    gc.collect()
     return res
 
 
@@ -1184,6 +1330,7 @@ def main():
         phase_k5p(torch, dev, timed=False, full=False)
         for path in PATHS:
             phase_serve(torch, dev, full=False, path=path)
+            phase_graph(torch, dev, full=False, path=path)
             phase_consistency(torch, dev, full=False, path=path)
         phase_consistency(torch, dev, full=False, path="fp4.25", page=16)
         phase_consistency(torch, dev, full=False, path="fp4.25", scheme="fp6-e2m3")
@@ -1228,15 +1375,20 @@ def main():
     served = {}
     for path in PATHS:
         served[path] = phase_serve(torch, dev, full=True, path=path)
+        phase_graph(torch, dev, full=True, path=path)
         phase_consistency(torch, dev, full=True, path=path)
     phase_consistency(torch, dev, full=True, path="fp4.25", page=64)
     phase_consistency(torch, dev, full=True, path="fp4.25", scheme="fp6-e2m3")
     log("compare " + json.dumps({
         path: dict(arch=r["arch"], scheme=r["scheme"], cache=r["cache"],
                    decode_tick_ms=r["profile"]["decode_tick_ms"],
-                   device_busy_ms_per_tick=r["profile"]["device_busy_ms_per_tick"],
-                   device_idle_share=r["profile"]["device_idle_share"],
-                   kernels_per_tick=r["profile"]["kernels_per_tick"], card=card)
+                   eager_tick_ms=r["profile"]["eager_tick_ms"],
+                   replay_ms=r["profile"]["replay_ms"],
+                   outside_replay_share=r["profile"]["outside_replay_share"],
+                   **{f"{k}_{m}": r["profile"][k][m] for k in ("graph", "eager")
+                      for m in ("device_busy_ms_per_tick", "device_idle_share",
+                                "gaps_inside_ticks_ms_per_tick", "kernels_per_tick")},
+                   card=card)
         for path, r in served.items()}))
 
     # library_ms: K4 / K5 against one torch SDPA call with the equivalent

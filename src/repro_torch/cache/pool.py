@@ -13,7 +13,8 @@ i.e. the AMS layout is `repro_torch.core.kv_quant`'s packed planes with a
 A request's logical position i lives at ``page = block_table[slot, i //
 page_size], offset = i % page_size``. Inserts take a [B, c] token block;
 suppressed writes (idle slot pos < 0, or chunk entries past a slot's valid
-count) are dropped. Each token is quantized once at insert.
+count) are dropped without a host sync. Each token is quantized once at
+insert.
 
 Unlike the reference's functional scatter, `paged_insert` writes into the
 pool tensors in place (the engine's pools hold every layer of a
@@ -56,9 +57,10 @@ def make_gqa_page_pool(ccfg: CacheConfig, kv: int, hd: int, *, device="cpu",
     return {"k": planes(), "v": planes()}
 
 
-def _page_offset(pos, nvalid, block_table, ccfg: CacheConfig, c: int):
-    """Physical (page, offset) [B, c] for a chunk starting at ``pos`` per slot,
-    and the [B, c] mask of writes that happen (not idle, index < nvalid)."""
+def _destinations(pos, nvalid, block_table, ccfg: CacheConfig, c: int):
+    """Flat pool rows ``page * page_size + offset`` [B*c] of a chunk starting
+    at ``pos`` per slot, and the [B*c] mask of writes that happen (not idle,
+    index < nvalid)."""
     j = torch.arange(c, dtype=torch.int32, device=pos.device)[None, :]
     p = pos[:, None] + j
     ok = (pos[:, None] >= 0) & (j < nvalid[:, None])
@@ -66,7 +68,24 @@ def _page_offset(pos, nvalid, block_table, ccfg: CacheConfig, c: int):
                           0, block_table.shape[1] - 1)
     page = torch.take_along_dim(block_table, logical.long(), dim=1)
     off = torch.clamp(torch.remainder(p, ccfg.page_size), 0, ccfg.page_size - 1)
-    return page, off, ok
+    return (page.long() * ccfg.page_size + off.long()).reshape(-1), ok.reshape(-1)
+
+
+def _scatter_rows(leaf: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
+                  ok: torch.Tensor, first: torch.Tensor, any_ok: torch.Tensor) -> None:
+    """leaf [P, page, *] in place: row ``rows[i]`` of its [P*page, *] view
+    gets ``vals[i]`` where ``ok[i]``. Every dropped entry writes the tick's
+    anchor row instead: the first live write's row and value, or, in a tick
+    with none, row 0 with its own value. So duplicate indices always carry
+    equal values and the scatter needs no host sync. A per-slot anchor
+    would not do: an idle slot's stale block-table row can name a page that
+    an active slot writes this tick."""
+    flat = leaf.view(-1, *leaf.shape[2:])
+    vals = vals.to(leaf.dtype)
+    anchor = torch.where(any_ok, rows[first], 0)
+    anchor_val = torch.where(any_ok, vals[first], flat[anchor])
+    mask = ok.reshape(-1, *([1] * (vals.dim() - 1)))
+    flat[torch.where(ok, rows, anchor)] = torch.where(mask, vals, anchor_val)
 
 
 def paged_insert(pool: Dict, k_new: torch.Tensor, v_new: torch.Tensor, pos, block_table,
@@ -74,23 +93,25 @@ def paged_insert(pool: Dict, k_new: torch.Tensor, v_new: torch.Tensor, pos, bloc
     """Write this tick's K/V block ([B, c, kv, hd]) into the layer pool in
     place and return it. ``pos`` [B] start positions (negative = idle slot,
     nothing written); ``nvalid`` [B] bounds each slot's valid chunk entries
-    (default: all c of non-idle slots)."""
-    c = k_new.shape[1]
+    (default: all c of non-idle slots). Dropped writes leave the pool
+    bit-unchanged; nothing here waits on the device (`_scatter_rows`)."""
+    B, c = k_new.shape[:2]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=k_new.device)
     if nvalid is None:
         nvalid = torch.where(pos >= 0, c, 0)
     nvalid = torch.as_tensor(nvalid, dtype=torch.int32, device=k_new.device)
-    page, off, ok = _page_offset(pos, nvalid, block_table, ccfg, c)
-    page, off = page[ok].long(), off[ok].long()
-    if not ccfg.quantized:
-        for name, new in (("k", k_new), ("v", v_new)):
-            pool[name][page, off] = new[ok].to(pool[name].dtype)
-        return pool
-    scheme = get_scheme(ccfg.kv_scheme)
+    rows, ok = _destinations(pos, nvalid, block_table, ccfg, c)
+    first = torch.argmax(ok.to(torch.int32)).reshape(1)     # the first live write, or 0
+    any_ok = ok.any()
     for name, new in (("k", k_new), ("v", v_new)):
-        q = quantize_kv(new, scheme, ccfg.kv_strategy)          # [B, c, kv, *]
+        if not ccfg.quantized:
+            _scatter_rows(pool[name], rows, new.reshape(B * c, *new.shape[2:]), ok, first,
+                          any_ok)
+            continue
+        q = quantize_kv(new, get_scheme(ccfg.kv_scheme), ccfg.kv_strategy)  # [B, c, kv, *]
         for pl in PLANES:
-            pool[name][pl][page, off] = q[pl][ok]
+            _scatter_rows(pool[name][pl], rows, q[pl].reshape(B * c, *q[pl].shape[2:]), ok,
+                          first, any_ok)
     return pool
 
 

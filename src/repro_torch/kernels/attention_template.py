@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.core.formats import code_to_value, get_scheme
 from repro_torch.core.kv_quant import codes_from_planes
+from repro_torch.core.rtn import device_table
 
 from .build import KernelCount, check_device, library, stream_ptr
 from .tuning import (
@@ -85,9 +86,11 @@ def _attend(qf, k, v, valid, g):
 
 
 def _scale_factor(q: torch.Tensor, scale: Optional[float]) -> torch.Tensor:
-    """The softmax scale (default 1/sqrt(hd)) as a scalar in q.dtype."""
+    """The softmax scale (default 1/sqrt(hd)) as a scalar in q.dtype, made
+    once per (scale, dtype, device): a tensor made from host data per call
+    would be a copy from pageable memory inside the step."""
     scale = scale if scale is not None else 1.0 / np.sqrt(q.shape[-1])
-    return torch.tensor(np.float32(scale), dtype=q.dtype, device=q.device)
+    return device_table((float(np.float32(scale)),), q.dtype, str(q.device)).reshape(())
 
 
 def _scaled(q: torch.Tensor, scale: Optional[float]) -> torch.Tensor:

@@ -14,6 +14,7 @@ and waits for all of them.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,7 +22,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -39,16 +40,46 @@ class KernelCount:
     """Plain-integer counters one kernel wrapper keeps: ``launches`` grows by
     one where the wrapper launches its kernel and nowhere else;
     ``plain_on_cuda`` counts calls of the kernel's plain torch version on
-    CUDA tensors (a serving run on the card must show 0)."""
+    CUDA tensors (a serving run on the card must show 0). A CUDA graph
+    replay runs no wrapper: `recorded_counts` takes what a capture added,
+    and `add_counts` adds it once per replay."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
         self.plain_on_cuda = 0
+        _COUNTS.append(self)
 
     def reset(self) -> None:
         self.launches = 0
         self.plain_on_cuda = 0
+
+
+_COUNTS: List[KernelCount] = []
+
+
+@contextlib.contextmanager
+def recorded_counts():
+    """Around a CUDA graph capture: yields a list that, on exit, holds
+    ``(count, launches, plain_on_cuda)`` for every count the capture moved,
+    and sets the counts back (a capture launches nothing)."""
+    before = [(c, c.launches, c.plain_on_cuda) for c in _COUNTS]
+    moved: List[Tuple[KernelCount, int, int]] = []
+    try:
+        yield moved
+    finally:
+        for c, n, p in before:
+            if (c.launches, c.plain_on_cuda) != (n, p):
+                moved.append((c, c.launches - n, c.plain_on_cuda - p))
+            c.launches, c.plain_on_cuda = n, p
+
+
+def add_counts(moved) -> None:
+    """Count one replay of a graph whose capture moved the counts ``moved``
+    (from `recorded_counts`)."""
+    for c, n, p in moved:
+        c.launches += n
+        c.plain_on_cuda += p
 
 
 def nvcc_path() -> str:

@@ -98,15 +98,17 @@ class EngineConfig:
         if not isinstance(self.obs, ObsConfig):
             raise TypeError(f"obs must be an ObsConfig, got {type(self.obs).__name__}")
         if self.speculate_k:
-            raise NotImplementedError("speculative decoding is not ported yet (ROADMAP queue 2)")
+            raise NotImplementedError("speculative decoding is not ported yet "
+                                      "(ROADMAP.md, Modules to port)")
         if self.mesh is not None:
             raise NotImplementedError("tensor-parallel meshes are not ported yet "
-                                      "(ROADMAP queue 2)")
+                                      "(ROADMAP.md, Modules to port)")
         if self.cache is not None and self.cache.host_spill_pages:
             raise NotImplementedError("the host spill tier is not ported yet "
-                                      "(preemption with host spill, ROADMAP queue 2)")
+                                      "(preemption with host spill: ROADMAP.md, Modules to port)")
         if self.obs.cost_on:
-            raise NotImplementedError("obs cost accounting is not ported yet (ROADMAP queue 2)")
+            raise NotImplementedError("obs cost accounting is not ported yet "
+                                      "(ROADMAP.md, Modules to port)")
 
     @property
     def step_chunk(self) -> int:

@@ -71,7 +71,7 @@ from .sampling import (
     slot_batch,
 )
 from .scheduler import DECODE, FINISHED, PREFILL, FIFOScheduler, Request
-from .steps import build_engine_step, engine_step_signature
+from .steps import GraphedStep, StepInputs, build_engine_step, engine_step_signature, run_step
 
 
 def resolve_device(device: str) -> torch.device:
@@ -240,7 +240,15 @@ class ServeEngine:
         self.active: List[Optional[Request]] = [None] * slots
         self.fed = np.zeros(slots, np.int32)
         self.last_token = np.zeros(slots, np.int32)
-        self.samp = slot_batch(slots)
+        self.inputs = StepInputs(slots, self.step_chunk,
+                                 ccfg.max_pages_per_seq if ccfg.paged else 0, self.device)
+        self.samp = slot_batch(slots, self.device, rows={"ngen": self.inputs.dev["ngen"]})
+        # on the card every tick replays a CUDA graph of the step
+        self.graphs: Optional[GraphedStep] = None
+        if self.device.type == "cuda":
+            self.graphs = GraphedStep(self._step, self.params, self.cache, self.inputs,
+                                      self.samp)
+            self._out_host = torch.empty((2, slots), dtype=torch.int32, pin_memory=True)
         self.tick = 0
         self.finished: List[Request] = []
         self._rid = itertools.count()
@@ -286,10 +294,11 @@ class ServeEngine:
         the length cap (``sampling.max_tokens`` wins when both are given)."""
         sp = sampling if sampling is not None else GREEDY
         if prefix_embeds is not None:
-            raise NotImplementedError("prefix embeds are not ported yet (ROADMAP queue 2)")
+            raise NotImplementedError("prefix embeds are not ported yet "
+                                      "(ROADMAP.md, Modules to port)")
         if priority != 0:
             raise NotImplementedError("priorities and preemption are not ported yet "
-                                      "(preemption with host spill, ROADMAP queue 2)")
+                                      "(preemption with host spill: ROADMAP.md, Modules to port)")
         if not sp.greedy:
             raise NotImplementedError(SAMPLING_TODO)
         if sp.max_tokens is not None:
@@ -362,9 +371,27 @@ class ServeEngine:
         return len(placed)
 
     # ----------------------------------------------------------------- tick
-    def step(self) -> Dict[str, object]:
+    def device_step(self, width: int, *, eager: bool = False) -> np.ndarray:
+        """Run the step on the staged inputs at ``width`` tokens per slot and
+        return (next token, done) [2, B] int32 on the host. CUDA tensors
+        replay the width's graph unless ``eager`` asks for the step function
+        itself (comparisons); CPU tensors always run the step function.
+        One copy to pinned memory and one synchronisation read the result."""
+        if self.graphs is not None and not eager:
+            out = self.graphs(width)
+        else:
+            self.inputs.send()
+            out = run_step(self._step, self.params, self.cache, self.inputs, self.samp, width)
+        if not out.is_cuda:
+            return out.numpy()
+        self._out_host.copy_(out, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return self._out_host.numpy()
+
+    def step(self, *, eager: bool = False) -> Dict[str, object]:
         """One engine tick: admit, run the ragged step, advance slots by their
-        consumed chunk lengths, finish and re-admit.
+        consumed chunk lengths, finish and re-admit. ``eager`` runs the step
+        function instead of its CUDA graph (`device_step`).
 
         Returns {"finished": [Request], "generated": int, "active": int}."""
         t0 = time.perf_counter()
@@ -399,13 +426,14 @@ class ServeEngine:
                 leftover -= n - 1
             nvalid[s] = n
 
-        # the reference's compiled step always runs the full [B, C] block;
-        # eager PyTorch feeds only this tick's widest chunk (rows past a
-        # slot's nvalid are discarded either way), so pure-decode ticks of a
-        # chunked engine run [B, 1]
-        C = int(nvalid.max())
-        token = np.zeros((self.slots, C), np.int32)
-        pos = np.full(self.slots, -1, np.int32)          # idle: write-suppressed
+        # as the reference's compiled step, a tick that prefills runs the
+        # full [B, step_chunk] block (rows past a slot's nvalid are
+        # discarded); pure-decode ticks run [B, 1]: one graph per width
+        C = self.step_chunk if nvalid.max() > 1 else 1
+        h = self.inputs.host
+        h["token"][:] = 0
+        h["pos"][:] = -1                                  # idle: write-suppressed
+        h["nvalid"][:] = nvalid
         for s, req in enumerate(self.active):
             if req is None:
                 continue
@@ -415,11 +443,14 @@ class ServeEngine:
                 f"(cached prefix {req.cached_len})")
             if req.first_step_tick < 0:
                 req.first_step_tick = self.tick
-            pos[s] = i
+            h["pos"][s] = i
             for j in range(int(nvalid[s])):
                 idx = i + j
-                token[s, j] = (req.prompt[idx] if idx < req.prompt_len
-                               else self.last_token[s])
+                h["token"][s, j] = (req.prompt[idx] if idx < req.prompt_len
+                                    else self.last_token[s])
+        if self.block_tables is not None:
+            h["block_tables"][:] = self.block_tables
+        h["ngen"][:] = self.samp["ngen"]
 
         fed = int(nvalid.sum())
         self._m_steps.inc()
@@ -430,16 +461,7 @@ class ServeEngine:
         if tracing:
             self.trace.begin(0, "device_step", args={"tokens_fed": fed,
                                                      "active": self.active_count})
-        dev = self.device
-        chunked = self.step_chunk > 1
-        next_tok, done, self.cache = self._step(
-            self.params, torch.as_tensor(token if chunked else token[:, 0], device=dev),
-            torch.as_tensor(pos, device=dev), self.cache, self.samp,
-            nvalid=torch.as_tensor(nvalid, device=dev) if chunked else None,
-            block_tables=(None if self.block_tables is None
-                          else torch.as_tensor(self.block_tables, device=dev)))
-        next_tok = next_tok.cpu().numpy()                # waits for the device
-        done = done.cpu().numpy()
+        next_tok, done = self.device_step(C, eager=eager)
         if tracing:
             self.trace.end(0, "device_step")
 

@@ -39,7 +39,7 @@ def check_serving_support(cfg):
     if pat not in (("gqa",), ("mla",)):
         raise NotImplementedError(
             f"the port serves dense GQA and MLA layers only; {cfg.name} has "
-            f"{sorted(set(pat))} (MoE/SSM are ROADMAP queue 2)")
+            f"{sorted(set(pat))} (MoE/SSM: ROADMAP.md, Modules to port)")
     if cfg.sliding_window:
         raise NotImplementedError("sliding-window ring caches are not ported yet")
     if cfg.num_prefix_embeds:

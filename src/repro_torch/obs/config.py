@@ -7,8 +7,9 @@ src/repro/obs/config.py).
     spans (`obs.trace.TraceRecorder`); device spans synchronize the card, so
     tracing is for inspection runs.
   * ``cost=True`` — the roofline cost model of the reference's
-    ``obs/cost.py``, which is not ported yet (ROADMAP queue 2): the engine
-    raises NotImplementedError when it is asked for. Off by default here.
+    ``obs/cost.py``, which is not ported yet (ROADMAP.md, Modules to
+    port): the engine raises NotImplementedError when it is asked for. Off
+    by default here.
 
 The reference's ``jax_profile_*`` fields have no counterpart.
 """

@@ -2,8 +2,8 @@
 
 The ``gpu``-marked tests hold the CUDA kernels K1, K1b, K2, K3, K4, K5 and
 K5p against their plain torch versions on the card, at small and at
-Qwen2-7B / MiniCPM3-4B widths, and run the engine end to end through each
-path's kernels. Each skips from inside the test
+Qwen2-7B / MiniCPM3-4B widths, run the engine end to end through each
+path's kernels, and hold its CUDA-graph step against the eager step. Each skips from inside the test
 when ``torch.cuda.is_available()`` is false. The machine with the card has
 no JAX, so this file imports none; run it there alone:
 
@@ -916,6 +916,140 @@ def test_engine_on_the_card_contiguous_paths(arch, kernel):
     assert [len(h.tokens) for h in hs] == [5, 4, 3]
     assert {cnt.name for cnt in counts if cnt.launches > 0} == {"ams_matmul_fp533", kernel}
     assert all(cnt.plain_on_cuda == 0 for cnt in counts)
+
+
+# ------------------------------------------------------------ graph step
+# the five served paths at reduced widths: (arch, weight scheme, cache kind)
+GRAPH_PATHS = {"fp5.33": ("qwen2-7b", "fp5.33-e2m3", "paged_ams"),
+               "fp4.25": ("qwen2-7b", "fp4.25-e2m2", "paged_ams"),
+               "fp16": ("qwen2-7b", "fp16", "paged_bf16"),
+               "contig-fp5.33": ("qwen2-7b", "fp5.33-e2m3", "contiguous"),
+               "mla-fp5.33": ("minicpm3-4b", "fp5.33-e2m3", "contiguous")}
+
+
+def _graph_engine(path, slots=3, chunk=4):
+    from repro_torch.cache import CacheConfig
+    from repro_torch.launch.config import EngineConfig
+    from repro_torch.launch.engine import ServeEngine
+
+    arch, scheme, kind = GRAPH_PATHS[path]
+    return ServeEngine(EngineConfig(arch=arch, reduced=True, scheme=scheme, impl="kernel",
+                                    slots=slots, capacity=64, prefill_chunk=chunk,
+                                    device="cuda", seed=3,
+                                    cache=CacheConfig(kind=kind, page_size=8, impl="kernel")))
+
+
+def _graph_prompts():
+    # four requests on three slots: the last is admitted, and prefills, while
+    # the others decode
+    return [list(range(1 + i, 1 + i + n)) for i, n in enumerate((11, 6, 14, 9))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [1, 4])
+@pytest.mark.parametrize("path", list(GRAPH_PATHS))
+def test_graph_replays_bit_equal_to_the_eager_step(path, chunk):
+    """Two engines from one seed in lockstep, one replaying its CUDA graphs,
+    the other running the step function on the same static inputs: equal
+    tokens after every tick, equal cache bytes at the end, a graph per
+    width used (1, and the chunk when it prefills)."""
+    from repro_torch.models.transformer import tree_leaves
+
+    cuda_device()
+    graphed, eager = _graph_engine(path, chunk=chunk), _graph_engine(path, chunk=chunk)
+    for p in _graph_prompts():
+        graphed.submit(p, 5)
+        eager.submit(p, 5)
+    tick = 0
+    while graphed.has_work or eager.has_work:
+        graphed.step()
+        eager.step(eager=True)
+        tick += 1
+        assert ([None if r is None else r.tokens for r in graphed.active]
+                == [None if r is None else r.tokens for r in eager.active]), f"tick {tick}"
+    assert [r.tokens for r in graphed.finished] == [r.tokens for r in eager.finished]
+    for a, b in zip(tree_leaves(graphed.cache), tree_leaves(eager.cache)):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    assert sorted(graphed.graphs.graphs) == sorted({1, chunk})
+    assert eager.graphs.graphs == {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", list(GRAPH_PATHS))
+def test_graph_replay_adds_the_captured_launch_counts(path):
+    """A replay runs no wrapper: each adds what its capture recorded, the
+    path's kernels and no plain version on CUDA tensors."""
+    from repro_torch.kernels import ams_matmul, attention_template
+    from repro_torch.kernels.build import _COUNTS
+
+    cuda_device()
+    eng = _graph_engine(path)
+    for p in _graph_prompts()[:3]:
+        eng.submit(p, 6)
+    while 1 not in eng.graphs.graphs:
+        eng.step()
+    moved = {c.name: (n, p) for c, n, p in eng.graphs.graphs[1][2]}
+    L = eng.cfg.num_layers
+    attn = {"paged_ams": attention_template.COUNT, "paged_bf16": attention_template.COUNT_BF16}
+    kind = GRAPH_PATHS[path][2]
+    attn_count = attn.get(kind, attention_template.COUNT_MLA if path.startswith("mla")
+                          else attention_template.COUNT_CONTIG)
+    assert moved[attn_count.name] == (L, 0)
+    if path != "fp16":
+        mm = ams_matmul.COUNT_PLANES if path == "fp4.25" else ams_matmul.COUNT
+        assert moved[mm.name][0] >= 7 * L and moved[mm.name][1] == 0
+    assert all(p == 0 for _, p in moved.values())
+    before = {c.name: (c.launches, c.plain_on_cuda) for c in _COUNTS}
+    out = eng.step()
+    assert out["generated"] == eng.active_count == 3
+    after = {c.name: (c.launches, c.plain_on_cuda) for c in _COUNTS}
+    for name in after:
+        n, p = moved.get(name, (0, 0))
+        assert after[name] == (before[name][0] + n, before[name][1] + p), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", list(GRAPH_PATHS))
+def test_eager_step_does_not_synchronise(path):
+    """After the first tick's capture (its warm-up fills the constant
+    tables), the step function on the staged inputs runs under
+    torch.cuda.set_sync_debug_mode("error"): no host sync, no copy from
+    pageable memory."""
+    from repro_torch.launch.steps import run_step
+
+    cuda_device()
+    eng = _graph_engine(path)
+    for p in _graph_prompts():
+        eng.submit(p, 4)
+    eng.step()
+    for width in (eng.step_chunk, 1):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.inputs.send()
+            run_step(eng._step, eng.params, eng.cache, eng.inputs, eng.samp, width)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises():
+    """No fallback: a step that cannot be captured makes the tick raise."""
+    cuda_device()
+    eng = _graph_engine("fp5.33")
+    eng.submit(_graph_prompts()[0], 3)
+    run = eng.graphs._run
+
+    def syncing(width):
+        out = run(width)
+        int(out.sum())                      # a host sync: illegal while capturing
+        return out
+
+    eng.graphs._run = syncing
+    with pytest.raises(RuntimeError):
+        eng.step()
+    assert eng.graphs.graphs == {}
 
 
 # ------------------------------------------------------------ hygiene
