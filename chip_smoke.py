@@ -5,7 +5,8 @@
     python3 chip_smoke.py --cpu-rehearsal  # tiny sizes, plain versions, CPU
     python3 chip_smoke.py --phases k1,k4 [--from DIR]   # some kernel phases
         # alone on the card, this checkout's or those of the checkout at DIR
-        # (a parent commit unpacked), to compare two versions in one call
+        # (a parent commit unpacked), to compare two versions in one call;
+        # phase "tick" times the greedy FP5.33 graph tick
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -73,7 +74,18 @@ Phases, each fatal on failure:
       the kernel engine's streams launching every kernel of its path; the
       FP4.25 path once more over pages of 64 tokens (K1b and K2's walk of a
       page in two sub-tiles), and once with fp6-e2m3 weights (K1b's per_word
-      5 hook, K2).
+      5 hook, K2);
+  12. engine-features: seeded sampling, preemption with host spill and
+      speculative decoding on the FP5.33 path over AMS-e2m2 pages at full
+      width (`phase_engine_features`: graph against eager for sampled
+      ticks, sampled streams replayed in another engine shape, the sampled
+      tick timed and profiled against the greedy one, forced and
+      priority-driven preemption resumed bit-equal, the host tier's prefix
+      restore, speculative greedy streams equal to plain decoding with
+      tokens per step, accept rate and verify-width tick times, every row
+      of K1, K2, the norm, the head and the sampling epilogue bit-equal to
+      the row alone), one JSON line per check, K1 and K2 the only kernels
+      launched.
 
 A line ``compare {...}`` sets the five paths' graph and eager decode
 ticks, replay ms, device-busy ms, idle shares, gaps inside ticks and
@@ -938,7 +950,7 @@ def weight_bytes(params):
     """Bytes of the weights one decode step reads: every per-layer leaf
     (packed projections with their scales, norms) and the lm_head; the
     embedding table is gathered a row per token, so it is left out."""
-    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.core.tree import tree_leaves
 
     def total(tree):
         return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
@@ -977,7 +989,8 @@ def fill_for_decode(eng, rng, prompt, decode_ticks: int):
 def graph_stats(eng):
     """Capture seconds per chunk width and the bytes of the engine's graph
     memory pool."""
-    return dict(capture_seconds={str(w): t for w, t in eng.graphs.capture_seconds.items()},
+    return dict(capture_seconds={f"{w}/{'sampled' if sp else 'greedy'}": t
+                                 for (w, sp), t in eng.graphs.capture_seconds.items()},
                 pool_bytes=eng.graphs.pool_bytes)
 
 
@@ -1107,7 +1120,7 @@ def phase_graph(torch, dev, full: bool, path: str = "fp5.33"):
     from repro_torch.launch.config import EngineConfig
     from repro_torch.launch.engine import ServeEngine
     from repro_torch.launch.steps import run_step
-    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.core.tree import tree_leaves
 
     spec = PATHS[path]
     base = (dict(reduced=False, depth=2, slots=4, capacity=256, prefill_chunk=16)
@@ -1246,6 +1259,449 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33", page: int = 
     return res
 
 
+# ------------------------------------------------- engine-features phase
+def _cache_bytes(torch, eng):
+    from repro_torch.core.tree import tree_leaves
+    return [t.view(torch.uint8).clone() for t in tree_leaves(eng.cache)]
+
+
+def _same_bytes(torch, a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _serve_all(eng, prompts, max_tokens, sampling=None, priority=0):
+    hs = [eng.submit(p, max_tokens, sampling=s, priority=priority)
+          for p, s in zip(prompts, sampling or [None] * len(prompts))]
+    eng.run()
+    return [list(h.tokens) for h in hs]
+
+
+def _timed_ticks(torch, engines, ticks: int):
+    """Wall ms per tick of each engine's ``step()``, the engines stepping in
+    turns (one tick each per round) for ``ticks`` rounds."""
+    total = [0.0] * len(engines)
+    for _ in range(ticks):
+        for i, eng in enumerate(engines):
+            t0 = time.perf_counter()
+            eng.step()
+            total[i] += time.perf_counter() - t0
+    return [1e3 * t / ticks for t in total]
+
+
+def phase_engine_features(torch, dev, full: bool):
+    """Seeded sampling, preemption with host spill and speculative decoding
+    on the FP5.33 path over AMS-e2m2 pages (K1, K2) at full width, one set
+    of weights on the card for every engine (depth-2 checks use the first
+    two layers' views). Launch counts are zeroed just before and read just
+    after. One JSON line per check, each fatal:
+      * sampling: 8 requests (temperature 0.8, top-k 50, top-p 0.95,
+        distinct seeds, two greedy) through graph and eager engines in
+        lockstep at depth 2: tokens every tick and every cache byte equal;
+        the same requests (prompts of 17 to 40 tokens) replay bit-equal in
+        an engine of 4 slots and chunk 4, whose ticks have other widths;
+      * the sampled tick against the greedy one at full depth, 8 slots
+        decoding, in turns, and both profiled (device-busy ms per tick: the
+        sampling epilogue's ms is their difference);
+      * preemption: forced `preempt(slot)` mid-prefill, at the first token
+        and mid-decode, greedy and sampled, resumes bit-equal to the
+        uninterrupted run; a spill on a page boundary comes back byte-equal;
+        a priority overload (the reference benchmark's overload row: 2
+        slots, chunk 1, host_spill_pages=64) preempts, resumes and restores,
+        with streams equal to the head-of-line run; the host tier serves an
+        evicted prefix;
+      * speculation at k = 4 with the n-gram drafter: graph ticks of the
+        verify and rollback bit-equal to eager ones at depth 2 (tokens and
+        cache bytes, drafts accepted and rejected); at full depth the greedy
+        streams equal plain decoding's, tokens per step above 1, the accept
+        rate and tick ms at the verify width; an 8-slot run timed at its
+        verify width;
+      * row invariance (`_row_invariance`, after the counts are read): K1,
+        K2, the norm, the head and the sampling epilogue give every row the
+        bits it gets alone, at every tick width and slot count (on the
+        card; the CPU's plain versions are held to the JAX engine instead).
+    """
+    import numpy as np
+
+    from repro_torch.cache import CacheConfig, extract_pages
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.launch.config import EngineConfig
+    from repro_torch.launch.engine import ServeEngine, init_serving_params
+    from repro_torch.launch.sampling import SamplingParams
+    from repro_torch.core.tree import tree_leaves, tree_map
+
+    path = PATHS["fp5.33"]
+    page, cap = (16, 512) if full else (8, 64)
+    cuda = dev.type == "cuda"
+
+    def config(depth, slots, chunk, capacity=cap, page_size=page, **kw):
+        spill = kw.pop("host_spill_pages", 0)
+        return EngineConfig(arch=path["arch"], reduced=not full, depth=depth,
+                            scheme=path["scheme"], impl="kernel", slots=slots,
+                            capacity=capacity, prefill_chunk=chunk, device=str(dev), seed=0,
+                            cache=CacheConfig(kind=path["kind"], page_size=page_size,
+                                              impl="kernel", host_spill_pages=spill), **kw)
+
+    counts = all_counts()
+    for cnt in counts:
+        cnt.reset()
+    t_phase = time.perf_counter()
+    cfg = config(None, 8, 16).model_config()
+    params = init_serving_params(cfg, QuantPolicy(scheme=path["scheme"], impl="kernel",
+                                                  min_elements=1 << 10), 0, dev)
+    cut = dict(params, layers={"sub0": tree_map(lambda t: t[:2], params["layers"]["sub0"])})
+    V = cfg.vocab_size
+    rng = np.random.default_rng(2026)
+    results = {}
+
+    def check(name, ok, **res):
+        res = dict(check=name, ok=bool(ok), **res)
+        log("engine-features " + json.dumps(res))
+        results[name] = res
+        if not ok:
+            fail(f"engine-features[{name}]: {res}")
+
+    # ---------------------------------------------------------- sampling
+    samp = [SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=100 + i)
+            if i not in (2, 5) else None for i in range(8)]
+    prompts = [rng.integers(0, V, int(n)).astype(np.int32)
+               for n in rng.integers(17, 41, 8)]
+    gen_n = 24 if full else 8
+    graphed, eager = ServeEngine(config(2, 8, 16), params=cut), ServeEngine(config(2, 8, 16),
+                                                                               params=cut)
+    hg = [graphed.submit(p, gen_n, sampling=s) for p, s in zip(prompts, samp)]
+    he = [eager.submit(p, gen_n, sampling=s) for p, s in zip(prompts, samp)]
+    first, ticks = None, 0
+    while graphed.has_work or eager.has_work:
+        graphed.step()
+        eager.step(eager=True)
+        ticks += 1
+        if first is None and [h.tokens for h in hg] != [h.tokens for h in he]:
+            first = ticks
+    streams = [list(h.tokens) for h in hg]
+    check("sampling-graph-vs-eager", first is None and _same_bytes(
+        torch, _cache_bytes(torch, graphed), _cache_bytes(torch, eager)),
+        depth=2, ticks=ticks, first_diverging_tick=first,
+        sampled_rows=sum(s is not None for s in samp),
+        distinct_streams=len({tuple(s) for s in streams}),
+        graphs=sorted(f"{w}/{'sampled' if sp else 'greedy'}" for w, sp in graphed.graphs.graphs)
+        if cuda else None)
+    if len({tuple(s) for s in streams}) < 8:
+        fail(f"engine-features: sampled streams are not distinct: {streams}")
+    del graphed, eager
+    # 4 slots and chunk 4: every prompt spans several chunks, and a row's
+    # ticks are other widths and hold other rows than in the 8-slot run
+    replay = _serve_all(ServeEngine(config(2, 4, 4), params=cut), prompts, gen_n, samp)
+    check("sampling-replay-4-slots-chunk-4", replay == streams, depth=2,
+          first_diverging_token=[next((t for t, (a, b) in enumerate(zip(x, y)) if a != b), None)
+                                 for x, y in zip(replay, streams)])
+
+    # the sampled tick against the greedy one, full depth, every slot decoding
+    if full:
+        n_timed, prompt = 5, PROFILE_PROMPT
+    else:
+        n_timed, prompt = 2, (8, 16)
+    engs = []
+    for sampled in (False, True):
+        eng = ServeEngine(config(None, 8, 16), params=params)
+        r2 = np.random.default_rng(7)
+        spread = -(-prompt[1] // 16) - (-(-prompt[0] // 16))
+        for i, n in enumerate(r2.integers(prompt[0], prompt[1] + 1, 8)):
+            sp = SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=i) if sampled else None
+            eng.submit(r2.integers(0, V, int(n)).astype(np.int32), 2 * n_timed + spread + 12,
+                       sampling=sp)
+        while len(eng.sched) or any(r is not None and eng.fed[s] < r.prompt_len
+                                    for s, r in enumerate(eng.active)):
+            eng.step()
+        eng.step()
+        engs.append(eng)
+    tick_ms = _timed_ticks(torch, engs, n_timed)
+    res = dict(depth=cfg.num_layers, slots=8, greedy_tick_ms=tick_ms[0],
+               sampled_tick_ms=tick_ms[1], added_ms=tick_ms[1] - tick_ms[0])
+    if cuda:
+        prof = [_profiled_ticks(torch, eng, 3, False, "fp5.33") for eng in engs]
+        res.update(greedy_busy_ms=prof[0]["device_busy_ms_per_tick"],
+                   sampled_busy_ms=prof[1]["device_busy_ms_per_tick"],
+                   epilogue_device_ms=prof[1]["device_busy_ms_per_tick"]
+                   - prof[0]["device_busy_ms_per_tick"],
+                   greedy_kernels_per_tick=prof[0]["kernels_per_tick"],
+                   sampled_kernels_per_tick=prof[1]["kernels_per_tick"],
+                   greedy_path_launches=prof[0]["path_launches_per_tick"]["counted"],
+                   sampled_path_launches=prof[1]["path_launches_per_tick"]["counted"],
+                   sampled_top=prof[1]["top"][:8])
+    full_batch = all(e.active_count == 8 for e in engs)
+    for eng in engs:
+        eng.run()
+    check("sampled-vs-greedy-tick", full_batch, **res)
+    del engs
+
+    # ---------------------------------------------------------- preemption
+    pr_prompt = rng.integers(0, V, 40 if full else 13).astype(np.int32)
+    pchunk = 16 if full else 4
+    prefill_ticks = -(-len(pr_prompt) // pchunk)
+    for sp in (None, SamplingParams(temperature=0.8, top_k=16, seed=42)):
+        want = ServeEngine(config(2, 2, pchunk), params=cut).submit(
+            pr_prompt, 12, sampling=sp).result()
+        got = []
+        for before in (1, prefill_ticks, prefill_ticks + 4):
+            eng = ServeEngine(config(2, 2, pchunk), params=cut)
+            h = eng.submit(pr_prompt, 12, sampling=sp)
+            for _ in range(before):
+                eng.step()
+            eng.preempt(h.request.slot)
+            if h.status != "preempted" or h.request.spill is None:
+                fail(f"engine-features: preempt left status {h.status}")
+            got.append((before, h.result() == want, eng.stats()["preemptions"],
+                        eng.stats()["resumes"], eng.stats()["spill_pages"]))
+        check(f"preempt-resume-{'sampled' if sp else 'greedy'}",
+              all(ok and p == r == 1 for _, ok, p, r, _ in got), depth=2,
+              runs=[dict(ticks_before=b, equal=ok, spill_pages=n) for b, ok, _, _, n in got])
+
+    # a spill on a page boundary comes back byte-equal
+    eng = ServeEngine(config(2, 2, pchunk), params=cut)
+    h = eng.submit(rng.integers(0, V, 3 * page).astype(np.int32), 6)
+    while eng.fed[h.request.slot] < 2 * page:
+        eng.step()
+    req = h.request
+    eng.preempt(req.slot)
+    sp = req.spill
+    spilled = [t.clone() for t in tree_leaves(sp.content)]
+    h.result()
+    restored = tree_leaves(extract_pages(eng.cache, req.pages[sp.n_keep:sp.n_keep + sp.n_pages]))
+    check("spill-round-trip-bytes", sp.n_pages == 2 and _same_bytes(
+        torch, [t.view(torch.uint8) for t in spilled], [t.view(torch.uint8) for t in restored]),
+        spilled_pages=sp.n_pages, spill_bytes=sp.nbytes)
+
+    # priority overload: the reference benchmark's overload row at depth 2
+    orng = np.random.default_rng(0)
+    batch = [(0, orng.integers(0, V, 10), 24) for _ in range(3)]
+    inter = [(int(t), orng.integers(0, V, 4), 4)
+             for t in np.cumsum(orng.geometric(0.12, 5)) + 2]
+
+    def overload(priority):
+        eng = ServeEngine(config(2, 2, 1, capacity=48, page_size=8, host_spill_pages=64),
+                          params=cut)
+        work = sorted([(t, 0, p, m, 0) for t, p, m in batch]
+                      + [(t, 1, p, m, priority) for t, p, m in inter], key=lambda w: w[0])
+        hs = []
+        while work or eng.has_work:
+            while work and work[0][0] <= eng.tick:
+                t, inter_, p, m, pri = work.pop(0)
+                hs.append((t, inter_, eng.submit(p, m, priority=pri,
+                                                 sampling=SamplingParams(seed=0))))
+            eng.step()
+        ttft = [h.first_token_tick - t for t, i, h in hs if i]
+        return eng.stats(), [list(h.tokens) for _, _, h in hs], ttft
+
+    st_p, s_p, ttft_p = overload(5)
+    st_h, s_h, ttft_h = overload(0)
+    check("priority-overload", st_p["preemptions"] >= 1 and st_p["resumes"] >= 1
+          and st_p["restored_pages"] >= 1 and s_p == s_h, depth=2, slots=2, chunk=1,
+          preemptions=st_p["preemptions"], resumes=st_p["resumes"],
+          spill_pages=st_p["spill_pages"], spill_bytes=st_p["spill_bytes"],
+          restored_pages=st_p["restored_pages"], streams_equal_head_of_line=s_p == s_h,
+          ttft_ticks_p99=float(np.percentile(ttft_p, 99)),
+          hol_ttft_ticks_p99=float(np.percentile(ttft_h, 99)))
+
+    # the host tier serves an evicted prefix (a pool of 4 pages of 8 tokens)
+    tier = config(2, 1, 1, capacity=32, page_size=8, host_spill_pages=16)
+    hp = np.arange(300, 317, dtype=np.int32)
+    want = ServeEngine(tier, params=cut).submit(hp, 6).result()
+    eng = ServeEngine(tier, params=cut)
+    first_run = eng.submit(hp, 6).result()
+    for j in range(3):
+        eng.submit(np.arange(1 + 40 * j, 18 + 40 * j, dtype=np.int32), 6).result()
+    again = eng.submit(hp, 6)
+    again_tokens = again.result()
+    st = eng.stats()
+    check("host-tier-prefix", again_tokens == want == first_run and st["restored_pages"] >= 2
+          and eng.alloc.host_restores >= 2 and again.cached_len >= 16,
+          host_spill_pages_total=eng.alloc.host_spills,
+          host_restore_pages_total=eng.alloc.host_restores, cached_len=again.cached_len,
+          restored_pages=st["restored_pages"])
+
+    # ------------------------------------------------------- speculation
+    base = rng.integers(0, V, 12).astype(np.int32)
+    sp_prompts = [np.tile(base, 4), np.tile(base[::-1], 4)[:40], np.tile(base + 1, 4)[:44],
+                  np.tile(base[:7], 6)]
+    sp_gen = 40 if full else 12
+    # the verify and the rollback as CUDA graphs, against the eager step
+    graphed, eager = (ServeEngine(config(2, 2, 4, speculate_k=4), params=cut)
+                      for _ in range(2))
+    for p in sp_prompts:
+        graphed.submit(p, sp_gen)
+        eager.submit(p, sp_gen)
+    first, ticks = None, 0
+    while graphed.has_work or eager.has_work:
+        graphed.step()
+        eager.step(eager=True)
+        ticks += 1
+        if first is None and ([r and r.tokens for r in graphed.active]
+                              != [r and r.tokens for r in eager.active]):
+            first = ticks
+    st = graphed.stats()
+    check("speculative-graph-vs-eager", first is None and st["spec_accepted"] > 0
+          and st["spec_proposed"] > st["spec_accepted"]
+          and [r.tokens for r in graphed.finished] == [r.tokens for r in eager.finished]
+          and _same_bytes(torch, _cache_bytes(torch, graphed), _cache_bytes(torch, eager)),
+          depth=2, slots=2, k=4, ticks=ticks, first_diverging_tick=first,
+          proposed=st["spec_proposed"], accepted=st["spec_accepted"])
+    del graphed, eager
+    # full depth: speculative greedy streams equal plain decoding's (a
+    # verify tick feeds 5 rows per slot where plain decoding feeds 1)
+    depth = None if full else 2
+    src = params if full else cut
+    plain = ServeEngine(config(depth, 2, 4), params=src)
+    want = _serve_all(plain, sp_prompts, sp_gen)
+    spec = ServeEngine(config(depth, 2, 4, speculate_k=4), params=src)
+    hs = [spec.submit(p, sp_gen) for p in sp_prompts]
+    tick_ms = _speculative_ticks(spec)
+    got = [list(h.tokens) for h in hs]
+    st = spec.stats()
+    check("speculative-greedy-equal", st["tokens_per_step"] > 1 and got == want,
+          depth=spec.cfg.num_layers, slots=2, k=4, tokens_per_step=st["tokens_per_step"],
+          accept_rate=st["accept_rate"], proposed=st["spec_proposed"],
+          accepted=st["spec_accepted"], ticks=st["ticks"], plain_ticks=plain.stats()["ticks"],
+          streams_equal_plain=got == want,
+          first_diverging_token=[next((t for t, (a, b) in enumerate(zip(x, y)) if a != b), None)
+                                 for x, y in zip(got, want)], **tick_ms)
+    del plain, spec
+    # an 8-slot speculative engine timed at its verify width
+    spec8 = ServeEngine(config(depth, 8, 16, speculate_k=4), params=src)
+    for i in range(8):
+        spec8.submit(sp_prompts[i % 4][: 36 + i], sp_gen)
+    tick_ms = _speculative_ticks(spec8)
+    st = spec8.stats()
+    check("speculative-8-slots", st["tokens_per_step"] > 1, depth=spec8.cfg.num_layers,
+          slots=8, k=4, tokens_per_step=st["tokens_per_step"], accept_rate=st["accept_rate"],
+          **tick_ms)
+    del spec8
+
+    launches = {cnt.name: cnt.launches for cnt in counts}
+    plain_cuda = {cnt.name: cnt.plain_on_cuda for cnt in counts}
+    if cuda:
+        idle = [k for k in path["kernels"] if launches[k] <= 0]
+        stray = [k for k, n in launches.items() if n and k not in path["kernels"]]
+        if idle or stray or max(plain_cuda.values()) != 0:
+            fail(f"engine-features: kernels of the path that never launched {idle}, other "
+                 f"kernels that did {stray}, plain versions on CUDA tensors {plain_cuda}")
+    res = dict(launches=launches, plain_calls_on_cuda=plain_cuda,
+               seconds=time.perf_counter() - t_phase)
+    log("engine-features " + json.dumps(res))
+    # after the counts are read: its direct kernel calls are no launches of
+    # the path
+    # (on the CPU the plain versions and torch's sums need not hold it: the
+    # CPU port is held to the JAX engine's streams instead)
+    ok, report = _row_invariance(torch, dev, cfg, params, full)
+    check("row-invariance", ok or not cuda, **report)
+    del params, cut
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return results, launches
+
+
+def _row_invariance(torch, dev, cfg, params, full: bool):
+    """Whether every part of the FP5.33 step gives a row the same bits
+    whatever else the tick feeds (the property the stream checks rest on),
+    each part called directly: every row of a call against the same row
+    alone. K1 on the first layer's seven packed projections at 2 and 8
+    slots x widths W in {2, 4, 5, 16, 32} (the failing widths listed); K2
+    over AMS pages, each row of a 5-row chunk and the first of a 16-row
+    chunk against the same query alone, at lengths that put a chunk's rows
+    on both sides of a share boundary (255 + 4 = 259 takes shares of 64
+    where 255 takes 32); the norm, the head (final norm and lm_head) and the
+    sampling epilogue (top-k / top-p masks, the draw, the log-softmax) at
+    2, 4, 8 and 40 rows (the failing row counts listed). Returns (ok,
+    report)."""
+    from repro_torch.cache import CacheConfig, paged_insert
+    from repro_torch.cache.paged_attention import paged_attention_kernel
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.launch import prng
+    from repro_torch.launch.sampling import log_softmax, masked_logits, tempered
+    from repro_torch.models import make_cache
+    from repro_torch.models.common import apply_linear, model_dims, rms_norm
+    from repro_torch.models.transformer import _head
+
+    pol = QuantPolicy(scheme=PATHS["fp5.33"]["scheme"], impl="kernel", min_elements=1 << 10)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dims = model_dims(cfg)
+    layer = {**params["layers"]["sub0"]["attn"], **params["layers"]["sub0"]["ffn"]}
+    fan_in = {"wo": dims.H * dims.hd, "w_down": cfg.d_ff}
+    res = {}
+
+    def rows_apart(fn, counts):
+        """The row counts n at which some row of fn(slice(0, n)) (a tuple
+        of tensors, one row per input row) is not fn of that row alone."""
+        alone = [fn(slice(r, r + 1)) for r in range(max(counts))]
+        return [n for n in counts if not all(
+            all(torch.equal(a[r], b[0]) for a, b in zip(fn(slice(0, n)), alone[r]))
+            for r in range(n))]
+
+    for name, w in layer.items():
+        w0 = {k: v[0] for k, v in w.items()}
+        x = torch.randn((8 * 32, fan_in.get(name, cfg.d_model)), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        res[f"K1_{name}"] = rows_apart(lambda sl: (apply_linear(w0, x[sl], pol),),
+                                       [B * W for B in (2, 8) for W in (1, 2, 4, 5, 16, 32)])
+    cap = 1024 if full else 64
+    ccfg = CacheConfig(kind="paged_ams", page_size=16, impl="kernel").sized(capacity=cap, slots=2)
+    pool = {k: {p: t[0] for p, t in v.items()}
+            for k, v in make_cache(cfg, 2, cap, cache_cfg=ccfg, device=dev)["layers"]["sub0"].items()}
+    bt = torch.arange(2 * ccfg.max_pages_per_seq, dtype=torch.int32, device=dev).reshape(2, -1)
+    kn = torch.randn((2, cap - 16, dims.kv, dims.hd), generator=gen, device=dev).to(torch.bfloat16)
+    paged_insert(pool, kn, -kn, torch.zeros(2, dtype=torch.int32, device=dev), bt, ccfg)
+    for L in ((64, 250, 255, 256, 300, 1000) if full else (20, 31, 40)):
+        q = torch.randn((2, 16, dims.H, dims.hd), generator=gen, device=dev)
+        lens = L + torch.arange(16, dtype=torch.int32, device=dev)[None].expand(2, 16)
+        alone = [paged_attention_kernel(q[:, j], pool, lens[:, j].contiguous(), bt, ccfg)
+                 for j in range(5)]
+        five = paged_attention_kernel(q[:, :5].contiguous(), pool, lens[:, :5].contiguous(), bt,
+                                      ccfg)
+        wide = paged_attention_kernel(q, pool, lens.contiguous(), bt, ccfg)
+        res[f"K2_L{L}"] = [j for j in range(5) if not torch.equal(five[:, j], alone[j])] + (
+            [] if torch.equal(wide[:, 0], alone[0]) else ["16-row chunk"])
+    counts = (2, 4, 8, 40)
+    xs = torch.randn((40, 1, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    xf = xs.float() + torch.randn((40, 1, cfg.d_model), generator=gen, device=dev)
+    res["norm"] = rows_apart(lambda sl: (rms_norm(xf[sl], params["final_norm"], cfg.norm_eps),),
+                             counts)
+    res["head"] = rows_apart(lambda sl: (_head(params, xs[sl], cfg, dims, pol),), counts)
+    logits = 4 * torch.randn((40, dims.V), generator=gen, device=dev)
+    keys = prng.fold_in(prng.PRNGKey(7, device=dev).expand(40, 2),
+                        torch.arange(40, device=dev))
+
+    def epilogue(sl):
+        t = logits[sl]
+        n = t.shape[0]
+        m = masked_logits(tempered(t, torch.full((n,), 0.8, device=dev)),
+                          torch.full((n,), 50, device=dev), torch.full((n,), 0.95, device=dev))
+        return m, prng.categorical(keys[sl], m), log_softmax(t)
+
+    res["sampling"] = rows_apart(epilogue, counts)
+    return not any(res.values()), res
+
+
+def _speculative_ticks(eng):
+    """Drive a speculative engine to the end, timing each tick by kind:
+    ``prefill`` (a slot prefills or a request waits), ``verify`` (drafts
+    were scored: the width max(chunk, k + 1)) or ``decode`` (width 1).
+    Returns the median ms and count of each kind."""
+    import numpy as np
+    ticks = {}
+    while eng.has_work:
+        prefilling = len(eng.sched) > 0 or any(
+            r is not None and eng.fed[s] < r.prompt_len for s, r in enumerate(eng.active))
+        before = eng.stats()["spec_proposed"]
+        t0 = time.perf_counter()
+        eng.step()
+        ms = 1e3 * (time.perf_counter() - t0)
+        kind = ("prefill" if prefilling else
+                "verify" if eng.stats()["spec_proposed"] > before else "decode")
+        ticks.setdefault(kind, []).append(ms)
+    return {**{f"{k}_tick_ms_median": float(np.median(v)) for k, v in ticks.items()},
+            **{f"{k}_ticks": len(v) for k, v in ticks.items()}}
+
+
 def ptxas_report(build, kernels=("ams_matmul_mma_kernel", "k4_kernel", "k5_kernel",
                                  "k2_kernel", "k3_kernel", "k5p_kernel")):
     """One line per instantiation of the named kernels from the build's
@@ -1274,7 +1730,44 @@ def ptxas_report(build, kernels=("ams_matmul_mma_kernel", "k4_kernel", "k5_kerne
         fail("no ptxas report for the K1 / K1b / K2 / K3 / K4 / K5 / K5p kernels")
 
 
-PHASES = ("k1", "k1b", "k2", "k3", "k4", "k5", "k5p")
+def phase_tick(torch, dev, timed: bool, full: bool):
+    """The greedy FP5.33 graph tick alone: full-width Qwen2-7B over AMS-e2m2
+    pages, 8 slots decoding over 211-354 keys (prompts prefilled first),
+    ``ticks`` graph ticks timed on the host and the same number of replays
+    from CUDA events. With ``--from DIR`` this function runs against the
+    other checkout's package (a parent's script without it lends it)."""
+    import numpy as np
+
+    from repro_torch.cache import CacheConfig
+    from repro_torch.launch.config import EngineConfig
+    from repro_torch.launch.engine import ServeEngine
+
+    spec, ticks = PATHS["fp5.33"], 10
+    eng = ServeEngine(EngineConfig(arch=spec["arch"], reduced=not full, scheme=spec["scheme"],
+                                   impl="kernel", slots=8, capacity=512 if full else 64,
+                                   prefill_chunk=16, device=str(dev), seed=0,
+                                   cache=CacheConfig(kind=spec["kind"], page_size=16,
+                                                     impl="kernel")))
+    fill_for_decode(eng, np.random.default_rng(1234), PROFILE_PROMPT if full else (8, 16),
+                    2 * ticks + 3)
+    eng.step()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        eng.step()
+    tick_ms = 1e3 * (time.perf_counter() - t0) / ticks
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(ticks):
+        eng.graphs(1)
+    e1.record()
+    e1.synchronize()
+    res = dict(path="fp5.33", active_slots=eng.active_count, decode_tick_ms=tick_ms,
+               replay_ms=e0.elapsed_time(e1) / ticks)
+    eng.run()
+    return (res,)
+
+
+PHASES = ("k1", "k1b", "k2", "k3", "k4", "k5", "k5p", "tick")
 
 
 def run_phases(torch, names, other):
@@ -1302,7 +1795,8 @@ def run_phases(torch, names, other):
         ptxas_report(build)
     dev = torch.device("cuda", 0)
     for n in names:
-        res = getattr(mod, f"phase_{n}")(torch, dev, timed=True, full=True)
+        phase = getattr(mod, f"phase_{n}", None) or globals()[f"phase_{n}"]
+        res = phase(torch, dev, timed=True, full=True)
         log(f"phase {n} " + json.dumps(res[0], default=str))
 
 
@@ -1334,6 +1828,7 @@ def main():
             phase_consistency(torch, dev, full=False, path=path)
         phase_consistency(torch, dev, full=False, path="fp4.25", page=16)
         phase_consistency(torch, dev, full=False, path="fp4.25", scheme="fp6-e2m3")
+        phase_engine_features(torch, dev, full=False)
         log("rehearsal finished on the CPU: no result")
         sys.exit(2)
     if not torch.cuda.is_available():
@@ -1379,6 +1874,7 @@ def main():
         phase_consistency(torch, dev, full=True, path=path)
     phase_consistency(torch, dev, full=True, path="fp4.25", page=64)
     phase_consistency(torch, dev, full=True, path="fp4.25", scheme="fp6-e2m3")
+    features, feature_launches = phase_engine_features(torch, dev, full=True)
     log("compare " + json.dumps({
         path: dict(arch=r["arch"], scheme=r["scheme"], cache=r["cache"],
                    decode_tick_ms=r["profile"]["decode_tick_ms"],
@@ -1397,10 +1893,13 @@ def main():
     # through a block table. launches: the count on the path's served run;
     # K5p and K1b's per_word 4 / 5 / 6 hooks, which no served path reaches,
     # their phases' runs of the entry (path null)
+    # launches_engine_features: the engine-features phase's run (K1, K2)
     def row(name, src, replaces, path, res, err, launches=None):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
                     replaces=replaces, path=path,
                     launches=served[path]["launches"][name] if path else launches,
+                    launches_engine_features=feature_launches[name]
+                    if name in feature_launches else None,
                     max_abs_err=err, ms=res["ms"], plain_ms=res["plain_ms"],
                     bound_ms=res["bound_ms"], bound_by=res["bound_by"],
                     library_ms=res.get("library_ms"))

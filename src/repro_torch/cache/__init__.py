@@ -3,8 +3,9 @@
   * `config.CacheConfig`      — cache-mode selection + derived sizes
   * `allocator.PageAllocator` — host-side refcounting free list, block-hash
                                 prefix index, block-table rows
-  * `pool`                    — bf16 and AMS page pools, in-place insert,
-                                page gather
+  * `pool`                    — bf16 and AMS page pools, in-place insert
+                                and truncate, page gather, host spill
+                                (extract / restore pages)
   * `ref`                     — lattice-exact gather-dequantize-attend oracle
   * `paged_attention`         — kernels K2 (AMS pages) and K3 (bf16 pages)
                                 walking the block table
@@ -22,11 +23,15 @@ from .allocator import PageAllocator, prefix_page_hashes  # noqa: F401
 from .config import CACHE_KINDS, PAGED_KINDS, CacheConfig  # noqa: F401
 from .pool import (  # noqa: F401
     compression_vs_bf16,
+    extract_pages,
     gather_kv,
     gather_pages,
+    host_bytes,
     make_gqa_page_pool,
     paged_insert,
+    paged_truncate,
     pool_bytes_per_token,
+    restore_pages,
 )
 from .ref import paged_attention_ref  # noqa: F401
 

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.core.formats import get_scheme
 from repro_torch.core.kv_quant import dequantize_kv, kv_bytes, packed_head_dim, quantize_kv
+from repro_torch.core.tree import tree_leaves, tree_map
 
 from .config import CacheConfig
 
@@ -113,6 +114,65 @@ def paged_insert(pool: Dict, k_new: torch.Tensor, v_new: torch.Tensor, pos, bloc
             _scatter_rows(pool[name][pl], rows, q[pl].reshape(B * c, *q[pl].shape[2:]), ok,
                           first, any_ok)
     return pool
+
+
+def paged_truncate(pool: Dict, start, count, block_table, ccfg: CacheConfig, c_max: int) -> Dict:
+    """Un-insert ``count`` positions from ``start`` per slot, in place: the
+    addressed (page, offset) rows of every plane go back to the pool's
+    initial zeros, so a later re-insert there equals a straight insert (the
+    speculative step's rollback of rejected drafts). Slots with count == 0
+    or start < 0 write nothing. Leaves may carry leading dims (stacked
+    layers): the page axis is ``ndim - 4``. Sync-free like `paged_insert`,
+    but every live entry writes 0, so a dropped entry writes 0 at the first
+    live entry's row (a row that is zeroed anyway) or, in a call with no
+    live entry, row 0's own value back: duplicate indices carry equal
+    values, and no other byte moves. ``c_max`` bounds the per-slot width."""
+    start = start.to(torch.int32)
+    rows, ok = _destinations(start, count.to(torch.int32), block_table, ccfg, c_max)
+    any_ok = ok.any()
+    anchor = torch.where(any_ok, rows[torch.argmax(ok.to(torch.int32)).reshape(1)], 0)
+    idx = torch.where(ok, rows, anchor)
+    for leaf in tree_leaves(pool):
+        ax = leaf.dim() - 4
+        flat = leaf.view(*leaf.shape[:ax], -1, *leaf.shape[ax + 2:])
+        old = flat.index_select(ax, anchor)
+        vals = torch.where(any_ok, torch.zeros_like(old), old)
+        shape = list(flat.shape)
+        shape[ax] = idx.shape[0]
+        flat.index_copy_(ax, idx, vals.expand(shape))
+    return pool
+
+
+# -------------------------------------------------------------- host spill
+# Every pool plane is [..., P, page, kv, last]: 4 trailing dims, after the
+# layer dim `models.make_cache` stacks in front. The page axis is therefore
+# ``ndim - 4`` in every leaf of an engine cache.
+
+def extract_pages(cache, page_ids):
+    """Copy the addressed pool pages of every plane to host memory in the
+    pool's storage layout: AMS pages stay packed (hi / lsb / scale), so a
+    later `restore_pages` is byte-exact. Returns a tree of CPU tensors
+    mirroring ``cache`` with the page axis narrowed to ``len(page_ids)``.
+    Runs between engine ticks (it waits for the copy), never in the step."""
+    def take(leaf):
+        ids = torch.as_tensor(page_ids, dtype=torch.long, device=leaf.device)
+        return leaf.index_select(leaf.dim() - 4, ids).cpu()
+    return tree_map(take, cache)
+
+
+def restore_pages(cache, page_ids, host) -> None:
+    """Write an `extract_pages` snapshot into the pool at (possibly other)
+    ``page_ids``, in place: every plane keeps its storage, so the CUDA
+    graphs that hold pointers to the pool see the restored bytes."""
+    def put(leaf, val):
+        ids = torch.as_tensor(page_ids, dtype=torch.long, device=leaf.device)
+        leaf.index_copy_(leaf.dim() - 4, ids, val.to(leaf.device))
+    tree_map(put, cache, host)
+
+
+def host_bytes(host) -> int:
+    """Host bytes a spilled-page tree occupies (accounting)."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(host))
 
 
 def gather_pages(leaf: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:

@@ -41,8 +41,12 @@
 //    operations decode two values of a word into a bf16x2. The K order
 //    inside the group is free as long as x's B fragments follow it; they are
 //    permuted from shared loads with byte permutes (`x_pairs`).
-//  * With one n-tile (decode) the k-steps of a group accumulate into
-//    independent accumulator sets, so the mma.sync chain stays short.
+//  * A row's sum has one association whatever the tile height: the
+//    k-steps of each k-group chain into a fresh f32 part, added to the
+//    row's sum in group order, and the K split comes from the plan's
+//    one-row-tile cluster (kernels/tuning.plan_ams_matmul). So a row gets
+//    the same bits in a tick of any width, and at decode the groups'
+//    chains are independent, so the mma.sync chain stays short.
 //  * The card is filled at every projection shape by the plan of
 //    kernels/tuning.plan_ams_matmul: tiles of 64 columns (32 for the
 //    narrowest projections, 128 at 16 n-tiles, where one x tile then feeds
@@ -542,16 +546,14 @@ ams_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __rest
     }
   };
 
-  // NA accumulator sets, one per k-step class (s % NA): with few n-tiles
-  // this breaks the chain of dependent mma.sync through one accumulator
-  constexpr int NA = NT == 1 ? KSTEPS : (NT == 2 ? 2 : 1);
-  float acc[NA][NT][4];
+  // acc[j]: the tile's sums. Each k-group's k-steps chain into a fresh
+  // part, added to acc[j] in group order: the same association at every NT,
+  // and the parts of successive groups are independent chains
+  float acc[NT][4];
 #pragma unroll
-  for (int u = 0; u < NA; ++u)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[u][j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
 #pragma unroll 1
   for (int it = 0; it < K1_STAGES - 1; ++it) {
@@ -578,7 +580,11 @@ ams_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __rest
         uint32_t bx[KSTEPS][2];
         Dec::x_fragments(xs + (8 * j + g) * XS + gr * GW * PW, t, bx);
 #pragma unroll
-        for (int s = 0; s < KSTEPS; ++s) mma_bf16(acc[s % NA][j], a[s], bx[s][0], bx[s][1]);
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int s = 0; s < KSTEPS; ++s) mma_bf16(part, a[s], bx[s][0], bx[s][1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += part[e];
       }
     }
   }
@@ -590,16 +596,9 @@ ams_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __rest
   const int cl = warp * 16 + 2 * g;
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
-    float v[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      v[e] = acc[0][j][e];
-#pragma unroll
-      for (int u = 1; u < NA; ++u) v[e] += acc[u][j][e];
-    }
     const int r = 8 * j + 2 * t;
-    *reinterpret_cast<float2*>(red + cl * BT + r) = make_float2(v[0], v[1]);
-    *reinterpret_cast<float2*>(red + (cl + 1) * BT + r) = make_float2(v[2], v[3]);
+    *reinterpret_cast<float2*>(red + cl * BT + r) = make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(red + (cl + 1) * BT + r) = make_float2(acc[j][2], acc[j][3]);
   }
   cluster.sync();
   // rank q finishes every CL-th run of NTH (column, 4 rows) cells of the tile

@@ -90,13 +90,19 @@
 // one after another with no prefetch, restored element by element and
 // reached 1/557 of that bound. Design:
 //  * A cluster of up to 8 CTAs per (slot, kv head, tile of 8 or 16 folded
-//    rows) splits the tokens the tile's rows can see into contiguous shares
-//    of whole 32-token sub-tiles (kernels/tuning.plan_paged_attention): 8
-//    slots x 4 kv heads at decode run 256 CTAs. p stays f32 on AMS pages,
-//    so where the running max advances changes only the f32 rounding: each
-//    rank keeps its own (m, l, acc), advancing m once per sub-tile, and the
-//    ranks merge them in rank order through distributed shared memory
-//    (deterministic, one launch).
+//    rows) splits each row's visible tokens [0, n) into K2_PARTS
+//    contiguous shares of whole 32-token sub-tiles, a function of n alone
+//    (kernels/tuning.paged_row_shares; the cluster from
+//    kernels/tuning.plan_paged_attention): 8 slots x 4 kv heads at decode
+//    run 256 CTAs. p stays f32 on AMS pages, so where the running max
+//    advances changes only the f32 rounding: each rank keeps its own (m, l,
+//    acc) per row, advancing m once per sub-tile, and the ranks merge them
+//    in rank order through distributed shared memory (deterministic, one
+//    launch). A rank walks the union of its rows' shares, each row seeing
+//    only its own: the rows of a tile differ by the chunk's positions, so
+//    the union is about one share. A row's bits then do not depend on the
+//    other rows of its tile, the row tiles or the cluster: a row gets the
+//    same result in a tick of any width.
 //  * The planes (hi bytes, lsb words, scales of K and V) of a sub-tile are
 //    fetched two sub-tiles ahead with cp.async into a 3-stage ring, their
 //    block-table entries read one sub-tile earlier still; pages of any size
@@ -194,6 +200,7 @@ static int launch_clustered(void (*kernel)(Params...), dim3 grid, int threads, s
 #define K2_HB 64                    // hi bytes of one token a stage holds (dims < 128)
 #define K2_NS 3                     // stages of the raw-plane ring
 #define K2_LDP (K2_TK + 4)          // f32 per p row
+#define K2_PARTS MAX_CLUSTER        // shares of a row's visible tokens
 
 // The packed planes of one sub-tile of K and V: hi bytes, lsb words, scales
 struct K2Stage {
@@ -246,13 +253,29 @@ k2_kernel(const float* __restrict__ q, const Planes kp, const Planes vp,
     for (int r = 0; r < RT; ++r) qs[r * K2_LDX + tid] = qv[r];
   }
   __syncthreads();
-  int maxlen = 0;
+  // row r's share of its n visible tokens: part `rank` of K2_PARTS, whole
+  // sub-tiles (the last cut at n); this rank walks the union of its rows'
+  // shares, [lo, hi), and the warp's rows keep their own bounds
+  auto share = [&](int r, int& a, int& e) {
+    const int n = min(lens[r], MP * page);
+    const int sh = ((n + K2_PARTS - 1) / K2_PARTS + K2_TK - 1) / K2_TK * K2_TK;
+    a = min(rank * sh, n);
+    e = min(a + sh, n);
+  };
+  int lo = MP * page, hi = 0;
 #pragma unroll
-  for (int i = 0; i < RT; ++i) maxlen = max(maxlen, lens[i]);
-  const int ntok = min(maxlen, MP * page);
-  // this rank's tokens: a contiguous share of whole sub-tiles
-  const int sh = ((ntok + CL - 1) / CL + K2_TK - 1) / K2_TK * K2_TK;
-  const int lo = min(rank * sh, ntok), hi = min(lo + sh, ntok);
+  for (int i = 0; i < RT; ++i) {
+    int a, e;
+    share(i, a, e);
+    if (e > a) {
+      lo = min(lo, a);
+      hi = max(hi, e);
+    }
+  }
+  if (hi <= lo) lo = hi = 0;
+  int row_lo[RPW], row_hi[RPW];        // rows warp + 4 i
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) share(warp + 4 * i, row_lo[i], row_hi[i]);
   const int nsub = (hi - lo + K2_TK - 1) / K2_TK;
 
   // the restore: thread (word w, tokens tq + 8 u) turns a 32-bit word of hi
@@ -393,11 +416,11 @@ k2_kernel(const float* __restrict__ q, const Planes kp, const Planes vp,
 #pragma unroll
       for (int i = 0; i < RPW; ++i) {
         const int r = warp + 4 * i;
-        const float sv = key >= hi ? -INFINITY : sacc[i] + (key < lens[r] ? 0.f : NEG_BIG);
+        const float sv = key >= row_lo[i] && key < row_hi[i] ? sacc[i] : -INFINITY;
         const float m_new = fmaxf(fmaxf(m[i], warp_max(sv)), NEG_CLAMP);
         const float p = expf(sv - m_new);             // p stays f32 (pv_dtype = f32)
         const float cr = expf(m[i] - m_new);
-        lpart[i] = lpart[i] * cr + p;
+        lpart[i] = fmaf(lpart[i], cr, p);
         m[i] = m_new;
         Ps[r * K2_LDP + lane] = p;
         if (lane == 0) corr_s[r] = cr;
@@ -462,8 +485,8 @@ k2_kernel(const float* __restrict__ q, const Planes kp, const Planes vp,
     for (int q2 = 0; q2 < 8; ++q2) {
       if (q2 < CL) {
         const float wq = expf(mq[q2] - mx);
-        num += wq * aq[q2];
-        den += wq * lq[q2];
+        num = fmaf(wq, aq[q2], num);
+        den = fmaf(wq, lq[q2], den);
       }
     }
     out[(((int64_t)b * kv + h) * R + row0 + r) * hd + d] = num / fmaxf(den, 1e-20f);
@@ -511,7 +534,8 @@ static int k2_launch(int man_bits, int rows, Planes k, Planes v, const void* q,
                      int cluster, void* stream) {
   if (B <= 0 || kv <= 0 || R <= 0) return (int)cudaSuccess;
   if (hd < 1 || hd > K2_HDP || 2 * hb < hd || gw < 1 || gw > 4 || ksh < 1 || page < 1 ||
-      MP < 1 || c < 1 || g < 1 || R != c * g || cluster < 1 || cluster > 8)
+      MP < 1 || c < 1 || g < 1 || R != c * g || cluster > 8 ||
+      cluster < min(K2_PARTS, (MP * page + K2_TK - 1) / K2_TK))   // a share without a rank
     return (int)cudaErrorInvalidValue;
   const bool hi16 = k2_hi16(hb, k.hi, v.hi);
 #define K2_CASE(MB_, RT_)                                                                    \

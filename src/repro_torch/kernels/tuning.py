@@ -159,29 +159,33 @@ def plan_ams_matmul(B: int, Kw: int, N: int, container: str = "fp533", k: int = 
     [Kw, N]: the smallest row tile that holds B (16 n-tiles of 8 rows at
     most, more row tiles past 128 rows); 64 columns per CTA, 128 at 16
     n-tiles (each x tile then feeds twice the columns), 32 where 64 gives
-    fewer than 64 CTAs even at the largest cluster; K split over a cluster
-    of up to 8 CTAs, on k-group boundaries (`k1_group_words`), until every
-    SM holds as many CTAs as fit at once: 4 (2 at 16 n-tiles), fewer where
-    their rings (`k1_ring_bytes`) do not fit an SM's shared memory
-    together."""
+    fewer than 64 CTAs even at the largest cluster. K is split on k-group
+    boundaries (`k1_group_words`) over the cluster of the decode plan (one
+    tile of 8 rows) at every B: up to 8 CTAs, until every SM holds as many
+    CTAs as fit at once, 4, fewer where their rings (`k1_ring_bytes`) do
+    not fit an SM's shared memory together. A row's sum then has the same
+    association at every B (the kernel adds each k-group's part in group
+    order), so a row gets the same bits in a tick of any width."""
     if B < 1 or Kw < 1 or N < 1:
         raise ValueError(f"empty matmul B={B} Kw={Kw} N={N}")
     pw = _per_word(container, per_word)
     gw = k1_group_words(pw)
-    nt = next((t for t in K1_ROW_TILES if 8 * t >= B), K1_ROW_TILES[-1])
-    row_tiles = _cdiv(B, 8 * nt)
     groups = _cdiv(Kw, gw)
-    if nt == K1_ROW_TILES[-1]:
-        tn = 128
-    else:
-        tn = 64 if _cdiv(N, 64) * row_tiles * min(MAX_CLUSTER, groups) >= K1_MIN_CTAS else 32
-    fit = SM_SMEM_BYTES // (k1_ring_bytes(tn, nt, container, k, pw) + CTA_SMEM_RESERVED)
-    resident = max(1, min(2 if nt == K1_ROW_TILES[-1] else 4, fit))
-    col_tiles = _cdiv(N, tn)
-    cluster = max(1, min(MAX_CLUSTER, groups, _cdiv(resident * sms, col_tiles * row_tiles)))
+
+    def tile_cols(nt: int, row_tiles: int) -> int:
+        if nt == K1_ROW_TILES[-1]:
+            return 128
+        return 64 if _cdiv(N, 64) * row_tiles * min(MAX_CLUSTER, groups) >= K1_MIN_CTAS else 32
+
+    tn1 = tile_cols(1, 1)                      # the decode plan's cluster
+    fit = SM_SMEM_BYTES // (k1_ring_bytes(tn1, 1, container, k, pw) + CTA_SMEM_RESERVED)
+    cluster = max(1, min(MAX_CLUSTER, groups, _cdiv(max(1, min(4, fit)) * sms, _cdiv(N, tn1))))
     per = _cdiv(groups, cluster)               # k-groups per rank
     cluster = _cdiv(groups, per)               # no rank left without words
-    return MatmulPlan(tn, nt, row_tiles, col_tiles, cluster, per * gw)
+    nt = next((t for t in K1_ROW_TILES if 8 * t >= B), K1_ROW_TILES[-1])
+    row_tiles = _cdiv(B, 8 * nt)
+    tn = tile_cols(nt, row_tiles)
+    return MatmulPlan(tn, nt, row_tiles, _cdiv(N, tn), cluster, per * gw)
 
 
 ATT_ROWS = 16              # folded query rows per CTA: one m16 tile
@@ -281,10 +285,9 @@ PAGED_ROW_TILES = (8, 16)  # folded query rows per K2 CTA the kernel is built fo
 @dataclass(frozen=True)
 class PagedPlan:
     """K2's launch: per (slot, kv head, tile of ``rows`` folded rows) a
-    cluster of ``cluster`` CTAs splits the tokens the tile's rows can see
-    into contiguous shares of whole 32-token sub-tiles (`attention_shares`
-    over [0, tokens)); each rank keeps its own (m, l, acc) and the ranks
-    merge them in rank order."""
+    cluster of ``cluster`` CTAs; rank r walks share r of each row's visible
+    tokens (`paged_row_shares`), and the ranks merge their (m, l, acc) in
+    rank order."""
     rows: int
     row_tiles: int
     cluster: int
@@ -293,19 +296,27 @@ class PagedPlan:
         return B * kv * self.row_tiles * self.cluster
 
 
-def plan_paged_attention(B: int, kv: int, R: int, max_keys: int,
-                         sms: int = SMS) -> PagedPlan:
+def paged_row_shares(ntok: int):
+    """The K2_PARTS (8) shares [lo, hi) of a row's ``ntok`` visible tokens:
+    equal parts rounded up to whole 32-token sub-tiles (the last cut at
+    ntok), a function of ntok alone, so a row's result does not depend on
+    its tile, the tick's width or the cluster; trailing shares may be
+    empty."""
+    return attention_shares(0, ntok, MAX_CLUSTER)
+
+
+def plan_paged_attention(B: int, kv: int, R: int, max_keys: int) -> PagedPlan:
     """Row tile and cluster of K2 for B slots x kv heads x R folded rows over
     at most ``max_keys`` tokens per slot (block table width x page size):
-    8 rows where they hold R (decode, g <= 8), else 16; ranks for about two
-    CTAs per SM (at most 8, and no more than the sub-tiles a slot holds)."""
+    8 rows where they hold R (decode, g <= 8), else 16; one rank per share
+    of `paged_row_shares` a row can fill, 8 but for slots of fewer than 256
+    tokens, at every B and R (8 slots x 4 kv heads at decode: 256 CTAs,
+    about two per SM)."""
     if min(B, kv, R, max_keys) < 1:
         raise ValueError(f"empty attention B={B} kv={kv} R={R} max_keys={max_keys}")
     rows = next((r for r in PAGED_ROW_TILES if r >= R), PAGED_ROW_TILES[-1])
-    row_tiles = _cdiv(R, rows)
-    cluster = max(1, min(MAX_CLUSTER, _cdiv(max_keys, PAGED_SUB_KEYS),
-                         _cdiv(2 * sms, B * kv * row_tiles)))
-    return PagedPlan(rows, row_tiles, cluster)
+    cluster = max(1, min(MAX_CLUSTER, _cdiv(max_keys, PAGED_SUB_KEYS)))
+    return PagedPlan(rows, _cdiv(R, rows), cluster)
 
 
 K3_SCORE_KEYS_MAX = 512    # widest share whose f32 scores a K3 CTA keeps (32 KiB)

@@ -3,10 +3,12 @@ src/repro/launch/config.py).
 
 One frozen dataclass carries every constructor-time validation, so a bad
 config fails in one place before any device work. The port adds
-``device`` (default ``"cuda"``) and serves the greedy path over contiguous
-caches (the default, ``cache=None``; dense GQA and MLA) and paged caches
-(AMS or bf16 pages; dense GQA): features it does not have yet raise
-NotImplementedError here, naming their ROADMAP item.
+``device`` (default ``"cuda"``) and serves contiguous caches (the default,
+``cache=None``; dense GQA and MLA) and paged caches (AMS or bf16 pages;
+dense GQA), with seeded sampling, priorities and preemption with host
+spill (paged caches), and speculative decoding with the n-gram drafter.
+Features it does not have yet raise NotImplementedError here, naming their
+ROADMAP item.
 
     cfg = EngineConfig(arch="qwen2-7b", reduced=False, impl="kernel",
                        slots=8, capacity=1024, prefill_chunk=16,
@@ -44,8 +46,11 @@ class EngineConfig:
                   pages, K3 for bf16 pages)
     obs           `ObsConfig` telemetry switchboard
     device        "cuda" (default) or "cpu"; "cuda" without a card raises
-    mesh / speculate_k   accepted for the reference's surface; anything but
-                  None / 0 raises NotImplementedError
+    speculate_k   score up to k draft tokens per decode round (0 = off)
+    drafter       "ngram" or a `speculative.Drafter`; "self" / "self-full"
+                  raise NotImplementedError (they need models.forward_seq)
+    mesh          accepted for the reference's surface; anything but None
+                  raises NotImplementedError
     """
 
     arch: str = "qwen2-7b"
@@ -61,11 +66,13 @@ class EngineConfig:
     max_queue: Optional[int] = None
     prefill_chunk: int = 1
     token_budget: Optional[int] = None
+    preempt: bool = True
 
     cache: Optional[CacheConfig] = None
     obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
     mesh: Any = None
     speculate_k: int = 0
+    drafter: Any = "ngram"
     device: str = "cuda"
 
     verbose: bool = False
@@ -97,21 +104,24 @@ class EngineConfig:
             raise TypeError(f"cache must be a CacheConfig, got {type(self.cache).__name__}")
         if not isinstance(self.obs, ObsConfig):
             raise TypeError(f"obs must be an ObsConfig, got {type(self.obs).__name__}")
-        if self.speculate_k:
-            raise NotImplementedError("speculative decoding is not ported yet "
-                                      "(ROADMAP.md, Modules to port)")
+        if self.speculate_k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got {self.speculate_k}")
+        if self.speculate_k and isinstance(self.drafter, str):
+            from .speculative import make_drafter
+            make_drafter(self.drafter)        # an unknown or unported drafter raises here
         if self.mesh is not None:
             raise NotImplementedError("tensor-parallel meshes are not ported yet "
                                       "(ROADMAP.md, Modules to port)")
-        if self.cache is not None and self.cache.host_spill_pages:
-            raise NotImplementedError("the host spill tier is not ported yet "
-                                      "(preemption with host spill: ROADMAP.md, Modules to port)")
         if self.obs.cost_on:
             raise NotImplementedError("obs cost accounting is not ported yet "
                                       "(ROADMAP.md, Modules to port)")
 
     @property
     def step_chunk(self) -> int:
+        """Token-buffer width of the step: the prefill chunk, widened to hold
+        1 fed token + k drafts per slot when speculating."""
+        if self.speculate_k:
+            return max(self.prefill_chunk, self.speculate_k + 1)
         return self.prefill_chunk
 
     @property

@@ -1,5 +1,5 @@
 """Continuous-batching serving engine over the AMS-quantized model (port of
-src/repro/launch/engine.py, greedy path).
+src/repro/launch/engine.py).
 
 Weights are AMS-quantized and packed ahead of time (``scheme="fp16"`` keeps
 them bf16: the FP16 baseline); one slot-masked engine step
@@ -20,15 +20,33 @@ re-admitted the same tick. The KV cache is either
     prefix references the same physical pages and starts prefill at the
     cached length).
 
+Each request carries a `SamplingParams` (greedy argmax, or seeded
+temperature / top-k / top-p draws through the port's threefry keys, which
+fold only the request id and the token index, never the slot or tick) and
+a ``priority``. On paged caches with ``EngineConfig.preempt`` a blocked
+queue head of strictly higher priority preempts the lowest-priority active
+request (the latest admitted first): its private pages' packed content
+spills to host memory (`cache.extract_pages`), its shared prefix pages stay
+pinned, and on re-admission the content is restored into fresh pages in
+place (`cache.restore_pages`) and the stream resumes at the exact spilled
+position, bit-equal to an uninterrupted one. Below eviction sits the
+optional host spill tier (`CacheConfig.host_spill_pages`): evicted
+published pages move to host memory and come back on a later prefix hit.
+With ``speculate_k`` = k, pure-decode rounds feed up to k n-gram drafts
+per slot and the step verifies them and rolls the rejected ones back
+(`launch.speculative`); greedy streams are those of plain decoding
+wherever a row's bits do not depend on the tick's width: on the CPU, and
+on the card on the paged AMS paths (K1's and K2's splits follow the row,
+`models.common.row_sum` the norm's and the sampling softmax's sums).
+
 With ``impl="kernel"`` (`QuantPolicy.impl`) every quantized projection runs
 through kernel K1 (fp5.33) or K1b (the other schemes), and with
 ``CacheConfig(impl="kernel")`` attention runs kernel K4 (contiguous GQA
 cache), K5 (MLA stream), K2 (AMS pages) or K3 (bf16 pages).
 
-Not ported yet, and refused with NotImplementedError: seeded sampling
-(temperature > 0), speculative decoding, priorities and preemption, the
-host spill tier, meshes, prefix embeds, obs cost accounting, and the async
-front end (`step_begin`/`step_end`).
+Not ported yet, and refused with NotImplementedError: meshes, prefix
+embeds, obs cost accounting, the self drafter, and the async front end
+(`step_begin`/`step_end`).
 """
 
 from __future__ import annotations
@@ -43,11 +61,15 @@ import torch
 from repro_torch.cache import (
     PageAllocator,
     compression_vs_bf16,
+    extract_pages,
+    host_bytes,
     pool_bytes_per_token,
     prefix_page_hashes,
+    restore_pages,
 )
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.policy import QuantPolicy
+from repro_torch.core.tree import tree_map
 from repro_torch.models import make_cache, model_dims, quantize_params, reset_cache_slot
 from repro_torch.models.common import make_linear, make_norm
 from repro_torch.models.transformer import (
@@ -56,7 +78,6 @@ from repro_torch.models.transformer import (
     init_block,
     init_embed,
     layer_pattern,
-    tree_map,
 )
 from repro_torch.obs import NULL_REGISTRY, MetricsRegistry, TraceRecorder
 from repro_torch.obs.metrics import COUNT_BUCKETS, TIME_BUCKETS
@@ -64,13 +85,23 @@ from repro_torch.obs.metrics import COUNT_BUCKETS, TIME_BUCKETS
 from .config import EngineConfig
 from .sampling import (
     GREEDY,
-    SAMPLING_TODO,
     SamplingParams,
+    any_sampled,
     clear_slot,
     fill_slot,
+    request_key,
     slot_batch,
 )
-from .scheduler import DECODE, FINISHED, PREFILL, FIFOScheduler, Request
+from .scheduler import (
+    DECODE,
+    FINISHED,
+    PREEMPTED,
+    PREFILL,
+    FIFOScheduler,
+    Request,
+    SpilledState,
+)
+from .speculative import Drafter, make_drafter
 from .steps import GraphedStep, StepInputs, build_engine_step, engine_step_signature, run_step
 
 
@@ -157,6 +188,11 @@ class RequestHandle:
         object.__setattr__(self, "_eng", engine)
 
     @property
+    def request(self) -> Request:
+        """The underlying scheduler record."""
+        return self._req
+
+    @property
     def status(self) -> str:
         return self._req.status
 
@@ -198,8 +234,12 @@ class ServeEngine:
         self.slots = slots = ec.slots
         self.capacity = ec.capacity
         self.chunk = ec.prefill_chunk
+        self.speculate_k = k = ec.speculate_k
+        # the step's chunk width holds 1 fed token + k drafts per slot
         self.step_chunk = ec.step_chunk
         self.token_budget = ec.resolved_token_budget
+        # preemption needs pages to spill: contiguous caches never preempt
+        self.preempt_enabled = bool(ec.preempt and ccfg.paged)
         self.obs = ec.obs
         self.metrics = MetricsRegistry() if self.obs.enabled else NULL_REGISTRY
         self.trace = TraceRecorder(enabled=self.obs.trace_on)
@@ -224,11 +264,22 @@ class ServeEngine:
                   flush=True)
         self.params = params
         self.cache = make_cache(cfg, slots, ec.capacity, cache_cfg=ccfg, device=self.device)
-        self._step = build_engine_step(cfg, self.rcfg, ccfg)
+        self._step = build_engine_step(cfg, self.rcfg, ccfg, speculate_k=k)
+        self.drafter: Optional[Drafter] = None
+        if k:
+            drafter = make_drafter(ec.drafter) if isinstance(ec.drafter, str) else ec.drafter
+            if not isinstance(drafter, Drafter):
+                raise TypeError(f"drafter must be a Drafter or name, got "
+                                f"{type(drafter).__name__}")
+            self.drafter = drafter
+            drafter.bind_metrics(self.metrics)
 
         if ccfg.paged:
             self.alloc: Optional[PageAllocator] = PageAllocator(
-                ccfg.num_pages, ccfg.page_size, metrics=self.metrics)
+                ccfg.num_pages, ccfg.page_size, metrics=self.metrics,
+                host_spill_pages=ccfg.host_spill_pages)
+            # the eviction spill: the evicted page's packed planes to the host
+            self.alloc.spill_fn = lambda page: extract_pages(self.cache, [page])
             self.block_tables = np.zeros((slots, ccfg.max_pages_per_seq), np.int32)
             # a request can never outgrow its block-table row or the pool
             eff_cap = min(ccfg.max_pages_per_seq, ccfg.num_pages) * ccfg.page_size
@@ -241,21 +292,29 @@ class ServeEngine:
         self.fed = np.zeros(slots, np.int32)
         self.last_token = np.zeros(slots, np.int32)
         self.inputs = StepInputs(slots, self.step_chunk,
-                                 ccfg.max_pages_per_seq if ccfg.paged else 0, self.device)
+                                 ccfg.max_pages_per_seq if ccfg.paged else 0, self.device,
+                                 speculative=bool(k))
         self.samp = slot_batch(slots, self.device, rows={"ngen": self.inputs.dev["ngen"]})
         # on the card every tick replays a CUDA graph of the step
         self.graphs: Optional[GraphedStep] = None
         if self.device.type == "cuda":
             self.graphs = GraphedStep(self._step, self.params, self.cache, self.inputs,
                                       self.samp)
-            self._out_host = torch.empty((2, slots), dtype=torch.int32, pin_memory=True)
+            shape = (slots, k + 4) if k else (2, slots)
+            self._out_host = torch.empty(shape, dtype=torch.int32, pin_memory=True)
         self.tick = 0
         self.finished: List[Request] = []
         self._rid = itertools.count()
+        # preemption accounting (plain ints, like the allocator's counters)
+        self.preemptions = 0       # requests preempted (spilled out)
+        self.resumes = 0           # preempted requests re-admitted
+        self.spill_pages = 0       # pages whose content spilled host-side
+        self.spill_bytes = 0       # host bytes those spills occupied
+        self.restored_pages = 0    # pages restored from the host (resumes, host tier)
 
         m = self.metrics
         self.signature = engine_step_signature(cfg, self.rcfg, cache_cfg=ccfg,
-                                               chunk=self.step_chunk)
+                                               chunk=self.step_chunk, speculate_k=k)
         m.gauge("serve_step_signature_info", "engine-step signature (value is always 1)",
                 tuple(self.signature)).labels(**self.signature).set(1)
         self._m_tick_s = m.histogram("serve_tick_seconds",
@@ -275,6 +334,19 @@ class ServeEngine:
         self._m_prompt = m.counter("serve_prompt_tokens_total", "prompt positions admitted")
         self._m_cached = m.counter("serve_cached_prompt_tokens_total",
                                    "prompt positions served from shared pages")
+        self._m_preempt = m.counter("serve_preemptions_total",
+                                    "requests preempted (pages spilled)")
+        self._m_resume = m.counter("serve_resumes_total", "preempted requests re-admitted")
+        self._m_spill_pages = m.counter("serve_spill_pages_total",
+                                        "private pages spilled host-side at preemption")
+        self._m_restore_pages = m.counter("serve_restore_pages_total",
+                                          "spilled pages restored into fresh device pages")
+        self._m_spill_bytes = m.counter("serve_spill_bytes_total",
+                                        "host bytes occupied by preemption spills")
+        self._m_spec_prop = m.counter("serve_spec_proposed_total",
+                                      "draft tokens scored by the step")
+        self._m_spec_acc = m.counter("serve_spec_accepted_total",
+                                     "draft tokens accepted by the verify")
         self._m_emit = m.counter("serve_emit_rounds_total", "slot-rounds that emitted tokens")
         self._m_ttft = m.histogram("serve_request_ttft_ticks", "submit -> first token, ticks",
                                    buckets=COUNT_BUCKETS)
@@ -291,22 +363,24 @@ class ServeEngine:
     def submit(self, prompt, max_tokens: Optional[int] = None, prefix_embeds=None,
                sampling: Optional[SamplingParams] = None, priority: int = 0) -> RequestHandle:
         """Enqueue a request and return its `RequestHandle`. ``max_tokens`` is
-        the length cap (``sampling.max_tokens`` wins when both are given)."""
+        the length cap (``sampling.max_tokens`` wins when both are given);
+        ``sampling`` the per-request draw (greedy when omitted); ``priority``
+        (higher = more urgent) orders the queue and, on paged caches with
+        ``EngineConfig.preempt``, lets a blocked head preempt a running
+        request of strictly lower priority."""
         sp = sampling if sampling is not None else GREEDY
         if prefix_embeds is not None:
             raise NotImplementedError("prefix embeds are not ported yet "
                                       "(ROADMAP.md, Modules to port)")
-        if priority != 0:
-            raise NotImplementedError("priorities and preemption are not ported yet "
-                                      "(preemption with host spill: ROADMAP.md, Modules to port)")
-        if not sp.greedy:
-            raise NotImplementedError(SAMPLING_TODO)
         if sp.max_tokens is not None:
             max_tokens = sp.max_tokens
         if max_tokens is None:
             raise ValueError("max_tokens required (argument or SamplingParams.max_tokens)")
         rid = next(self._rid)
-        req = Request(rid=rid, prompt=prompt, max_tokens=max_tokens, sampling=sp)
+        # the request-level key folds the seed and the request id (never the
+        # slot or tick), so seeded streams replay across restarts and slots
+        req = Request(rid=rid, prompt=prompt, max_tokens=max_tokens, sampling=sp,
+                      key_data=request_key(sp.seed, rid), priority=priority)
         ccfg = self.cache_cfg
         if ccfg.paged and ccfg.prefix_cache:
             req.page_hashes = prefix_page_hashes(req.prompt, ccfg.page_size, ccfg.content_key)
@@ -329,56 +403,174 @@ class ServeEngine:
     # ------------------------------------------------------------ admission
     def _admit(self) -> int:
         """Admit queued requests into free slots, under the per-tick token
-        budget. Paged: gated on the cache-aware free-page budget (only
-        uncached pages charge it), and the slot gets the request's
+        budget; returns the count placed. Paged: gated on the cache-aware
+        free-page budget (only uncached pages charge it; a resumed request
+        charges only its extension), and the slot gets the request's
         block-table row. Contiguous: the slot's cache rows are zeroed.
-        Returns the count placed."""
+
+        Preemption (paged + ``EngineConfig.preempt``): after admission,
+        while the queue head strictly outranks the lowest-priority active
+        request and stays blocked, that victim (ties: the latest admitted)
+        is preempted and admission runs again. Strictness means a requeued
+        request never evicts its own priority class."""
+        fits = None
+        if self.cache_cfg.paged:
+            ps = self.cache_cfg.page_size
+
+            def fits(r):
+                need = self.alloc.pages_needed(r.kv_need)
+                if r.spill is not None:
+                    # resume: the kept shared prefix is still pinned, so only
+                    # the extension charges; its content is restored after
+                    if not self.alloc.can_resume(r.rid, need):
+                        return False
+                    r.pages = r.pages + self.alloc.resume(r.rid, need)
+                    return True
+                # always re-feed the last prompt token (its logits give the
+                # first generated token), so the matchable prefix stops one short
+                hashes = r.page_hashes[: (r.prompt_len - 1) // ps]
+                if not self.alloc.can_alloc(need, hashes):
+                    return False
+                r.pages, shared = self.alloc.alloc(r.rid, need, hashes)
+                r.cached_len = shared * ps
+                r.published = shared
+                return True
+
+        def admit_now():
+            free = [s for s, r in enumerate(self.active) if r is None]
+            room = self.token_budget - self.active_count
+            return self.sched.admit(free, self.tick, fits=fits, max_admit=max(0, room))
+
+        n = self._place(admit_now())
+        while self.preempt_enabled:
+            head = self.sched.head
+            victims = [(r.priority, -r.admit_tick, s) for s, r in enumerate(self.active)
+                       if r is not None]
+            if head is None or not victims:
+                break
+            pri, _, victim = min(victims)
+            if head.priority <= pri:
+                break                   # strict: equals never evict each other
+            self.preempt(victim)
+            n += self._place(admit_now())
+        return n
+
+    def _place(self, placed) -> int:
+        """Bookkeeping for `sched.admit`'s placements: the host tier's
+        pending restores, block-table row or slot reset, sampling row, and
+        for a resumed request its spilled state's restore."""
         paged = self.cache_cfg.paged
-        ps = self.cache_cfg.page_size
-
-        def fits(r):
-            need = self.alloc.pages_needed(r.kv_need)
-            # always re-feed the last prompt token (its logits give the first
-            # generated token), so the matchable prefix stops one short
-            hashes = r.page_hashes[: (r.prompt_len - 1) // ps]
-            if not self.alloc.can_alloc(need, hashes):
-                return False
-            r.pages, shared = self.alloc.alloc(r.rid, need, hashes)
-            r.cached_len = shared * ps
-            r.published = shared
-            return True
-
-        free = [s for s, r in enumerate(self.active) if r is None]
-        room = self.token_budget - self.active_count
-        placed = self.sched.admit(free, self.tick, fits=fits if paged else None,
-                                  max_admit=max(0, room))
+        if paged and self.alloc.pending_restores:
+            # host-tier prefix hits: the matched pages' packed content goes
+            # back into fresh pages before any of them is read
+            pr, self.alloc.pending_restores = self.alloc.pending_restores, []
+            host = tree_map(lambda *ts: torch.cat(ts, dim=ts[0].dim() - 4), *(c for _, c in pr))
+            restore_pages(self.cache, [p for p, _ in pr], host)
+            self._m_restore_pages.inc(len(pr))
+            self.restored_pages += len(pr)
         for slot, req in placed:
+            resumed = req.spill is not None
             if paged:
                 self.block_tables[slot] = self.alloc.block_table_row(
                     req.rid, self.block_tables.shape[1])
-                self._m_cached.inc(req.cached_len)
+                if not resumed:
+                    self._m_cached.inc(req.cached_len)
             else:
                 reset_cache_slot(self.cache, slot)
-            self._m_prompt.inc(req.prompt_len)
+            if not resumed:
+                self._m_prompt.inc(req.prompt_len)
             if self.trace.enabled:
-                self.trace.end(req.rid + 1, "queued",
+                self.trace.end(req.rid + 1, "preempted" if resumed else "queued",
                                args={"slot": slot, "cached_len": req.cached_len})
-                self.trace.begin(req.rid + 1, "prefill")
+                self.trace.begin(req.rid + 1,
+                                 "decode" if (resumed and req.tokens) else "prefill")
             self.active[slot] = req
             self.fed[slot] = req.cached_len       # prefill skip
-            fill_slot(self.samp, slot, req.sampling, req.max_tokens)
+            fill_slot(self.samp, slot, req.sampling, req.key_data, req.max_tokens)
             req.status = PREFILL
+            if resumed:
+                self._restore_slot(slot, req)
         return len(placed)
+
+    def _restore_slot(self, slot: int, req: Request) -> None:
+        """Write a resumed request's spilled pages into its fresh pages (in
+        place, byte-exact) and rewind the slot to the exact spilled
+        position: ``fed``, ``last_token`` and the sampling row's ``ngen``,
+        so the continued stream equals one never preempted, and nothing is
+        prefilled again."""
+        sp = req.spill
+        if sp.n_pages:
+            restore_pages(self.cache, req.pages[sp.n_keep:sp.n_keep + sp.n_pages], sp.content)
+            self._m_restore_pages.inc(sp.n_pages)
+            self.restored_pages += sp.n_pages
+        self.fed[slot] = sp.fed
+        self.last_token[slot] = sp.last_token
+        self.samp["ngen"][slot] = req.n_generated
+        # re-publish restored prompt pages from the kept prefix on: a no-op
+        # wherever the original page is still resident
+        req.published = sp.n_keep
+        req.status = DECODE if req.tokens else PREFILL
+        req.spill = None
+        self.resumes += 1
+        self._m_resume.inc()
+
+    def preempt(self, slot: int) -> Request:
+        """Preempt the request in ``slot``: copy its private pages' packed
+        content to the host (`cache.extract_pages`), release those pages
+        (the shared prefix stays pinned), clear the slot and requeue the
+        request ahead of its priority class. Public, so a caller can force a
+        preemption at any stream position; the engine's policy calls it
+        from `_admit`. Runs between ticks."""
+        req = self.active[slot]
+        if req is None:
+            raise ValueError(f"slot {slot} is idle")
+        if not self.cache_cfg.paged:
+            raise RuntimeError("preemption requires a paged cache")
+        ps = self.cache_cfg.page_size
+        fed = int(self.fed[slot])
+        n_keep = req.cached_len // ps            # shared prefix: pinned
+        n_touched = -(-fed // ps)                # pages holding content
+        spill_ids = req.pages[n_keep:n_touched]
+        # copy before the release: a released page may be reused at once
+        content = extract_pages(self.cache, spill_ids) if spill_ids else None
+        nbytes = host_bytes(content) if spill_ids else 0
+        self.alloc.preempt(req.rid, n_keep)
+        req.pages = req.pages[:n_keep]
+        req.spill = SpilledState(fed=fed, last_token=int(self.last_token[slot]),
+                                 content=content, n_pages=len(spill_ids), n_keep=n_keep,
+                                 nbytes=nbytes)
+        req.preemptions += 1
+        req.status = PREEMPTED
+        req.slot = -1
+        self.active[slot] = None
+        clear_slot(self.samp, slot)
+        self.block_tables[slot] = 0
+        self.fed[slot] = 0
+        self.last_token[slot] = 0
+        self.preemptions += 1
+        self.spill_pages += len(spill_ids)
+        self.spill_bytes += nbytes
+        self._m_preempt.inc()
+        self._m_spill_pages.inc(len(spill_ids))
+        self._m_spill_bytes.inc(nbytes)
+        if self.trace.enabled:
+            self.trace.end(req.rid + 1, "decode" if req.tokens else "prefill")
+            self.trace.begin(req.rid + 1, "preempted",
+                             args={"spill_pages": len(spill_ids), "fed": fed})
+        self.sched.requeue(req)
+        return req
 
     # ----------------------------------------------------------------- tick
     def device_step(self, width: int, *, eager: bool = False) -> np.ndarray:
         """Run the step on the staged inputs at ``width`` tokens per slot and
-        return (next token, done) [2, B] int32 on the host. CUDA tensors
-        replay the width's graph unless ``eager`` asks for the step function
-        itself (comparisons); CPU tensors always run the step function.
-        One copy to pinned memory and one synchronisation read the result."""
+        return its output block on the host: [2, B] int32 (next token,
+        done), or [B, K+4] for a speculative engine (tokens [B, K+1],
+        n_emit, accepted, done). CUDA tensors replay the graph of (width,
+        sampled) unless ``eager`` asks for the step function itself
+        (comparisons); CPU tensors always run the step function. One copy
+        to pinned memory and one synchronisation read the result."""
         if self.graphs is not None and not eager:
-            out = self.graphs(width)
+            out = self.graphs(width, any_sampled(self.samp))
         else:
             self.inputs.send()
             out = run_step(self._step, self.params, self.cache, self.inputs, self.samp, width)
@@ -389,13 +581,15 @@ class ServeEngine:
         return self._out_host.numpy()
 
     def step(self, *, eager: bool = False) -> Dict[str, object]:
-        """One engine tick: admit, run the ragged step, advance slots by their
-        consumed chunk lengths, finish and re-admit. ``eager`` runs the step
-        function instead of its CUDA graph (`device_step`).
+        """One engine tick: admit (and preempt), run the ragged step, advance
+        slots by their consumed chunk lengths, emit, roll back rejected
+        drafts, finish and re-admit. ``eager`` runs the step function
+        instead of its CUDA graph (`device_step`).
 
         Returns {"finished": [Request], "generated": int, "active": int}."""
         t0 = time.perf_counter()
         PC = self.chunk
+        K = self.speculate_k
         tracing = self.trace.enabled
         if tracing:
             self.trace.begin(0, "tick", args={"tick": self.tick})
@@ -411,9 +605,12 @@ class ServeEngine:
             return {"finished": [], "generated": 0, "active": 0}
         self._m_active.set(self.active_count)
 
-        # chunk sizing under the token budget: every active slot gets 1 token,
-        # prefilling slots grow toward the prefill chunk from the leftover
+        # chunk sizing under the token budget: every active slot gets 1 token;
+        # prefilling slots grow toward the prefill chunk, decoding slots of a
+        # speculative engine append up to k drafts, both from the leftover
         nvalid = np.zeros(self.slots, np.int32)
+        ndraft = np.zeros(self.slots, np.int32)
+        proposals: Dict[int, np.ndarray] = {}
         leftover = self.token_budget - self.active_count
         for s, req in enumerate(self.active):
             if req is None:
@@ -424,16 +621,32 @@ class ServeEngine:
                 extra = min(min(PC, rem) - 1, leftover)
                 n += max(0, extra)
                 leftover -= n - 1
+            elif K and rem <= 0:
+                # drafts past the length cap could write past the slot's
+                # reserved positions, so the cap bounds the draft count too
+                k_cap = min(K, req.max_tokens - 1 - req.n_generated, leftover)
+                if k_cap > 0:
+                    hist = np.concatenate([req.prompt, np.asarray(req.tokens, np.int32)])
+                    d = np.asarray(self.drafter.propose(hist, int(k_cap)),
+                                   np.int32).reshape(-1)[:k_cap]
+                    if d.size:
+                        self.drafter.record_proposal(int(d.size))
+                        proposals[s] = d
+                        ndraft[s] = d.size
+                        n += int(d.size)
+                        leftover -= int(d.size)
             nvalid[s] = n
 
-        # as the reference's compiled step, a tick that prefills runs the
-        # full [B, step_chunk] block (rows past a slot's nvalid are
-        # discarded); pure-decode ticks run [B, 1]: one graph per width
+        # as the reference's compiled step, a tick that prefills or drafts
+        # runs the full [B, step_chunk] block (rows past a slot's nvalid are
+        # discarded); the other ticks run [B, 1]: one graph per width
         C = self.step_chunk if nvalid.max() > 1 else 1
         h = self.inputs.host
         h["token"][:] = 0
         h["pos"][:] = -1                                  # idle: write-suppressed
         h["nvalid"][:] = nvalid
+        if K:
+            h["ndraft"][:] = ndraft
         for s, req in enumerate(self.active):
             if req is None:
                 continue
@@ -446,8 +659,12 @@ class ServeEngine:
             h["pos"][s] = i
             for j in range(int(nvalid[s])):
                 idx = i + j
-                h["token"][s, j] = (req.prompt[idx] if idx < req.prompt_len
-                                    else self.last_token[s])
+                if idx < req.prompt_len:
+                    h["token"][s, j] = req.prompt[idx]
+                elif j == 0 or s not in proposals:
+                    h["token"][s, j] = self.last_token[s]
+                else:                                     # this round's drafts
+                    h["token"][s, j] = proposals[s][j - 1]
         if self.block_tables is not None:
             h["block_tables"][:] = self.block_tables
         h["ngen"][:] = self.samp["ngen"]
@@ -461,9 +678,14 @@ class ServeEngine:
         if tracing:
             self.trace.begin(0, "device_step", args={"tokens_fed": fed,
                                                      "active": self.active_count})
-        next_tok, done = self.device_step(C, eager=eager)
+        out = self.device_step(C, eager=eager)
         if tracing:
             self.trace.end(0, "device_step")
+        if K:
+            out_tok, n_emit, acc, done = out[:, :K + 1], out[:, K + 1], out[:, K + 2], out[:, K + 3]
+        else:
+            out_tok, done = out[0][:, None], out[1]
+            n_emit = np.ones(self.slots, np.int32)
 
         finished, generated = [], 0
         for s, req in enumerate(self.active):
@@ -480,12 +702,22 @@ class ServeEngine:
                     req.published = j + 1
             if i + n - 1 < req.prompt_len - 1:
                 continue                                  # still prefilling
-            tok = int(next_tok[s])
+            # a speculative round emits its accepted drafts and the bonus or
+            # corrective draw in one go
+            k_s = int(ndraft[s])
+            emitted = [int(t) for t in out_tok[s, :int(n_emit[s])]]
+            if k_s:
+                a = int(acc[s])
+                self._m_spec_prop.inc(k_s)
+                self._m_spec_acc.inc(a)
+                req.drafted += k_s
+                req.accepted_drafts += a
             was_first = not req.tokens
-            req.tokens.append(tok)
+            req.tokens.extend(emitted)
+            tok = emitted[-1]
             self.last_token[s] = tok
             self.samp["ngen"][s] = len(req.tokens)
-            generated += 1
+            generated += len(emitted)
             self._m_emit.inc()
             if was_first:
                 req.first_token_tick = self.tick
@@ -514,6 +746,17 @@ class ServeEngine:
                                        args={"reason": req.finish_reason,
                                              "tokens": req.n_generated})
                     self.trace.end(req.rid + 1, "request")
+            elif k_s:
+                # rollback: the step zeroed the rejected drafts' cache rows
+                # (positions i + 1 + a .. i + k_s); rewind the feed position so
+                # the next round inserts there again. Drafting starts after
+                # the prompt, so the rewind never reaches a shared page
+                new_fed = i + 1 + a
+                assert new_fed >= req.prompt_len and new_fed > req.cached_len - 1, (
+                    f"slot {s}: speculative rewind to {new_fed} would cross the "
+                    f"shared/prompt boundary (cached {req.cached_len}, prompt end "
+                    f"{req.prompt_len})")
+                self.fed[s] = new_fed
         # freed capacity becomes admission headroom the same tick
         if finished:
             if tracing:
@@ -554,7 +797,7 @@ class ServeEngine:
 
     def stats(self) -> Dict[str, Any]:
         """Aggregate serving stats, computed from the metrics registry (the
-        reference's keys, less speculation, preemption and cost)."""
+        reference's keys, less cost)."""
         raw_s = self._m_tick_s.raw_values()
         raw_t = self._m_tick_tok.raw_values()
         tick_s = np.asarray(raw_s) if raw_s else np.zeros(1)
@@ -564,6 +807,9 @@ class ServeEngine:
         ttft = np.asarray(self._m_ttft.raw_values(), np.float64)
         e2e = np.asarray(self._m_lat.raw_values(), np.float64)
         glen = np.asarray(self._m_glen.raw_values(), np.float64)
+        spec_prop = int(self._m_spec_prop.value)
+        spec_acc = int(self._m_spec_acc.value)
+        emit_rounds = int(self._m_emit.value)
 
         def pct(a, q):
             return float(np.percentile(a, q)) if a.size else 0.0
@@ -588,6 +834,18 @@ class ServeEngine:
             "queue_depth": self.sched.queue_depth,
             "kv_bytes_per_token": self.kv_bytes_per_token(),
             "kv_compression_vs_bf16": self.kv_compression_vs_bf16(),
+            # speculative decoding: drafts scored / accepted, and tokens per
+            # emitting slot-round (1.0 without speculation)
+            "spec_proposed": spec_prop,
+            "spec_accepted": spec_acc,
+            "accept_rate": spec_acc / spec_prop if spec_prop else 0.0,
+            "tokens_per_step": float(tok.sum()) / emit_rounds if emit_rounds else 0.0,
+            # preemption (plain ints: real even with ObsConfig(enabled=False))
+            "preemptions": self.preemptions,
+            "resumes": self.resumes,
+            "spill_pages": self.spill_pages,
+            "spill_bytes": self.spill_bytes,
+            "restored_pages": self.restored_pages,
         }
         if self.alloc is not None:
             out["free_pages"] = self.alloc.free_pages

@@ -6,7 +6,9 @@ src/repro/launch/serve.py).
 
 The cache is the contiguous default, as in the reference; ``--cache paged``
 serves paged caches instead (bf16 pages for ``--scheme fp16``, AMS pages for
-the quantized schemes).
+the quantized schemes). ``--temperature`` > 0 samples on the device, seeded
+by ``--sample-seed`` (with ``--top-k`` / ``--top-p``); ``--speculate K``
+scores up to K n-gram drafts per decode round.
 """
 
 from __future__ import annotations
@@ -20,18 +22,20 @@ from repro_torch.configs import get_config
 
 from .config import EngineConfig
 from .engine import ServeEngine
+from .sampling import SamplingParams
 
 
 def generate(arch: str, *, reduced=True, scheme="fp5.33-e2m3", strategy="set_lsb",
              impl="ref", attn_impl="ref", batch=2, prompt_len=16, gen_tokens=16, seed=0,
              params=None, capacity=None, prompts=None, sampling=None, prefill_chunk=1,
-             cache="contiguous", page_size=16, device="cuda"):
+             cache="contiguous", page_size=16, device="cuda", speculate_k=0, drafter="ngram"):
     """Submit ``batch`` requests at tick 0 (prompts drawn from ``seed`` unless
     given as ``prompts`` [batch, prompt_len]) and drain the engine. The
     cache is contiguous by default, as in the reference's ``generate``;
     ``cache="paged"`` pairs bf16 pages with ``scheme="fp16"`` and AMS pages
     with the quantized schemes, as the reference's serving benchmark pairs
-    them. ``attn_impl`` selects the attention lowering (ref | kernel).
+    them. ``attn_impl`` selects the attention lowering (ref | kernel);
+    ``speculate_k`` / ``drafter`` turn on speculative decoding.
     Returns (tokens [batch, gen_tokens], stats); streams that stop early are
     padded with -1."""
     cfg = get_config(arch)
@@ -53,7 +57,8 @@ def generate(arch: str, *, reduced=True, scheme="fp5.33-e2m3", strategy="set_lsb
     eng = ServeEngine(
         EngineConfig(arch=arch, reduced=reduced, scheme=scheme, strategy=strategy,
                      impl=impl, slots=batch, capacity=cap, seed=seed,
-                     prefill_chunk=prefill_chunk, device=device, verbose=True, cache=ccfg),
+                     prefill_chunk=prefill_chunk, device=device, verbose=True, cache=ccfg,
+                     speculate_k=speculate_k, drafter=drafter),
         params=params)
     per_req = sampling if isinstance(sampling, (list, tuple)) else [sampling] * batch
     reqs = [eng.submit(prompts[b], gen_tokens, sampling=per_req[b]) for b in range(batch)]
@@ -81,11 +86,25 @@ def main():
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--chunk", type=int, default=1, help="prefill chunk")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy (default); > 0 samples on the device")
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--sample-seed", type=int, default=0)
+    ap.add_argument("--speculate", type=int, default=0,
+                    help="score up to K draft tokens per decode round (0 = off)")
+    ap.add_argument("--drafter", default="ngram", help="ngram (self / self-full: not ported)")
     args = ap.parse_args()
+    sampling = None
+    if args.temperature > 0:
+        sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                                  top_p=args.top_p, seed=args.sample_seed)
     toks, stats = generate(args.arch, reduced=args.reduced, scheme=args.scheme,
                            strategy=args.strategy, impl=args.impl, attn_impl=args.attn_impl,
                            batch=args.batch, prompt_len=args.prompt, gen_tokens=args.tokens,
-                           prefill_chunk=args.chunk, cache=args.cache, device=args.device)
+                           prefill_chunk=args.chunk, cache=args.cache, device=args.device,
+                           sampling=sampling, speculate_k=args.speculate,
+                           drafter=args.drafter)
     print("generated tokens:\n", toks)
     print("stats:", stats)
 

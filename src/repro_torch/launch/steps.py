@@ -11,16 +11,24 @@ cache to it. The port's step is a plain function with the same arguments:
 ``pos`` holds each slot's start position (negative = idle slot, its cache
 write suppressed); with ``chunk`` = C > 1 every slot feeds a ragged block of
 up to C tokens and ``nvalid`` its valid count; ``block_tables`` is taken by
-paged caches only. The epilogue is the greedy draw with in-step termination
-(`sampling.sample_tokens`). The caches are written in place and returned.
-Nothing in the step waits on the device or copies from host memory.
+paged caches only. The epilogue is the sampling draw with in-step
+termination (`sampling.sample_tokens`). With ``speculate_k`` = K > 0 the
+step also takes ``ndraft`` [B] (the drafts closing each slot's chunk),
+scores the last ndraft + 1 positions, verifies the drafts
+(`speculative.verify_tokens`) and zeroes the rejected entries' cache rows
+(`speculative.truncate_cache`), all inside the step:
+
+        -> ((out_tokens [B, K+1], n_emit [B], accepted [B], done [B]), cache)
+
+The caches are written in place and returned. Nothing in the step waits on
+the device or copies from host memory.
 
 The engine feeds it from `StepInputs`, one set of static buffers staged in
 one host buffer (pinned on the card) and sent with one copy per tick. On
-CUDA tensors `GraphedStep` replays the step as CUDA graphs, one per chunk
-width, the counterpart of the reference's compiled program: the caches and
-inputs are the graphs' static memory, written in place. On CPU tensors the
-engine calls the same step eagerly at the same widths.
+CUDA tensors `GraphedStep` replays the step as CUDA graphs, one per (chunk
+width, sampled) pair, the counterpart of the reference's compiled program:
+the caches and inputs are the graphs' static memory, written in place. On
+CPU tensors the engine calls the same step eagerly at the same widths.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ from __future__ import annotations
 import gc
 import math
 import time
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -37,40 +45,62 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels.build import add_counts, recorded_counts
 from repro_torch.models import decode_step
 
-from .sampling import sample_tokens
+from .sampling import any_sampled, sample_tokens
+from .speculative import truncate_cache, verify_tokens
 
 
-def build_engine_step(cfg: ModelConfig, rcfg: RunConfig, cache_cfg):
+def build_engine_step(cfg: ModelConfig, rcfg: RunConfig, cache_cfg, speculate_k: int = 0):
     """Returns the step function for this (model, run, cache); one function
     serves one-token and chunked ticks (`decode_step` reads the token's
     shape). Which layers the cache holds was checked where the cache was
-    made (`models.make_cache`)."""
+    made (`models.make_cache`). A speculative step verifies up to
+    min(speculate_k, width - 1) drafts per slot: a width-1 tick of a
+    speculative engine scores one position with the same epilogue."""
     policy = rcfg.quant if rcfg.quantized else None
 
-    def step(params, token, pos, cache, sampling, *, nvalid=None, block_tables=None):
+    def step(params, token, pos, cache, sampling, *, nvalid=None, block_tables=None,
+             ndraft=None):
+        if not speculate_k:
+            logits, cache = decode_step(params, token, cache, pos, cfg, policy=policy,
+                                        block_tables=block_tables, cache_cfg=cache_cfg,
+                                        nvalid=nvalid)
+            next_token, done = sample_tokens(logits, sampling)
+            return next_token, done, cache
+        k = min(speculate_k, token.shape[1] - 1)
         logits, cache = decode_step(params, token, cache, pos, cfg, policy=policy,
                                     block_tables=block_tables, cache_cfg=cache_cfg,
-                                    nvalid=nvalid)
-        next_token, done = sample_tokens(logits, sampling)
-        return next_token, done, cache
+                                    nvalid=nvalid, ndraft=ndraft, n_logits=k + 1)
+        if k == 0:
+            logits = logits[:, None]
+        out, n_emit, accepted, done = verify_tokens(logits, token, nvalid, ndraft, sampling, k)
+        if k:
+            # un-insert the rejected suffix in the step: positions
+            # pos + 1 + accepted .. pos + ndraft go back to zeros
+            truncate_cache(cache, pos + 1 + accepted, torch.clamp_min(ndraft - accepted, 0), k,
+                           cache_cfg=cache_cfg, block_tables=block_tables)
+        out = torch.nn.functional.pad(out, (0, speculate_k - k))
+        return (out, n_emit, accepted, done), cache
 
     return step
 
 
 class StepInputs:
     """The step's static inputs: token [B, C], pos [B], nvalid [B],
-    block_tables [B, MP] (paged caches only) and the sampling row ngen [B],
-    all int32 views of one device buffer (``dev``), staged through numpy
-    views of one host buffer (``host``, pinned on CUDA). `send` copies the
-    host buffer over in one non-blocking copy: the host writes the next
-    tick's inputs only after the tick's outputs were read, so the copy has
-    landed by then."""
+    block_tables [B, MP] (paged caches only), the sampling row ngen [B] and
+    ndraft [B] (speculative engines only), all int32 views of one device
+    buffer (``dev``), staged through numpy views of one host buffer
+    (``host``, pinned on CUDA). `send` copies the host buffer over in one
+    non-blocking copy: the host writes the next tick's inputs only after
+    the tick's outputs were read, so the copy has landed by then."""
 
-    def __init__(self, slots: int, chunk: int, max_pages: int, device: torch.device):
+    def __init__(self, slots: int, chunk: int, max_pages: int, device: torch.device,
+                 speculative: bool = False):
         shapes = {"token": (slots, chunk), "pos": (slots,), "nvalid": (slots,)}
         if max_pages:
             shapes["block_tables"] = (slots, max_pages)
         shapes["ngen"] = (slots,)
+        if speculative:
+            shapes["ndraft"] = (slots,)
         n = sum(math.prod(sh) for sh in shapes.values())
         pinned = device.type == "cuda"
         self.host_buf = torch.zeros(n, dtype=torch.int32, pin_memory=pinned)
@@ -93,6 +123,8 @@ class StepInputs:
         self.host["token"][:] = 0
         self.host["pos"][:] = -1
         self.host["nvalid"][:] = 0
+        if "ndraft" in self.host:
+            self.host["ndraft"][:] = 0
 
     def step_args(self, width: int):
         """(token, pos, nvalid, block_tables) device views for a tick of
@@ -105,20 +137,31 @@ class StepInputs:
 
 
 def run_step(step, params, cache, inputs: StepInputs, sampling, width: int) -> torch.Tensor:
-    """The eager step on the static inputs: [2, B] int32 (next token, done)."""
+    """The eager step on the static inputs, as one int32 block: [2, B]
+    (next token, done), or for a speculative step [B, K+4] (tokens
+    [B, K+1], n_emit, accepted, done)."""
     token, pos, nvalid, bt = inputs.step_args(width)
-    next_token, done, _ = step(params, token, pos, cache, sampling, nvalid=nvalid,
-                               block_tables=bt)
-    return torch.stack([next_token, done.to(torch.int32)])
+    if "ndraft" not in inputs.dev:
+        next_token, done, _ = step(params, token, pos, cache, sampling, nvalid=nvalid,
+                                   block_tables=bt)
+        return torch.stack([next_token, done.to(torch.int32)])
+    (out, n_emit, accepted, done), _ = step(params, token, pos, cache, sampling,
+                                            nvalid=nvalid, block_tables=bt,
+                                            ndraft=inputs.dev["ndraft"])
+    return torch.cat([out, n_emit[:, None], accepted[:, None],
+                      done[:, None].to(torch.int32)], dim=1)
 
 
 class GraphedStep:
-    """The engine step as CUDA graphs, one per chunk width, captured at the
-    width's first use: one warm-up run with every slot idle on the capture
-    stream (it builds the kernels and libraries, sets the kernels'
+    """The engine step as CUDA graphs, one per (chunk width, sampled), each
+    captured at its first use: one warm-up run with every slot idle on the
+    capture stream (it builds the kernels and libraries, sets the kernels'
     shared-memory limits, fills the constant tables and leaves every cache
-    byte as it was), then the capture. All graphs of one engine share one
-    memory pool; their replays never overlap. A failed capture raises.
+    byte as it was), then the capture. ``sampled`` is the host's choice of
+    the epilogue (`sampling.any_sampled`), which the step reads from the
+    sampling rows at capture: a greedy graph runs only the argmax. All
+    graphs of one engine share one memory pool; their replays never
+    overlap. A failed capture raises.
 
     A replay runs no kernel wrapper, so the launch counts the capture moved
     (`kernels.build.recorded_counts`) are added once per replay."""
@@ -126,14 +169,18 @@ class GraphedStep:
     def __init__(self, step, params, cache, inputs: StepInputs, sampling):
         self._run = lambda width: run_step(step, params, cache, inputs, sampling, width)
         self.inputs = inputs
+        self.sampling = sampling
         self.device = inputs.dev_buf.device
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(self.device)
-        self.graphs: Dict[int, tuple] = {}             # width -> (graph, out, moved)
-        self.capture_seconds: Dict[int, float] = {}
+        self.graphs: Dict[Tuple[int, bool], tuple] = {}   # key -> (graph, out, moved)
+        self.capture_seconds: Dict[Tuple[int, bool], float] = {}
         self.pool_bytes = 0
 
-    def capture(self, width: int) -> None:
+    def capture(self, width: int, sampled: bool = False) -> None:
+        if any_sampled(self.sampling) != sampled:
+            raise RuntimeError(f"capture of the sampled={sampled} graph while the sampling "
+                               "rows say otherwise")
         inputs, dev = self.inputs, self.device
         t0 = time.perf_counter()
         staged = inputs.host_buf.clone()
@@ -162,15 +209,16 @@ class GraphedStep:
         torch.cuda.empty_cache()
         self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
         inputs.host_buf.copy_(staged)
-        self.graphs[width] = (graph, out, moved)
-        self.capture_seconds[width] = time.perf_counter() - t0
+        self.graphs[width, sampled] = (graph, out, moved)
+        self.capture_seconds[width, sampled] = time.perf_counter() - t0
 
-    def __call__(self, width: int) -> torch.Tensor:
-        """Send the staged inputs and replay the graph of ``width`` (captured
-        first if new) on the current stream: the static [2, B] output."""
-        if width not in self.graphs:
-            self.capture(width)
-        graph, out, moved = self.graphs[width]
+    def __call__(self, width: int, sampled: bool = False) -> torch.Tensor:
+        """Send the staged inputs and replay the graph of (``width``,
+        ``sampled``) (captured first if new) on the current stream: the
+        static output block."""
+        if (width, sampled) not in self.graphs:
+            self.capture(width, sampled)
+        graph, out, moved = self.graphs[width, sampled]
         self.inputs.send()
         graph.replay()
         add_counts(moved)
@@ -178,7 +226,7 @@ class GraphedStep:
 
 
 def engine_step_signature(cfg: ModelConfig, rcfg: RunConfig, cache_cfg=None,
-                          chunk: int = 1) -> dict:
+                          chunk: int = 1, speculate_k: int = 0) -> dict:
     """Identity of one engine step: cache mode x attention impl x chunk x
     weight scheme x slot count (tensor parallelism is not ported: tp = 1)."""
     return dict(
@@ -190,6 +238,6 @@ def engine_step_signature(cfg: ModelConfig, rcfg: RunConfig, cache_cfg=None,
         impl=cache_cfg.impl if cache_cfg is not None else "ref",
         slots=rcfg.global_batch,
         chunk=chunk,
-        speculate_k=0,
+        speculate_k=speculate_k,
         tp=1,
     )

@@ -135,6 +135,31 @@ def cache_insert_chunk(cache, new, pos, nvalid):
     return cache
 
 
+def cache_truncate_chunk(cache, start, count, c_max: int):
+    """Zero per-slot positions ``start[b] .. start[b] + count[b] - 1`` of a
+    contiguous cache leaf [B, S, ...] in place: the inverse of
+    `cache_insert_chunk`, back to the zero-initialized state, so a later
+    re-insert equals a straight insert (the speculative step's rollback).
+    Slots with count == 0 or start < 0, and rows past S, keep their bytes.
+    A dropped row writes at its slot's start row: 0 when that row is zeroed
+    anyway, else the row's own value. ``c_max`` bounds the per-slot width.
+    Returns ``cache``."""
+    B, S = cache.shape[0], cache.shape[1]
+    start = start.to(torch.int32)
+    j = torch.arange(c_max, dtype=torch.int32, device=cache.device)[None, :]
+    p = start[:, None] + j                                      # [B, c_max]
+    ok = (start[:, None] >= 0) & (j < count.to(torch.int32)[:, None]) & (p < S)
+    anchor = torch.clamp(start, 0, S - 1).long()                # [B]
+    b_idx = torch.arange(B, device=cache.device)
+    old = cache[b_idx, anchor]                                  # [B, ...]
+    # ok is monotone in j: a slot writes anything iff its row 0 is live
+    first = torch.where(ok[:, 0].reshape(B, *([1] * (old.dim() - 1))),
+                        torch.zeros_like(old), old)
+    idx = torch.where(ok, p.long(), anchor[:, None])
+    cache[b_idx[:, None], idx] = first[:, None].expand(B, c_max, *old.shape[1:])
+    return cache
+
+
 def cache_insert(cache, new, pos):
     """Insert ``new`` [B, 1, kv, hd] at per-slot positions ``pos`` [B] (or
     one scalar position for every slot) into ``cache`` [B, S, kv, hd] in

@@ -79,9 +79,29 @@ def materialize_weight(p: Dict[str, Any], K: int, dtype,
     return ref.dequant_full(pw, torch.float32).to(dtype)
 
 
+def row_sum(x: torch.Tensor, mean: bool = False) -> torch.Tensor:
+    """Sum (or mean) over the last axis, kept. On CUDA in two steps, over
+    32 parts of each row and then over the parts, which gives a row the same
+    bits whatever the other rows: torch's one-step reduction splits a row
+    by the number of rows and its place among them (on an H100 a 3584-wide
+    f32 row's sum has other bits at 2, 4 or 8 rows than alone), which would
+    tie a token's result to what else its tick feeds. On the CPU torch's
+    reduction is taken as it is."""
+    if not x.is_cuda:
+        return torch.mean(x, dim=-1, keepdim=True) if mean else x.sum(dim=-1, keepdim=True)
+    n = x.shape[-1]
+    if n % 32:
+        s = row_sum(torch.nn.functional.pad(x, (0, 32 - n % 32)))
+        return s * (1.0 / n) if mean else s
+    parts = x.reshape(*x.shape[:-1], 32, n // 32)
+    if mean:
+        return parts.mean(dim=-1).mean(dim=-1, keepdim=True)
+    return parts.sum(dim=-1).sum(dim=-1, keepdim=True)
+
+
 def rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = row_sum(xf * xf, mean=True)
     return (xf * torch.rsqrt(var + np.float32(eps)) * g.to(torch.float32)).to(x.dtype)
 
 

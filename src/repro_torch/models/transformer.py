@@ -15,6 +15,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.core.tree import tree_leaves, tree_map
+
 from . import attention as A
 from . import ffn as F
 from .common import Dims, apply_linear, make_linear, make_norm, model_dims, rms_norm
@@ -56,18 +58,6 @@ def check_support(cfg, cache_cfg=None):
         raise NotImplementedError(
             f"paged caches serve dense GQA layers only; {cfg.name} has "
             f"{sorted(set(layer_pattern(cfg)))}: serve it over a contiguous cache")
-
-
-def tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def tree_leaves(tree):
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
-    return [tree]
 
 
 def init_block(gen, cfg, dims: Dims, kind: str, *, dtype=torch.float32, device="cpu"):
@@ -231,18 +221,26 @@ def _layers(params, cache, fn, x):
 
 
 def decode_step(params, token, cache, pos, cfg, *, policy=None, dtype=torch.bfloat16,
-                block_tables=None, cache_cfg=None, nvalid=None):
+                block_tables=None, cache_cfg=None, nvalid=None, ndraft=None, n_logits=1):
     """One decode step. token [B] with per-slot positions ``pos`` [B]
     (negative = idle slot, write suppressed), or the ragged multi-token
     step: token [B, C] with start positions ``pos`` [B] and valid counts
     ``nvalid`` [B]; logits are taken at each slot's last valid token. A
     paged ``cache_cfg`` reads page pools through ``block_tables`` [B, MP];
     otherwise the cache is the contiguous slot layout. Returns (logits
-    [B, V] f32, cache) — the caches are updated in place."""
+    [B, V] f32, cache) — the caches are updated in place.
+
+    Speculative scoring (``n_logits`` = K+1 > 1, ragged step only): the
+    chunk's last ``ndraft[b]`` tokens are drafts, and the logits come back
+    [B, K+1, V] at positions ``nvalid-1-ndraft .. nvalid-1`` (clipped into
+    the chunk): row j scores the token after draft j, row 0 is the plain
+    step's last-valid row."""
     if token.dim() == 2:
         return _decode_step_chunk(params, token, cache, pos, nvalid, cfg, policy=policy,
                                   dtype=dtype, block_tables=block_tables,
-                                  cache_cfg=cache_cfg)
+                                  cache_cfg=cache_cfg, ndraft=ndraft, n_logits=n_logits)
+    if n_logits != 1:
+        raise ValueError("n_logits > 1 requires the ragged [B, C] step")
     dims = model_dims(cfg)
     kind = layer_pattern(cfg)[0]
     pos = pos.to(torch.int32)
@@ -257,7 +255,8 @@ def decode_step(params, token, cache, pos, cfg, *, policy=None, dtype=torch.bflo
 
 
 def _decode_step_chunk(params, token, cache, pos, nvalid, cfg, *, policy=None,
-                       dtype=torch.bfloat16, block_tables=None, cache_cfg=None):
+                       dtype=torch.bfloat16, block_tables=None, cache_cfg=None, ndraft=None,
+                       n_logits=1):
     dims = model_dims(cfg)
     kind = layer_pattern(cfg)[0]
     pos = pos.to(torch.int32)
@@ -269,7 +268,14 @@ def _decode_step_chunk(params, token, cache, pos, nvalid, cfg, *, policy=None,
                                   block_tables=block_tables, cache_cfg=cache_cfg)
 
     x = _layers(params, cache, fn, x)
-    # logits only at each slot's last valid token
-    last = torch.clamp(nvalid - 1, 0, token.shape[1] - 1).long()
+    # logits only at each slot's last valid token, or its last ndraft + 1
+    C = token.shape[1]
+    if n_logits > 1:
+        nd = torch.zeros_like(nvalid) if ndraft is None else ndraft.to(torch.int32)
+        j = torch.arange(n_logits, dtype=torch.int32, device=x.device)[None, :]
+        sel = torch.clamp(nvalid[:, None] - 1 - nd[:, None] + j, 0, C - 1).long()
+        x_sel = torch.gather(x, 1, sel[:, :, None].expand(-1, -1, x.shape[2]))  # [B, K+1, D]
+        return _head(params, x_sel, cfg, dims, policy), cache
+    last = torch.clamp(nvalid - 1, 0, C - 1).long()
     x_last = x[torch.arange(x.shape[0], device=x.device), last][:, None]    # [B, 1, D]
     return _head(params, x_last, cfg, dims, policy)[:, 0], cache

@@ -256,28 +256,45 @@ def cfg_(**kw):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(speculate_k=2), "speculative"),
+    (dict(speculate_k=2, drafter="self"), "forward_seq"),
     (dict(mesh=object()), "mesh"),
-    (dict(cache=CacheConfig(kind="paged_ams", host_spill_pages=4)), "host spill"),
+    (dict(speculate_k=2, drafter="self-full"), "forward_seq"),
 ])
 def test_missing_features_raise_not_implemented(kw, match):
+    """Features still to port raise at construction, naming what they need;
+    the self drafters need the full-sequence forward (models.forward_seq)."""
     with pytest.raises(NotImplementedError, match=match):
         cfg_(**kw)
 
 
 def test_missing_request_features_raise_not_implemented():
+    """Request features still to port raise; preemption over a contiguous
+    cache raises as the reference's does, and a priority over a contiguous
+    cache only orders the queue (no preemption), as in the reference."""
     from repro_torch.obs import ObsConfig
     with pytest.raises(NotImplementedError, match="cost"):
         cfg_(obs=ObsConfig(cost=True))
     eng = ServeEngine(cfg_())
-    with pytest.raises(NotImplementedError, match="threefry"):
-        eng.submit([1, 2, 3], 4, sampling=SamplingParams(temperature=0.7, seed=1))
-    with pytest.raises(NotImplementedError, match="preemption"):
-        eng.submit([1, 2, 3], 4, priority=1)
     with pytest.raises(NotImplementedError, match="prefix embeds"):
         eng.submit([1, 2, 3], 4, prefix_embeds=np.zeros((2, 128), np.float32))
     with pytest.raises(NotImplementedError, match="dense GQA"):
         ServeEngine(cfg_(arch="minicpm3-4b"))
+    ticks = []
+    for eng in (ServeEngine(cfg_(slots=1, cache=None)),
+                JServeEngine(JEngineConfig(arch="qwen2-7b", reduced=True, slots=1,
+                                           capacity=CAP))):
+        assert not eng.preempt_enabled
+        low = eng.submit(np.arange(1, 6), 3)
+        eng.step()
+        with pytest.raises(RuntimeError, match="paged cache"):
+            eng.preempt(low.request.slot)
+        high = eng.submit(np.arange(7, 10), 2, priority=5)
+        eng.step()
+        assert eng.preemptions == 0 and high.status == "queued" and low.status == "prefill"
+        eng.run()
+        assert low.finish_tick < high.finish_tick and eng.stats()["preemptions"] == 0
+        ticks.append((low.finish_tick, high.finish_tick, low.tokens, high.tokens))
+    assert ticks[0][:2] == ticks[1][:2]
 
 
 def test_cuda_device_without_card_raises():

@@ -91,6 +91,43 @@ def test_k1_planned_shapes_match_plain(K, N, B):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("K,N", [(3584, 3584), (3584, 512), (18944, 3584)])
+def test_k1_row_bits_do_not_depend_on_the_rows(K, N):
+    """A row of x gets the same bits from K1 at every row count (1 to 256
+    rows: every row tile height, two row tiles): the K split and each
+    row's order of sums do not follow the rows."""
+    from repro_torch.kernels.ams_matmul import ams_matmul_fp533
+
+    dev = cuda_device()
+    pw, gen = packed(K, N, dev, seed=K + N)
+    x = torch.zeros((256, pw.hi.shape[0] * 6), device=dev)
+    x[:, :K] = torch.randn((256, K), generator=gen, device=dev)
+    one = ams_matmul_fp533(x[:1], pw.hi, pw.scale)
+    for B in (2, 8, 10, 16, 40, 64, 128, 256):
+        assert torch.equal(ams_matmul_fp533(x[:B], pw.hi, pw.scale)[:1], one), B
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [3584, 152064])
+def test_row_sum_bits_do_not_depend_on_the_rows(width):
+    """`models.common.row_sum` (the norm's mean square, the sampling
+    softmax's sums) and `rms_norm` give every row the same bits at any row
+    count and place among the rows."""
+    from repro_torch.models.common import rms_norm, row_sum
+
+    dev = cuda_device()
+    gen = torch.Generator(device=dev).manual_seed(width)
+    x = 20 * torch.randn((40, width), generator=gen, device=dev)
+    x = x * torch.exp(torch.randn((40, width), generator=gen, device=dev))
+    g = torch.rand(width, generator=gen, device=dev) + 0.5
+    for fn in (row_sum, lambda t: rms_norm(t, g)):
+        alone = [fn(x[r:r + 1]) for r in range(40)]
+        for n in (2, 4, 8, 10, 40):
+            y = fn(x[:n])
+            assert all(torch.equal(y[r], alone[r][0]) for r in range(n)), n
+
+
+@pytest.mark.gpu
 def test_k1_identity_is_bit_exact():
     from repro_torch.kernels import ops, ref
 
@@ -429,6 +466,40 @@ def test_k2_is_deterministic(page, chunk):
     b = paged_attention_ams(qf, pool, lens, bt, **kw)
     torch.cuda.synchronize()
     assert COUNT.launches == n + 2 and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [16, 128])
+def test_k2_row_bits_do_not_depend_on_the_tile(page):
+    """Each row of a chunk gets the same bits from K2 as its query alone
+    (decode width), at lengths whose chunk crosses a share boundary (255
+    takes shares of 32 tokens, 259 of 64) and in tiles of 8 and 16 rows,
+    for any slot count."""
+    from repro_torch.core.formats import get_scheme
+    from repro_torch.core.kv_quant import quantize_kv
+    from repro_torch.kernels.attention_template import _fold_q, paged_attention_ams
+
+    dev = cuda_device()
+    scheme = get_scheme("fp4.25-e2m2")
+    gen = torch.Generator(device=dev).manual_seed(70 + page)
+    MP, B = 1024 // page, 4
+    pool = {n: {k: t.contiguous() for k, t in quantize_kv(
+        torch.randn((B * MP, page, 4, 128), generator=gen, device=dev), scheme).items()}
+        for n in ("k", "v")}
+    bt = torch.randperm(B * MP, generator=gen, device=dev).to(torch.int32).reshape(B, MP)
+    ends = torch.tensor([255, 250, 1000, 32])
+    for chunk in (5, 16):
+        lengths = ends[:, None] + torch.arange(chunk)[None]
+        q = torch.randn((B, chunk, 28, 128), generator=gen, device=dev).to(torch.bfloat16)
+        qf, lens, _, _ = _fold_q(q, lengths.to(dev), 4, None)
+        kw = dict(page_size=page, scheme=scheme, g=7)
+        wide = paged_attention_ams(qf, pool, lens, bt, c=chunk, **kw)       # [B, kv, c*g, hd]
+        for j in range(chunk):
+            qj, lj, _, _ = _fold_q(q[:, j:j + 1].contiguous(), lengths[:, j:j + 1].to(dev), 4,
+                                   None)
+            for nb in (1, B):
+                alone = paged_attention_ams(qj[:nb], pool, lj[:nb], bt[:nb], c=1, **kw)
+                assert torch.equal(wide[:nb, :, 7 * j:7 * j + 7], alone), (chunk, j, nb)
 
 
 def test_k3_card_cases_take_one_two_and_eight_ranks():
@@ -927,7 +998,7 @@ GRAPH_PATHS = {"fp5.33": ("qwen2-7b", "fp5.33-e2m3", "paged_ams"),
                "mla-fp5.33": ("minicpm3-4b", "fp5.33-e2m3", "contiguous")}
 
 
-def _graph_engine(path, slots=3, chunk=4):
+def _graph_engine(path, slots=3, chunk=4, **kw):
     from repro_torch.cache import CacheConfig
     from repro_torch.launch.config import EngineConfig
     from repro_torch.launch.engine import ServeEngine
@@ -936,7 +1007,8 @@ def _graph_engine(path, slots=3, chunk=4):
     return ServeEngine(EngineConfig(arch=arch, reduced=True, scheme=scheme, impl="kernel",
                                     slots=slots, capacity=64, prefill_chunk=chunk,
                                     device="cuda", seed=3,
-                                    cache=CacheConfig(kind=kind, page_size=8, impl="kernel")))
+                                    cache=CacheConfig(kind=kind, page_size=8, impl="kernel"),
+                                    **kw))
 
 
 def _graph_prompts():
@@ -970,7 +1042,7 @@ def test_graph_replays_bit_equal_to_the_eager_step(path, chunk):
     assert [r.tokens for r in graphed.finished] == [r.tokens for r in eager.finished]
     for a, b in zip(tree_leaves(graphed.cache), tree_leaves(eager.cache)):
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
-    assert sorted(graphed.graphs.graphs) == sorted({1, chunk})
+    assert sorted(graphed.graphs.graphs) == sorted({(1, False), (chunk, False)})
     assert eager.graphs.graphs == {}
 
 
@@ -986,9 +1058,9 @@ def test_graph_replay_adds_the_captured_launch_counts(path):
     eng = _graph_engine(path)
     for p in _graph_prompts()[:3]:
         eng.submit(p, 6)
-    while 1 not in eng.graphs.graphs:
+    while (1, False) not in eng.graphs.graphs:
         eng.step()
-    moved = {c.name: (n, p) for c, n, p in eng.graphs.graphs[1][2]}
+    moved = {c.name: (n, p) for c, n, p in eng.graphs.graphs[1, False][2]}
     L = eng.cfg.num_layers
     attn = {"paged_ams": attention_template.COUNT, "paged_bf16": attention_template.COUNT_BF16}
     kind = GRAPH_PATHS[path][2]
@@ -1021,6 +1093,75 @@ def test_eager_step_does_not_synchronise(path):
     eng = _graph_engine(path)
     for p in _graph_prompts():
         eng.submit(p, 4)
+    eng.step()
+    for width in (eng.step_chunk, 1):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.inputs.send()
+            run_step(eng._step, eng.params, eng.cache, eng.inputs, eng.samp, width)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def _feature_requests(feature):
+    """Prompts and sampling of the sampled / speculative graph tests: a
+    repetitive prompt the n-gram drafter can follow, a random one, and two
+    of them sampled (seeded) where the feature samples."""
+    from repro_torch.launch.sampling import SamplingParams
+
+    prompts = [[5, 9, 2, 7] * 4, list(range(3, 12)), [8, 1, 8, 1, 8, 1, 6], list(range(20, 34))]
+    sampled = feature in ("sampled", "both")
+    samp = [SamplingParams(temperature=0.8, top_k=20, top_p=0.9, seed=i) if sampled and i % 2
+            else None for i in range(4)]
+    return prompts, samp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [1, 4])
+@pytest.mark.parametrize("feature", ["sampled", "speculative", "both"])
+def test_sampled_and_speculative_graphs_bit_equal_to_the_eager_step(feature, chunk):
+    """The sampled epilogue (threefry, masks, Gumbel draw) and the
+    speculative verify with its in-step rollback replay as CUDA graphs:
+    equal tokens every tick and equal cache bytes against the eager step,
+    on the FP5.33 path (K1, K2), with the (width, sampled) graphs used."""
+    from repro_torch.models.transformer import tree_leaves
+
+    cuda_device()
+    kw = dict(speculate_k=2) if feature != "sampled" else {}
+    graphed, eager = (_graph_engine("fp5.33", chunk=chunk, **kw) for _ in range(2))
+    prompts, samp = _feature_requests(feature)
+    for p, sp in zip(prompts, samp):
+        graphed.submit(p, 8, sampling=sp)
+        eager.submit(p, 8, sampling=sp)
+    tick = 0
+    while graphed.has_work or eager.has_work:
+        graphed.step()
+        eager.step(eager=True)
+        tick += 1
+        assert ([None if r is None else r.tokens for r in graphed.active]
+                == [None if r is None else r.tokens for r in eager.active]), f"tick {tick}"
+    assert [r.tokens for r in graphed.finished] == [r.tokens for r in eager.finished]
+    for a, b in zip(tree_leaves(graphed.cache), tree_leaves(eager.cache)):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    assert any(sp for _, sp in graphed.graphs.graphs) == (feature != "speculative")
+    if feature != "sampled":
+        assert graphed.stats()["spec_proposed"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("feature", ["sampled", "speculative", "both"])
+def test_sampled_and_speculative_eager_steps_do_not_synchronise(feature):
+    """The sampled and speculative steps on the staged inputs run under
+    torch.cuda.set_sync_debug_mode("error") at both widths."""
+    from repro_torch.launch.steps import run_step
+
+    cuda_device()
+    eng = _graph_engine("fp5.33", **(dict(speculate_k=2) if feature != "sampled" else {}))
+    prompts, samp = _feature_requests(feature)
+    for p, sp in zip(prompts, samp):
+        eng.submit(p, 4, sampling=sp)
     eng.step()
     for width in (eng.step_chunk, 1):
         torch.cuda.synchronize()

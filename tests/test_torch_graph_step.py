@@ -36,7 +36,7 @@ from repro_torch.launch import sampling as S  # noqa: E402
 from repro_torch.launch.config import EngineConfig  # noqa: E402
 from repro_torch.launch.engine import ServeEngine  # noqa: E402
 from repro_torch.launch.steps import run_step  # noqa: E402
-from repro_torch.models.transformer import tree_leaves  # noqa: E402
+from repro_torch.core.tree import tree_leaves  # noqa: E402
 
 PAGE, KV, HD = 4, 2, 16
 
@@ -216,6 +216,46 @@ def test_engine_step_has_no_host_sync(arch, kind, impl, guard):
     plain.run()
     assert [h.tokens for h in hs] == [h.tokens for h in want]
     assert widths == {1, 4} and guard.ops > 0
+
+
+def feature_engine(arch, kind, feature):
+    return ServeEngine(EngineConfig(
+        arch=arch, reduced=True, impl="kernel", slots=3, capacity=48, prefill_chunk=4,
+        speculate_k=0 if feature == "sampled" else 3, device="cpu",
+        cache=CacheConfig(kind=kind, page_size=8, impl="kernel")))
+
+
+@pytest.mark.parametrize("feature", ["sampled", "speculative", "both"])
+@pytest.mark.parametrize("arch,kind", [KINDS[0], KINDS[2]], ids=[KIND_IDS[0], KIND_IDS[2]])
+def test_sampled_and_speculative_steps_have_no_host_sync(arch, kind, feature, guard):
+    """The sampled epilogue (threefry keys, masks, Gumbel draws) and the
+    speculative step (verify, and the rollback of rejected drafts through
+    `cache.pool.paged_truncate` or `models.attention.cache_truncate_chunk`)
+    run every tick under the guard: no host sync, no boolean mask, no
+    tensor made from host data; streams equal an unguarded run."""
+    eng, plain = feature_engine(arch, kind, feature), feature_engine(arch, kind, feature)
+    warm_up(eng)
+    inner, seen = eng.device_step, []
+
+    def guarded(width, eager=False):
+        seen.append((width, S.any_sampled(eng.samp)))
+        with guard:
+            return inner(width, eager=eager)
+
+    eng.device_step = guarded
+    rng = np.random.default_rng(1)
+    prompts = [np.tile(rng.integers(0, 512, 4), 4).astype(np.int32) for _ in range(3)]
+    samp = [S.SamplingParams(temperature=0.9, top_k=30, top_p=0.9, seed=i)
+            if feature != "speculative" and i != 1 else None for i in range(3)]
+    hs = [eng.submit(p, 10, sampling=sp) for p, sp in zip(prompts, samp)]
+    eng.run()
+    want = [plain.submit(p, 10, sampling=sp) for p, sp in zip(prompts, samp)]
+    plain.run()
+    assert [h.tokens for h in hs] == [h.tokens for h in want]
+    assert guard.ops > 0 and {w for w, _ in seen} == {1, eng.step_chunk}
+    assert any(sp for _, sp in seen) == (feature != "speculative")
+    if feature != "sampled":
+        assert eng.stats()["spec_proposed"] > 0
 
 
 # ----------------------------------------------- idle run and static inputs

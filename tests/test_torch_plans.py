@@ -16,9 +16,10 @@ that stay resident at every served shape), and check the arguments with
 torch emulations (here, not in the package): K4's and K5's split walks
 against `contiguous_attention_plain` / `contiguous_attention_mla_plain`
 within their element rule (K5's bf16(p) bit for bit the one-rank walk's;
-forming p at a rank-local max is caught); K2's token split with each
-rank's own running max and the rank-order (m, l, acc) merge against
-`_paged_online_softmax` (an unweighted merge is caught); the page-max
+forming p at a rank-local max is caught); K2's token split (each row's
+own shares, each rank's own running max, the rank-order (m, l, acc)
+merge) against `_paged_online_softmax` (an unweighted merge is caught),
+and a row's bits the same at every tile height; the page-max
 contract on pages walked in sub-tiles of 32 tokens (the page's max formed
 over every sub-tile before any p); K3's and K5p's token splits against
 `_paged_online_softmax` (bf16 pages: the one-exchange prefix max, bf16(p)
@@ -63,6 +64,7 @@ from repro_torch.kernels.tuning import (  # noqa: E402
     attention_shares,
     k1_lsb_rows,
     k1_stage_rows,
+    paged_row_shares,
     paged_segments,
     plan_ams_matmul,
     plan_contiguous_attention,
@@ -917,61 +919,81 @@ def test_k5_split_walk_mutation_is_caught():
                                                   (4, 1, 256), (1, 1, 64), (8, 4, 40960)])
 def test_k2_plan_covers_every_token_once(slots, chunk, max_keys):
     """Qwen2-7B (kv 4, g 7): the row tiles hold every folded row; for any
-    count of visible tokens the ranks' shares (whole 32-token sub-tiles but
-    the last, contiguous, in rank order) cover each token once."""
+    count of visible tokens a row's shares (whole 32-token sub-tiles but
+    the last, contiguous, in rank order) cover each token once, and the
+    cluster has a rank for every share that holds tokens."""
     R = 7 * chunk
     plan = plan_paged_attention(slots, 4, R, max_keys)
     assert plan.rows in PAGED_ROW_TILES and plan.rows * plan.row_tiles >= R
     assert 1 <= plan.cluster <= MAX_CLUSTER
-    for ntok in (0, 1, 31, 32, 33, 100, max_keys - 1, max_keys):
+    for ntok in sorted({min(n, max_keys) for n in (0, 1, 31, 32, 33, 100, max_keys - 1, max_keys)}):
         covered = np.zeros(max(ntok, 1), dtype=int)
-        for i, (lo, hi) in enumerate(attention_shares(0, ntok, plan.cluster)):
+        for i, (lo, hi) in enumerate(paged_row_shares(ntok)):
             if hi > lo and hi < ntok:
                 assert (hi - lo) % PAGED_SUB_KEYS == 0
+            if hi > lo:
+                assert i < plan.cluster, "a share without a rank"
             covered[lo:hi] += 1
         assert (covered[:ntok] == 1).all()
 
 
 def test_k2_plan_fills_the_card_at_decode():
-    """8 slots x 4 kv heads at decode: 256 CTAs (about two per SM), at chunk
-    16 two ranks per tile of 16 rows."""
+    """8 slots x 4 kv heads at decode: 256 CTAs (about two per SM); the
+    cluster is the same at chunk 16 and at any slot count."""
     plan = plan_paged_attention(8, 4, 7, 1024)
     assert plan.rows == 8 and plan.ctas(8, 4) >= 2 * SMS - 32 and plan.cluster == MAX_CLUSTER
     assert plan_paged_attention(8, 4, 112, 1024).ctas(8, 4) >= 2 * SMS
+    assert {plan_paged_attention(b, 4, r, 1024).cluster
+            for b in (1, 2, 8, 64) for r in (7, 35, 112)} == {plan.cluster}
 
 
-def _k2_split_walk(qf, load_tok, lens, *, c, g, max_keys, cluster, rows, unweighted=False):
+def _k2_split_walk(qf, load_tok, lens, *, c, g, max_keys, rows, unweighted=False,
+                   tile_shares=False):
     """K2's split argument in plain torch: per (slot, head, tile of ``rows``
-    rows) the visible tokens [0, n) are split into the ranks' shares of
-    whole 32-token sub-tiles; each rank walks its share sub-tile by
-    sub-tile with its own running max (p in f32), and the ranks' (m, l, acc)
-    merge in rank order: weights exp(m_r - m*) (``unweighted``: the
-    mutation, none). ``load_tok(b, toks)`` -> (k, v) [len(toks), kv, hd]."""
+    rows) rank r walks the union of its rows' shares r (`paged_row_shares`
+    of each row's visible tokens) sub-tile by sub-tile, each row seeing
+    only its own share, with its own running max (p in f32); the ranks'
+    (m, l, acc) merge in rank order: weights exp(m_r - m*) (``unweighted``:
+    the mutation, none; ``tile_shares``: the mutation, every row of a tile
+    split as its longest). ``load_tok(b, toks)`` -> (k, v) [len(toks), kv,
+    hd]."""
     B, kv_n, R, hd = qf.shape
     out = torch.zeros_like(qf)
     row_len = lens.reshape(B, c).repeat_interleave(g, dim=1)             # [B, R]
     for b in range(B):
         for r0 in range(0, R, rows):
             sl = slice(r0, min(R, r0 + rows))
-            ln = row_len[b, sl]
-            ntok = min(int(ln.max()), max_keys)
+            ln = torch.clamp(row_len[b, sl], max=max_keys)
+            shares = [paged_row_shares(int(n)) for n in ln]
+            if tile_shares:
+                shares = [[(min(lo, int(n)), min(hi, int(n)))
+                           for lo, hi in paged_row_shares(int(ln.max()))] for n in ln]
             parts = []
-            for lo, hi in attention_shares(0, ntok, cluster):
+            for rank in range(MAX_CLUSTER):
+                own = [sh[rank] for sh in shares]
+                live = [(lo, hi) for lo, hi in own if hi > lo]
+                lo = min((a for a, _ in live), default=0)
+                hi = max((e for _, e in live), default=0)
+                a = torch.tensor([x for x, _ in own])[None, :, None]
+                e = torch.tensor([x for _, x in own])[None, :, None]
                 q = qf[b, :, sl]                                        # [kv, n, hd]
                 m = torch.full((kv_n, q.shape[1], 1), NEG_CLAMP)
                 l = torch.zeros_like(m)
                 acc = torch.zeros_like(q)
                 for t0 in range(lo, hi, PAGED_SUB_KEYS):
-                    toks = torch.arange(t0, min(t0 + PAGED_SUB_KEYS, hi))
-                    kt, vt = load_tok(b, toks)
-                    s = torch.einsum("hrd,thd->hrt", q, kt)
-                    s = s + torch.where(toks[None, None] < ln[None, :, None], 0.0, NEG_BIG)
+                    toks = torch.arange(t0, t0 + PAGED_SUB_KEYS)     # whole sub-tiles
+                    kt, vt = load_tok(b, torch.clamp(toks, max=hi - 1))
+                    # products summed per row (no batched matmul, whose order
+                    # may follow the row count)
+                    s = (q[:, :, None, :] * kt.permute(1, 0, 2)[:, None]).sum(dim=-1)
+                    s = torch.where((toks[None, None] >= a) & (toks[None, None] < e), s,
+                                    -torch.inf)
                     m_new = torch.clamp(torch.maximum(m, s.amax(dim=-1, keepdim=True)),
                                         min=NEG_CLAMP)
                     p = torch.exp(s - m_new)
                     corr = torch.exp(m - m_new)
                     l = l * corr + p.sum(dim=-1, keepdim=True)
-                    acc = acc * corr + torch.einsum("hrt,thd->hrd", p, vt)
+                    acc = acc * corr + (p[..., None] * vt.permute(1, 0, 2)[:, None]).sum(dim=2)
                     m = m_new
                 parts.append((m, l, acc))
             m_star = torch.stack([m for m, _, _ in parts]).amax(dim=0)
@@ -1021,19 +1043,20 @@ def _k2_case(page, chunk, seed):
 @pytest.mark.parametrize("chunk", [1, 3])
 @pytest.mark.parametrize("page", [16, 48, 64, 128])
 def test_k2_split_walk_matches_the_plain_walk(page, chunk):
-    """Each rank's own running max and the rank-order (m, l, acc) merge give
-    `_paged_online_softmax`'s output within f32 rounding (1e-4 of max |y|,
-    K2's tolerance), with exact zeros for masked rows and the idle slot, at
-    the plan's cluster and at 3 ranks, pages of 16 (two per sub-tile) to
-    128 (four sub-tiles per page)."""
+    """Each row's shares, each rank's own running max and the rank-order
+    (m, l, acc) merge give `_paged_online_softmax`'s output within f32
+    rounding (1e-4 of max |y|, K2's tolerance), with exact zeros for masked
+    rows and the idle slot, pages of 16 (two per sub-tile) to 128 (four
+    sub-tiles per page); a row's bits are the same in tiles of 8 and 16
+    rows and alone, where its tile-mates see other tokens."""
     qf, lens, bt, load_page, load_tok, masked, kw = _k2_case(page, chunk, page + chunk)
     want = _paged_online_softmax(qf, load_page, lens, bt, page_size=page, c=kw["c"],
                                  g=kw["g"], pv_dtype=torch.float32)
-    plan = plan_paged_attention(4, 2, qf.shape[2], kw["max_keys"])
-    for cluster in (plan.cluster, 3):
-        got = _k2_split_walk(qf, load_tok, lens, cluster=cluster, rows=plan.rows, **kw)
-        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
-        assert bool((got.permute(0, 2, 1, 3)[masked] == 0).all())
+    got = {rows: _k2_split_walk(qf, load_tok, lens, rows=rows, **kw) for rows in (1, 8, 16)}
+    for y in got.values():
+        assert float((y - want).abs().max()) <= 1e-4 * float(want.abs().max())
+        assert bool((y.permute(0, 2, 1, 3)[masked] == 0).all())
+    assert torch.equal(got[8], got[1]) and torch.equal(got[16], got[1])
     assert int(masked.sum()) > 0
 
 
@@ -1043,8 +1066,19 @@ def test_k2_split_walk_mutation_is_caught():
     qf, lens, bt, load_page, load_tok, _, kw = _k2_case(16, 1, 5)
     want = _paged_online_softmax(qf, load_page, lens, bt, page_size=16, c=1, g=kw["g"],
                                  pv_dtype=torch.float32)
-    bad = _k2_split_walk(qf, load_tok, lens, cluster=3, rows=8, unweighted=True, **kw)
+    bad = _k2_split_walk(qf, load_tok, lens, rows=8, unweighted=True, **kw)
     assert float((bad - want).abs().max()) > 1e-4 * float(want.abs().max())
+
+
+def test_k2_tile_shares_mutation_is_caught():
+    """Splitting every row of a tile as its longest (the tokens the tile
+    can see, not the row's own) gives a row other bits in a tile of 8 rows
+    than alone where the chunk's lengths 255 and 257 take shares of 32 and
+    64 tokens."""
+    qf, lens, _, _, load_tok, _, kw = _k2_case(128, 3, 131)
+    alone = _k2_split_walk(qf, load_tok, lens, rows=1, tile_shares=True, **kw)
+    tiled = _k2_split_walk(qf, load_tok, lens, rows=8, tile_shares=True, **kw)
+    assert not torch.equal(alone, tiled)
 
 
 # ------------------------------------------------------------- K3 and K5p
