@@ -6,7 +6,8 @@
     python3 chip_smoke.py --phases k1,k4 [--from DIR]   # some kernel phases
         # alone on the card, this checkout's or those of the checkout at DIR
         # (a parent commit unpacked), to compare two versions in one call;
-        # phase "tick" times the greedy FP5.33 graph tick
+        # phase "tick" times the greedy FP5.33 graph tick, "rows" runs the
+        # row-invariance check of the FP16, contiguous and MLA paths
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -84,8 +85,21 @@ Phases, each fatal on failure:
       restore, speculative greedy streams equal to plain decoding with
       tokens per step, accept rate and verify-width tick times, every row
       of K1, K2, the norm, the head and the sampling epilogue bit-equal to
-      the row alone), one JSON line per check, K1 and K2 the only kernels
-      launched.
+      the row alone; then K3, FP16's cuBLAS projections, K4, K5 and the
+      MLA absorb the same way at 2 and 8 slots x widths {1, 2, 4, 5, 16}:
+      a kernel's failing pair is fatal unless the reference's block plan
+      explains it, cuBLAS's are recorded, with FP16's speculative streams
+      set against plain decoding's), one JSON line per check, K1 and K2 the
+      only kernels launched;
+  13. frontend: the async HTTP/SSE front end over the FP5.33 path at full
+      width (`phase_frontend`: 12 requests at staggered arrivals, JSON and
+      SSE, two sampled, one refused with 429; every stream equal to the
+      request served alone; /healthz and /metrics read; K1 and K2 the only
+      kernels launched; TTFT, latency, the driver's tick against a direct
+      one, the host time between the step's halves and the roofline cost
+      line). Each served path also prints an ``attribution`` line: the
+      floor of a full decode tick at the H100's peaks beside a profiled
+      replay of its graph (`obs.cost.attribution(profile=True)`).
 
 A line ``compare {...}`` sets the five paths' graph and eager decode
 ticks, replay ms, device-busy ms, idle shares, gaps inside ticks and
@@ -1095,6 +1109,12 @@ def profile_decode(torch, eng, rng, path: str, ticks: int = 3, timed: int = 5):
         res[name] = _profiled_ticks(torch, eng, ticks, eager, path)
     if eng.active_count != eng.slots:
         fail(f"profile[{path}]: {eng.active_count} of {eng.slots} slots decoded while profiled")
+    # the roofline floor of a full decode tick beside a profiled graph replay
+    # of it (obs.cost.attribution's stand-in for the reference's HLO cost)
+    from repro_torch.obs import attribution
+    att = attribution(eng, profile=True)
+    log("attribution " + json.dumps(dict(path=path, **att)))
+    res["floor_share"] = att["profile_floor_share"]
     eng.run()
     log("profile " + json.dumps(res))
     g = res["graph"]
@@ -1288,7 +1308,7 @@ def _timed_ticks(torch, engines, ticks: int):
     return [1e3 * t / ticks for t in total]
 
 
-def phase_engine_features(torch, dev, full: bool):
+def phase_engine_features(torch, dev, full: bool, params=None):
     """Seeded sampling, preemption with host spill and speculative decoding
     on the FP5.33 path over AMS-e2m2 pages (K1, K2) at full width, one set
     of weights on the card for every engine (depth-2 checks use the first
@@ -1346,8 +1366,9 @@ def phase_engine_features(torch, dev, full: bool):
         cnt.reset()
     t_phase = time.perf_counter()
     cfg = config(None, 8, 16).model_config()
-    params = init_serving_params(cfg, QuantPolicy(scheme=path["scheme"], impl="kernel",
-                                                  min_elements=1 << 10), 0, dev)
+    if params is None:
+        params = init_serving_params(cfg, QuantPolicy(scheme=path["scheme"], impl="kernel",
+                                                      min_elements=1 << 10), 0, dev)
     cut = dict(params, layers={"sub0": tree_map(lambda t: t[:2], params["layers"]["sub0"])})
     V = cfg.vocab_size
     rng = np.random.default_rng(2026)
@@ -1593,6 +1614,13 @@ def phase_engine_features(torch, dev, full: bool):
     # CPU port is held to the JAX engine's streams instead)
     ok, report = _row_invariance(torch, dev, cfg, params, full)
     check("row-invariance", ok or not cuda, **report)
+    # the other paths: FP16 (K3, cuBLAS), contig-fp5.33 (K4), mla-fp5.33 (K5,
+    # the absorb); a kernel's failing pair is fatal unless the reference's
+    # block plan explains it, cuBLAS's are recorded
+    report, bad = _row_invariance_paths(torch, dev, full)
+    check("row-invariance-paths", not bad or not cuda, unexplained=bad, **report)
+    check("fp16-speculative-vs-plain", True,
+          **_fp16_speculative_streams(torch, dev, full, sp_prompts, sp_gen))
     del params, cut
     gc.collect()
     if cuda:
@@ -1681,6 +1709,208 @@ def _row_invariance(torch, dev, cfg, params, full: bool):
     return not any(res.values()), res
 
 
+ROW_SLOTS, ROW_WIDTHS = (2, 8), (1, 2, 4, 5, 16)
+
+
+def _rows_vs_alone(torch, call, B_max: int, W_max: int):
+    """The (slots, width) pairs of `ROW_SLOTS` x `ROW_WIDTHS` at which some
+    row of ``call(B, W)`` (a [B, W, ...] output over the first B slots and W
+    positions of fixed inputs) is not ``call`` of that (slot, position)
+    alone, ``call((b, j))`` (a [1, 1, ...] output)."""
+    alone = [[call((b, j)) for j in range(W_max)] for b in range(B_max)]
+    return [[B, W] for B in ROW_SLOTS for W in ROW_WIDTHS if not all(
+        torch.equal(out[b, j], alone[b][j][0, 0]) for out in (call(B, W),)
+        for b in range(B) for j in range(W))]
+
+
+def _row_invariance_paths(torch, dev, full: bool):
+    """Row invariance on the FP16, contig-fp5.33 and mla-fp5.33 paths, each
+    part called directly, every row of a call against the same (slot,
+    position) alone at 2 and 8 slots x widths {1, 2, 4, 5, 16} (the failing
+    pairs listed): K3 over bf16 pages, FP16's bf16 projections
+    (`torch.matmul`, cuBLAS) at Qwen2-7B's shapes, K4 over the contiguous
+    GQA cache, K5 over the MLA stream and the MLA absorb (`_mla_q_eff`,
+    `_mla_out`, and their einsums alone) of one MiniCPM3-4B layer. K4's and
+    K5's key block is the reference's plan for the call's rows (chunk x
+    group); where it differs from the one-query block, the pair follows the
+    reference (``block_kv`` lists it). Returns (report, the kernels' failing
+    pairs not explained by the block)."""
+    import dataclasses
+
+    from repro_torch.cache import CacheConfig, paged_insert
+    from repro_torch.cache.paged_attention import paged_attention_kernel
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.kernels.attention_template import fused_contiguous_attention
+    from repro_torch.kernels.tuning import reference_block_kv
+    from repro_torch.launch.engine import init_serving_params
+    from repro_torch.models import make_cache
+    from repro_torch.models.attention import _mla_out, _mla_q_eff, _mla_scale
+    from repro_torch.models.common import apply_linear, materialize_weight, model_dims
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    Bm, Wm = max(ROW_SLOTS), max(ROW_WIDTHS)
+    qwen = get_config("qwen2-7b")
+    mla = get_config("minicpm3-4b")
+    if not full:
+        qwen, mla = qwen.reduced(), mla.reduced()
+    S = 512 if full else 64
+    res, blocks = {}, {}
+
+    def sl(B, W=None):
+        """(B, W): the first B slots and W positions; (b, j) alone."""
+        if W is None:
+            b, j = B
+            return slice(b, b + 1), slice(j, j + 1)
+        return slice(0, B), slice(0, W)
+
+    # lengths: slot b's position j sees L_b + j keys (a chunk's queries)
+    L = torch.as_tensor([S // 2 + 37 * b - 5 * (b % 3) for b in range(Bm)], device=dev)
+    L = torch.minimum(L, torch.tensor(S - Wm, device=dev))
+    lens = (L[:, None] + torch.arange(1, Wm + 1, device=dev)[None]).to(torch.int32)
+
+    # K3 over bf16 pages (Qwen2-7B heads, pages of 16)
+    d = model_dims(qwen)
+    ccfg = CacheConfig(kind="paged_bf16", page_size=16, impl="kernel").sized(capacity=S,
+                                                                             slots=Bm)
+    pool = {k: v[0] for k, v in make_cache(qwen, Bm, S, cache_cfg=ccfg,
+                                            device=dev)["layers"]["sub0"].items()}
+    bt = torch.randperm(Bm * ccfg.max_pages_per_seq, generator=gen, device=dev).to(
+        torch.int32).reshape(Bm, -1)
+    kn = torch.randn((Bm, S, d.kv, d.hd), generator=gen, device=dev).to(torch.bfloat16)
+    paged_insert(pool, kn, -kn, torch.zeros(Bm, dtype=torch.int32, device=dev), bt, ccfg)
+    q3 = torch.randn((Bm, Wm, d.H, d.hd), generator=gen, device=dev).to(torch.bfloat16)
+
+    def k3(B, W=None):
+        a, c = sl(B, W)
+        return paged_attention_kernel(q3[a, c].contiguous(), pool, lens[a, c].contiguous(),
+                                      bt[a].contiguous(), ccfg)
+
+    res["K3"] = _rows_vs_alone(torch, k3, Bm, Wm)
+    del pool, kn
+
+    # FP16's projections: bf16 weights through torch.matmul (cuBLAS)
+    for name, K, N, _ in (QWEN_SHAPES if full else TINY_SHAPES):
+        w = {"w": (torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)).to(
+            torch.bfloat16)}
+        x = torch.randn((Bm, Wm, K), generator=gen, device=dev).to(torch.bfloat16)
+
+        def proj(B, W=None, w=w, x=x):
+            a, c = sl(B, W)
+            return apply_linear(w, x[a, c].contiguous(), None)
+
+        res[f"fp16_{name}"] = _rows_vs_alone(torch, proj, Bm, Wm)
+
+    # K4 over the contiguous GQA cache (Qwen2-7B heads)
+    kc = torch.randn((Bm, S, d.kv, d.hd), generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn((Bm, S, d.kv, d.hd), generator=gen, device=dev).to(torch.bfloat16)
+    q4 = torch.randn((Bm, Wm, d.H, d.hd), generator=gen, device=dev).to(torch.bfloat16)
+    g4 = d.H // d.kv
+
+    def k4(B, W=None):
+        a, c = sl(B, W)
+        return fused_contiguous_attention(q4[a, c].contiguous(), kc[a].contiguous(),
+                                          lens[a, c].contiguous(), v_cache=vc[a].contiguous())
+
+    res["K4"] = _rows_vs_alone(torch, k4, Bm, Wm)
+    blocks["K4"] = {W: reference_block_kv(rows=W * g4, hd=d.hd, hd_v=d.hd, s_max=S)
+                    for W in ROW_WIDTHS}
+    del kc, vc
+
+    # K5 over the MLA stream and the MLA absorb (one MiniCPM3-4B layer)
+    dm = model_dims(mla)
+    hd5, hv5 = mla.kv_lora_rank + mla.qk_rope_dim, mla.kv_lora_rank
+    stream = torch.randn((Bm, S, 1, hd5), generator=gen, device=dev).to(torch.bfloat16)
+    q5 = torch.randn((Bm, Wm, dm.H, hd5), generator=gen, device=dev).to(torch.bfloat16)
+
+    def k5(B, W=None):
+        a, c = sl(B, W)
+        return fused_contiguous_attention(q5[a, c].contiguous(), stream[a].contiguous(),
+                                          lens[a, c].contiguous(), value_slice=hv5,
+                                          scale=_mla_scale(mla))
+
+    res["K5"] = _rows_vs_alone(torch, k5, Bm, Wm)
+    blocks["K5"] = {W: reference_block_kv(rows=W * dm.H, hd=hd5, hd_v=hv5, s_max=S)
+                    for W in ROW_WIDTHS}
+    del stream
+    pol = QuantPolicy(scheme=PATHS["mla-fp5.33"]["scheme"], impl="kernel", min_elements=1 << 10)
+    one = init_serving_params(dataclasses.replace(mla, num_layers=1), pol, 5, dev)
+    p = {k: ({n: t[0] for n, t in v.items()} if isinstance(v, dict) else v[0])
+         for k, v in one["layers"]["sub0"]["attn"].items()}
+    x = torch.randn((Bm, Wm, mla.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    pos = (L[:, None] + torch.arange(Wm, device=dev)[None]).to(torch.int32)
+    ac = torch.randn((Bm, Wm, dm.H, hv5), generator=gen, device=dev).to(torch.bfloat16)
+    w_uk = materialize_weight(p["w_uk"], hv5, torch.bfloat16, pol).reshape(
+        hv5, dm.H, mla.qk_nope_dim)
+    w_uv = materialize_weight(p["w_uv"], hv5, torch.bfloat16, pol).reshape(
+        hv5, dm.H, mla.v_head_dim)
+    qn = torch.randn((Bm, Wm, dm.H, mla.qk_nope_dim), generator=gen, device=dev).to(
+        torch.bfloat16)
+    parts = {
+        "mla_q_eff": lambda a, c: _mla_q_eff(p, x[a, c].contiguous(), mla, dm,
+                                             pos[a, c].contiguous(), pol),
+        "mla_out": lambda a, c: _mla_out(p, ac[a, c].contiguous(), mla, dm, pol),
+        "mla_einsum_q": lambda a, c: torch.einsum("bshd,rhd->bshr", qn[a, c].contiguous(),
+                                                  w_uk),
+        "mla_einsum_o": lambda a, c: torch.einsum("bshr,rhd->bshd", ac[a, c].contiguous(),
+                                                  w_uv),
+    }
+    for name, fn in parts.items():
+        res[name] = _rows_vs_alone(torch, lambda B, W=None, fn=fn: fn(*sl(B, W)), Bm, Wm)
+    del one, p
+
+    # a kernel's failing pair is explained only where the reference's block
+    # for its rows differs from the one-query block
+    unexplained = {k: [bw for bw in res[k] if k not in blocks
+                       or blocks[k][bw[1]] == blocks[k][1]] for k in ("K3", "K4", "K5")}
+    report = dict(slots=list(ROW_SLOTS), widths=list(ROW_WIDTHS), keys=S,
+                  lengths=[int(L.min()), int(L.max()) + Wm], failing=res,
+                  block_kv={k: {str(w): b for w, b in v.items()} for k, v in blocks.items()},
+                  causes={k: ("cuBLAS" if k.startswith(("fp16_", "mla_")) else
+                              "block" if v and not unexplained.get(k) else "kernel")
+                          for k, v in res.items() if v})
+    return report, {k: v for k, v in unexplained.items() if v}
+
+
+def _fp16_speculative_streams(torch, dev, full: bool, prompts, gen_n: int):
+    """FP16 (bf16 weights through cuBLAS, bf16 pages through K3) at full
+    depth: speculative greedy streams (k = 4, n-gram) against plain
+    decoding's, 2 slots, chunk 4. A record, not a gate: a verify tick feeds
+    5 rows per slot where plain decoding feeds 1, so where cuBLAS gives a
+    row other bits at another row count the streams may part."""
+    from repro_torch.cache import CacheConfig
+    from repro_torch.launch.config import EngineConfig
+    from repro_torch.launch.engine import ServeEngine
+
+    spec = PATHS["fp16"]
+
+    def config(**kw):
+        return EngineConfig(arch=spec["arch"], reduced=not full, scheme=spec["scheme"],
+                            impl="kernel", slots=2, capacity=512 if full else 64,
+                            prefill_chunk=4, device=str(dev), seed=0,
+                            cache=CacheConfig(kind=spec["kind"], page_size=16 if full else 8,
+                                              impl="kernel"), **kw)
+
+    plain = ServeEngine(config())
+    want = _serve_all(plain, prompts, gen_n)
+    spec_eng = ServeEngine(config(speculate_k=4), params=plain.params)
+    got = _serve_all(spec_eng, prompts, gen_n)
+    st = spec_eng.stats()
+    del plain, spec_eng
+    gc.collect()
+    return dict(depth="full" if full else "reduced", slots=2, k=4, streams_equal=got == want,
+                tokens_per_step=st["tokens_per_step"],
+                first_diverging_token=[next((t for t, (a, b) in enumerate(zip(x, y))
+                                             if a != b), None) for x, y in zip(got, want)])
+
+
+def phase_rows(torch, dev, timed: bool, full: bool):
+    """The row-invariance checks of the FP16, contig-fp5.33 and mla-fp5.33
+    paths alone (`_row_invariance_paths`)."""
+    report, bad = _row_invariance_paths(torch, dev, full)
+    return (dict(report, unexplained=bad),)
+
+
 def _speculative_ticks(eng):
     """Drive a speculative engine to the end, timing each tick by kind:
     ``prefill`` (a slot prefills or a request waits), ``verify`` (drafts
@@ -1700,6 +1930,223 @@ def _speculative_ticks(eng):
         ticks.setdefault(kind, []).append(ms)
     return {**{f"{k}_tick_ms_median": float(np.median(v)) for k, v in ticks.items()},
             **{f"{k}_ticks": len(v) for k, v in ticks.items()}}
+
+
+# ------------------------------------------------------------ frontend phase
+def phase_frontend(torch, dev, full: bool, params=None):
+    """The serving surface on the FP5.33 path (K1, K2): full-width Qwen2-7B
+    over AMS-e2m2 pages behind `ServeFrontend` on 127.0.0.1 (an ephemeral
+    port), its graphs captured on the stepping thread before it listens. A
+    stdlib asyncio client sends 12 requests at staggered arrivals, half
+    JSON and half SSE, two of them seeded and sampled: 6 long ones fill the
+    4 slots and the queue of 2, the 7th must get 429, 5 more arrive as the
+    queue drains. Every stream must equal the same request served alone by
+    a direct engine (same weights, the same request id, so a seeded draw
+    is the same); /healthz and /metrics are read; K1 and K2 must be the only
+    kernels launched (counts zeroed just before the front end starts and
+    read after it stops). Prints TTFT and latency in ms and ticks, the
+    driver's tick against a direct `step()` tick over the same requests,
+    the host ms per tick between ``step_begin``'s return and ``step_end``,
+    and the cost line (floor bytes and ms per tick at the H100's peaks, the
+    measured tick, the share). ``params``: FP5.33 serving weights to reuse."""
+    import asyncio
+    import dataclasses
+    import itertools
+
+    import numpy as np
+
+    from repro_torch.analysis.roofline import HBM_BW, PEAK_FLOPS
+    from repro_torch.cache import CacheConfig
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.launch.config import EngineConfig
+    from repro_torch.launch.engine import ServeEngine, init_serving_params
+    from repro_torch.launch.frontend import ServeFrontend
+    from repro_torch.launch.sampling import SamplingParams
+    from repro_torch.obs import attribution
+
+    spec = PATHS["fp5.33"]
+    slots, max_queue = 4, 2
+    ec = EngineConfig(arch=spec["arch"], reduced=not full, scheme=spec["scheme"], impl="kernel",
+                      slots=slots, capacity=512 if full else 64, prefill_chunk=16 if full else 4,
+                      max_queue=max_queue, device=str(dev), seed=0,
+                      cache=CacheConfig(kind=spec["kind"], page_size=16 if full else 8,
+                                        impl="kernel"))
+    t_phase = time.perf_counter()
+    if params is None:
+        params = init_serving_params(ec.model_config(), QuantPolicy(
+            scheme=spec["scheme"], impl="kernel", min_elements=1 << 10), 0, dev)
+    V = ec.model_config().vocab_size
+    rng = np.random.default_rng(31)
+    plen, long_n, short_n = ((40, 120), 24, 12) if full else ((6, 14), 40, 5)
+    reqs = []                          # (stream?, prompt, max_tokens, sampling dict)
+    for i in range(12):
+        body = {"prompt": [int(t) for t in rng.integers(0, V, int(rng.integers(*plen)))],
+                "max_tokens": long_n if i < 7 else short_n, "stream": i % 2 == 1}
+        if i in (1, 8):                # one SSE and one JSON request, seeded and sampled
+            body.update(temperature=0.8, top_k=40, top_p=0.95, seed=100 + i)
+        reqs.append(body)
+    counts = all_counts()
+    for cnt in counts:
+        cnt.reset()
+    eng = ServeEngine(ec, params=params)
+    fe = ServeFrontend(eng)
+
+    async def send(body):
+        t0 = time.perf_counter()
+        r, w = await asyncio.open_connection("127.0.0.1", fe.port)
+        raw = json.dumps(body).encode()
+        w.write(b"POST /v1/generate HTTP/1.1\r\nContent-Length: %d\r\n\r\n%s" % (len(raw), raw))
+        await w.drain()
+        lines, first = [], None
+        while True:
+            ln = await r.readline()
+            if not ln:
+                break
+            if first is None and ln.startswith(b"data: {\"token\""):
+                first = time.perf_counter()
+            lines.append(ln.decode())
+        w.close()
+        text = "".join(lines)
+        res = dict(status=int(text.split(" ", 2)[1]), ms=1e3 * (time.perf_counter() - t0),
+                   stream=body["stream"])
+        if res["status"] == 200 and body["stream"]:
+            res["tokens"] = [json.loads(x[6:])["token"] for x in text.splitlines()
+                             if x.startswith("data: {\"token\"")]
+            res["ttft_ms"] = 1e3 * (first - t0)
+        elif res["status"] == 200:
+            res.update(json.loads(text.partition("\r\n\r\n")[2]))
+        return res
+
+    async def get(path):
+        r, w = await asyncio.open_connection("127.0.0.1", fe.port)
+        w.write(f"GET {path} HTTP/1.1\r\nContent-Length: 0\r\n\r\n".encode())
+        await w.drain()
+        text = (await r.read()).decode()
+        w.close()
+        return text.partition("\r\n\r\n")[2]
+
+    async def until(pred, what, timeout=60.0):
+        t0 = time.perf_counter()
+        while True:
+            h = json.loads(await get("/healthz"))
+            if pred(h):
+                return h
+            if time.perf_counter() - t0 > timeout:
+                fail(f"frontend: {what} not reached in {timeout} s: {h}")
+            await asyncio.sleep(0.002)
+
+    async def client():
+        await fe.start()
+        tasks = []
+        # fill the slots and the queue, one arrival at a time (a request is
+        # admitted only at a tick's start: arrivals beside a running tick
+        # wait in the queue, and past max_queue they are refused)
+        for k, body in enumerate(reqs[:6], 1):
+            await until(lambda h: h["queue_depth"] < max_queue, "room in the queue")
+            tasks.append(asyncio.create_task(send(body)))
+            await until(lambda h, k=k: h["active"] + h["queue_depth"] == k,
+                        f"request {k} in the engine")
+        await until(lambda h: h["active"] == slots and h["queue_depth"] == max_queue,
+                    "a full batch and a full queue")
+        rejected = await send(reqs[6])
+        for body in reqs[7:]:          # staggered arrivals as the queue drains
+            await until(lambda h: h["queue_depth"] < max_queue, "room in the queue")
+            tasks.append(asyncio.create_task(send(body)))
+            await asyncio.sleep(0.02)
+        served = await asyncio.gather(*tasks)
+        health = json.loads(await get("/healthz"))
+        metrics = await get("/metrics")
+        await fe.stop()
+        return served, rejected, health, metrics
+
+    t0 = time.perf_counter()
+    served, rejected, health, metrics = asyncio.run(client())
+    wall = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    launches = {cnt.name: cnt.launches for cnt in counts}
+    plain_cuda = {cnt.name: cnt.plain_on_cuda for cnt in counts}
+    st = eng.stats()
+    fin = {r.rid: r for r in eng.finished}
+    att = attribution(eng)
+
+    # each served request alone, through a direct engine with its request id
+    order = reqs[:6] + reqs[7:]
+    unbounded = dataclasses.replace(ec, max_queue=None)
+    direct = ServeEngine(unbounded, params=params)
+    alone, mismatched = [], []
+    for body, res in zip(order, served):
+        rid = res.get("rid")
+        if rid is None:                # SSE: the request the front end finished with it
+            rid = next(r.rid for r in eng.finished if list(r.prompt) == body["prompt"])
+            res["rid"] = rid
+        direct._rid = itertools.count(rid)     # the draw key folds the request id
+        sp = SamplingParams(**{k: body[k] for k in ("temperature", "top_k", "top_p", "seed")
+                               if k in body})
+        want = direct.submit(np.asarray(body["prompt"], np.int32), body["max_tokens"],
+                             sampling=sp).result()
+        alone.append(want)
+        if res.get("tokens") != want:
+            mismatched.append(rid)
+    # a direct step() tick over the same requests, all submitted at once
+    batch = ServeEngine(unbounded, params=params)
+    for body in order:
+        batch.submit(np.asarray(body["prompt"], np.int32), body["max_tokens"],
+                     sampling=SamplingParams(**{k: body[k] for k in
+                                                ("temperature", "top_k", "top_p", "seed")
+                                                if k in body}))
+    batch.run()
+    bst = batch.stats()
+    ticks = st["ticks"]
+    tick_ms = 1e3 * sum(eng._m_tick_s.raw_values()) / max(ticks, 1)
+    floor_ms = 1e3 * max(att["floor_hbm_bytes_total"] / max(ticks, 1) / HBM_BW,
+                         att["floor_flops_total"] / max(ticks, 1) / PEAK_FLOPS)
+    ttft_ms = [r["ttft_ms"] for r in served if "ttft_ms" in r]
+    res = dict(
+        path="fp5.33", depth=eng.cfg.num_layers, slots=slots, max_queue=max_queue,
+        requests=len(reqs), served=len(served), json=sum(not r["stream"] for r in served),
+        sse=sum(r["stream"] for r in served), sampled=2, rejected_status=rejected["status"],
+        statuses=[r["status"] for r in served], streams_equal_alone=not mismatched,
+        mismatched_rids=mismatched, wall_s=wall,
+        ttft_ms_sse=dict(mean=float(np.mean(ttft_ms)), max=float(np.max(ttft_ms))),
+        latency_ms=dict(mean=float(np.mean([r["ms"] for r in served])),
+                        max=float(np.max([r["ms"] for r in served]))),
+        ttft_ticks=dict(mean=float(np.mean([fin[r["rid"]].ttft_ticks for r in served])),
+                        max=max(fin[r["rid"]].ttft_ticks for r in served)),
+        latency_ticks=dict(mean=float(np.mean([fin[r["rid"]].latency_ticks for r in served])),
+                           max=max(fin[r["rid"]].latency_ticks for r in served)),
+        driver_tick_ms_median=st["decode_ms_median"], direct_tick_ms_median=bst["decode_ms_median"],
+        driver_ticks=fe.driver_ticks,
+        host_ms_between_halves=1e3 * fe.driver_host_s / max(fe.driver_ticks, 1),
+        cost=dict(floor_hbm_bytes_per_tick=att["floor_hbm_bytes_per_tick"],
+                  floor_ms_h100=floor_ms, tick_ms=tick_ms,
+                  floor_share=floor_ms / tick_ms if tick_ms else 0.0,
+                  kv_achieved_vs_floor=att["kv_achieved_vs_floor"]),
+        healthz=health, metrics_lines=len(metrics.splitlines()),
+        launches=launches, plain_calls_on_cuda=plain_cuda,
+        graphs=sorted(f"{w}/{'sampled' if sp else 'greedy'}" for w, sp in eng.graphs.graphs)
+        if eng.graphs is not None else None,
+        seconds=time.perf_counter() - t_phase)
+    log("frontend " + json.dumps(res))
+    if rejected["status"] != 429 or any(r["status"] != 200 for r in served):
+        fail(f"frontend: the request past the queue got {rejected['status']} (want 429), "
+             f"served statuses {res['statuses']}")
+    if mismatched:
+        fail(f"frontend: streams of requests {mismatched} differ from the request served alone")
+    if not (health.get("ok") and "serve_requests_finished_total" in metrics
+            and "serve_floor_hbm_bytes_total" in metrics):
+        fail(f"frontend: /healthz {health} or /metrics without the serving families")
+    if dev.type == "cuda":
+        idle = [k for k in spec["kernels"] if launches[k] <= 0]
+        stray = [k for k, n in launches.items() if n and k not in spec["kernels"]]
+        if idle or stray or max(plain_cuda.values()) != 0:
+            fail(f"frontend: kernels of the path that never launched {idle}, other kernels "
+                 f"that did {stray}, plain versions on CUDA tensors {plain_cuda}")
+        if len(eng.graphs.graphs) != 4:
+            fail(f"frontend: graphs captured {res['graphs']}, not (1, chunk) x (greedy, sampled)")
+    del eng, direct, batch
+    gc.collect()
+    return res
 
 
 def ptxas_report(build, kernels=("ams_matmul_mma_kernel", "k4_kernel", "k5_kernel",
@@ -1767,7 +2214,7 @@ def phase_tick(torch, dev, timed: bool, full: bool):
     return (res,)
 
 
-PHASES = ("k1", "k1b", "k2", "k3", "k4", "k5", "k5p", "tick")
+PHASES = ("k1", "k1b", "k2", "k3", "k4", "k5", "k5p", "tick", "rows")
 
 
 def run_phases(torch, names, other):
@@ -1829,6 +2276,7 @@ def main():
         phase_consistency(torch, dev, full=False, path="fp4.25", page=16)
         phase_consistency(torch, dev, full=False, path="fp4.25", scheme="fp6-e2m3")
         phase_engine_features(torch, dev, full=False)
+        phase_frontend(torch, dev, full=False)
         log("rehearsal finished on the CPU: no result")
         sys.exit(2)
     if not torch.cuda.is_available():
@@ -1874,7 +2322,19 @@ def main():
         phase_consistency(torch, dev, full=True, path=path)
     phase_consistency(torch, dev, full=True, path="fp4.25", page=64)
     phase_consistency(torch, dev, full=True, path="fp4.25", scheme="fp6-e2m3")
-    features, feature_launches = phase_engine_features(torch, dev, full=True)
+    # one set of FP5.33 weights for the engine-features and frontend phases
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.launch.config import EngineConfig
+    from repro_torch.launch.engine import init_serving_params
+    fp533 = init_serving_params(
+        EngineConfig(arch=PATHS["fp5.33"]["arch"], reduced=False, device="cuda").model_config(),
+        QuantPolicy(scheme=PATHS["fp5.33"]["scheme"], impl="kernel", min_elements=1 << 10), 0,
+        dev)
+    features, feature_launches = phase_engine_features(torch, dev, full=True, params=fp533)
+    phase_frontend(torch, dev, full=True, params=fp533)
+    del fp533
+    gc.collect()
+    torch.cuda.empty_cache()
     log("compare " + json.dumps({
         path: dict(arch=r["arch"], scheme=r["scheme"], cache=r["cache"],
                    decode_tick_ms=r["profile"]["decode_tick_ms"],

@@ -27,10 +27,15 @@
 // (32 CTAs on 132 SMs, serial shuffle reductions, every block read twice).
 // Design:
 //  * A thread-block cluster of up to 8 CTAs per (slot b, kv head h, tile of
-//    16 folded rows) splits the visible keys of every block into contiguous
-//    shares of whole 32-key tiles (kernels/tuning.attention_shares; the
-//    cluster size from tuning.plan_contiguous_attention): 8 slots x 4 kv
-//    heads at decode run 256 CTAs, not 32.
+//    16 folded rows) splits every block into contiguous shares of whole
+//    32-key tiles (kernels/tuning.attention_shares of the whole block, each
+//    cut at the last key a row of the tile sees; the cluster size from
+//    tuning.plan_contiguous_attention, a function of the block alone): 8
+//    slots x 4 kv heads at decode run 256 CTAs, not 32. A row's keys are
+//    then split and merged in an order set by the block and the cluster, so
+//    a row gets the same bits whatever other rows and slots the call holds
+//    (keys past a row's length add exact zeros; a block past it leaves its
+//    max, so its rescale is 1).
 //  * Each CTA computes its share's scores once, on the tensor cores: q
 //    arrives unrounded in f32 and is split into three bf16 parts (hi + mid +
 //    lo, exact to f32's 24 bits), each multiplied by the bf16 keys with
@@ -233,9 +238,13 @@ k4_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
 
   int blk = 0;
   for (int b0 = 0; b0 < nkeys; b0 += block_kv, ++blk) {
-    const int b1 = min(b0 + block_kv, nkeys);
+    // the rank's share of the whole block [b0, min(b0 + block_kv, S)), cut
+    // at the keys this tile's rows can see: a row's split follows the block
+    // and the cluster alone, never the other rows of the tile
+    const int b1 = min(b0 + block_kv, S);
     const int sh = ((b1 - b0 + CL - 1) / CL + K4_TK - 1) / K4_TK * K4_TK;
-    const int lo = min(b0 + rank * sh, b1), hi = min(lo + sh, b1);
+    const int hi = min(min(b0 + (rank + 1) * sh, b1), nkeys);
+    const int lo = min(b0 + rank * sh, hi);
     const int ntile = (hi - lo + K4_TK - 1) / K4_TK;
     // the block's loads, one 32-key tile each, in the order they are used:
     // items 0 .. ntile-1 are the K tiles of pass 1; then per tile j the V
@@ -598,10 +607,11 @@ k5_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
   // how many are issued; item i sits in ring slot i % K5_NS
   int lo = 0, hi = 0, ntile = 0, total = 0, issued = 0;
   auto plan_block = [&](int b0) {
-    const int b1 = min(b0 + block_kv, nkeys);
+    // the rank's share of the whole block, cut at the tile's keys (as K4)
+    const int b1 = min(b0 + block_kv, S);
     const int sh = ((b1 - b0 + CL - 1) / CL + K5_TK - 1) / K5_TK * K5_TK;
-    lo = min(b0 + rank * sh, b1);
-    hi = min(lo + sh, b1);
+    hi = min(min(b0 + (rank + 1) * sh, b1), nkeys);
+    lo = min(b0 + rank * sh, hi);
     ntile = (hi - lo + K5_TK - 1) / K5_TK;
     total = ntile <= K5_NS ? ntile : 2 * ntile;
     issued = 0;

@@ -58,8 +58,13 @@
 // (one warp per row, 8 slots x 4 kv heads = 32 CTAs at decode, every page
 // widened to f32) reached 1/57 of that bound. Design: K4's machinery over
 // pages. A cluster per (slot, kv head, tile of 16 folded rows, one m16 tile)
-// splits the tile's tokens (kernels/tuning.plan_paged_bf16_attention: 256
-// CTAs at decode); the pool rows of a share are looked up in the block table
+// splits the tokens (kernels/tuning.plan_paged_bf16_attention: 256 CTAs at
+// decode) in segments and shares of the block table's tokens, each share
+// cut at the tile's last visible token: the split of a row's tokens follows
+// the block table, the page and the cluster (none of them B or the row
+// tiles), and a row with no token in a share keeps its running max through
+// the steps walked for the other rows, so a row gets the same bits whatever
+// else the call holds; the pool rows of a share are looked up in the block table
 // once per segment; K then V tiles of 32 keys stream through an 8-tile
 // cp.async ring (every byte read once), scores once on tensor cores from
 // f32 q split into three bf16 parts (one part where q holds bf16 values, as
@@ -596,9 +601,10 @@ __device__ __forceinline__ int px_page_last(int lo, int hi, int j, int page) {
 // running max of the segments walked, and the lower ranks' share maxima),
 // the base on its last page (also the first-page maxima of the higher ranks
 // that share that page), and ``mrun`` past this segment. ``pub`` holds each
-// rank's [2][rows] share and first-page maxima of this segment.
+// rank's [2][rows] share and first-page maxima of this segment; the shares
+// are those of [s0, s1), each cut at ``cut``.
 __device__ __forceinline__ void px_exchange(cg::cluster_group& cluster, float* pub, int rows,
-                                            int row, int rank, int CL, int s0, int s1,
+                                            int row, int rank, int CL, int s0, int s1, int cut,
                                             int2 share, int page, float& base, float& base_last,
                                             float& mrun) {
   float bs = mrun, all = mrun, hx = -INFINITY;
@@ -611,7 +617,7 @@ __device__ __forceinline__ void px_exchange(cg::cluster_group& cluster, float* p
       bs = fmaxf(bs, smax);
     } else if (q > rank) {
       const int2 sq = px_share(s0, s1, CL, q);
-      if (sq.x < sq.y && sq.x < pe) hx = fmaxf(hx, pq[rows + row]);
+      if (sq.x < min(sq.y, cut) && sq.x < pe) hx = fmaxf(hx, pq[rows + row]);
     }
   }
   base = bs;
@@ -818,16 +824,25 @@ k3_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kpool,
 
   const int seg_cap = CL * cap;                           // tokens the score buffers hold
   const bool wide = page > seg_cap;                       // a page wider than a segment
+  const int tkeys = MP * page;                            // the block table's tokens
+  const int len_p = lens[prow];                           // the p-forming thread's row
   int par = 0;
   for (int s0 = 0; s0 < ntok; par ^= 1) {
+    // the segment and the rank's share follow the block table, the page and
+    // the cluster alone; the share is cut at the tile's last visible token,
+    // so a row's split never depends on the other rows of its tile
     const int pend = min((s0 / page + 1) * page, ntok);
-    const int s1 = wide ? min(s0 + seg_cap, pend) : min(s0 + seg_cap / page * page, ntok);
-    const int2 share = px_share(s0, s1, CL, rank);
+    const int s1 = wide ? min(s0 + seg_cap, min((s0 / page + 1) * page, tkeys))
+                        : min(s0 + seg_cap / page * page, tkeys);
+    int2 share = px_share(s0, s1, CL, rank);
+    share.y = min(share.y, ntok);
+    share.x = min(share.x, share.y);
     const int lo = share.x, hi = share.y, n = hi - lo;
     const int ntile = (n + K3_TK - 1) / K3_TK;
     // the first segment of a wide page also takes the max over the rest of
     // the page, its scores not kept
-    const int2 rest = wide && s0 % page == 0 ? px_share(s1, pend, CL, rank) : make_int2(0, 0);
+    const int2 rest =
+        wide && s0 % page == 0 && pend > s1 ? px_share(s1, pend, CL, rank) : make_int2(0, 0);
     const int nrest = (rest.y - rest.x + K3_TK - 1) / K3_TK;
     for (int j = tid; j < ntile * K3_TK; j += K3_THREADS) {
       const int key = lo + j;
@@ -948,8 +963,8 @@ k3_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kpool,
     cluster.sync();
     if (tid < K3_ROWS) {
       float bs, bl, mr = mrun_s[tid];
-      px_exchange(cluster, pub + par * 32, K3_ROWS, tid, rank, CL, s0, s1, share, page, bs, bl,
-                  mr);
+      px_exchange(cluster, pub + par * 32, K3_ROWS, tid, rank, CL, s0, s1, ntok, share, page, bs,
+                  bl, mr);
       // a wide page's max is known whole from its first segment on
       base_s[tid] = wide ? mr : bs;
       basel_s[tid] = wide ? mr : bl;
@@ -958,8 +973,14 @@ k3_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kpool,
     __syncthreads();
     const float bse = base_s[prow], bsl = basel_s[prow];
     const int last_page = n ? (hi - 1) / page : -1;
+    // the row's last share key: past it m stays the row's own (its later
+    // keys are masked); a row with no key in the share keeps its m, so the
+    // steps walked for the tile's other rows rescale it by exactly 1
+    const int e_row = min(n, len_p - lo) - 1;
     // the plain walk's running max at the page whose last share key is e
     auto m_at = [&](int e) {
+      if (e_row < 0) return mrow;
+      e = min(e, e_row);
       const float bb = (lo + e) / page == last_page ? bsl : bse;
       return fmaxf(fmaxf(px_max_upto(Sr, Gr, e, n), bb), NEG_CLAMP);
     };
@@ -1518,8 +1539,8 @@ k5p_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kpool,
       cluster.sync();
       if (tid < K5P_ROWS) {
         float bs, bl, mr = mrun_s[tid];
-        px_exchange(cluster, pub + par * 2 * K5P_ROWS, K5P_ROWS, tid, rank, CL, s0, s1, share,
-                    page, bs, bl, mr);
+        px_exchange(cluster, pub + par * 2 * K5P_ROWS, K5P_ROWS, tid, rank, CL, s0, s1, s1,
+                    share, page, bs, bl, mr);
         // a wide page's max is known whole from its first segment on
         base_s[tid] = wide ? mr : bs;
         basel_s[tid] = wide ? mr : bl;

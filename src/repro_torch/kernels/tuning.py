@@ -224,18 +224,18 @@ def attention_shares(b0: int, b1: int, cluster: int):
     return [(min(b0 + r * sh, b1), min(b0 + (r + 1) * sh, b1)) for r in range(cluster)]
 
 
-def plan_contiguous_attention(B: int, kv: int, R: int, block_kv: int,
-                              sms: int = SMS) -> AttentionPlan:
+def plan_contiguous_attention(B: int, kv: int, R: int, block_kv: int) -> AttentionPlan:
     """Cluster and score plan of K4 for B slots x kv heads x R folded rows
-    over key blocks of ``block_kv``: enough ranks for about two CTAs per SM
-    (at most 8, and no more than the block has tiles of 32 keys); the
-    scores of a share fit when 16 rows x its keys in f32 take at most
-    64 KiB."""
+    over key blocks of ``block_kv``: 8 ranks (no more than the block has
+    tiles of 32 keys), each a share of the whole block
+    (`attention_shares`), at every B and R, so a row's keys split and merge
+    in the same order whatever else the call holds (8 slots x 4 kv heads
+    at decode: 256 CTAs, about two per SM); the scores of a share fit when
+    16 rows x its keys in f32 take at most 64 KiB."""
     if min(B, kv, R, block_kv) < 1:
         raise ValueError(f"empty attention B={B} kv={kv} R={R} block_kv={block_kv}")
     row_tiles = _cdiv(R, ATT_ROWS)
-    cluster = max(1, min(MAX_CLUSTER, _cdiv(block_kv, ATT_TILE_KEYS),
-                         _cdiv(2 * sms, B * kv * row_tiles)))
+    cluster = max(1, min(MAX_CLUSTER, _cdiv(block_kv, ATT_TILE_KEYS)))
     share = _share(block_kv, cluster)
     fit = ATT_ROWS * share * 4 <= ATT_SCORE_BYTES
     return AttentionPlan(cluster, row_tiles, share, fit, share if fit else 2 * ATT_TILE_KEYS)
@@ -262,18 +262,17 @@ class MlaPlan:
         return B * kv * self.row_groups * self.cluster
 
 
-def plan_mla_attention(B: int, kv: int, R: int, block_kv: int, sms: int = SMS) -> MlaPlan:
+def plan_mla_attention(B: int, kv: int, R: int, block_kv: int) -> MlaPlan:
     """Cluster plan of K5 for B slots x kv heads x R folded rows over key
     blocks of ``block_kv``. A CTA takes ~190 KB of shared memory, so one
-    fits an SM: enough ranks for one CTA per SM, and at least enough that a
-    share (whole tiles of 32 keys) stays resident, at most the portable 8
-    and no more than the block has tiles."""
+    fits an SM. The portable 8 ranks (no more than the block has tiles of
+    32 keys), each a share of the whole block, at every B and R, as K4's
+    (8 slots at decode: 64 CTAs); a share stays resident up to blocks of
+    1024 keys."""
     if min(B, kv, R, block_kv) < 1:
         raise ValueError(f"empty attention B={B} kv={kv} R={R} block_kv={block_kv}")
     row_groups = _cdiv(R, MLA_ROWS)
-    fill = _cdiv(sms, B * kv * row_groups)
-    keep = _cdiv(block_kv, MLA_RESIDENT_KEYS)
-    cluster = max(1, min(MAX_CLUSTER, _cdiv(block_kv, ATT_TILE_KEYS), max(fill, keep)))
+    cluster = max(1, min(MAX_CLUSTER, _cdiv(block_kv, ATT_TILE_KEYS)))
     share = _share(block_kv, cluster)
     return MlaPlan(cluster, row_groups, share, share <= MLA_RESIDENT_KEYS)
 
@@ -338,23 +337,21 @@ class PagedBf16Plan:
         return B * kv * self.row_tiles * self.cluster
 
 
-def plan_paged_bf16_attention(B: int, kv: int, R: int, max_keys: int, page: int,
-                              sms: int = SMS) -> PagedBf16Plan:
+def plan_paged_bf16_attention(B: int, kv: int, R: int, max_keys: int,
+                              page: int) -> PagedBf16Plan:
     """Cluster and score buffer of K3 for B slots x kv heads x R folded rows
     over at most ``max_keys`` tokens per slot (block table width x page
-    size) in pages of ``page``: ranks for about four CTAs per SM (at most 8,
-    no more than the 32-token tiles a slot holds), more where a page is
-    wider than 512 tokens (a segment holds whole pages, and a page wider
-    than one is walked in parts, its rest scanned twice); the score buffer
-    holds a rank's share of all ``max_keys`` tokens, at most 512 (longer
-    slots take more segments). Two CTAs fit an SM up to shares of about 400
-    keys: at chunk 16 over 1024 keys three ranks ran 0.106 ms where two
-    (one CTA per SM) ran 0.146 (NVIDIA H100, `chip_smoke.py --phases k3`)."""
+    size) in pages of ``page``: 8 ranks (no more than the 32-token tiles a
+    slot holds) at every B and R, so a row's tokens split and merge in the
+    same order whatever else the call holds (the kernel takes the segments
+    and shares of the block table's tokens, cut at the tile's last visible
+    one); the score buffer holds a rank's share of all ``max_keys``
+    tokens, at most 512 (longer slots take more segments; a page wider than
+    a segment is walked in parts, its rest scanned twice)."""
     if min(B, kv, R, max_keys, page) < 1:
         raise ValueError(f"empty attention B={B} kv={kv} R={R} max_keys={max_keys} page={page}")
     row_tiles = _cdiv(R, ATT_ROWS)
-    cluster = max(1, min(MAX_CLUSTER, _cdiv(max_keys, ATT_TILE_KEYS),
-                         _cdiv(4 * sms, B * kv * row_tiles)))
+    cluster = max(1, min(MAX_CLUSTER, _cdiv(max_keys, ATT_TILE_KEYS)))
     cluster = min(MAX_CLUSTER, max(cluster, _cdiv(page, K3_SCORE_KEYS_MAX)))
     return PagedBf16Plan(row_tiles, cluster, min(K3_SCORE_KEYS_MAX, _share(max_keys, cluster)))
 

@@ -1,2 +1,3 @@
-"""Serving: scheduler, greedy sampling epilogue, engine step, engine and the
-one-shot `serve.generate` (port of src/repro/launch)."""
+"""Serving: scheduler, sampling, the engine step, the engine with its split
+step, the async HTTP/SSE front end and the one-shot `serve.generate` (port of
+src/repro/launch)."""

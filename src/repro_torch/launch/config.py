@@ -112,9 +112,6 @@ class EngineConfig:
         if self.mesh is not None:
             raise NotImplementedError("tensor-parallel meshes are not ported yet "
                                       "(ROADMAP.md, Modules to port)")
-        if self.obs.cost_on:
-            raise NotImplementedError("obs cost accounting is not ported yet "
-                                      "(ROADMAP.md, Modules to port)")
 
     @property
     def step_chunk(self) -> int:

@@ -44,14 +44,27 @@ through kernel K1 (fp5.33) or K1b (the other schemes), and with
 ``CacheConfig(impl="kernel")`` attention runs kernel K4 (contiguous GQA
 cache), K5 (MLA stream), K2 (AMS pages) or K3 (bf16 pages).
 
+A tick is ``step_end(step_begin())``: `step_begin` admits, stages and
+launches the step (on the card it replays the graph and starts the copy of
+the output block to pinned memory, then returns without synchronising),
+`step_end` waits for that copy and does the host bookkeeping. The async
+HTTP/SSE front end (`launch.frontend`) parks its driver between the two
+halves; `RequestHandle.result` and `.stream` then wait on the engine's tick
+signal. Every CUDA call stays on the thread that steps the engine:
+`submit` is host-only, and `capture_graphs` captures every graph before a
+front end serves. With ``ObsConfig(cost=True)`` (the default) the engine
+accumulates the roofline floors of `obs.cost` per tick and per request, on
+the host, outside the graph.
+
 Not ported yet, and refused with NotImplementedError: meshes, prefix
-embeds, obs cost accounting, the self drafter, and the async front end
-(`step_begin`/`step_end`).
+embeds and the self drafter.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
+import threading
 import time
 from typing import Any, Dict, List, Optional
 
@@ -79,7 +92,7 @@ from repro_torch.models.transformer import (
     init_embed,
     layer_pattern,
 )
-from repro_torch.obs import NULL_REGISTRY, MetricsRegistry, TraceRecorder
+from repro_torch.obs import NULL_REGISTRY, MetricsRegistry, TraceRecorder, build_cost_model
 from repro_torch.obs.metrics import COUNT_BUCKETS, TIME_BUCKETS
 
 from .config import EngineConfig
@@ -178,8 +191,9 @@ def init_serving_params(cfg, quant: Optional[QuantPolicy], seed: int, device):
 
 
 class RequestHandle:
-    """Client-facing view of a submitted request: ``.status``, ``.result()``;
-    other attribute reads forward to the underlying `Request`."""
+    """Client-facing view of a submitted request: ``.status``,
+    ``.tokens_so_far()``, ``.result()``, async ``.stream()``; other
+    attribute reads forward to the underlying `Request`."""
 
     __slots__ = ("_req", "_eng")
 
@@ -200,14 +214,45 @@ class RequestHandle:
     def done(self) -> bool:
         return self._req.done
 
+    def tokens_so_far(self) -> List[int]:
+        """Snapshot of the tokens generated so far (a copy)."""
+        return list(self._req.tokens)
+
     def result(self, max_ticks: int = 1_000_000) -> List[int]:
-        """Drive the engine until this request finishes; return its tokens."""
+        """Block until this request finishes and return its tokens: drive
+        the engine when no driver runs, else (``engine.driver_active``, the
+        front end) wait on the engine's tick signal."""
         eng, req = self._eng, self._req
         for _ in range(max_ticks):
-            if req.done or not eng.has_work:
+            if req.done:
                 break
-            eng.step()
+            if eng.driver_active:
+                eng.wait_tick(eng.tick)
+            elif eng.has_work:
+                eng.step()
+            else:
+                break
         return list(req.tokens)
+
+    async def stream(self):
+        """Async token stream (the SSE feed): yields each generated token
+        id as it lands and ends with the request. Steps the engine from a
+        worker thread when no driver runs, else waits on the tick signal,
+        so any number of streams ride one driver."""
+        import asyncio
+        eng, req = self._eng, self._req
+        sent = 0
+        while True:
+            while sent < len(req.tokens):
+                tok = int(req.tokens[sent])
+                sent += 1
+                yield tok
+            if req.done:
+                return
+            if eng.driver_active:
+                await asyncio.to_thread(eng.wait_tick, eng.tick)
+            else:
+                await asyncio.to_thread(eng.step)
 
     def __getattr__(self, name):
         return getattr(self._req, name)
@@ -215,6 +260,20 @@ class RequestHandle:
     def __repr__(self):
         r = self._req
         return f"RequestHandle(rid={r.rid}, status={r.status!r}, tokens={len(r.tokens)})"
+
+
+@dataclasses.dataclass
+class _PendingStep:
+    """The step in flight between `step_begin` and `step_end`."""
+
+    nvalid: Optional[np.ndarray]
+    ndraft: Optional[np.ndarray]
+    t0: float
+    fed: int
+    tracing: bool
+    out: Any = None          # the output block (CPU tensors) or its copy's event
+    idle: bool = False
+    result: Optional[Dict[str, object]] = None   # idle ticks resolve early
 
 
 class ServeEngine:
@@ -302,6 +361,7 @@ class ServeEngine:
                                       self.samp)
             shape = (slots, k + 4) if k else (2, slots)
             self._out_host = torch.empty(shape, dtype=torch.int32, pin_memory=True)
+            self._out_ready = torch.cuda.Event()     # recorded after the copy to _out_host
         self.tick = 0
         self.finished: List[Request] = []
         self._rid = itertools.count()
@@ -311,6 +371,13 @@ class ServeEngine:
         self.spill_pages = 0       # pages whose content spilled host-side
         self.spill_bytes = 0       # host bytes those spills occupied
         self.restored_pages = 0    # pages restored from the host (resumes, host tier)
+        # the split step: at most one step in flight (the pinned output block
+        # is shared); the tick signal for handles waiting under a driver; the
+        # queue lock serialises a front end's submit against admission
+        self._pending: Optional[_PendingStep] = None
+        self._tick_cv = threading.Condition()
+        self.driver_active = False
+        self._queue_lock = threading.RLock()
 
         m = self.metrics
         self.signature = engine_step_signature(cfg, self.rcfg, cache_cfg=ccfg,
@@ -359,6 +426,22 @@ class ServeEngine:
         m.gauge("serve_queue_depth", "requests waiting for a slot",
                 fn=lambda: self.sched.queue_depth)
 
+        # roofline attribution (obs.cost): analytic floors for this step
+        # signature, accumulated in step_end on the host
+        self.cost_model = None
+        if self.obs.cost_on:
+            dims = model_dims(cfg)
+            self.cost_model = build_cost_model(cfg, ec.scheme, ccfg, kv=dims.kv, hd=dims.hd,
+                                               signature=self.signature)
+            self._kv_bpt = float(self.kv_bytes_per_token())
+            self._m_floor_b = m.counter("serve_floor_hbm_bytes_total",
+                                        "analytic floor HBM bytes (weights + causal KV)")
+            self._m_floor_f = m.counter("serve_floor_flops_total", "analytic floor FLOPs")
+            self._m_kv_floor = m.counter("serve_kv_floor_bytes_total",
+                                         "causal-floor KV bytes (writes + attended reads)")
+            self._m_kv_ach = m.counter("serve_kv_achieved_bytes_total",
+                                       "KV bytes the cache implementation touches")
+
     # ------------------------------------------------------------- frontend
     def submit(self, prompt, max_tokens: Optional[int] = None, prefix_embeds=None,
                sampling: Optional[SamplingParams] = None, priority: int = 0) -> RequestHandle:
@@ -376,20 +459,25 @@ class ServeEngine:
             max_tokens = sp.max_tokens
         if max_tokens is None:
             raise ValueError("max_tokens required (argument or SamplingParams.max_tokens)")
-        rid = next(self._rid)
-        # the request-level key folds the seed and the request id (never the
-        # slot or tick), so seeded streams replay across restarts and slots
-        req = Request(rid=rid, prompt=prompt, max_tokens=max_tokens, sampling=sp,
-                      key_data=request_key(sp.seed, rid), priority=priority)
-        ccfg = self.cache_cfg
-        if ccfg.paged and ccfg.prefix_cache:
-            req.page_hashes = prefix_page_hashes(req.prompt, ccfg.page_size, ccfg.content_key)
-        self.sched.submit(req, self.tick)
-        if self.trace.enabled:
-            self.trace.thread(rid + 1, f"req {rid}")
-            self.trace.begin(rid + 1, "request",
-                             args={"prompt_len": req.prompt_len, "max_tokens": max_tokens})
-            self.trace.begin(rid + 1, "queued")
+        # host work only (a front end calls this beside the stepping thread,
+        # whose CUDA graphs must see no CUDA call from another thread); the
+        # queue lock serialises it against the driver's admission pass
+        with self._queue_lock:
+            rid = next(self._rid)
+            # the request-level key folds the seed and the request id (never
+            # the slot or tick), so seeded streams replay across restarts
+            req = Request(rid=rid, prompt=prompt, max_tokens=max_tokens, sampling=sp,
+                          key_data=request_key(sp.seed, rid), priority=priority)
+            ccfg = self.cache_cfg
+            if ccfg.paged and ccfg.prefix_cache:
+                req.page_hashes = prefix_page_hashes(req.prompt, ccfg.page_size,
+                                                     ccfg.content_key)
+            self.sched.submit(req, self.tick)        # raises when the queue is full
+            if self.trace.enabled:
+                self.trace.thread(rid + 1, f"req {rid}")
+                self.trace.begin(rid + 1, "request",
+                                 args={"prompt_len": req.prompt_len, "max_tokens": max_tokens})
+                self.trace.begin(rid + 1, "queued")
         return RequestHandle(req, self)
 
     @property
@@ -413,6 +501,10 @@ class ServeEngine:
         request and stays blocked, that victim (ties: the latest admitted)
         is preempted and admission runs again. Strictness means a requeued
         request never evicts its own priority class."""
+        with self._queue_lock:
+            return self._admit_locked()
+
+    def _admit_locked(self) -> int:
         fits = None
         if self.cache_cfg.paged:
             ps = self.cache_cfg.page_size
@@ -557,18 +649,18 @@ class ServeEngine:
             self.trace.end(req.rid + 1, "decode" if req.tokens else "prefill")
             self.trace.begin(req.rid + 1, "preempted",
                              args={"spill_pages": len(spill_ids), "fed": fed})
-        self.sched.requeue(req)
+        with self._queue_lock:
+            self.sched.requeue(req)
         return req
 
     # ----------------------------------------------------------------- tick
-    def device_step(self, width: int, *, eager: bool = False) -> np.ndarray:
-        """Run the step on the staged inputs at ``width`` tokens per slot and
-        return its output block on the host: [2, B] int32 (next token,
-        done), or [B, K+4] for a speculative engine (tokens [B, K+1],
-        n_emit, accepted, done). CUDA tensors replay the graph of (width,
-        sampled) unless ``eager`` asks for the step function itself
-        (comparisons); CPU tensors always run the step function. One copy
-        to pinned memory and one synchronisation read the result."""
+    def _launch(self, width: int, eager: bool = False):
+        """Run the step on the staged inputs at ``width`` tokens per slot.
+        CUDA tensors replay the graph of (width, sampled) unless ``eager``
+        asks for the step function itself (comparisons), start the copy of
+        the output block to pinned memory and record an event after it:
+        nothing waits here. CPU tensors run the step function and return
+        the output block."""
         if self.graphs is not None and not eager:
             out = self.graphs(width, any_sampled(self.samp))
         else:
@@ -577,16 +669,43 @@ class ServeEngine:
         if not out.is_cuda:
             return out.numpy()
         self._out_host.copy_(out, non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
+        self._out_ready.record(torch.cuda.current_stream(self.device))
+        return self._out_ready
+
+    def _read(self, launched) -> np.ndarray:
+        """The output block of a `_launch`: waits for its event on CUDA."""
+        if isinstance(launched, np.ndarray):
+            return launched
+        launched.synchronize()
         return self._out_host.numpy()
 
+    def device_step(self, width: int, *, eager: bool = False) -> np.ndarray:
+        """Run the step on the staged inputs at ``width`` tokens per slot and
+        return its output block on the host: [2, B] int32 (next token,
+        done), or [B, K+4] for a speculative engine (tokens [B, K+1],
+        n_emit, accepted, done). One copy to pinned memory and one wait
+        read the result (`_launch`, `_read`)."""
+        return self._read(self._launch(width, eager))
+
     def step(self, *, eager: bool = False) -> Dict[str, object]:
-        """One engine tick: admit (and preempt), run the ragged step, advance
-        slots by their consumed chunk lengths, emit, roll back rejected
-        drafts, finish and re-admit. ``eager`` runs the step function
-        instead of its CUDA graph (`device_step`).
+        """One engine tick, exactly ``step_end(step_begin())``: admit (and
+        preempt), run the ragged step, advance slots by their consumed chunk
+        lengths, emit, roll back rejected drafts, finish and re-admit.
+        ``eager`` runs the step function instead of its CUDA graph.
 
         Returns {"finished": [Request], "generated": int, "active": int}."""
+        return self.step_end(self.step_begin(eager=eager))
+
+    def step_begin(self, *, eager: bool = False) -> _PendingStep:
+        """First half of a tick: admission (and preemption) under the queue
+        lock, chunk sizing, drafting and staging, then the step's launch. On
+        the card the graph replays and the output block's copy to pinned
+        memory starts; this returns without synchronising, so the host is
+        free while the device computes (the front end serves HTTP there).
+        CPU tensors run the step function here. Raises if a step is already
+        in flight."""
+        if self._pending is not None:
+            raise RuntimeError("step already in flight (step_end not called)")
         t0 = time.perf_counter()
         PC = self.chunk
         K = self.speculate_k
@@ -598,11 +717,16 @@ class ServeEngine:
         if tracing:
             self.trace.end(0, "admit")
         if self.active_count == 0:
+            # idle ticks still advance the clock (open-loop drivers gate
+            # arrivals on it)
             self.tick += 1
             self._m_idle.inc()
             if tracing:
                 self.trace.end(0, "tick", args={"idle": True})
-            return {"finished": [], "generated": 0, "active": 0}
+            with self._tick_cv:
+                self._tick_cv.notify_all()
+            return _PendingStep(nvalid=None, ndraft=None, t0=t0, fed=0, tracing=tracing,
+                                idle=True, result={"finished": [], "generated": 0, "active": 0})
         self._m_active.set(self.active_count)
 
         # chunk sizing under the token budget: every active slot gets 1 token;
@@ -678,7 +802,29 @@ class ServeEngine:
         if tracing:
             self.trace.begin(0, "device_step", args={"tokens_fed": fed,
                                                      "active": self.active_count})
-        out = self.device_step(C, eager=eager)
+        p = _PendingStep(nvalid=nvalid, ndraft=ndraft, t0=t0, fed=fed, tracing=tracing)
+        if self.device.type == "cuda":
+            p.out = self._launch(C, eager)
+        else:
+            p.out = self.device_step(C, eager=eager)
+        self._pending = p
+        return p
+
+    def step_end(self, pending: Optional[_PendingStep] = None) -> Dict[str, object]:
+        """Second half of a tick: wait for the step's output block, then
+        advance slot state by the consumed chunk lengths, publish pages,
+        emit, finish or roll back drafts, account the roofline floors,
+        re-admit the same tick and signal the tick's waiters. Takes the
+        handle of `step_begin` (or the stored one)."""
+        p = self._pending if pending is None else pending
+        if p is None:
+            raise RuntimeError("no step in flight (call step_begin first)")
+        self._pending = None
+        if p.idle:
+            return p.result
+        t0, tracing, nvalid, ndraft = p.t0, p.tracing, p.nvalid, p.ndraft
+        K = self.speculate_k
+        out = self._read(p.out)
         if tracing:
             self.trace.end(0, "device_step")
         if K:
@@ -687,16 +833,33 @@ class ServeEngine:
             out_tok, done = out[0][:, None], out[1]
             n_emit = np.ones(self.slots, np.int32)
 
+        cm = self.cost_model
+        ccfg = self.cache_cfg
         finished, generated = [], 0
+        tick_reads, tick_ach = 0, 0.0
         for s, req in enumerate(self.active):
             if req is None:
                 continue
             i, n = int(self.fed[s]), int(nvalid[s])
             self.fed[s] = i + n
+            if cm is not None:
+                # causal floor: fed token j attends positions [0, i + j] and
+                # writes its own; achieved: what the cache impl moves (dense
+                # capacity for a contiguous cache, the whole block-table row
+                # for the paged ref gather, causal whole pages for K2 / K3)
+                reads = n * i + n * (n + 1) // 2
+                ach = cm.achieved_kv_bytes(i, n, cache_kind=ccfg.kind, impl=ccfg.impl,
+                                           capacity=self.capacity, page_size=ccfg.page_size,
+                                           max_pages=ccfg.max_pages_per_seq,
+                                           bytes_per_token=self._kv_bpt)
+                req.kv_floor_bytes += (n + reads) * cm.kv_bytes_per_token
+                req.kv_achieved_bytes += ach
+                tick_reads += reads
+                tick_ach += ach
             if req.page_hashes:
                 # publish full prompt pages as prefill crosses their ends
                 filled = min(int(self.fed[s]), req.prompt_len)
-                while (req.published + 1) * self.cache_cfg.page_size <= filled:
+                while (req.published + 1) * ccfg.page_size <= filled:
                     j = req.published
                     self.alloc.publish(req.rid, req.page_hashes[j], req.pages[j])
                     req.published = j + 1
@@ -757,6 +920,11 @@ class ServeEngine:
                     f"shared/prompt boundary (cached {req.cached_len}, prompt end "
                     f"{req.prompt_len})")
                 self.fed[s] = new_fed
+        if cm is not None:
+            self._m_floor_b.inc(cm.tick_floor_bytes(p.fed, tick_reads))
+            self._m_floor_f.inc(cm.tick_floor_flops(p.fed, tick_reads))
+            self._m_kv_floor.inc((p.fed + tick_reads) * cm.kv_bytes_per_token)
+            self._m_kv_ach.inc(tick_ach)
         # freed capacity becomes admission headroom the same tick
         if finished:
             if tracing:
@@ -771,7 +939,38 @@ class ServeEngine:
             self.trace.counter("engine", {"active": self.active_count,
                                           "queue": self.sched.queue_depth})
             self.trace.end(0, "tick", args={"generated": generated})
+        with self._tick_cv:
+            self._tick_cv.notify_all()
         return {"finished": finished, "generated": generated, "active": self.active_count}
+
+    def wait_tick(self, tick: int, timeout: float = 0.5) -> None:
+        """Block until the engine clock passes ``tick`` (handles wait here
+        while a driver owns the stepping); the timeout bounds the wait in
+        case that driver stops."""
+        with self._tick_cv:
+            self._tick_cv.wait_for(lambda: self.tick > tick or not self.driver_active,
+                                   timeout=timeout)
+
+    def capture_graphs(self) -> None:
+        """Capture every CUDA graph the engine replays, widths 1 and the step
+        chunk, greedy and sampled, with every slot idle. A capture must see
+        no CUDA call from another thread, so a front end calls this on its
+        stepping thread before it accepts connections (a graph is otherwise
+        captured at its first use). No-op on CPU tensors."""
+        if self.graphs is None:
+            return
+        if self._pending is not None or self.has_work:
+            raise RuntimeError("capture_graphs needs an engine with no work")
+        for sampled in (False, True):
+            if sampled:      # a sampled row in an idle slot selects the epilogue
+                fill_slot(self.samp, 0, SamplingParams(temperature=1.0), request_key(0, 0), 1)
+            try:
+                for width in sorted({1, self.step_chunk}):
+                    if (width, sampled) not in self.graphs.graphs:
+                        self.graphs.capture(width, sampled)
+            finally:
+                if sampled:
+                    clear_slot(self.samp, 0)
 
     def run(self, max_ticks: int = 1_000_000) -> Dict[str, Any]:
         """Drive up to ``max_ticks`` ticks, stopping once queue and slots
@@ -781,6 +980,17 @@ class ServeEngine:
                 break
             self.step()
         return self.stats()
+
+    def reset_metrics(self) -> None:
+        """Drop accumulated timing and counter state (after a warm-up)
+        without touching in-flight requests or the cache; registrations and
+        callback gauges survive, only values zero."""
+        self.finished = []
+        self.preemptions = self.resumes = 0
+        self.spill_pages = self.spill_bytes = self.restored_pages = 0
+        self.metrics.reset()
+        if self.alloc is not None:
+            self.alloc.reset_stats()
 
     # ----------------------------------------------------------- accounting
     def kv_bytes_per_token(self) -> int:
@@ -797,7 +1007,7 @@ class ServeEngine:
 
     def stats(self) -> Dict[str, Any]:
         """Aggregate serving stats, computed from the metrics registry (the
-        reference's keys, less cost)."""
+        reference's keys; the cost keys with ``ObsConfig(cost=True)``)."""
         raw_s = self._m_tick_s.raw_values()
         raw_t = self._m_tick_tok.raw_values()
         tick_s = np.asarray(raw_s) if raw_s else np.zeros(1)
@@ -853,4 +1063,17 @@ class ServeEngine:
             prompt_toks = self._m_prompt.value
             out["cached_token_frac"] = (self._m_cached.value / prompt_toks
                                         if prompt_toks else 0.0)
+        if self.cost_model is not None:
+            # roofline attribution (obs.cost; full report: obs.attribution)
+            cm = self.cost_model
+            measured = float(out["kv_bytes_per_token"])
+            kv_floor = self._m_kv_floor.value
+            kv_ach = self._m_kv_ach.value
+            out["kv_bytes_per_token_floor"] = cm.kv_bytes_per_token
+            out["kv_bytes_per_token_ideal"] = cm.kv_ideal_bytes_per_token
+            out["kv_floor_ratio"] = measured / cm.kv_bytes_per_token
+            out["kv_vs_ideal_floor"] = measured / cm.kv_ideal_bytes_per_token
+            out["kv_achieved_vs_floor"] = kv_ach / kv_floor if kv_floor else 0.0
+            out["floor_hbm_bytes"] = self._m_floor_b.value
+            out["floor_flops"] = self._m_floor_f.value
         return out

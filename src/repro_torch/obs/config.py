@@ -6,10 +6,10 @@ src/repro/obs/config.py).
   * ``trace=True`` — per-request lifecycle spans and per-tick device-step
     spans (`obs.trace.TraceRecorder`); device spans synchronize the card, so
     tracing is for inspection runs.
-  * ``cost=True`` — the roofline cost model of the reference's
-    ``obs/cost.py``, which is not ported yet (ROADMAP.md, Modules to
-    port): the engine raises NotImplementedError when it is asked for. Off
-    by default here.
+  * ``cost=True`` (default) — attach the analytic roofline cost model
+    (`obs.cost.StepCostModel`, on the H100's peaks) and accumulate per-tick
+    and per-request floor and achieved KV byte accounting, on the host,
+    outside the step's CUDA graph.
 
 The reference's ``jax_profile_*`` fields have no counterpart.
 """
@@ -25,7 +25,7 @@ class ObsConfig:
 
     enabled: bool = True        # master switch: False -> no-op instruments
     trace: bool = False         # record lifecycle + device-step spans
-    cost: bool = False          # roofline accounting (not ported: raises)
+    cost: bool = True           # roofline floor/achieved byte accounting
 
     @property
     def trace_on(self) -> bool:

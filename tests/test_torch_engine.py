@@ -271,9 +271,8 @@ def test_missing_request_features_raise_not_implemented():
     """Request features still to port raise; preemption over a contiguous
     cache raises as the reference's does, and a priority over a contiguous
     cache only orders the queue (no preemption), as in the reference."""
-    from repro_torch.obs import ObsConfig
-    with pytest.raises(NotImplementedError, match="cost"):
-        cfg_(obs=ObsConfig(cost=True))
+    with pytest.raises(NotImplementedError, match="meshes"):
+        cfg_(mesh=object())
     eng = ServeEngine(cfg_())
     with pytest.raises(NotImplementedError, match="prefix embeds"):
         eng.submit([1, 2, 3], 4, prefix_embeds=np.zeros((2, 128), np.float32))

@@ -328,9 +328,9 @@ def _paged_case(kv, g, hd, page, chunk, dev, gen):
 
 
 # K3's own cases: pages of 4 (one rank: a slot holds one 32-token tile), 48
-# at chunk 16, 300 at chunk 16 over 8 kv heads (three ranks whose score
-# buffers hold 512 keys: two segments of five pages, pages split between
-# the ranks), and 4608, wider than the 4096 tokens 8 ranks' buffers hold
+# at chunk 16, 300 at chunk 16 over 8 kv heads (8 ranks whose score buffers
+# hold 320 keys: one segment of eight pages, pages split between the
+# ranks), and 4608, wider than the 4096 tokens 8 ranks' buffers hold
 # (each page walked in two segments, its rest scanned for its max first)
 K3_PAGES = [(1, 3, 7, 4, 1), (4, 7, 128, 4, 16), (4, 7, 128, 48, 16), (8, 7, 64, 300, 16),
             (8, 7, 64, 16, 16), (1, 3, 7, 4608, 2), (4, 7, 128, 4608, 4)]
@@ -500,6 +500,56 @@ def test_k2_row_bits_do_not_depend_on_the_tile(page):
             for nb in (1, B):
                 alone = paged_attention_ams(qj[:nb], pool, lj[:nb], bt[:nb], c=1, **kw)
                 assert torch.equal(wide[:nb, :, 7 * j:7 * j + 7], alone), (chunk, j, nb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["k3", "k4", "k5"])
+def test_attention_row_bits_do_not_depend_on_the_tile(kernel):
+    """K3 (bf16 pages of 16), K4 (contiguous GQA) and K5 (the MLA stream):
+    each row of a chunk of 5 or 16 queries gets the same bits as its query
+    alone, at 1 and 4 slots, at lengths whose chunk crosses a 32-key tile
+    and where the other slots are shorter or longer (the split of a row's
+    keys follows the block table or the reference's block, never the
+    tile's longest row, B or the row tiles; the reference's block is the
+    same at these widths)."""
+    from repro_torch.kernels.attention_template import (
+        fused_contiguous_attention,
+        fused_paged_attention,
+    )
+
+    dev = cuda_device()
+    gen = torch.Generator(device=dev).manual_seed(80)
+    B, S, page = 4, 1024, 16
+    kv, H, hd, hd_v = (1, 40, 288, 256) if kernel == "k5" else (4, 28, 128, 128)
+    ends = torch.tensor([255, 250, 1000, 32])
+    if kernel == "k3":
+        MP = S // page
+        pool = {n: torch.randn((B * MP, page, kv, hd), generator=gen, device=dev).to(
+            torch.bfloat16) for n in ("k", "v")}
+        bt = torch.randperm(B * MP, generator=gen, device=dev).to(torch.int32).reshape(B, MP)
+
+        def call(q, lengths, nb):
+            return fused_paged_attention(q, pool, lengths, bt[:nb], page_size=page,
+                                         kv_scheme=None)
+    else:
+        kc = torch.randn((B, S, kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+        vc = torch.randn((B, S, kv, hd_v), generator=gen, device=dev).to(torch.bfloat16)
+
+        def call(q, lengths, nb):
+            if kernel == "k4":
+                return fused_contiguous_attention(q, kc[:nb], lengths, v_cache=vc[:nb],
+                                                  block_kv=S)
+            return fused_contiguous_attention(q, kc[:nb], lengths, value_slice=hd_v,
+                                              block_kv=S, scale=0.1)
+    for chunk in (5, 16):
+        lengths = (ends[:, None] + torch.arange(chunk)[None]).to(dev)
+        q = torch.randn((B, chunk, H, hd), generator=gen, device=dev).to(torch.bfloat16)
+        wide = call(q, lengths, B)
+        for j in range(chunk):
+            for nb in (1, B):
+                alone = call(q[:nb, j:j + 1].contiguous(), lengths[:nb, j:j + 1].contiguous(),
+                             nb)
+                assert torch.equal(wide[:nb, j:j + 1], alone), (kernel, chunk, j, nb)
 
 
 def test_k3_card_cases_take_one_two_and_eight_ranks():
@@ -1172,6 +1222,73 @@ def test_sampled_and_speculative_eager_steps_do_not_synchronise(feature):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("feature", ["greedy", "sampled", "speculative"])
+def test_split_step_equals_step_on_the_card(feature):
+    """FP5.33 over AMS pages (K1, K2), reduced: one engine ticks through
+    ``step()``, one through ``step_end(step_begin())``, whose first half
+    replays the graph and returns before the device finishes; tokens every
+    tick and every cache byte equal."""
+    import numpy as np
+
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.sampling import SamplingParams
+
+    cuda_device()
+    a, b = (_graph_engine("fp5.33", speculate_k=3 if feature == "speculative" else 0)
+            for _ in range(2))
+    rng = np.random.default_rng(9)
+    for i in range(3):
+        p = np.tile(rng.integers(1, 512, 4), 4).astype(np.int32)
+        sp = SamplingParams(temperature=0.9, top_k=20, seed=i) if feature == "sampled" else None
+        for eng in (a, b):
+            eng.submit(p, 9, sampling=sp)
+    while a.has_work or b.has_work:
+        a.step()
+        b.step_end(b.step_begin())
+        assert [r and r.tokens for r in a.active] == [r and r.tokens for r in b.active]
+    assert [r.tokens for r in a.finished] == [r.tokens for r in b.finished]
+    assert all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+               for x, y in zip(tree_leaves(a.cache), tree_leaves(b.cache)))
+
+
+@pytest.mark.gpu
+def test_frontend_streams_equal_the_direct_engine_on_the_card():
+    """The HTTP front end over a card engine (its graphs captured on the
+    stepping thread before it listens): a JSON and an SSE request return
+    the tokens the same request gets from a direct engine."""
+    import asyncio
+    import json
+
+    from repro_torch.launch.frontend import ServeFrontend
+
+    cuda_device()
+    prompt = list(range(1, 12))
+    want = _graph_engine("fp5.33").submit(prompt, 6).result()
+    eng = _graph_engine("fp5.33")
+    fe = ServeFrontend(eng)
+
+    async def go():
+        await fe.start()
+        assert len(eng.graphs.graphs) == 4          # (1, chunk) x (greedy, sampled)
+        out = []
+        for stream in (False, True):
+            r, w = await asyncio.open_connection("127.0.0.1", fe.port)
+            body = json.dumps({"prompt": prompt, "max_tokens": 6, "stream": stream}).encode()
+            w.write(b"POST /v1/generate HTTP/1.1\r\nContent-Length: %d\r\n\r\n%s"
+                    % (len(body), body))
+            await w.drain()
+            out.append((await r.read()).decode())
+            w.close()
+        await fe.stop()
+        return out
+
+    plain, sse = asyncio.run(go())
+    assert json.loads(plain.partition("\r\n\r\n")[2])["tokens"] == want
+    assert [json.loads(ln[6:])["token"] for ln in sse.splitlines()
+            if ln.startswith("data: {\"token\"")] == want
 
 
 @pytest.mark.gpu

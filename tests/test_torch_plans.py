@@ -577,8 +577,12 @@ def test_attention_shares_cover_every_key_once(b0, b1, cluster):
 
 
 def test_k4_plan_fills_the_card_at_decode():
+    """8 slots x 4 kv heads at decode: 256 CTAs; the cluster is the same at
+    every slot count and row count (a row's keys split by the block alone)."""
     plan = plan_contiguous_attention(8, 4, 7, 1024)     # Qwen2-7B: 8 slots x 4 kv heads
     assert plan.ctas(8, 4) >= 128 and plan.cluster <= MAX_CLUSTER
+    assert {plan_contiguous_attention(b, 4, r, 1024).cluster
+            for b in (1, 2, 8, 64) for r in (7, 35, 112)} == {plan.cluster}
 
 
 SERVED = [(slots, capacity, chunk) for slots in (4, 8) for capacity in (256, 512, 1024)
@@ -605,7 +609,8 @@ def test_k4_plan_takes_two_passes_past_shared_memory():
 def _split_walk(qf, k, v, lens, *, c, g, block_kv, cluster):
     """K4's split argument in plain torch: per (slot, head, tile of 16 rows)
     each rank forms the scores of its share of every block (the shares of
-    `attention_shares`), the ranks share the block max, each sums p and
+    `attention_shares` over the whole block, cut at the tile's last visible
+    key, as the kernel takes them), the ranks share the block max, each sums p and
     bf16(p) . v over its share at that max, and the ranks' (l, acc) are added
     in rank order at the end."""
     B, kv_n, R, hd = qf.shape
@@ -623,7 +628,8 @@ def _split_walk(qf, k, v, lens, *, c, g, block_kv, cluster):
                 l_r = [torch.zeros((q.shape[0], 1)) for _ in range(cluster)]
                 acc_r = [torch.zeros((q.shape[0], v.shape[-1])) for _ in range(cluster)]
                 for b0 in range(0, nkeys, block_kv):
-                    shares = attention_shares(b0, min(b0 + block_kv, nkeys), cluster)
+                    shares = [(min(lo, nkeys), min(hi, nkeys))
+                              for lo, hi in attention_shares(b0, min(b0 + block_kv, S), cluster)]
                     scores = []
                     for lo, hi in shares:
                         s = q @ k[b, lo:hi, h].float().T
@@ -788,7 +794,8 @@ def test_k5_plan_covers_every_key_once_and_stays_resident(slots, capacity, chunk
     assert plan.share_keys <= MLA_RESIDENT_KEYS and plan.row_groups * MLA_ROWS >= R
     for b1 in (bk, bk - 1, 1):                   # a full block and ragged visible ends
         covered = np.zeros(bk, dtype=int)
-        for lo, hi in attention_shares(0, b1, plan.cluster):
+        for lo, hi in attention_shares(0, bk, plan.cluster):   # cut where the keys end
+            lo, hi = min(lo, b1), min(hi, b1)
             assert hi - lo <= plan.share_keys
             covered[lo:hi] += 1
         assert (covered[:b1] == 1).all() and covered[b1:].sum() == 0
@@ -797,11 +804,14 @@ def test_k5_plan_covers_every_key_once_and_stays_resident(slots, capacity, chunk
 def test_k5_plan_fills_the_card_at_decode():
     """8 slots at decode (one row group each): 64 CTAs at the portable cluster
     of 8, which one slot alone does not exceed either (one CTA per SM: ~190
-    KB of shared memory each); a long block streams its keys twice."""
+    KB of shared memory each), the same at every slot and row count; a long
+    block streams its keys twice."""
     assert plan_mla_attention(8, 1, 40, 1024).ctas(8, 1) == 64
     assert plan_mla_attention(1, 1, 40, 1024).cluster == MAX_CLUSTER
     assert plan_mla_attention(8, 1, 640, 1024).ctas(8, 1) >= SMS
     assert not plan_mla_attention(8, 1, 40, 4096).resident
+    assert {plan_mla_attention(b, 1, r, 1024).cluster
+            for b in (1, 2, 8, 64) for r in (40, 200, 640)} == {MAX_CLUSTER}
 
 
 def _mla_split_walk(qf, cache, lens, *, c, g, block_kv, hd_v, cluster, local_max=False):
@@ -835,7 +845,9 @@ def _mla_split_walk(qf, cache, lens, *, c, g, block_kv, hd_v, cluster, local_max
                                                NEG_BIG)
                     m_new = torch.clamp(torch.maximum(m, s.amax(dim=-1, keepdim=True)),
                                         min=NEG_CLAMP)
-                    for i, (lo, hi) in enumerate(attention_shares(b0, b1, cluster)):
+                    for i, (lo, hi) in enumerate(attention_shares(b0, min(b0 + block_kv, S),
+                                                                  cluster)):
+                        lo, hi = min(lo, b1), min(hi, b1)    # cut at the group's last key
                         sr = s[:, lo - b0:hi - b0]
                         mr = m_new
                         if local_max:
@@ -1112,13 +1124,17 @@ def test_k3_plan_covers_every_token_once(slots, chunk, max_keys, page):
 
 def test_k3_plan_fills_the_card_at_decode():
     """8 slots x 4 kv heads at decode: 256 CTAs of 128-key shares (about two
-    per SM, as K2); at chunk 16 three ranks per 16-row tile, 672 CTAs of
-    352-key shares (two fit an SM); a page of 4096 tokens takes all 8 ranks
-    and one segment, a wider one segments of its own."""
+    per SM, as K2); the same 8 ranks at chunk 16 and at any slot count (a
+    row's split does not follow B or the row tiles): 1792 CTAs; a page of
+    4096 tokens takes all 8 ranks and one segment, a wider one segments of
+    its own."""
     plan = plan_paged_bf16_attention(8, 4, 7, 1024, 16)
     assert plan.cluster == MAX_CLUSTER and plan.ctas(8, 4) == 256 and plan.score_keys == 128
     chunk = plan_paged_bf16_attention(8, 4, 112, 1024, 16)
     assert chunk.ctas(8, 4) >= 4 * SMS and chunk.score_keys <= 384
+    assert {(p.cluster, p.score_keys) for p in (plan_paged_bf16_attention(b, 4, r, 1024, 16)
+                                                for b in (1, 2, 8, 64) for r in (7, 35, 112))
+            } == {(plan.cluster, plan.score_keys)}
     wide = plan_paged_bf16_attention(64, 4, 112, 4096, 4096)
     assert wide.cluster == MAX_CLUSTER and wide.cluster * wide.score_keys == 4096
     assert paged_segments(10000, 5000, MAX_CLUSTER, K3_SCORE_KEYS_MAX) == [
@@ -1175,7 +1191,7 @@ def _plain_page_p(S, page):
 
 
 def _paged_split_walk(S, V, lens, *, c, g, page, max_keys, cluster, share_keys, rows,
-                      ams=False, local_max=False, unweighted=False):
+                      ams=False, local_max=False, unweighted=False, fixed=False):
     """K3's and K5p's split in plain torch, in the kernels' order. Per (slot,
     head, tile of ``rows`` rows) the visible tokens are walked in segments
     (`paged_segments`: whole pages on bf16 pages), each split into the
@@ -1191,7 +1207,10 @@ def _paged_split_walk(S, V, lens, *, c, g, page, max_keys, cluster, share_keys, 
     each rank's own max, p in f32. Steps of 64 tokens: l += p w, acc +=
     (bf16(p) or p) w . v, w = exp(m - m_step), both rescaled by exp(m_prev -
     m_step); the ranks' (m, l, acc) merge in rank order with weights
-    exp(m_r - m*) (``unweighted``: the mutation, none). S [B, kv, R, T] the
+    exp(m_r - m*) (``unweighted``: the mutation, none). ``fixed`` (K3): the
+    segments and shares of all ``max_keys`` tokens, each share cut at the
+    tile's last visible token; a row with no token in a share keeps its m
+    there, and past its last token m stays its own. S [B, kv, R, T] the
     masked scores, V [B, T, kv, hd_v] the values in token order. Returns the
     output and p (bf16 pages: bf16(p)) of every walked (row, token), -1
     elsewhere."""
@@ -1212,8 +1231,12 @@ def _paged_split_walk(S, V, lens, *, c, g, page, max_keys, cluster, share_keys, 
                 l_r = [torch.zeros(nr) for _ in range(cluster)]
                 acc_r = [torch.zeros((nr, hd_v)) for _ in range(cluster)]
                 wide = not ams and page > cluster * share_keys
-                for s0, s1 in paged_segments(ntok, page, cluster, share_keys, not ams):
-                    shares = attention_shares(s0, s1, cluster)
+                segs = paged_segments(max_keys if fixed else ntok, page, cluster, share_keys,
+                                      not ams)
+                for s0, s1 in (sg for sg in segs if sg[0] < ntok):
+                    shares = [(min(lo, ntok), min(hi, ntok))
+                              for lo, hi in attention_shares(s0, s1, cluster)]
+                    s1 = min(s1, ntok)
                     s_sh = [S[b, h, sl, lo:hi] for lo, hi in shares]
                     smax = [x.amax(dim=-1) if x.shape[1] else torch.full((nr,), ninf)
                             for x in s_sh]
@@ -1251,6 +1274,11 @@ def _paged_split_walk(S, V, lens, *, c, g, page, max_keys, cluster, share_keys, 
                                              base[:, None])
                             cm = torch.cummax(s, dim=-1).values
                             m = torch.clamp(torch.maximum(cm[:, e], bb), min=NEG_CLAMP)
+                            if fixed:     # the kernel's m past a row's last token
+                                e_row = torch.clamp(row_len[b, sl] - lo, max=n) - 1
+                                j = torch.minimum(torch.arange(n)[None], e_row[:, None])
+                                m = m.gather(1, j.clamp(min=0))
+                                m = torch.where(e_row[:, None] < 0, m_r[i][:, None], m)
                         p = torch.exp(s - m)
                         pw = p if ams else p.to(torch.bfloat16).float()
                         p_all[b, h, sl, lo:hi] = pw
@@ -1332,7 +1360,7 @@ def test_k3_split_walk_matches_the_plain_walk(page, chunk):
     whose segments hold a few pages, whose shares split a page, or whose
     segments are narrower than a page."""
     qf, lens, bt, S, V, load_page, masked = _paged_split_case("bf16", page, chunk, page + chunk)
-    kw = dict(c=chunk, g=3, page=page, max_keys=4 * page, rows=ATT_ROWS)
+    kw = dict(c=chunk, g=3, page=page, max_keys=4 * page, rows=ATT_ROWS, fixed=True)
     want = _paged_online_softmax(qf, load_page, lens, bt, page_size=page, c=chunk, g=3,
                                  pv_dtype=torch.bfloat16)
     plan = plan_paged_bf16_attention(5, 2, 3 * chunk, 4 * page, page)
@@ -1353,7 +1381,8 @@ def test_k3_split_walk_mutation_is_caught():
     walk's rounding points: the bit check of
     `test_k3_split_walk_matches_the_plain_walk` fails."""
     qf, lens, bt, S, V, _, _ = _paged_split_case("bf16", 48, 4, 11)
-    kw = dict(c=4, g=3, page=48, max_keys=192, rows=ATT_ROWS, cluster=3, share_keys=64)
+    kw = dict(c=4, g=3, page=48, max_keys=192, rows=ATT_ROWS, cluster=3, share_keys=64,
+              fixed=True)
     _, p_bad = _paged_split_walk(S, V, lens, local_max=True, **kw)
     walked = p_bad >= 0
     assert not torch.equal(p_bad[walked].view(torch.int32),
