@@ -25,10 +25,13 @@ Phases, each fatal on failure:
      fp5-e2m2), one decode layer's 7 launches counted and every Qwen2-7B
      projection at B in {8, 128} against the plain version, one decode and
      one prefill-chunk layer timed against their bounds and dense bf16;
+     K1 also at InternVL2-1B's projections and K1b (fp4.25) at
+     MusicGen-medium's, the same way;
   5. K2 (paged AMS-e2m2 flash-decode) against its plain version at kv=4,
      g=7, hd=128, pages of 16, 64 and 128 tokens, 8 slots, lengths up to
      1024, chunk in {1, 16}, with an idle slot and masked rows that must
-     come out exactly 0;
+     come out exactly 0; then at hd 64 over pages of 16, InternVL2-1B's
+     kv 2, g 7 and MusicGen-medium's kv 24, g 1;
   6. K3 (paged flash-decode over bf16 pages), the same;
   7. K4 (contiguous-cache flash-decode, GQA) at Qwen2-7B shapes (kv=4, g=7,
      hd=128, 8 slots, lengths up to 1024, chunk in {1, 16}) and K5 (the
@@ -49,8 +52,14 @@ Phases, each fatal on failure:
      (K1b, K2), the FP16 baseline, bf16 weights over bf16 pages (K3), and
      FP5.33 weights over the contiguous cache (K1, K4); full-width 62-layer
      MiniCPM3-4B with FP5.33 weights over its contiguous MLA stream (K1,
-     K5); 9 requests each on the last four (two sharing a prefix on the
-     paged ones). Launch counts are zeroed just before each path and read
+     K5); full-width 24-layer InternVL2-1B with FP5.33 weights over AMS
+     pages (`vlm-fp5.33`: K1, K2; 9 requests, each 256 seeded normal prefix
+     embeds and 32-96 text tokens, 24 new, each stream then held to the
+     request served alone on the same engine); full-width 48-layer
+     MusicGen-medium with FP4.25 weights over AMS pages (`audio-fp4.25`:
+     K1b, K2; 9 requests of 96-192 audio tokens, 24 new); 9 requests each
+     on the others but FP5.33 (two sharing a prefix on the paged ones
+     whose requests are tokens only). Launch counts are zeroed just before each path and read
      just after: every kernel of the path must have launched, no other
      kernel and no plain version on CUDA tensors. Every tick replays a CUDA
      graph of the engine step (one per chunk width; capture seconds and the
@@ -64,7 +73,8 @@ Phases, each fatal on failure:
      ms, idle share and kernels per tick; the profiler's launches of the
      path's kernels in the graph ticks must equal the counted ones);
   10. graph against eager at cut depth (2 layers, full widths), per path:
-      two engines from one seed serve the same requests in lockstep, one
+      two engines from one seed serve the same requests in lockstep (on the
+      VLM path with 256 prefix embeds each), one
       replaying its graphs, one running the eager step; tokens after every
       tick and every cache byte must be equal; then one eager step runs
       under torch.cuda.set_sync_debug_mode("error");
@@ -83,7 +93,10 @@ Phases, each fatal on failure:
       tick timed and profiled against the greedy one, forced and
       priority-driven preemption resumed bit-equal, the host tier's prefix
       restore, speculative greedy streams equal to plain decoding with
-      tokens per step, accept rate and verify-width tick times, every row
+      tokens per step, accept rate and verify-width tick times, the self
+      drafters at k = 4 ("self", the first layer, at full depth with
+      streams equal to plain decoding's; "self-full" at depth 2; accept
+      rate, tokens per step, drafter host ms per round), every row
       of K1, K2, the norm, the head and the sampling epilogue bit-equal to
       the row alone; then K3, FP16's cuBLAS projections, K4, K5 and the
       MLA absorb the same way at 2 and 8 slots x widths {1, 2, 4, 5, 16}:
@@ -91,7 +104,12 @@ Phases, each fatal on failure:
       explains it, cuBLAS's are recorded, with FP16's speculative streams
       set against plain decoding's), one JSON line per check, K1 and K2 the
       only kernels launched;
-  13. frontend: the async HTTP/SSE front end over the FP5.33 path at full
+  13. seq: `models.forward_seq(want_cache=True)` over a 256-token prompt
+      on the FP5.33 Qwen2-7B weights (K1 at 256 rows), then greedy
+      one-token decode steps from its cache (K1, K4), against chunked
+      prefill of the same prompt over a contiguous cache: first-token
+      logits within LOGIT_TOL, the streams' first diverging token printed;
+  14. frontend: the async HTTP/SSE front end over the FP5.33 path at full
       width (`phase_frontend`: 12 requests at staggered arrivals, JSON and
       SSE, two sampled, one refused with 429; every stream equal to the
       request served alone; /healthz and /metrics read; K1 and K2 the only
@@ -101,7 +119,7 @@ Phases, each fatal on failure:
       floor of a full decode tick at the H100's peaks beside a profiled
       replay of its graph (`obs.cost.attribution(profile=True)`).
 
-A line ``compare {...}`` sets the five paths' graph and eager decode
+A line ``compare {...}`` sets the seven paths' graph and eager decode
 ticks, replay ms, device-busy ms, idle shares, gaps inside ticks and
 kernels per tick side by side. The line before the last is one JSON
 object with a row per kernel; the last line is ``{"ok": true, "device":
@@ -158,11 +176,23 @@ PATHS = {
                           kernels=("ams_matmul_fp533", "contiguous_attention")),
     "mla-fp5.33": dict(arch="minicpm3-4b", scheme="fp5.33-e2m3", kind="contiguous",
                        kernels=("ams_matmul_fp533", "contiguous_attention_mla")),
+    # the rest of the dense zoo: a VLM whose requests carry 256 patch
+    # embeddings each, and an audio decoder with a GELU MLP over MHA
+    "vlm-fp5.33": dict(arch="internvl2-1b", scheme="fp5.33-e2m3", kind="paged_ams",
+                       kernels=("ams_matmul_fp533", "paged_attention_ams")),
+    "audio-fp4.25": dict(arch="musicgen-medium", scheme="fp4.25-e2m2", kind="paged_ams",
+                         kernels=("ams_matmul_planes", "paged_attention_ams")),
 }
 PLANES_SCHEMES = ("fp8", "fp6-e2m3", "fp6-e3m2", "fp5-e2m2", "fp4.5-e2m2", "fp4.33-e2m2",
                   "fp4-e2m1")
 QWEN_SHAPES = [("wq/wo", 3584, 3584, 2), ("wk/wv", 3584, 512, 2),
                ("w_gate/w_up", 3584, 18944, 2), ("w_down", 18944, 3584, 1)]
+# the zoo's projections: InternVL2-1B (K1, FP5.33) and MusicGen-medium's
+# MHA and GELU MLP (K1b, FP4.25)
+INTERNVL_SHAPES = [("wq/wo", 896, 896, 2), ("wk/wv", 896, 128, 2),
+                   ("w_gate/w_up", 896, 4864, 2), ("w_down", 4864, 896, 1)]
+MUSICGEN_SHAPES = [("wq/wk/wv/wo", 1536, 1536, 4), ("w_up", 1536, 6144, 1),
+                   ("w_down", 6144, 1536, 1)]
 TINY_SHAPES = [("wq/wo", 128, 128, 2), ("wk/wv", 128, 64, 2),
                ("w_gate/w_up", 128, 256, 2), ("w_down", 256, 128, 1)]
 # page sizes of the K2 / K3 phases: the CacheConfig default (timed against a
@@ -258,15 +288,15 @@ def _check_matmul(torch, tag: str, kernel, plain, x, pw):
 
 
 def _matmul_phase(torch, dev, tag: str, scheme: str, gen, kernel, plain, timed: bool,
-                  full: bool, decode_only: bool = False):
-    """``kernel`` / ``plain`` (x, PackedWeight) -> y at every Qwen2-7B
-    projection shape, B in {8, 128} (8 alone with ``decode_only``): error
-    against the plain version, and when ``timed`` kernel / plain / dense
-    bf16 torch.matmul times; one decode layer (7 projections at B=8) summed,
-    with its bound."""
+                  full: bool, decode_only: bool = False, shapes=QWEN_SHAPES):
+    """``kernel`` / ``plain`` (x, PackedWeight) -> y at every projection
+    shape of a layer (Qwen2-7B's by default), B in {8, 128} (8 alone with
+    ``decode_only``): error against the plain version, and when ``timed``
+    kernel / plain / dense bf16 torch.matmul times; one decode layer (its 7
+    projections at B=8) summed, with its bound."""
     import dataclasses
 
-    shapes = QWEN_SHAPES if full else TINY_SHAPES
+    shapes = shapes if full else TINY_SHAPES
     batches = (8, 8 * 16) if full else (2, 2 * 4)
     if decode_only:
         batches = batches[:1]
@@ -311,7 +341,8 @@ def _matmul_phase(torch, dev, tag: str, scheme: str, gen, kernel, plain, timed: 
         layer["bound_ms"], layer["bound_by"] = bound_ms(layer["bytes"],
                                                         (layer["flops"], PEAK_BF16_FLOPS))
         what = "one decode layer" if B == batches[0] else "one prefill-chunk layer"
-        log(f"{tag} {what} (7 projections, {scheme}, B={B}): " + json.dumps(layer))
+        n = sum(mult for *_, mult in shapes)
+        log(f"{tag} {what} ({n} projections, {scheme}, B={B}): " + json.dumps(layer))
     return layers[batches[0]], max_err
 
 
@@ -319,10 +350,17 @@ def phase_k1(torch, dev, timed: bool, full: bool):
     from repro_torch.kernels.ams_matmul import ams_matmul_fp533, ams_matmul_fp533_plain
 
     gen = torch.Generator(device=dev).manual_seed(11)
-    return _matmul_phase(torch, dev, "K1", "fp5.33-e2m3", gen,
-                         lambda x, pw: ams_matmul_fp533(x, pw.hi, pw.scale),
-                         lambda x, pw: ams_matmul_fp533_plain(x, pw.hi, pw.scale),
-                         timed, full)
+
+    def kernel(x, pw):
+        return ams_matmul_fp533(x, pw.hi, pw.scale)
+
+    def plain(x, pw):
+        return ams_matmul_fp533_plain(x, pw.hi, pw.scale)
+
+    layer, err = _matmul_phase(torch, dev, "K1", "fp5.33-e2m3", gen, kernel, plain, timed, full)
+    zoo = _matmul_phase(torch, dev, "K1[internvl2-1b]", "fp5.33-e2m3", gen, kernel, plain, timed,
+                        full, shapes=INTERNVL_SHAPES)
+    return layer, err, zoo
 
 
 def phase_k1b(torch, dev, timed: bool, full: bool):
@@ -347,8 +385,10 @@ def phase_k1b(torch, dev, timed: bool, full: bool):
                                      rel_err=rel)))
     layer, err = _matmul_phase(torch, dev, "K1b", "fp4.25-e2m2", gen, kernel, plain, timed,
                                full)
+    zoo = _matmul_phase(torch, dev, "K1b[musicgen-medium]", "fp4.25-e2m2", gen, kernel, plain,
+                        timed, full, shapes=MUSICGEN_SHAPES)
     wide = {s: _k1b_hook(torch, dev, gen, s, kernel, plain, timed, full) for s in K1B_WIDE}
-    return layer, max(max_err, err), wide
+    return layer, max(max_err, err), wide, zoo
 
 
 # one scheme per decode hook of K1b that no served path reaches: per_word 4,
@@ -399,9 +439,40 @@ def _k1b_hook(torch, dev, gen, scheme: str, kernel, plain, timed: bool, full: bo
 
 
 # --------------------------------------------------------------------- K2
+# K2 at the new paths' attention shapes (page 16, decode and chunk 16):
+# InternVL2-1B (kv 2, g 7) and MusicGen-medium's MHA (kv 24, g 1), hd 64
+K2_ZOO = {"internvl2-1b": (2, 7, 64), "musicgen-medium": (24, 1, 64)}
+K2_ZOO_TINY = {"internvl2-1b": (2, 7, 16), "musicgen-medium": (4, 1, 16)}
+
+
 def phase_k2(torch, dev, timed: bool, full: bool):
+    """K2 at Qwen2-7B's shapes (kv 4, g 7, hd 128) over pages of 16, 64 and
+    128, then at the zoo's shapes (`K2_ZOO`) over pages of 16. Returns the
+    Qwen2-7B decode row, the error, and each zoo shape's decode row and
+    error."""
     import numpy as np
 
+    if full:
+        kv, g, hd, pages, B, max_len, chunks = 4, 7, 128, PAGES, 8, 1024, (1, 16)
+        zoo = K2_ZOO
+    else:
+        kv, g, hd, pages, B, max_len, chunks = 2, 2, 32, TINY_PAGES, 4, 64, (1, 4)
+        zoo = K2_ZOO_TINY
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    decode_row, max_err = _k2_cases(torch, np, dev, rng, gen, kv, g, hd, pages, B, max_len,
+                                    chunks, timed, "K2")
+    extra = {arch: _k2_cases(torch, np, dev, rng, gen, *shape, pages[:1], B, max_len, chunks,
+                             timed, f"K2[{arch}]")
+             for arch, shape in zoo.items()}
+    return decode_row, max_err, extra
+
+
+def _k2_cases(torch, np, dev, rng, gen, kv, g, hd, pages, B, max_len, chunks, timed, tag):
+    """K2 against its plain version at one (kv, g, hd), every page size and
+    chunk: error, exact zeros on masked rows, and when ``timed`` kernel /
+    plain times against the bound. Returns the first page size's decode row
+    and the largest error."""
     from repro_torch.core.formats import get_scheme
     from repro_torch.core.kv_quant import quantize_kv
     from repro_torch.kernels.attention_template import (
@@ -412,12 +483,6 @@ def phase_k2(torch, dev, timed: bool, full: bool):
     from repro_torch.kernels.tuning import plan_paged_attention
 
     scheme = get_scheme("fp4.25-e2m2")
-    if full:
-        kv, g, hd, pages, B, max_len, chunks = 4, 7, 128, PAGES, 8, 1024, (1, 16)
-    else:
-        kv, g, hd, pages, B, max_len, chunks = 2, 2, 32, TINY_PAGES, 4, 64, (1, 4)
-    rng = np.random.default_rng(5)
-    gen = torch.Generator(device=dev).manual_seed(5)
 
     def make_pool(P, page):
         pl = {}
@@ -426,7 +491,7 @@ def phase_k2(torch, dev, timed: bool, full: bool):
             pl[n] = {k: t.contiguous() for k, t in quantize_kv(x, scheme).items()}
         return pl
 
-    rows, max_err, decode_row = [], 0.0, None
+    max_err, decode_row = 0.0, None
     for page, c, pool, bt, ends in _paged_cases(torch, np, dev, rng, pages, chunks, B, max_len,
                                                 make_pool):
         lengths = _chunk_lengths(np, rng, ends, c)
@@ -441,10 +506,11 @@ def phase_k2(torch, dev, timed: bool, full: bool):
         masked = torch.as_tensor(np.repeat(lengths == 0, g, axis=1), device=dev)  # [B, c*g]
         zero_ok = bool((o_k.permute(0, 2, 1, 3)[masked] == 0).all())
         if not (rel <= K2_TOL and zero_ok and torch.isfinite(o_k).all()):
-            fail(f"K2 chunk={c}: max abs err {err:.3e} (rel {rel:.3e} > {K2_TOL}) "
+            fail(f"{tag} chunk={c}: max abs err {err:.3e} (rel {rel:.3e} > {K2_TOL}) "
                  f"or masked rows not exact zeros ({zero_ok})")
         tok = int(np.sum(np.max(lengths, axis=1)))        # keys each slot's walk needs
-        nbytes = (qf.numel() * 4 + tok * kv * 2 * (hd // 2 + 4 + 4) + bt.numel() * 4
+        tok_bytes = kv * 2 * (hd // 2 + 4 + 4)            # K and V: hi, lsb word, scale
+        nbytes = (qf.numel() * 4 + tok * tok_bytes + bt.numel() * 4
                   + lens.numel() * 4 + qf.numel() * 4)
         flops = 4.0 * hd * kv * g * float(lengths.sum())      # f32 p times f32 v
         bms, by = bound_ms(nbytes, (flops, PEAK_F32_FLOPS))
@@ -454,7 +520,7 @@ def phase_k2(torch, dev, timed: bool, full: bool):
                    exact_zero_rows=int(masked.sum()), bound_ms=bms, bound_by=by,
                    rows_per_cta=plan.rows, cluster=plan.cluster, ctas=plan.ctas(B, kv))
         if timed:
-            n = max(1, min(64, math.ceil(L2_FLUSH_BYTES / max(1, tok * kv * 2 * 72))))
+            n = max(1, min(64, math.ceil(L2_FLUSH_BYTES / max(1, tok * tok_bytes))))
             pools = [pool] + [make_pool(bt.numel(), page) for _ in range(n - 1)]
             outs = []
             row["ms"] = time_graph(torch, [
@@ -464,10 +530,9 @@ def phase_k2(torch, dev, timed: bool, full: bool):
             del pools
             row["plain_ms"] = time_loop(torch, lambda: paged_attention_ams_plain(
                 qf, pool, lens, bt, **kw))
-        rows.append(row)
         if page == pages[0] and c == 1:
             decode_row = row
-        log("K2 " + json.dumps(row))
+        log(f"{tag} " + json.dumps(row))
     return decode_row, max_err
 
 
@@ -847,11 +912,23 @@ def all_counts():
             attention_template.COUNT_STREAM_AMS)
 
 
+def _prefix_embeds(np, rng, cfg, n: int):
+    """Seeded standard-normal modality prefix embeddings [n_prefix, d_model]
+    for each of ``n`` requests (None each where the config takes none)."""
+    if not cfg.num_prefix_embeds:
+        return [None] * n
+    return [rng.standard_normal((cfg.num_prefix_embeds, cfg.d_model)).astype(np.float32)
+            for _ in range(n)]
+
+
 def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
     """Serve one main path through the engine (see the module docstring);
     the FP5.33 path keeps slice 1's workload, the others a shorter one. A
-    shared prompt prefix is given to the paged paths only (the contiguous
-    cache has no prefix cache, as in the reference)."""
+    shared prompt prefix is given to the paged paths whose requests are
+    tokens only (the contiguous cache has no prefix cache, as in the
+    reference, and a request with prefix embeds skips it). The VLM path's
+    requests each carry 256 seeded normal prefix embeddings and 32-96 text
+    tokens, and each stream must equal that request served alone."""
     import numpy as np
 
     from repro_torch.cache import CacheConfig
@@ -865,8 +942,9 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
                           impl="kernel", slots=8, capacity=512, prefill_chunk=16,
                           cache=CacheConfig(kind=spec["kind"], page_size=16, impl="kernel"),
                           device=str(dev), seed=0)
-        n_req, plen, max_tokens, shared = ((10, (200, 320), 40, 128) if path == "fp5.33"
-                                           else (9, (96, 192), 24, 64))
+        n_req, plen, max_tokens, shared = {"fp5.33": (10, (200, 320), 40, 128),
+                                           "vlm-fp5.33": (9, (32, 97), 24, 0)}.get(
+                                               path, (9, (96, 192), 24, 64))
     else:
         ec = EngineConfig(arch=spec["arch"], reduced=True, scheme=spec["scheme"],
                           impl="kernel", slots=4, capacity=64, prefill_chunk=4,
@@ -888,14 +966,16 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
     V = eng.cfg.vocab_size
     prompts = [rng.integers(0, V, int(n)).astype(np.int32)
                for n in rng.integers(plen[0], plen[1], n_req)]
-    if paged:
+    embeds = _prefix_embeds(np, rng, eng.cfg, n_req)
+    shared = shared if embeds[0] is None else 0
+    if paged and shared:
         prompts[-1][:shared] = prompts[0][:shared]   # page-aligned shared prefix, admitted late
 
     counts = all_counts()
     for cnt in counts:
         cnt.reset()
     t0 = time.perf_counter()
-    handles = [eng.submit(p, max_tokens) for p in prompts]
+    handles = [eng.submit(p, max_tokens, prefix_embeds=e) for p, e in zip(prompts, embeds)]
     dec_s, dec_tok, dec_ticks = 0.0, 0, 0
     while eng.has_work:
         decode_only = len(eng.sched) == 0 and all(
@@ -923,7 +1003,9 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
                plain_calls_on_cuda=plain_cuda, prefix_hit_pages=st.get("prefix_hit_pages"),
                cached_token_frac=st.get("cached_token_frac"),
                quantize_seconds=eng.quantize_seconds,
-               kv_bytes_per_token=st["kv_bytes_per_token"])
+               kv_bytes_per_token=st["kv_bytes_per_token"],
+               prefix_embeds_per_request=eng.cfg.num_prefix_embeds if embeds[0] is not None else 0,
+               prompt_tokens=[int(len(p)) for p in prompts])
     if dev.type == "cuda":
         res["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
         res["graph"] = graph_stats(eng)
@@ -940,8 +1022,20 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
                  f"of other paths that did {stray}: {launches}")
         if max(plain_cuda.values()) != 0:
             fail(f"serve[{path}]: plain versions ran on CUDA tensors: {plain_cuda}")
-    if paged and st["prefix_hit_pages"] < 1:
+    if paged and shared and st["prefix_hit_pages"] < 1:
         fail(f"serve[{path}]: the shared prefix never hit the prefix cache")
+    if embeds[0] is not None:
+        # each prefix-embed request served alone on the same engine
+        alone = [eng.submit(p, max_tokens, prefix_embeds=e).result()
+                 for p, e in zip(prompts, embeds)]
+        first = [next((t for t, (a, b) in enumerate(zip(h.tokens, x)) if a != b), None)
+                 for h, x in zip(handles, alone)]
+        log("serve-alone " + json.dumps(dict(path=path, requests=len(alone),
+                                              streams_equal=all(f is None for f in first),
+                                              first_diverging_token=first)))
+        if dev.type == "cuda" and any(f is not None for f in first):
+            fail(f"serve[{path}]: prefix-embed streams differ from the requests served "
+                 f"alone: first diverging tokens {first}")
     if dev.type == "cuda":
         res["profile"] = profile_decode(torch, eng, rng, path)
     else:                              # rehearse the profile's prefill at tiny lengths
@@ -1132,8 +1226,12 @@ def phase_graph(torch, dev, full: bool, path: str = "fp5.33"):
     widths): two engines from one seed serve the same requests in lockstep
     (prefill and decode ticks mixed), one replaying its CUDA graphs, the
     other running the step function (`step(eager=True)`); tokens after
-    every tick and every cache byte at the end must be equal. Then one
-    eager step runs under ``torch.cuda.set_sync_debug_mode("error")``."""
+    every tick and every cache byte at the end must be equal (on the VLM
+    path each request feeds its prefix embeds through the graphs' static
+    embeds buffer). Then one eager step runs under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    import dataclasses
+
     import numpy as np
 
     from repro_torch.cache import CacheConfig
@@ -1149,14 +1247,16 @@ def phase_graph(torch, dev, full: bool, path: str = "fp5.33"):
                       cache=CacheConfig(kind=spec["kind"], page_size=16 if full else 8,
                                         impl="kernel"),
                       device=str(dev), seed=11, **base)
+    ec = dataclasses.replace(ec, capacity=ec.capacity + ec.model_config().num_prefix_embeds)
     graphed, eager = ServeEngine(ec), ServeEngine(ec)
     rng = np.random.default_rng(5)
     V = graphed.cfg.vocab_size
     n_req, plen, gen_n = (6, (20, 120), 12) if full else (3, (5, 14), 4)
-    for n in rng.integers(plen[0], plen[1], n_req):
+    lens = rng.integers(plen[0], plen[1], n_req)
+    for n, e in zip(lens, _prefix_embeds(np, rng, graphed.cfg, n_req)):
         p = rng.integers(0, V, int(n)).astype(np.int32)
-        graphed.submit(p, gen_n)
-        eager.submit(p, gen_n)
+        graphed.submit(p, gen_n, prefix_embeds=e)
+        eager.submit(p, gen_n, prefix_embeds=e)
     ticks, first = 0, None
     while graphed.has_work or eager.has_work:
         graphed.step()
@@ -1170,7 +1270,8 @@ def phase_graph(torch, dev, full: bool, path: str = "fp5.33"):
     caches_equal = all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
                        for x, y in zip(tree_leaves(graphed.cache), tree_leaves(eager.cache)))
     res = dict(path=path, depth=graphed.cfg.num_layers, ticks=ticks,
-               requests=len(graphed.finished), streams_equal=streams_equal,
+               requests=len(graphed.finished), prefix_embeds=graphed.cfg.num_prefix_embeds,
+               streams_equal=streams_equal,
                caches_equal=caches_equal, first_diverging_tick=first)
     if dev.type == "cuda":
         res["graph"] = graph_stats(graphed)
@@ -1596,6 +1697,38 @@ def phase_engine_features(torch, dev, full: bool, params=None):
           slots=8, k=4, tokens_per_step=st["tokens_per_step"], accept_rate=st["accept_rate"],
           **tick_ms)
     del spec8
+    # the self drafters (k = 4), proposing on the host side of step_begin
+    # through models.forward_seq over the engine's capacity: "self" (the
+    # first layer) at full depth must give plain decoding's greedy streams;
+    # "self-full" (both layers of the depth-2 stack) prints its accept rate
+    plain2 = _serve_all(ServeEngine(config(2, 2, 4), params=cut), sp_prompts, sp_gen)
+    for drafter, d, src_d, want_d in (("self", depth, src, want),
+                                      ("self-full", 2, cut, plain2)):
+        eng = ServeEngine(config(d, 2, 4, speculate_k=4, drafter=drafter), params=src_d)
+        spent = [0.0, 0]
+        propose = eng.drafter.propose
+
+        def timed_propose(h, k, propose=propose, spent=spent):
+            t0 = time.perf_counter()
+            out = propose(h, k)
+            spent[0] += time.perf_counter() - t0
+            spent[1] += 1
+            return out
+
+        eng.drafter.propose = timed_propose
+        got = _serve_all(eng, sp_prompts, sp_gen)
+        st = eng.stats()
+        equal = got == want_d
+        check(f"speculative-{drafter}", (equal or drafter != "self") and st["spec_proposed"] > 0,
+              depth=eng.cfg.num_layers, draft_layers=eng.drafter.draft_cfg.num_layers, slots=2,
+              k=4, capacity=eng.capacity, streams_equal_plain=equal,
+              first_diverging_token=[next((t for t, (a, b) in enumerate(zip(x, y)) if a != b),
+                                          None) for x, y in zip(got, want_d)],
+              tokens_per_step=st["tokens_per_step"], accept_rate=st["accept_rate"],
+              proposed=st["spec_proposed"], accepted=st["spec_accepted"], ticks=st["ticks"],
+              drafter_rounds=spent[1],
+              drafter_host_ms_per_round=1e3 * spent[0] / max(1, spent[1]))
+        del eng
 
     launches = {cnt.name: cnt.launches for cnt in counts}
     plain_cuda = {cnt.name: cnt.plain_on_cuda for cnt in counts}
@@ -1626,6 +1759,87 @@ def phase_engine_features(torch, dev, full: bool, params=None):
     if cuda:
         torch.cuda.empty_cache()
     return results, launches
+
+
+def phase_seq(torch, dev, full: bool, params=None):
+    """The full-sequence forward on the FP5.33 Qwen2-7B weights:
+    `models.forward_seq(want_cache=True)` over a 256-token prompt (K1 at
+    256 rows), its contiguous cache copied into one of larger capacity, then
+    greedy one-token `decode_step`s from it (K1, K4); against the engine's
+    chunked prefill of the same prompt (`decode_step` over chunks of 16 on
+    a contiguous cache, K1 and K4) and greedy steps from that cache. The
+    first-token logits must agree within LOGIT_TOL; the first diverging
+    token of the two greedy streams is printed."""
+    import numpy as np
+
+    from repro_torch.cache import CacheConfig
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.config import EngineConfig
+    from repro_torch.launch.engine import init_serving_params
+    from repro_torch.models import decode_step, forward_seq, make_cache
+
+    path = PATHS["fp5.33"]
+    cfg = EngineConfig(arch=path["arch"], reduced=not full, device=str(dev)).model_config()
+    policy = QuantPolicy(scheme=path["scheme"], impl="kernel", min_elements=1 << 10)
+    if params is None:
+        params = init_serving_params(cfg, policy, 0, dev)
+    S, C, gen_n = (256, 16, 16) if full else (24, 4, 6)
+    ccfg = CacheConfig(kind="contiguous", impl="kernel")
+    rng = np.random.default_rng(77)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, S)).astype(np.int32),
+                             device=dev)
+
+    def i32(*v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    counts = all_counts()
+    for cnt in counts:
+        cnt.reset()
+    t0 = time.perf_counter()
+    logits, _, seq_cache = forward_seq(params, prompt, cfg, policy=policy, want_cache=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    seq_s = time.perf_counter() - t0
+    seq_launches = {cnt.name: cnt.launches for cnt in counts if cnt.launches}
+    cache_seq = make_cache(cfg, 1, S + gen_n, device=dev)
+    for dst, src in zip(tree_leaves(cache_seq), tree_leaves(seq_cache)):
+        dst[:, :, :S] = src
+    del seq_cache
+    first_seq = logits[0, -1].float()
+    del logits
+    cache_chunk = make_cache(cfg, 1, S + gen_n, device=dev)
+    for i in range(0, S, C):
+        lg, _ = decode_step(params, prompt[:, i:i + C], cache_chunk, i32(i), cfg, policy=policy,
+                            cache_cfg=ccfg, nvalid=i32(C))
+    first_chunk = lg[0].float()
+    d = float((first_seq - first_chunk).abs().max())
+    rel = d / float(first_chunk.abs().max())
+
+    def greedy(cache, first):
+        toks = [int(first.argmax())]
+        for j in range(gen_n - 1):
+            lg, _ = decode_step(params, i32(toks[-1]), cache, i32(S + j), cfg, policy=policy,
+                                cache_cfg=ccfg)
+            toks.append(int(lg[0].argmax()))
+        return toks
+
+    a, b = greedy(cache_seq, first_seq), greedy(cache_chunk, first_chunk)
+    launches = {cnt.name: cnt.launches for cnt in counts if cnt.launches}
+    res = dict(arch=path["arch"], scheme=path["scheme"], depth=cfg.num_layers, prompt=S,
+               chunk=C, logits_max_abs_diff=d, logits_rel_diff=rel, tolerance=LOGIT_TOL,
+               first_token_equal=a[0] == b[0], streams_equal=a == b,
+               first_diverging_token=next((t for t, (x, y) in enumerate(zip(a, b)) if x != y),
+                                          None),
+               forward_seq_ms=1e3 * seq_s, forward_seq_launches=seq_launches,
+               launches=launches)
+    log("seq " + json.dumps(res))
+    if not rel <= LOGIT_TOL:
+        fail(f"seq: forward_seq's first-token logits differ from the chunked prefill's by "
+             f"{rel:.3e} > {LOGIT_TOL}")
+    if dev.type == "cuda" and seq_launches.get("ams_matmul_fp533", 0) <= 0:
+        fail(f"seq: forward_seq launched no K1: {seq_launches}")
+    return res
 
 
 def _row_invariance(torch, dev, cfg, params, full: bool):
@@ -2276,6 +2490,7 @@ def main():
         phase_consistency(torch, dev, full=False, path="fp4.25", page=16)
         phase_consistency(torch, dev, full=False, path="fp4.25", scheme="fp6-e2m3")
         phase_engine_features(torch, dev, full=False)
+        phase_seq(torch, dev, full=False)
         phase_frontend(torch, dev, full=False)
         log("rehearsal finished on the CPU: no result")
         sys.exit(2)
@@ -2308,9 +2523,9 @@ def main():
     log(f"build total {time.perf_counter() - t0:.1f}s")
     ptxas_report(build)
 
-    k1, k1_err = phase_k1(torch, dev, timed=True, full=True)
-    k1b, k1b_err, k1b_wide = phase_k1b(torch, dev, timed=True, full=True)
-    k2, k2_err = phase_k2(torch, dev, timed=True, full=True)
+    k1, k1_err, (k1_zoo, k1_zoo_err) = phase_k1(torch, dev, timed=True, full=True)
+    k1b, k1b_err, k1b_wide, (k1b_zoo, k1b_zoo_err) = phase_k1b(torch, dev, timed=True, full=True)
+    k2, k2_err, k2_zoo = phase_k2(torch, dev, timed=True, full=True)
     k3, k3_err = phase_k3(torch, dev, timed=True, full=True)
     k4, k4_err = phase_k4(torch, dev, timed=True, full=True)
     k5, k5_err = phase_k5(torch, dev, timed=True, full=True)
@@ -2331,6 +2546,7 @@ def main():
         QuantPolicy(scheme=PATHS["fp5.33"]["scheme"], impl="kernel", min_elements=1 << 10), 0,
         dev)
     features, feature_launches = phase_engine_features(torch, dev, full=True, params=fp533)
+    phase_seq(torch, dev, full=True, params=fp533)
     phase_frontend(torch, dev, full=True, params=fp533)
     del fp533
     gc.collect()
@@ -2353,11 +2569,13 @@ def main():
     # through a block table. launches: the count on the path's served run;
     # K5p and K1b's per_word 4 / 5 / 6 hooks, which no served path reaches,
     # their phases' runs of the entry (path null)
-    # launches_engine_features: the engine-features phase's run (K1, K2)
+    # launches_engine_features: the engine-features phase's run (K1, K2).
+    # A name "kernel[arch]" is the kernel at that model's shapes, its
+    # launches the count on that model's path
     def row(name, src, replaces, path, res, err, launches=None):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
                     replaces=replaces, path=path,
-                    launches=served[path]["launches"][name] if path else launches,
+                    launches=served[path]["launches"][name.split("[")[0]] if path else launches,
                     launches_engine_features=feature_launches[name]
                     if name in feature_launches else None,
                     max_abs_err=err, ms=res["ms"], plain_ms=res["plain_ms"],
@@ -2374,6 +2592,16 @@ def main():
           for sc, r in k1b_wide.items()],
         row("paged_attention_ams", "paged_attention.cu",
             "src/repro/kernels/attention_template.py:399", "fp5.33", k2, k2_err),
+        row("ams_matmul_fp533[internvl2-1b]", "ams_matmul.cu",
+            "src/repro/kernels/ams_matmul.py:138", "vlm-fp5.33", k1_zoo, k1_zoo_err),
+        row("ams_matmul_planes[musicgen-medium]", "ams_matmul.cu",
+            "src/repro/kernels/ams_matmul.py:95", "audio-fp4.25", k1b_zoo, k1b_zoo_err),
+        row("paged_attention_ams[internvl2-1b]", "paged_attention.cu",
+            "src/repro/kernels/attention_template.py:399", "vlm-fp5.33",
+            *k2_zoo["internvl2-1b"]),
+        row("paged_attention_ams[musicgen-medium]", "paged_attention.cu",
+            "src/repro/kernels/attention_template.py:399", "audio-fp4.25",
+            *k2_zoo["musicgen-medium"]),
         row("paged_attention_bf16", "paged_attention.cu",
             "src/repro/kernels/attention_template.py:292", "fp16", k3, k3_err),
         row("contiguous_attention", "contiguous_attention.cu",

@@ -6,9 +6,9 @@ config fails in one place before any device work. The port adds
 ``device`` (default ``"cuda"``) and serves contiguous caches (the default,
 ``cache=None``; dense GQA and MLA) and paged caches (AMS or bf16 pages;
 dense GQA), with seeded sampling, priorities and preemption with host
-spill (paged caches), and speculative decoding with the n-gram drafter.
-Features it does not have yet raise NotImplementedError here, naming their
-ROADMAP item.
+spill (paged caches), and speculative decoding with the n-gram or the self
+drafters. Meshes, which it does not have yet, raise NotImplementedError
+here, naming their ROADMAP item.
 
     cfg = EngineConfig(arch="qwen2-7b", reduced=False, impl="kernel",
                        slots=8, capacity=1024, prefill_chunk=16,
@@ -47,8 +47,9 @@ class EngineConfig:
     obs           `ObsConfig` telemetry switchboard
     device        "cuda" (default) or "cpu"; "cuda" without a card raises
     speculate_k   score up to k draft tokens per decode round (0 = off)
-    drafter       "ngram" or a `speculative.Drafter`; "self" / "self-full"
-                  raise NotImplementedError (they need models.forward_seq)
+    drafter       "ngram", "self", "self-full" or a `speculative.Drafter`; a
+                  name is checked here and the drafter built by the engine
+                  (the self drafters from its own params)
     mesh          accepted for the reference's surface; anything but None
                   raises NotImplementedError
     """
@@ -107,8 +108,10 @@ class EngineConfig:
         if self.speculate_k < 0:
             raise ValueError(f"speculate_k must be >= 0, got {self.speculate_k}")
         if self.speculate_k and isinstance(self.drafter, str):
-            from .speculative import make_drafter
-            make_drafter(self.drafter)        # an unknown or unported drafter raises here
+            from .speculative import DRAFTERS
+            if self.drafter not in DRAFTERS:
+                raise ValueError(f"unknown drafter {self.drafter!r} (expected one of "
+                                 f"{DRAFTERS})")
         if self.mesh is not None:
             raise NotImplementedError("tensor-parallel meshes are not ported yet "
                                       "(ROADMAP.md, Modules to port)")

@@ -32,9 +32,12 @@ place (`cache.restore_pages`) and the stream resumes at the exact spilled
 position, bit-equal to an uninterrupted one. Below eviction sits the
 optional host spill tier (`CacheConfig.host_spill_pages`): evicted
 published pages move to host memory and come back on a later prefix hit.
-With ``speculate_k`` = k, pure-decode rounds feed up to k n-gram drafts
-per slot and the step verifies them and rolls the rejected ones back
-(`launch.speculative`); greedy streams are those of plain decoding
+With ``speculate_k`` = k, pure-decode rounds feed up to k drafts per slot
+(the n-gram drafter, or the self drafters, which run the engine's own
+first layer or whole stack through `models.forward_seq` on the host side
+of `step_begin`, outside every CUDA graph) and the step verifies them and
+rolls the rejected ones back (`launch.speculative`); greedy streams are
+those of plain decoding
 wherever a row's bits do not depend on the tick's width: on the CPU, and
 on the card on the paged AMS paths (K1's and K2's splits follow the row,
 `models.common.row_sum` the norm's and the sampling softmax's sums).
@@ -56,8 +59,13 @@ front end serves. With ``ObsConfig(cost=True)`` (the default) the engine
 accumulates the roofline floors of `obs.cost` per tick and per request, on
 the host, outside the graph.
 
-Not ported yet, and refused with NotImplementedError: meshes, prefix
-embeds and the self drafter.
+A request may carry modality prefix embeddings (``submit(prefix_embeds=
+[n, d_model])``, configs with ``num_prefix_embeds > 0``): they are fed
+ahead of the prompt through the step's embeds override (a static f32
+buffer inside every CUDA graph), attended both ways, and such a request
+skips the prefix cache (its prefix is request-local floats).
+
+Not ported yet, and refused with NotImplementedError: meshes.
 """
 
 from __future__ import annotations
@@ -326,7 +334,10 @@ class ServeEngine:
         self._step = build_engine_step(cfg, self.rcfg, ccfg, speculate_k=k)
         self.drafter: Optional[Drafter] = None
         if k:
-            drafter = make_drafter(ec.drafter) if isinstance(ec.drafter, str) else ec.drafter
+            # the self drafters propose from the engine's own (quantized) params
+            drafter = (make_drafter(ec.drafter, params=self.params, cfg=cfg,
+                                    capacity=ec.capacity, policy=quant)
+                       if isinstance(ec.drafter, str) else ec.drafter)
             if not isinstance(drafter, Drafter):
                 raise TypeError(f"drafter must be a Drafter or name, got "
                                 f"{type(drafter).__name__}")
@@ -352,7 +363,8 @@ class ServeEngine:
         self.last_token = np.zeros(slots, np.int32)
         self.inputs = StepInputs(slots, self.step_chunk,
                                  ccfg.max_pages_per_seq if ccfg.paged else 0, self.device,
-                                 speculative=bool(k))
+                                 speculative=bool(k),
+                                 d_embed=cfg.d_model if cfg.num_prefix_embeds else 0)
         self.samp = slot_batch(slots, self.device, rows={"ngen": self.inputs.dev["ngen"]})
         # on the card every tick replays a CUDA graph of the step
         self.graphs: Optional[GraphedStep] = None
@@ -450,15 +462,21 @@ class ServeEngine:
         ``sampling`` the per-request draw (greedy when omitted); ``priority``
         (higher = more urgent) orders the queue and, on paged caches with
         ``EngineConfig.preempt``, lets a blocked head preempt a running
-        request of strictly lower priority."""
+        request of strictly lower priority. ``prefix_embeds`` [n, d_model]
+        (configs with a modality front end) are fed ahead of the prompt."""
         sp = sampling if sampling is not None else GREEDY
-        if prefix_embeds is not None:
-            raise NotImplementedError("prefix embeds are not ported yet "
-                                      "(ROADMAP.md, Modules to port)")
         if sp.max_tokens is not None:
             max_tokens = sp.max_tokens
         if max_tokens is None:
             raise ValueError("max_tokens required (argument or SamplingParams.max_tokens)")
+        if prefix_embeds is not None:
+            prefix_embeds = np.asarray(prefix_embeds, np.float32)
+            if self.cfg.num_prefix_embeds == 0:
+                raise ValueError(f"{self.cfg.name} has no modality frontend; "
+                                 "prefix_embeds unsupported")
+            if prefix_embeds.ndim != 2 or prefix_embeds.shape[1] != self.cfg.d_model:
+                raise ValueError(f"prefix_embeds must be [n, d_model={self.cfg.d_model}], "
+                                 f"got {prefix_embeds.shape}")
         # host work only (a front end calls this beside the stepping thread,
         # whose CUDA graphs must see no CUDA call from another thread); the
         # queue lock serialises it against the driver's admission pass
@@ -466,10 +484,12 @@ class ServeEngine:
             rid = next(self._rid)
             # the request-level key folds the seed and the request id (never
             # the slot or tick), so seeded streams replay across restarts
-            req = Request(rid=rid, prompt=prompt, max_tokens=max_tokens, sampling=sp,
+            req = Request(rid=rid, prompt=prompt, max_tokens=max_tokens,
+                          prefix_embeds=prefix_embeds, sampling=sp,
                           key_data=request_key(sp.seed, rid), priority=priority)
             ccfg = self.cache_cfg
-            if ccfg.paged and ccfg.prefix_cache:
+            # a modality prefix is request-local floats, not hashable pages
+            if ccfg.paged and ccfg.prefix_cache and prefix_embeds is None:
                 req.page_hashes = prefix_page_hashes(req.prompt, ccfg.page_size,
                                                      ccfg.content_key)
             self.sched.submit(req, self.tick)        # raises when the queue is full
@@ -520,7 +540,7 @@ class ServeEngine:
                     return True
                 # always re-feed the last prompt token (its logits give the
                 # first generated token), so the matchable prefix stops one short
-                hashes = r.page_hashes[: (r.prompt_len - 1) // ps]
+                hashes = r.page_hashes[: (r.n_prefix + r.prompt_len - 1) // ps]
                 if not self.alloc.can_alloc(need, hashes):
                     return False
                 r.pages, shared = self.alloc.alloc(r.rid, need, hashes)
@@ -570,7 +590,7 @@ class ServeEngine:
             else:
                 reset_cache_slot(self.cache, slot)
             if not resumed:
-                self._m_prompt.inc(req.prompt_len)
+                self._m_prompt.inc(req.n_prefix + req.prompt_len)
             if self.trace.enabled:
                 self.trace.end(req.rid + 1, "preempted" if resumed else "queued",
                                args={"slot": slot, "cached_len": req.cached_len})
@@ -740,7 +760,7 @@ class ServeEngine:
             if req is None:
                 continue
             n = 1
-            rem = req.prompt_len - int(self.fed[s])
+            rem = req.n_prefix + req.prompt_len - int(self.fed[s])
             if PC > 1 and rem > 1:
                 extra = min(min(PC, rem) - 1, leftover)
                 n += max(0, extra)
@@ -771,6 +791,8 @@ class ServeEngine:
         h["nvalid"][:] = nvalid
         if K:
             h["ndraft"][:] = ndraft
+        if "embed_mask" in h:
+            h["embed_mask"][:] = 0
         for s, req in enumerate(self.active):
             if req is None:
                 continue
@@ -781,10 +803,17 @@ class ServeEngine:
             if req.first_step_tick < 0:
                 req.first_step_tick = self.tick
             h["pos"][s] = i
+            npre = req.n_prefix
+            if i < npre:                                  # modality prefix rows
+                m = min(int(nvalid[s]), npre - i)
+                h["embeds"][s, :m] = req.prefix_embeds[i:i + m]
+                h["embed_mask"][s, :m] = 1
             for j in range(int(nvalid[s])):
                 idx = i + j
-                if idx < req.prompt_len:
-                    h["token"][s, j] = req.prompt[idx]
+                if idx < npre:
+                    continue
+                if idx < npre + req.prompt_len:
+                    h["token"][s, j] = req.prompt[idx - npre]
                 elif j == 0 or s not in proposals:
                     h["token"][s, j] = self.last_token[s]
                 else:                                     # this round's drafts
@@ -863,7 +892,7 @@ class ServeEngine:
                     j = req.published
                     self.alloc.publish(req.rid, req.page_hashes[j], req.pages[j])
                     req.published = j + 1
-            if i + n - 1 < req.prompt_len - 1:
+            if i + n - 1 < req.n_prefix + req.prompt_len - 1:
                 continue                                  # still prefilling
             # a speculative round emits its accepted drafts and the bonus or
             # corrective draw in one go
@@ -915,10 +944,10 @@ class ServeEngine:
                 # the next round inserts there again. Drafting starts after
                 # the prompt, so the rewind never reaches a shared page
                 new_fed = i + 1 + a
-                assert new_fed >= req.prompt_len and new_fed > req.cached_len - 1, (
+                end = req.n_prefix + req.prompt_len
+                assert new_fed >= end and new_fed > req.cached_len - 1, (
                     f"slot {s}: speculative rewind to {new_fed} would cross the "
-                    f"shared/prompt boundary (cached {req.cached_len}, prompt end "
-                    f"{req.prompt_len})")
+                    f"shared/prompt boundary (cached {req.cached_len}, prompt end {end})")
                 self.fed[s] = new_fed
         if cm is not None:
             self._m_floor_b.inc(cm.tick_floor_bytes(p.fed, tick_reads))

@@ -8,7 +8,9 @@ The cache is the contiguous default, as in the reference; ``--cache paged``
 serves paged caches instead (bf16 pages for ``--scheme fp16``, AMS pages for
 the quantized schemes). ``--temperature`` > 0 samples on the device, seeded
 by ``--sample-seed`` (with ``--top-k`` / ``--top-p``); ``--speculate K``
-scores up to K n-gram drafts per decode round.
+scores up to K drafts per decode round (``--drafter ngram | self |
+self-full``). A config with a modality front end (``--arch internvl2-1b``)
+gets seeded standard-normal prefix embeddings for every request.
 """
 
 from __future__ import annotations
@@ -28,14 +30,18 @@ from .sampling import SamplingParams
 def generate(arch: str, *, reduced=True, scheme="fp5.33-e2m3", strategy="set_lsb",
              impl="ref", attn_impl="ref", batch=2, prompt_len=16, gen_tokens=16, seed=0,
              params=None, capacity=None, prompts=None, sampling=None, prefill_chunk=1,
-             cache="contiguous", page_size=16, device="cuda", speculate_k=0, drafter="ngram"):
+             cache="contiguous", page_size=16, device="cuda", speculate_k=0, drafter="ngram",
+             prefix_embeds=None):
     """Submit ``batch`` requests at tick 0 (prompts drawn from ``seed`` unless
     given as ``prompts`` [batch, prompt_len]) and drain the engine. The
     cache is contiguous by default, as in the reference's ``generate``;
     ``cache="paged"`` pairs bf16 pages with ``scheme="fp16"`` and AMS pages
     with the quantized schemes, as the reference's serving benchmark pairs
     them. ``attn_impl`` selects the attention lowering (ref | kernel);
-    ``speculate_k`` / ``drafter`` turn on speculative decoding.
+    ``speculate_k`` / ``drafter`` turn on speculative decoding. A config
+    with ``num_prefix_embeds`` > 0 takes ``prefix_embeds`` [batch, n,
+    d_model], drawn standard-normal from ``seed`` (after the prompts) when
+    not given, and its capacity holds them.
     Returns (tokens [batch, gen_tokens], stats); streams that stop early are
     padded with -1."""
     cfg = get_config(arch)
@@ -46,7 +52,10 @@ def generate(arch: str, *, reduced=True, scheme="fp5.33-e2m3", strategy="set_lsb
         prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
     prompts = np.asarray(prompts, np.int32)
     batch, prompt_len = prompts.shape
-    cap = capacity or (prompt_len + gen_tokens)
+    cap = capacity or (prompt_len + gen_tokens + cfg.num_prefix_embeds)
+    if cfg.num_prefix_embeds and prefix_embeds is None:
+        prefix_embeds = rng.standard_normal(
+            (batch, cfg.num_prefix_embeds, cfg.d_model)).astype(np.float32)
     if cache == "contiguous":
         ccfg = CacheConfig(kind="contiguous", impl=attn_impl)
     elif cache == "paged":
@@ -61,7 +70,9 @@ def generate(arch: str, *, reduced=True, scheme="fp5.33-e2m3", strategy="set_lsb
                      speculate_k=speculate_k, drafter=drafter),
         params=params)
     per_req = sampling if isinstance(sampling, (list, tuple)) else [sampling] * batch
-    reqs = [eng.submit(prompts[b], gen_tokens, sampling=per_req[b]) for b in range(batch)]
+    reqs = [eng.submit(prompts[b], gen_tokens, sampling=per_req[b],
+                       prefix_embeds=None if prefix_embeds is None else prefix_embeds[b])
+            for b in range(batch)]
     stats = eng.run()
     width = max(r.n_generated for r in reqs)
     toks = np.full((len(reqs), width), -1, np.int32)
@@ -93,7 +104,7 @@ def main():
     ap.add_argument("--sample-seed", type=int, default=0)
     ap.add_argument("--speculate", type=int, default=0,
                     help="score up to K draft tokens per decode round (0 = off)")
-    ap.add_argument("--drafter", default="ngram", help="ngram (self / self-full: not ported)")
+    ap.add_argument("--drafter", default="ngram", help="ngram | self | self-full")
     args = ap.parse_args()
     sampling = None
     if args.temperature > 0:

@@ -16,23 +16,25 @@ rejection, draws from p_j with d_j masked out. The key for the decisions at
 stream index n is ``fold_in(request_key, n)``, with the accept uniform on
 its sub-fold 1 and the draw on sub-fold 2 (`launch.prng`).
 
-The n-gram drafter is ported; the self drafter needs `models.forward_seq`,
-which is not (ROADMAP.md, Modules to port): ``make_drafter("self")`` raises.
+Drafters: prompt-lookup n-grams (`NgramDrafter`), and early-exit self
+drafting (`SelfDrafter`): greedy proposals from the serving model's first
+layer (``"self"``) or whole stack (``"self-full"``) through
+`models.forward_seq`, run eagerly on the host side of the engine's
+`step_begin`, outside every CUDA graph (it reads one token back per
+proposal, as the reference's does).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
-from repro_torch.core.tree import tree_leaves
+from repro_torch.core.tree import tree_leaves, tree_map
 
 from . import prng
 from .sampling import any_sampled, log_softmax, masked_logits, tempered
-
-SELF_DRAFTER_TODO = ("the self drafter runs the model's full-sequence forward, "
-                     "models.forward_seq, which is not ported yet (ROADMAP.md, Modules to port)")
-
 
 # ---------------------------------------------------------------------------
 # drafters (host-side, deterministic proposals)
@@ -87,16 +89,66 @@ class NgramDrafter(Drafter):
         return np.zeros(0, np.int32)
 
 
+class SelfDrafter(Drafter):
+    """Early-exit self drafting: greedy proposals from the first
+    ``draft_groups`` stacked layers of the serving model itself (the same,
+    possibly quantized, weights, embedding and head; ``None`` keeps the
+    whole stack, the accept-rate ceiling). Each proposal runs
+    `models.forward_seq` over a fixed ``capacity``-token buffer (causal
+    masking makes the padding inert) and reads the argmax at the last
+    filled position."""
+
+    name = "self"
+
+    def __init__(self, params, cfg, capacity: int, *, draft_groups: Optional[int] = 1,
+                 policy=None):
+        import dataclasses
+
+        n_groups = tree_leaves(params["layers"])[0].shape[0]
+        g = n_groups if draft_groups is None else draft_groups
+        if not 1 <= g <= n_groups:
+            raise ValueError(f"draft_groups must be in [1, {n_groups}], got {g}")
+        self.draft_params = dict(params, layers=tree_map(lambda t: t[:g], params["layers"]))
+        self.draft_cfg = dataclasses.replace(cfg, num_layers=g)
+        self.capacity = capacity
+        self.policy = policy
+
+    def propose(self, history: np.ndarray, k: int) -> np.ndarray:
+        from repro_torch.models import forward_seq
+
+        h = np.asarray(history, np.int32)
+        # the most recent context that leaves room for k drafts in the buffer
+        h = h[max(0, h.shape[0] - (self.capacity - k)):]
+        L = h.shape[0]
+        dev = tree_leaves(self.draft_params["embed"])[0].device
+        buf = torch.zeros((1, self.capacity), dtype=torch.int32, device=dev)
+        buf[0, :L] = torch.from_numpy(h).to(dev)
+        out = []
+        for j in range(k):
+            logits, _, _ = forward_seq(self.draft_params, buf, self.draft_cfg,
+                                       policy=self.policy)
+            nxt = int(torch.argmax(logits[0, L + j - 1]))
+            buf[0, L + j] = nxt
+            out.append(nxt)
+        return np.asarray(out, np.int32)
+
+
 DRAFTERS = ("ngram", "self", "self-full")
 
 
-def make_drafter(name: str) -> Drafter:
-    """Engine-facing factory: ``"ngram"``; ``"self"`` / ``"self-full"``
-    raise NotImplementedError (they need `models.forward_seq`)."""
+def make_drafter(name: str, *, params=None, cfg=None, capacity: int = 0,
+                 policy=None) -> Drafter:
+    """Engine-facing factory: ``"ngram"`` needs nothing; ``"self"`` binds the
+    first stacked layer of the engine's own params and config, ``"self-full"``
+    the whole stack."""
     if name == "ngram":
         return NgramDrafter()
     if name in ("self", "self-full"):
-        raise NotImplementedError(SELF_DRAFTER_TODO)
+        if params is None or cfg is None or capacity < 1:
+            raise ValueError(f"the {name!r} drafter needs the engine's params, config and "
+                             "capacity")
+        return SelfDrafter(params, cfg, capacity, policy=policy,
+                           draft_groups=None if name == "self-full" else 1)
     raise ValueError(f"unknown drafter {name!r} (expected one of {DRAFTERS})")
 
 

@@ -5,13 +5,17 @@ The reference jits one slot-masked program per engine and donates the
 cache to it. The port's step is a plain function with the same arguments:
 
     step(params, token [B] | [B, C], pos [B], cache, sampling, *,
-         nvalid [B] = None, block_tables [B, MP] = None)
+         nvalid [B] = None, block_tables [B, MP] = None,
+         embeds [B(, C), D] = None, embed_mask [B(, C)] = None)
         -> (next_token [B], done [B], cache)
 
 ``pos`` holds each slot's start position (negative = idle slot, its cache
 write suppressed); with ``chunk`` = C > 1 every slot feeds a ragged block of
 up to C tokens and ``nvalid`` its valid count; ``block_tables`` is taken by
-paged caches only. The epilogue is the sampling draw with in-step
+paged caches only; ``embeds`` (f32) and ``embed_mask`` (nonzero where a
+slot feeds a modality prefix embedding instead of a token) only when the
+config has a modality front end (``num_prefix_embeds > 0``), as in the
+reference's signature. The epilogue is the sampling draw with in-step
 termination (`sampling.sample_tokens`). With ``speculate_k`` = K > 0 the
 step also takes ``ndraft`` [B] (the drafts closing each slot's chunk),
 scores the last ndraft + 1 positions, verifies the drafts
@@ -59,17 +63,18 @@ def build_engine_step(cfg: ModelConfig, rcfg: RunConfig, cache_cfg, speculate_k:
     policy = rcfg.quant if rcfg.quantized else None
 
     def step(params, token, pos, cache, sampling, *, nvalid=None, block_tables=None,
-             ndraft=None):
+             ndraft=None, embeds=None, embed_mask=None):
+        emb = dict(embeds=embeds, embed_mask=embed_mask)
         if not speculate_k:
             logits, cache = decode_step(params, token, cache, pos, cfg, policy=policy,
                                         block_tables=block_tables, cache_cfg=cache_cfg,
-                                        nvalid=nvalid)
+                                        nvalid=nvalid, **emb)
             next_token, done = sample_tokens(logits, sampling)
             return next_token, done, cache
         k = min(speculate_k, token.shape[1] - 1)
         logits, cache = decode_step(params, token, cache, pos, cfg, policy=policy,
                                     block_tables=block_tables, cache_cfg=cache_cfg,
-                                    nvalid=nvalid, ndraft=ndraft, n_logits=k + 1)
+                                    nvalid=nvalid, ndraft=ndraft, n_logits=k + 1, **emb)
         if k == 0:
             logits = logits[:, None]
         out, n_emit, accepted, done = verify_tokens(logits, token, nvalid, ndraft, sampling, k)
@@ -86,21 +91,27 @@ def build_engine_step(cfg: ModelConfig, rcfg: RunConfig, cache_cfg, speculate_k:
 
 class StepInputs:
     """The step's static inputs: token [B, C], pos [B], nvalid [B],
-    block_tables [B, MP] (paged caches only), the sampling row ngen [B] and
-    ndraft [B] (speculative engines only), all int32 views of one device
-    buffer (``dev``), staged through numpy views of one host buffer
-    (``host``, pinned on CUDA). `send` copies the host buffer over in one
-    non-blocking copy: the host writes the next tick's inputs only after
-    the tick's outputs were read, so the copy has landed by then."""
+    block_tables [B, MP] (paged caches only), the sampling row ngen [B],
+    ndraft [B] (speculative engines only) and, with ``d_embed`` > 0 (a
+    config with prefix embeds), embed_mask [B, C] and embeds [B, C, D]. All
+    are views of one device buffer (``dev``) staged through numpy views of
+    one host buffer (``host``, pinned on CUDA): int32 views, and an f32
+    view of the same 4-byte words for the embeds. `send` copies the host
+    buffer over in one non-blocking copy: the host writes the next tick's
+    inputs only after the tick's outputs were read, so the copy has landed
+    by then."""
 
     def __init__(self, slots: int, chunk: int, max_pages: int, device: torch.device,
-                 speculative: bool = False):
+                 speculative: bool = False, d_embed: int = 0):
         shapes = {"token": (slots, chunk), "pos": (slots,), "nvalid": (slots,)}
         if max_pages:
             shapes["block_tables"] = (slots, max_pages)
         shapes["ngen"] = (slots,)
         if speculative:
             shapes["ndraft"] = (slots,)
+        if d_embed:
+            shapes["embed_mask"] = (slots, chunk)
+            shapes["embeds"] = (slots, chunk, d_embed)
         n = sum(math.prod(sh) for sh in shapes.values())
         pinned = device.type == "cuda"
         self.host_buf = torch.zeros(n, dtype=torch.int32, pin_memory=pinned)
@@ -110,8 +121,11 @@ class StepInputs:
         off = 0
         for name, sh in shapes.items():
             size = math.prod(sh)
-            self.host[name] = self.host_buf[off:off + size].numpy().reshape(sh)
-            self.dev[name] = self.dev_buf[off:off + size].view(sh)
+            host, dev = self.host_buf[off:off + size], self.dev_buf[off:off + size]
+            if name == "embeds":
+                host, dev = host.view(torch.float32), dev.view(torch.float32)
+            self.host[name] = host.numpy().reshape(sh)
+            self.dev[name] = dev.view(sh)
             off += size
         self.chunked = chunk > 1
 
@@ -125,29 +139,37 @@ class StepInputs:
         self.host["nvalid"][:] = 0
         if "ndraft" in self.host:
             self.host["ndraft"][:] = 0
+        if "embed_mask" in self.host:
+            self.host["embed_mask"][:] = 0
 
     def step_args(self, width: int):
-        """(token, pos, nvalid, block_tables) device views for a tick of
-        ``width`` tokens per slot: token [B] and no nvalid on a one-token
-        engine, token [B, width] on a chunked one."""
+        """(token, pos, nvalid, block_tables, extra keywords) device views for
+        a tick of ``width`` tokens per slot: token [B] and no nvalid on a
+        one-token engine, token [B, width] on a chunked one; the keywords
+        hold ndraft and the embeds where the engine has them."""
         d = self.dev
-        token = d["token"][:, :width] if self.chunked else d["token"][:, 0]
-        return (token, d["pos"], d["nvalid"] if self.chunked else None,
-                d.get("block_tables"))
+        cols = slice(0, width) if self.chunked else 0
+        kw = {}
+        if "ndraft" in d:
+            kw["ndraft"] = d["ndraft"]
+        if "embeds" in d:
+            kw["embeds"] = d["embeds"][:, cols]
+            kw["embed_mask"] = d["embed_mask"][:, cols]
+        return (d["token"][:, cols], d["pos"], d["nvalid"] if self.chunked else None,
+                d.get("block_tables"), kw)
 
 
 def run_step(step, params, cache, inputs: StepInputs, sampling, width: int) -> torch.Tensor:
     """The eager step on the static inputs, as one int32 block: [2, B]
     (next token, done), or for a speculative step [B, K+4] (tokens
     [B, K+1], n_emit, accepted, done)."""
-    token, pos, nvalid, bt = inputs.step_args(width)
-    if "ndraft" not in inputs.dev:
+    token, pos, nvalid, bt, kw = inputs.step_args(width)
+    if "ndraft" not in kw:
         next_token, done, _ = step(params, token, pos, cache, sampling, nvalid=nvalid,
-                                   block_tables=bt)
+                                   block_tables=bt, **kw)
         return torch.stack([next_token, done.to(torch.int32)])
     (out, n_emit, accepted, done), _ = step(params, token, pos, cache, sampling,
-                                            nvalid=nvalid, block_tables=bt,
-                                            ndraft=inputs.dev["ndraft"])
+                                            nvalid=nvalid, block_tables=bt, **kw)
     return torch.cat([out, n_emit[:, None], accepted[:, None],
                       done[:, None].to(torch.int32)], dim=1)
 

@@ -6,6 +6,7 @@ from .transformer import (  # noqa: F401
     check_serving_support,
     check_support,
     decode_step,
+    forward_seq,
     init_params,
     layer_pattern,
     make_cache,

@@ -1,6 +1,12 @@
-"""Decode attention: GQA over paged or contiguous caches and absorbed MLA
-over a contiguous compressed stream (port of the decode paths of
-src/repro/models/attention.py).
+"""Attention: GQA over paged or contiguous caches and absorbed MLA over a
+contiguous compressed stream (port of src/repro/models/attention.py), for
+the decode step and for the full-sequence forward.
+
+The sequence forward (`gqa_attn_train`, `mla_attn_train`) runs the
+reference's blockwise online softmax in plain torch, as the reference runs
+it in plain XLA, with its bidirectional modality prefix and its window
+mask; its projections go through `apply_linear`, so with packed weights
+and ``impl="kernel"`` K1 / K1b run at B = sequence length.
 
 Each tick's K/V vectors are written into the layer's cache in place: a page
 pool (`cache.paged_insert`; AMS pools quantize each vector once) or a
@@ -105,6 +111,70 @@ def gqa_attn_decode_paged_chunk(p, x, pool, pos, nvalid, block_tables, cfg, dims
                                    cache_cfg=cache_cfg)
     o = o * dims.head_mask(o.device)[None, None, :, None].to(o.dtype)
     return apply_linear(p["wo"], o.reshape(B, c, dims.H * dims.hd), policy), pool
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence attention (the sequence forward; plain torch, as the
+# reference computes it in plain XLA)
+# ---------------------------------------------------------------------------
+def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0, prefix_len: int = 0,
+                        block_kv: int = 1024, scale=None) -> torch.Tensor:
+    """Online-softmax attention over key blocks of ``block_kv``: q [B, Sq,
+    H, hd], k [B, Skv, kv, hd], v [B, Skv, kv, hd_v] -> [B, Sq, H, hd_v] in
+    q.dtype. Heads are group-major (q head j reads kv head j // (H // kv)).
+    Query i sees key j when j <= i, or j < ``prefix_len`` (a bidirectional
+    modality prefix), and, with a ``window``, when i - j < window. The reference's op sequence: q scaled by the
+    scale rounded to q.dtype, scores in f32, masked entries at -2e30 under a
+    running max clamped at -1e30, p rounded to v.dtype for p . v."""
+    B, Sq, H, hd = q.shape
+    Skv, kv_n = k.shape[1], k.shape[2]
+    hd_v = v.shape[-1]
+    g = H // kv_n
+    assert g * kv_n == H
+    scale = scale if scale is not None else 1.0 / np.sqrt(hd)
+    bkv = min(block_kv, Skv)
+    dev = q.device
+    qf = q * torch.tensor(np.float32(scale), dtype=q.dtype, device=dev)
+    qg = qf.reshape(B, Sq, kv_n, g, hd).permute(0, 2, 3, 1, 4).to(torch.float32)  # [B,n,g,Sq,hd]
+    q_pos = torch.arange(Sq, device=dev)
+    m = torch.full((B, kv_n, g, Sq), -1e30, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, kv_n, g, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, kv_n, g, Sq, hd_v), dtype=torch.float32, device=dev)
+    for j0 in range(0, Skv, bkv):
+        kj = k[:, j0:j0 + bkv].permute(0, 2, 1, 3).to(torch.float32)[:, :, None]  # [B,n,1,bk,hd]
+        vj = v[:, j0:j0 + bkv].permute(0, 2, 1, 3)[:, :, None]
+        k_pos = torch.arange(j0, j0 + kj.shape[3], device=dev)
+        s = qg @ kj.transpose(-1, -2)                                           # [B,n,g,Sq,bk]
+        valid = torch.ones((Sq, kj.shape[3]), dtype=torch.bool, device=dev)
+        if causal:
+            vis = k_pos[None, :] <= q_pos[:, None]
+            if prefix_len > 0:
+                vis = vis | (k_pos[None, :] < prefix_len)
+            valid = valid & vis
+        if window > 0:
+            valid = valid & (q_pos[:, None] - k_pos[None, :] < window)
+        s = s + torch.where(valid, 0.0, -2e30).to(torch.float32)
+        m_new = torch.clamp_min(torch.maximum(m, s.amax(dim=-1)), -1e30)
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = p.to(v.dtype).to(torch.float32) @ vj.to(torch.float32)            # [B,n,g,Sq,hd_v]
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-20)[..., None]
+    return out.reshape(B, H, Sq, hd_v).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def gqa_attn_train(p, x, cfg, dims, *, policy=None, block_kv=1024, prefix_len=0, window=0):
+    """GQA over a whole sequence x [B, S, D]. Returns (out [B, S, D], (k, v))
+    with k / v [B, S, kv, hd], the contiguous cache the sequence leaves."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = gqa_qkv(p, x, cfg, dims, positions, policy)
+    o = blockwise_attention(q, k, v, causal=True, window=window or cfg.sliding_window,
+                            prefix_len=prefix_len, block_kv=block_kv)
+    o = o * dims.head_mask(o.device)[None, None, :, None].to(o.dtype)
+    return apply_linear(p["wo"], o.reshape(B, S, dims.H * dims.hd), policy), (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -328,3 +398,17 @@ def mla_attn_decode_chunk(p, x, cache_kv, pos, nvalid, cfg, dims, *, policy=None
                                           r_kv=cfg.kv_lora_rank, scale=_mla_scale(cfg),
                                           impl=attn_impl)
     return _mla_out(p, o_c, cfg, dims, policy), cache_kv
+
+
+def mla_attn_train(p, x, cfg, dims, *, policy=None, block_kv=1024, prefix_len=0):
+    """Absorbed MLA over a whole sequence x [B, S, D]: one kv head of width
+    r_kv + dr shared by every head, values its first r_kv columns. Returns
+    (out [B, S, D], the compressed stream [B, S, r_kv + dr])."""
+    S = x.shape[1]
+    r_kv = cfg.kv_lora_rank
+    positions = torch.arange(S, device=x.device)[None, :]
+    q_eff = _mla_q_eff(p, x, cfg, dims, positions, policy)
+    kv = _mla_kv_stream(p, x, cfg, positions, policy)
+    o_c = blockwise_attention(q_eff, kv[:, :, None, :], kv[:, :, None, :r_kv], causal=True,
+                              prefix_len=prefix_len, block_kv=block_kv, scale=_mla_scale(cfg))
+    return _mla_out(p, o_c, cfg, dims, policy), kv

@@ -1,21 +1,29 @@
-"""Dense FFN (port of src/repro/models/ffn.py): the SiLU-GLU path."""
+"""Dense FFN variants (port of src/repro/models/ffn.py): SwiGLU, GeGLU and
+the plain GELU MLP."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch.core.rtn import device_table
+
 from .common import apply_linear, make_linear
+
+ACTIVATIONS = ("silu_glu", "gelu_glu", "gelu")
 
 
 def init_ffn(gen, d_model: int, d_ff: int, activation: str, *, dtype=torch.float32,
              device="cpu"):
-    if activation != "silu_glu":
-        raise NotImplementedError(f"FFN activation {activation!r} is not ported yet")
-    return {
-        "w_gate": make_linear(gen, d_model, d_ff, dtype=dtype, device=device),
-        "w_up": make_linear(gen, d_model, d_ff, dtype=dtype, device=device),
-        "w_down": make_linear(gen, d_ff, d_model, dtype=dtype, device=device),
-    }
+    """``{w_gate, w_up, w_down}`` for a gated activation (``*_glu``), else
+    ``{w_up, w_down}``, drawn in that order."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown FFN activation {activation!r}; one of {ACTIVATIONS}")
+    kw = dict(dtype=dtype, device=device)
+    names = ("w_gate", "w_up") if activation.endswith("_glu") else ("w_up",)
+    p = {n: make_linear(gen, d_model, d_ff, **kw) for n in names}
+    p["w_down"] = make_linear(gen, d_ff, d_model, **kw)
+    return p
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -24,9 +32,25 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu's tanh approximation, x * 0.5 * (1 + tanh(sqrt(2/pi) *
+    (x + 0.044715 x^3))), with each op rounded in x.dtype and both constants
+    taken in x.dtype first: the op sequence the reference's compiled step
+    rounds bf16 activations through (x^3 as (x * x) * x). The constants are
+    a device table made once (no copy from the host inside a graph)."""
+    c3, c = device_table((0.044715, float(np.sqrt(2 / np.pi))), x.dtype, str(x.device))
+    t = torch.tanh((x + (x * x * x) * c3) * c)
+    return x * ((t + 1) * 0.5)
+
+
+def _act(name: str):
+    return silu if name.startswith("silu") else gelu
+
+
 def ffn_apply(p, x, activation: str, policy=None):
-    if "w_gate" not in p or activation != "silu_glu":
-        raise NotImplementedError(f"FFN activation {activation!r} is not ported yet")
-    g = silu(apply_linear(p["w_gate"], x, policy))
-    u = apply_linear(p["w_up"], x, policy)
-    return apply_linear(p["w_down"], g * u, policy)
+    act = _act(activation)
+    if "w_gate" in p:
+        g = act(apply_linear(p["w_gate"], x, policy))
+        u = apply_linear(p["w_up"], x, policy)
+        return apply_linear(p["w_down"], g * u, policy)
+    return apply_linear(p["w_down"], act(apply_linear(p["w_up"], x, policy)), policy)

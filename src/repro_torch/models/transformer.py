@@ -1,12 +1,16 @@
 """Decoder assembly for dense GQA models (paged or contiguous caches) and
-absorbed-MLA models (contiguous caches) (port of the gqa / mla decode paths
-of src/repro/models/transformer.py).
+absorbed-MLA models (contiguous caches) (port of the gqa / mla paths of
+src/repro/models/transformer.py): the one-token and ragged decode steps,
+and the full-sequence forward `forward_seq` (prefill with a contiguous
+cache, and the self drafter's forward).
 
 Parameters keep the reference's tree: ``embed``, ``layers`` (every leaf
 stacked ``[G, ...]`` over layers), ``final_norm``, ``lm_head``. The
 reference's ``lax.scan`` over stacked layers is a Python loop over views
 ``leaf[g]``; the caches (page pools, or contiguous [B, S, ...] slot caches)
-are stacked the same way and are written in place.
+are stacked the same way and are written in place. Modality prefix
+embeddings (VLM patches) enter `forward_seq` ahead of the tokens, and the
+decode step through its ``embeds`` / ``embed_mask`` override.
 """
 
 from __future__ import annotations
@@ -35,17 +39,17 @@ def layer_pattern(cfg) -> Tuple[str, ...]:
 
 
 def check_serving_support(cfg):
-    """The port serves dense GQA and absorbed-MLA layers, without sliding
-    windows or prefix embeds."""
+    """The port serves dense GQA and absorbed-MLA layers (any FFN
+    activation, with or without modality prefix embeds), without sliding
+    windows."""
     pat = layer_pattern(cfg)
     if pat not in (("gqa",), ("mla",)):
         raise NotImplementedError(
             f"the port serves dense GQA and MLA layers only; {cfg.name} has "
-            f"{sorted(set(pat))} (MoE/SSM: ROADMAP.md, Modules to port)")
+            f"{sorted(set(pat))} (MoE, Mamba and RG-LRU blocks: ROADMAP.md, Modules to port)")
     if cfg.sliding_window:
-        raise NotImplementedError("sliding-window ring caches are not ported yet")
-    if cfg.num_prefix_embeds:
-        raise NotImplementedError("prefix embeds (modality frontends) are not ported yet")
+        raise NotImplementedError("sliding-window ring caches are not ported yet "
+                                  "(ROADMAP.md, Modules to port)")
 
 
 def check_support(cfg, cache_cfg=None):
@@ -200,8 +204,22 @@ def block_decode_chunk(p, x, cache, pos, nvalid, kind, cfg, dims, *, policy, blo
     return x + F.ffn_apply(p["ffn"], h2, cfg.ffn_activation, policy), cache
 
 
-def _embed(params, tokens, dtype=torch.bfloat16):
-    return params["embed"]["w"].to(dtype)[tokens.long()]
+def _embed(params, tokens, dtype=torch.bfloat16, prefix_embeds=None):
+    x = params["embed"]["w"].to(dtype)[tokens.long()]
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
+    return x
+
+
+def _override(x, embeds, embed_mask):
+    """The step's embedding override: where ``embed_mask`` is set, the
+    prefix embedding (rounded to x.dtype) replaces the token's."""
+    if embeds is None:
+        return x
+    mask = (embed_mask if embed_mask is not None
+            else torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device))
+    return torch.where(mask.reshape(x.shape[:-1])[..., None] != 0,
+                       embeds.reshape(x.shape).to(x.dtype), x)
 
 
 def _head(params, x, cfg, dims, policy=None):
@@ -220,8 +238,53 @@ def _layers(params, cache, fn, x):
     return x
 
 
+def block_seq(p, x, kind, cfg, dims, *, policy=None, block_kv=1024, prefix_len=0,
+              want_cache=False):
+    """x [B, S, D] through one block over the whole sequence. Returns (x,
+    cache or None): GQA's ``{"k", "v"}`` [B, S, kv, hd], MLA's ``{"kv"}``
+    [B, S, 1, r_kv + dr]."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == "mla":
+        out, kv = A.mla_attn_train(p["attn"], h, cfg, dims, policy=policy, block_kv=block_kv,
+                                   prefix_len=prefix_len)
+        cache = {"kv": kv[:, :, None, :]} if want_cache else None
+    else:
+        out, (k, v) = A.gqa_attn_train(p["attn"], h, cfg, dims, policy=policy,
+                                       block_kv=block_kv, prefix_len=prefix_len)
+        cache = {"k": k, "v": v} if want_cache else None
+    x, h2 = residual_norm(x, out, p["ln2"], cfg.norm_eps)
+    return x + F.ffn_apply(p["ffn"], h2, cfg.ffn_activation, policy), cache
+
+
+def forward_seq(params, tokens, cfg, *, policy=None, block_kv=1024, prefix_embeds=None,
+                want_cache=False, dtype=torch.bfloat16):
+    """Full-sequence forward: tokens [B, S] (after ``prefix_embeds`` [B, P,
+    D], which attend to each other both ways). Returns (logits [B, P + S, V]
+    f32, aux, cache or None): aux is the reference's auxiliary loss (0 for
+    dense layers); ``want_cache`` returns the contiguous cache the sequence
+    leaves, leaves stacked [G, B, P + S, ...] as `make_cache` lays them out,
+    from which `decode_step` continues (copied into a cache of larger
+    capacity)."""
+    check_serving_support(cfg)
+    dims = model_dims(cfg)
+    kind = layer_pattern(cfg)[0]
+    prefix_len = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+    x = _embed(params, tokens, dtype, prefix_embeds)
+    caches = []
+    G = tree_leaves(params["layers"])[0].shape[0]
+    for g in range(G):
+        gp = tree_map(lambda t: t[g], params["layers"]["sub0"])
+        x, c = block_seq(gp, x, kind, cfg, dims, policy=policy, block_kv=block_kv,
+                         prefix_len=prefix_len, want_cache=want_cache)
+        caches.append(c)
+    cache = {"layers": {"sub0": stack_trees(caches)}} if want_cache else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head(params, x, cfg, dims, policy), aux, cache
+
+
 def decode_step(params, token, cache, pos, cfg, *, policy=None, dtype=torch.bfloat16,
-                block_tables=None, cache_cfg=None, nvalid=None, ndraft=None, n_logits=1):
+                block_tables=None, cache_cfg=None, nvalid=None, ndraft=None, n_logits=1,
+                embeds=None, embed_mask=None):
     """One decode step. token [B] with per-slot positions ``pos`` [B]
     (negative = idle slot, write suppressed), or the ragged multi-token
     step: token [B, C] with start positions ``pos`` [B] and valid counts
@@ -234,17 +297,23 @@ def decode_step(params, token, cache, pos, cfg, *, policy=None, dtype=torch.bflo
     chunk's last ``ndraft[b]`` tokens are drafts, and the logits come back
     [B, K+1, V] at positions ``nvalid-1-ndraft .. nvalid-1`` (clipped into
     the chunk): row j scores the token after draft j, row 0 is the plain
-    step's last-valid row."""
+    step's last-valid row.
+
+    ``embeds`` [B, D] + ``embed_mask`` [B] (``[B, C, D]`` / ``[B, C]`` in
+    the ragged step) override the token embedding where the mask is set:
+    the engine streams modality prefix embeddings through the step this
+    way during prefill."""
     if token.dim() == 2:
         return _decode_step_chunk(params, token, cache, pos, nvalid, cfg, policy=policy,
                                   dtype=dtype, block_tables=block_tables,
-                                  cache_cfg=cache_cfg, ndraft=ndraft, n_logits=n_logits)
+                                  cache_cfg=cache_cfg, ndraft=ndraft, n_logits=n_logits,
+                                  embeds=embeds, embed_mask=embed_mask)
     if n_logits != 1:
         raise ValueError("n_logits > 1 requires the ragged [B, C] step")
     dims = model_dims(cfg)
     kind = layer_pattern(cfg)[0]
     pos = pos.to(torch.int32)
-    x = _embed(params, token[:, None], dtype)
+    x = _override(_embed(params, token[:, None], dtype), embeds, embed_mask)
 
     def fn(gp, x, c):
         return block_decode(gp, x, c, pos, kind, cfg, dims, policy=policy,
@@ -256,12 +325,12 @@ def decode_step(params, token, cache, pos, cfg, *, policy=None, dtype=torch.bflo
 
 def _decode_step_chunk(params, token, cache, pos, nvalid, cfg, *, policy=None,
                        dtype=torch.bfloat16, block_tables=None, cache_cfg=None, ndraft=None,
-                       n_logits=1):
+                       n_logits=1, embeds=None, embed_mask=None):
     dims = model_dims(cfg)
     kind = layer_pattern(cfg)[0]
     pos = pos.to(torch.int32)
     nvalid = nvalid.to(torch.int32)
-    x = _embed(params, token, dtype)                                # [B, C, D]
+    x = _override(_embed(params, token, dtype), embeds, embed_mask)  # [B, C, D]
 
     def fn(gp, x, c):
         return block_decode_chunk(gp, x, c, pos, nvalid, kind, cfg, dims, policy=policy,

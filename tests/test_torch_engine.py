@@ -256,26 +256,44 @@ def cfg_(**kw):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(speculate_k=2, drafter="self"), "forward_seq"),
+    (dict(speculate_k=2, drafter="self"), None),
     (dict(mesh=object()), "mesh"),
-    (dict(speculate_k=2, drafter="self-full"), "forward_seq"),
+    (dict(speculate_k=2, drafter="self-full"), None),
 ])
 def test_missing_features_raise_not_implemented(kw, match):
-    """Features still to port raise at construction, naming what they need;
-    the self drafters need the full-sequence forward (models.forward_seq)."""
-    with pytest.raises(NotImplementedError, match=match):
-        cfg_(**kw)
+    """Features still to port (meshes) raise at construction, naming what
+    they need; the self drafters, ported, are built by the engine from its
+    own params: the first layer ("self") or the whole stack ("self-full")."""
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            cfg_(**kw)
+        return
+    from repro_torch.launch.speculative import SelfDrafter
+    eng = ServeEngine(cfg_(**kw))
+    d = eng.drafter
+    assert isinstance(d, SelfDrafter) and d.capacity == CAP
+    assert d.draft_cfg.num_layers == (1 if kw["drafter"] == "self" else eng.cfg.num_layers)
+    assert d.draft_params["lm_head"] is eng.params["lm_head"]
+    assert len(d.propose(np.arange(1, 9, dtype=np.int32), 2)) == 2
 
 
 def test_missing_request_features_raise_not_implemented():
-    """Request features still to port raise; preemption over a contiguous
-    cache raises as the reference's does, and a priority over a contiguous
-    cache only orders the queue (no preemption), as in the reference."""
+    """Request features still to port raise; prefix embeds, ported, are
+    accepted where the config has a modality front end and refused with
+    ValueError, as the reference refuses them, for a config without one or
+    at the wrong width; preemption over a contiguous cache raises as the
+    reference's does, and a priority over a contiguous cache only orders the
+    queue (no preemption), as in the reference."""
     with pytest.raises(NotImplementedError, match="meshes"):
         cfg_(mesh=object())
     eng = ServeEngine(cfg_())
-    with pytest.raises(NotImplementedError, match="prefix embeds"):
+    with pytest.raises(ValueError, match="no modality frontend"):
         eng.submit([1, 2, 3], 4, prefix_embeds=np.zeros((2, 128), np.float32))
+    vlm = ServeEngine(cfg_(arch="internvl2-1b"))
+    with pytest.raises(ValueError, match="d_model"):
+        vlm.submit([1, 2, 3], 4, prefix_embeds=np.zeros((2, 64), np.float32))
+    h = vlm.submit([1, 2, 3], 4, prefix_embeds=np.zeros((2, 128), np.float32))
+    assert h.result() and h.done and h.request.n_prefix == 2
     with pytest.raises(NotImplementedError, match="dense GQA"):
         ServeEngine(cfg_(arch="minicpm3-4b"))
     ticks = []

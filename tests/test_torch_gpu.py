@@ -50,7 +50,10 @@ def packed(K, N, dev, seed=0, scheme="fp5.33-e2m3", container=None):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("K,N,B", [(128, 128, 1), (700, 300, 5), (2048, 640, 33),
-                                   (3584, 512, 8), (3584, 18944, 8), (18944, 3584, 128)])
+                                   (3584, 512, 8), (3584, 18944, 8), (18944, 3584, 128),
+                                   # InternVL2-1B's projections, and a sequence forward's rows
+                                   (896, 128, 8), (896, 4864, 8), (4864, 896, 128),
+                                   (896, 896, 256)])
 def test_k1_kernel_matches_plain(K, N, B):
     from repro_torch.kernels.ams_matmul import COUNT, ams_matmul_fp533, ams_matmul_fp533_plain
 
@@ -166,7 +169,9 @@ def test_k1b_kernel_matches_plain_every_scheme(scheme):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("K,N,B", [(3584, 3584, 8), (3584, 512, 128), (3584, 18944, 8),
-                                   (18944, 3584, 128), (1, 40, 2)])
+                                   (18944, 3584, 128), (1, 40, 2),
+                                   # MusicGen-medium's MHA and GELU MLP
+                                   (1536, 1536, 8), (1536, 6144, 8), (6144, 1536, 128)])
 def test_k1b_fp425_kernel_matches_plain(K, N, B):
     _k1b_case("fp4.25-e2m2", K, N, B, cuda_device())
 
@@ -372,7 +377,10 @@ def test_k3_kernel_matches_plain(kv, g, hd, page, chunk):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv,g,hd,page,chunk", [(2, 2, 32, 8, 1), (2, 2, 32, 8, 4),
                                                 (4, 7, 128, 16, 1), (4, 7, 128, 16, 16),
-                                                (1, 3, 7, 8, 2), *WIDE_PAGES])
+                                                (1, 3, 7, 8, 2), *WIDE_PAGES,
+                                                # InternVL2-1B (g 7), MusicGen-medium (g 1)
+                                                (2, 7, 64, 16, 1), (2, 7, 64, 16, 16),
+                                                (24, 1, 64, 16, 1), (24, 1, 64, 16, 16)])
 def test_k2_kernel_matches_plain(kv, g, hd, page, chunk):
     from repro_torch.core.formats import get_scheme
     from repro_torch.core.kv_quant import quantize_kv
@@ -1094,6 +1102,43 @@ def test_graph_replays_bit_equal_to_the_eager_step(path, chunk):
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
     assert sorted(graphed.graphs.graphs) == sorted({(1, False), (chunk, False)})
     assert eager.graphs.graphs == {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_graph_replays_prefix_embeds_bit_equal_to_the_eager_step(chunk):
+    """The VLM path (reduced internvl2-1b, FP5.33 over AMS pages): three of
+    four requests feed 8 prefix embeddings through the graphs' static
+    embeds buffer; graph and eager engines in lockstep give equal tokens
+    every tick and equal cache bytes."""
+    import numpy as np
+
+    from repro_torch.cache import CacheConfig
+    from repro_torch.launch.config import EngineConfig
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.models.transformer import tree_leaves
+
+    cuda_device()
+    ec = EngineConfig(arch="internvl2-1b", reduced=True, scheme="fp5.33-e2m3", impl="kernel",
+                      slots=3, capacity=64, prefill_chunk=chunk, device="cuda", seed=3,
+                      cache=CacheConfig(kind="paged_ams", page_size=8, impl="kernel"))
+    graphed, eager = ServeEngine(ec), ServeEngine(ec)
+    rng = np.random.default_rng(chunk)
+    for i, p in enumerate(_graph_prompts()):
+        e = rng.standard_normal((8, 128)).astype(np.float32) if i != 1 else None
+        graphed.submit(p, 5, prefix_embeds=e)
+        eager.submit(p, 5, prefix_embeds=e)
+    tick = 0
+    while graphed.has_work or eager.has_work:
+        graphed.step()
+        eager.step(eager=True)
+        tick += 1
+        assert ([None if r is None else r.tokens for r in graphed.active]
+                == [None if r is None else r.tokens for r in eager.active]), f"tick {tick}"
+    assert [r.tokens for r in graphed.finished] == [r.tokens for r in eager.finished]
+    for a, b in zip(tree_leaves(graphed.cache), tree_leaves(eager.cache)):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    assert sorted(graphed.graphs.graphs) == sorted({(1, False), (chunk, False)})
 
 
 @pytest.mark.gpu

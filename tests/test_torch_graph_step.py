@@ -258,6 +258,50 @@ def test_sampled_and_speculative_steps_have_no_host_sync(arch, kind, feature, gu
         assert eng.stats()["spec_proposed"] > 0
 
 
+@pytest.mark.parametrize("arch,kind", [("internvl2-1b", "paged_ams"),
+                                       ("internvl2-1b", "contiguous"),
+                                       ("musicgen-medium", "paged_ams")])
+def test_zoo_step_has_no_host_sync(arch, kind, guard):
+    """The zoo's engines under the guard every tick: a VLM (reduced
+    internvl2-1b) feeds each request's prefix embeddings through the step's
+    embeds override, an f32 view of the same staged buffer as the int32
+    inputs (one copy per tick); an audio decoder (reduced musicgen-medium)
+    runs its GELU MLP, whose constants are a device table. Streams equal an
+    unguarded run."""
+    def zoo():
+        return ServeEngine(EngineConfig(
+            arch=arch, reduced=True, impl="kernel", slots=3, capacity=40, prefill_chunk=4,
+            device="cpu", cache=CacheConfig(kind=kind, page_size=8, impl="kernel")))
+    eng, plain = zoo(), zoo()
+    ins = eng.inputs
+    n_prefix = eng.cfg.num_prefix_embeds
+    if n_prefix:
+        assert ins.dev["embeds"].dtype == torch.float32
+        assert ins.dev["embeds"].shape == (3, 4, 128)
+        assert (ins.dev["embeds"].untyped_storage().data_ptr()
+                == ins.dev_buf.untyped_storage().data_ptr())
+    else:
+        assert "embeds" not in ins.dev
+    warm_up(eng)
+    inner, widths = eng.device_step, set()
+
+    def guarded(width, eager=False):
+        widths.add(width)
+        with guard:
+            return inner(width, eager=eager)
+
+    eng.device_step = guarded
+    rng = np.random.default_rng(3)
+    embeds = [rng.standard_normal((n_prefix, 128)).astype(np.float32)
+              if n_prefix and i != 1 else None for i in range(3)]
+    hs = [eng.submit(p, 4, prefix_embeds=e) for p, e in zip(prompts(), embeds)]
+    eng.run()
+    want = [plain.submit(p, 4, prefix_embeds=e) for p, e in zip(prompts(), embeds)]
+    plain.run()
+    assert [h.tokens for h in hs] == [h.tokens for h in want]
+    assert widths == {1, 4} and guard.ops > 0
+
+
 # ----------------------------------------------- idle run and static inputs
 def cache_bytes(eng):
     return [t.view(torch.uint8).clone() for t in tree_leaves(eng.cache)]

@@ -53,12 +53,26 @@ def test_ngram_drafter_matches_the_reference():
 
 
 def test_make_drafter_names():
+    """Each name builds its drafter: the self drafters bind the given
+    params' first layer or whole stack (and need params, config and
+    capacity); EngineConfig checks a name without building it."""
+    from repro_torch.configs import get_config as t_get_config
+    from repro_torch.models import init_params
+
     assert isinstance(SP.make_drafter("ngram"), SP.NgramDrafter)
-    for name in ("self", "self-full"):
-        with pytest.raises(NotImplementedError, match="forward_seq"):
+    cfg = t_get_config("qwen2-7b").reduced()
+    params = init_params(0, cfg)
+    for name, layers in (("self", 1), ("self-full", cfg.num_layers)):
+        d = SP.make_drafter(name, params=params, cfg=cfg, capacity=16)
+        assert isinstance(d, SP.SelfDrafter) and d.draft_cfg.num_layers == layers
+        assert tree_leaves(d.draft_params["layers"])[0].shape[0] == layers
+        with pytest.raises(ValueError, match="params"):
             SP.make_drafter(name)
+        assert EngineConfig(speculate_k=2, drafter=name).drafter == name
     with pytest.raises(ValueError, match="unknown drafter"):
         SP.make_drafter("oracle")
+    with pytest.raises(ValueError, match="unknown drafter"):
+        EngineConfig(speculate_k=2, drafter="oracle")
     with pytest.raises(ValueError, match="speculate_k"):
         EngineConfig(speculate_k=-1)
 
