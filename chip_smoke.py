@@ -25,8 +25,9 @@ Phases, each fatal on failure:
      fp5-e2m2), one decode layer's 7 launches counted and every Qwen2-7B
      projection at B in {8, 128} against the plain version, one decode and
      one prefill-chunk layer timed against their bounds and dense bf16;
-     K1 also at InternVL2-1B's projections and K1b (fp4.25) at
-     MusicGen-medium's, the same way;
+     K1 also at InternVL2-1B's and Falcon-Mamba-7B's projections (in_proj,
+     x_proj with N 288, dt_proj with K 256 = 43 words, out_proj) and K1b
+     (fp4.25) at MusicGen-medium's, the same way;
   5. K2 (paged AMS-e2m2 flash-decode) against its plain version at kv=4,
      g=7, hd=128, pages of 16, 64 and 128 tokens, 8 slots, lengths up to
      1024, chunk in {1, 16}, with an idle slot and masked rows that must
@@ -57,10 +58,17 @@ Phases, each fatal on failure:
      embeds and 32-96 text tokens, 24 new, each stream then held to the
      request served alone on the same engine); full-width 48-layer
      MusicGen-medium with FP4.25 weights over AMS pages (`audio-fp4.25`:
-     K1b, K2; 9 requests of 96-192 audio tokens, 24 new); 9 requests each
-     on the others but FP5.33 (two sharing a prefix on the paged ones
-     whose requests are tokens only). Launch counts are zeroed just before each path and read
-     just after: every kernel of the path must have launched, no other
+     K1b, K2; 9 requests of 96-192 audio tokens, 24 new); full-width
+     64-layer Falcon-Mamba-7B (Mamba-1, no attention) on the one-token
+     step over its conv / ssm state caches with FP5.33 weights
+     (`ssm-fp5.33`: K1; 9 requests of 32-96 tokens, 24 new, two of them
+     seeded sampled, each stream then held to the request served alone)
+     and with bf16 weights (`ssm-fp16`: cuBLAS projections, no kernel of
+     the port; the same requests; no graph or consistency phase); 9
+     requests each on the others but FP5.33 (two sharing a prefix on the
+     paged ones whose requests are tokens only). Launch counts are zeroed
+     just before each path and read just after: every kernel of the path
+     must have launched, no other
      kernel and no plain version on CUDA tensors. Every tick replays a CUDA
      graph of the engine step (one per chunk width; capture seconds and the
      graph pool's bytes are printed), and each replay adds the launch
@@ -69,9 +77,12 @@ Phases, each fatal on failure:
      at the memory rate, then times full-batch decode ticks over the served
      context lengths (about 200-360 keys), graph ticks and eager ticks
      (the step function on the same inputs) in turns, one replay's device
-     time from CUDA events, and profiles both kinds of tick (device-busy
-     ms, idle share and kernels per tick; the profiler's launches of the
-     path's kernels in the graph ticks must equal the counted ones);
+     time from CUDA events, and profiles both kinds of tick after a
+     warm-up tick that is traced and dropped (device-busy ms, idle share
+     and kernels per tick; the profiler's launches of the path's kernels
+     in the graph ticks must equal the counted ones, and so must the path
+     kernels' nodes in a CUDA graph of the step, read from CUDA's graph
+     debug dump);
   10. graph against eager at cut depth (2 layers, full widths), per path:
       two engines from one seed serve the same requests in lockstep (on the
       VLM path with 256 prefix embeds each), one
@@ -119,13 +130,16 @@ Phases, each fatal on failure:
       floor of a full decode tick at the H100's peaks beside a profiled
       replay of its graph (`obs.cost.attribution(profile=True)`).
 
-A line ``compare {...}`` sets the seven paths' graph and eager decode
+A line ``compare {...}`` sets the nine paths' graph and eager decode
 ticks, replay ms, device-busy ms, idle shares, gaps inside ticks and
 kernels per tick side by side. The line before the last is one JSON
 object with a row per kernel; the last line is ``{"ok": true, "device":
 {...}}``. Without a CUDA card the script exits non-zero and prints no
 result (``--cpu-rehearsal`` runs the phases on the CPU at tiny sizes with
-the plain versions, skips timing, and also exits non-zero).
+the plain versions, skips timing, and also exits non-zero). On the Mamba
+paths a timed or profiled replay would advance the recurrent states
+again: they are put back after the replays
+(`launch.steps.recurrent_states_kept`).
 """
 
 from __future__ import annotations
@@ -182,6 +196,13 @@ PATHS = {
                        kernels=("ams_matmul_fp533", "paged_attention_ams")),
     "audio-fp4.25": dict(arch="musicgen-medium", scheme="fp4.25-e2m2", kind="paged_ams",
                          kernels=("ams_matmul_planes", "paged_attention_ams")),
+    # Mamba-1 (attention-free) on the one-token step over its conv / ssm
+    # state caches, beside its FP16 baseline (cuBLAS projections, no kernel
+    # of the port; no graph or consistency phase)
+    "ssm-fp5.33": dict(arch="falcon-mamba-7b", scheme="fp5.33-e2m3", kind="contiguous",
+                       kernels=("ams_matmul_fp533",), chunk=1),
+    "ssm-fp16": dict(arch="falcon-mamba-7b", scheme="fp16", kind="contiguous", kernels=(),
+                     chunk=1, lean=True),
 }
 PLANES_SCHEMES = ("fp8", "fp6-e2m3", "fp6-e3m2", "fp5-e2m2", "fp4.5-e2m2", "fp4.33-e2m2",
                   "fp4-e2m1")
@@ -193,6 +214,10 @@ INTERNVL_SHAPES = [("wq/wo", 896, 896, 2), ("wk/wv", 896, 128, 2),
                    ("w_gate/w_up", 896, 4864, 2), ("w_down", 4864, 896, 1)]
 MUSICGEN_SHAPES = [("wq/wk/wv/wo", 1536, 1536, 4), ("w_up", 1536, 6144, 1),
                    ("w_down", 6144, 1536, 1)]
+# Falcon-Mamba-7B's projections (K1, FP5.33): x_proj's N = dt_rank + 2n =
+# 288, dt_proj's K = 256 (Kp 258, 43 fp533 words)
+MAMBA_SHAPES = [("in_proj", 4096, 16384, 1), ("x_proj", 8192, 288, 1),
+                ("dt_proj", 256, 8192, 1), ("out_proj", 8192, 4096, 1)]
 TINY_SHAPES = [("wq/wo", 128, 128, 2), ("wk/wv", 128, 64, 2),
                ("w_gate/w_up", 128, 256, 2), ("w_down", 256, 128, 1)]
 # page sizes of the K2 / K3 phases: the CacheConfig default (timed against a
@@ -360,7 +385,9 @@ def phase_k1(torch, dev, timed: bool, full: bool):
     layer, err = _matmul_phase(torch, dev, "K1", "fp5.33-e2m3", gen, kernel, plain, timed, full)
     zoo = _matmul_phase(torch, dev, "K1[internvl2-1b]", "fp5.33-e2m3", gen, kernel, plain, timed,
                         full, shapes=INTERNVL_SHAPES)
-    return layer, err, zoo
+    mamba = _matmul_phase(torch, dev, "K1[falcon-mamba-7b]", "fp5.33-e2m3", gen, kernel, plain,
+                          timed, full, shapes=MAMBA_SHAPES)
+    return layer, err, zoo, mamba
 
 
 def phase_k1b(torch, dev, timed: bool, full: bool):
@@ -928,26 +955,39 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
     tokens only (the contiguous cache has no prefix cache, as in the
     reference, and a request with prefix embeds skips it). The VLM path's
     requests each carry 256 seeded normal prefix embeddings and 32-96 text
-    tokens, and each stream must equal that request served alone."""
+    tokens, and each stream must equal that request served alone. The
+    Mamba paths (`ssm-*`, one token per slot per tick) serve 9 requests of
+    32-96 tokens, two of them seeded sampled requests, so the sampled graph
+    is captured while the others hold live states; on `ssm-fp5.33` each
+    stream must then equal the request served alone (with its request id,
+    which the draw key folds), on `ssm-fp16` the comparison is printed
+    (cuBLAS gives a row other bits at other row counts)."""
+    import itertools
+
     import numpy as np
 
     from repro_torch.cache import CacheConfig
     from repro_torch.launch.config import EngineConfig
     from repro_torch.launch.engine import ServeEngine
+    from repro_torch.launch.sampling import SamplingParams
 
     spec = PATHS[path]
     paged = spec["kind"] != "contiguous"
+    ssm = path.startswith("ssm")
     if full:
         ec = EngineConfig(arch=spec["arch"], reduced=False, scheme=spec["scheme"],
-                          impl="kernel", slots=8, capacity=512, prefill_chunk=16,
+                          impl="kernel", slots=8, capacity=512,
+                          prefill_chunk=spec.get("chunk", 16),
                           cache=CacheConfig(kind=spec["kind"], page_size=16, impl="kernel"),
                           device=str(dev), seed=0)
         n_req, plen, max_tokens, shared = {"fp5.33": (10, (200, 320), 40, 128),
                                            "vlm-fp5.33": (9, (32, 97), 24, 0)}.get(
-                                               path, (9, (96, 192), 24, 64))
+                                               path, (9, (32, 97), 24, 0) if ssm
+                                               else (9, (96, 192), 24, 64))
     else:
         ec = EngineConfig(arch=spec["arch"], reduced=True, scheme=spec["scheme"],
-                          impl="kernel", slots=4, capacity=64, prefill_chunk=4,
+                          impl="kernel", slots=4, capacity=64,
+                          prefill_chunk=spec.get("chunk", 4),
                           cache=CacheConfig(kind=spec["kind"], page_size=8, impl="kernel"),
                           device=str(dev), seed=0)
         n_req, plen, max_tokens, shared = 6, (12, 24), 8, 8
@@ -971,11 +1011,16 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
     if paged and shared:
         prompts[-1][:shared] = prompts[0][:shared]   # page-aligned shared prefix, admitted late
 
+    # the Mamba paths: requests 2 and 5 sample (seeded)
+    sampling = [SamplingParams(temperature=0.8, top_k=40, top_p=0.95, seed=i)
+                if ssm and i in (2, 5) else None for i in range(n_req)]
+
     counts = all_counts()
     for cnt in counts:
         cnt.reset()
     t0 = time.perf_counter()
-    handles = [eng.submit(p, max_tokens, prefix_embeds=e) for p, e in zip(prompts, embeds)]
+    handles = [eng.submit(p, max_tokens, prefix_embeds=e, sampling=sp)
+               for p, e, sp in zip(prompts, embeds, sampling)]
     dec_s, dec_tok, dec_ticks = 0.0, 0, 0
     while eng.has_work:
         decode_only = len(eng.sched) == 0 and all(
@@ -1009,7 +1054,12 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
     if dev.type == "cuda":
         res["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
         res["graph"] = graph_stats(eng)
+    if ssm:
+        res["sampled_requests"] = sum(sp is not None for sp in sampling)
+        res["sampled_graph_captured"] = dev.type != "cuda" or (1, True) in eng.graphs.graphs
     log("serve " + json.dumps(res))
+    if ssm and not res["sampled_graph_captured"]:
+        fail(f"serve[{path}]: the sampled graph was never captured")
     bad = [h.rid for h in handles if not h.done or len(h.tokens) != max_tokens
            or not all(0 <= t < V for t in h.tokens)]
     if bad:
@@ -1024,18 +1074,24 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
             fail(f"serve[{path}]: plain versions ran on CUDA tensors: {plain_cuda}")
     if paged and shared and st["prefix_hit_pages"] < 1:
         fail(f"serve[{path}]: the shared prefix never hit the prefix cache")
-    if embeds[0] is not None:
-        # each prefix-embed request served alone on the same engine
-        alone = [eng.submit(p, max_tokens, prefix_embeds=e).result()
-                 for p, e in zip(prompts, embeds)]
+    if embeds[0] is not None or ssm:
+        # each request served alone on the same engine; a sampled one with
+        # its own request id, which the draw key folds
+        alone, fresh = [], eng._rid
+        for h, p, e, sp in zip(handles, prompts, embeds, sampling):
+            if sp is not None:
+                eng._rid = itertools.count(h.rid)
+            alone.append(eng.submit(p, max_tokens, prefix_embeds=e, sampling=sp).result())
+            eng._rid = fresh
         first = [next((t for t, (a, b) in enumerate(zip(h.tokens, x)) if a != b), None)
                  for h, x in zip(handles, alone)]
         log("serve-alone " + json.dumps(dict(path=path, requests=len(alone),
                                               streams_equal=all(f is None for f in first),
                                               first_diverging_token=first)))
-        if dev.type == "cuda" and any(f is not None for f in first):
-            fail(f"serve[{path}]: prefix-embed streams differ from the requests served "
-                 f"alone: first diverging tokens {first}")
+        if (dev.type == "cuda" and spec["scheme"] != "fp16"
+                and any(f is not None for f in first)):
+            fail(f"serve[{path}]: streams differ from the requests served alone: first "
+                 f"diverging tokens {first}")
     if dev.type == "cuda":
         res["profile"] = profile_decode(torch, eng, rng, path)
     else:                              # rehearse the profile's prefill at tiny lengths
@@ -1110,30 +1166,45 @@ KERNEL_SYMBOLS = {"ams_matmul_fp533": "ams_matmul_mma_kernel",
 
 
 def _profiled_ticks(torch, eng, ticks: int, eager: bool, path: str):
-    """``ticks`` decode ticks under torch.profiler: device-busy ms and idle
-    share per tick, the device's idle time between events inside ticks,
-    kernels per tick, the top kernels, and each path kernel's launches as
-    the profiler saw them and as the counts add up."""
-    from torch.profiler import ProfilerActivity, profile
+    """``ticks`` decode ticks under torch.profiler, after one warm-up tick
+    that is traced and dropped (`obs.cost.trace_window`): device-busy ms and
+    idle share per tick, the device's idle time between events inside
+    ticks, kernels per tick, the top kernels, and each path kernel's
+    launches as the profiler saw them (in all, and in each tick: a device
+    record goes to the last tick launched on the host before it began) and
+    as the counts add up. ``clock_us``: how far the first device record
+    starts before the host's first launch and the last one ends after the
+    host saw the device finish (both negative where the clocks agree)."""
+    import bisect
+
+    from repro_torch.obs.cost import device_records, trace_window
 
     counts = {c.name: c for c in all_counts()}
-    before = {k: counts[k].launches for k in PATHS[path]["kernels"]}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    before, host = {}, {}
+
+    def run():
+        before.update({k: counts[k].launches for k in PATHS[path]["kernels"]})
+        host["starts"] = []
         t0 = time.perf_counter()
         for _ in range(ticks):
+            host["starts"].append(time.time_ns())
             eng.step(eager=eager)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        host["wall"] = time.perf_counter() - t0
+        host["end"] = time.time_ns()
+
+    prof, _ = trace_window(run, lambda: eng.step(eager=eager))
+    wall = host["wall"]
     kernels = {}
     busy = 0.0
     spans = []
-    for ev in prof.events():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            us = ev.time_range.elapsed_us()
-            busy += us
-            spans.append((ev.time_range.start, ev.time_range.end))
-            n, t = kernels.get(ev.name, (0, 0.0))
-            kernels[ev.name] = (n + 1, t + us)
+    device = device_records(prof)
+    for ev in device:
+        us = ev.time_range.elapsed_us()
+        busy += us
+        spans.append((ev.time_range.start, ev.time_range.end))
+        n, t = kernels.get(ev.name, (0, 0.0))
+        kernels[ev.name] = (n + 1, t + us)
     # device idle between consecutive device events; the ``ticks`` - 1
     # widest gaps are the host's work between ticks, the rest lie inside
     gaps, end = [], None
@@ -1146,12 +1217,25 @@ def _profiled_ticks(torch, eng, ticks: int, eager: bool, path: str):
     seen = {k: sum(n for name, (n, _) in kernels.items() if KERNEL_SYMBOLS[k] in name) / ticks
             for k in before}
     counted = {k: (counts[k].launches - before[k]) / ticks for k in before}
+    # the records' times in ns since the epoch, as the host's clock reads
+    base = prof.profiler.kineto_results.trace_start_ns()
+    starts = [base + 1e3 * ev.time_range.start for ev in device]
+    ends = [base + 1e3 * ev.time_range.end for ev in device]
+    by_tick = {k: [0] * ticks for k in before}
+    for ev, t in zip(device, starts):
+        i = max(0, bisect.bisect_right(host["starts"], t) - 1)
+        for k in before:
+            by_tick[k][i] += KERNEL_SYMBOLS[k] in ev.name
+    clock = dict(first_start_before_launch=(host["starts"][0]
+                                            - min(starts, default=host["starts"][0])) / 1e3,
+                 last_end_after_sync=(max(ends, default=host["end"]) - host["end"]) / 1e3)
     return dict(wall_ms_per_tick=1e3 * wall / ticks,
                 device_busy_ms_per_tick=busy / 1e3 / ticks,
                 device_idle_share=max(0.0, 1 - busy / 1e6 / wall),
                 kernels_per_tick=sum(n for n, _ in kernels.values()) / ticks,
                 gaps_inside_ticks_ms_per_tick=sum(inside) / 1e3 / ticks,
                 path_launches_per_tick=dict(profiler=seen, counted=counted),
+                path_launches_by_tick=by_tick, clock_us=clock,
                 top=[dict(name=k[:80], launches_per_tick=n / ticks, ms_per_tick=t / 1e3 / ticks)
                      for k, (n, t) in top])
 
@@ -1164,9 +1248,11 @@ def profile_decode(torch, eng, rng, path: str, ticks: int = 3, timed: int = 5):
     timed in turns over the same state (decode tick ms and tokens/s at a
     full batch), the device time of one graph replay from CUDA events, then
     both under torch.profiler (device-busy ms, idle share, kernels per
-    tick; the profiler's launches of the path's kernels must equal the
-    counts the replays added)."""
-    fill_for_decode(eng, rng, PROFILE_PROMPT, 2 * (timed + ticks) + 3)
+    tick), with the path kernels' launches per tick as the profiler saw
+    them, which must equal the counts the graph ticks added; the nodes of
+    each path kernel in the step's graph (`graph_path_nodes`) must equal
+    them too."""
+    fill_for_decode(eng, rng, PROFILE_PROMPT, 2 * (timed + ticks + 1) + 3)
     eng.step()
     eng.step(eager=True)
     tick = {False: 0.0, True: 0.0}
@@ -1178,13 +1264,16 @@ def profile_decode(torch, eng, rng, path: str, ticks: int = 3, timed: int = 5):
     if eng.active_count != eng.slots:
         fail(f"profile[{path}]: {eng.active_count} of {eng.slots} slots decoded")
     # one replay's device time on the last tick's inputs (a replay rewrites
-    # the cache entries that tick wrote with the same values)
+    # the cache entries that tick wrote with the same values; recurrent
+    # states, which a replay advances again, are put back)
+    from repro_torch.launch.steps import recurrent_states_kept
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(timed):
-        eng.graphs(1)
-    e1.record()
-    e1.synchronize()
+    with recurrent_states_kept(eng.cache, eng.cfg):
+        e0.record()
+        for _ in range(timed):
+            eng.graphs(1)
+        e1.record()
+        e1.synchronize()
     replay_ms = e0.elapsed_time(e1) / timed
     decode = dict(path=path, active_slots=eng.active_count, ticks=timed,
                   decode_tick_ms=1e3 * tick[False] / timed,
@@ -1196,7 +1285,7 @@ def profile_decode(torch, eng, rng, path: str, ticks: int = 3, timed: int = 5):
                   eager_tokens_per_s=eng.active_count * timed / tick[True])
     log("decode " + json.dumps(decode))
     # keys each decoding slot attends over in the profiled ticks
-    keys = [int(eng.fed[s]) + 1 + i for i in range(2 * ticks)
+    keys = [int(eng.fed[s]) + 1 + i for i in range(2 * (ticks + 1))
             for s, r in enumerate(eng.active) if r is not None]
     res = dict(path=path, ticks=ticks, context_keys=[min(keys), max(keys)])
     for name, eager in (("graph", False), ("eager", True)):
@@ -1215,10 +1304,53 @@ def profile_decode(torch, eng, rng, path: str, ticks: int = 3, timed: int = 5):
     if g["kernels_per_tick"] <= 0:
         fail(f"profile[{path}]: the profiler saw no kernel of the graph replays")
     seen, counted = g["path_launches_per_tick"]["profiler"], g["path_launches_per_tick"]["counted"]
-    if seen != counted or min(counted.values()) <= 0:
-        fail(f"profile[{path}]: launches per graph tick: profiler {seen}, counts {counted}")
+    nodes, captured = graph_path_nodes(torch, eng, path)
+    log("graph-nodes " + json.dumps(dict(path=path, nodes=nodes, capture_counts=captured,
+                                         replay_counts_per_tick=counted, profiler_per_tick=seen)))
+    # the profiler, the device's own record, must have seen every launch the
+    # counts added; each replay launches the graph's nodes, and the counts
+    # must add exactly those
+    if seen != counted or min(counted.values(), default=1) <= 0:
+        fail(f"profile[{path}]: launches per graph tick: profiler {seen}, counts {counted} "
+             f"(by tick {g['path_launches_by_tick']}, clocks {g['clock_us']} us)")
+    if nodes != captured or nodes != counted:
+        fail(f"profile[{path}]: path-kernel nodes of the step's graph {nodes}, counts per "
+             f"capture {captured} and per replayed tick {counted}")
     res.update(decode)
     return res
+
+
+def graph_path_nodes(torch, eng, path: str):
+    """The path kernels' nodes in a CUDA graph of the width-1 step, captured
+    once more as `GraphedStep` captures it (never replayed) and read from
+    CUDA's graph debug dump, beside the launch counts that capture moved:
+    what a replay launches, read from the graph itself rather than from a
+    trace."""
+    import tempfile
+
+    from repro_torch.kernels.build import recorded_counts
+    from repro_torch.launch.steps import run_step
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    collecting = gc.isenabled()
+    gc.disable()                # as GraphedStep.capture: no collection mid-capture
+    try:
+        with recorded_counts() as moved:
+            with torch.cuda.graph(graph, stream=s):
+                run_step(eng._step, eng.params, eng.cache, eng.inputs, eng.samp, 1)
+    finally:
+        if collecting:
+            gc.enable()
+    with tempfile.TemporaryDirectory() as d:
+        graph.debug_dump(str(Path(d) / "step.dot"))
+        dot = (Path(d) / "step.dot").read_text()
+    del graph
+    kernels = PATHS[path]["kernels"]
+    nodes = {k: dot.count(KERNEL_SYMBOLS[k]) for k in kernels}
+    return nodes, {k: sum(n for c, n, _ in moved if c.name == k) for k in kernels}
 
 
 def phase_graph(torch, dev, full: bool, path: str = "fp5.33"):
@@ -1241,8 +1373,10 @@ def phase_graph(torch, dev, full: bool, path: str = "fp5.33"):
     from repro_torch.core.tree import tree_leaves
 
     spec = PATHS[path]
-    base = (dict(reduced=False, depth=2, slots=4, capacity=256, prefill_chunk=16)
-            if full else dict(reduced=True, slots=2, capacity=64, prefill_chunk=4))
+    base = (dict(reduced=False, depth=2, slots=4, capacity=256,
+                 prefill_chunk=spec.get("chunk", 16))
+            if full else dict(reduced=True, slots=2, capacity=64,
+                              prefill_chunk=spec.get("chunk", 4)))
     ec = EngineConfig(arch=spec["arch"], scheme=spec["scheme"], impl="kernel",
                       cache=CacheConfig(kind=spec["kind"], page_size=16 if full else 8,
                                         impl="kernel"),
@@ -1312,10 +1446,11 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33", page: int = 
     page = page or (16 if full else 8)
 
     def config(impl, attn):
-        base = (dict(reduced=False, depth=2, slots=4, capacity=256, prefill_chunk=16,
+        base = (dict(reduced=False, depth=2, slots=4, capacity=256,
+                     prefill_chunk=PATHS[path].get("chunk", 16),
                      cache=CacheConfig(kind=kind, page_size=page, impl=attn))
                 if full else
-                dict(reduced=True, slots=2, capacity=64, prefill_chunk=4,
+                dict(reduced=True, slots=2, capacity=64, prefill_chunk=PATHS[path].get("chunk", 4),
                      cache=CacheConfig(kind=kind, page_size=page, impl=attn)))
         return EngineConfig(arch=arch, scheme=scheme, impl=impl,
                             device=str(dev), seed=7, **base)
@@ -1331,7 +1466,8 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33", page: int = 
     n_req, plen, gen_n = (4, 48, 24) if full else (2, 12, 8)
     prompts = rng.integers(0, cfg.vocab_size, (n_req, plen)).astype(np.int32)
 
-    # first-tick logits of one ragged chunk through both impl pairs
+    # first-tick logits of one ragged chunk (one token on a one-token
+    # engine) through both impl pairs
     C = ck.prefill_chunk
     logits = {}
     for ec in (ck, cr):
@@ -1339,10 +1475,11 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33", page: int = 
         cache = make_cache(cfg, n_req, ec.capacity, cache_cfg=ccfg, device=dev)
         bt = (torch.arange(n_req * ccfg.max_pages_per_seq, dtype=torch.int32,
                            device=dev).reshape(n_req, -1) if ccfg.paged else None)
-        lg, _ = decode_step(params, torch.as_tensor(prompts[:, :C], device=dev), cache,
-                            torch.zeros(n_req, dtype=torch.int32, device=dev), cfg,
-                            policy=policy(ec), block_tables=bt, cache_cfg=ccfg,
-                            nvalid=torch.full((n_req,), C, dtype=torch.int32, device=dev))
+        tok = torch.as_tensor(prompts[:, :C] if C > 1 else prompts[:, 0], device=dev)
+        nvalid = torch.full((n_req,), C, dtype=torch.int32, device=dev) if C > 1 else None
+        lg, _ = decode_step(params, tok, cache, torch.zeros(n_req, dtype=torch.int32,
+                                                             device=dev), cfg,
+                            policy=policy(ec), block_tables=bt, cache_cfg=ccfg, nvalid=nvalid)
         logits[ec.impl] = lg.float()
     d = float((logits["kernel"] - logits["fused_ref"]).abs().max())
     rel = d / float(logits["fused_ref"].abs().max())
@@ -2485,8 +2622,9 @@ def main():
         phase_k5p(torch, dev, timed=False, full=False)
         for path in PATHS:
             phase_serve(torch, dev, full=False, path=path)
-            phase_graph(torch, dev, full=False, path=path)
-            phase_consistency(torch, dev, full=False, path=path)
+            if not PATHS[path].get("lean"):
+                phase_graph(torch, dev, full=False, path=path)
+                phase_consistency(torch, dev, full=False, path=path)
         phase_consistency(torch, dev, full=False, path="fp4.25", page=16)
         phase_consistency(torch, dev, full=False, path="fp4.25", scheme="fp6-e2m3")
         phase_engine_features(torch, dev, full=False)
@@ -2523,7 +2661,8 @@ def main():
     log(f"build total {time.perf_counter() - t0:.1f}s")
     ptxas_report(build)
 
-    k1, k1_err, (k1_zoo, k1_zoo_err) = phase_k1(torch, dev, timed=True, full=True)
+    k1, k1_err, (k1_zoo, k1_zoo_err), (k1_ssm, k1_ssm_err) = phase_k1(torch, dev, timed=True,
+                                                                       full=True)
     k1b, k1b_err, k1b_wide, (k1b_zoo, k1b_zoo_err) = phase_k1b(torch, dev, timed=True, full=True)
     k2, k2_err, k2_zoo = phase_k2(torch, dev, timed=True, full=True)
     k3, k3_err = phase_k3(torch, dev, timed=True, full=True)
@@ -2533,8 +2672,9 @@ def main():
     served = {}
     for path in PATHS:
         served[path] = phase_serve(torch, dev, full=True, path=path)
-        phase_graph(torch, dev, full=True, path=path)
-        phase_consistency(torch, dev, full=True, path=path)
+        if not PATHS[path].get("lean"):
+            phase_graph(torch, dev, full=True, path=path)
+            phase_consistency(torch, dev, full=True, path=path)
     phase_consistency(torch, dev, full=True, path="fp4.25", page=64)
     phase_consistency(torch, dev, full=True, path="fp4.25", scheme="fp6-e2m3")
     # one set of FP5.33 weights for the engine-features and frontend phases
@@ -2575,6 +2715,7 @@ def main():
     def row(name, src, replaces, path, res, err, launches=None):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
                     replaces=replaces, path=path,
+                    paths=[p for p, sp in PATHS.items() if name.split("[")[0] in sp["kernels"]],
                     launches=served[path]["launches"][name.split("[")[0]] if path else launches,
                     launches_engine_features=feature_launches[name]
                     if name in feature_launches else None,
@@ -2594,6 +2735,8 @@ def main():
             "src/repro/kernels/attention_template.py:399", "fp5.33", k2, k2_err),
         row("ams_matmul_fp533[internvl2-1b]", "ams_matmul.cu",
             "src/repro/kernels/ams_matmul.py:138", "vlm-fp5.33", k1_zoo, k1_zoo_err),
+        row("ams_matmul_fp533[falcon-mamba-7b]", "ams_matmul.cu",
+            "src/repro/kernels/ams_matmul.py:138", "ssm-fp5.33", k1_ssm, k1_ssm_err),
         row("ams_matmul_planes[musicgen-medium]", "ams_matmul.cu",
             "src/repro/kernels/ams_matmul.py:95", "audio-fp4.25", k1b_zoo, k1b_zoo_err),
         row("paged_attention_ams[internvl2-1b]", "paged_attention.cu",

@@ -65,6 +65,14 @@ ahead of the prompt through the step's embeds override (a static f32
 buffer inside every CUDA graph), attended both ways, and such a request
 skips the prefix cache (its prefix is request-local floats).
 
+A Mamba model (falcon-mamba-7b) is served over its contiguous conv / ssm
+state caches on the one-token step, as in the reference: its recurrence
+advances one token per slot per tick, so a ragged step (``prefill_chunk``
+> 1, or speculation) and paged caches are refused before any weight is
+made. Admission zeroes the slot's states, outside the step; the step
+writes a slot's states only while it is live (``pos >= 0``), so the idle
+warm-up of a graph capture leaves live requests' states as they were.
+
 Not ported yet, and refused with NotImplementedError: meshes.
 """
 
@@ -94,6 +102,7 @@ from repro_torch.core.tree import tree_map
 from repro_torch.models import make_cache, model_dims, quantize_params, reset_cache_slot
 from repro_torch.models.common import make_linear, make_norm
 from repro_torch.models.transformer import (
+    check_chunked_support,
     check_serving_support,
     check_support,
     init_block,
@@ -296,6 +305,8 @@ class ServeEngine:
         cfg = ec.model_config()
         ccfg = self.cache_cfg = ec.sized_cache()
         check_support(cfg, ccfg)            # before the weights are made
+        if ec.step_chunk > 1:
+            check_chunked_support(cfg)      # a ragged step: attention layers only
         self.cfg = cfg
         self.scheme = ec.scheme
         self.slots = slots = ec.slots
@@ -1026,7 +1037,8 @@ class ServeEngine:
         """Cache bytes one token occupies across all layers, by the
         reference's formula (bf16 K and V of kv x hd per layer, or the
         packed AMS planes; an MLA model is counted by its kv heads x head_dim
-        as well, as the reference counts it)."""
+        as well, as the reference counts it, and so is a Mamba model, which
+        keeps no KV at all: falcon-mamba-7b's num_kv_heads 1 x head_dim 64)."""
         dims = model_dims(self.cfg)
         return self.cfg.num_layers * pool_bytes_per_token(dims.kv, dims.hd, self.cache_cfg)
 

@@ -40,14 +40,16 @@ from __future__ import annotations
 import gc
 import math
 import time
+from contextlib import contextmanager
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core.tree import tree_leaves
 from repro_torch.kernels.build import add_counts, recorded_counts
-from repro_torch.models import decode_step
+from repro_torch.models import decode_step, layer_pattern
 
 from .sampling import any_sampled, sample_tokens
 from .speculative import truncate_cache, verify_tokens
@@ -245,6 +247,26 @@ class GraphedStep:
         graph.replay()
         add_counts(moved)
         return out
+
+
+# block kinds whose cache is a recurrent state that every step advances
+RECURRENT_KINDS = ("mamba",)
+
+
+@contextmanager
+def recurrent_states_kept(cache, cfg: ModelConfig):
+    """Put the recurrent states back as they were on exit. A replay of the
+    step on the same staged inputs rewrites each KV entry the last tick
+    wrote with the value it had, but advances a recurrent block's states
+    once more; timed and profiled replays run inside this. The states are
+    the cache groups of `layer_pattern`'s recurrent block kinds."""
+    saved = [(t, t.clone()) for i, kind in enumerate(layer_pattern(cfg))
+             if kind in RECURRENT_KINDS for t in tree_leaves(cache["layers"][f"sub{i}"])]
+    try:
+        yield
+    finally:
+        for t, s in saved:
+            t.copy_(s)
 
 
 def engine_step_signature(cfg: ModelConfig, rcfg: RunConfig, cache_cfg=None,

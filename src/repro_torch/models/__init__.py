@@ -1,8 +1,9 @@
-"""Dense GQA (paged or contiguous caches) and absorbed-MLA (contiguous
-caches) decoders (port of src/repro/models)."""
+"""Dense GQA (paged or contiguous caches), absorbed-MLA and Mamba-1
+(contiguous caches) decoders (port of src/repro/models)."""
 
 from .common import model_dims, quantize_params  # noqa: F401
 from .transformer import (  # noqa: F401
+    check_chunked_support,
     check_serving_support,
     check_support,
     decode_step,

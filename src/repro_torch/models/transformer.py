@@ -1,16 +1,20 @@
-"""Decoder assembly for dense GQA models (paged or contiguous caches) and
-absorbed-MLA models (contiguous caches) (port of the gqa / mla paths of
-src/repro/models/transformer.py): the one-token and ragged decode steps,
-and the full-sequence forward `forward_seq` (prefill with a contiguous
-cache, and the self drafter's forward).
+"""Decoder assembly for dense GQA models (paged or contiguous caches),
+absorbed-MLA models (contiguous caches) and Mamba-1 models (contiguous
+conv / ssm state caches) (port of the gqa / mla / mamba paths of
+src/repro/models/transformer.py): the one-token and ragged decode steps
+(Mamba: the one-token step only), and the full-sequence forward
+`forward_seq` (prefill with a contiguous cache, and the self drafter's
+forward).
 
 Parameters keep the reference's tree: ``embed``, ``layers`` (every leaf
 stacked ``[G, ...]`` over layers), ``final_norm``, ``lm_head``. The
 reference's ``lax.scan`` over stacked layers is a Python loop over views
 ``leaf[g]``; the caches (page pools, or contiguous [B, S, ...] slot caches)
-are stacked the same way and are written in place. Modality prefix
-embeddings (VLM patches) enter `forward_seq` ahead of the tokens, and the
-decode step through its ``embeds`` / ``embed_mask`` override.
+are stacked the same way and are written in place (a Mamba block's states
+only for slots with ``pos >= 0``: an idle slot's states stay as they
+were). Modality prefix embeddings (VLM patches) enter `forward_seq` ahead
+of the tokens, and the decode step through its ``embeds`` /
+``embed_mask`` override.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from repro_torch.core.tree import tree_leaves, tree_map
 
 from . import attention as A
 from . import ffn as F
+from . import ssm as S
 from .common import Dims, apply_linear, make_linear, make_norm, model_dims, rms_norm
 
 
@@ -40,13 +45,14 @@ def layer_pattern(cfg) -> Tuple[str, ...]:
 
 def check_serving_support(cfg):
     """The port serves dense GQA and absorbed-MLA layers (any FFN
-    activation, with or without modality prefix embeds), without sliding
-    windows."""
+    activation, with or without modality prefix embeds) and Mamba-1
+    layers, without sliding windows."""
     pat = layer_pattern(cfg)
-    if pat not in (("gqa",), ("mla",)):
+    if pat not in (("gqa",), ("mla",), ("mamba",)):
         raise NotImplementedError(
-            f"the port serves dense GQA and MLA layers only; {cfg.name} has "
-            f"{sorted(set(pat))} (MoE, Mamba and RG-LRU blocks: ROADMAP.md, Modules to port)")
+            f"the port serves dense GQA, MLA and Mamba layers only; {cfg.name} has "
+            f"{sorted(set(pat))} (MoE blocks, and RG-LRU with its hybrid pattern: "
+            "ROADMAP.md, Modules to port)")
     if cfg.sliding_window:
         raise NotImplementedError("sliding-window ring caches are not ported yet "
                                   "(ROADMAP.md, Modules to port)")
@@ -55,19 +61,35 @@ def check_serving_support(cfg):
 def check_support(cfg, cache_cfg=None):
     """The one rule of which layers a cache kind holds: contiguous caches
     (``cache_cfg`` None or contiguous) every layer the port serves, paged
-    caches dense GQA layers only (MLA's compressed stream keeps its
-    contiguous layout, as in the reference)."""
+    caches dense GQA layers only (MLA's compressed stream and Mamba's
+    recurrent states keep their contiguous layouts, as in the reference)."""
     check_serving_support(cfg)
     if cache_cfg is not None and cache_cfg.paged and layer_pattern(cfg) != ("gqa",):
         raise NotImplementedError(
             f"paged caches serve dense GQA layers only; {cfg.name} has "
-            f"{sorted(set(layer_pattern(cfg)))}: serve it over a contiguous cache")
+            f"{sorted(set(layer_pattern(cfg)))} (MLA streams and recurrent states keep "
+            "their contiguous layouts): serve it over a contiguous cache")
+
+
+def check_chunked_support(cfg):
+    """The ragged multi-token step (``prefill_chunk`` > 1, and speculation,
+    whose step is ragged) covers the attention layers only, as in the
+    reference: a Mamba recurrence integrates its state token by token and
+    keeps the one-token step."""
+    pat = layer_pattern(cfg)
+    bad = [k for k in pat if k not in ("gqa", "mla")]
+    if bad:
+        raise NotImplementedError(
+            f"chunked prefill supports gqa/mla layers only; {cfg.name} has "
+            f"{sorted(set(bad))}: serve it with prefill_chunk=1 and no speculation")
 
 
 def init_block(gen, cfg, dims: Dims, kind: str, *, dtype=torch.float32, device="cpu"):
-    if kind not in ("gqa", "mla"):
+    if kind not in ("gqa", "mla", "mamba"):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     kw = dict(dtype=dtype, device=device)
+    if kind == "mamba":
+        return {"ln1": make_norm(cfg.d_model, **kw), "mixer": S.init_mamba(gen, cfg, **kw)}
     init_attn = A.init_gqa if kind == "gqa" else A.init_mla
     return {"ln1": make_norm(cfg.d_model, **kw),
             "attn": init_attn(gen, cfg, dims, **kw),
@@ -112,8 +134,14 @@ def block_cache_shape(cfg, dims: Dims, kind: str, B: int, cap: int, *,
                       dtype=torch.bfloat16, device="cpu", lead=()):
     """Zero contiguous cache leaves of one block kind: ``{"k", "v"}`` [*lead,
     B, cap, kv, hd] for GQA, ``{"kv"}`` [*lead, B, cap, 1, r_kv + dr] (the
-    compressed stream) for MLA."""
+    compressed stream) for MLA, ``{"conv"}`` [*lead, B, conv - 1, d_inner]
+    in ``dtype`` and ``{"ssm"}`` [*lead, B, d_inner, n] f32 (the recurrent
+    states, independent of ``cap``) for Mamba."""
     kw = dict(dtype=dtype, device=device)
+    if kind == "mamba":
+        return {"conv": torch.zeros((*lead, B, cfg.ssm_conv - 1, cfg.d_inner), **kw),
+                "ssm": torch.zeros((*lead, B, cfg.d_inner, cfg.ssm_state),
+                                   dtype=torch.float32, device=device)}
     if kind == "mla":
         c = cfg.kv_lora_rank + cfg.qk_rope_dim
         return {"kv": torch.zeros((*lead, B, cap, 1, c), **kw)}
@@ -164,9 +192,16 @@ def _attn_impl(cache_cfg) -> str:
 
 def block_decode(p, x, cache, pos, kind, cfg, dims, *, policy, block_tables, cache_cfg):
     """x [B, 1, D] through one block: MLA over its compressed stream, GQA
-    over a page pool or a contiguous cache (all written in place). Returns
+    over a page pool or a contiguous cache, Mamba over its conv / ssm
+    states (all written in place; Mamba's only where ``pos >= 0``). Returns
     (x, cache)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == "mamba":
+        out, (conv, ssm) = S.mamba_decode(p["mixer"], h, cache["conv"], cache["ssm"], cfg,
+                                          policy=policy, live=pos >= 0)
+        cache["conv"].copy_(conv)
+        cache["ssm"].copy_(ssm)
+        return x + out, cache
     if kind == "mla":
         out, ckv = A.mla_attn_decode(p["attn"], h, cache["kv"], pos, cfg, dims, policy=policy,
                                      attn_impl=_attn_impl(cache_cfg))
@@ -185,7 +220,10 @@ def block_decode(p, x, cache, pos, kind, cfg, dims, *, policy, block_tables, cac
 
 def block_decode_chunk(p, x, cache, pos, nvalid, kind, cfg, dims, *, policy, block_tables,
                        cache_cfg):
-    """Ragged analogue of `block_decode`: x [B, c, D]."""
+    """Ragged analogue of `block_decode`: x [B, c, D] (attention layers
+    only, `check_chunked_support`)."""
+    if kind not in ("gqa", "mla"):
+        raise NotImplementedError(f"chunked decode does not support {kind!r} blocks")
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "mla":
         out, ckv = A.mla_attn_decode_chunk(p["attn"], h, cache["kv"], pos, nvalid, cfg, dims,
@@ -242,8 +280,11 @@ def block_seq(p, x, kind, cfg, dims, *, policy=None, block_kv=1024, prefix_len=0
               want_cache=False):
     """x [B, S, D] through one block over the whole sequence. Returns (x,
     cache or None): GQA's ``{"k", "v"}`` [B, S, kv, hd], MLA's ``{"kv"}``
-    [B, S, 1, r_kv + dr]."""
+    [B, S, 1, r_kv + dr], Mamba's final ``{"conv", "ssm"}`` states."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == "mamba":
+        out, (conv, ssm) = S.mamba_train(p["mixer"], h, cfg, policy=policy)
+        return x + out, ({"conv": conv, "ssm": ssm} if want_cache else None)
     if kind == "mla":
         out, kv = A.mla_attn_train(p["attn"], h, cfg, dims, policy=policy, block_kv=block_kv,
                                    prefix_len=prefix_len)
@@ -264,7 +305,8 @@ def forward_seq(params, tokens, cfg, *, policy=None, block_kv=1024, prefix_embed
     dense layers); ``want_cache`` returns the contiguous cache the sequence
     leaves, leaves stacked [G, B, P + S, ...] as `make_cache` lays them out,
     from which `decode_step` continues (copied into a cache of larger
-    capacity)."""
+    capacity; a Mamba model's are its final conv / ssm states [G, B, ...],
+    which `decode_step` takes as they are)."""
     check_serving_support(cfg)
     dims = model_dims(cfg)
     kind = layer_pattern(cfg)[0]

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Dict, Optional
 
 from repro_torch.analysis.roofline import HBM_BW, PEAK_FLOPS, param_count
@@ -169,8 +170,10 @@ def attribution(eng, profile: bool = False, ticks: int = 3) -> Dict[str, object]
     ``hlo_hbm_vs_floor``) come from compiling XLA and are not produced
     here: the engine's width-1 decode graph is replayed ``ticks`` times on
     the last tick's staged inputs (a replay rewrites the cache entries that
-    tick wrote with the same values) under torch.profiler, and its
-    device-busy ms per tick is set beside that tick's time floor at the
+    tick wrote with the same values; a Mamba model's recurrent states, which
+    a replay would advance again, are put back as the tick left them) under
+    torch.profiler, after a warm-up replay that is traced and dropped
+    (`trace_window`), and its device-busy ms per tick is set beside that tick's time floor at the
     H100's peaks (``profile_floor_ms``; ``profile_floor_share`` = floor /
     busy). It needs an engine on the card whose last tick was a pure-decode
     tick; CPU tensors raise."""
@@ -203,11 +206,47 @@ def attribution(eng, profile: bool = False, ticks: int = 3) -> Dict[str, object]
     return out
 
 
+# host seconds with nothing on the device at each edge of a profiled window
+TRACE_MARGIN_S = 0.05
+
+
+def trace_window(run, warmup):
+    """``warmup()`` then ``run()`` under torch.profiler (CPU and CUDA),
+    keeping the records of ``run`` alone: the warm-up is traced and dropped
+    (the profiler's schedule), so the device's tracing is running before
+    the kept window opens, and the window has ``TRACE_MARGIN_S`` of host
+    time with nothing on the device at each edge. Returns (profiler, run's
+    result)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
+        warmup()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+        prof.step()
+        time.sleep(TRACE_MARGIN_S)
+        out = run()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+    return prof, out
+
+
+def device_records(prof):
+    """The device's records of a `trace_window`: kernels, copies and fills,
+    without the annotation the profiler's schedule spans over the step."""
+    return [ev for ev in prof.events()
+            if str(getattr(ev, "device_type", "")).endswith("CUDA")
+            and not getattr(ev, "is_user_annotation", False)
+            and not ev.name.startswith("ProfilerStep")]
+
+
 def _profiled_decode_graph(eng, cm: StepCostModel, ticks: int) -> Dict[str, object]:
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.sampling import any_sampled
+    from repro_torch.launch.steps import recurrent_states_kept
 
     if eng.graphs is None:
         raise RuntimeError("attribution(profile=True) replays the engine's CUDA graph: the "
@@ -222,14 +261,14 @@ def _profiled_decode_graph(eng, cm: StepCostModel, ticks: int) -> Dict[str, obje
     fed = int(live.sum())
     reads = int((pos[live].astype("int64") + 1).sum())    # causal: i + 1 positions each
     sampled = any_sampled(eng.samp)                        # the epilogue the tick ran
-    eng.graphs(1, sampled)                                 # warm, outside the window
-    torch.cuda.synchronize(eng.device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def replays():
         for _ in range(ticks):
             eng.graphs(1, sampled)
-        torch.cuda.synchronize(eng.device)
-    busy_us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-                  if str(getattr(ev, "device_type", "")).endswith("CUDA"))
+
+    with recurrent_states_kept(eng.cache, eng.cfg):
+        prof, _ = trace_window(replays, lambda: eng.graphs(1, sampled))
+    busy_us = sum(ev.time_range.elapsed_us() for ev in device_records(prof))
     busy_ms = busy_us / 1e3 / ticks
     floor_ms = 1e3 * cm.step_time_floor_s(fed, reads)
     return {"profile_ticks": ticks, "profile_tokens_fed": fed, "profile_positions_read": reads,

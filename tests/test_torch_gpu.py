@@ -2,8 +2,9 @@
 
 The ``gpu``-marked tests hold the CUDA kernels K1, K1b, K2, K3, K4, K5 and
 K5p against their plain torch versions on the card, at small and at
-Qwen2-7B / MiniCPM3-4B widths, run the engine end to end through each
-path's kernels, and hold its CUDA-graph step against the eager step. Each skips from inside the test
+Qwen2-7B / MiniCPM3-4B / Falcon-Mamba-7B widths, run the engine end to end
+through each path's kernels, and hold its CUDA-graph step against the
+eager step (Falcon-Mamba-7B at full width, 2 layers, too). Each skips from inside the test
 when ``torch.cuda.is_available()`` is false. The machine with the card has
 no JAX, so this file imports none; run it there alone:
 
@@ -53,7 +54,11 @@ def packed(K, N, dev, seed=0, scheme="fp5.33-e2m3", container=None):
                                    (3584, 512, 8), (3584, 18944, 8), (18944, 3584, 128),
                                    # InternVL2-1B's projections, and a sequence forward's rows
                                    (896, 128, 8), (896, 4864, 8), (4864, 896, 128),
-                                   (896, 896, 256)])
+                                   (896, 896, 256),
+                                   # Falcon-Mamba-7B's in_proj, x_proj (ragged N 288),
+                                   # dt_proj (Kp 258: 43 words) and out_proj
+                                   (4096, 16384, 8), (8192, 288, 8), (256, 8192, 8),
+                                   (8192, 4096, 8), (8192, 288, 128), (256, 8192, 128)])
 def test_k1_kernel_matches_plain(K, N, B):
     from repro_torch.kernels.ams_matmul import COUNT, ams_matmul_fp533, ams_matmul_fp533_plain
 
@@ -1334,6 +1339,180 @@ def test_frontend_streams_equal_the_direct_engine_on_the_card():
     assert json.loads(plain.partition("\r\n\r\n")[2])["tokens"] == want
     assert [json.loads(ln[6:])["token"] for ln in sse.splitlines()
             if ln.startswith("data: {\"token\"")] == want
+
+
+def _mamba_engine(**kw):
+    """Falcon-Mamba-7B at full width, cut to 2 layers, FP5.33 through K1, on
+    the one-token step over its conv / ssm state caches."""
+    from repro_torch.launch.config import EngineConfig
+    from repro_torch.launch.engine import ServeEngine
+
+    return ServeEngine(EngineConfig(arch="falcon-mamba-7b", reduced=False, depth=2,
+                                    scheme="fp5.33-e2m3", impl="kernel", slots=3,
+                                    capacity=64, device="cuda", seed=3, **kw))
+
+
+@pytest.mark.gpu
+def test_mamba_graph_replays_bit_equal_to_the_eager_step():
+    """Two Mamba engines in lockstep, one replaying its graphs, one running
+    the eager step: equal tokens every tick and equal state bytes. A seeded
+    sampled request arrives mid-serve, so the sampled graph is captured
+    (warm-up with every slot idle) while greedy requests hold live states;
+    their streams and states still match the eager engine's. K1 is the only
+    kernel launched."""
+    from repro_torch.kernels import ams_matmul, attention_template
+    from repro_torch.launch.sampling import SamplingParams
+    from repro_torch.models.transformer import tree_leaves
+
+    cuda_device()
+    graphed, eager = _mamba_engine(), _mamba_engine()
+    counts = (ams_matmul.COUNT, ams_matmul.COUNT_PLANES, attention_template.COUNT,
+              attention_template.COUNT_BF16, attention_template.COUNT_CONTIG,
+              attention_template.COUNT_MLA)
+    for c in counts:
+        c.reset()
+    for e in (graphed, eager):
+        for p in _graph_prompts()[:3]:
+            e.submit(p, 8)
+    tick = 0
+    while graphed.has_work or eager.has_work:
+        if tick == 5:
+            late = SamplingParams(temperature=0.8, top_k=20, seed=4)
+            for e in (graphed, eager):
+                e.submit(_graph_prompts()[3], 6, sampling=late)
+        graphed.step()
+        eager.step(eager=True)
+        tick += 1
+        assert ([None if r is None else r.tokens for r in graphed.active]
+                == [None if r is None else r.tokens for r in eager.active]), f"tick {tick}"
+    assert [r.tokens for r in graphed.finished] == [r.tokens for r in eager.finished]
+    for a, b in zip(tree_leaves(graphed.cache), tree_leaves(eager.cache)):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    assert sorted(graphed.graphs.graphs) == [(1, False), (1, True)]
+    assert counts[0].launches > 0 and all(c.launches == 0 for c in counts[1:])
+    assert all(c.plain_on_cuda == 0 for c in counts)
+
+
+@pytest.mark.gpu
+def test_mamba_warm_up_keeps_live_states():
+    """A capture's warm-up (a step with every slot idle) between live ticks
+    leaves every state byte as it was."""
+    from repro_torch.models.transformer import tree_leaves
+
+    cuda_device()
+    eng = _mamba_engine()
+    for p in _graph_prompts()[:3]:
+        eng.submit(p, 8)
+    for _ in range(4):
+        eng.step()
+    before = [t.view(torch.uint8).clone() for t in tree_leaves(eng.cache)]
+    eng.graphs.capture(1, sampled=False)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, t.view(torch.uint8)) for a, t in zip(before, tree_leaves(eng.cache)))
+
+
+@pytest.mark.gpu
+def test_mamba_eager_step_does_not_synchronise():
+    """The Mamba step (K1 projections, the masked in-place state update, the
+    f32 multiply-adds) runs under set_sync_debug_mode("error")."""
+    from repro_torch.launch.steps import run_step
+
+    cuda_device()
+    eng = _mamba_engine()
+    for p in _graph_prompts()[:3]:
+        eng.submit(p, 4)
+    eng.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.inputs.send()
+        run_step(eng._step, eng.params, eng.cache, eng.inputs, eng.samp, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_mamba_math_on_the_card_matches_the_cpu_path():
+    """The Mamba mixer's CUDA branches against its CPU path on the same
+    seeded f32 inputs: exp (device expf against XLA's CPU polynomial),
+    log1p and softplus within 8 f32 ulp where the results are normal;
+    `fma_f32` (one f32 addcmul against the exact f64 product) and the
+    read-out at 8 rows (lanes of 8) within 2 f32 ulp of the sum of their
+    terms' magnitudes, which bounds a product rounded before its add."""
+    import numpy as np
+
+    from repro_torch.models import ssm as S
+
+    dev = cuda_device()
+    rng = np.random.default_rng(11)
+    ulp = 2.0 ** -23
+
+    def both(fn, *xs):
+        cpu = fn(*[torch.from_numpy(x) for x in xs])
+        return fn(*[torch.from_numpy(x).to(dev) for x in xs]).cpu(), cpu
+
+    for fn, lo, hi in ((S.exp_f32, -80.0, 80.0), (S.log1p_f32, -0.99, 50.0),
+                       (S.softplus, -60.0, 60.0)):
+        x = rng.uniform(lo, hi, 1 << 16).astype(np.float32)
+        got, want = both(fn, x)
+        torch.testing.assert_close(got, want, rtol=8 * ulp, atol=0)
+    a, s_, b = (rng.standard_normal((8, 256, 16)).astype(np.float32) for _ in range(3))
+    got, want = both(S.fma_f32, a, s_, b)
+    bound = 2 * ulp * (np.abs(a * s_) + np.abs(b))
+    assert bool((torch.abs(got - want) <= torch.from_numpy(bound)).all())
+    h = rng.standard_normal((8, 256, 16)).astype(np.float32)
+    c = rng.standard_normal((8, 1, 16)).astype(np.float32)
+    d = rng.standard_normal(256).astype(np.float32)
+    xc = rng.standard_normal((8, 256)).astype(np.float32)
+    got, want = both(S.readout, h, c, d, xc)
+    terms = (np.abs(h) * np.abs(c)).sum(-1) + np.abs(d * xc)
+    assert bool((torch.abs(got - want) <= torch.from_numpy(2 * 16 * ulp * terms)).all())
+
+
+@pytest.mark.gpu
+def test_mamba_decode_on_the_card_matches_the_cpu_path():
+    """`mamba_decode` on CUDA tensors (K1 projections, the device's exp /
+    log1p, f32 multiply-adds) against the same layer on CPU tensors (K1's
+    plain version, XLA's CPU math, the f64 fused multiply-add) on seeded
+    inputs, reduced falcon-mamba-7b as the engine serves it at FP5.33: the
+    conv state within one bf16 ulp of each element plus K1's 1e-4 of the
+    largest (its tolerance against the plain version), the ssm state within
+    1e-2 of max |h| and y within 2e-2 of max |y| (a bf16 activation that
+    rounds the other way moves its row by a bf16 ulp of the largest)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.engine import prepare_params
+    from repro_torch.models import init_params
+    from repro_torch.models import ssm as S
+
+    dev = cuda_device()
+    cfg = get_config("falcon-mamba-7b").reduced()
+    pol = QuantPolicy(scheme="fp5.33-e2m3", impl="kernel", min_elements=1 << 10)
+    mixer = tree_map(lambda t: t[0], prepare_params(init_params(4, cfg), pol)
+                     ["layers"]["sub0"]["mixer"])
+    rng = np.random.default_rng(5)
+    B = 8
+    x = rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
+    conv = rng.standard_normal((B, cfg.ssm_conv - 1, cfg.d_inner)).astype(np.float32)
+    ssm = rng.standard_normal((B, cfg.d_inner, cfg.ssm_state)).astype(np.float32)
+
+    def run(device):
+        t = [torch.from_numpy(v).to(device) for v in (x, conv, ssm)]
+        p = tree_map(lambda v: v.to(device), mixer)
+        y, (c, h) = S.mamba_decode(p, t[0].to(torch.bfloat16), t[1].to(torch.bfloat16), t[2],
+                                   cfg, policy=pol)
+        return y.float().cpu(), c.float().cpu(), h.cpu()
+
+    (y, c, h), (wy, wc, wh) = run(dev), run("cpu")
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    assert bool((torch.abs(c - wc) <= 2.0 ** -7 * torch.abs(wc)
+                 + 1e-4 * torch.abs(wc).max()).all())
+    assert float(torch.abs(h - wh).max()) <= 1e-2 * float(torch.abs(wh).max())
+    assert float(torch.abs(y - wy).max()) <= 2e-2 * float(torch.abs(wy).max())
 
 
 @pytest.mark.gpu

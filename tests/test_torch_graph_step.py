@@ -9,8 +9,9 @@ that on CPU tensors:
     no host sync, bit-equal to the boolean-mask insert it replaced (kept
     here as the oracle), idle slots with stale block tables included;
   * one engine tick of each served cache kind (AMS pages, bf16 pages,
-    contiguous GQA, contiguous MLA) runs under a dispatch mode that fails
-    on host syncs, boolean indexing and tensors made from host data; the
+    contiguous GQA, contiguous MLA, Mamba's state caches) runs under a
+    dispatch mode that fails on host syncs, boolean indexing and tensors
+    made from host data; the
     kernels' plain versions, which never run on the card's main path, may
     sync (the guard pauses inside them);
   * the capture's warm-up (every slot idle) leaves every cache byte as it
@@ -300,6 +301,61 @@ def test_zoo_step_has_no_host_sync(arch, kind, guard):
     plain.run()
     assert [h.tokens for h in hs] == [h.tokens for h in want]
     assert widths == {1, 4} and guard.ops > 0
+
+
+@pytest.mark.parametrize("impl", ["kernel", "fused_ref"])
+def test_mamba_step_has_no_host_sync(impl, guard):
+    """Reduced falcon-mamba-7b on the one-token step, every tick under the
+    guard (a greedy and a seeded sampled request on three slots): the conv /
+    ssm state update, masked by pos >= 0 and written in place, the f64
+    fused multiply-adds of the CPU path and the read-out wait on nothing and make no tensor
+    from host data; streams equal an unguarded run."""
+    def mamba():
+        return ServeEngine(EngineConfig(arch="falcon-mamba-7b", reduced=True, impl=impl,
+                                        slots=3, capacity=32, device="cpu"))
+    eng, plain = mamba(), mamba()
+    warm_up(eng)
+    inner, widths = eng.device_step, set()
+
+    def guarded(width, eager=False):
+        widths.add(width)
+        with guard:
+            return inner(width, eager=eager)
+
+    eng.device_step = guarded
+    samp = [None, S.SamplingParams(temperature=0.9, top_k=30, seed=2), None]
+    hs = [eng.submit(p, 4, sampling=sp) for p, sp in zip(prompts(), samp)]
+    eng.run()
+    want = [plain.submit(p, 4, sampling=sp) for p, sp in zip(prompts(), samp)]
+    plain.run()
+    assert [h.tokens for h in hs] == [h.tokens for h in want]
+    assert widths == {1} and guard.ops > 0
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "qwen2-7b"])
+def test_recurrent_states_kept_puts_the_states_back(arch):
+    """`steps.recurrent_states_kept` around a decode step and a write: a
+    Mamba engine's conv / ssm states come back byte for byte although the
+    step advanced them; an attention cache keeps what was written."""
+    from repro_torch.launch.steps import recurrent_states_kept
+
+    eng = ServeEngine(EngineConfig(arch=arch, reduced=True, impl="kernel", slots=3,
+                                   capacity=32, device="cpu"))
+    for p in prompts():
+        eng.submit(p, 4)
+    for _ in range(3):
+        eng.step()
+    before = cache_bytes(eng)
+    with recurrent_states_kept(eng.cache, eng.cfg):
+        run_step(eng._step, eng.params, eng.cache, eng.inputs, eng.samp, 1)
+        stepped = cache_bytes(eng)
+        tree_leaves(eng.cache)[0].view(torch.uint8).fill_(7)
+    after = cache_bytes(eng)
+    if arch == "falcon-mamba-7b":
+        assert not all(torch.equal(a, b) for a, b in zip(before, stepped))
+        assert all(torch.equal(a, b) for a, b in zip(before, after))
+    else:
+        assert bool((after[0] == 7).all())
 
 
 # ----------------------------------------------- idle run and static inputs

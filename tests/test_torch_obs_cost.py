@@ -63,7 +63,9 @@ def test_param_count_equals_jax(arch):
 
 @pytest.mark.parametrize("arch,scheme", [("qwen2-7b", "fp5.33-e2m3"), ("qwen2-7b", "fp16"),
                                          ("qwen2-7b", "fp4.25-e2m2"),
-                                         ("minicpm3-4b", "fp5.33-e2m3")])
+                                         ("minicpm3-4b", "fp5.33-e2m3"),
+                                         ("falcon-mamba-7b", "fp5.33-e2m3"),
+                                         ("falcon-mamba-7b", "fp16")])
 @pytest.mark.parametrize("kind", [None, "paged_bf16", "paged_ams"])
 def test_build_cost_model_equals_jax(arch, scheme, kind):
     """Every field of the cost model (weights, FLOPs, KV floors, the bf16
@@ -177,3 +179,33 @@ def test_attribution_profile_needs_the_card(np_params):
     assert cost.attribution(eng)["served_ticks"] == eng.stats()["ticks"]
     with pytest.raises(RuntimeError, match="CPU tensors"):
         cost.attribution(eng, profile=True)
+
+
+def test_mamba_engine_cost_keys_equal_jax():
+    """Reduced falcon-mamba-7b (FP5.33, the one-token step over its state
+    caches) through both engines: the cost keys of ``stats()``, every key
+    of `attribution` but the signature, and each request's floor and
+    achieved KV bytes are equal. The reference counts KV for Mamba from
+    num_kv_heads x head_dim, though Mamba keeps none, and so does the port."""
+    jp = j_init_params(jax.random.PRNGKey(0), j_get_config("falcon-mamba-7b").reduced())
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, 512, n).astype(np.int32) for n in (9, 5, 12)]
+    port = ServeEngine(EngineConfig(arch="falcon-mamba-7b", reduced=True, scheme="fp5.33-e2m3",
+                                    impl="kernel", slots=2, capacity=32, device="cpu"),
+                       params=params_from_numpy(jax.tree.map(np.asarray, jp)))
+    jeng = JServeEngine(JEngineConfig(arch="falcon-mamba-7b", reduced=True,
+                                      scheme="fp5.33-e2m3", impl="pallas_interpret", slots=2,
+                                      capacity=32), params=jp)
+    hp = [port.submit(p, 4) for p in prompts]
+    hj = [jeng.submit(p, 4) for p in prompts]
+    port.run()
+    jeng.run()
+    assert port.tick == jeng.tick
+    sp, sj = port.stats(), jeng.stats()
+    assert {k: sp[k] for k in COST_KEYS} == {k: sj[k] for k in COST_KEYS}
+    assert sp["kv_bytes_per_token"] > 0
+    ap, aj = cost.attribution(port), jcost.attribution(jeng)
+    ap.pop("signature"), aj.pop("signature")
+    assert ap == aj
+    assert [(h.kv_floor_bytes, h.kv_achieved_bytes) for h in hp] == \
+        [(h.kv_floor_bytes, h.kv_achieved_bytes) for h in hj]
