@@ -26,8 +26,10 @@ Phases, each fatal on failure:
      projection at B in {8, 128} against the plain version, one decode and
      one prefill-chunk layer timed against their bounds and dense bf16;
      K1 also at InternVL2-1B's and Falcon-Mamba-7B's projections (in_proj,
-     x_proj with N 288, dt_proj with K 256 = 43 words, out_proj) and K1b
-     (fp4.25) at MusicGen-medium's, the same way;
+     x_proj with N 288, dt_proj with K 256 = 43 words, out_proj), at
+     RecurrentGemma-9B's rec layer (five 4096 x 4096 RG-LRU projections and
+     the GeGLU FFN of 12288) and attn layer (wq / wo, wk / wv of one 256-wide
+     kv head, the FFN), and K1b (fp4.25) at MusicGen-medium's, the same way;
   5. K2 (paged AMS-e2m2 flash-decode) against its plain version at kv=4,
      g=7, hd=128, pages of 16, 64 and 128 tokens, 8 slots, lengths up to
      1024, chunk in {1, 16}, with an idle slot and masked rows that must
@@ -64,7 +66,13 @@ Phases, each fatal on failure:
      (`ssm-fp5.33`: K1; 9 requests of 32-96 tokens, 24 new, two of them
      seeded sampled, each stream then held to the request served alone)
      and with bf16 weights (`ssm-fp16`: cuBLAS projections, no kernel of
-     the port; the same requests; no graph or consistency phase); 9
+     the port; the same requests; no graph or consistency phase);
+     full-width 38-layer RecurrentGemma-9B ((rec, rec, attn) x 12 and a
+     (rec, rec) tail) on the one-token step over its conv / recurrent
+     states and 2048-slot bf16 rings with FP5.33 weights (`hybrid-fp5.33`:
+     K1 alone, the ring attention in plain torch as the reference's XLA
+     path, never K4; the Mamba paths' requests, each stream held to the
+     request alone) and bf16 weights (`hybrid-fp16`, as `ssm-fp16`); 9
      requests each on the others but FP5.33 (two sharing a prefix on the
      paged ones whose requests are tokens only). Launch counts are zeroed
      just before each path and read just after: every kernel of the path
@@ -83,21 +91,27 @@ Phases, each fatal on failure:
      in the graph ticks must equal the counted ones, and so must the path
      kernels' nodes in a CUDA graph of the step, read from CUDA's graph
      debug dump);
-  10. graph against eager at cut depth (2 layers, full widths), per path:
+  10. graph against eager at cut depth (2 layers, full widths; 3 on the
+      hybrid, one whole (rec, rec, attn) repeat), per path:
       two engines from one seed serve the same requests in lockstep (on the
       VLM path with 256 prefix embeds each), one
       replaying its graphs, one running the eager step; tokens after every
       tick and every cache byte must be equal; then one eager step runs
       under torch.cuda.set_sync_debug_mode("error");
-  11. consistency at cut depth (2 layers, full widths), per path (both
-      engines replay graphs):
+  11. consistency at cut depth (as phase 10), per path (both engines
+      replay graphs):
       first-tick logits and greedy streams of impl "kernel" against the
       non-kernel impls ("fused_ref" matmuls, "ref" attention) on the card,
       the kernel engine's streams launching every kernel of its path; the
       FP4.25 path once more over pages of 64 tokens (K1b and K2's walk of a
       page in two sub-tiles), and once with fp6-e2m3 weights (K1b's per_word
       5 hook, K2);
-  12. engine-features: seeded sampling, preemption with host spill and
+  12. ring: `hybrid-fp5.33` at one repeat past the 2048-slot window (two
+      prompts of 2100-2300 tokens, 16 new each): a graphed and an eager
+      engine in lockstep, equal tokens every tick and equal cache bytes
+      (states and rings) at the end; each stream equal to its request
+      served alone (`phase_ring`);
+  13. engine-features: seeded sampling, preemption with host spill and
       speculative decoding on the FP5.33 path over AMS-e2m2 pages at full
       width (`phase_engine_features`: graph against eager for sampled
       ticks, sampled streams replayed in another engine shape, the sampled
@@ -115,12 +129,12 @@ Phases, each fatal on failure:
       explains it, cuBLAS's are recorded, with FP16's speculative streams
       set against plain decoding's), one JSON line per check, K1 and K2 the
       only kernels launched;
-  13. seq: `models.forward_seq(want_cache=True)` over a 256-token prompt
+  14. seq: `models.forward_seq(want_cache=True)` over a 256-token prompt
       on the FP5.33 Qwen2-7B weights (K1 at 256 rows), then greedy
       one-token decode steps from its cache (K1, K4), against chunked
       prefill of the same prompt over a contiguous cache: first-token
       logits within LOGIT_TOL, the streams' first diverging token printed;
-  14. frontend: the async HTTP/SSE front end over the FP5.33 path at full
+  15. frontend: the async HTTP/SSE front end over the FP5.33 path at full
       width (`phase_frontend`: 12 requests at staggered arrivals, JSON and
       SSE, two sampled, one refused with 429; every stream equal to the
       request served alone; /healthz and /metrics read; K1 and K2 the only
@@ -130,15 +144,15 @@ Phases, each fatal on failure:
       floor of a full decode tick at the H100's peaks beside a profiled
       replay of its graph (`obs.cost.attribution(profile=True)`).
 
-A line ``compare {...}`` sets the nine paths' graph and eager decode
+A line ``compare {...}`` sets the eleven paths' graph and eager decode
 ticks, replay ms, device-busy ms, idle shares, gaps inside ticks and
 kernels per tick side by side. The line before the last is one JSON
 object with a row per kernel; the last line is ``{"ok": true, "device":
 {...}}``. Without a CUDA card the script exits non-zero and prints no
 result (``--cpu-rehearsal`` runs the phases on the CPU at tiny sizes with
 the plain versions, skips timing, and also exits non-zero). On the Mamba
-paths a timed or profiled replay would advance the recurrent states
-again: they are put back after the replays
+and hybrid paths a timed or profiled replay would advance the recurrent
+states again: they are put back after the replays
 (`launch.steps.recurrent_states_kept`).
 """
 
@@ -203,6 +217,15 @@ PATHS = {
                        kernels=("ams_matmul_fp533",), chunk=1),
     "ssm-fp16": dict(arch="falcon-mamba-7b", scheme="fp16", kind="contiguous", kernels=(),
                      chunk=1, lean=True),
+    # the RG-LRU hybrid, (rec, rec, attn) x 12 and a (rec, rec) tail, on the
+    # one-token step over its conv / recurrent states and 2048-slot bf16 rings
+    # (plain torch attention, as the reference's XLA path: K4 never runs),
+    # beside its FP16 baseline; the graph and consistency phases cut it to
+    # one whole repeat (3 layers: two would hold no attention)
+    "hybrid-fp5.33": dict(arch="recurrentgemma-9b", scheme="fp5.33-e2m3", kind="contiguous",
+                          kernels=("ams_matmul_fp533",), chunk=1, depth=3),
+    "hybrid-fp16": dict(arch="recurrentgemma-9b", scheme="fp16", kind="contiguous",
+                        kernels=(), chunk=1, lean=True),
 }
 PLANES_SCHEMES = ("fp8", "fp6-e2m3", "fp6-e3m2", "fp5-e2m2", "fp4.5-e2m2", "fp4.33-e2m2",
                   "fp4-e2m1")
@@ -218,6 +241,15 @@ MUSICGEN_SHAPES = [("wq/wk/wv/wo", 1536, 1536, 4), ("w_up", 1536, 6144, 1),
 # 288, dt_proj's K = 256 (Kp 258, 43 fp533 words)
 MAMBA_SHAPES = [("in_proj", 4096, 16384, 1), ("x_proj", 8192, 288, 1),
                 ("dt_proj", 256, 8192, 1), ("out_proj", 8192, 4096, 1)]
+# RecurrentGemma-9B's projections (K1, FP5.33): a rec layer (the RG-LRU's
+# in_x, in_gate, w_rec_gate, w_in_gate and out_proj, then the GeGLU FFN)
+# and an attn layer (MQA: one kv head of 256)
+RECURRENTGEMMA_SHAPES = {
+    "rec": [("in_x/in_gate/w_rec_gate/w_in_gate/out_proj", 4096, 4096, 5),
+            ("w_gate/w_up", 4096, 12288, 2), ("w_down", 12288, 4096, 1)],
+    "attn": [("wq/wo", 4096, 4096, 2), ("wk/wv", 4096, 256, 2),
+             ("w_gate/w_up", 4096, 12288, 2), ("w_down", 12288, 4096, 1)],
+}
 TINY_SHAPES = [("wq/wo", 128, 128, 2), ("wk/wv", 128, 64, 2),
                ("w_gate/w_up", 128, 256, 2), ("w_down", 256, 128, 1)]
 # page sizes of the K2 / K3 phases: the CacheConfig default (timed against a
@@ -387,7 +419,17 @@ def phase_k1(torch, dev, timed: bool, full: bool):
                         full, shapes=INTERNVL_SHAPES)
     mamba = _matmul_phase(torch, dev, "K1[falcon-mamba-7b]", "fp5.33-e2m3", gen, kernel, plain,
                           timed, full, shapes=MAMBA_SHAPES)
-    return layer, err, zoo, mamba
+    # one rec and one attn layer of RecurrentGemma-9B, and the two summed
+    rg = {kind: _matmul_phase(torch, dev, f"K1[recurrentgemma-9b {kind}]", "fp5.33-e2m3", gen,
+                              kernel, plain, timed, full, shapes=shapes)
+          for kind, shapes in RECURRENTGEMMA_SHAPES.items()}
+    both = {k: rg["rec"][0][k] + rg["attn"][0][k] for k in rg["rec"][0]
+            if k not in ("B", "bound_by")}
+    both["B"] = rg["rec"][0]["B"]
+    both["bound_ms"], both["bound_by"] = bound_ms(both["bytes"], (both["flops"],
+                                                                 PEAK_BF16_FLOPS))
+    log("K1[recurrentgemma-9b] one rec and one attn decode layer: " + json.dumps(both))
+    return layer, err, zoo, mamba, (both, max(rg["rec"][1], rg["attn"][1]))
 
 
 def phase_k1b(torch, dev, timed: bool, full: bool):
@@ -956,12 +998,13 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
     reference, and a request with prefix embeds skips it). The VLM path's
     requests each carry 256 seeded normal prefix embeddings and 32-96 text
     tokens, and each stream must equal that request served alone. The
-    Mamba paths (`ssm-*`, one token per slot per tick) serve 9 requests of
-    32-96 tokens, two of them seeded sampled requests, so the sampled graph
-    is captured while the others hold live states; on `ssm-fp5.33` each
-    stream must then equal the request served alone (with its request id,
-    which the draw key folds), on `ssm-fp16` the comparison is printed
-    (cuBLAS gives a row other bits at other row counts)."""
+    one-token paths (`ssm-*` and `hybrid-*`, recurrent states) serve 9
+    requests of 32-96 tokens, two of them seeded sampled requests, so the
+    sampled graph is captured while the others hold live states; on the
+    FP5.33 ones each stream must then equal the request served alone (with
+    its request id, which the draw key folds), on the FP16 ones the
+    comparison is printed (cuBLAS gives a row other bits at other row
+    counts)."""
     import itertools
 
     import numpy as np
@@ -973,7 +1016,7 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
 
     spec = PATHS[path]
     paged = spec["kind"] != "contiguous"
-    ssm = path.startswith("ssm")
+    ssm = spec.get("chunk") == 1       # the one-token step: recurrent states
     if full:
         ec = EngineConfig(arch=spec["arch"], reduced=False, scheme=spec["scheme"],
                           impl="kernel", slots=8, capacity=512,
@@ -1119,7 +1162,8 @@ def weight_bytes(params):
     def total(tree):
         return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
-    layers, head = total(params["layers"]), total(params["lm_head"])
+    layers = total(params["layers"]) + total(params.get("tail", {}))
+    head = total(params["lm_head"])
     return dict(layers=layers, lm_head=head, total=layers + head)
 
 
@@ -1355,7 +1399,7 @@ def graph_path_nodes(torch, eng, path: str):
 
 def phase_graph(torch, dev, full: bool, path: str = "fp5.33"):
     """Graph replays against the eager step at cut depth (2 layers, full
-    widths): two engines from one seed serve the same requests in lockstep
+    widths; the hybrid's one repeat, 3 layers): two engines from one seed serve the same requests in lockstep
     (prefill and decode ticks mixed), one replaying its CUDA graphs, the
     other running the step function (`step(eager=True)`); tokens after
     every tick and every cache byte at the end must be equal (on the VLM
@@ -1373,7 +1417,7 @@ def phase_graph(torch, dev, full: bool, path: str = "fp5.33"):
     from repro_torch.core.tree import tree_leaves
 
     spec = PATHS[path]
-    base = (dict(reduced=False, depth=2, slots=4, capacity=256,
+    base = (dict(reduced=False, depth=spec.get("depth", 2), slots=4, capacity=256,
                  prefill_chunk=spec.get("chunk", 16))
             if full else dict(reduced=True, slots=2, capacity=64,
                               prefill_chunk=spec.get("chunk", 4)))
@@ -1446,7 +1490,7 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33", page: int = 
     page = page or (16 if full else 8)
 
     def config(impl, attn):
-        base = (dict(reduced=False, depth=2, slots=4, capacity=256,
+        base = (dict(reduced=False, depth=PATHS[path].get("depth", 2), slots=4, capacity=256,
                      prefill_chunk=PATHS[path].get("chunk", 16),
                      cache=CacheConfig(kind=kind, page_size=page, impl=attn))
                 if full else
@@ -1514,6 +1558,87 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33", page: int = 
     if dev.type == "cuda" and sorted(launches) != sorted(PATHS[path]["kernels"]):
         fail(f"consistency[{path}, {scheme}]: the kernel engine's streams launched "
              f"{launches}, not every kernel of the path and no other")
+    return res
+
+
+def phase_ring(torch, dev, full: bool):
+    """RecurrentGemma's rings past their window: `hybrid-fp5.33` cut to one
+    repeat (3 layers, full widths; the reduced config's 64-slot window at
+    tiny sizes), two requests of 2100-2300 prompt tokens (68-84 tiny), 16
+    new each. A graphed and an eager engine from one seed serve them in
+    lockstep: tokens after every tick, and at the end every cache byte
+    (conv / recurrent states, ring K / V), must be equal. Then each request
+    is served alone on the graphed engine (its request id kept): its
+    stream must equal the one served beside the other."""
+    import itertools
+
+    import numpy as np
+
+    from repro_torch.cache import CacheConfig
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.config import EngineConfig
+    from repro_torch.launch.engine import ServeEngine
+
+    spec = PATHS["hybrid-fp5.33"]
+    base = (dict(reduced=False, depth=spec["depth"], capacity=2400) if full
+            else dict(reduced=True, capacity=112))
+    ec = EngineConfig(arch=spec["arch"], scheme=spec["scheme"], impl="kernel", slots=2,
+                      prefill_chunk=1, cache=CacheConfig(kind="contiguous", impl="kernel"),
+                      device=str(dev), seed=13, **base)
+    graphed, eager = ServeEngine(ec), ServeEngine(ec)
+    W = graphed.cfg.sliding_window
+    rng = np.random.default_rng(21)
+    lens = rng.integers(W + 52, W + 253, 2) if full else rng.integers(W + 4, W + 21, 2)
+    prompts = [rng.integers(0, graphed.cfg.vocab_size, int(n)).astype(np.int32) for n in lens]
+    gen_n = 16
+    counts = all_counts()
+    for cnt in counts:
+        cnt.reset()
+    t0 = time.perf_counter()
+    hs = [graphed.submit(p, gen_n) for p in prompts]
+    for p in prompts:
+        eager.submit(p, gen_n)
+    ticks, first = 0, None
+    while graphed.has_work or eager.has_work:
+        graphed.step()
+        eager.step(eager=True)
+        ticks += 1
+        a = [list(r.tokens) if r is not None else None for r in graphed.active]
+        b = [list(r.tokens) if r is not None else None for r in eager.active]
+        if first is None and a != b:
+            first = ticks
+    lockstep_s = time.perf_counter() - t0
+    launches = {cnt.name: cnt.launches for cnt in counts if cnt.launches}
+    streams_equal = [r.tokens for r in graphed.finished] == [r.tokens for r in eager.finished]
+    caches_equal = all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                       for x, y in zip(tree_leaves(graphed.cache), tree_leaves(eager.cache)))
+    together = [list(h.tokens) for h in hs]
+    del eager
+    gc.collect()
+    alone, fresh = [], graphed._rid
+    for h, p in zip(hs, prompts):
+        graphed._rid = itertools.count(h.rid)
+        alone.append(graphed.submit(p, gen_n).result())
+        graphed._rid = fresh
+    firsts = [next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
+              for a, b in zip(together, alone)]
+    res = dict(path="hybrid-fp5.33", depth=graphed.cfg.num_layers, window=W,
+               prompt_tokens=[int(n) for n in lens], new_tokens=gen_n, ticks=ticks,
+               lockstep_s=lockstep_s, graph_equals_eager_streams=streams_equal,
+               graph_equals_eager_cache_bytes=caches_equal, first_diverging_tick=first,
+               alone_equal=all(f is None for f in firsts), first_diverging_token=firsts,
+               kernel_launches=launches)
+    log("ring " + json.dumps(res))
+    if not min(lens) > W:
+        fail(f"ring: prompts {lens} do not pass the window {W}")
+    if not (streams_equal and caches_equal and first is None):
+        fail(f"ring: graph replays and the eager step differ past the window: {res}")
+    if any(f is not None for f in firsts):
+        fail(f"ring: streams differ from the requests served alone: {firsts}")
+    if dev.type == "cuda" and sorted(launches) != sorted(spec["kernels"]):
+        fail(f"ring: launched {launches}, not the path's kernels {spec['kernels']} alone")
+    del graphed
+    gc.collect()
     return res
 
 
@@ -2627,6 +2752,7 @@ def main():
                 phase_consistency(torch, dev, full=False, path=path)
         phase_consistency(torch, dev, full=False, path="fp4.25", page=16)
         phase_consistency(torch, dev, full=False, path="fp4.25", scheme="fp6-e2m3")
+        phase_ring(torch, dev, full=False)
         phase_engine_features(torch, dev, full=False)
         phase_seq(torch, dev, full=False)
         phase_frontend(torch, dev, full=False)
@@ -2661,8 +2787,8 @@ def main():
     log(f"build total {time.perf_counter() - t0:.1f}s")
     ptxas_report(build)
 
-    k1, k1_err, (k1_zoo, k1_zoo_err), (k1_ssm, k1_ssm_err) = phase_k1(torch, dev, timed=True,
-                                                                       full=True)
+    (k1, k1_err, (k1_zoo, k1_zoo_err), (k1_ssm, k1_ssm_err),
+     (k1_rg, k1_rg_err)) = phase_k1(torch, dev, timed=True, full=True)
     k1b, k1b_err, k1b_wide, (k1b_zoo, k1b_zoo_err) = phase_k1b(torch, dev, timed=True, full=True)
     k2, k2_err, k2_zoo = phase_k2(torch, dev, timed=True, full=True)
     k3, k3_err = phase_k3(torch, dev, timed=True, full=True)
@@ -2677,6 +2803,7 @@ def main():
             phase_consistency(torch, dev, full=True, path=path)
     phase_consistency(torch, dev, full=True, path="fp4.25", page=64)
     phase_consistency(torch, dev, full=True, path="fp4.25", scheme="fp6-e2m3")
+    phase_ring(torch, dev, full=True)
     # one set of FP5.33 weights for the engine-features and frontend phases
     from repro_torch.core.policy import QuantPolicy
     from repro_torch.launch.config import EngineConfig
@@ -2737,6 +2864,8 @@ def main():
             "src/repro/kernels/ams_matmul.py:138", "vlm-fp5.33", k1_zoo, k1_zoo_err),
         row("ams_matmul_fp533[falcon-mamba-7b]", "ams_matmul.cu",
             "src/repro/kernels/ams_matmul.py:138", "ssm-fp5.33", k1_ssm, k1_ssm_err),
+        row("ams_matmul_fp533[recurrentgemma-9b]", "ams_matmul.cu",
+            "src/repro/kernels/ams_matmul.py:138", "hybrid-fp5.33", k1_rg, k1_rg_err),
         row("ams_matmul_planes[musicgen-medium]", "ams_matmul.cu",
             "src/repro/kernels/ams_matmul.py:95", "audio-fp4.25", k1b_zoo, k1b_zoo_err),
         row("paged_attention_ams[internvl2-1b]", "paged_attention.cu",

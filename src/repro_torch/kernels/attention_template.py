@@ -97,15 +97,34 @@ def _scaled(q: torch.Tensor, scale: Optional[float]) -> torch.Tensor:
     return q * _scale_factor(q, scale)
 
 
-def flash_decode(q, k_cache, v_cache, pos, *, kv_map, scale=None):
+def _cache_positions(S: int, pos: torch.Tensor, ring_window: int) -> torch.Tensor:
+    """Key position held by each cache slot: slot j holds j, or in a ring
+    of width W the largest p <= ``pos`` with p % W == j (older entries
+    were overwritten; negative where the slot holds nothing yet). ``pos``
+    [B, 1] -> [B, S]."""
+    g = torch.arange(S, dtype=torch.int32, device=pos.device)[None, :]
+    if ring_window:
+        return pos - torch.remainder(pos - g, ring_window)
+    return g.expand(pos.shape[0], S)
+
+
+def flash_decode(q, k_cache, v_cache, pos, *, kv_map, scale=None, window: int = 0,
+                 ring: bool = False):
     """q [B, H, hd]; caches [B, S, kv, hd]; ``pos`` valid keys per slot
-    ([B]) or shared (scalar). Returns [B, H, hd_v] in q.dtype."""
+    ([B]) or shared (scalar). A query sees the keys at positions below
+    ``pos``, with a ``window`` only the last ``window`` of them; a ``ring``
+    cache holds position p at slot p % window. The index math is tensor
+    ops on the device (no host sync). Returns [B, H, hd_v] in q.dtype."""
     B, H, hd = q.shape
     S, kv_n = k_cache.shape[1], k_cache.shape[2]
     g = _check_grouped(H, kv_n, kv_map)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
     lens = pos.reshape(-1, 1).expand(B, 1)
-    valid = torch.arange(S, device=q.device)[None, None, :] < lens[:, :, None]
+    k_pos = _cache_positions(S, lens - 1, window if ring else 0)       # [B, S]
+    valid = (k_pos >= 0) & (k_pos < lens)          # ring slots may map to pre-history
+    if window > 0:
+        valid = valid & (lens - 1 - k_pos < window)
+    valid = valid[:, None, :]
     qf = _scaled(q, scale).reshape(B, 1, kv_n, g, hd)
     return _attend(qf, k_cache, v_cache, valid, g)[:, 0].to(q.dtype)
 
@@ -655,12 +674,21 @@ def fused_contiguous_attention(q, k_cache, lengths, *, v_cache=None,
 
 
 def attend_contiguous(q, k_cache, v_cache, lengths, *, kv_map, scale=None, impl: str = "ref",
-                      value_slice: Optional[int] = None):
+                      value_slice: Optional[int] = None, window: int = 0, ring: bool = False):
     """Decode attention over a contiguous cache, routed by ``impl``: ``ref``
     is `flash_decode` / `flash_decode_chunk` (``v_cache`` are the values;
     for MLA the [..., :r_kv] view of the stream), ``kernel`` is
     `fused_contiguous_attention` (K4, or K5 with ``value_slice``). q [B, H,
-    hd] with lengths [B], or [B, c, H, hd] with per-query lengths [B, c]."""
+    hd] with lengths [B], or [B, c, H, hd] with per-query lengths [B, c].
+    A sliding ``window`` or a ``ring`` cache (one-token queries only) takes
+    `flash_decode` whatever ``impl`` says, as the reference routes them:
+    its fused template has no window or ring index math."""
+    if window or ring:
+        if q.dim() != 3:
+            raise NotImplementedError("sliding-window and ring caches take one-token "
+                                      "queries only")
+        return flash_decode(q, k_cache, v_cache, lengths, kv_map=kv_map, scale=scale,
+                            window=window, ring=ring)
     if impl == "ref":
         fn = flash_decode if q.dim() == 3 else flash_decode_chunk
         return fn(q, k_cache, v_cache, lengths, kv_map=kv_map, scale=scale)

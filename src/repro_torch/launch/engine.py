@@ -69,9 +69,12 @@ A Mamba model (falcon-mamba-7b) is served over its contiguous conv / ssm
 state caches on the one-token step, as in the reference: its recurrence
 advances one token per slot per tick, so a ragged step (``prefill_chunk``
 > 1, or speculation) and paged caches are refused before any weight is
-made. Admission zeroes the slot's states, outside the step; the step
-writes a slot's states only while it is live (``pos >= 0``), so the idle
-warm-up of a graph capture leaves live requests' states as they were.
+made. So is the RG-LRU hybrid (recurrentgemma-9b), over its conv /
+recurrent states and, for its ``attn`` blocks, rings of the last
+``sliding_window`` keys. Admission zeroes the slot's states and ring rows,
+outside the step; the step writes a slot's states only while it is live
+(``pos >= 0``), so the idle warm-up of a graph capture leaves live
+requests' states as they were.
 
 Not ported yet, and refused with NotImplementedError: meshes.
 """
@@ -108,6 +111,7 @@ from repro_torch.models.transformer import (
     init_block,
     init_embed,
     layer_pattern,
+    pattern_counts,
 )
 from repro_torch.obs import NULL_REGISTRY, MetricsRegistry, TraceRecorder, build_cost_model
 from repro_torch.obs.metrics import COUNT_BUCKETS, TIME_BUCKETS
@@ -172,21 +176,26 @@ def init_serving_params(cfg, quant: Optional[QuantPolicy], seed: int, device):
     """Serving params from ``torch.Generator(device).manual_seed(seed)``,
     initialised and quantized one layer at a time so a full-width model never
     exists in f32 (Qwen2-7B would need about 30 GB). Same draws, same result
-    as ``prepare_params(init_params(seed, cfg), quant)``."""
+    as ``prepare_params(init_params(seed, cfg), quant)``: embed, the layers
+    in model order (each into its ``layers/sub{i}`` stack, every floating
+    leaf bf16 as the stacked tree casts it), the tail (``tail/sub{i}``,
+    leaves of ndim >= 2 bf16), lm_head; each block quantized under its own
+    path."""
     check_serving_support(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     dims = model_dims(cfg)
-    kind = layer_pattern(cfg)[0]
+    pat = layer_pattern(cfg)
+    G, R = pattern_counts(cfg)
     embed = {"w": init_embed(gen, cfg, dims, device=device)["w"].to(torch.bfloat16)}
-    L = cfg.num_layers
-    layers = None
-    for g in range(L):
-        blk = tree_map(_to_bf16, init_block(gen, cfg, dims, kind, device=device))
+    layers: Dict[str, Any] = {}
+    for l in range(G * len(pat)):
+        g, i = divmod(l, len(pat))
+        blk = tree_map(_to_bf16, init_block(gen, cfg, dims, pat[i], device=device))
         if quant is not None:
-            blk = quantize_params(blk, quant, prefix="/layers/sub0")
-        if layers is None:
-            layers = tree_map(lambda t: torch.empty((L, *t.shape), dtype=t.dtype,
-                                                    device=device), blk)
+            blk = quantize_params(blk, quant, prefix=f"/layers/sub{i}")
+        if g == 0:
+            layers[f"sub{i}"] = tree_map(lambda t: torch.empty((G, *t.shape), dtype=t.dtype,
+                                                               device=device), blk)
 
         def put(dst, src):
             if isinstance(dst, dict):
@@ -195,13 +204,21 @@ def init_serving_params(cfg, quant: Optional[QuantPolicy], seed: int, device):
             else:
                 dst[g].copy_(src)
 
-        put(layers, blk)
+        put(layers[f"sub{i}"], blk)
         del blk
+    tail = {}
+    for i in range(R):
+        blk = init_block(gen, cfg, dims, pat[i], device=device)
+        blk = tree_map(lambda t: _to_bf16(t) if t.dim() >= 2 else t, blk)
+        tail[f"sub{i}"] = (quantize_params(blk, quant, prefix=f"/tail/sub{i}")
+                           if quant is not None else blk)
     lm_head = make_linear(gen, cfg.d_model, dims.V, device=device)
     lm_head = {k: _to_bf16(v) if v.dim() >= 2 else v for k, v in lm_head.items()}
-    params = {"embed": embed, "layers": {"sub0": layers},
+    params = {"embed": embed, "layers": layers,
               "final_norm": make_norm(cfg.d_model, device=device),
               "lm_head": lm_head}
+    if R:
+        params["tail"] = tail
     if quant is not None:   # only lm_head/embed can still be eligible
         params["lm_head"] = quantize_params({"lm_head": lm_head}, quant)["lm_head"]
     return params
@@ -1038,7 +1055,8 @@ class ServeEngine:
         reference's formula (bf16 K and V of kv x hd per layer, or the
         packed AMS planes; an MLA model is counted by its kv heads x head_dim
         as well, as the reference counts it, and so is a Mamba model, which
-        keeps no KV at all: falcon-mamba-7b's num_kv_heads 1 x head_dim 64)."""
+        keeps no KV at all: falcon-mamba-7b's num_kv_heads 1 x head_dim 64,
+        and a hybrid's rec layers beside its attn layers' rings)."""
         dims = model_dims(self.cfg)
         return self.cfg.num_layers * pool_bytes_per_token(dims.kv, dims.hd, self.cache_cfg)
 

@@ -24,6 +24,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.xla_math import log_f32
+
 MASK = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA                         # threefry's key-schedule constant
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -97,8 +99,10 @@ def uniform(key: torch.Tensor, shape: Sequence[int] = (), minval: float = 0.0,
 
 def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.gumbel`` in JAX's default "low" mode (random.py:1735):
-    ``-log(-log(u))`` for u uniform in [tiny, 1)."""
-    return -torch.log(-torch.log(uniform(key, shape, TINY_F32, 1.0)))
+    ``-log(-log(u))`` for u uniform in [tiny, 1). The log is XLA's CPU
+    expansion on CPU tensors (`core.xla_math.log_f32`, so a CPU draw is the
+    reference's bit for bit), the device's on CUDA."""
+    return -log_f32(-log_f32(uniform(key, shape, TINY_F32, 1.0)))
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:

@@ -250,18 +250,22 @@ class GraphedStep:
 
 
 # block kinds whose cache is a recurrent state that every step advances
-RECURRENT_KINDS = ("mamba",)
+RECURRENT_KINDS = ("mamba", "rec")
 
 
 @contextmanager
 def recurrent_states_kept(cache, cfg: ModelConfig):
-    """Put the recurrent states back as they were on exit. A replay of the
-    step on the same staged inputs rewrites each KV entry the last tick
-    wrote with the value it had, but advances a recurrent block's states
-    once more; timed and profiled replays run inside this. The states are
-    the cache groups of `layer_pattern`'s recurrent block kinds."""
-    saved = [(t, t.clone()) for i, kind in enumerate(layer_pattern(cfg))
-             if kind in RECURRENT_KINDS for t in tree_leaves(cache["layers"][f"sub{i}"])]
+    """Put the caches of a model with recurrent blocks back as they were on
+    exit. A replay of the step on the same staged inputs rewrites each KV
+    entry the last tick wrote with the value it had, as long as every
+    layer's input is the tick's; a recurrent block's states advance once
+    more, though, and every later layer's entries (a hybrid's ring slots)
+    are written from them. Timed and profiled replays run inside this: a
+    model with a block kind of `RECURRENT_KINDS` in its pattern gets its
+    whole cache (stacked repeats and tail) back; any other keeps no copy."""
+    saved = []
+    if any(kind in RECURRENT_KINDS for kind in layer_pattern(cfg)):
+        saved = [(t, t.clone()) for t in tree_leaves(cache)]
     try:
         yield
     finally:

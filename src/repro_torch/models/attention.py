@@ -10,7 +10,9 @@ and ``impl="kernel"`` K1 / K1b run at B = sequence length.
 
 Each tick's K/V vectors are written into the layer's cache in place: a page
 pool (`cache.paged_insert`; AMS pools quantize each vector once) or a
-contiguous [B, S, kv, hd] cache (`cache_insert` / `cache_insert_chunk`).
+contiguous [B, S, kv, hd] cache (`cache_insert` / `cache_insert_chunk`; a
+sliding-window ``attn`` block's ring of the last W positions at slot
+position % W).
 Then every query attends: paged caches through `cache.paged_attend`
 (``ref`` oracle, or kernel K2 for AMS pages and K3 for bf16 pages),
 contiguous ones through `kernels.attention_template.attend_contiguous`
@@ -230,34 +232,42 @@ def cache_truncate_chunk(cache, start, count, c_max: int):
     return cache
 
 
-def cache_insert(cache, new, pos):
+def cache_insert(cache, new, pos, ring_window: int = 0):
     """Insert ``new`` [B, 1, kv, hd] at per-slot positions ``pos`` [B] (or
     one scalar position for every slot) into ``cache`` [B, S, kv, hd] in
-    place; a negative position (idle slot) writes nothing. Returns
+    place; a negative position (idle slot) writes nothing. A ring cache
+    (``ring_window`` = W, S = W) takes position p at slot p % W. Returns
     ``cache``."""
     B = cache.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=cache.device).reshape(-1).expand(B)
+    if ring_window:
+        pos = torch.where(pos >= 0, torch.remainder(pos, ring_window), pos)
     return cache_insert_chunk(cache, new, pos, torch.ones_like(pos))
 
 
-def gqa_decode_core(q, k_new, v_new, cache_k, cache_v, pos, *, kv_map, scale=None,
-                    impl="ref"):
+def gqa_decode_core(q, k_new, v_new, cache_k, cache_v, pos, *, kv_map, window=0, ring=False,
+                    scale=None, impl="ref"):
     """Insert + attend. q [B, H, hd]; k/v_new [B, 1, kv, hd]; caches
-    [B, S, kv, hd] (written in place)."""
-    cache_insert(cache_k, k_new, pos)
-    cache_insert(cache_v, v_new, pos)
+    [B, S, kv, hd] (written in place; with ``ring`` a ring of the last
+    ``window`` positions)."""
+    cache_insert(cache_k, k_new, pos, window if ring else 0)
+    cache_insert(cache_v, v_new, pos, window if ring else 0)
     o = attend_contiguous(q, cache_k, cache_v, pos + 1, kv_map=kv_map, scale=scale,
-                          impl=impl)
+                          impl=impl, window=window, ring=ring)
     return o, cache_k, cache_v
 
 
-def gqa_attn_decode(p, x, cache_k, cache_v, pos, cfg, dims, *, policy=None, attn_impl="ref"):
-    """One-token decode over a contiguous cache: x [B, 1, D], pos [B].
+def gqa_attn_decode(p, x, cache_k, cache_v, pos, cfg, dims, *, policy=None, window=0,
+                    ring=False, attn_impl="ref"):
+    """One-token decode over a contiguous cache: x [B, 1, D], pos [B]; a
+    query sees the last ``window or cfg.sliding_window`` positions when
+    that is set, and ``ring`` caches hold them by position % window.
     Returns (out, (cache_k, cache_v))."""
     B = x.shape[0]
     q, k, v = gqa_qkv(p, x, cfg, dims, pos[:, None], policy)
     kvm = kv_index_map(dims.H, dims.H_true, dims.kv)
     o, cache_k, cache_v = gqa_decode_core(q[:, 0], k, v, cache_k, cache_v, pos, kv_map=kvm,
+                                          window=window or cfg.sliding_window, ring=ring,
                                           impl=attn_impl)
     o = o * dims.head_mask(o.device)[None, :, None].to(o.dtype)
     return apply_linear(p["wo"], o.reshape(B, 1, dims.H * dims.hd), policy), (cache_k, cache_v)

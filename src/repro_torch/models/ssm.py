@@ -1,45 +1,64 @@
-"""Mamba-1 state-space blocks (falcon-mamba; port of the Mamba half of
-src/repro/models/ssm.py).
+"""State-space blocks: Mamba-1 (falcon-mamba) and RG-LRU (recurrentgemma)
+(port of src/repro/models/ssm.py).
 
-The block is a linear recurrence h_t = a_t * h_{t-1} + b_t over a state of
-[d_inner, n] per sequence. The full-sequence forward (`mamba_train`:
-prefill, `models.forward_seq`) runs `chunked_linear_scan`, a loop over
-chunks carrying the boundary state with a scan inside each chunk; decode
-(`mamba_decode`) is the one-step recurrence, O(1) in the sequence length.
-All four projections go through `apply_linear` (K1 for packed fp5.33
-weights with ``impl="kernel"``); the scan itself is plain torch, as the
-reference computes it in plain XLA.
+Both are linear recurrences h_t = a_t * h_{t-1} + b_t, over a state of
+[d_inner, n] per sequence for Mamba and of [lru_width] for the RG-LRU. The
+full-sequence forwards (`mamba_train`, `rglru_train`: prefill,
+`models.forward_seq`) run `chunked_linear_scan`, a loop over chunks
+carrying the boundary state with a scan inside each chunk; decode
+(`mamba_decode`, `rglru_decode`) is the one-step recurrence, O(1) in the
+sequence length. Every projection goes through `apply_linear` (K1 for
+packed fp5.33 weights with ``impl="kernel"``); the scan and the gates are
+plain torch, as the reference computes them in plain XLA.
 
-The decode step rounds as the reference's compiled step does, op by op
-(`mamba_decode`'s output and states are bit-equal to the jitted reference
-on the CPU):
+The decode steps round as the reference's compiled step does, op by op
+(their outputs and states are bit-equal to the jitted reference on the
+CPU); XLA's CPU math (exp, log1p, logistic, fused multiply-adds) comes from
+`core.xla_math`, the device's on CUDA tensors. Mamba:
   * the depthwise conv rounds every product and every add in the
     activations' dtype, in tap order, then adds the bias;
   * the dt projection's bias joins the bf16 product unrounded in f32, and
     softplus is ``logaddexp(x, 0)`` (jax.nn.softplus), not torch's
     thresholded softplus;
-  * exp and log1p are XLA's CPU polynomials on CPU tensors (`exp_f32`,
-    `log1p_f32`), the device's on CUDA;
   * the state update ``da * h + db`` is one fused multiply-add, as XLA
     contracts it (`fma_f32`), and the read-out ``h . C + D * xc`` sums n
     as XLA's gemv does (`readout`). CUDA tensors take one f32 addcmul for
-    each of these multiply-adds instead of the exact f64 product.
+    each of these multiply-adds instead of the exact f64 product;
+  * under ``impl="fused_ref"`` out_proj's input ``bf16(y) * silu(z)``
+    enters the K-blocked product unrounded in f32 (XLA drops the bf16
+    rounding of the product ahead of the product's f32 convert).
+RG-LRU (`_rglru_elems`):
+  * the conv output joins the gates' products as the f32 sum of its
+    bf16 taps and its bias, unrounded (the projections read it rounded);
+  * ``sigmoid`` is ``1 / (1 + exp(-x))``; of a bf16 Λ (a stacked layer's,
+    cast by the engine) every op rounds to bf16 but the divide;
+  * ``a * a`` is ``exp(log_a + log_a)`` (XLA rewrites the product of two
+    exps), and ``a * h + b`` one fused multiply-add.
 The served engine casts every stacked leaf of ndim >= 2 to bf16
-(`launch.engine.prepare_params`), so A_log, D, the conv bias and the dt
+(`launch.engine.prepare_params`), so A_log, D, Λ, the conv bias and the dt
 bias are bf16 there and ``A = -exp(A_log)`` is rounded to bf16, as in the
-reference's engine.
+reference's engine; a hybrid model's unstacked tail keeps its 1-D leaves
+f32.
 """
 
 from __future__ import annotations
 
-import struct
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.xla_math import (  # noqa: F401  (also imported from here)
+    exp_f32,
+    fma_f32,
+    log1p_f32,
+    sigmoid_f32,
+    softplus,
+    sqrt_f32,
+)
+
 from .common import apply_linear, make_linear
-from .ffn import silu
+from .ffn import gelu, silu
 
 
 # ---------------------------------------------------------------- scan core
@@ -91,102 +110,6 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     return y, new_state
 
 
-def fma_f32(a: torch.Tensor, s, b) -> torch.Tensor:
-    """a * s + b rounded once to f32, for f32 operands (tensors, or Python
-    floats that are f32 values): the product is exact in f64, so only the
-    f64 sum rounds before the f32 rounding (a fused multiply-add but for a
-    double rounding, which needs the f64 sum to land on an f32 tie: not met
-    in practice). CPU tensors take one addcmul computed in f64, for the
-    reference's bits; CUDA tensors one f32 addcmul (no f64 copies on the
-    decode tick; no reference asks for the card's bits, and the product may
-    round there before the add)."""
-    if torch.is_tensor(s) and torch.is_tensor(b):
-        if a.is_cuda:
-            return torch.addcmul(b, a, s)
-        return torch.addcmul(b.to(torch.float64), a, s).to(torch.float32)
-
-    def f64(t):
-        return t.to(torch.float64) if torch.is_tensor(t) else t
-    return (f64(a) * f64(s) + f64(b)).to(torch.float32)
-
-
-def _k(hex_double: str) -> float:
-    """An f32 constant of XLA's CPU math, given as LLVM prints it."""
-    return float(np.float32(struct.unpack(">d", bytes.fromhex(hex_double))[0]))
-
-
-def _ftz(t: torch.Tensor) -> torch.Tensor:
-    """Flush f32 denormals to zero, as the reference's CPU step runs."""
-    return torch.where(t.abs() < 2.0 ** -126, torch.zeros_like(t), t)
-
-
-def exp_f32(x: torch.Tensor) -> torch.Tensor:
-    """exp of an f32 tensor. On CUDA the device's expf; on the CPU the
-    polynomial XLA's CPU backend emits for ``exponential`` (Cephes expf,
-    its multiply-adds fused, denormals flushed), so CPU results are the
-    reference's compiled bits."""
-    if x.is_cuda:
-        return torch.exp(x)
-    x = torch.clamp(_ftz(x), _k("C055F33340000000"), _k("4056333340000000"))
-    fx = torch.floor(fma_f32(x, _k("3FF7154760000000"), 0.5)).clamp(-127.0, 127.0)
-    r = fma_f32(-fx, _k("3FE6300000000000"), x)
-    r = fma_f32(-fx, _k("BF2BD01060000000"), r)
-    p = fma_f32(r, _k("3F2A0D2CE0000000"), _k("3F56E879C0000000"))
-    for c in ("3F81112100000000", "3FA5553820000000", "3FC5555540000000"):
-        p = fma_f32(p, r, _k(c))
-    p = fma_f32(p, r, 0.5)
-    y = fma_f32(p, r * r, r) + 1.0
-    return _ftz(y * ((fx.to(torch.int32) + 127) << 23).view(torch.float32))
-
-
-def log1p_f32(x: torch.Tensor) -> torch.Tensor:
-    """log1p of an f32 tensor: the device's on CUDA, XLA's CPU expansion on
-    the CPU (a rational approximation below |x| 0.4142, else Cephes logf of
-    1 + x; multiply-adds fused as LLVM contracts them)."""
-    if x.is_cuda:
-        return torch.log1p(x)
-    x = _ftz(x)
-    # |x| >= 0.4142: log(u), u = 1 + x = m 2^e with m in [sqrt(1/2), sqrt(2))
-    u = x + 1.0
-    bits = torch.clamp_min(u, 2.0 ** -126).view(torch.int32)
-    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
-    low = m < _k("3FE6A09E60000000")
-    e = ((bits >> 23) - 127).to(torch.float32) + 1.0 - low.to(torch.float32)
-    t = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
-    t2 = t * t
-    t3 = t2 * t
-    a = fma_f32(fma_f32(t, _k("3FB2043760000000"), _k("BFBD7A3700000000")), t,
-                _k("3FBDE4A340000000"))
-    b = fma_f32(fma_f32(t, _k("BFBFCBA9E0000000"), _k("3FC23D37E0000000")), t,
-                _k("BFC555CA00000000"))
-    c = fma_f32(fma_f32(t, _k("3FC999D580000000"), _k("BFCFFFFF80000000")), t,
-                _k("3FD5555540000000"))
-    q = fma_f32(fma_f32(a, t3, b), t3, c)
-    s = fma_f32(q, t3, e * _k("BF2BD01060000000"))
-    big = fma_f32(e, _k("3FE6300000000000"), (t - t2 * 0.5) + s)
-    big = torch.where(u == float("inf"), u, big)
-    big = torch.where(u == 0, torch.full_like(u, -float("inf")), big)
-    big = torch.where(u < 0, torch.full_like(u, float("nan")), big)
-    # |x| < 0.4142: x - x^2 / 2 + x^3 Q(x) / P(x)
-    p = fma_f32(torch.ones_like(x), x, _k("402E2035A0000000"))
-    for k in ("4054C30B60000000", "406BB865A0000000", "4073519460000000",
-              "406B0DB140000000", "404E0F3040000000"):
-        p = fma_f32(p, x, _k(k))
-    qn = fma_f32(torch.full_like(x, _k("3F07BC0960000000")), x, _k("3FDFE818A0000000"))
-    for k in ("401A509F40000000", "403DE97380000000", "404E798EC0000000",
-              "404C8E75A0000000", "40340A2020000000"):
-        qn = fma_f32(qn, x, _k(k))
-    x2 = x * x
-    small = x + (x2 * -0.5 + (x * x2) * (qn / p))
-    return _ftz(torch.where(x.abs() < _k("3FDA8279A0000000"), small, big))
-
-
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    """jax.nn.softplus, ``logaddexp(x, 0)`` = max(x, 0) + log1p(exp(-|x|)),
-    not torch's thresholded softplus."""
-    return torch.clamp_min(x, 0.0) + log1p_f32(exp_f32(-x.abs()))
-
-
 def readout(h: torch.Tensor, c: torch.Tensor, d: torch.Tensor, xc: torch.Tensor):
     """y = sum_n h[..., n] c[..., n] + d * xc in f32 (h [..., di, n], c
     [..., 1, n], d [di], xc [..., di]), summed as the reference's compiled
@@ -214,6 +137,19 @@ def readout(h: torch.Tensor, c: torch.Tensor, d: torch.Tensor, xc: torch.Tensor)
 
 
 # -------------------------------------------------------------------- Mamba1
+def _gated_out(p, y, z, policy):
+    """out_proj(bf16(y) * silu(z)) for Mamba (y f32, z in the activations'
+    dtype). Under ``impl="fused_ref"`` with packed weights the product
+    enters the K-blocked f32 product unrounded, as in the reference's
+    compiled step (XLA drops the rounding of the bf16 product ahead of the
+    f32 convert that `ams_matmul_blocked` starts with); the output rounds
+    to the activations' dtype as ever."""
+    if policy is not None and policy.impl == "fused_ref" and "w" not in p:
+        g = y.to(z.dtype).to(torch.float32) * silu(z).to(torch.float32)
+        return apply_linear(p, g, policy).to(z.dtype)
+    return apply_linear(p, y.to(z.dtype) * silu(z), policy)
+
+
 def init_mamba(gen: torch.Generator, cfg, *, dtype=torch.float32, device="cpu"):
     """Mamba-1 mixer params from ``gen`` (draw order: in_proj, conv_w,
     x_proj, dt_proj, out_proj); A_log and D are f32 as in the reference."""
@@ -264,8 +200,7 @@ def mamba_train(p, x, cfg, *, policy=None, chunk=256):
     h0 = torch.zeros((x.shape[0], di, n), dtype=torch.float32, device=x.device)
     hs, hN = chunked_linear_scan(da, db, h0, chunk)           # [B, S, di, n]
     y = readout(hs, Cc.to(torch.float32)[:, :, None, :], p["D"], xc.to(torch.float32))
-    y = y.to(x.dtype) * silu(z)
-    return apply_linear(p["out_proj"], y, policy), (conv_state, hN)
+    return _gated_out(p["out_proj"], y, z, policy), (conv_state, hN)
 
 
 def mamba_decode(p, x, conv_state, ssm_state, cfg, *, policy=None,
@@ -285,8 +220,87 @@ def mamba_decode(p, x, conv_state, ssm_state, cfg, *, policy=None,
     da, db, Cc = _mamba_core(p, xc, cfg, policy)
     h = fma_f32(da[:, 0], ssm_state, db[:, 0])                # [B, di, n]
     y = readout(h, Cc[:, 0].to(torch.float32)[:, None, :], p["D"], xc[:, 0].to(torch.float32))
-    y = (y.to(x.dtype) * silu(z[:, 0]))[:, None]
     if live is not None:
         new_conv = torch.where(live[:, None, None], new_conv, conv_state)
         h = torch.where(live[:, None, None], h, ssm_state)
+    return _gated_out(p["out_proj"], y[:, None], z, policy), (new_conv, h)
+
+
+# -------------------------------------------------------------------- RG-LRU
+def init_rglru(gen: torch.Generator, cfg, *, dtype=torch.float32, device="cpu"):
+    """RG-LRU mixer params from ``gen`` (draw order: in_x, in_gate, conv_w,
+    w_rec_gate, w_in_gate, out_proj); Λ is f32 as in the reference."""
+    D, W = cfg.d_model, cfg.lru_width
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "in_x": make_linear(gen, D, W, **kw),
+        "in_gate": make_linear(gen, D, W, **kw),
+        "conv_w": (torch.randn((4, W), generator=gen, dtype=torch.float32, device=device)
+                   * 0.5).to(dtype),
+        "conv_b": torch.zeros((W,), **kw),
+        "w_rec_gate": make_linear(gen, W, W, **kw),     # r_t
+        "w_in_gate": make_linear(gen, W, W, **kw),      # i_t
+        "lam": torch.full((W,), 2.0, dtype=torch.float32, device=device),   # Λ
+        "out_proj": make_linear(gen, W, D, **kw),
+    }
+
+
+def _neg8_sigmoid(lam: torch.Tensor) -> torch.Tensor:
+    """-8 sigmoid(Λ) in f32. Of an f32 Λ, `sigmoid_f32`; of a bf16 one the
+    compiled step rounds exp(-Λ) and 1 + exp(-Λ) to bf16, divides in f32
+    and rounds the quotient (times -8, exact) to bf16."""
+    if lam.dtype == torch.float32:
+        return sigmoid_f32(lam) * -8.0
+    e = exp_f32(-lam.to(torch.float32)).to(lam.dtype).to(torch.float32)
+    d = (e + 1.0).to(lam.dtype).to(torch.float32)
+    return (1.0 / d).to(lam.dtype).to(torch.float32) * -8.0
+
+
+def _rglru_elems(p, u, u32, policy):
+    """u [B, S, W] (the conv output rounded, the projections' input) and
+    u32 (unrounded, f32) -> (a, b) recurrence elements, f32:
+    r, i = sigmoid(W_r u), sigmoid(W_i u); log a = -8 sigmoid(Λ) r;
+    b = sqrt(max(1 - a^2, 1e-12)) (i u)."""
+    r = sigmoid_f32(apply_linear(p["w_rec_gate"], u, policy).to(torch.float32))
+    i = sigmoid_f32(apply_linear(p["w_in_gate"], u, policy).to(torch.float32))
+    log_a = _neg8_sigmoid(p["lam"]) * r
+    a = exp_f32(log_a)
+    b = sqrt_f32(torch.clamp_min(1.0 - exp_f32(log_a + log_a), 1e-12)) * (i * u32)
+    return a, b
+
+
+def _rglru_in(p, x, conv_state, policy):
+    """The block's two branches up to the recurrence: (gate, u, u32,
+    new_conv_state), u32 the f32 sum of the conv's rounded taps and its
+    bias (in x.dtype), u that sum rounded."""
+    gate = gelu(apply_linear(p["in_gate"], x, policy))
+    taps, new_conv = causal_conv1d(apply_linear(p["in_x"], x, policy), p["conv_w"], None,
+                                   conv_state)
+    u32 = taps.to(torch.float32) + p["conv_b"].to(x.dtype).to(torch.float32)
+    return gate, u32.to(x.dtype), u32, new_conv
+
+
+def rglru_train(p, x, cfg, *, policy=None, chunk=256):
+    """x: [B, S, D] -> (y [B, S, D], (conv_state, rec_state) final)."""
+    gate, u, u32, conv_state = _rglru_in(p, x, None, policy)
+    a, b = _rglru_elems(p, u, u32, policy)
+    h0 = torch.zeros((x.shape[0], cfg.lru_width), dtype=torch.float32, device=x.device)
+    hs, hN = chunked_linear_scan(a, b, h0, chunk)               # [B, S, W]
+    return apply_linear(p["out_proj"], hs.to(x.dtype) * gate, policy), (conv_state, hN)
+
+
+def rglru_decode(p, x, conv_state, rec_state, cfg, *, policy=None,
+                 live: Optional[torch.Tensor] = None):
+    """x: [B, 1, D]; conv_state [B, 3, W]; rec_state [B, W] f32.
+
+    Returns (y [B, 1, D], (conv_state, rec_state)); with ``live`` [B]
+    (bool) the states of rows that are not live come back exactly as they
+    were (as `mamba_decode`)."""
+    gate, u, u32, new_conv = _rglru_in(p, x, conv_state, policy)
+    a, b = _rglru_elems(p, u, u32, policy)
+    h = fma_f32(a[:, 0], rec_state, b[:, 0])                      # [B, W]
+    y = h[:, None].to(x.dtype) * gate
+    if live is not None:
+        new_conv = torch.where(live[:, None, None], new_conv, conv_state)
+        h = torch.where(live[:, None], h, rec_state)
     return apply_linear(p["out_proj"], y, policy), (new_conv, h)

@@ -1,20 +1,26 @@
 """Decoder assembly for dense GQA models (paged or contiguous caches),
-absorbed-MLA models (contiguous caches) and Mamba-1 models (contiguous
-conv / ssm state caches) (port of the gqa / mla / mamba paths of
+absorbed-MLA models, Mamba-1 models and the RG-LRU hybrid (contiguous
+caches) (port of the gqa / mla / mamba / rec / attn paths of
 src/repro/models/transformer.py): the one-token and ragged decode steps
-(Mamba: the one-token step only), and the full-sequence forward
-`forward_seq` (prefill with a contiguous cache, and the self drafter's
-forward).
+(recurrent and ring-cache layers: the one-token step only), and the
+full-sequence forward `forward_seq` (prefill with a contiguous cache, and
+the self drafter's forward).
 
-Parameters keep the reference's tree: ``embed``, ``layers`` (every leaf
-stacked ``[G, ...]`` over layers), ``final_norm``, ``lm_head``. The
-reference's ``lax.scan`` over stacked layers is a Python loop over views
-``leaf[g]``; the caches (page pools, or contiguous [B, S, ...] slot caches)
-are stacked the same way and are written in place (a Mamba block's states
-only for slots with ``pos >= 0``: an idle slot's states stay as they
-were). Modality prefix embeddings (VLM patches) enter `forward_seq` ahead
-of the tokens, and the decode step through its ``embeds`` /
-``embed_mask`` override.
+A model is a repeating pattern of block kinds (`layer_pattern`): one kind
+for uniform families, ``("rec", "rec", "attn")`` for RecurrentGemma.
+Parameters keep the reference's tree: ``embed``, ``layers`` (one entry
+``sub{i}`` per pattern position, every leaf stacked ``[G, ...]`` over the
+G whole repeats of the pattern), ``tail`` (the L mod P remaining blocks,
+unstacked, present when there are any), ``final_norm``, ``lm_head``. The
+reference's ``lax.scan`` over the repeats is a Python loop over views
+``leaf[g]``, each repeat walking ``sub0 .. sub{P-1}``, then the tail; the
+caches (page pools, or contiguous [B, S, ...] slot caches) are laid out
+the same way and are written in place (recurrent states only for slots
+with ``pos >= 0``: an idle slot's states stay as they were). An ``attn``
+block of a model with a sliding window keeps a ring of the last
+``sliding_window`` keys, slot ``position % window``. Modality prefix
+embeddings (VLM patches) enter `forward_seq` ahead of the tokens, and the
+decode step through its ``embeds`` / ``embed_mask`` override.
 """
 
 from __future__ import annotations
@@ -43,54 +49,82 @@ def layer_pattern(cfg) -> Tuple[str, ...]:
     return ("gqa",)
 
 
+SERVED_PATTERNS = (("gqa",), ("mla",), ("mamba",), ("rec", "attn"))
+
+
 def check_serving_support(cfg):
     """The port serves dense GQA and absorbed-MLA layers (any FFN
-    activation, with or without modality prefix embeds) and Mamba-1
-    layers, without sliding windows."""
+    activation, with or without modality prefix embeds), Mamba-1 layers and
+    the RG-LRU hybrid (``rec`` and sliding-window ``attn`` blocks in any
+    pattern); MoE blocks are not ported."""
     pat = layer_pattern(cfg)
-    if pat not in (("gqa",), ("mla",), ("mamba",)):
+    if not any(set(pat) <= set(kinds) for kinds in SERVED_PATTERNS):
         raise NotImplementedError(
-            f"the port serves dense GQA, MLA and Mamba layers only; {cfg.name} has "
-            f"{sorted(set(pat))} (MoE blocks, and RG-LRU with its hybrid pattern: "
-            "ROADMAP.md, Modules to port)")
-    if cfg.sliding_window:
-        raise NotImplementedError("sliding-window ring caches are not ported yet "
-                                  "(ROADMAP.md, Modules to port)")
+            f"the port serves dense GQA, MLA, Mamba and RG-LRU hybrid layers only; "
+            f"{cfg.name} has {sorted(set(pat))} (MoE blocks: ROADMAP.md, Modules to port)")
+    if cfg.num_layers < len(pat):
+        raise NotImplementedError(
+            f"{cfg.name} at {cfg.num_layers} layers holds no whole repeat of its pattern "
+            f"{pat}: the port serves at least {len(pat)} layers")
 
 
 def check_support(cfg, cache_cfg=None):
     """The one rule of which layers a cache kind holds: contiguous caches
     (``cache_cfg`` None or contiguous) every layer the port serves, paged
-    caches dense GQA layers only (MLA's compressed stream and Mamba's
-    recurrent states keep their contiguous layouts, as in the reference)."""
+    caches dense GQA layers without a sliding window only (MLA's
+    compressed stream, recurrent states and ring caches keep their
+    contiguous layouts, as in the reference's `check_paged_support`)."""
     check_serving_support(cfg)
-    if cache_cfg is not None and cache_cfg.paged and layer_pattern(cfg) != ("gqa",):
+    if cache_cfg is None or not cache_cfg.paged:
+        return
+    bad = [k for k in layer_pattern(cfg) if k != "gqa"]
+    if bad:
         raise NotImplementedError(
-            f"paged caches serve dense GQA layers only; {cfg.name} has "
-            f"{sorted(set(layer_pattern(cfg)))} (MLA streams and recurrent states keep "
-            "their contiguous layouts): serve it over a contiguous cache")
+            f"paged caches serve dense GQA layers only; {cfg.name} has {sorted(set(bad))} "
+            "(MLA streams and recurrent states keep their contiguous layouts): serve it "
+            "over a contiguous cache")
+    if cfg.sliding_window:
+        raise NotImplementedError("paged caches do not hold sliding-window ring caches: "
+                                  "serve the model over a contiguous cache")
 
 
 def check_chunked_support(cfg):
     """The ragged multi-token step (``prefill_chunk`` > 1, and speculation,
-    whose step is ragged) covers the attention layers only, as in the
-    reference: a Mamba recurrence integrates its state token by token and
-    keeps the one-token step."""
+    whose step is ragged) covers the attention layers without a sliding
+    window only, as in the reference: a recurrence integrates its state
+    token by token, and a ring cache would need chunk-aware inserts; those
+    models keep the one-token step."""
     pat = layer_pattern(cfg)
     bad = [k for k in pat if k not in ("gqa", "mla")]
     if bad:
         raise NotImplementedError(
             f"chunked prefill supports gqa/mla layers only; {cfg.name} has "
             f"{sorted(set(bad))}: serve it with prefill_chunk=1 and no speculation")
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            "chunked prefill does not support sliding-window ring caches: serve the "
+            "model with prefill_chunk=1 and no speculation")
+
+
+def pattern_counts(cfg) -> Tuple[int, int]:
+    """(G, R): the whole repeats of `layer_pattern` over the layers, and
+    the remaining blocks (the tail)."""
+    P = len(layer_pattern(cfg))
+    return cfg.num_layers // P, cfg.num_layers % P
 
 
 def init_block(gen, cfg, dims: Dims, kind: str, *, dtype=torch.float32, device="cpu"):
-    if kind not in ("gqa", "mla", "mamba"):
+    if kind not in ("gqa", "attn", "mla", "mamba", "rec"):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     kw = dict(dtype=dtype, device=device)
     if kind == "mamba":
         return {"ln1": make_norm(cfg.d_model, **kw), "mixer": S.init_mamba(gen, cfg, **kw)}
-    init_attn = A.init_gqa if kind == "gqa" else A.init_mla
+    if kind == "rec":
+        return {"ln1": make_norm(cfg.d_model, **kw),
+                "mixer": S.init_rglru(gen, cfg, **kw),
+                "ln2": make_norm(cfg.d_model, **kw),
+                "ffn": F.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn_activation, **kw)}
+    init_attn = A.init_mla if kind == "mla" else A.init_gqa
     return {"ln1": make_norm(cfg.d_model, **kw),
             "attn": init_attn(gen, cfg, dims, **kw),
             "ln2": make_norm(cfg.d_model, **kw),
@@ -105,22 +139,27 @@ def init_embed(gen, cfg, dims: Dims, *, dtype=torch.float32, device="cpu"):
 
 def init_params(seed: int, cfg, *, dtype=torch.float32, device="cpu") -> Dict[str, Any]:
     """Full parameter tree from ``torch.Generator(device).manual_seed(seed)``
-    (draw order: embed, layer 0..L-1, lm_head). For full-width models on the
-    card use `launch.engine.init_serving_params`, which quantizes layer by
-    layer from the same draws."""
+    (draw order: embed, the layers in model order, the tail, lm_head). For
+    full-width models on the card use `launch.engine.init_serving_params`,
+    which quantizes layer by layer from the same draws."""
     check_serving_support(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     dims = model_dims(cfg)
-    kind = layer_pattern(cfg)[0]
-    embed = init_embed(gen, cfg, dims, dtype=dtype, device=device)
-    blocks = [init_block(gen, cfg, dims, kind, dtype=dtype, device=device)
-              for _ in range(cfg.num_layers)]
-    return {
+    pat = layer_pattern(cfg)
+    G, R = pattern_counts(cfg)
+    kw = dict(dtype=dtype, device=device)
+    embed = init_embed(gen, cfg, dims, **kw)
+    blocks = [init_block(gen, cfg, dims, pat[l % len(pat)], **kw) for l in range(G * len(pat))]
+    tail = [init_block(gen, cfg, dims, pat[i], **kw) for i in range(R)]
+    params = {
         "embed": embed,
-        "layers": {"sub0": stack_trees(blocks)},
-        "final_norm": make_norm(cfg.d_model, dtype=dtype, device=device),
-        "lm_head": make_linear(gen, cfg.d_model, dims.V, dtype=dtype, device=device),
+        "layers": {f"sub{i}": stack_trees(blocks[i::len(pat)]) for i in range(len(pat))},
+        "final_norm": make_norm(cfg.d_model, **kw),
+        "lm_head": make_linear(gen, cfg.d_model, dims.V, **kw),
     }
+    if R:
+        params["tail"] = {f"sub{i}": t for i, t in enumerate(tail)}
+    return params
 
 
 def stack_trees(trees):
@@ -133,27 +172,35 @@ def stack_trees(trees):
 def block_cache_shape(cfg, dims: Dims, kind: str, B: int, cap: int, *,
                       dtype=torch.bfloat16, device="cpu", lead=()):
     """Zero contiguous cache leaves of one block kind: ``{"k", "v"}`` [*lead,
-    B, cap, kv, hd] for GQA, ``{"kv"}`` [*lead, B, cap, 1, r_kv + dr] (the
-    compressed stream) for MLA, ``{"conv"}`` [*lead, B, conv - 1, d_inner]
-    in ``dtype`` and ``{"ssm"}`` [*lead, B, d_inner, n] f32 (the recurrent
-    states, independent of ``cap``) for Mamba."""
+    B, S, kv, hd] for GQA (S = cap, or the window for a ring ``attn`` block
+    of a sliding-window model), ``{"kv"}`` [*lead, B, cap, 1, r_kv + dr]
+    (the compressed stream) for MLA, and the recurrent states, independent
+    of ``cap``: Mamba's ``{"conv"}`` [*lead, B, conv - 1, d_inner] in
+    ``dtype`` and ``{"ssm"}`` [*lead, B, d_inner, n] f32, the RG-LRU's
+    ``{"conv"}`` [*lead, B, 3, lru_width] and ``{"state"}`` [*lead, B,
+    lru_width] f32."""
     kw = dict(dtype=dtype, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
     if kind == "mamba":
         return {"conv": torch.zeros((*lead, B, cfg.ssm_conv - 1, cfg.d_inner), **kw),
-                "ssm": torch.zeros((*lead, B, cfg.d_inner, cfg.ssm_state),
-                                   dtype=torch.float32, device=device)}
+                "ssm": torch.zeros((*lead, B, cfg.d_inner, cfg.ssm_state), **f32)}
+    if kind == "rec":
+        return {"conv": torch.zeros((*lead, B, 3, cfg.lru_width), **kw),
+                "state": torch.zeros((*lead, B, cfg.lru_width), **f32)}
     if kind == "mla":
         c = cfg.kv_lora_rank + cfg.qk_rope_dim
         return {"kv": torch.zeros((*lead, B, cap, 1, c), **kw)}
-    shape = (*lead, B, cap, dims.kv, dims.hd)
+    S_cap = cfg.sliding_window if (kind == "attn" and cfg.sliding_window) else cap
+    shape = (*lead, B, S_cap, dims.kv, dims.hd)
     return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
 
 
 def make_cache(cfg, B: int = 0, cap: int = 0, *, cache_cfg=None, dtype=torch.bfloat16,
                device="cpu"):
-    """Zero caches for every layer, stacked over layers: page pools (bf16 or
-    AMS planes, [G, P, page, kv, ...]) for a paged ``cache_cfg``, else the
-    fixed [G, B, cap, ...] slot layout."""
+    """Zero caches for every layer, laid out as the params: page pools
+    (bf16 or AMS planes, [G, P, page, kv, ...]) for a paged ``cache_cfg``,
+    else the fixed [G, B, S, ...] slot layout per pattern position
+    (``layers/sub{i}``) and [B, S, ...] per tail block (``tail/sub{i}``)."""
     check_support(cfg, cache_cfg)
     dims = model_dims(cfg)
     if cache_cfg is not None and cache_cfg.paged:
@@ -163,26 +210,50 @@ def make_cache(cfg, B: int = 0, cap: int = 0, *, cache_cfg=None, dtype=torch.bfl
                                                       lead=(cfg.num_layers,))}}
     if B < 1 or cap < 1:
         raise ValueError(f"a contiguous cache needs slots and capacity >= 1, got {B}, {cap}")
-    return {"layers": {"sub0": block_cache_shape(cfg, dims, layer_pattern(cfg)[0], B, cap,
-                                                 dtype=dtype, device=device,
-                                                 lead=(cfg.num_layers,))}}
+    pat = layer_pattern(cfg)
+    G, R = pattern_counts(cfg)
+    kw = dict(dtype=dtype, device=device)
+    cache = {"layers": {f"sub{i}": block_cache_shape(cfg, dims, kind, B, cap, lead=(G,), **kw)
+                        for i, kind in enumerate(pat)}}
+    if R:
+        cache["tail"] = {f"sub{i}": block_cache_shape(cfg, dims, pat[i], B, cap, **kw)
+                         for i in range(R)}
+    return cache
 
 
 def reset_cache_slot(cache, slot: int):
     """Zero batch row ``slot`` of every contiguous cache leaf in place (slot
-    reuse in the engine; stacked leaves carry the batch at axis 1)."""
+    reuse in the engine; stacked leaves carry the batch at axis 1, tail
+    leaves at axis 0)."""
     for leaf in tree_leaves(cache["layers"]):
         leaf[:, slot].zero_()
+    for leaf in tree_leaves(cache.get("tail", {})):
+        leaf[slot].zero_()
     return cache
 
 
+def residual(x, out):
+    """(x + out in x.dtype, its addends (x, out)): a block's output, and
+    what a norm of it sums unrounded in f32 where XLA fuses the add into
+    the norm (`_norm_in`): the block's second norm, and the next block's
+    first inside a repeat of the pattern and along the tail (the repeats'
+    carry between them is rounded)."""
+    return x + out, (x, out)
+
+
+def _norm_in(x, pre, g, eps):
+    """A norm rounded to x.dtype: of the producer's addends ``pre``
+    summed unrounded in f32 where given, else of x."""
+    if pre is None:
+        return rms_norm(x, g, eps)
+    return rms_norm(pre[0].to(torch.float32) + pre[1].to(torch.float32), g, eps).to(x.dtype)
+
+
 def residual_norm(x, out, g, eps):
-    """(x + out, rms_norm(x + out)): the norm reads the sum of the two bf16
-    operands unrounded in f32, as in the reference's compiled step (XLA
-    fuses the add into the norm's f32 convert); the residual stream keeps
-    the sum rounded to x.dtype."""
-    xf = x.to(torch.float32) + out.to(torch.float32)
-    return x + out, rms_norm(xf, g, eps).to(x.dtype)
+    """(x + out, its norm read from the unrounded sum): the residual stream
+    keeps the sum rounded to x.dtype."""
+    y, pre = residual(x, out)
+    return y, _norm_in(y, pre, g, eps)
 
 
 def _attn_impl(cache_cfg) -> str:
@@ -190,19 +261,29 @@ def _attn_impl(cache_cfg) -> str:
     return cache_cfg.impl if cache_cfg is not None else "ref"
 
 
-def block_decode(p, x, cache, pos, kind, cfg, dims, *, policy, block_tables, cache_cfg):
+def block_decode(p, x, cache, pos, kind, cfg, dims, *, policy, block_tables, cache_cfg,
+                 pre=None):
     """x [B, 1, D] through one block: MLA over its compressed stream, GQA
-    over a page pool or a contiguous cache, Mamba over its conv / ssm
-    states (all written in place; Mamba's only where ``pos >= 0``). Returns
-    (x, cache)."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    over a page pool or a contiguous cache (a ring of the last
+    ``sliding_window`` keys for an ``attn`` block of a sliding-window
+    model), Mamba over its conv / ssm states, the RG-LRU over its conv /
+    recurrent states (all written in place; the recurrent states only where
+    ``pos >= 0``). ``pre``: the addends of x, where the first norm reads
+    their sum unrounded (`residual`). Returns (x, cache, x's addends)."""
+    h = _norm_in(x, pre, p["ln1"], cfg.norm_eps)
     if kind == "mamba":
         out, (conv, ssm) = S.mamba_decode(p["mixer"], h, cache["conv"], cache["ssm"], cfg,
                                           policy=policy, live=pos >= 0)
         cache["conv"].copy_(conv)
         cache["ssm"].copy_(ssm)
-        return x + out, cache
-    if kind == "mla":
+        x, pre = residual(x, out)
+        return x, cache, pre
+    if kind == "rec":
+        out, (conv, state) = S.rglru_decode(p["mixer"], h, cache["conv"], cache["state"], cfg,
+                                            policy=policy, live=pos >= 0)
+        cache["conv"].copy_(conv)
+        cache["state"].copy_(state)
+    elif kind == "mla":
         out, ckv = A.mla_attn_decode(p["attn"], h, cache["kv"], pos, cfg, dims, policy=policy,
                                      attn_impl=_attn_impl(cache_cfg))
         cache = {"kv": ckv}
@@ -210,12 +291,14 @@ def block_decode(p, x, cache, pos, kind, cfg, dims, *, policy, block_tables, cac
         out, cache = A.gqa_attn_decode_paged(p["attn"], h, cache, pos, block_tables, cfg,
                                              dims, policy=policy, cache_cfg=cache_cfg)
     else:
+        window = cfg.sliding_window if kind == "attn" else 0
         out, (ck, cv) = A.gqa_attn_decode(p["attn"], h, cache["k"], cache["v"], pos, cfg,
-                                          dims, policy=policy,
-                                          attn_impl=_attn_impl(cache_cfg))
+                                          dims, policy=policy, window=window,
+                                          ring=bool(window), attn_impl=_attn_impl(cache_cfg))
         cache = {"k": ck, "v": cv}
     x, h2 = residual_norm(x, out, p["ln2"], cfg.norm_eps)
-    return x + F.ffn_apply(p["ffn"], h2, cfg.ffn_activation, policy), cache
+    x, pre = residual(x, F.ffn_apply(p["ffn"], h2, cfg.ffn_activation, policy))
+    return x, cache, pre
 
 
 def block_decode_chunk(p, x, cache, pos, nvalid, kind, cfg, dims, *, policy, block_tables,
@@ -260,41 +343,85 @@ def _override(x, embeds, embed_mask):
                        embeds.reshape(x.shape).to(x.dtype), x)
 
 
-def _head(params, x, cfg, dims, policy=None):
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+def _head(params, x, cfg, dims, policy=None, pre=None):
+    """Final norm (of the last block's addends ``pre`` summed unrounded,
+    where given) and lm_head: f32 logits."""
+    x = _norm_in(x, pre, params["final_norm"], cfg.norm_eps)
     logits = apply_linear(params["lm_head"], x, policy)
     return logits.to(torch.float32) + dims.vocab_mask_bias(x.device)[None, None, :]
 
 
-def _layers(params, cache, fn, x):
-    """Run ``fn(layer_params, x, layer_cache)`` over the stacked layers."""
+def _blocks(params, cfg):
+    """(kind, params, path) of every block in model order: each repeat g
+    walks ``layers/sub0 .. sub{P-1}`` (views ``leaf[g]``), then the tail."""
+    pat = layer_pattern(cfg)
     G = tree_leaves(params["layers"])[0].shape[0]
     for g in range(G):
-        gp = tree_map(lambda t: t[g], params["layers"]["sub0"])
-        gc = tree_map(lambda t: t[g], cache["layers"]["sub0"])
-        x, _ = fn(gp, x, gc)
-    return x
+        for i, kind in enumerate(pat):
+            yield kind, tree_map(lambda t: t[g], params["layers"][f"sub{i}"]), ("layers", i, g)
+    for i in range(len(params.get("tail", {}))):
+        yield pat[i], params["tail"][f"sub{i}"], ("tail", i, None)
+
+
+def _block_cache(cache, path):
+    group, i, g = path
+    c = cache[group][f"sub{i}"]
+    return c if g is None else tree_map(lambda t: t[g], c)
+
+
+def _layers(params, cache, fn, x, cfg):
+    """Run ``fn(kind, layer_params, x, layer_cache, pre)`` -> (x, cache,
+    pre) over every block. A block's first norm reads its producer's
+    addends ``pre`` inside a repeat of the pattern and along the tail, not
+    across the repeats' rounded carry (`residual`); returns (x, pre) with
+    pre the tail's last addends (None without a tail), which the head's
+    norm reads."""
+    pre = None
+    for kind, bp, path in _blocks(params, cfg):
+        x, _, pre = fn(kind, bp, x, _block_cache(cache, path), pre if path[1] else None)
+    return x, (pre if "tail" in params else None)
 
 
 def block_seq(p, x, kind, cfg, dims, *, policy=None, block_kv=1024, prefix_len=0,
-              want_cache=False):
+              want_cache=False, pre=None):
     """x [B, S, D] through one block over the whole sequence. Returns (x,
-    cache or None): GQA's ``{"k", "v"}`` [B, S, kv, hd], MLA's ``{"kv"}``
-    [B, S, 1, r_kv + dr], Mamba's final ``{"conv", "ssm"}`` states."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    cache or None): GQA's ``{"k", "v"}`` [B, S, kv, hd] (a ring cache
+    [B, window, kv, hd] for an ``attn`` block of a sliding-window model,
+    `_to_ring`), MLA's ``{"kv"}`` [B, S, 1, r_kv + dr], the final recurrent
+    states of Mamba (``{"conv", "ssm"}``) or the RG-LRU (``{"conv",
+    "state"}``), and x's addends (``pre`` as in `block_decode`)."""
+    h = _norm_in(x, pre, p["ln1"], cfg.norm_eps)
     if kind == "mamba":
         out, (conv, ssm) = S.mamba_train(p["mixer"], h, cfg, policy=policy)
-        return x + out, ({"conv": conv, "ssm": ssm} if want_cache else None)
-    if kind == "mla":
+        x, pre = residual(x, out)
+        return x, ({"conv": conv, "ssm": ssm} if want_cache else None), pre
+    if kind == "rec":
+        out, (conv, state) = S.rglru_train(p["mixer"], h, cfg, policy=policy)
+        cache = {"conv": conv, "state": state} if want_cache else None
+    elif kind == "mla":
         out, kv = A.mla_attn_train(p["attn"], h, cfg, dims, policy=policy, block_kv=block_kv,
                                    prefix_len=prefix_len)
         cache = {"kv": kv[:, :, None, :]} if want_cache else None
     else:
+        window = cfg.sliding_window if kind == "attn" else 0
         out, (k, v) = A.gqa_attn_train(p["attn"], h, cfg, dims, policy=policy,
-                                       block_kv=block_kv, prefix_len=prefix_len)
+                                       block_kv=block_kv, prefix_len=prefix_len, window=window)
+        if window:
+            k, v = _to_ring(k, window), _to_ring(v, window)
         cache = {"k": k, "v": v} if want_cache else None
     x, h2 = residual_norm(x, out, p["ln2"], cfg.norm_eps)
-    return x + F.ffn_apply(p["ffn"], h2, cfg.ffn_activation, policy), cache
+    x, pre = residual(x, F.ffn_apply(p["ffn"], h2, cfg.ffn_activation, policy))
+    return x, cache, pre
+
+
+def _to_ring(kv: torch.Tensor, window: int) -> torch.Tensor:
+    """The last ``window`` entries of [B, S, kv, hd] laid out by position
+    % window (zeros where the sequence is shorter than the window)."""
+    B, Skv = kv.shape[0], kv.shape[1]
+    W = min(window, Skv)
+    ring = torch.zeros((B, window, *kv.shape[2:]), dtype=kv.dtype, device=kv.device)
+    ring[:, torch.arange(Skv - W, Skv, device=kv.device) % window] = kv[:, Skv - W:]
+    return ring
 
 
 def forward_seq(params, tokens, cfg, *, policy=None, block_kv=1024, prefix_embeds=None,
@@ -302,26 +429,30 @@ def forward_seq(params, tokens, cfg, *, policy=None, block_kv=1024, prefix_embed
     """Full-sequence forward: tokens [B, S] (after ``prefix_embeds`` [B, P,
     D], which attend to each other both ways). Returns (logits [B, P + S, V]
     f32, aux, cache or None): aux is the reference's auxiliary loss (0 for
-    dense layers); ``want_cache`` returns the contiguous cache the sequence
-    leaves, leaves stacked [G, B, P + S, ...] as `make_cache` lays them out,
-    from which `decode_step` continues (copied into a cache of larger
-    capacity; a Mamba model's are its final conv / ssm states [G, B, ...],
-    which `decode_step` takes as they are)."""
+    these layers); ``want_cache`` returns the contiguous cache the sequence
+    leaves, laid out as `make_cache` lays it out (``layers/sub{i}`` stacked
+    [G, B, P + S, ...], ``tail/sub{i}`` [B, P + S, ...]), from which
+    `decode_step` continues (copied into a cache of larger capacity; ring
+    caches are [.., B, window, ...] and recurrent states [.., B, ...]
+    already, and `decode_step` takes them as they are)."""
     check_serving_support(cfg)
     dims = model_dims(cfg)
-    kind = layer_pattern(cfg)[0]
     prefix_len = 0 if prefix_embeds is None else prefix_embeds.shape[1]
     x = _embed(params, tokens, dtype, prefix_embeds)
-    caches = []
-    G = tree_leaves(params["layers"])[0].shape[0]
-    for g in range(G):
-        gp = tree_map(lambda t: t[g], params["layers"]["sub0"])
-        x, c = block_seq(gp, x, kind, cfg, dims, policy=policy, block_kv=block_kv,
-                         prefix_len=prefix_len, want_cache=want_cache)
-        caches.append(c)
-    cache = {"layers": {"sub0": stack_trees(caches)}} if want_cache else None
+    caches = {}
+    pre = None
+    for kind, bp, (group, i, g) in _blocks(params, cfg):
+        x, c, pre = block_seq(bp, x, kind, cfg, dims, policy=policy, block_kv=block_kv,
+                              prefix_len=prefix_len, want_cache=want_cache,
+                              pre=pre if i else None)
+        caches.setdefault(group, {}).setdefault(f"sub{i}", []).append(c)
+    cache = None
+    if want_cache:
+        cache = {"layers": {k: stack_trees(v) for k, v in caches["layers"].items()}}
+        if "tail" in caches:
+            cache["tail"] = {k: v[0] for k, v in caches["tail"].items()}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _head(params, x, cfg, dims, policy), aux, cache
+    return _head(params, x, cfg, dims, policy, pre if "tail" in params else None), aux, cache
 
 
 def decode_step(params, token, cache, pos, cfg, *, policy=None, dtype=torch.bfloat16,
@@ -353,32 +484,30 @@ def decode_step(params, token, cache, pos, cfg, *, policy=None, dtype=torch.bflo
     if n_logits != 1:
         raise ValueError("n_logits > 1 requires the ragged [B, C] step")
     dims = model_dims(cfg)
-    kind = layer_pattern(cfg)[0]
     pos = pos.to(torch.int32)
     x = _override(_embed(params, token[:, None], dtype), embeds, embed_mask)
 
-    def fn(gp, x, c):
-        return block_decode(gp, x, c, pos, kind, cfg, dims, policy=policy,
-                            block_tables=block_tables, cache_cfg=cache_cfg)
+    def fn(kind, bp, x, c, pre):
+        return block_decode(bp, x, c, pos, kind, cfg, dims, policy=policy,
+                            block_tables=block_tables, cache_cfg=cache_cfg, pre=pre)
 
-    x = _layers(params, cache, fn, x)
-    return _head(params, x, cfg, dims, policy)[:, 0], cache
+    x, pre = _layers(params, cache, fn, x, cfg)
+    return _head(params, x, cfg, dims, policy, pre)[:, 0], cache
 
 
 def _decode_step_chunk(params, token, cache, pos, nvalid, cfg, *, policy=None,
                        dtype=torch.bfloat16, block_tables=None, cache_cfg=None, ndraft=None,
                        n_logits=1, embeds=None, embed_mask=None):
     dims = model_dims(cfg)
-    kind = layer_pattern(cfg)[0]
     pos = pos.to(torch.int32)
     nvalid = nvalid.to(torch.int32)
     x = _override(_embed(params, token, dtype), embeds, embed_mask)  # [B, C, D]
 
-    def fn(gp, x, c):
-        return block_decode_chunk(gp, x, c, pos, nvalid, kind, cfg, dims, policy=policy,
-                                  block_tables=block_tables, cache_cfg=cache_cfg)
+    def fn(kind, bp, x, c, pre):   # attention layers, one per repeat: no addends
+        return (*block_decode_chunk(bp, x, c, pos, nvalid, kind, cfg, dims, policy=policy,
+                                    block_tables=block_tables, cache_cfg=cache_cfg), None)
 
-    x = _layers(params, cache, fn, x)
+    x, _ = _layers(params, cache, fn, x, cfg)
     # logits only at each slot's last valid token, or its last ndraft + 1
     C = token.shape[1]
     if n_logits > 1:

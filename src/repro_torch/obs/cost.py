@@ -170,8 +170,9 @@ def attribution(eng, profile: bool = False, ticks: int = 3) -> Dict[str, object]
     ``hlo_hbm_vs_floor``) come from compiling XLA and are not produced
     here: the engine's width-1 decode graph is replayed ``ticks`` times on
     the last tick's staged inputs (a replay rewrites the cache entries that
-    tick wrote with the same values; a Mamba model's recurrent states, which
-    a replay would advance again, are put back as the tick left them) under
+    tick wrote with the same values; a Mamba or RG-LRU model's recurrent
+    states, which a replay would advance again, are put back as the tick
+    left them) under
     torch.profiler, after a warm-up replay that is traced and dropped
     (`trace_window`), and its device-busy ms per tick is set beside that tick's time floor at the
     H100's peaks (``profile_floor_ms``; ``profile_floor_share`` = floor /

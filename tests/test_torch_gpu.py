@@ -1515,6 +1515,156 @@ def test_mamba_decode_on_the_card_matches_the_cpu_path():
     assert float(torch.abs(y - wy).max()) <= 2e-2 * float(torch.abs(wy).max())
 
 
+def _hybrid_engine(**kw):
+    """RecurrentGemma-9B at full width, cut to one (rec, rec, attn) repeat
+    (3 layers), FP5.33 through K1, on the one-token step over its conv /
+    recurrent states and 2048-slot rings."""
+    from repro_torch.launch.config import EngineConfig
+    from repro_torch.launch.engine import ServeEngine
+
+    return ServeEngine(EngineConfig(arch="recurrentgemma-9b", reduced=False, depth=3,
+                                    scheme="fp5.33-e2m3", impl="kernel", slots=3,
+                                    capacity=64, device="cuda", seed=3, **kw))
+
+
+@pytest.mark.gpu
+def test_hybrid_graph_replays_bit_equal_to_the_eager_step():
+    """Two RecurrentGemma engines in lockstep, one replaying its graphs,
+    one running the eager step: equal tokens every tick and equal cache
+    bytes (conv / recurrent states and ring entries). A seeded sampled
+    request arrives mid-serve, so the sampled graph is captured (warm-up
+    with every slot idle) while greedy requests hold live states; their
+    streams and states still match the eager engine's. K1 is the only
+    kernel launched: the ring attention never reaches K4."""
+    from repro_torch.kernels import ams_matmul, attention_template
+    from repro_torch.launch.sampling import SamplingParams
+    from repro_torch.models.transformer import tree_leaves
+
+    cuda_device()
+    graphed, eager = _hybrid_engine(), _hybrid_engine()
+    counts = (ams_matmul.COUNT, ams_matmul.COUNT_PLANES, attention_template.COUNT,
+              attention_template.COUNT_BF16, attention_template.COUNT_CONTIG,
+              attention_template.COUNT_MLA)
+    for c in counts:
+        c.reset()
+    for e in (graphed, eager):
+        for p in _graph_prompts()[:3]:
+            e.submit(p, 8)
+    tick = 0
+    while graphed.has_work or eager.has_work:
+        if tick == 5:
+            late = SamplingParams(temperature=0.8, top_k=20, seed=4)
+            for e in (graphed, eager):
+                e.submit(_graph_prompts()[3], 6, sampling=late)
+        graphed.step()
+        eager.step(eager=True)
+        tick += 1
+        assert ([None if r is None else r.tokens for r in graphed.active]
+                == [None if r is None else r.tokens for r in eager.active]), f"tick {tick}"
+    assert [r.tokens for r in graphed.finished] == [r.tokens for r in eager.finished]
+    for a, b in zip(tree_leaves(graphed.cache), tree_leaves(eager.cache)):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    assert sorted(graphed.graphs.graphs) == [(1, False), (1, True)]
+    assert counts[0].launches > 0 and all(c.launches == 0 for c in counts[1:])
+    assert all(c.plain_on_cuda == 0 for c in counts)
+
+
+@pytest.mark.gpu
+def test_hybrid_warm_up_keeps_live_states_and_rings():
+    """A capture's warm-up (a step with every slot idle) between live ticks
+    leaves every state and ring byte as it was; so does a replay inside
+    `recurrent_states_kept` for the states."""
+    from repro_torch.launch.steps import recurrent_states_kept
+    from repro_torch.models.transformer import tree_leaves
+
+    cuda_device()
+    eng = _hybrid_engine()
+    for p in _graph_prompts()[:3]:
+        eng.submit(p, 8)
+    for _ in range(4):
+        eng.step()
+    before = [t.view(torch.uint8).clone() for t in tree_leaves(eng.cache)]
+    eng.graphs.capture(1, sampled=False)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, t.view(torch.uint8)) for a, t in zip(before, tree_leaves(eng.cache)))
+    eng.step()
+    before = [t.view(torch.uint8).clone() for t in tree_leaves(eng.cache)]
+    with recurrent_states_kept(eng.cache, eng.cfg):
+        eng.graphs(1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, t.view(torch.uint8)) for a, t in zip(before, tree_leaves(eng.cache)))
+
+
+@pytest.mark.gpu
+def test_rglru_math_on_the_card_matches_the_cpu_path():
+    """The RG-LRU's CUDA math against its CPU path on the same seeded f32
+    inputs: sigmoid (the device's against XLA's CPU expansion) and log
+    (the Gumbel draw's) within 8 f32 ulp where the results are normal;
+    sqrt within 1 ulp (both correctly rounded but for the device's
+    flags)."""
+    import numpy as np
+
+    from repro_torch.core import xla_math as X
+
+    dev = cuda_device()
+    rng = np.random.default_rng(12)
+    ulp = 2.0 ** -23
+    for fn, lo, hi in ((X.sigmoid_f32, -80.0, 80.0), (X.log_f32, 1e-30, 1e30),
+                       (X.sqrt_f32, 0.0, 1e6)):
+        x = rng.uniform(lo, hi, 1 << 16).astype(np.float32)
+        want = fn(torch.from_numpy(x))
+        got = fn(torch.from_numpy(x).to(dev)).cpu()
+        normal = want.abs() >= 2.0 ** -126
+        torch.testing.assert_close(got[normal], want[normal],
+                                   rtol=(ulp if fn is X.sqrt_f32 else 8 * ulp), atol=0)
+
+
+@pytest.mark.gpu
+def test_rglru_decode_on_the_card_matches_the_cpu_path():
+    """`rglru_decode` on CUDA tensors (K1 projections, the device's exp /
+    sigmoid / sqrt, an f32 multiply-add) against the same block on CPU
+    tensors (K1's plain version, XLA's CPU math, the f64 fused multiply-
+    add) on seeded inputs, reduced recurrentgemma-9b as the engine serves
+    it at FP5.33, for a repeat's block (bf16 Λ) and the tail's (f32 Λ): the
+    conv state within one bf16 ulp of each element plus K1's 1e-4 of the
+    largest, the recurrent state within 1e-2 of max |h| and y within 2e-2
+    of max |y| (a bf16 activation that rounds the other way moves its row
+    by a bf16 ulp of the largest)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.engine import prepare_params
+    from repro_torch.models import init_params
+    from repro_torch.models import ssm as S
+
+    dev = cuda_device()
+    cfg = get_config("recurrentgemma-9b").reduced(num_layers=4)
+    pol = QuantPolicy(scheme="fp5.33-e2m3", impl="kernel", min_elements=1 << 10)
+    params = prepare_params(init_params(4, cfg), pol)
+    rng = np.random.default_rng(5)
+    B = 8
+    x = rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
+    conv = rng.standard_normal((B, 3, cfg.lru_width)).astype(np.float32)
+    state = rng.standard_normal((B, cfg.lru_width)).astype(np.float32)
+    for mixer in (tree_map(lambda t: t[0], params["layers"]["sub0"]["mixer"]),
+                  params["tail"]["sub0"]["mixer"]):
+        def run(device):
+            t = [torch.from_numpy(v).to(device) for v in (x, conv, state)]
+            p = tree_map(lambda v: v.to(device), mixer)
+            y, (c, h) = S.rglru_decode(p, t[0].to(torch.bfloat16), t[1].to(torch.bfloat16),
+                                       t[2], cfg, policy=pol)
+            return y.float().cpu(), c.float().cpu(), h.cpu()
+
+        (y, c, h), (wy, wc, wh) = run(dev), run("cpu")
+        assert torch.isfinite(y).all() and torch.isfinite(h).all()
+        assert bool((torch.abs(c - wc) <= 2.0 ** -7 * torch.abs(wc)
+                     + 1e-4 * torch.abs(wc).max()).all())
+        assert float(torch.abs(h - wh).max()) <= 1e-2 * float(torch.abs(wh).max())
+        assert float(torch.abs(y - wy).max()) <= 2e-2 * float(torch.abs(wy).max())
+
+
 @pytest.mark.gpu
 def test_failed_capture_raises():
     """No fallback: a step that cannot be captured makes the tick raise."""

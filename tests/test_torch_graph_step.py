@@ -332,11 +332,44 @@ def test_mamba_step_has_no_host_sync(impl, guard):
     assert widths == {1} and guard.ops > 0
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "qwen2-7b"])
+@pytest.mark.parametrize("impl", ["kernel", "fused_ref"])
+def test_hybrid_step_has_no_host_sync(impl, guard):
+    """Reduced recurrentgemma-9b on the one-token step, every tick under the
+    guard (a greedy request whose 70-token prompt wraps the 64-slot ring,
+    and a seeded sampled one, on three slots): the RG-LRU's masked state
+    update, the ring insert at position % window and the ring's visible
+    positions wait on nothing and make no tensor from host data; streams
+    equal an unguarded run."""
+    def hybrid():
+        return ServeEngine(EngineConfig(arch="recurrentgemma-9b", reduced=True, impl=impl,
+                                        slots=3, capacity=80, device="cpu"))
+    eng, plain = hybrid(), hybrid()
+    warm_up(eng)
+    inner, widths = eng.device_step, set()
+
+    def guarded(width, eager=False):
+        widths.add(width)
+        with guard:
+            return inner(width, eager=eager)
+
+    eng.device_step = guarded
+    ps = [list(range(1, 71)), prompts()[1]]
+    samp = [None, S.SamplingParams(temperature=0.9, top_k=30, seed=2)]
+    hs = [eng.submit(p, 4, sampling=sp) for p, sp in zip(ps, samp)]
+    eng.run()
+    want = [plain.submit(p, 4, sampling=sp) for p, sp in zip(ps, samp)]
+    plain.run()
+    assert [h.tokens for h in hs] == [h.tokens for h in want]
+    assert widths == {1} and guard.ops > 0
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "qwen2-7b", "recurrentgemma-9b"])
 def test_recurrent_states_kept_puts_the_states_back(arch):
     """`steps.recurrent_states_kept` around a decode step and a write: a
-    Mamba engine's conv / ssm states come back byte for byte although the
-    step advanced them; an attention cache keeps what was written."""
+    Mamba engine's conv / ssm states, and a hybrid's states and rings (the
+    attn block's slot is written from the advanced states), come back byte
+    for byte although the step changed them; an attention cache keeps what
+    was written."""
     from repro_torch.launch.steps import recurrent_states_kept
 
     eng = ServeEngine(EngineConfig(arch=arch, reduced=True, impl="kernel", slots=3,
@@ -351,7 +384,7 @@ def test_recurrent_states_kept_puts_the_states_back(arch):
         stepped = cache_bytes(eng)
         tree_leaves(eng.cache)[0].view(torch.uint8).fill_(7)
     after = cache_bytes(eng)
-    if arch == "falcon-mamba-7b":
+    if arch != "qwen2-7b":
         assert not all(torch.equal(a, b) for a, b in zip(before, stepped))
         assert all(torch.equal(a, b) for a, b in zip(before, after))
     else:

@@ -65,7 +65,9 @@ def test_param_count_equals_jax(arch):
                                          ("qwen2-7b", "fp4.25-e2m2"),
                                          ("minicpm3-4b", "fp5.33-e2m3"),
                                          ("falcon-mamba-7b", "fp5.33-e2m3"),
-                                         ("falcon-mamba-7b", "fp16")])
+                                         ("falcon-mamba-7b", "fp16"),
+                                         ("recurrentgemma-9b", "fp5.33-e2m3"),
+                                         ("recurrentgemma-9b", "fp16")])
 @pytest.mark.parametrize("kind", [None, "paged_bf16", "paged_ams"])
 def test_build_cost_model_equals_jax(arch, scheme, kind):
     """Every field of the cost model (weights, FLOPs, KV floors, the bf16

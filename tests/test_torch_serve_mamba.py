@@ -11,9 +11,13 @@ slots' states of the jitted JAX decode step on the kernel tier, whose
 per-step logits agree to 1e-5 of the largest (the ref tier's bf16 x bf16
 projections round a few outputs one ulp apart, as on the FP16 path). An
 idle slot's states stay as they were in the port (the reference advances
-them, and zeroes them at admission). A ragged step, speculation, paged caches and
-RecurrentGemma-9B are refused before any weight is made, as the
-reference refuses them.
+them, and zeroes them at admission). A ragged step, speculation and paged
+caches are refused before any weight is made, as the reference refuses
+them (and so are RecurrentGemma-9B's paged cache and ragged step, and a
+MoE model). The ``fused_ref`` tier (out_proj's input unrounded, as the
+compiled reference keeps it) gives the JAX ``fused_ref`` engine's streams
+and tick accounting, and its step's states bit for bit, with logits
+within 1e-5 of the largest (measured equal).
 """
 
 import numpy as np
@@ -44,6 +48,8 @@ from repro_torch.launch.engine import ServeEngine, prepare_params  # noqa: E402
 from repro_torch.launch.sampling import SamplingParams  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import decode_step, make_cache  # noqa: E402
+from repro_torch.models import ssm as TS  # noqa: E402
+from repro_torch.models.common import apply_linear  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 
 ARCH = "falcon-mamba-7b"
@@ -163,6 +169,61 @@ def test_step_logits_and_states_match_reference(impl, jimpl, weights):
         assert not b[:, 2].any() and np.asarray(a[:, 2], np.float32).any()
 
 
+def test_fused_ref_tier_matches_reference(weights, monkeypatch):
+    """impl="fused_ref" on both sides: the workload's greedy streams and
+    tick accounting equal the JAX fused_ref engine's; six one-token steps of
+    the jitted JAX decode step give the live slots' conv / ssm states bit
+    for bit and logits within LOGIT_ULP of max |logit|. Rounding out_proj's
+    input ``bf16(y) * silu(z)`` to bf16 (what the port did before) moves
+    the logits by more than 1e-3 of the largest and the states."""
+    jeng, eng = engines(weights, "fused_ref", "fused_ref")
+    out = []
+    for e in (jeng, eng):
+        hs = [e.submit(p, 8) for p in workload()]
+        e.run()
+        out.append(([list(h.tokens) for h in hs], e.stats()))
+    (want, jst), (got, st) = out
+    assert got == want
+    for key in ("ticks", "tokens_generated", "ttft_ticks_p50", "latency_ticks_p50"):
+        assert st[key] == jst[key], key
+
+    cfg, tcfg = get_config(ARCH).reduced(), t_get_config(ARCH).reduced()
+    jp, npar = weights
+    jp = jax.tree.map(lambda x: x.astype(jnp.bfloat16) if x.ndim >= 2 else x, jp)
+    jpol = JQuantPolicy(scheme=SCHEME, impl="fused_ref", min_elements=1 << 10)
+    tpol = QuantPolicy(scheme=SCHEME, impl="fused_ref", min_elements=1 << 10)
+    jp = j_quantize_params(jp, jpol)
+    tp = prepare_params(params_from_numpy(npar), tpol)
+    step = jax.jit(lambda p, tok, c, pos: j_decode_step(p, tok, c, pos, cfg, policy=jpol))
+
+    def run(rounded):
+        if rounded:
+            monkeypatch.setattr(TS, "_gated_out", lambda p, y, z, policy: apply_linear(
+                p, y.to(z.dtype) * TS.silu(z), policy))
+        B = 3
+        jc, tc = j_make_cache(cfg, B, CAP), make_cache(tcfg, B, CAP)
+        rng = np.random.default_rng(0)
+        pos = np.array([0, 2, -1], np.int32)
+        worst = 0.0
+        for _ in range(6):
+            tok = rng.integers(0, cfg.vocab_size, B).astype(np.int32)
+            lj, jc = step(jp, jnp.asarray(tok), jc, jnp.asarray(pos))
+            lt, tc = decode_step(tp, torch.from_numpy(tok), tc, torch.from_numpy(pos), tcfg,
+                                 policy=tpol)
+            lt, lj = lt.numpy()[:2], np.asarray(lj)[:2]
+            worst = max(worst, float(np.abs(lt - lj).max() / np.abs(lj).max()))
+            pos = pos + np.where(pos >= 0, 1, 0)
+        same = all(np.array_equal(tc["layers"]["sub0"][n][:, :2].contiguous().view(torch.uint8)
+                                  .numpy(), np.asarray(jc["layers"]["sub0"][n][:, :2])
+                                  .view(np.uint8)) for n in ("conv", "ssm"))
+        return worst, same
+
+    worst, same = run(rounded=False)
+    assert worst <= LOGIT_ULP and same
+    worst, same = run(rounded=True)
+    assert worst > 1e-3 and not same
+
+
 def test_idle_step_leaves_every_state_byte(weights):
     """The graph capture's warm-up: a step with every slot idle, between
     ticks of live requests, changes no state byte; the streams go on as
@@ -189,30 +250,37 @@ def test_idle_step_leaves_every_state_byte(weights):
     assert [h.tokens for h in hs] == [h.tokens for h in want]
 
 
-@pytest.mark.parametrize("case", ["paged", "chunk4", "speculate2", "recurrentgemma"])
+@pytest.mark.parametrize("case", ["paged", "chunk4", "speculate2", "recurrentgemma", "moe"])
 def test_refusals_before_any_weight(case, monkeypatch):
     """Paged caches, a ragged step (prefill_chunk 4, or speculation, whose
-    step is ragged) on falcon-mamba-7b, and RecurrentGemma-9B raise
-    NotImplementedError before a weight is made; the reference refuses the
-    same Mamba configurations."""
+    step is ragged) on falcon-mamba-7b raise NotImplementedError before a
+    weight is made, and so do RecurrentGemma-9B's paged cache and ragged
+    step; the reference refuses the same configurations. A MoE model
+    (dbrx-132b), whose blocks are not ported, is refused too."""
     def no_weights(*a, **kw):
         raise AssertionError("weights were made before the refusal")
 
     monkeypatch.setattr(engine_mod, "init_serving_params", no_weights)
     monkeypatch.setattr(engine_mod, "prepare_params", no_weights)
+    cfg = dict(arch=ARCH, reduced=True, scheme=SCHEME, slots=SLOTS, capacity=CAP)
+    if case == "recurrentgemma":   # the reference's refusals: test_torch_serve_hybrid.py
+        rg = dict(cfg, arch="recurrentgemma-9b")
+        for kw in (dict(cache=CacheConfig(kind="paged_ams")), dict(prefill_chunk=4)):
+            with pytest.raises(NotImplementedError, match="paged|chunked"):
+                ServeEngine(EngineConfig(device="cpu", **rg, **kw))
+        return
     kw = {"paged": dict(cache=CacheConfig(kind="paged_ams")),
           "chunk4": dict(prefill_chunk=4),
           "speculate2": dict(speculate_k=2),
-          "recurrentgemma": dict(arch="recurrentgemma-9b")}[case]
-    cfg = dict(arch=ARCH, reduced=True, scheme=SCHEME, slots=SLOTS, capacity=CAP)
+          "moe": dict(arch="dbrx-132b")}[case]
     cfg.update(kw)
-    match = "Modules to port" if case == "recurrentgemma" else "paged|chunked"
+    match = "Modules to port" if case == "moe" else "paged|chunked"
     with pytest.raises(NotImplementedError, match=match):
         ServeEngine(EngineConfig(device="cpu", **cfg))
     if case == "paged":
         from repro.cache import CacheConfig as JCacheConfig
         cfg["cache"] = JCacheConfig(kind="paged_ams")
-    if case != "recurrentgemma":
+    if case != "moe":
         with pytest.raises(NotImplementedError):
             JServeEngine(JEngineConfig(**cfg))
 
