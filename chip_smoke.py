@@ -29,12 +29,16 @@ Phases, each fatal on failure:
      x_proj with N 288, dt_proj with K 256 = 43 words, out_proj), at
      RecurrentGemma-9B's rec layer (five 4096 x 4096 RG-LRU projections and
      the GeGLU FFN of 12288) and attn layer (wq / wo, wk / wv of one 256-wide
-     kv head, the FFN), and K1b (fp4.25) at MusicGen-medium's, the same way;
+     kv head, the FFN), and K1b (fp4.25) at MusicGen-medium's and at one
+     Llama-4-Scout-17B-16E layer (4 attention projections, then the shared
+     expert's and 16 experts' gate / up 5120 -> 8192 and down 8192 -> 5120:
+     55 launches), the same way;
   5. K2 (paged AMS-e2m2 flash-decode) against its plain version at kv=4,
      g=7, hd=128, pages of 16, 64 and 128 tokens, 8 slots, lengths up to
      1024, chunk in {1, 16}, with an idle slot and masked rows that must
      come out exactly 0; then at hd 64 over pages of 16, InternVL2-1B's
-     kv 2, g 7 and MusicGen-medium's kv 24, g 1;
+     kv 2, g 7 and MusicGen-medium's kv 24, g 1, and Llama-4-Scout's kv 8,
+     g 5, hd 128;
   6. K3 (paged flash-decode over bf16 pages), the same;
   7. K4 (contiguous-cache flash-decode, GQA) at Qwen2-7B shapes (kv=4, g=7,
      hd=128, 8 slots, lengths up to 1024, chunk in {1, 16}) and K5 (the
@@ -72,8 +76,14 @@ Phases, each fatal on failure:
      states and 2048-slot bf16 rings with FP5.33 weights (`hybrid-fp5.33`:
      K1 alone, the ring attention in plain torch as the reference's XLA
      path, never K4; the Mamba paths' requests, each stream held to the
-     request alone) and bf16 weights (`hybrid-fp16`, as `ssm-fp16`); 9
-     requests each on the others but FP5.33 (two sharing a prefix on the
+     request alone) and bf16 weights (`hybrid-fp16`, as `ssm-fp16`);
+     full-width 48-layer
+     Llama-4-Scout-17B-16E (MoE: 16 experts, top-1, a shared expert, every
+     expert on every token) with FP4.25 weights over AMS pages
+     (`moe-fp4.25`: K1b, 55 launches a layer, K2; each stream then held to
+     the request served alone) and at depth 12 with bf16 weights over bf16
+     pages (`moe-fp16`: K3, cuBLAS projections; served and profiled only);
+     9 requests each on the others but FP5.33 (two sharing a prefix on the
      paged ones whose requests are tokens only). Launch counts are zeroed
      just before each path and read just after: every kernel of the path
      must have launched, no other
@@ -91,8 +101,9 @@ Phases, each fatal on failure:
      in the graph ticks must equal the counted ones, and so must the path
      kernels' nodes in a CUDA graph of the step, read from CUDA's graph
      debug dump);
-  10. graph against eager at cut depth (2 layers, full widths; 3 on the
-      hybrid, one whole (rec, rec, attn) repeat), per path:
+  10. graph against eager at cut depth (`CUT_DEPTH`, one layer at full
+      width; 3 on the hybrid, one whole (rec, rec, attn) repeat; 2 on the
+      MoE path), per path:
       two engines from one seed serve the same requests in lockstep (on the
       VLM path with 256 prefix embeds each), one
       replaying its graphs, one running the eager step; tokens after every
@@ -102,7 +113,9 @@ Phases, each fatal on failure:
       replay graphs):
       first-tick logits and greedy streams of impl "kernel" against the
       non-kernel impls ("fused_ref" matmuls, "ref" attention) on the card,
-      the kernel engine's streams launching every kernel of its path; the
+      the kernel engine's streams launching every kernel of its path; on
+      the MoE path also how many (row, layer) pairs the two lowerings
+      routed to another expert set, with the router's margin at each; the
       FP4.25 path once more over pages of 64 tokens (K1b and K2's walk of a
       page in two sub-tiles), and once with fp6-e2m3 weights (K1b's per_word
       5 hook, K2);
@@ -144,7 +157,7 @@ Phases, each fatal on failure:
       floor of a full decode tick at the H100's peaks beside a profiled
       replay of its graph (`obs.cost.attribution(profile=True)`).
 
-A line ``compare {...}`` sets the eleven paths' graph and eager decode
+A line ``compare {...}`` sets the thirteen paths' graph and eager decode
 ticks, replay ms, device-busy ms, idle shares, gaps inside ticks and
 kernels per tick side by side. The line before the last is one JSON
 object with a row per kernel; the last line is ``{"ok": true, "device":
@@ -226,7 +239,21 @@ PATHS = {
                           kernels=("ams_matmul_fp533",), chunk=1, depth=3),
     "hybrid-fp16": dict(arch="recurrentgemma-9b", scheme="fp16", kind="contiguous",
                         kernels=(), chunk=1, lean=True),
+    # MoE: Llama-4-Scout-17B-16E (16 experts, top-1, a shared expert) at full
+    # width, all 48 layers at FP4.25 over AMS pages (every expert's three
+    # projections a K1b launch on its slice of the stacked planes), beside
+    # FP16 over bf16 pages at depth 12 (48 bf16 layers do not fit one card;
+    # served and profiled only); each stream held to its request alone
+    "moe-fp4.25": dict(arch="llama4-scout-17b-16e", scheme="fp4.25-e2m2", kind="paged_ams",
+                       kernels=("ams_matmul_planes", "paged_attention_ams"), alone=True,
+                       depth=2),
+    "moe-fp16": dict(arch="llama4-scout-17b-16e", scheme="fp16", kind="paged_bf16",
+                     kernels=("paged_attention_bf16",), serve_depth=12, lean=True, alone=True),
 }
+# the graph and consistency phases' depth at full width, where a path sets
+# none (one layer holds every kernel of a dense path; cut from 2 to keep the
+# smoke near 15 minutes with thirteen paths)
+CUT_DEPTH = 1
 PLANES_SCHEMES = ("fp8", "fp6-e2m3", "fp6-e3m2", "fp5-e2m2", "fp4.5-e2m2", "fp4.33-e2m2",
                   "fp4-e2m1")
 QWEN_SHAPES = [("wq/wo", 3584, 3584, 2), ("wk/wv", 3584, 512, 2),
@@ -250,6 +277,11 @@ RECURRENTGEMMA_SHAPES = {
     "attn": [("wq/wo", 4096, 4096, 2), ("wk/wv", 4096, 256, 2),
              ("w_gate/w_up", 4096, 12288, 2), ("w_down", 12288, 4096, 1)],
 }
+# one Llama-4-Scout-17B-16E layer (K1b, FP4.25): 4 attention projections
+# (40 q / 8 kv heads of 128), then the shared expert's and the 16 experts'
+# gate / up (5120 -> 8192) and down (8192 -> 5120), as `moe_dense` runs them
+SCOUT_SHAPES = [("wq/wo", 5120, 5120, 2), ("wk/wv", 5120, 1024, 2),
+                ("w_gate/w_up x 17", 5120, 8192, 34), ("w_down x 17", 8192, 5120, 17)]
 TINY_SHAPES = [("wq/wo", 128, 128, 2), ("wk/wv", 128, 64, 2),
                ("w_gate/w_up", 128, 256, 2), ("w_down", 256, 128, 1)]
 # page sizes of the K2 / K3 phases: the CacheConfig default (timed against a
@@ -263,7 +295,10 @@ def log(*a):
 
 
 def fail(msg: str):
+    """Print the failure on both streams (a caller that keeps only the end
+    of standard error still reads why) and exit 1."""
     log(f"FAIL: {msg}")
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -456,8 +491,10 @@ def phase_k1b(torch, dev, timed: bool, full: bool):
                                full)
     zoo = _matmul_phase(torch, dev, "K1b[musicgen-medium]", "fp4.25-e2m2", gen, kernel, plain,
                         timed, full, shapes=MUSICGEN_SHAPES)
+    scout = _matmul_phase(torch, dev, "K1b[llama4-scout-17b-16e]", "fp4.25-e2m2", gen, kernel,
+                          plain, timed, full, shapes=SCOUT_SHAPES)
     wide = {s: _k1b_hook(torch, dev, gen, s, kernel, plain, timed, full) for s in K1B_WIDE}
-    return layer, max(max_err, err), wide, zoo
+    return layer, max(max_err, err), wide, zoo, scout
 
 
 # one scheme per decode hook of K1b that no served path reaches: per_word 4,
@@ -508,10 +545,13 @@ def _k1b_hook(torch, dev, gen, scheme: str, kernel, plain, timed: bool, full: bo
 
 
 # --------------------------------------------------------------------- K2
-# K2 at the new paths' attention shapes (page 16, decode and chunk 16):
-# InternVL2-1B (kv 2, g 7) and MusicGen-medium's MHA (kv 24, g 1), hd 64
-K2_ZOO = {"internvl2-1b": (2, 7, 64), "musicgen-medium": (24, 1, 64)}
-K2_ZOO_TINY = {"internvl2-1b": (2, 7, 16), "musicgen-medium": (4, 1, 16)}
+# K2 at the zoo's attention shapes (page 16, decode and chunk 16):
+# InternVL2-1B (kv 2, g 7) and MusicGen-medium's MHA (kv 24, g 1), hd 64,
+# and Llama-4-Scout-17B-16E (kv 8, g 5, hd 128)
+K2_ZOO = {"internvl2-1b": (2, 7, 64), "musicgen-medium": (24, 1, 64),
+          "llama4-scout-17b-16e": (8, 5, 128)}
+K2_ZOO_TINY = {"internvl2-1b": (2, 7, 16), "musicgen-medium": (4, 1, 16),
+               "llama4-scout-17b-16e": (2, 2, 16)}
 
 
 def phase_k2(torch, dev, timed: bool, full: bool):
@@ -1018,8 +1058,8 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
     paged = spec["kind"] != "contiguous"
     ssm = spec.get("chunk") == 1       # the one-token step: recurrent states
     if full:
-        ec = EngineConfig(arch=spec["arch"], reduced=False, scheme=spec["scheme"],
-                          impl="kernel", slots=8, capacity=512,
+        ec = EngineConfig(arch=spec["arch"], reduced=False, depth=spec.get("serve_depth"),
+                          scheme=spec["scheme"], impl="kernel", slots=8, capacity=512,
                           prefill_chunk=spec.get("chunk", 16),
                           cache=CacheConfig(kind=spec["kind"], page_size=16, impl="kernel"),
                           device=str(dev), seed=0)
@@ -1117,7 +1157,7 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
             fail(f"serve[{path}]: plain versions ran on CUDA tensors: {plain_cuda}")
     if paged and shared and st["prefix_hit_pages"] < 1:
         fail(f"serve[{path}]: the shared prefix never hit the prefix cache")
-    if embeds[0] is not None or ssm:
+    if embeds[0] is not None or ssm or spec.get("alone"):
         # each request served alone on the same engine; a sampled one with
         # its own request id, which the draw key folds
         alone, fresh = [], eng._rid
@@ -1168,6 +1208,11 @@ def weight_bytes(params):
 
 
 PROFILE_PROMPT = (200, 340)      # prompt tokens of the profiled requests: the served range
+# windows of graph ticks traced at most per path: the profiler can miss
+# device records of a window (1-129 a window before `trace_window`), so a
+# window that missed a path kernel's launch is logged and traced anew; the
+# check fails when none of them saw exactly what the counts added
+PROFILE_TRACES = 3
 
 
 def fill_for_decode(eng, rng, prompt, decode_ticks: int):
@@ -1293,10 +1338,12 @@ def profile_decode(torch, eng, rng, path: str, ticks: int = 3, timed: int = 5):
     full batch), the device time of one graph replay from CUDA events, then
     both under torch.profiler (device-busy ms, idle share, kernels per
     tick), with the path kernels' launches per tick as the profiler saw
-    them, which must equal the counts the graph ticks added; the nodes of
-    each path kernel in the step's graph (`graph_path_nodes`) must equal
-    them too."""
-    fill_for_decode(eng, rng, PROFILE_PROMPT, 2 * (timed + ticks + 1) + 3)
+    them, which must equal the counts the graph ticks added (a window that
+    missed records is traced anew, up to `PROFILE_TRACES` windows); the
+    nodes of each path kernel in the step's graph (`graph_path_nodes`) must
+    equal them too."""
+    fill_for_decode(eng, rng, PROFILE_PROMPT,
+                    2 * (timed + ticks + 1) + 3 + (PROFILE_TRACES - 1) * (ticks + 1))
     eng.step()
     eng.step(eager=True)
     tick = {False: 0.0, True: 0.0}
@@ -1332,8 +1379,17 @@ def profile_decode(torch, eng, rng, path: str, ticks: int = 3, timed: int = 5):
     keys = [int(eng.fed[s]) + 1 + i for i in range(2 * (ticks + 1))
             for s, r in enumerate(eng.active) if r is not None]
     res = dict(path=path, ticks=ticks, context_keys=[min(keys), max(keys)])
-    for name, eager in (("graph", False), ("eager", True)):
-        res[name] = _profiled_ticks(torch, eng, ticks, eager, path)
+    for trace in range(1, PROFILE_TRACES + 1):
+        res["graph"] = g = _profiled_ticks(torch, eng, ticks, False, path)
+        if _profiler_saw_the_counts(g):
+            break
+        # a trace that missed device records: log it and trace a new window
+        log("profile-retrace " + json.dumps(dict(
+            path=path, trace=trace, kernels_per_tick=g["kernels_per_tick"],
+            path_launches_per_tick=g["path_launches_per_tick"],
+            path_launches_by_tick=g["path_launches_by_tick"], clock_us=g["clock_us"])))
+    res["graph_traces"] = trace
+    res["eager"] = _profiled_ticks(torch, eng, ticks, True, path)
     if eng.active_count != eng.slots:
         fail(f"profile[{path}]: {eng.active_count} of {eng.slots} slots decoded while profiled")
     # the roofline floor of a full decode tick beside a profiled graph replay
@@ -1354,7 +1410,7 @@ def profile_decode(torch, eng, rng, path: str, ticks: int = 3, timed: int = 5):
     # the profiler, the device's own record, must have seen every launch the
     # counts added; each replay launches the graph's nodes, and the counts
     # must add exactly those
-    if seen != counted or min(counted.values(), default=1) <= 0:
+    if not _profiler_saw_the_counts(g):
         fail(f"profile[{path}]: launches per graph tick: profiler {seen}, counts {counted} "
              f"(by tick {g['path_launches_by_tick']}, clocks {g['clock_us']} us)")
     if nodes != captured or nodes != counted:
@@ -1362,6 +1418,14 @@ def profile_decode(torch, eng, rng, path: str, ticks: int = 3, timed: int = 5):
              f"capture {captured} and per replayed tick {counted}")
     res.update(decode)
     return res
+
+
+def _profiler_saw_the_counts(g) -> bool:
+    """Whether a profiled window of graph ticks (`_profiled_ticks`) saw
+    kernels, and each path kernel as often per tick as the counts added
+    (at least once)."""
+    seen, counted = g["path_launches_per_tick"]["profiler"], g["path_launches_per_tick"]["counted"]
+    return g["kernels_per_tick"] > 0 and seen == counted and min(counted.values(), default=1) > 0
 
 
 def graph_path_nodes(torch, eng, path: str):
@@ -1398,8 +1462,9 @@ def graph_path_nodes(torch, eng, path: str):
 
 
 def phase_graph(torch, dev, full: bool, path: str = "fp5.33"):
-    """Graph replays against the eager step at cut depth (2 layers, full
-    widths; the hybrid's one repeat, 3 layers): two engines from one seed serve the same requests in lockstep
+    """Graph replays against the eager step at cut depth (`CUT_DEPTH` at full
+    width, or the path's ``depth``: the hybrid's one repeat, 3 layers; 2 on
+    MoE): two engines from one seed serve the same requests in lockstep
     (prefill and decode ticks mixed), one replaying its CUDA graphs, the
     other running the step function (`step(eager=True)`); tokens after
     every tick and every cache byte at the end must be equal (on the VLM
@@ -1417,7 +1482,10 @@ def phase_graph(torch, dev, full: bool, path: str = "fp5.33"):
     from repro_torch.core.tree import tree_leaves
 
     spec = PATHS[path]
-    base = (dict(reduced=False, depth=spec.get("depth", 2), slots=4, capacity=256,
+    gc.collect()           # engines of earlier phases (a handle of the last serve's)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    base = (dict(reduced=False, depth=spec.get("depth", CUT_DEPTH), slots=4, capacity=256,
                  prefill_chunk=spec.get("chunk", 16))
             if full else dict(reduced=True, slots=2, capacity=64,
                               prefill_chunk=spec.get("chunk", 4)))
@@ -1484,13 +1552,15 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33", page: int = 
     from repro_torch.launch.config import EngineConfig
     from repro_torch.launch.engine import ServeEngine, init_serving_params
     from repro_torch.models import decode_step, make_cache
+    from repro_torch.models.moe import record_routes
 
     arch, kind = PATHS[path]["arch"], PATHS[path]["kind"]
     scheme = scheme or PATHS[path]["scheme"]
     page = page or (16 if full else 8)
 
     def config(impl, attn):
-        base = (dict(reduced=False, depth=PATHS[path].get("depth", 2), slots=4, capacity=256,
+        base = (dict(reduced=False, depth=PATHS[path].get("depth", CUT_DEPTH), slots=4,
+                     capacity=256,
                      prefill_chunk=PATHS[path].get("chunk", 16),
                      cache=CacheConfig(kind=kind, page_size=page, impl=attn))
                 if full else
@@ -1513,7 +1583,7 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33", page: int = 
     # first-tick logits of one ragged chunk (one token on a one-token
     # engine) through both impl pairs
     C = ck.prefill_chunk
-    logits = {}
+    logits, routes = {}, {}
     for ec in (ck, cr):
         ccfg = ec.sized_cache()
         cache = make_cache(cfg, n_req, ec.capacity, cache_cfg=ccfg, device=dev)
@@ -1521,9 +1591,11 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33", page: int = 
                            device=dev).reshape(n_req, -1) if ccfg.paged else None)
         tok = torch.as_tensor(prompts[:, :C] if C > 1 else prompts[:, 0], device=dev)
         nvalid = torch.full((n_req,), C, dtype=torch.int32, device=dev) if C > 1 else None
-        lg, _ = decode_step(params, tok, cache, torch.zeros(n_req, dtype=torch.int32,
-                                                             device=dev), cfg,
-                            policy=policy(ec), block_tables=bt, cache_cfg=ccfg, nvalid=nvalid)
+        with record_routes() as routes[ec.impl]:
+            lg, _ = decode_step(params, tok, cache, torch.zeros(n_req, dtype=torch.int32,
+                                                                 device=dev), cfg,
+                                policy=policy(ec), block_tables=bt, cache_cfg=ccfg,
+                                nvalid=nvalid)
         logits[ec.impl] = lg.float()
     d = float((logits["kernel"] - logits["fused_ref"]).abs().max())
     rel = d / float(logits["fused_ref"].abs().max())
@@ -1545,7 +1617,8 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33", page: int = 
         first = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
         diverge.append(first)
     res = dict(path=path, scheme=scheme, depth=cfg.num_layers, logits_max_abs_diff=d,
-               logits_rel_diff=rel,
+               logits_rel_diff=rel, **routing_differences(torch, routes["kernel"],
+                                                          routes["fused_ref"]),
                tolerance=LOGIT_TOL, first_tick_argmax_equal=same_argmax,
                streams_equal=all(x is None for x in diverge),
                first_diverging_token=diverge, kernel_launches=launches)
@@ -1559,6 +1632,26 @@ def phase_consistency(torch, dev, full: bool, path: str = "fp5.33", page: int = 
         fail(f"consistency[{path}, {scheme}]: the kernel engine's streams launched "
              f"{launches}, not every kernel of the path and no other")
     return res
+
+
+def routing_differences(torch, got, want):
+    """The MoE router's choices of two lowerings over the same step
+    (`moe.record_routes`, one entry per MoE layer): how many (row, layer)
+    pairs chose another expert set, and at each the reference's router
+    margin (its k-th largest probability less the next one: how near a tie
+    it was). Empty for a model without MoE layers."""
+    if not want:
+        return {}
+    pairs = []
+    for layer, ((gi, _), (wi, wp)) in enumerate(zip(got, want)):
+        k = wi.shape[-1]
+        same = (gi.sort(-1).values == wi.sort(-1).values).all(-1)
+        top = wp.sort(-1, descending=True).values
+        margin = top[:, k - 1] - (top[:, k] if top.shape[-1] > k else 0.0)
+        for row in torch.nonzero(~same).flatten().tolist():
+            pairs.append(dict(layer=layer, row=row, margin=float(margin[row])))
+    return dict(routed_pairs=len(want) * want[0][0].shape[0], routing_differs=len(pairs),
+                routing_differences=pairs)
 
 
 def phase_ring(torch, dev, full: bool):
@@ -2786,24 +2879,34 @@ def main():
         log(f"build {name}: {r['seconds']:.1f}s; {' | '.join(regs)}")
     log(f"build total {time.perf_counter() - t0:.1f}s")
     ptxas_report(build)
+    seconds, clock = {"build": round(time.perf_counter() - t0, 1)}, [time.perf_counter()]
+
+    def mark(name):             # the seconds since the last mark, for the phase-seconds line
+        seconds[name] = round(time.perf_counter() - clock[0], 1)
+        clock[0] = time.perf_counter()
 
     (k1, k1_err, (k1_zoo, k1_zoo_err), (k1_ssm, k1_ssm_err),
      (k1_rg, k1_rg_err)) = phase_k1(torch, dev, timed=True, full=True)
-    k1b, k1b_err, k1b_wide, (k1b_zoo, k1b_zoo_err) = phase_k1b(torch, dev, timed=True, full=True)
+    (k1b, k1b_err, k1b_wide, (k1b_zoo, k1b_zoo_err),
+     (k1b_scout, k1b_scout_err)) = phase_k1b(torch, dev, timed=True, full=True)
     k2, k2_err, k2_zoo = phase_k2(torch, dev, timed=True, full=True)
     k3, k3_err = phase_k3(torch, dev, timed=True, full=True)
     k4, k4_err = phase_k4(torch, dev, timed=True, full=True)
     k5, k5_err = phase_k5(torch, dev, timed=True, full=True)
     k5p, k5p_err, k5p_launches = phase_k5p(torch, dev, timed=True, full=True)
+    mark("kernels")
     served = {}
     for path in PATHS:
         served[path] = phase_serve(torch, dev, full=True, path=path)
+        mark(f"serve {path}")
         if not PATHS[path].get("lean"):
             phase_graph(torch, dev, full=True, path=path)
             phase_consistency(torch, dev, full=True, path=path)
+            mark(f"graph, consistency {path}")
     phase_consistency(torch, dev, full=True, path="fp4.25", page=64)
     phase_consistency(torch, dev, full=True, path="fp4.25", scheme="fp6-e2m3")
     phase_ring(torch, dev, full=True)
+    mark("consistency fp4.25 page 64 / fp6-e2m3, ring")
     # one set of FP5.33 weights for the engine-features and frontend phases
     from repro_torch.core.policy import QuantPolicy
     from repro_torch.launch.config import EngineConfig
@@ -2818,6 +2921,8 @@ def main():
     del fp533
     gc.collect()
     torch.cuda.empty_cache()
+    mark("engine-features, seq, frontend")
+    log("phase-seconds " + json.dumps(seconds))
     log("compare " + json.dumps({
         path: dict(arch=r["arch"], scheme=r["scheme"], cache=r["cache"],
                    decode_tick_ms=r["profile"]["decode_tick_ms"],
@@ -2874,6 +2979,11 @@ def main():
         row("paged_attention_ams[musicgen-medium]", "paged_attention.cu",
             "src/repro/kernels/attention_template.py:399", "audio-fp4.25",
             *k2_zoo["musicgen-medium"]),
+        row("ams_matmul_planes[llama4-scout-17b-16e]", "ams_matmul.cu",
+            "src/repro/kernels/ams_matmul.py:95", "moe-fp4.25", k1b_scout, k1b_scout_err),
+        row("paged_attention_ams[llama4-scout-17b-16e]", "paged_attention.cu",
+            "src/repro/kernels/attention_template.py:399", "moe-fp4.25",
+            *k2_zoo["llama4-scout-17b-16e"]),
         row("paged_attention_bf16", "paged_attention.cu",
             "src/repro/kernels/attention_template.py:292", "fp16", k3, k3_err),
         row("contiguous_attention", "contiguous_attention.cu",

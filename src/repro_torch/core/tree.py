@@ -3,6 +3,8 @@ flatten them in the dicts' key order."""
 
 from __future__ import annotations
 
+import torch
+
 
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of ``tree`` and the matching leaves of the
@@ -17,3 +19,11 @@ def tree_leaves(tree):
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
     return [tree]
+
+
+def tree_stack(trees):
+    """Trees of equal keys stacked leaf by leaf along a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)

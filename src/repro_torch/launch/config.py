@@ -4,10 +4,10 @@ src/repro/launch/config.py).
 One frozen dataclass carries every constructor-time validation, so a bad
 config fails in one place before any device work. The port adds
 ``device`` (default ``"cuda"``) and serves contiguous caches (the default,
-``cache=None``; dense GQA and MLA) and paged caches (AMS or bf16 pages;
-dense GQA), with seeded sampling, priorities and preemption with host
-spill (paged caches), and speculative decoding with the n-gram or the self
-drafters. Meshes, which it does not have yet, raise NotImplementedError
+``cache=None``; GQA, MoE-GQA and MLA) and paged caches (AMS or bf16
+pages; GQA and MoE-GQA), with seeded sampling, priorities and preemption
+with host spill (paged caches), and speculative decoding with the n-gram
+or the self drafters. Meshes, which it does not have yet, raise NotImplementedError
 here, naming their ROADMAP item.
 
     cfg = EngineConfig(arch="qwen2-7b", reduced=False, impl="kernel",

@@ -12,7 +12,7 @@ re-admitted the same tick. The KV cache is either
     bf16 cache per layer (GQA K and V, or MLA's compressed stream);
     admission is by free slot, and a slot is zeroed when a request is placed
     in it;
-  * paged (dense GQA): a pool of pages in the packed AMS-e2m2 layout
+  * paged (GQA, dense or MoE): a pool of pages in the packed AMS-e2m2 layout
     (``paged_ams``) or in bf16 (``paged_bf16``), addressed through
     per-request block tables; admission is gated on the free-page budget
     (`cache.PageAllocator`), and completed prompt pages are prefix-cached
@@ -82,6 +82,7 @@ Not ported yet, and refused with NotImplementedError: meshes.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import threading
 import time
@@ -153,20 +154,21 @@ def _to_bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16) if t.is_floating_point() else t
 
 
+def _cast(node, min_dim: int):
+    """Every floating leaf of ndim >= ``min_dim`` to bf16; linears that are
+    packed already (``{'hi', 'lsb', 'scale'}``) stay as they are."""
+    if isinstance(node, dict):
+        return node if "hi" in node else {k: _cast(v, min_dim) for k, v in node.items()}
+    return _to_bf16(node) if node.dim() >= min_dim else node
+
+
 def prepare_params(params, quant: Optional[QuantPolicy]):
     """The reference engine's weight preparation (engine.py:336-343): every
     floating leaf of ndim >= 2 to bf16 (stacked per-layer norms and biases
     included, as in the reference's stacked tree), 1-D leaves kept, then PTQ
     with the policy. Linears that arrive packed (``{'hi', 'lsb', 'scale'}``)
     are kept as they are."""
-    def visit(node):
-        if isinstance(node, dict):
-            if "hi" in node:
-                return node
-            return {k: visit(v) for k, v in node.items()}
-        return _to_bf16(node) if node.dim() >= 2 else node
-
-    params = visit(params)
+    params = _cast(params, min_dim=2)
     if quant is not None:
         params = quantize_params(params, quant)
     return params
@@ -180,19 +182,27 @@ def init_serving_params(cfg, quant: Optional[QuantPolicy], seed: int, device):
     in model order (each into its ``layers/sub{i}`` stack, every floating
     leaf bf16 as the stacked tree casts it), the tail (``tail/sub{i}``,
     leaves of ndim >= 2 bf16), lm_head; each block quantized under its own
-    path."""
+    path. A MoE block's experts are quantized one at a time as they are
+    drawn (`moe.init_moe`'s ``expert_fn``), so no more than one expert's
+    FFN exists in f32 (a full-width Llama-4-Scout block is 8.8 GB in
+    f32)."""
     check_serving_support(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     dims = model_dims(cfg)
     pat = layer_pattern(cfg)
     G, R = pattern_counts(cfg)
+
+    def prep(tree, prefix: str, min_dim: int):
+        tree = _cast(tree, min_dim)
+        return quantize_params(tree, quant, prefix=prefix) if quant is not None else tree
+
     embed = {"w": init_embed(gen, cfg, dims, device=device)["w"].to(torch.bfloat16)}
     layers: Dict[str, Any] = {}
     for l in range(G * len(pat)):
         g, i = divmod(l, len(pat))
-        blk = tree_map(_to_bf16, init_block(gen, cfg, dims, pat[i], device=device))
-        if quant is not None:
-            blk = quantize_params(blk, quant, prefix=f"/layers/sub{i}")
+        experts = functools.partial(prep, prefix=f"/layers/sub{i}/moe/experts", min_dim=0)
+        blk = prep(init_block(gen, cfg, dims, pat[i], device=device, expert_fn=experts),
+                   f"/layers/sub{i}", 0)
         if g == 0:
             layers[f"sub{i}"] = tree_map(lambda t: torch.empty((G, *t.shape), dtype=t.dtype,
                                                                device=device), blk)
@@ -208,10 +218,9 @@ def init_serving_params(cfg, quant: Optional[QuantPolicy], seed: int, device):
         del blk
     tail = {}
     for i in range(R):
-        blk = init_block(gen, cfg, dims, pat[i], device=device)
-        blk = tree_map(lambda t: _to_bf16(t) if t.dim() >= 2 else t, blk)
-        tail[f"sub{i}"] = (quantize_params(blk, quant, prefix=f"/tail/sub{i}")
-                           if quant is not None else blk)
+        experts = functools.partial(prep, prefix=f"/tail/sub{i}/moe/experts", min_dim=2)
+        tail[f"sub{i}"] = prep(init_block(gen, cfg, dims, pat[i], device=device,
+                                          expert_fn=experts), f"/tail/sub{i}", 2)
     lm_head = make_linear(gen, cfg.d_model, dims.V, device=device)
     lm_head = {k: _to_bf16(v) if v.dim() >= 2 else v for k, v in lm_head.items()}
     params = {"embed": embed, "layers": layers,

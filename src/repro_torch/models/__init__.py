@@ -1,5 +1,6 @@
-"""Dense GQA (paged or contiguous caches), absorbed-MLA, Mamba-1 and
-RG-LRU hybrid (contiguous caches) decoders (port of src/repro/models)."""
+"""Dense GQA and MoE-GQA (paged or contiguous caches), absorbed-MLA,
+Mamba-1 and RG-LRU hybrid (contiguous caches) decoders (port of
+src/repro/models)."""
 
 from .common import model_dims, quantize_params  # noqa: F401
 from .transformer import (  # noqa: F401

@@ -1,0 +1,188 @@
+"""Mixture-of-Experts FFN on one device (port of the single-device part of
+src/repro/models/moe.py): a top-k softmax router over E experts, every
+expert computed on every token and combined through the dense [T, E] gate
+matrix (`moe_dense`), plus the shared expert where the config has one.
+
+The router is a linear of its own (``router``: ``{'w': [D, E]}``), drawn in
+f32 and never quantized (`QuantPolicy.wants` skips it by name); the serving
+engine casts it to bf16 as the reference's does, and it is applied to the
+activations taken to f32. Experts are stacked ``[E, ...]`` leaf by leaf
+(packed planes too), and expert e is the view ``leaf[e]``: on
+``impl="kernel"`` each of its three projections is one K1 / K1b launch on
+that slice, as the reference's ``vmap`` batches its Pallas call over the
+experts.
+
+Numerics follow the reference's compiled CPU step: the softmax is XLA's
+(its exp polynomial on CPU tensors, `core.xla_math.exp_f32`, and the sum in
+expert order), ties in the top-k go to the lower expert index (a stable
+sort), and the combine multiplies each expert's bf16 output by its weight
+rounded to bf16 and sums over the experts in f32 before one rounding to
+bf16; the shared expert's output is added in bf16. The expert-parallel and
+tensor-parallel paths (``moe_ep`` / ``moe_tp``) wait for meshes.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.tree import tree_map, tree_stack
+from repro_torch.core.xla_math import exp_f32, fma_f32
+
+from .common import apply_linear, make_linear
+from .ffn import _act, ffn_apply, init_ffn
+
+
+def init_moe(gen, cfg, *, dtype=torch.float32, device="cpu",
+             expert_fn: Optional[Callable] = None):
+    """``{experts, router[, shared]}`` from ``gen``. Draw order: the experts
+    in index order (each its FFN's linears), the router (f32 whatever
+    ``dtype``), the shared expert. ``expert_fn`` maps each expert's tree
+    before the experts are stacked (the serving init quantizes each one
+    there, so no more than one expert's FFN exists in f32 at a time)."""
+    kw = dict(dtype=dtype, device=device)
+    fn = expert_fn or (lambda ep: ep)
+    experts = tree_stack([fn(init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn_activation, **kw))
+                          for _ in range(cfg.num_experts)])
+    p = {"experts": experts,
+         "router": make_linear(gen, cfg.d_model, cfg.num_experts, dtype=torch.float32,
+                               device=device)}
+    if cfg.moe_shared_expert_ff:
+        p["shared"] = init_ffn(gen, cfg.d_model, cfg.moe_shared_expert_ff,
+                               cfg.ffn_activation, **kw)
+    return p
+
+
+def router_logits(p, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits [T, E] of x [T, D] (taken to f32) through the router's
+    weight (taken to f32). On CPU tensors of two or more rows the product
+    is summed as the reference's compiled dot sums it: 4 lanes, lane j
+    accumulating d = j, j + 4, ... by fused multiply-adds, then
+    ((0 + 1) + (2 + 3)). One row, CUDA tensors and widths that 4 does not
+    divide take torch's product (no reference asks for those bits)."""
+    x = x.to(torch.float32)
+    w = p["w"].to(torch.float32)
+    T, D = x.shape
+    if x.is_cuda or T < 2 or D % 4:
+        return x @ w
+    acc = x[:, 0:4, None] * w[0:4]
+    for d in range(4, D, 4):
+        acc = fma_f32(x[:, d:d + 4, None], w[d:d + 4], acc)
+    return (acc[:, 0] + acc[:, 1]) + (acc[:, 2] + acc[:, 3])
+
+
+def _sum_in_order(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` in index order, as XLA's CPU loop reduces."""
+    x = x.movedim(dim, 0)
+    s = x[0]
+    for j in range(1, x.shape[0]):
+        s = s + x[j]
+    return s
+
+
+def softmax(logits: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softmax over the last axis of f32 logits: exp(l - max) over
+    its sum. On CPU tensors XLA's exp polynomial and the sum in index
+    order, as the reference's compiled step; on CUDA torch's softmax (a row
+    alone, whatever the other rows)."""
+    if logits.is_cuda:
+        return torch.softmax(logits, dim=-1)
+    e = exp_f32(logits - logits.max(dim=-1, keepdim=True).values)
+    return e / _sum_in_order(e, -1)[..., None]
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of each row and their indices, ties to the lower index
+    (jax.lax.top_k's order; torch.topk leaves it unspecified)."""
+    v, i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+_ROUTES: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
+
+
+@contextlib.contextmanager
+def record_routes():
+    """Collect, while open, every router call's (top-k expert indices
+    [T, k], probabilities [T, E]) in call order (model order over the
+    layers of a step): the comparisons of routing between two lowerings
+    read them. Eager steps only; nothing is kept otherwise."""
+    global _ROUTES
+    prev, _ROUTES = _ROUTES, []
+    try:
+        yield _ROUTES
+    finally:
+        _ROUTES = prev
+
+
+def gates(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Router over x [T, D]: (dense combine weights [T, E] f32 — the top-k
+    probabilities renormalised by max(sum, 1e-9), zeros elsewhere —,
+    probabilities [T, E] f32)."""
+    probs = softmax(router_logits(p["router"], x))
+    top_v, top_i = top_k(probs, cfg.experts_per_token)
+    top_v = top_v / torch.clamp(_sum_in_order(top_v, -1)[..., None], min=1e-9)
+    combine = torch.zeros_like(probs).scatter(1, top_i, top_v)
+    if _ROUTES is not None:
+        _ROUTES.append((top_i, probs))
+    return combine, probs
+
+
+def load_balance_loss(combine: torch.Tensor, probs: torch.Tensor, E: int) -> torch.Tensor:
+    """Switch-style auxiliary loss: E * <f_e> . <p_e> (f_e: the share of
+    tokens routed to expert e, p_e: its mean probability). On CPU tensors
+    as the reference's compiled step computes it: the sums in index order,
+    a mean as the sum times the f32 reciprocal of the count."""
+    frac = (combine > 0).to(torch.float32)
+    if probs.is_cuda:
+        return (frac.mean(dim=0) * probs.mean(dim=0)).sum() * E
+    inv = np.float32(1.0 / probs.shape[0])
+    imp = _sum_in_order(probs, 0) * inv
+    return _sum_in_order(_sum_in_order(frac, 0) * inv * imp, 0) * E
+
+
+def expert_ffn(p, x: torch.Tensor, activation: str, policy=None) -> torch.Tensor:
+    """`ffn_apply` of one expert, or of the shared expert, on x [T, D].
+    Under ``impl="fused_ref"`` a gated FFN's product g * u enters w_down's
+    K-blocked f32 product unrounded, as in the reference's compiled step:
+    its 2-D x leaves nothing between the bf16 product and the blocked
+    product's f32 convert, so XLA drops the rounding (a dense block's 3-D
+    input keeps a reshape there, and its rounding). The output rounds to
+    x.dtype as ever."""
+    if (policy is None or policy.impl != "fused_ref" or "w_gate" not in p
+            or "w" in p["w_down"]):
+        return ffn_apply(p, x, activation, policy)
+    act = _act(activation)
+    g = act(apply_linear(p["w_gate"], x, policy)).to(torch.float32)
+    u = apply_linear(p["w_up"], x, policy).to(torch.float32)
+    return apply_linear(p["w_down"], g * u, policy).to(x.dtype)
+
+
+def moe_dense(p, x: torch.Tensor, cfg, policy=None):
+    """Every expert on every token, combined with the gates. x [B, S, D] ->
+    (y [B, S, D] in x.dtype, the auxiliary loss)."""
+    B, S, D = x.shape
+    xf = x.reshape(B * S, D)
+    combine, probs = gates(p, xf, cfg)
+    ys = torch.stack([expert_ffn(tree_map(lambda t: t[e], p["experts"]), xf,
+                                 cfg.ffn_activation, policy)
+                      for e in range(cfg.num_experts)])                     # [E, T, D]
+    c = combine.to(ys.dtype).to(torch.float32)
+    y = torch.einsum("te,etd->td", c, ys.to(torch.float32)).to(ys.dtype)
+    aux = load_balance_loss(combine, probs, cfg.num_experts)
+    if "shared" in p:
+        y = y + expert_ffn(p["shared"], xf, cfg.ffn_activation, policy)
+    return y.reshape(B, S, D).to(x.dtype), aux
+
+
+def moe_apply(p, x: torch.Tensor, cfg, policy=None, *, devices: int = 1):
+    """The MoE FFN of one block: `moe_dense` on one device. The reference's
+    expert-parallel (decode) and tensor-parallel (sequence) paths over more
+    devices are not ported."""
+    if devices != 1:
+        raise NotImplementedError(f"MoE over {devices} devices (expert or tensor "
+                                  "parallelism) is not ported yet (ROADMAP.md, Modules to port)")
+    return moe_dense(p, x, cfg, policy)

@@ -1,10 +1,11 @@
-"""Decoder assembly for dense GQA models (paged or contiguous caches),
-absorbed-MLA models, Mamba-1 models and the RG-LRU hybrid (contiguous
-caches) (port of the gqa / mla / mamba / rec / attn paths of
-src/repro/models/transformer.py): the one-token and ragged decode steps
-(recurrent and ring-cache layers: the one-token step only), and the
+"""Decoder assembly for dense GQA and MoE-GQA models (paged or contiguous
+caches), absorbed-MLA models, Mamba-1 models and the RG-LRU hybrid
+(contiguous caches) (port of the gqa / gqa_moe / mla / mamba / rec / attn
+paths of src/repro/models/transformer.py): the one-token and ragged decode
+steps (recurrent and ring-cache layers: the one-token step only), and the
 full-sequence forward `forward_seq` (prefill with a contiguous cache, and
-the self drafter's forward).
+the self drafter's forward). A ``gqa_moe`` block is the ``gqa`` block with
+the MoE FFN of `models.moe` in place of the dense one.
 
 A model is a repeating pattern of block kinds (`layer_pattern`): one kind
 for uniform families, ``("rec", "rec", "attn")`` for RecurrentGemma.
@@ -29,10 +30,11 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.core.tree import tree_leaves, tree_map, tree_stack
 
 from . import attention as A
 from . import ffn as F
+from . import moe as M
 from . import ssm as S
 from .common import Dims, apply_linear, make_linear, make_norm, model_dims, rms_norm
 
@@ -49,19 +51,20 @@ def layer_pattern(cfg) -> Tuple[str, ...]:
     return ("gqa",)
 
 
-SERVED_PATTERNS = (("gqa",), ("mla",), ("mamba",), ("rec", "attn"))
+SERVED_PATTERNS = (("gqa",), ("gqa_moe",), ("mla",), ("mamba",), ("rec", "attn"))
+ATTENTION_KINDS = ("gqa", "gqa_moe")     # GQA attention over paged or contiguous caches
 
 
 def check_serving_support(cfg):
-    """The port serves dense GQA and absorbed-MLA layers (any FFN
+    """The port serves dense GQA, MoE-GQA and absorbed-MLA layers (any FFN
     activation, with or without modality prefix embeds), Mamba-1 layers and
     the RG-LRU hybrid (``rec`` and sliding-window ``attn`` blocks in any
-    pattern); MoE blocks are not ported."""
+    pattern)."""
     pat = layer_pattern(cfg)
     if not any(set(pat) <= set(kinds) for kinds in SERVED_PATTERNS):
         raise NotImplementedError(
-            f"the port serves dense GQA, MLA, Mamba and RG-LRU hybrid layers only; "
-            f"{cfg.name} has {sorted(set(pat))} (MoE blocks: ROADMAP.md, Modules to port)")
+            f"the port serves dense GQA, MoE-GQA, MLA, Mamba and RG-LRU hybrid layers only; "
+            f"{cfg.name} has {sorted(set(pat))} (ROADMAP.md, Modules to port)")
     if cfg.num_layers < len(pat):
         raise NotImplementedError(
             f"{cfg.name} at {cfg.num_layers} layers holds no whole repeat of its pattern "
@@ -71,16 +74,17 @@ def check_serving_support(cfg):
 def check_support(cfg, cache_cfg=None):
     """The one rule of which layers a cache kind holds: contiguous caches
     (``cache_cfg`` None or contiguous) every layer the port serves, paged
-    caches dense GQA layers without a sliding window only (MLA's
+    caches GQA layers (dense or MoE) without a sliding window only (MLA's
     compressed stream, recurrent states and ring caches keep their
     contiguous layouts, as in the reference's `check_paged_support`)."""
     check_serving_support(cfg)
     if cache_cfg is None or not cache_cfg.paged:
         return
-    bad = [k for k in layer_pattern(cfg) if k != "gqa"]
+    bad = [k for k in layer_pattern(cfg) if k not in ATTENTION_KINDS]
     if bad:
         raise NotImplementedError(
-            f"paged caches serve dense GQA layers only; {cfg.name} has {sorted(set(bad))} "
+            f"paged caches serve dense GQA and MoE-GQA layers only; {cfg.name} has "
+            f"{sorted(set(bad))} "
             "(MLA streams and recurrent states keep their contiguous layouts): serve it "
             "over a contiguous cache")
     if cfg.sliding_window:
@@ -95,10 +99,10 @@ def check_chunked_support(cfg):
     token by token, and a ring cache would need chunk-aware inserts; those
     models keep the one-token step."""
     pat = layer_pattern(cfg)
-    bad = [k for k in pat if k not in ("gqa", "mla")]
+    bad = [k for k in pat if k not in ATTENTION_KINDS + ("mla",)]
     if bad:
         raise NotImplementedError(
-            f"chunked prefill supports gqa/mla layers only; {cfg.name} has "
+            f"chunked prefill supports gqa/gqa_moe/mla layers only; {cfg.name} has "
             f"{sorted(set(bad))}: serve it with prefill_chunk=1 and no speculation")
     if cfg.sliding_window:
         raise NotImplementedError(
@@ -113,8 +117,11 @@ def pattern_counts(cfg) -> Tuple[int, int]:
     return cfg.num_layers // P, cfg.num_layers % P
 
 
-def init_block(gen, cfg, dims: Dims, kind: str, *, dtype=torch.float32, device="cpu"):
-    if kind not in ("gqa", "attn", "mla", "mamba", "rec"):
+def init_block(gen, cfg, dims: Dims, kind: str, *, dtype=torch.float32, device="cpu",
+               expert_fn=None):
+    """One block's params from ``gen`` (draw order: the mixer or attention,
+    then the FFN; norms draw nothing). ``expert_fn``: see `moe.init_moe`."""
+    if kind not in ("gqa", "gqa_moe", "attn", "mla", "mamba", "rec"):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     kw = dict(dtype=dtype, device=device)
     if kind == "mamba":
@@ -125,10 +132,14 @@ def init_block(gen, cfg, dims: Dims, kind: str, *, dtype=torch.float32, device="
                 "ln2": make_norm(cfg.d_model, **kw),
                 "ffn": F.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn_activation, **kw)}
     init_attn = A.init_mla if kind == "mla" else A.init_gqa
-    return {"ln1": make_norm(cfg.d_model, **kw),
-            "attn": init_attn(gen, cfg, dims, **kw),
-            "ln2": make_norm(cfg.d_model, **kw),
-            "ffn": F.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn_activation, **kw)}
+    p = {"ln1": make_norm(cfg.d_model, **kw),
+         "attn": init_attn(gen, cfg, dims, **kw),
+         "ln2": make_norm(cfg.d_model, **kw)}
+    if kind == "gqa_moe":
+        p["moe"] = M.init_moe(gen, cfg, expert_fn=expert_fn, **kw)
+    else:
+        p["ffn"] = F.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn_activation, **kw)
+    return p
 
 
 def init_embed(gen, cfg, dims: Dims, *, dtype=torch.float32, device="cpu"):
@@ -153,20 +164,13 @@ def init_params(seed: int, cfg, *, dtype=torch.float32, device="cpu") -> Dict[st
     tail = [init_block(gen, cfg, dims, pat[i], **kw) for i in range(R)]
     params = {
         "embed": embed,
-        "layers": {f"sub{i}": stack_trees(blocks[i::len(pat)]) for i in range(len(pat))},
+        "layers": {f"sub{i}": tree_stack(blocks[i::len(pat)]) for i in range(len(pat))},
         "final_norm": make_norm(cfg.d_model, **kw),
         "lm_head": make_linear(gen, cfg.d_model, dims.V, **kw),
     }
     if R:
         params["tail"] = {f"sub{i}": t for i, t in enumerate(tail)}
     return params
-
-
-def stack_trees(trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: stack_trees([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
 
 
 def block_cache_shape(cfg, dims: Dims, kind: str, B: int, cap: int, *,
@@ -256,6 +260,15 @@ def residual_norm(x, out, g, eps):
     return y, _norm_in(y, pre, g, eps)
 
 
+def _ffn(p, h, cfg, policy):
+    """The block's FFN of its normed input: the MoE FFN of a ``gqa_moe``
+    block, the dense one otherwise. Returns (output, auxiliary loss or
+    None)."""
+    if "moe" in p:
+        return M.moe_apply(p["moe"], h, cfg, policy)
+    return F.ffn_apply(p["ffn"], h, cfg.ffn_activation, policy), None
+
+
 def _attn_impl(cache_cfg) -> str:
     """Contiguous-cache attention lowering (``ref`` | ``kernel``)."""
     return cache_cfg.impl if cache_cfg is not None else "ref"
@@ -297,7 +310,7 @@ def block_decode(p, x, cache, pos, kind, cfg, dims, *, policy, block_tables, cac
                                           ring=bool(window), attn_impl=_attn_impl(cache_cfg))
         cache = {"k": ck, "v": cv}
     x, h2 = residual_norm(x, out, p["ln2"], cfg.norm_eps)
-    x, pre = residual(x, F.ffn_apply(p["ffn"], h2, cfg.ffn_activation, policy))
+    x, pre = residual(x, _ffn(p, h2, cfg, policy)[0])
     return x, cache, pre
 
 
@@ -305,7 +318,7 @@ def block_decode_chunk(p, x, cache, pos, nvalid, kind, cfg, dims, *, policy, blo
                        cache_cfg):
     """Ragged analogue of `block_decode`: x [B, c, D] (attention layers
     only, `check_chunked_support`)."""
-    if kind not in ("gqa", "mla"):
+    if kind not in ATTENTION_KINDS + ("mla",):
         raise NotImplementedError(f"chunked decode does not support {kind!r} blocks")
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "mla":
@@ -322,7 +335,7 @@ def block_decode_chunk(p, x, cache, pos, nvalid, kind, cfg, dims, *, policy, blo
                                                 attn_impl=_attn_impl(cache_cfg))
         cache = {"k": ck, "v": cv}
     x, h2 = residual_norm(x, out, p["ln2"], cfg.norm_eps)
-    return x + F.ffn_apply(p["ffn"], h2, cfg.ffn_activation, policy), cache
+    return x + _ffn(p, h2, cfg, policy)[0], cache
 
 
 def _embed(params, tokens, dtype=torch.bfloat16, prefix_embeds=None):
@@ -389,12 +402,13 @@ def block_seq(p, x, kind, cfg, dims, *, policy=None, block_kv=1024, prefix_len=0
     [B, window, kv, hd] for an ``attn`` block of a sliding-window model,
     `_to_ring`), MLA's ``{"kv"}`` [B, S, 1, r_kv + dr], the final recurrent
     states of Mamba (``{"conv", "ssm"}``) or the RG-LRU (``{"conv",
-    "state"}``), and x's addends (``pre`` as in `block_decode`)."""
+    "state"}``), x's addends (``pre`` as in `block_decode`) and the
+    block's auxiliary loss (the MoE router's; None for the other kinds)."""
     h = _norm_in(x, pre, p["ln1"], cfg.norm_eps)
     if kind == "mamba":
         out, (conv, ssm) = S.mamba_train(p["mixer"], h, cfg, policy=policy)
         x, pre = residual(x, out)
-        return x, ({"conv": conv, "ssm": ssm} if want_cache else None), pre
+        return x, ({"conv": conv, "ssm": ssm} if want_cache else None), pre, None
     if kind == "rec":
         out, (conv, state) = S.rglru_train(p["mixer"], h, cfg, policy=policy)
         cache = {"conv": conv, "state": state} if want_cache else None
@@ -410,8 +424,9 @@ def block_seq(p, x, kind, cfg, dims, *, policy=None, block_kv=1024, prefix_len=0
             k, v = _to_ring(k, window), _to_ring(v, window)
         cache = {"k": k, "v": v} if want_cache else None
     x, h2 = residual_norm(x, out, p["ln2"], cfg.norm_eps)
-    x, pre = residual(x, F.ffn_apply(p["ffn"], h2, cfg.ffn_activation, policy))
-    return x, cache, pre
+    y, aux = _ffn(p, h2, cfg, policy)
+    x, pre = residual(x, y)
+    return x, cache, pre, aux
 
 
 def _to_ring(kv: torch.Tensor, window: int) -> torch.Tensor:
@@ -428,8 +443,9 @@ def forward_seq(params, tokens, cfg, *, policy=None, block_kv=1024, prefix_embed
                 want_cache=False, dtype=torch.bfloat16):
     """Full-sequence forward: tokens [B, S] (after ``prefix_embeds`` [B, P,
     D], which attend to each other both ways). Returns (logits [B, P + S, V]
-    f32, aux, cache or None): aux is the reference's auxiliary loss (0 for
-    these layers); ``want_cache`` returns the contiguous cache the sequence
+    f32, aux, cache or None): aux is the reference's auxiliary loss, the
+    MoE blocks' load-balance losses summed in model order (0 without MoE
+    blocks); ``want_cache`` returns the contiguous cache the sequence
     leaves, laid out as `make_cache` lays it out (``layers/sub{i}`` stacked
     [G, B, P + S, ...], ``tail/sub{i}`` [B, P + S, ...]), from which
     `decode_step` continues (copied into a cache of larger capacity; ring
@@ -441,17 +457,19 @@ def forward_seq(params, tokens, cfg, *, policy=None, block_kv=1024, prefix_embed
     x = _embed(params, tokens, dtype, prefix_embeds)
     caches = {}
     pre = None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, bp, (group, i, g) in _blocks(params, cfg):
-        x, c, pre = block_seq(bp, x, kind, cfg, dims, policy=policy, block_kv=block_kv,
-                              prefix_len=prefix_len, want_cache=want_cache,
-                              pre=pre if i else None)
+        x, c, pre, a = block_seq(bp, x, kind, cfg, dims, policy=policy, block_kv=block_kv,
+                                 prefix_len=prefix_len, want_cache=want_cache,
+                                 pre=pre if i else None)
+        if a is not None:
+            aux = aux + a
         caches.setdefault(group, {}).setdefault(f"sub{i}", []).append(c)
     cache = None
     if want_cache:
-        cache = {"layers": {k: stack_trees(v) for k, v in caches["layers"].items()}}
+        cache = {"layers": {k: tree_stack(v) for k, v in caches["layers"].items()}}
         if "tail" in caches:
             cache["tail"] = {k: v[0] for k, v in caches["tail"].items()}
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _head(params, x, cfg, dims, policy, pre if "tail" in params else None), aux, cache
 
 

@@ -1717,3 +1717,109 @@ def test_importing_the_port_loads_no_jax():
                        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
                        timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+# ------------------------------------------------------------------- MoE
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N,B", [(5120, 8192, 8), (5120, 8192, 128), (8192, 5120, 8),
+                                   (8192, 5120, 128), (5120, 1024, 8)])
+def test_k1b_scout_expert_shapes_match_plain(K, N, B):
+    """K1b at Llama-4-Scout-17B-16E's expert projections (gate / up 5120 ->
+    8192, down 8192 -> 5120) and its wk / wv, at B = 8 and 128."""
+    _k1b_case("fp4.25-e2m2", K, N, B, cuda_device())
+
+
+def _moe_cfg(arch):
+    from repro_torch.configs import get_config
+
+    if arch == "dbrx-top4":     # DBRX's own top-4 over the reduced model's 4 experts
+        return get_config("dbrx-132b").reduced(experts_per_token=4)
+    return get_config(arch).reduced()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-16e", "dbrx-top4"])
+def test_moe_block_on_the_card_matches_the_cpu_path(arch):
+    """A reduced MoE model's FFN and one-token decode on the card (K1b for
+    every expert, the shared expert and attention's projections; K2 over
+    AMS pages) against its CPU path (the plain versions) from the same
+    weights: the same experts routed for every row, `moe_dense` within
+    2^-7 of its largest value (bf16 outputs of f32 sums in another order),
+    two layers' logits within 5e-2 of the largest with equal argmax."""
+    from repro_torch.cache import CacheConfig
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.engine import prepare_params
+    from repro_torch.models import decode_step, init_params, make_cache
+    from repro_torch.models import moe as M
+
+    dev = cuda_device()
+    cfg = _moe_cfg(arch)
+    pol = QuantPolicy(scheme="fp4.25-e2m2", impl="kernel", min_elements=1 << 10)
+    cpu = prepare_params(init_params(3, cfg), pol)
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    moe = tree_map(lambda t: t[0], cpu["layers"]["sub0"]["moe"])
+    x = torch.randn((4, 3, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    x = x.to(torch.bfloat16)
+    with M.record_routes() as r_cpu:
+        y_cpu, _ = M.moe_dense(moe, x, cfg, pol)
+    with M.record_routes() as r_gpu:
+        y_gpu, _ = M.moe_dense(tree_map(lambda t: t.to(dev), moe), x.to(dev), cfg, pol)
+    assert torch.equal(r_cpu[0][0].sort(-1).values, r_gpu[0][0].cpu().sort(-1).values)
+    d = float((y_gpu.float().cpu() - y_cpu.float()).abs().max())
+    assert d <= 2 ** -7 * float(y_cpu.float().abs().max())
+    B = 3
+    ccfg = CacheConfig(kind="paged_ams", page_size=8, impl="kernel").sized(capacity=32, slots=B)
+    bt = torch.arange(B * ccfg.max_pages_per_seq, dtype=torch.int32).reshape(B, -1)
+    tok = torch.tensor([5, 17, 301], dtype=torch.int32)
+    pos = torch.tensor([0, 0, -1], dtype=torch.int32)
+    logits = []
+    for params, d_ in ((cpu, "cpu"), (gpu, dev)):
+        cache = make_cache(cfg, cache_cfg=ccfg, device=d_)
+        lg, _ = decode_step(params, tok.to(d_), cache, pos.to(d_), cfg, policy=pol,
+                            block_tables=bt.to(d_), cache_cfg=ccfg)
+        logits.append(lg[:2].float().cpu())
+    assert float((logits[0] - logits[1]).abs().max()) <= 5e-2 * float(logits[0].abs().max())
+    assert torch.equal(logits[0].argmax(-1), logits[1].argmax(-1))
+
+
+@pytest.mark.gpu
+def test_moe_graph_replays_bit_equal_to_the_eager_step():
+    """Full-width Llama-4-Scout-17B-16E cut to 2 layers, FP4.25 over AMS
+    pages (K1b: 55 launches a layer; K2): graph and eager engines in
+    lockstep give equal tokens every tick and equal page bytes, the
+    graphs of widths 1 and 4 used; K1b and K2 the only kernels launched."""
+    from repro_torch.cache import CacheConfig
+    from repro_torch.kernels import ams_matmul, attention_template
+    from repro_torch.launch.config import EngineConfig
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.models.transformer import tree_leaves
+
+    cuda_device()
+    ec = EngineConfig(arch="llama4-scout-17b-16e", reduced=False, depth=2,
+                      scheme="fp4.25-e2m2", impl="kernel", slots=3, capacity=64,
+                      prefill_chunk=4, device="cuda", seed=3,
+                      cache=CacheConfig(kind="paged_ams", page_size=16, impl="kernel"))
+    graphed, eager = ServeEngine(ec), ServeEngine(ec)
+    counts = (ams_matmul.COUNT, ams_matmul.COUNT_PLANES, attention_template.COUNT,
+              attention_template.COUNT_BF16, attention_template.COUNT_CONTIG,
+              attention_template.COUNT_MLA)
+    for c in counts:
+        c.reset()
+    for p in _graph_prompts():
+        graphed.submit(p, 5)
+        eager.submit(p, 5)
+    tick = 0
+    while graphed.has_work or eager.has_work:
+        graphed.step()
+        eager.step(eager=True)
+        tick += 1
+        assert ([None if r is None else r.tokens for r in graphed.active]
+                == [None if r is None else r.tokens for r in eager.active]), f"tick {tick}"
+    assert [r.tokens for r in graphed.finished] == [r.tokens for r in eager.finished]
+    for a, b in zip(tree_leaves(graphed.cache), tree_leaves(eager.cache)):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    assert sorted(graphed.graphs.graphs) == [(1, False), (4, False)]
+    assert {c.name for c in counts if c.launches} == {"ams_matmul_planes",
+                                                      "paged_attention_ams"}
+    assert all(c.plain_on_cuda == 0 for c in counts)

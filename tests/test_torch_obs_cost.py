@@ -211,3 +211,27 @@ def test_mamba_engine_cost_keys_equal_jax():
     assert ap == aj
     assert [(h.kv_floor_bytes, h.kv_achieved_bytes) for h in hp] == \
         [(h.kv_floor_bytes, h.kv_achieved_bytes) for h in hj]
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-16e", "dbrx-132b"])
+@pytest.mark.parametrize("scheme,kind", [("fp4.25-e2m2", "paged_ams"), ("fp16", "paged_bf16"),
+                                         ("fp4.25-e2m2", None)])
+def test_moe_cost_model_keeps_the_reference_formula(arch, scheme, kind):
+    """MoE cost models equal the reference's, full width and reduced. The
+    weight floor reads every expert (``total`` parameters: `moe_dense`
+    reads all of them each tick); the FLOP floor keeps the reference's
+    ``2 x active`` (top-k experts only), although `moe_dense` computes
+    every expert on every token (ROADMAP queue 3)."""
+    for reduced in (False, True):
+        cfg, jcfg = get_config(arch), j_get_config(arch)
+        if reduced:
+            cfg, jcfg = cfg.reduced(), jcfg.reduced()
+        ccfg = None if kind is None else CacheConfig(kind=kind)
+        jccfg = None if kind is None else JCacheConfig(kind=kind)
+        got = cost.build_cost_model(cfg, scheme, ccfg, signature={"a": 1})
+        want = jcost.build_cost_model(jcfg, scheme, jccfg, signature={"a": 1})
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        pc = param_count(cfg)
+        assert got.flops_per_token == 2.0 * pc["active"] < 2.0 * pc["total"]
+        wbits = 16.0 if scheme == "fp16" else get_scheme(scheme).effective_bits
+        assert got.weight_bytes == pc["total"] * wbits / 8.0

@@ -77,10 +77,11 @@ from repro_torch.kernels.tuning import (  # noqa: E402
 
 
 def _projections(arch):
-    """(name, K, N) of every projection K1 serves for ``arch`` at full width."""
+    """(name, K, N) of every projection K1 serves for ``arch`` at full width
+    (a MoE model's experts and shared expert have the FFN's shapes)."""
     cfg = get_config(arch)
     D = cfg.d_model
-    if arch == "qwen2-7b":
+    if arch in ("qwen2-7b", "llama4-scout-17b-16e"):
         hd = cfg.head_dim
         return [("wq", D, cfg.num_heads * hd), ("wo", cfg.num_heads * hd, D),
                 ("wk", D, cfg.num_kv_heads * hd), ("wv", D, cfg.num_kv_heads * hd),
@@ -91,7 +92,8 @@ def _projections(arch):
             ("w_gate", D, cfg.d_ff), ("w_up", D, cfg.d_ff), ("w_down", cfg.d_ff, D)]
 
 
-PROJECTIONS = [(arch, *p) for arch in ("qwen2-7b", "minicpm3-4b") for p in _projections(arch)]
+PROJECTIONS = [(arch, *p) for arch in ("qwen2-7b", "minicpm3-4b", "llama4-scout-17b-16e")
+               for p in _projections(arch)]
 
 
 # ------------------------------------------------------------------ K1

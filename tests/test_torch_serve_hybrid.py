@@ -17,8 +17,9 @@ of the largest on the kernel tier (the f32 head sums in another order)
 and 2^-7 on the ref tier. An idle slot's states stay as they were in the
 port (the reference advances them, and zeroes them at admission). Paged
 caches and a ragged step (prefill_chunk > 1, speculation) are refused
-before any weight is made, as the reference refuses them; so is a MoE
-model, whose blocks are not ported.
+before any weight is made, as the reference refuses them; a MoE model
+over AMS pages with a ragged step passes those checks, as in the
+reference.
 """
 
 import numpy as np
@@ -206,7 +207,9 @@ def test_refusals_before_any_weight(case, monkeypatch):
     """Paged caches and a ragged step (prefill_chunk 4, or speculation,
     whose step is ragged) on recurrentgemma-9b raise NotImplementedError
     before a weight is made, as the reference refuses them; a MoE model
-    (dbrx-132b) is refused as not ported yet."""
+    (dbrx-132b), whose layers the port serves on every cache and step, over
+    AMS pages with a chunk of 4 passes every check and reaches its
+    weights."""
     def no_weights(*a, **kw):
         raise AssertionError("weights were made before the refusal")
 
@@ -215,18 +218,21 @@ def test_refusals_before_any_weight(case, monkeypatch):
     kw = {"paged": dict(cache=CacheConfig(kind="paged_ams")),
           "chunk4": dict(prefill_chunk=4),
           "speculate2": dict(speculate_k=2),
-          "dbrx": dict(arch="dbrx-132b")}[case]
+          "dbrx": dict(arch="dbrx-132b", cache=CacheConfig(kind="paged_ams"),
+                       prefill_chunk=4)}[case]
     cfg = dict(arch=ARCH, reduced=True, scheme=SCHEME, slots=SLOTS, capacity=CAP)
     cfg.update(kw)
-    match = "Modules to port" if case == "dbrx" else "paged|chunked"
-    with pytest.raises(NotImplementedError, match=match):
+    if case == "dbrx":
+        with pytest.raises(AssertionError, match="weights were made"):
+            ServeEngine(EngineConfig(device="cpu", **cfg))
+        return
+    with pytest.raises(NotImplementedError, match="paged|chunked"):
         ServeEngine(EngineConfig(device="cpu", **cfg))
-    if case != "dbrx":
-        if case == "paged":
-            from repro.cache import CacheConfig as JCacheConfig
-            cfg["cache"] = JCacheConfig(kind="paged_ams")
-        with pytest.raises(NotImplementedError):
-            JServeEngine(JEngineConfig(**cfg))
+    if case == "paged":
+        from repro.cache import CacheConfig as JCacheConfig
+        cfg["cache"] = JCacheConfig(kind="paged_ams")
+    with pytest.raises(NotImplementedError):
+        JServeEngine(JEngineConfig(**cfg))
 
 
 def test_generate_serves_recurrentgemma():

@@ -256,7 +256,8 @@ def test_refusals_before_any_weight(case, monkeypatch):
     step is ragged) on falcon-mamba-7b raise NotImplementedError before a
     weight is made, and so do RecurrentGemma-9B's paged cache and ragged
     step; the reference refuses the same configurations. A MoE model
-    (dbrx-132b), whose blocks are not ported, is refused too."""
+    (dbrx-132b), whose layers the port serves, passes the checks with a
+    chunk of 4 and reaches its weights, as in the reference."""
     def no_weights(*a, **kw):
         raise AssertionError("weights were made before the refusal")
 
@@ -272,17 +273,19 @@ def test_refusals_before_any_weight(case, monkeypatch):
     kw = {"paged": dict(cache=CacheConfig(kind="paged_ams")),
           "chunk4": dict(prefill_chunk=4),
           "speculate2": dict(speculate_k=2),
-          "moe": dict(arch="dbrx-132b")}[case]
+          "moe": dict(arch="dbrx-132b", prefill_chunk=4)}[case]
     cfg.update(kw)
-    match = "Modules to port" if case == "moe" else "paged|chunked"
-    with pytest.raises(NotImplementedError, match=match):
+    if case == "moe":
+        with pytest.raises(AssertionError, match="weights were made"):
+            ServeEngine(EngineConfig(device="cpu", **cfg))
+        return
+    with pytest.raises(NotImplementedError, match="paged|chunked"):
         ServeEngine(EngineConfig(device="cpu", **cfg))
     if case == "paged":
         from repro.cache import CacheConfig as JCacheConfig
         cfg["cache"] = JCacheConfig(kind="paged_ams")
-    if case != "moe":
-        with pytest.raises(NotImplementedError):
-            JServeEngine(JEngineConfig(**cfg))
+    with pytest.raises(NotImplementedError):
+        JServeEngine(JEngineConfig(**cfg))
 
 
 def test_generate_serves_falcon_mamba():
