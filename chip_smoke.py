@@ -53,35 +53,36 @@ Phases, each fatal on failure:
      with the launch counts zeroed around it, then each hook against its
      plain version (AMS within K2's tolerance, bf16 within K3's rule);
   9. the main paths, served through the continuous-batching engine with
-     impl "kernel" for matmuls and attention: full-width 28-layer Qwen2-7B
+     impl "kernel" for matmuls and attention, each at full width; the main
+     path, `fp5.33`, at full depth and every other path cut to its first
+     `SERVE_CUT_DEPTH` = 4 layers (5 on the hybrid: one (rec, rec, attn)
+     repeat and the (rec, rec) tail), since each model repeats one block
+     shape: Qwen2-7B (28 layers)
      with FP5.33 weights over AMS-e2m2 pages (K1, K2; 10 greedy requests,
      two sharing a page-aligned prefix), FP4.25 weights over AMS-e2m2 pages
      (K1b, K2), the FP16 baseline, bf16 weights over bf16 pages (K3), and
-     FP5.33 weights over the contiguous cache (K1, K4); full-width 62-layer
-     MiniCPM3-4B with FP5.33 weights over its contiguous MLA stream (K1,
-     K5); full-width 24-layer InternVL2-1B with FP5.33 weights over AMS
+     FP5.33 weights over the contiguous cache (K1, K4); MiniCPM3-4B (62 layers) with FP5.33 weights over its contiguous MLA stream (K1,
+     K5); InternVL2-1B (24 layers) with FP5.33 weights over AMS
      pages (`vlm-fp5.33`: K1, K2; 9 requests, each 256 seeded normal prefix
      embeds and 32-96 text tokens, 24 new, each stream then held to the
-     request served alone on the same engine); full-width 48-layer
-     MusicGen-medium with FP4.25 weights over AMS pages (`audio-fp4.25`:
-     K1b, K2; 9 requests of 96-192 audio tokens, 24 new); full-width
-     64-layer Falcon-Mamba-7B (Mamba-1, no attention) on the one-token
+     request served alone on the same engine); MusicGen-medium (48 layers) with FP4.25 weights over AMS pages (`audio-fp4.25`:
+     K1b, K2; 9 requests of 96-192 audio tokens, 24 new); Falcon-Mamba-7B
+     (64 layers; Mamba-1, no attention) on the one-token
      step over its conv / ssm state caches with FP5.33 weights
      (`ssm-fp5.33`: K1; 9 requests of 32-96 tokens, 24 new, two of them
      seeded sampled, each stream then held to the request served alone)
      and with bf16 weights (`ssm-fp16`: cuBLAS projections, no kernel of
      the port; the same requests; no graph or consistency phase);
-     full-width 38-layer RecurrentGemma-9B ((rec, rec, attn) x 12 and a
+     RecurrentGemma-9B (38 layers: (rec, rec, attn) x 12 and a
      (rec, rec) tail) on the one-token step over its conv / recurrent
      states and 2048-slot bf16 rings with FP5.33 weights (`hybrid-fp5.33`:
      K1 alone, the ring attention in plain torch as the reference's XLA
      path, never K4; the Mamba paths' requests, each stream held to the
      request alone) and bf16 weights (`hybrid-fp16`, as `ssm-fp16`);
-     full-width 48-layer
-     Llama-4-Scout-17B-16E (MoE: 16 experts, top-1, a shared expert, every
+     Llama-4-Scout-17B-16E (48 layers; MoE: 16 experts, top-1, a shared expert, every
      expert on every token) with FP4.25 weights over AMS pages
      (`moe-fp4.25`: K1b, 55 launches a layer, K2; each stream then held to
-     the request served alone) and at depth 12 with bf16 weights over bf16
+     the request served alone) and with bf16 weights over bf16
      pages (`moe-fp16`: K3, cuBLAS projections; served and profiled only);
      9 requests each on the others but FP5.33 (two sharing a prefix on the
      paged ones whose requests are tokens only). Launch counts are zeroed
@@ -155,7 +156,21 @@ Phases, each fatal on failure:
       one, the host time between the step's halves and the roofline cost
       line). Each served path also prints an ``attribution`` line: the
       floor of a full decode tick at the H100's peaks beside a profiled
-      replay of its graph (`obs.cost.attribution(profile=True)`).
+      replay of its graph (`obs.cost.attribution(profile=True)`);
+  16. train (`phase_train`, after the serving phases have freed the card):
+      full-width Qwen2-7B cut to 4 layers trains 8 steps through
+      `launch.steps.build_train_step` (B 8 x 512 tokens, microbatches of 4,
+      remat; finite, falling loss; step ms, tokens/s, the FLOP-floor share,
+      peak memory; no port kernel launched), two depth-1 steps on the card
+      against the CPU (loss and grad norm within TRAIN_LOSS_REL /
+      TRAIN_GNORM_REL, the masters within TRAIN_UPDATE_REL of how far they
+      moved), AdamW alone on the card against the CPU (params, m and v
+      within TRAIN_ADAMW_ULPS), and `launch.train.main` on the reduced config with
+      a failure injected one step after a checkpoint (restored bytes equal
+      to the saved ones, the restored step's loss repeated, a fresh driver
+      resuming from the newest step). Run it alone with ``python -c
+      "import chip_smoke, torch; chip_smoke.phase_train(torch,
+      torch.device('cuda', 0))"``.
 
 A line ``compare {...}`` sets the thirteen paths' graph and eager decode
 ticks, replay ms, device-busy ms, idle shares, gaps inside ticks and
@@ -236,20 +251,26 @@ PATHS = {
     # beside its FP16 baseline; the graph and consistency phases cut it to
     # one whole repeat (3 layers: two would hold no attention)
     "hybrid-fp5.33": dict(arch="recurrentgemma-9b", scheme="fp5.33-e2m3", kind="contiguous",
-                          kernels=("ams_matmul_fp533",), chunk=1, depth=3),
+                          kernels=("ams_matmul_fp533",), chunk=1, depth=3, serve_depth=5),
     "hybrid-fp16": dict(arch="recurrentgemma-9b", scheme="fp16", kind="contiguous",
-                        kernels=(), chunk=1, lean=True),
+                        kernels=(), chunk=1, lean=True, serve_depth=5),
     # MoE: Llama-4-Scout-17B-16E (16 experts, top-1, a shared expert) at full
-    # width, all 48 layers at FP4.25 over AMS pages (every expert's three
-    # projections a K1b launch on its slice of the stacked planes), beside
-    # FP16 over bf16 pages at depth 12 (48 bf16 layers do not fit one card;
-    # served and profiled only); each stream held to its request alone
+    # width at FP4.25 over AMS pages (every expert's three projections a K1b
+    # launch on its slice of the stacked planes), beside FP16 over bf16
+    # pages (48 bf16 layers would not fit one card; served and profiled
+    # only); each stream held to its request alone
     "moe-fp4.25": dict(arch="llama4-scout-17b-16e", scheme="fp4.25-e2m2", kind="paged_ams",
                        kernels=("ams_matmul_planes", "paged_attention_ams"), alone=True,
                        depth=2),
     "moe-fp16": dict(arch="llama4-scout-17b-16e", scheme="fp16", kind="paged_bf16",
-                     kernels=("paged_attention_bf16",), serve_depth=12, lean=True, alone=True),
+                     kernels=("paged_attention_bf16",), lean=True, alone=True),
 }
+# the main path, served at full depth; the serve phase cuts every other path
+# to its ``serve_depth`` or SERVE_CUT_DEPTH layers: one block shape repeats
+# through each model, so a few layers launch every kernel at every shape of
+# the path, and the whole smoke stays near half its 1200 s limit
+MAIN_PATH = "fp5.33"
+SERVE_CUT_DEPTH = 4
 # the graph and consistency phases' depth at full width, where a path sets
 # none (one layer holds every kernel of a dense path; cut from 2 to keep the
 # smoke near 15 minutes with thirteen paths)
@@ -1058,7 +1079,8 @@ def phase_serve(torch, dev, full: bool, path: str = "fp5.33"):
     paged = spec["kind"] != "contiguous"
     ssm = spec.get("chunk") == 1       # the one-token step: recurrent states
     if full:
-        ec = EngineConfig(arch=spec["arch"], reduced=False, depth=spec.get("serve_depth"),
+        depth = None if path == MAIN_PATH else spec.get("serve_depth", SERVE_CUT_DEPTH)
+        ec = EngineConfig(arch=spec["arch"], reduced=False, depth=depth,
                           scheme=spec["scheme"], impl="kernel", slots=8, capacity=512,
                           prefill_chunk=spec.get("chunk", 16),
                           cache=CacheConfig(kind=spec["kind"], page_size=16, impl="kernel"),
@@ -2783,7 +2805,298 @@ def phase_tick(torch, dev, timed: bool, full: bool):
     return (res,)
 
 
-PHASES = ("k1", "k1b", "k2", "k3", "k4", "k5", "k5p", "tick", "rows")
+# ---------------------------------------------------------------- training
+# Adam's step: warmup of 2 steps, then the cosine over 10k. Adam's first
+# steps move every weight by about lr: at 1e-3 and 3e-4 the full-width loss
+# rose for three or four steps (12.47 -> 18.39, -> 24.14) before it fell
+TRAIN_LR = 3e-5
+# card against CPU, two full-width steps at depth 1 from the same params
+# (bf16 products summed in other orders on the two devices), measured on an
+# H100 80GB HBM3, 700 W: the relative loss difference at each step (at most
+# 1.24e-4: the second step inherits the first update's differences), the
+# grad norms' (1.44e-4), and the masters after the steps, |p_card - p_cpu| /
+# |p_cpu - p_0| over the whole tree (0.0154: a near-zero grad of the other
+# sign moves its weight the other way)
+TRAIN_VERSUS_STEPS = 2
+TRAIN_LOSS_REL = 1e-3
+TRAIN_GNORM_REL = 2e-3
+TRAIN_UPDATE_REL = 0.1
+# AdamW alone, card against CPU on the same masters and grads: params, m and
+# v in ulp of each leaf's largest |value|, and the grad norm (measured 3 ulp
+# and 6.0e-8 here, 3.5 ulp and 1.2e-7 on the reduced trees of
+# tests/test_torch_gpu.py)
+TRAIN_ADAMW_STEPS = 4
+TRAIN_ADAMW_ULPS = 8
+TRAIN_ADAMW_GNORM_REL = 1e-6
+# restart: the restored step's loss against the first pass's (same bits in,
+# the same forward; the CUDA embedding backward sums with atomics)
+TRAIN_RESTART_REL = 1e-5
+ADAMW_BYTES_PER_PARAM = 34      # f32 p, g, m, v read; p, m, v written; bf16 copy written
+
+
+def _train_flops(cfg, n_matmul: int, n_layers: int, B: int, S: int) -> float:
+    """FLOPs of one train step: 6 per matmul parameter (every parameter but
+    the embedding table, which is gathered) per token, 2 per layer
+    parameter per token for the remat forward, and attention's q . k and
+    p . v over the whole S x S block (the blockwise forward computes it
+    masked) four times (forward, remat forward, two in the backward)."""
+    T = B * S
+    attn_fwd = 4.0 * B * S * S * cfg.num_heads * cfg.head_dim * cfg.num_layers
+    return 6.0 * n_matmul * T + 2.0 * n_layers * T + 4.0 * attn_fwd
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def phase_train(torch, dev, timed: bool = True, full: bool = True):
+    """Training on one card through `launch.steps.build_train_step` and
+    `launch.train.main`: full-width Qwen2-7B (4 of 28 layers) takes steps
+    at B 8 x 512 tokens in microbatches of 4 with remat (its loss must be
+    finite and fall); two full-width steps at depth 1 on the card and on
+    the CPU from the same seeded params (loss within TRAIN_LOSS_REL and
+    grad norm within TRAIN_GNORM_REL at each step, the masters' difference
+    within TRAIN_UPDATE_REL of how far they moved); `optim.apply_updates`
+    alone for TRAIN_ADAMW_STEPS steps on the card and on the CPU from the
+    same f32 masters and seeded grads (params, m and v within
+    TRAIN_ADAMW_ULPS ulp, the grad norm within TRAIN_ADAMW_GNORM_REL); a
+    reduced run of the driver with a
+    failure injected one step after a checkpoint (restored bytes equal to
+    the saved ones, the restored step's loss repeated, the run ending at
+    --steps, a fresh driver resuming from the newest step). The training
+    path launches no kernel of the port (checked: every count stays 0)."""
+    import dataclasses
+    import os
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.tree import tree_items, tree_map
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import train as train_driver
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, apply_updates, init_state
+
+    cuda = dev.type == "cuda"
+    gc.collect()
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    base = get_config("qwen2-7b")
+    if full:
+        cfg, S, B, micro, steps = dataclasses.replace(base, num_layers=4), 512, 8, 4, 8
+        reduced = ["num_layers 28 -> 4"]
+    else:
+        cfg, S, B, micro, steps = base.reduced(), 32, 4, 2, 4
+        reduced = ["reduced() config"]
+    rcfg = RunConfig(model=cfg, seq_len=S, global_batch=B, microbatch=micro,
+                     learning_rate=TRAIN_LR, warmup_steps=2)
+    for cnt in all_counts():
+        cnt.reset()
+    step_fn = build_train_step(cfg, rcfg, dev)
+    params = init_params(0, cfg, device=dev)
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    n_layers = sum(t.numel() for _, t in tree_items(params["layers"]))
+    n_matmul = n_params - params["embed"]["w"].numel()
+    opt = init_state(params)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, S, B))
+    flops = _train_flops(cfg, n_matmul, n_layers, B, S)
+    adamw_floor_ms = 1e3 * ADAMW_BYTES_PER_PARAM * n_params / PEAK_BYTES_PER_S
+    log("train setup " + json.dumps(dict(
+        arch=cfg.name, d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size, layers=cfg.num_layers,
+        reduced=reduced, params=n_params, seq_len=S, global_batch=B, microbatch=micro,
+        remat=rcfg.remat, steps=steps, lr=TRAIN_LR, warmup_steps=rcfg.warmup_steps,
+        flops_per_step=flops, peak_bf16_flops=PEAK_BF16_FLOPS,
+        adamw_bytes_per_param=ADAMW_BYTES_PER_PARAM, adamw_bytes_floor_ms=adamw_floor_ms)))
+    losses, gnorms, times = [], [], []
+    for s in range(steps):
+        toks, tgts = data.batch(s)
+        tok, tgt = torch.from_numpy(toks).to(dev), torch.from_numpy(tgts).to(dev)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        params, opt, met = step_fn(params, opt, tok, tgt, None, s)
+        met = {k: float(v) for k, v in met.items()}
+        dt = time.perf_counter() - t0
+        losses.append(met["loss"])
+        gnorms.append(met["grad_norm"])
+        times.append(dt)
+        log(f"train step {s} " + json.dumps(dict(
+            loss=met["loss"], grad_norm=met["grad_norm"], lr=met["lr"], step_ms=1e3 * dt,
+            tokens_per_s=B * S / dt, flop_share=flops / (dt * PEAK_BF16_FLOPS))))
+    launches = {c.name: c.launches for c in all_counts() if c.launches}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
+    step_ms = 1e3 * statistics.median(times[1:])
+    summary = dict(step_ms_median=step_ms, tokens_per_s=B * S / (step_ms / 1e3),
+                   flop_share=flops / (step_ms / 1e3 * PEAK_BF16_FLOPS),
+                   peak_memory_gb=peak_gb, loss_first=losses[0],
+                   loss_last_two=float(np.mean(losses[-2:])), port_kernel_launches=launches)
+    log("train full-width " + json.dumps(summary))
+    if not all(np.isfinite(losses + gnorms)):
+        fail(f"train: a loss or grad norm is not finite: {losses}, {gnorms}")
+    if not np.mean(losses[-2:]) < losses[0]:
+        fail(f"train: the loss did not fall: {losses}")
+    if launches:
+        fail(f"train: the training path launched port kernels {launches}")
+    del params, opt, step_fn
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # card against CPU: two steps from the same seeded params (drawn on the
+    # card, the CPU's generator is slow at 1.3 G values; compared on the card)
+    cfg1 = dataclasses.replace(base, num_layers=1) if full else base.reduced()
+    S1 = 64 if full else 32
+    r1 = RunConfig(model=cfg1, seq_len=S1, global_batch=2, microbatch=1,
+                   learning_rate=TRAIN_LR, warmup_steps=2)
+    data1 = SyntheticLM(DataConfig(cfg1.vocab_size, S1, 2))
+    p0 = init_params(1, cfg1, device=dev)
+    p_dev = tree_map(torch.clone, p0)
+    p_cpu = tree_map(lambda t: t.to("cpu", copy=True), p0)
+    res = {}
+    for name, p in (("card", p_dev), ("cpu", p_cpu)):
+        d = tree_items(p)[0][1].device
+        step1, o, mets = build_train_step(cfg1, r1, d), init_state(p), []
+        t0 = time.perf_counter()
+        for s in range(TRAIN_VERSUS_STEPS):
+            toks, tgts = data1.batch(s)
+            p, o, met = step1(p, o, torch.from_numpy(toks).to(d), torch.from_numpy(tgts).to(d),
+                              None, s)
+            mets.append({k: float(v) for k, v in met.items()})
+        res[name] = (mets, o, time.perf_counter() - t0)
+    (mc, oc, tc), (mg, og, tg) = res["cpu"], res["card"]
+    t0 = time.perf_counter()
+    moved = apart = m_apart = m_norm = diff = 0.0
+    for (_, a), (_, b), (_, c) in zip(tree_items(p_dev), tree_items(p_cpu), tree_items(p0)):
+        b = b.to(dev)
+        moved += float(torch.sum(torch.square(b - c)))
+        apart += float(torch.sum(torch.square(a - b)))
+        diff = max(diff, float((a - b).abs().max()))
+    for (_, a), (_, b) in zip(tree_items(og["m"]), tree_items(oc["m"])):
+        b = b.to(dev)
+        m_apart += float(torch.sum(torch.square(a - b)))
+        m_norm += float(torch.sum(torch.square(b)))
+    versus = dict(layers=cfg1.num_layers, tokens=[2, S1], steps=TRAIN_VERSUS_STEPS,
+                  loss_card=[m["loss"] for m in mg], loss_cpu=[m["loss"] for m in mc],
+                  loss_rel=[abs(g["loss"] - c["loss"]) / abs(c["loss"]) for g, c in zip(mg, mc)],
+                  grad_norm_rel=max(abs(g["grad_norm"] - c["grad_norm"]) / c["grad_norm"]
+                                    for g, c in zip(mg, mc)),
+                  update_rel=math.sqrt(apart / moved), m_rel=math.sqrt(m_apart / m_norm),
+                  master_max_diff_in_lr=diff / mc[-1]["lr"],
+                  loss_tol=TRAIN_LOSS_REL, grad_norm_tol=TRAIN_GNORM_REL,
+                  update_tol=TRAIN_UPDATE_REL, card_s=tg, cpu_s=tc,
+                  compare_s=time.perf_counter() - t0)
+    log("train card-vs-cpu " + json.dumps(versus))
+    if (max(versus["loss_rel"]) > TRAIN_LOSS_REL or versus["grad_norm_rel"] > TRAIN_GNORM_REL
+            or not versus["update_rel"] <= TRAIN_UPDATE_REL):
+        fail(f"train: the card's steps are not the CPU's: {versus}")
+    if not int(og["step"]) == int(oc["step"]) == TRAIN_VERSUS_STEPS:
+        fail(f"train: the step counters {int(og['step'])}, {int(oc['step'])} are not "
+             f"{TRAIN_VERSUS_STEPS}")
+    del p_cpu, p_dev, oc, og, res
+
+    # AdamW alone on the card against the CPU: the same f32 masters (the
+    # depth-1 model's but the embedding and the head) and the same seeded
+    # grads, every other step clipped; compared after the last step
+    t0 = time.perf_counter()
+    card = {k: v for k, v in p0.items() if k not in ("embed", "lm_head")}
+    cpu = tree_map(lambda t: t.to("cpu", copy=True), card)
+    s_cpu, s_card = init_state(cpu), init_state(card)
+    n = sum(t.numel() for _, t in tree_items(cpu))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    adam = dict(leaves=len(tree_items(cpu)), params=n, steps=TRAIN_ADAMW_STEPS,
+                grad_norm_rel=0.0, clipped=[], tol_ulps=TRAIN_ADAMW_ULPS,
+                grad_norm_tol=TRAIN_ADAMW_GNORM_REL)
+    for it in range(TRAIN_ADAMW_STEPS):
+        scale = 0.5 / math.sqrt(n) if it % 2 else 0.5
+        g = tree_map(lambda t: scale * torch.randn(t.shape, generator=gen, device=dev), card)
+        lr = TRAIN_LR * (it + 1)
+        g_cpu = tree_map(lambda t: t.to("cpu", copy=True), g)   # both are consumed
+        card, s_card, m_card = apply_updates(card, g, s_card, lr, AdamWConfig())
+        cpu, s_cpu, m_cpu = apply_updates(cpu, g_cpu, s_cpu, lr, AdamWConfig())
+        gn = float(m_cpu["grad_norm"])
+        adam["clipped"].append(gn > 1.0)
+        adam["grad_norm_rel"] = max(adam["grad_norm_rel"],
+                                    abs(float(m_card["grad_norm"]) - gn) / gn)
+        del g, g_cpu
+    for key, want, got in (("p", cpu, card), ("m", s_cpu["m"], s_card["m"]),
+                           ("v", s_cpu["v"], s_card["v"])):
+        adam[key] = 0.0
+        for (_, a), (_, b) in zip(tree_items(want), tree_items(got)):
+            a = a.to(dev)
+            top = np.float32(float(a.abs().max()))
+            adam[key] = max(adam[key], float((b - a).abs().max()) / float(np.spacing(top)))
+    adam["seconds"] = time.perf_counter() - t0
+    log("train adamw card-vs-cpu " + json.dumps(adam))
+    if (max(adam["p"], adam["m"], adam["v"]) > TRAIN_ADAMW_ULPS
+            or adam["grad_norm_rel"] > TRAIN_ADAMW_GNORM_REL
+            or adam["clipped"] != [it % 2 == 0 for it in range(TRAIN_ADAMW_STEPS)]
+            or int(s_card["step"]) != TRAIN_ADAMW_STEPS):
+        fail(f"train: AdamW on the card is not the CPU's: {adam}")
+    del cpu, card, s_cpu, s_card, p0
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # restart: a failure injected one step after the checkpoint at step 4
+    saved, restored = {}, []
+    real_save, real_restore = ckpt.CheckpointManager.save, ckpt.CheckpointManager.restore
+
+    def save(self, step, tree, **kw):
+        saved[step] = {k: ckpt._to_host(v) for k, v in ckpt._flatten(tree)}
+        return real_save(self, step, tree, **kw)
+
+    def restore(self, tree_like, step=None, shard_id=0):
+        tree, got = real_restore(self, tree_like, step, shard_id)
+        # host bytes now: the train step then updates the restored masters in place
+        restored.append((None if tree is None else
+                         {k: ckpt._to_host(v).tobytes() for k, v in ckpt._flatten(tree)}, got))
+        return tree, got
+
+    with tempfile.TemporaryDirectory(prefix="train-restart-") as d:
+        args = ["--arch", "qwen2-7b", "--reduced", "--seq-len", "64", "--global-batch", "4",
+                "--microbatch", "2", "--ckpt-dir", d, "--ckpt-every", "4", "--log-every", "4",
+                "--device", dev.type]
+        ckpt.CheckpointManager.save, ckpt.CheckpointManager.restore = save, restore
+        os.environ["REPRO_INJECT_FAIL_AT"] = "5"
+        try:
+            first = train_driver.main(args + ["--steps", "12"])
+            os.environ.pop("REPRO_INJECT_FAIL_AT")
+            n_restored = len(restored)
+            resumed = train_driver.main(args + ["--steps", "14"])
+        finally:
+            os.environ.pop("REPRO_INJECT_FAIL_AT", None)
+            ckpt.CheckpointManager.save, ckpt.CheckpointManager.restore = real_save, real_restore
+        latest = ckpt.CheckpointManager(d).latest_step()
+    back = [r for r in restored[:n_restored] if r[1] is not None]
+    same = bool(back) and back[0][0].keys() == saved[back[0][1]].keys() and all(
+        b == saved[back[0][1]][k].tobytes() for k, b in back[0][0].items())
+    restart = dict(restored_from=back[0][1] if back else None, bytes_equal=same,
+                   losses=len(first), loss_first_pass=first[4] if len(first) > 5 else None,
+                   loss_after_restore=first[5] if len(first) > 5 else None,
+                   resumed_from=restored[n_restored][1] if len(restored) > n_restored else None,
+                   resumed_losses=len(resumed), latest_step=latest, tol=TRAIN_RESTART_REL)
+    log("train restart " + json.dumps(restart))
+    if restart["restored_from"] != 4 or not same or len(first) != 13:
+        fail(f"train: the guard did not restore step 4 byte-equal and finish: {restart}")
+    if abs(first[5] - first[4]) > TRAIN_RESTART_REL * abs(first[4]):
+        fail(f"train: the restored step's loss is not the first pass's: {restart}")
+    if restart["resumed_from"] != 12 or len(resumed) != 2 or latest != 14:
+        fail(f"train: a fresh driver did not resume from step 12: {restart}")
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return (dict(full_width=summary, card_vs_cpu=versus, adamw=adam, restart=restart),)
+
+
+PHASES = ("k1", "k1b", "k2", "k3", "k4", "k5", "k5p", "tick", "rows", "train")
 
 
 def run_phases(torch, names, other):
@@ -2849,6 +3162,7 @@ def main():
         phase_engine_features(torch, dev, full=False)
         phase_seq(torch, dev, full=False)
         phase_frontend(torch, dev, full=False)
+        phase_train(torch, dev, timed=False, full=False)
         log("rehearsal finished on the CPU: no result")
         sys.exit(2)
     if not torch.cuda.is_available():
@@ -2922,6 +3236,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     mark("engine-features, seq, frontend")
+    phase_train(torch, dev, timed=True, full=True)
+    mark("train")
     log("phase-seconds " + json.dumps(seconds))
     log("compare " + json.dumps({
         path: dict(arch=r["arch"], scheme=r["scheme"], cache=r["cache"],

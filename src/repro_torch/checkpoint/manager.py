@@ -1,0 +1,154 @@
+"""Fault-tolerant checkpointing: sharded npz, atomic, async, resumable (port
+of src/repro/checkpoint/manager.py, with its on-disk format).
+
+Layout:  <dir>/step_<n>/shard_<i>.npz + MANIFEST.json (written LAST — a
+checkpoint without a manifest is incomplete and ignored on restore, which
+makes the save atomic under crash-at-any-point). A background writer thread
+overlaps serialization with the next training steps; ``wait()`` drains it.
+
+Keys are the reference's flatten paths (``params/layers/sub0/attn/wq/w``,
+``opt/m/...``, ``opt/step``) in sorted-key order, so a checkpoint written
+by either package restores in the other. A save copies every tensor to
+host memory before it returns; a restore puts each array on the device of
+the matching leaf of ``tree_like``.
+
+Restore picks the newest *complete* step, so a node failure mid-save falls
+back to the previous checkpoint (crash-consistency test covers this).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import queue
+import shutil
+import threading
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.tree import tree_from_items, tree_items
+
+
+def _flatten(tree):
+    """[(key, leaf)] in the reference's flatten order, keys joined by '/'."""
+    return [("/".join(str(k) for k in path), leaf) for path, leaf in tree_items(tree)]
+
+
+def _to_host(leaf) -> np.ndarray:
+    """A host copy of ``leaf`` (a CPU tensor's numpy view would share its
+    memory, which the train step updates in place while a save is queued)."""
+    if torch.is_tensor(leaf):
+        return leaf.detach().to("cpu", copy=True).numpy()
+    return np.array(leaf)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, max_to_keep: int = 3,
+                 async_save: bool = True):
+        self.dir = directory
+        self.max_to_keep = max_to_keep
+        os.makedirs(directory, exist_ok=True)
+        self._q: "queue.Queue" = queue.Queue()
+        self._err: Optional[BaseException] = None
+        self._thread = None
+        if async_save:
+            self._thread = threading.Thread(target=self._worker, daemon=True)
+            self._thread.start()
+
+    # ------------------------------------------------------------- save
+    def save(self, step: int, tree, blocking: bool = False,
+             shard_id: int = 0, num_shards: int = 1):
+        """Snapshot to host memory now; write in the background."""
+        host = {k: _to_host(v) for k, v in _flatten(tree)}  # device -> host copy
+        job = (step, host, shard_id, num_shards)
+        if self._thread is None or blocking:
+            self._write(job)
+        else:
+            self._q.put(job)
+
+    def _worker(self):
+        while True:
+            job = self._q.get()
+            if job is None:
+                self._q.task_done()
+                return
+            try:
+                self._write(job)
+            except BaseException as e:  # surfaced on wait()
+                self._err = e
+            finally:
+                self._q.task_done()
+
+    def _write(self, job):
+        step, host, shard_id, num_shards = job
+        d = os.path.join(self.dir, f"step_{step:08d}")
+        os.makedirs(d, exist_ok=True)
+        # unique tmp name: a blocking save may race an async save of the
+        # same step (both are atomic via os.replace, last one wins)
+        tmp = os.path.join(
+            d, f".tmp_shard_{shard_id}_{os.getpid()}_{time.monotonic_ns()}.npz")
+        np.savez(tmp, **host)
+        os.replace(tmp, os.path.join(d, f"shard_{shard_id}.npz"))
+        # manifest written last == commit point
+        if shard_id == num_shards - 1:
+            man = {"step": step, "num_shards": num_shards,
+                   "time": time.time(),
+                   "keys": sorted(host.keys())}
+            mtmp = os.path.join(d, ".tmp_manifest")
+            with open(mtmp, "w") as f:
+                json.dump(man, f)
+            os.replace(mtmp, os.path.join(d, "MANIFEST.json"))
+            self._gc()
+
+    def _gc(self):
+        steps = self.complete_steps()
+        for s in steps[: -self.max_to_keep]:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s:08d}"),
+                          ignore_errors=True)
+
+    def wait(self):
+        """Drain pending async saves; re-raise background errors."""
+        if self._thread is not None:
+            self._q.join()
+        if self._err:
+            err, self._err = self._err, None
+            raise err
+
+    # ---------------------------------------------------------- restore
+    def complete_steps(self) -> List[int]:
+        out = []
+        for name in sorted(os.listdir(self.dir)):
+            if not name.startswith("step_"):
+                continue
+            if os.path.exists(os.path.join(self.dir, name, "MANIFEST.json")):
+                out.append(int(name.split("_")[1]))
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.complete_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, tree_like, step: Optional[int] = None,
+                shard_id: int = 0):
+        """Restore into the structure of `tree_like` (shapes validated): a
+        tree of tensors with the stored dtypes, each on its leaf's device
+        (the CPU for a leaf that is not a tensor)."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None, None
+        d = os.path.join(self.dir, f"step_{step:08d}")
+        with np.load(os.path.join(d, f"shard_{shard_id}.npz")) as data:
+            items = []
+            for path, like in tree_items(tree_like):
+                key = "/".join(str(k) for k in path)
+                arr = data[key]
+                shape = tuple(like.shape) if torch.is_tensor(like) else np.shape(like)
+                if tuple(arr.shape) != tuple(shape):
+                    raise ValueError(
+                        f"checkpoint shape mismatch at {key}: {arr.shape} vs {tuple(shape)}")
+                device = like.device if torch.is_tensor(like) else "cpu"
+                items.append((path, torch.from_numpy(arr).to(device)))
+        return tree_from_items(items), step

@@ -1,5 +1,6 @@
-"""Nested dicts of tensors (parameters, caches, spilled pages): map and
-flatten them in the dicts' key order."""
+"""Nested dicts of tensors (parameters, caches, spilled pages, optimizer
+state): map and flatten them in the dicts' key order, or in the
+reference's sorted-key order (`tree_items`)."""
 
 from __future__ import annotations
 
@@ -27,3 +28,23 @@ def tree_stack(trees):
     if isinstance(first, dict):
         return {k: tree_stack([t[k] for t in trees]) for k in first}
     return torch.stack(trees)
+
+
+def tree_items(tree, prefix=()):
+    """(path, leaf) pairs of ``tree`` in the reference's flatten order
+    (``jax.tree_util.tree_flatten_with_path`` sorts dict keys); ``path`` is
+    the tuple of keys from the root."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree) for item in tree_items(tree[k], prefix + (k,))]
+    return [(prefix, tree)]
+
+
+def tree_from_items(items):
+    """The nested dicts that `tree_items` flattened, from (path, leaf) pairs."""
+    out = {}
+    for path, leaf in items:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out

@@ -40,6 +40,7 @@ import torch
 from repro_torch.core.formats import code_to_value, get_scheme
 from repro_torch.core.kv_quant import codes_from_planes
 from repro_torch.core.rtn import device_table
+from repro_torch.core.xla_math import bf16_dot, pairs_bf16_dot
 
 from .build import KernelCount, check_device, library, stream_ptr
 from .tuning import (
@@ -67,11 +68,21 @@ def _check_grouped(H: int, kv_n: int, kv_map) -> int:
     return H // kv_n
 
 
+def _scores(qf, k):
+    """q . k in f32: qf [B, c, kv, g, hd], k [B, S, kv, hd] -> [B, c, kv,
+    g, S]; bf16 operands on the CPU sum in XLA's bf16 dot order."""
+    if pairs_bf16_dot(qf, k):
+        return bf16_dot(qf[..., None, :], k.permute(0, 2, 1, 3)[:, None, :, None])
+    return torch.einsum("bcngd,bknd->bcngk", qf.to(torch.float32), k.to(torch.float32))
+
+
 def _attend(qf, k, v, valid, g):
     """Shared softmax body: qf [B, c, kv, g, hd] (already scaled), k/v
-    [B, S, kv, hd] f32, valid [B, c, S] -> o [B, c, kv*g, hd_v] f32."""
+    [B, S, kv, hd], valid [B, c, S] -> o [B, c, kv*g, hd_v] f32. The
+    products q . k and bf16(p) . v of bf16 operands on the CPU sum in XLA's
+    bf16 dot order (`xla_math.bf16_dot`)."""
     B, c, kv_n = qf.shape[:3]
-    s = torch.einsum("bcngd,bknd->bcngk", qf.to(torch.float32), k.to(torch.float32))
+    s = _scores(qf, k)
     vmask = valid[:, :, None, None, :]
     s = torch.where(vmask, s, -torch.inf)
     m = s.amax(dim=-1)
@@ -79,8 +90,11 @@ def _attend(qf, k, v, valid, g):
     p = torch.exp(s - m_safe[..., None])
     p = torch.where(vmask, p, torch.zeros_like(p))
     l = p.sum(dim=-1)
-    o = torch.einsum("bcngk,bknd->bcngd", p.to(v.dtype).to(torch.float32),
-                     v.to(torch.float32))
+    pb = p.to(v.dtype)
+    if pairs_bf16_dot(pb, v):
+        o = bf16_dot(pb[..., None, :], v.permute(0, 2, 3, 1)[:, None, :, None])
+    else:
+        o = torch.einsum("bcngk,bknd->bcngd", pb.to(torch.float32), v.to(torch.float32))
     o = o / torch.clamp(l, min=1e-20)[..., None]
     return o.reshape(B, c, kv_n * g, v.shape[-1])
 

@@ -9,7 +9,8 @@ Libraries are built at first use into ``_build/`` beside this file (listed
 in ``.gitignore``), named by a hash of the source, the shared ``*.cuh``
 headers and the flags, so a changed source or header rebuilds and an
 unchanged one is reused. `build_all` starts one ``nvcc`` per source at once
-and waits for all of them.
+(one per unit of a source split in `PARTS`, whose objects are then linked
+into its library) and waits for all of them.
 """
 
 from __future__ import annotations
@@ -31,7 +32,11 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = {"ams_matmul": "ams_matmul.cu", "paged_attention": "paged_attention.cu",
            "contiguous_attention": "contiguous_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# sources compiled as several units at once, each with -D<macro>=0 .. n-1
+# (the source says what each unit holds), their objects linked into the one
+# library: K1's ~250 kernel instantiations took minutes in one nvcc
+PARTS = {"ams_matmul": ("K1_PART", 6)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -103,42 +108,79 @@ def library_path(name: str) -> Path:
     headers beside it and the flags."""
     text = (CSRC / SOURCES[name]).read_bytes()
     text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join(NVCC_FLAGS) + repr(PARTS.get(name))
+    digest = hashlib.sha1(text + flags.encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile every named source (default: all) that is not built yet, one
-    ``nvcc`` process per source, all started together. Returns
+    ``nvcc`` process per source or per unit of a source split in `PARTS`
+    (then linked into its library), all started together. Returns
     ``{name: {"seconds": s, "log": ptxas report}}`` for the sources built
-    now. Raises RuntimeError with the compiler's output if one fails."""
+    now, ``seconds`` from the start to that library's own end. Raises
+    RuntimeError with the compiler's output if one fails."""
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    procs = {}
+    t0 = time.perf_counter()
+    jobs = {}               # name -> (tmp, out, [(proc, log file, object or None)])
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
+        src = str(CSRC / SOURCES[name])
+        if name in PARTS:
+            macro, n = PARTS[name]
+            units = [(tmp.with_suffix(f".{i}.o"),
+                      ["-c", f"-D{macro}={i}", "-o", str(tmp.with_suffix(f".{i}.o")), src])
+                     for i in range(n)]
+        else:
+            units = [(None, ["-shared", "-o", str(tmp), src])]
+        jobs[name] = (tmp, out, [(*_nvcc(nvcc, [*NVCC_FLAGS, *args], tmp, i), obj)
+                                 for i, (obj, args) in enumerate(units)])
     report = {}
     failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-            continue
-        os.replace(tmp, out)
-        out.with_suffix(".log").write_text(log)
-        report[name] = {"seconds": secs, "log": log}
+    while jobs:
+        time.sleep(0.05)
+        for name in [n for n, (_, _, units) in jobs.items()
+                     if all(proc.poll() is not None for proc, _, _ in units)]:
+            tmp, out, units = jobs.pop(name)
+            logs = [log_path.read_text() for _, log_path, _ in units]
+            for proc, log_path, _ in units:
+                log_path.unlink()
+            bad = [(proc.returncode, log) for (proc, _, _), log in zip(units, logs)
+                   if proc.returncode != 0]
+            objs = [str(obj) for _, _, obj in units if obj is not None]
+            if objs and not bad:        # the units' objects into one library
+                proc, log_path = _nvcc(nvcc, ["-shared", "-o", str(tmp), *objs], tmp, "link")
+                proc.wait()
+                logs.append(log_path.read_text())
+                log_path.unlink()
+                if proc.returncode != 0:
+                    bad.append((proc.returncode, logs[-1]))
+            for o in objs:
+                Path(o).unlink(missing_ok=True)
+            if bad:
+                failed += [f"{name}: nvcc exited {rc}\n{log}" for rc, log in bad]
+                continue
+            os.replace(tmp, out)
+            log = "".join(logs)
+            out.with_suffix(".log").write_text(log)
+            report[name] = {"seconds": time.perf_counter() - t0, "log": log}
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return report
+
+
+def _nvcc(nvcc: str, args: List[str], tmp: Path, tag):
+    """Start one ``nvcc`` with its output in a file beside ``tmp`` (a pipe
+    would stall a compiler whose ptxas report outgrows the pipe's buffer)."""
+    log_path = tmp.with_suffix(f".{tag}.out")
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([nvcc, *args], stdout=f, stderr=subprocess.STDOUT)
+    return proc, log_path
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -711,6 +711,20 @@ static bool bad_plan(int Kw, int cluster, int split_words, int group) {
     default: return (int)cudaErrorInvalidValue;                                           \
   }
 
+// Split build: kernels/build.py (`PARTS`) compiles this file in 6 units at
+// once, -DK1_PART=0 .. 5, and links their objects into one library, where
+// one unit of all ~250 kernel instantiations took minutes. Unit 0 holds the
+// entry points and K1's 27 fp533 kernels, and sees `launch_planes_m` only
+// declared, so it instantiates no planes hook; units 1-5 each instantiate
+// the hooks of some (HB, KS) (`K1_HOOKS` below), about 45 kernels each.
+// Without K1_PART one unit holds everything.
+#ifdef K1_PART
+#define K1_UNIT K1_PART
+#else
+#define K1_UNIT (-1)
+#endif
+
+#if K1_UNIT <= 0
 // The plan (tn, nt, cluster, split_words) comes from
 // kernels/tuning.plan_ams_matmul.
 extern "C" int ams_matmul_fp533(const void* x, const void* hi, const void* scale, void* y,
@@ -724,6 +738,7 @@ extern "C" int ams_matmul_fp533(const void* x, const void* hi, const void* scale
   K1_TILES(FP533_TILE)
 #undef FP533_TILE
 }
+#endif  // K1_UNIT <= 0
 
 template <int HB, int KS, int M>
 static int launch_planes_mma(const void* x, const void* hi, const void* lsb, const void* scale,
@@ -741,11 +756,17 @@ static int launch_planes_mma(const void* x, const void* hi, const void* lsb, con
 }
 
 #define PLANES_ARGS x, hi, lsb, scale, y, B, Kw, N, Lrows, ldx, tn, nt, cluster, split_words, s
+#define PLANES_PARAMS                                                                        \
+  int man_bits, const void *x, const void *hi, const void *lsb, const void *scale, void *y,    \
+      int B, int Kw, int N, int Lrows, int ldx, int tn, int nt, int cluster, int split_words, \
+      cudaStream_t s
 
 template <int HB, int KS>
-static int launch_planes_m(int man_bits, const void* x, const void* hi, const void* lsb,
-                           const void* scale, void* y, int B, int Kw, int N, int Lrows, int ldx,
-                           int tn, int nt, int cluster, int split_words, cudaStream_t s) {
+int launch_planes_m(PLANES_PARAMS);
+
+#if K1_UNIT != 0
+template <int HB, int KS>
+int launch_planes_m(PLANES_PARAMS) {
   switch (man_bits) {
     case 1: return launch_planes_mma<HB, KS, 1>(PLANES_ARGS);
     case 2: return launch_planes_mma<HB, KS, 2>(PLANES_ARGS);
@@ -754,6 +775,23 @@ static int launch_planes_m(int man_bits, const void* x, const void* hi, const vo
   }
 }
 
+// each unit's (HB, KS), five valid (KS, M) formats of 9 tiles in each
+#define K1_HOOKS(HB, KS) template int launch_planes_m<HB, KS>(PLANES_PARAMS);
+#if K1_UNIT == 1
+K1_HOOKS(4, 1) K1_HOOKS(4, 2) K1_HOOKS(4, 3) K1_HOOKS(4, 4) K1_HOOKS(6, 2)
+#elif K1_UNIT == 2
+K1_HOOKS(5, 1) K1_HOOKS(5, 2) K1_HOOKS(5, 3)
+#elif K1_UNIT == 3
+K1_HOOKS(5, 4) K1_HOOKS(6, 1) K1_HOOKS(6, 3)
+#elif K1_UNIT == 4
+K1_HOOKS(7, 1) K1_HOOKS(7, 2) K1_HOOKS(7, 3)
+#elif K1_UNIT == 5
+K1_HOOKS(7, 4) K1_HOOKS(6, 4) K1_HOOKS(8, 1) K1_HOOKS(8, 2) K1_HOOKS(8, 3) K1_HOOKS(8, 4)
+#endif
+#undef K1_HOOKS
+#endif  // K1_UNIT != 0
+
+#if K1_UNIT <= 0
 template <int HB>
 static int launch_planes_k(int k, int man_bits, const void* x, const void* hi, const void* lsb,
                            const void* scale, void* y, int B, int Kw, int N, int Lrows, int ldx,
@@ -797,4 +835,7 @@ extern "C" int ams_matmul_planes_mma(const void* x, const void* hi, const void* 
   }
 }
 
+#endif  // K1_UNIT <= 0
+
 #undef PLANES_ARGS
+#undef PLANES_PARAMS

@@ -1,5 +1,6 @@
-"""The continuous-batching engine step (port of
-src/repro/launch/steps.py: build_engine_step and engine_step_signature).
+"""The continuous-batching engine step and the train step (port of
+src/repro/launch/steps.py: build_engine_step, engine_step_signature,
+_loss_fn and build_train_step; the port has no mesh argument yet).
 
 The reference jits one slot-masked program per engine and donates the
 cache to it. The port's step is a plain function with the same arguments:
@@ -47,9 +48,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.core.tree import tree_leaves
+from repro_torch.core.tree import tree_from_items, tree_items, tree_leaves, tree_map
 from repro_torch.kernels.build import add_counts, recorded_counts
-from repro_torch.models import decode_step, layer_pattern
+from repro_torch.models import decode_step, forward_seq, layer_pattern
+from repro_torch.optim import AdamWConfig, apply_updates, warmup_cosine
 
 from .sampling import any_sampled, sample_tokens
 from .speculative import truncate_cache, verify_tokens
@@ -289,3 +291,77 @@ def engine_step_signature(cfg: ModelConfig, rcfg: RunConfig, cache_cfg=None,
         speculate_k=speculate_k,
         tp=1,
     )
+
+
+# ---------------------------------------------------------------------------
+# TRAIN
+# ---------------------------------------------------------------------------
+def _loss_fn(params, tokens, targets, cfg: ModelConfig, rcfg: RunConfig, prefix,
+             dtype=torch.bfloat16):
+    """(loss + 0.01 aux, loss): the f32 log-softmax NLL mean over the target
+    positions (the prefix positions skipped) plus the MoE load-balance
+    loss."""
+    logits, aux, _ = forward_seq(params, tokens, cfg, remat=rcfg.remat,
+                                 block_kv=rcfg.attn_block_kv, prefix_embeds=prefix, dtype=dtype)
+    logits = logits[:, -targets.shape[1]:]
+    ls = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(ls, -1, targets.long()[..., None])[..., 0]
+    loss = nll.mean()
+    return loss + 0.01 * aux, loss
+
+
+def _compute_copy(x: torch.Tensor) -> torch.Tensor:
+    """The leaf the forward differentiates: an f32 leaf of ndim >= 2 cast to
+    bf16, any other leaf as it is, detached from the master."""
+    if x.dtype == torch.float32 and x.dim() >= 2:
+        return x.detach().to(torch.bfloat16).requires_grad_(True)
+    return x.detach().requires_grad_(True)
+
+
+def build_train_step(cfg: ModelConfig, rcfg: RunConfig, device="cuda"):
+    """Returns ``step_fn(params, opt_state, tokens [B, S_tok], targets [B,
+    S_tok], prefix [B, P, D] or None, step) -> (params, opt_state, metrics)``
+    with ``metrics = {"loss", "lr", "grad_norm"}`` (0-d f32 tensors; loss
+    is the microbatches' mean of loss + 0.01 aux).
+
+    The forward runs on bf16 copies of the f32 leaves of ndim >= 2 (1-D
+    leaves stay f32), over ``n_micro = B // micro`` microbatches of
+    ``micro = rcfg.microbatch or 1`` rows; each microbatch's grads are added
+    in f32 and the sum is scaled by 1 / n_micro. Then ``warmup_cosine(step,
+    lr, warmup, 10_000)`` and AdamW on the f32 masters, which, with m and
+    v, are updated in place (the reference's step donates them). ``device``
+    is where the inputs are expected (``cuda`` or ``cpu``)."""
+    if rcfg.grad_compression != "none":
+        raise NotImplementedError(
+            f"grad_compression={rcfg.grad_compression!r} needs a data-parallel mesh, "
+            "which is not ported yet (ROADMAP.md, Modules to port)")
+    B = rcfg.global_batch
+    micro = rcfg.microbatch or 1
+    if B % micro:
+        raise ValueError(f"global batch {B} is not a multiple of the microbatch {micro}")
+    n_micro = B // micro
+    inv_micro = float(np.float32(1.0 / n_micro))
+    adamw = AdamWConfig(grad_clip=rcfg.grad_clip)
+    device = torch.device(device)
+
+    def step_fn(params, opt_state, tokens, targets, prefix, step):
+        p_cmp = tree_map(_compute_copy, params)
+        leaves = [leaf for _, leaf in tree_items(p_cmp)]
+        acc = [torch.zeros(leaf.shape, dtype=torch.float32, device=device) for leaf in leaves]
+        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+        for i in range(n_micro):
+            rows = slice(i * micro, (i + 1) * micro)
+            pre = prefix[rows] if prefix is not None and prefix.shape[1] else None
+            total, _ = _loss_fn(p_cmp, tokens[rows], targets[rows], cfg, rcfg, pre)
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+            for a, g in zip(acc, grads):
+                if g is not None:
+                    a.add_(g.to(torch.float32))
+            loss_sum = loss_sum + total.detach()
+        grads = tree_from_items([(path, a.mul_(inv_micro))
+                                 for (path, _), a in zip(tree_items(p_cmp), acc)])
+        lr = warmup_cosine(step, rcfg.learning_rate, rcfg.warmup_steps, 10_000).to(device)
+        params, opt_state, om = apply_updates(params, grads, opt_state, lr, adamw)
+        return params, opt_state, {"loss": loss_sum * inv_micro, "lr": lr, **om}
+
+    return step_fn

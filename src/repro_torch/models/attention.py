@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.cache import paged_attend, paged_insert
+from repro_torch.core.xla_math import bf16_dot, exp_f32, pairs_bf16_dot
 from repro_torch.kernels.attention_template import attend_contiguous
 
 from .common import apply_linear, apply_rope, make_linear, make_norm, materialize_weight, rms_norm
@@ -127,7 +128,10 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0, prefix
     Query i sees key j when j <= i, or j < ``prefix_len`` (a bidirectional
     modality prefix), and, with a ``window``, when i - j < window. The reference's op sequence: q scaled by the
     scale rounded to q.dtype, scores in f32, masked entries at -2e30 under a
-    running max clamped at -1e30, p rounded to v.dtype for p . v."""
+    running max clamped at -1e30, p rounded to v.dtype for p . v. On the
+    CPU, as the compiled reference: XLA's exp (`xla_math.exp_f32`), and
+    q . k and p . v of bf16 operands in XLA's bf16 dot order
+    (`xla_math.bf16_dot`)."""
     B, Sq, H, hd = q.shape
     Skv, kv_n = k.shape[1], k.shape[2]
     hd_v = v.shape[-1]
@@ -137,16 +141,19 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0, prefix
     bkv = min(block_kv, Skv)
     dev = q.device
     qf = q * torch.tensor(np.float32(scale), dtype=q.dtype, device=dev)
-    qg = qf.reshape(B, Sq, kv_n, g, hd).permute(0, 2, 3, 1, 4).to(torch.float32)  # [B,n,g,Sq,hd]
+    qg = qf.reshape(B, Sq, kv_n, g, hd).permute(0, 2, 3, 1, 4)                  # [B,n,g,Sq,hd]
     q_pos = torch.arange(Sq, device=dev)
     m = torch.full((B, kv_n, g, Sq), -1e30, dtype=torch.float32, device=dev)
     l = torch.zeros((B, kv_n, g, Sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, kv_n, g, Sq, hd_v), dtype=torch.float32, device=dev)
     for j0 in range(0, Skv, bkv):
-        kj = k[:, j0:j0 + bkv].permute(0, 2, 1, 3).to(torch.float32)[:, :, None]  # [B,n,1,bk,hd]
-        vj = v[:, j0:j0 + bkv].permute(0, 2, 1, 3)[:, :, None]
+        kj = k[:, j0:j0 + bkv].permute(0, 2, 1, 3)[:, :, None]                  # [B,n,1,bk,hd]
+        vj = v[:, j0:j0 + bkv].permute(0, 2, 1, 3)[:, :, None]                  # [B,n,1,bk,hd_v]
         k_pos = torch.arange(j0, j0 + kj.shape[3], device=dev)
-        s = qg @ kj.transpose(-1, -2)                                           # [B,n,g,Sq,bk]
+        if pairs_bf16_dot(qg, kj):
+            s = bf16_dot(qg[..., None, :], kj[..., None, :, :])
+        else:
+            s = qg.to(torch.float32) @ kj.to(torch.float32).transpose(-1, -2)  # [B,n,g,Sq,bk]
         valid = torch.ones((Sq, kj.shape[3]), dtype=torch.bool, device=dev)
         if causal:
             vis = k_pos[None, :] <= q_pos[:, None]
@@ -157,10 +164,14 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0, prefix
             valid = valid & (q_pos[:, None] - k_pos[None, :] < window)
         s = s + torch.where(valid, 0.0, -2e30).to(torch.float32)
         m_new = torch.clamp_min(torch.maximum(m, s.amax(dim=-1)), -1e30)
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
+        p = exp_f32(s - m_new[..., None])
+        corr = exp_f32(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        pv = p.to(v.dtype).to(torch.float32) @ vj.to(torch.float32)            # [B,n,g,Sq,hd_v]
+        pb = p.to(v.dtype)
+        if pairs_bf16_dot(pb, vj):
+            pv = bf16_dot(pb[..., None, :], vj.transpose(-1, -2)[..., None, :, :])
+        else:
+            pv = pb.to(torch.float32) @ vj.to(torch.float32)                    # [B,n,g,Sq,hd_v]
         acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / torch.clamp_min(l, 1e-20)[..., None]

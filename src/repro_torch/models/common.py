@@ -20,6 +20,7 @@ from repro_torch.core.formats import get_scheme
 from repro_torch.core.packing import PackedWeight, make_layout
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.rtn import device_table
+from repro_torch.core.xla_math import fma_f32, rsqrt_f32, sum_squares_f32
 
 
 # --------------------------------------------------------------------- init
@@ -86,7 +87,8 @@ def row_sum(x: torch.Tensor, mean: bool = False) -> torch.Tensor:
     by the number of rows and its place among them (on an H100 a 3584-wide
     f32 row's sum has other bits at 2, 4 or 8 rows than alone), which would
     tie a token's result to what else its tick feeds. On the CPU torch's
-    reduction is taken as it is."""
+    reduction is taken as it is (`rms_norm` sums in XLA's order there,
+    `xla_math.sum_squares_f32`)."""
     if not x.is_cuda:
         return torch.mean(x, dim=-1, keepdim=True) if mean else x.sum(dim=-1, keepdim=True)
     n = x.shape[-1]
@@ -100,9 +102,18 @@ def row_sum(x: torch.Tensor, mean: bool = False) -> torch.Tensor:
 
 
 def rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """x / sqrt(mean(x^2) + eps) * g, in f32, rounded to x.dtype. On CUDA
+    the mean square of `row_sum`; on the CPU the compiled reference's bits:
+    the squares summed in XLA's order, times the f32 reciprocal of the
+    width plus eps as one fused multiply-add (XLA's code generator contracts
+    them), and XLA's rsqrt (`core.xla_math`)."""
     xf = x.to(torch.float32)
-    var = row_sum(xf * xf, mean=True)
-    return (xf * torch.rsqrt(var + np.float32(eps)) * g.to(torch.float32)).to(x.dtype)
+    if xf.is_cuda:
+        var_eps = row_sum(xf * xf, mean=True) + np.float32(eps)
+    else:
+        var_eps = fma_f32(sum_squares_f32(xf), float(np.float32(1.0 / xf.shape[-1])),
+                          float(np.float32(eps)))
+    return (xf * rsqrt_f32(var_eps) * g.to(torch.float32)).to(x.dtype)
 
 
 # --------------------------------------------------------------------- RoPE

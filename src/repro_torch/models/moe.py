@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import tree_map, tree_stack
-from repro_torch.core.xla_math import exp_f32, fma_f32
+from repro_torch.core.xla_math import exp_f32, fma_f32, sum_in_order
 
 from .common import apply_linear, make_linear
 from .ffn import _act, ffn_apply, init_ffn
@@ -74,15 +74,6 @@ def router_logits(p, x: torch.Tensor) -> torch.Tensor:
     return (acc[:, 0] + acc[:, 1]) + (acc[:, 2] + acc[:, 3])
 
 
-def _sum_in_order(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Sum over ``dim`` in index order, as XLA's CPU loop reduces."""
-    x = x.movedim(dim, 0)
-    s = x[0]
-    for j in range(1, x.shape[0]):
-        s = s + x[j]
-    return s
-
-
 def softmax(logits: torch.Tensor) -> torch.Tensor:
     """jax.nn.softmax over the last axis of f32 logits: exp(l - max) over
     its sum. On CPU tensors XLA's exp polynomial and the sum in index
@@ -91,7 +82,7 @@ def softmax(logits: torch.Tensor) -> torch.Tensor:
     if logits.is_cuda:
         return torch.softmax(logits, dim=-1)
     e = exp_f32(logits - logits.max(dim=-1, keepdim=True).values)
-    return e / _sum_in_order(e, -1)[..., None]
+    return e / sum_in_order(e, -1)[..., None]
 
 
 def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -124,7 +115,7 @@ def gates(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     probabilities [T, E] f32)."""
     probs = softmax(router_logits(p["router"], x))
     top_v, top_i = top_k(probs, cfg.experts_per_token)
-    top_v = top_v / torch.clamp(_sum_in_order(top_v, -1)[..., None], min=1e-9)
+    top_v = top_v / torch.clamp(sum_in_order(top_v, -1)[..., None], min=1e-9)
     combine = torch.zeros_like(probs).scatter(1, top_i, top_v)
     if _ROUTES is not None:
         _ROUTES.append((top_i, probs))
@@ -140,8 +131,8 @@ def load_balance_loss(combine: torch.Tensor, probs: torch.Tensor, E: int) -> tor
     if probs.is_cuda:
         return (frac.mean(dim=0) * probs.mean(dim=0)).sum() * E
     inv = np.float32(1.0 / probs.shape[0])
-    imp = _sum_in_order(probs, 0) * inv
-    return _sum_in_order(_sum_in_order(frac, 0) * inv * imp, 0) * E
+    imp = sum_in_order(probs, 0) * inv
+    return sum_in_order(sum_in_order(frac, 0) * inv * imp, 0) * E
 
 
 def expert_ffn(p, x: torch.Tensor, activation: str, policy=None) -> torch.Tensor:

@@ -29,6 +29,7 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.tree import tree_leaves, tree_map, tree_stack
 
@@ -439,8 +440,21 @@ def _to_ring(kv: torch.Tensor, window: int) -> torch.Tensor:
     return ring
 
 
-def forward_seq(params, tokens, cfg, *, policy=None, block_kv=1024, prefix_embeds=None,
-                want_cache=False, dtype=torch.bfloat16):
+def _seq_blocks(blocks, x, aux, cfg, dims, kw):
+    """x through ``blocks`` [(kind, params)] in order, each block's first norm
+    reading its producer's addends (`residual`); returns (x, aux plus the
+    blocks' auxiliary losses, the last addends, the blocks' caches)."""
+    pre, caches = None, []
+    for i, (kind, bp) in enumerate(blocks):
+        x, c, pre, a = block_seq(bp, x, kind, cfg, dims, pre=pre if i else None, **kw)
+        if a is not None:
+            aux = aux + a
+        caches.append(c)
+    return x, aux, pre, caches
+
+
+def forward_seq(params, tokens, cfg, *, policy=None, remat=True, block_kv=1024,
+                prefix_embeds=None, want_cache=False, dtype=torch.bfloat16):
     """Full-sequence forward: tokens [B, S] (after ``prefix_embeds`` [B, P,
     D], which attend to each other both ways). Returns (logits [B, P + S, V]
     f32, aux, cache or None): aux is the reference's auxiliary loss, the
@@ -450,27 +464,42 @@ def forward_seq(params, tokens, cfg, *, policy=None, block_kv=1024, prefix_embed
     [G, B, P + S, ...], ``tail/sub{i}`` [B, P + S, ...]), from which
     `decode_step` continues (copied into a cache of larger capacity; ring
     caches are [.., B, window, ...] and recurrent states [.., B, ...]
-    already, and `decode_step` takes them as they are)."""
+    already, and `decode_step` takes them as they are).
+
+    ``remat`` (the reference's default): where autograd records the layers'
+    params, each repeat of the pattern runs under `torch.utils.checkpoint`
+    (non-reentrant; the forward draws no random numbers),
+    so its activations are recomputed in the backward pass instead of kept,
+    as the reference's ``jax.checkpoint`` of its scan body; the tail is not
+    rematerialised."""
     check_serving_support(cfg)
     dims = model_dims(cfg)
+    pat = layer_pattern(cfg)
     prefix_len = 0 if prefix_embeds is None else prefix_embeds.shape[1]
     x = _embed(params, tokens, dtype, prefix_embeds)
-    caches = {}
-    pre = None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, bp, (group, i, g) in _blocks(params, cfg):
-        x, c, pre, a = block_seq(bp, x, kind, cfg, dims, policy=policy, block_kv=block_kv,
-                                 prefix_len=prefix_len, want_cache=want_cache,
-                                 pre=pre if i else None)
-        if a is not None:
-            aux = aux + a
-        caches.setdefault(group, {}).setdefault(f"sub{i}", []).append(c)
+    kw = dict(policy=policy, block_kv=block_kv, prefix_len=prefix_len, want_cache=want_cache)
+    recompute = (remat and torch.is_grad_enabled()
+                 and any(t.requires_grad for t in tree_leaves(params["layers"])))
+    layer_caches = []
+    for g in range(tree_leaves(params["layers"])[0].shape[0]):
+        blocks = [(kind, tree_map(lambda t: t[g], params["layers"][f"sub{i}"]))
+                  for i, kind in enumerate(pat)]
+        if recompute:
+            x, aux, _, cs = checkpoint(_seq_blocks, blocks, x, aux, cfg, dims, kw,
+                                       use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, aux, _, cs = _seq_blocks(blocks, x, aux, cfg, dims, kw)
+        layer_caches.append(cs)
+    tail = [(pat[i], params["tail"][f"sub{i}"]) for i in range(len(params.get("tail", {})))]
+    x, aux, pre, tail_caches = _seq_blocks(tail, x, aux, cfg, dims, kw)
     cache = None
     if want_cache:
-        cache = {"layers": {k: tree_stack(v) for k, v in caches["layers"].items()}}
-        if "tail" in caches:
-            cache["tail"] = {k: v[0] for k, v in caches["tail"].items()}
-    return _head(params, x, cfg, dims, policy, pre if "tail" in params else None), aux, cache
+        cache = {"layers": {f"sub{i}": tree_stack([cs[i] for cs in layer_caches])
+                            for i in range(len(pat))}}
+        if tail:
+            cache["tail"] = {f"sub{i}": c for i, c in enumerate(tail_caches)}
+    return _head(params, x, cfg, dims, policy, pre if tail else None), aux, cache
 
 
 def decode_step(params, token, cache, pos, cfg, *, policy=None, dtype=torch.bfloat16,

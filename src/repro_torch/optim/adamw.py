@@ -1,0 +1,112 @@
+"""AdamW with decoupled weight decay + global-norm clipping (port of
+src/repro/optim/adamw.py).
+
+State layout mirrors the param tree: {m, v} in f32 plus an int32 step.
+Master params are f32; the train step computes grads in bf16 compute /
+f32 accumulate and applies updates to the f32 masters. Leaves are walked
+in the reference's flatten order (sorted dict keys, `core.tree.tree_items`).
+
+`apply_updates` writes the params, m and v in place and returns them (the
+reference's compiled step donates their buffers): on the card that keeps
+one copy of each in memory. One sequence of f32 tensor operations serves
+both devices:
+
+    g' = g * scale;  m' = m b1 + g' (1 - b1);  v' = v b2 + g' g' (1 - b2)
+    delta = m' / ((sqrt(v' / c2) + eps) c1)          (c = 1 - b^t)
+    delta = delta + wd p                             (leaves named ``w``)
+    p' = p - lr delta
+
+XLA's compiled CPU step contracts some of these multiply-adds into one
+rounding and sums the grad norm in its own order, so the CPU result is
+within a few ulp of the reference's, not bit-equal
+(`tests/test_torch_train.py` states the bound); the card's is held to the
+CPU's (`tests/test_torch_gpu.py`, `chip_smoke.py`'s ``train`` phase).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.tree import tree_items, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+
+
+def init_state(params):
+    """Zero f32 m and v shaped as ``params``, and a zero int32 step, on the
+    params' device."""
+    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                     params)
+    device = tree_items(params)[0][1].device
+    return {"m": zeros, "v": tree_map(torch.zeros_like, zeros),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum over leaves (in flatten order) of each leaf's sum of
+    squares in f32, as a 0-d f32 tensor."""
+    sums = [torch.square(g.to(torch.float32)).sum() for _, g in tree_items(tree)]
+    return torch.sqrt(torch.stack(sums).sum())
+
+
+def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp_max(float(np.float32(max_norm)) / torch.clamp_min(gn, 1e-9), 1.0)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled to a global norm of at most ``max_norm``, in f32, the
+    global norm before clipping)."""
+    gn = global_norm(grads)
+    scale = _clip_scale(gn, max_norm)
+    return tree_map(lambda g: g.to(torch.float32) * scale, grads), gn
+
+
+def _decayable(path) -> bool:
+    """Decay 2D+ matrices; skip norms/biases/scalars (standard practice):
+    the leaves named ``w``."""
+    return path[-1] == "w"
+
+
+def _update(p, g, m, v, scale, c1, c2, lr, decay, cfg: AdamWConfig):
+    """One leaf in f32 in-place operations (``g`` is consumed)."""
+    g = g.to(torch.float32).mul_(scale)
+    m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+    v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
+    delta = torch.div(v, c2).sqrt_().add_(cfg.eps).mul_(c1)
+    torch.div(m, delta, out=delta)
+    if decay:
+        delta.add_(p, alpha=cfg.weight_decay)
+    p.addcmul_(delta, lr, value=-1.0)
+
+
+def apply_updates(params, grads, state, lr, cfg: AdamWConfig):
+    """Returns (params, state, metrics): the params, m and v updated in
+    place, the step advanced, and ``{"grad_norm": the norm before
+    clipping}``. ``lr`` is a 0-d f32 tensor (or a float) on the params'
+    device. The f32 grads are consumed (scaled in place)."""
+    gn = global_norm(grads)
+    scale = _clip_scale(gn, cfg.grad_clip)
+    step = state["step"] + 1
+    t = step.to(torch.float32)
+    c1 = 1.0 - torch.pow(float(np.float32(cfg.b1)), t)
+    c2 = 1.0 - torch.pow(float(np.float32(cfg.b2)), t)
+    lr = torch.as_tensor(lr, dtype=torch.float32, device=gn.device)
+    g_items = dict(tree_items(grads))
+    m_items = dict(tree_items(state["m"]))
+    v_items = dict(tree_items(state["v"]))
+    for path, p in tree_items(params):
+        _update(p, g_items[path], m_items[path], v_items[path], scale, c1, c2, lr,
+                _decayable(path), cfg)
+    new_state = {"m": state["m"], "v": state["v"], "step": step}
+    return params, new_state, {"grad_norm": gn}
+

@@ -128,3 +128,106 @@ def test_params_from_numpy_keeps_bf16_bits():
     t = params_from_numpy({"x": {"w": np.asarray(a)}})["x"]["w"]
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(), np.asarray(a.astype(jnp.float32)))
+
+
+# ------------------------------------------------------------------------
+# XLA's CPU numerics the port copies on CPU tensors (`core.xla_math`)
+# ------------------------------------------------------------------------
+def _rows(n, width, seed):
+    """n seeded rows of standard normals, each scaled by e^u, u in [-3, 3]."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, width)) * np.exp(rng.uniform(-3, 3, (n, 1)))).astype(np.float32)
+
+
+@pytest.mark.parametrize("width", [128, 3584])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_rms_norm_bit_equal_to_the_jitted_reference(width, dtype):
+    """`models.common.rms_norm` on 20000 seeded rows against the reference's
+    under jax.jit: the squares summed in XLA's reduce-window order, the mean
+    and eps as one fused multiply-add, XLA's rsqrt (hardware estimate and
+    two Newton steps)."""
+    from repro.models.common import rms_norm as j_rms_norm
+    from repro_torch.models.common import rms_norm
+
+    x = _rows(20000, width, width)
+    g = (1 + 0.1 * np.random.default_rng(1).standard_normal(width)).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    want = jax.jit(lambda x, g: j_rms_norm(x.astype(jdt), g, 1e-6).astype(jnp.float32))(x, g)
+    got = rms_norm(torch.from_numpy(x).to(getattr(torch, dtype)), torch.from_numpy(g), 1e-6)
+    assert np.array_equal(f32_bits(got.float().numpy()), f32_bits(want))
+
+
+def test_xla_rsqrt_bit_equal_with_its_special_classes():
+    """`xla_math.rsqrt_f32` against jitted ``lax.rsqrt`` over 2^16 values
+    spread over every exponent, and zeros, infinities, denormals,
+    negatives and NaN (where XLA keeps the raw estimate)."""
+    from repro_torch.core.xla_math import rsqrt_f32
+
+    rng = np.random.default_rng(0)
+    bits = rng.integers(0, 0x7F800000, 1 << 16).astype(np.int32)
+    x = np.concatenate([bits.view(np.float32),
+                        np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -1.0, -3e-39, 1e-40,
+                                  1.0, 4.0], np.float32)])
+    want = np.asarray(jax.jit(jax.lax.rsqrt)(x))
+    got = rsqrt_f32(torch.from_numpy(x)).numpy()
+    same = (f32_bits(got) == f32_bits(want)) | (np.isnan(got) & np.isnan(want))
+    assert same.all(), x[~same][:8]
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_bf16_dot_order_is_xla_s(hd):
+    """q . k of bf16 operands (the plain attention's einsum) in XLA's CPU bf16
+    dot order, against the jitted einsum with an f32 result."""
+    from repro_torch.core.xla_math import pairs_bf16_dot
+    from repro_torch.kernels.attention_template import _scores
+
+    rng = np.random.default_rng(hd)
+    q = rng.standard_normal((3, 4, 2, 2, hd)).astype(np.float32)
+    k = rng.standard_normal((3, 32, 2, hd)).astype(np.float32)
+    want = jax.jit(lambda q, k: jnp.einsum("bcngd,bknd->bcngk", q.astype(jnp.bfloat16),
+                                           k.astype(jnp.bfloat16),
+                                           preferred_element_type=jnp.float32))(q, k)
+    tq, tk = torch.from_numpy(q).bfloat16(), torch.from_numpy(k).bfloat16()
+    if not pairs_bf16_dot(tq, tk):
+        pytest.skip("this CPU has no AVX512-BF16: XLA's bf16 dot takes another path here")
+    assert np.array_equal(f32_bits(_scores(tq, tk).numpy()), f32_bits(want))
+
+
+def test_attention_scores_bit_equal_on_the_reduced_dbrx_chunk_step(monkeypatch):
+    """The q . k of every layer of five ragged chunk-4 ticks of reduced
+    dbrx-132b (3 layers, bf16 weights, contiguous cache, slot 2 idle) through
+    the port's plain attention, against the reference's einsum under jit on
+    the same operands."""
+    from repro.configs import get_config
+    from repro.models import init_params as j_init_params
+    from repro_torch.configs import get_config as t_get_config
+    from repro_torch.core.xla_math import pairs_bf16_dot
+    from repro_torch.kernels import attention_template as AT
+    from repro_torch.launch.engine import prepare_params
+    from repro_torch.models import decode_step, make_cache
+
+    cfg = get_config("dbrx-132b").reduced(num_layers=3)
+    tcfg = t_get_config("dbrx-132b").reduced(num_layers=3)
+    params = prepare_params(params_from_numpy(jax.tree.map(
+        np.asarray, j_init_params(jax.random.PRNGKey(0), cfg))), None)
+    seen = []
+    real = AT._scores
+    monkeypatch.setattr(AT, "_scores", lambda qf, k: seen.append((qf, k)) or real(qf, k))
+    B, C, cap = 3, 4, 32
+    cache = make_cache(tcfg, B, cap)
+    rng = np.random.default_rng(C)
+    pos = np.array([0, 2, -1], np.int32)
+    for _ in range(5):
+        tok = rng.integers(0, cfg.vocab_size, (B, C)).astype(np.int32)
+        nv = np.array([C, C - 1, 0], np.int32)
+        _, cache = decode_step(params, torch.from_numpy(tok), cache, torch.from_numpy(pos), tcfg,
+                               nvalid=torch.from_numpy(nv))
+        pos = pos + np.where(pos >= 0, nv, 0)
+    assert len(seen) == 15
+    if not pairs_bf16_dot(*seen[0]):
+        pytest.skip("this CPU has no AVX512-BF16: XLA's bf16 dot takes another path here")
+    einsum = jax.jit(lambda q, k: jnp.einsum("bcngd,bknd->bcngk", q, k,
+                                             preferred_element_type=jnp.float32))
+    for qf, k in seen:
+        jq, jk = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (qf, k))
+        assert np.array_equal(f32_bits(real(qf, k).numpy()), f32_bits(einsum(jq, jk)))

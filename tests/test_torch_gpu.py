@@ -1710,7 +1710,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.launch.engine, "
             "repro_torch.kernels.ops, repro_torch.cache.paged_attention, "
-            "repro_torch.models.convert; "
+            "repro_torch.models.convert, repro_torch.launch.train, repro_torch.optim, "
+            "repro_torch.data, repro_torch.checkpoint, repro_torch.launch.fault_tolerance; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -1823,3 +1824,106 @@ def test_moe_graph_replays_bit_equal_to_the_eager_step():
     assert {c.name for c in counts if c.launches} == {"ams_matmul_planes",
                                                       "paged_attention_ams"}
     assert all(c.plain_on_cuda == 0 for c in counts)
+
+
+# -------------------------------------------------------------- training
+# card against CPU, set from the worst case that the tests below print
+# (measured on an H100 80GB HBM3, 700 W): one reduced train step's relative
+# loss and grad-norm differences (1.21e-5, qwen2-7b; 5.86e-4, Scout), and
+# twelve AdamW steps' params, m and v in ulp of each leaf's largest |value|
+# (3.5, qwen2-7b's params) and the grad norm's relative difference (1.2e-7)
+TRAIN_LOSS_REL, TRAIN_GNORM_REL = 1e-4, 3e-3
+CARD_ADAMW_ULPS, CARD_ADAMW_GNORM_REL = 8, 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-7b", "llama4-scout-17b-16e", "falcon-mamba-7b"])
+def test_train_step_on_the_card_matches_the_cpu_path(arch):
+    """One `build_train_step` step of a reduced model (B 4 in 2
+    microbatches of 32 tokens, remat on) on the card and on the CPU from the
+    same params and batch: loss within TRAIN_LOSS_REL and grad norm within
+    TRAIN_GNORM_REL of the CPU's (bf16 products summed in other orders),
+    masters updated in place, the step counter advanced, the updated
+    masters finite."""
+    import dataclasses
+    import json
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.tree import tree_items, tree_map
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_state
+
+    dev = cuda_device()
+    cfg = get_config(arch).reduced()
+    rcfg = RunConfig(model=cfg, seq_len=32, global_batch=4, microbatch=2, warmup_steps=2,
+                     learning_rate=1e-3)
+    toks, tgts = SyntheticLM(DataConfig(cfg.vocab_size, 32, 4)).batch(0)
+    out = {}
+    for device in ("cpu", dev):
+        params = tree_map(lambda t: t.to(device), init_params(2, cfg))
+        step = build_train_step(cfg, dataclasses.replace(rcfg), device)
+        p, o, m = step(params, init_state(params), torch.from_numpy(toks).to(device),
+                       torch.from_numpy(tgts).to(device), None, 0)
+        assert p is params and int(o["step"]) == 1
+        out[str(device)] = ({k: float(v) for k, v in m.items()}, p)
+    (mc, pc), (mg, pg) = out["cpu"], out[str(dev)]
+    loss_rel = abs(mg["loss"] - mc["loss"]) / abs(mc["loss"])
+    gnorm_rel = abs(mg["grad_norm"] - mc["grad_norm"]) / mc["grad_norm"]
+    print("measured " + json.dumps(dict(arch=arch, loss_rel=loss_rel, grad_norm_rel=gnorm_rel)))
+    assert loss_rel <= TRAIN_LOSS_REL
+    assert gnorm_rel <= TRAIN_GNORM_REL
+    assert mg["lr"] == mc["lr"]
+    for _, t in tree_items(pg):
+        assert torch.isfinite(t).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-7b", "minicpm3-4b"])
+def test_apply_updates_on_the_card_matches_the_cpu_path(arch):
+    """Twelve AdamW steps on a reduced model's f32 tree on the card and on
+    the CPU from the same params and seeded grads (every other step clips:
+    a global norm of about 0.5 sqrt(n), then about 0.5), with the learning
+    rate and the step changing: params, m and v within CARD_ADAMW_ULPS ulp of
+    each leaf's largest |value|, the grad norm within CARD_ADAMW_GNORM_REL,
+    the step counters equal. Only ``w`` leaves decay, so a wrong decay, bias
+    correction or clip shows in some leaf."""
+    import json
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_items, tree_map
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, apply_updates, init_state
+
+    dev = cuda_device()
+    cpu = init_params(0, get_config(arch).reduced())
+    card = tree_map(lambda t: t.to(dev, copy=True), cpu)
+    s_cpu, s_card = init_state(cpu), init_state(card)
+    n = sum(t.numel() for _, t in tree_items(cpu))
+    gen = torch.Generator().manual_seed(0)
+    worst = dict(arch=arch, p=0.0, m=0.0, v=0.0, grad_norm_rel=0.0)
+    for it in range(12):
+        scale = 0.5 / math.sqrt(n) if it % 2 else 0.5
+        g = tree_map(lambda t: scale * torch.randn(t.shape, generator=gen), cpu)
+        lr = 1e-3 * (it + 1)
+        card, s_card, m_card = apply_updates(card, tree_map(lambda t: t.to(dev), g), s_card,
+                                             lr, AdamWConfig())
+        cpu, s_cpu, m_cpu = apply_updates(cpu, g, s_cpu, lr, AdamWConfig())
+        gn = float(m_cpu["grad_norm"])
+        assert (gn > 1.0) == (it % 2 == 0)
+        worst["grad_norm_rel"] = max(worst["grad_norm_rel"],
+                                     abs(float(m_card["grad_norm"]) - gn) / gn)
+        for key, want, got in (("p", cpu, card), ("m", s_cpu["m"], s_card["m"]),
+                               ("v", s_cpu["v"], s_card["v"])):
+            for (path, a), (_, b) in zip(tree_items(want), tree_items(got)):
+                a = a.numpy()
+                ulps = float(np.abs(b.cpu().numpy() - a).max() / np.spacing(np.abs(a).max()))
+                worst[key] = max(worst[key], ulps)
+        assert int(s_card["step"]) == int(s_cpu["step"]) == it + 1
+    print("measured " + json.dumps(worst))
+    assert max(worst["p"], worst["m"], worst["v"]) <= CARD_ADAMW_ULPS, worst
+    assert worst["grad_norm_rel"] <= CARD_ADAMW_GNORM_REL, worst
