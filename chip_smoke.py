@@ -7,7 +7,8 @@
         # alone on the card, this checkout's or those of the checkout at DIR
         # (a parent commit unpacked), to compare two versions in one call;
         # phase "tick" times the greedy FP5.33 graph tick, "rows" runs the
-        # row-invariance check of the FP16, contiguous and MLA paths
+        # row-invariance check of the FP16, contiguous and MLA paths, "tp"
+        # the tensor-parallel phase (two ranks on the card)
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -157,7 +158,35 @@ Phases, each fatal on failure:
       line). Each served path also prints an ``attribution`` line: the
       floor of a full decode tick at the H100's peaks beside a profiled
       replay of its graph (`obs.cost.attribution(profile=True)`);
-  16. train (`phase_train`, after the serving phases have freed the card):
+  16. tp (`phase_tp`): tensor-parallel serving, two ranks spawned over
+      gloo on the one card (NCCL refuses two ranks on one device; the
+      kernels are built before, the ranks load them): full-width Qwen2-7B
+      at FP5.33 over AMS pages (`tp2-fp5.33`, all 28 layers, the FP5.33
+      path's workload; K1, K2), Llama-4-Scout-17B-16E at FP4.25, 2 layers,
+      expert-parallel (`tp2-moe-fp4.25`; K1b, K2) and Qwen2-7B at FP16 over
+      bf16 pages, 4 layers (`tp2-fp16`; K3). Each path's tp = 1 engine
+      serves the same workload first (graph ticks but the first, the first
+      all-decode one, whose layer 0 K1 / K2 calls, head product, MoE call
+      and first logits are recorded, and 8 timed eager ones); then each
+      rank serves it at tp = 2 eagerly and holds, fatally: the ranks'
+      streams equal; its K1 / K1b N-shards of layer 0 and its K2 / K3 kv
+      heads bit-equal to tp = 1's columns and heads on tp = 1's inputs
+      (dense paths); on `tp2-fp5.33` its streams and first-tick logits
+      bit-equal to tp = 1's; on `tp2-moe-fp4.25`, whose capacity drops
+      tokens, the same of a second serve at the capacity factor that
+      drops nothing; on `tp2-fp16` (cuBLAS projections) first-tick logits
+      within LOGIT_TOL; only the path's kernels launched, equal counts on
+      both ranks; its pool half of tp = 1's bytes; `moe_ep` with nothing
+      dropped against tp = 1's `moe_dense` within LOGIT_TOL. Printed
+      (`tp {...}` lines): logits and streams against tp = 1, the head's
+      columns, dropped (token, expert) pairs per tick (from the recorded
+      routes, after the run), eager tick (the armed tick not timed) and
+      collective ms per tick,
+      weight bytes and peak memory per rank, launches per rank;
+      `tp cublas-columns`: whether cuBLAS gives a rank's N / 2 columns the
+      whole product's bits at each bf16 projection and the head; then
+      K1, K1b, K2 and K3 timed at a rank's shapes (`K1[qwen2-7b tp2]`...);
+  17. train (`phase_train`, after the serving phases have freed the card):
       full-width Qwen2-7B cut to 4 layers trains 8 steps through
       `launch.steps.build_train_step` (B 8 x 512 tokens, microbatches of 4,
       remat; finite, falling loss; step ms, tokens/s, the FLOP-floor share,
@@ -187,6 +216,8 @@ states again: they are put back after the replays
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -711,24 +742,31 @@ def attention_work(hd: int, hd_v: int, row_keys: float, q_peak: float,
 def phase_k3(torch, dev, timed: bool, full: bool):
     import numpy as np
 
-    from repro_torch.kernels.attention_template import (
-        _fold_q,
-        paged_attention_bf16,
-        paged_attention_bf16_plain,
-    )
-
     if full:
         kv, g, hd, pages, B, max_len, chunks = 4, 7, 128, PAGES, 8, 1024, (1, 16)
     else:
         kv, g, hd, pages, B, max_len, chunks = 2, 2, 32, TINY_PAGES, 4, 64, (1, 4)
     rng = np.random.default_rng(6)
     gen = torch.Generator(device=dev).manual_seed(6)
+    return _k3_cases(torch, np, dev, rng, gen, kv, g, hd, pages, B, max_len, chunks, timed,
+                     "K3")
+
+
+def _k3_cases(torch, np, dev, rng, gen, kv, g, hd, pages, B, max_len, chunks, timed, tag):
+    """K3 against its plain version at one (kv, g, hd), every page size and
+    chunk, as `_k2_cases` does K2. Returns the first page size's decode row
+    and the largest error."""
+    from repro_torch.kernels.attention_template import (
+        _fold_q,
+        paged_attention_bf16,
+        paged_attention_bf16_plain,
+    )
 
     def make_pool(P, page):
         return {n: torch.randn((P, page, kv, hd), generator=gen, device=dev).to(torch.bfloat16)
                 for n in ("k", "v")}
 
-    rows, max_err, decode_row = [], 0.0, None
+    max_err, decode_row = 0.0, None
     for page, c, pool, bt, ends in _paged_cases(torch, np, dev, rng, pages, chunks, B, max_len,
                                                 make_pool):
         vmax = float(pool["v"].float().abs().max())
@@ -744,7 +782,7 @@ def phase_k3(torch, dev, timed: bool, full: bool):
         masked = torch.as_tensor(np.repeat(lengths == 0, g, axis=1), device=dev)  # [B, c*g]
         zero_ok = bool((o_k.permute(0, 2, 1, 3)[masked] == 0).all())
         if not (err <= tol and zero_ok and torch.isfinite(o_k).all()):
-            fail(f"K3 chunk={c}: max abs err {err:.3e} > {tol:.3e} "
+            fail(f"{tag} chunk={c}: max abs err {err:.3e} > {tol:.3e} "
                  f"or masked rows not exact zeros ({zero_ok})")
         tok = int(np.sum(np.max(lengths, axis=1)))        # keys each slot's walk needs
         nbytes = (qf.numel() * 4 + tok * kv * 2 * hd * 2 + bt.numel() * 4
@@ -765,10 +803,9 @@ def phase_k3(torch, dev, timed: bool, full: bool):
             del pools
             row["plain_ms"] = time_loop(torch, lambda: paged_attention_bf16_plain(
                 qf, pool, lens, bt, **kw))
-        rows.append(row)
         if page == pages[0] and c == 1:
             decode_row = row
-        log("K3 " + json.dumps(row))
+        log(f"{tag} " + json.dumps(row))
     return decode_row, max_err
 
 
@@ -3096,7 +3133,564 @@ def phase_train(torch, dev, timed: bool = True, full: bool = True):
     return (dict(full_width=summary, card_vs_cpu=versus, adamw=adam, restart=restart),)
 
 
-PHASES = ("k1", "k1b", "k2", "k3", "k4", "k5", "k5p", "tick", "rows", "train")
+# --------------------------------------------------------------------- tp
+TP = 2
+# tensor-parallel serving: a (1, 2) mesh of two spawned ranks that share the
+# one card (gloo: NCCL refuses two ranks on one device), each path served as
+# its base path's workload at ``depth`` layers (None: all); ``k1`` is how
+# many of layer 0's K1 / K1b calls of a decode tick are N-sharded
+# projections held against tp = 1 (a dense layer's 7, a MoE layer's 4
+# attention projections: its experts are whole on their rank); ``ep``: the
+# MoE decodes expert-parallel, whose capacity drops tokens that tp = 1's
+# dense combine keeps, so its logits and streams at the config's factor
+# are printed, and held bit-equal to tp = 1 in a second serve at the
+# factor that drops nothing (`_no_drop_capacity`); ``lean``: cuBLAS
+# projections, whose N-shards may change bits, so the first logits are held
+# within LOGIT_TOL and the streams printed. Every other path's streams and
+# first-tick logits are held bit-equal to tp = 1's.
+TP_PATHS = {
+    "tp2-fp5.33": dict(base="fp5.33", depth=None, k1=7),
+    "tp2-moe-fp4.25": dict(base="moe-fp4.25", depth=2, k1=4, ep=True),
+    "tp2-fp16": dict(base="fp16", depth=4, k1=0, lean=True),
+}
+TP1_EAGER_TICKS = 8
+TP_NOTE = ("two ranks time-slice one card: these times say nothing of the speed of two "
+           "cards; collective_ms is host time in gloo, staged through pinned host memory")
+# layer 0's K1 / K1b projections in call order: (block subtree, linear)
+TP_PROJ = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+           ("ffn", "w_gate"), ("ffn", "w_up"), ("ffn", "w_down")]
+
+
+class _StepTaps:
+    """Taps on the eager engine step, installed while open: the first
+    step's logits, and on the tick ``armed`` marks, layer 0's first ``k1``
+    K1 / K1b calls (x, y), its paged attention call (q, the layer's pool,
+    lengths, block table, output), the head's product (x, y) and the MoE
+    FFN's call (x, y). Everything is copied to the host."""
+
+    def __init__(self, torch, k1: int):
+        from repro_torch.kernels import ops
+        from repro_torch.launch import steps
+        from repro_torch.models import attention, moe, transformer
+
+        self.torch, self.n_k1 = torch, k1
+        self.logits, self.armed = None, False
+        self.k1, self.attn, self.head, self.moe = [], None, None, None
+        self.sites = [(ops, "ams_matmul", self._k1), (attention, "paged_attend", self._attn),
+                      (transformer, "apply_linear", self._head), (steps, "sample_tokens",
+                                                                  self._logits),
+                      (moe, "moe_dense", self._moe), (moe, "moe_ep", self._moe)]
+        self.orig = {}
+
+    def __enter__(self):
+        for mod, name, tap in self.sites:
+            self.orig[mod, name] = getattr(mod, name)
+            setattr(mod, name, (lambda tap, f: lambda *a, **k: tap(f, *a, **k))(
+                tap, self.orig[mod, name]))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), f in self.orig.items():
+            setattr(mod, name, f)
+
+    @staticmethod
+    def _host(t):
+        from repro_torch.core.tree import tree_map
+        return tree_map(lambda x: x.detach().to("cpu", copy=True), t)   # a copy on CPU too
+
+    def _k1(self, f, x, pw, n_split=None):
+        y = f(x, pw, n_split=n_split)
+        if self.armed and len(self.k1) < self.n_k1:
+            self.k1.append(dict(x=self._host(x), y=self._host(y), N=pw.N, n_split=n_split))
+        return y
+
+    def _attn(self, f, q, pool, lengths, block_table, ccfg, **kw):
+        o = f(q, pool, lengths, block_table, ccfg, **kw)
+        if self.armed and self.attn is None:
+            self.attn = dict(q=self._host(q), pool=self._host(pool), lengths=self._host(lengths),
+                             block_table=self._host(block_table), out=self._host(o),
+                             scale=kw.get("scale"))
+        return o
+
+    def _head(self, f, p, x, policy=None, shards=1):
+        y = f(p, x, policy, shards)
+        if self.armed and self.head is None:
+            self.head = dict(x=self._host(x), y=self._host(y))
+        return y
+
+    def _logits(self, f, logits, sampling):
+        if self.logits is None:
+            self.logits = self._host(logits)
+        return f(logits, sampling)
+
+    def _moe(self, f, p, x, cfg, *a, **k):
+        y, aux = f(p, x, cfg, *a, **k)
+        if self.armed and self.moe is None:
+            self.moe = dict(x=self._host(x), y=self._host(y))
+        return y, aux
+
+
+@contextlib.contextmanager
+def _no_drop_capacity():
+    """While open, `moe_ep` serves at the capacity factor E / k, where
+    every expert takes every token and nothing drops."""
+    from repro_torch.models import moe
+
+    real = moe.expert_capacity
+    moe.expert_capacity = lambda T, cfg: real(T, dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.num_experts / cfg.experts_per_token))
+    try:
+        yield
+    finally:
+        moe.expert_capacity = real
+
+
+def _dropped_pairs(torch, routes, cfg) -> tuple:
+    """(token, expert) pairs routed and those past the experts' capacity
+    (`moe.expert_capacity` as it stands), over the router calls of a
+    `moe.record_routes` record."""
+    from repro_torch.models import moe
+
+    routed = dropped = 0
+    for top_i, _ in routes:
+        n = torch.bincount(top_i.reshape(-1), minlength=cfg.num_experts)
+        routed += top_i.numel()
+        dropped += int((n - moe.expert_capacity(top_i.shape[0], cfg)).clamp_min(0).sum())
+    return routed, dropped
+
+
+def _tp_config(spec, dev_str: str, full: bool, mesh=None):
+    from repro_torch.cache import CacheConfig
+    from repro_torch.launch.config import EngineConfig
+
+    base = PATHS[spec["base"]]
+    if full:
+        return EngineConfig(arch=base["arch"], reduced=False, depth=spec["depth"],
+                            scheme=base["scheme"], impl="kernel", slots=8, capacity=512,
+                            prefill_chunk=16, mesh=mesh, device=dev_str, seed=0,
+                            cache=CacheConfig(kind=base["kind"], page_size=16, impl="kernel"))
+    return EngineConfig(arch=base["arch"], reduced=True, scheme=base["scheme"], impl="kernel",
+                        slots=4, capacity=64, prefill_chunk=4, mesh=mesh, device=dev_str, seed=0,
+                        cache=CacheConfig(kind=base["kind"], page_size=8, impl="kernel"))
+
+
+def _tp_workload(np, cfg, spec, full: bool):
+    """The base path's serve-phase workload (`phase_serve`): prompts (the
+    last sharing the first's page-aligned prefix) and new tokens each."""
+    if not full:
+        n_req, plen, max_tokens, shared = 6, (12, 24), 8, 8
+    elif spec["base"] == MAIN_PATH:
+        n_req, plen, max_tokens, shared = 10, (200, 320), 40, 128
+    else:
+        n_req, plen, max_tokens, shared = 9, (96, 192), 24, 64
+    rng = np.random.default_rng(1234)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(plen[0], plen[1], n_req)]
+    prompts[-1][:shared] = prompts[0][:shared]
+    return prompts, max_tokens
+
+
+def _tp_serve(torch, np, eng, spec, full: bool, mesh=None):
+    """Serve the path's workload under `_StepTaps`, arming them on the first
+    tick whose every active slot decodes. A tp = 1 engine on the card
+    replays its graphs (bit-equal to its eager step: `phase_graph`) but on
+    the first tick, the armed one and the `TP1_EAGER_TICKS` after it, which
+    run the eager step the taps see and time it; a tp = 2 engine has no
+    graphs. The armed tick, which copies its taps to the host, is not
+    timed. At tp > 1 the router calls are recorded and the pairs that the
+    experts' capacity dropped counted after the run. Returns (taps,
+    result)."""
+    from repro_torch.models import moe
+
+    prompts, max_tokens = _tp_workload(np, eng.cfg, spec, full)
+    counts = all_counts()
+    for cnt in counts:
+        cnt.reset()
+    handles = [eng.submit(p, max_tokens) for p in prompts]
+    ticks, dec_ms, graph_ms, coll_ms, armed_tick = 0, [], [], [], None
+    with _StepTaps(torch, spec["k1"]) as taps, moe.record_routes() as routes:
+        while eng.has_work:
+            decoding = eng.active_count > 0 and all(
+                r is None or eng.fed[s] >= r.prompt_len for s, r in enumerate(eng.active))
+            taps.armed = decoding and armed_tick is None
+            if taps.armed:
+                armed_tick = ticks
+            eager = eng.graphs is None or ticks == 0 or (
+                armed_tick is not None and ticks - armed_tick <= TP1_EAGER_TICKS)
+            c0 = mesh.collective_seconds if mesh is not None else 0.0
+            t0 = time.perf_counter()
+            eng.step(eager=eager)
+            if decoding and not taps.armed:
+                (dec_ms if eager else graph_ms).append(1e3 * (time.perf_counter() - t0))
+                if mesh is not None:
+                    coll_ms.append(1e3 * (mesh.collective_seconds - c0))
+            ticks += 1
+    launches = {cnt.name: cnt.launches for cnt in counts}
+    routed, dropped = _dropped_pairs(torch, routes, eng.cfg) if mesh is not None else (0, 0)
+    del routes
+    res = dict(streams=[list(map(int, h.tokens)) for h in handles], ticks=ticks,
+               armed_tick=armed_tick, launches=launches,
+               plain_calls_on_cuda=sum(cnt.plain_on_cuda for cnt in counts),
+               eager_decode_tick_ms=float(np.mean(dec_ms)) if dec_ms else 0.0,
+               eager_decode_ticks=len(dec_ms),
+               graph_decode_tick_ms=float(np.mean(graph_ms)) if graph_ms else None,
+               collective_ms_per_tick=float(np.mean(coll_ms)) if coll_ms else 0.0,
+               collective_calls=mesh.collective_calls if mesh is not None else 0,
+               weight_bytes=weight_bytes(eng.params)["total"],
+               param_bytes=_nbytes(eng.params), pool_bytes=_nbytes(eng.cache),
+               kv_bytes_per_token=eng.kv_bytes_per_token(), tp=eng.tp,
+               graphs=eng.stats()["graphs"], moe_pairs_routed=routed,
+               moe_pairs_dropped=dropped)
+    bad = [i for i, h in enumerate(handles) if not h.done or len(h.tokens) != max_tokens]
+    if bad:
+        fail(f"tp: requests {bad} did not finish with {max_tokens} tokens")
+    return taps, res
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.core.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _bits_equal(torch, a, b) -> bool:
+    """Same shape, dtype and bits (-0.0 and NaNs included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a.contiguous().view(ints), b.contiguous().view(ints))
+
+
+def _tp_checks(torch, eng, spec, one, taps, dev):
+    """This rank's comparisons with the tp = 1 run ``one`` (its taps):
+    layer 0's sharded K1 / K1b outputs and K2 / K3 heads on tp = 1's inputs,
+    bit for bit (direct calls, after the counts were read); the head's
+    columns; the first step's logits; the MoE FFN with nothing dropped
+    against tp = 1's moe_dense."""
+    import dataclasses
+
+    from repro_torch.cache import paged_attend
+    from repro_torch.core.formats import get_scheme
+    from repro_torch.core.packing import PackedWeight, make_layout
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as M
+    from repro_torch.models.attention import kv_index_map
+    from repro_torch.models.common import apply_linear
+
+    r, tp = eng.ctx.rank, eng.tp
+    on = lambda t: tree_map(lambda x: x.to(dev), t)              # noqa: E731
+    cols = lambda t, n: t[..., r * n:(r + 1) * n]                # noqa: E731
+    out = {}
+    blk = tree_map(lambda t: t[0], eng.params["layers"]["sub0"])
+    k1 = []
+    for (sub, name), rec, mine in zip(TP_PROJ, one["k1"], taps.k1):
+        p = blk[sub][name]
+        pw = PackedWeight(p["hi"], p["lsb"], p["scale"],
+                          make_layout(get_scheme(eng.config.scheme)), rec["x"].shape[-1],
+                          p["scale"].shape[-1])
+        y = ops.ams_matmul(on(rec["x"]), pw, n_split=rec["N"]).cpu()
+        n = pw.N
+        k1.append(dict(name=name, N=rec["N"], shard_N=n,
+                       tp1_inputs_bit_equal=_bits_equal(torch, y, cols(rec["y"], n)),
+                       engine_call_bit_equal=_bits_equal(torch, mine["x"], rec["x"])
+                       and _bits_equal(torch, mine["y"], cols(rec["y"], n))))
+    out["k1"] = k1
+    a = one["attn"]
+    if a is not None:
+        kv_loc = tree_leaves(eng.cache)[0].shape[-2]
+        hq = a["q"].shape[-2] // tp
+        pool = tree_map(lambda t: t.narrow(t.dim() - 2, r * kv_loc, kv_loc).contiguous(),
+                        a["pool"])
+        q = a["q"].narrow(a["q"].dim() - 2, r * hq, hq).contiguous()
+        o = paged_attend(on(q), on(pool), on(a["lengths"]), on(a["block_table"]),
+                         eng.cache_cfg, kv_map=kv_index_map(hq, hq, kv_loc),
+                         scale=a["scale"]).cpu()
+        want = a["out"].narrow(a["out"].dim() - 2, r * hq, hq)
+        out["attention"] = dict(kv_heads=kv_loc, q_heads=hq,
+                                tp1_inputs_bit_equal=_bits_equal(torch, o, want))
+    h = one["head"]
+    y = apply_linear(eng.params["lm_head"], on(h["x"]), None).cpu()
+    out["head_columns_bit_equal"] = _bits_equal(torch, y, cols(h["y"], y.shape[-1]))
+    l1, l2 = one["logits"], taps.logits
+    out["first_logits"] = dict(bit_equal=_bits_equal(torch, l1, l2),
+                               rel_err=float((l1 - l2).abs().max() / l1.abs().max()))
+    if one["moe"] is not None:
+        cfg = eng.cfg
+        nodrop = dataclasses.replace(cfg, moe_capacity_factor=cfg.num_experts
+                                     / cfg.experts_per_token)
+        y, _ = M.moe_ep(blk["moe"], on(one["moe"]["x"]), nodrop, eng.ctx,
+                        eng.rcfg.quant if eng.rcfg.quantized else None)
+        want = one["moe"]["y"].float()
+        out["moe_ep_vs_dense"] = dict(capacity_factor=nodrop.moe_capacity_factor,
+                                      rel_err=float((y.cpu().float() - want).abs().max()
+                                                    / want.abs().max()))
+    return out
+
+
+def _tp_rank(mesh, paths, full: bool, oracle_dir: str):
+    """One rank of the tp phase: each path's tp = 2 engine served under the
+    taps, then `_tp_checks` against the tp = 1 run saved in ``oracle_dir``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.engine import ServeEngine
+
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    if not cuda:                     # the ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // mesh.tp))
+    out = {}
+    for name in paths:
+        spec = TP_PATHS[name]
+        one = torch.load(Path(oracle_dir) / f"{name}.pt", weights_only=False)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        eng = ServeEngine(_tp_config(spec, "cuda" if cuda else "cpu", full, mesh))
+        init_s = time.perf_counter() - t0
+        taps, res = _tp_serve(torch, np, eng, spec, full, mesh)
+        res.update(init_seconds=init_s, checks=_tp_checks(torch, eng, spec, one, taps, dev))
+        if cuda:
+            res["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+        del eng, taps
+        gc.collect()
+        if spec.get("ep"):
+            with _no_drop_capacity():
+                eng = ServeEngine(_tp_config(spec, "cuda" if cuda else "cpu", full, mesh))
+                taps, nd = _tp_serve(torch, np, eng, spec, full, mesh)
+            res["no_drop"] = dict(streams=nd["streams"], moe_pairs_dropped=nd["moe_pairs_dropped"],
+                                  first_logits_bit_equal=_bits_equal(torch, one["logits"],
+                                                                     taps.logits))
+            del eng, taps
+            gc.collect()
+        out[name] = res
+    return out
+
+
+def _first_divergence(got, want):
+    return [next((t for t, (a, b) in enumerate(zip(g, w)) if a != b), None)
+            for g, w in zip(got, want)]
+
+
+def phase_tp(torch, dev, timed: bool = True, full: bool = True):
+    """Tensor-parallel serving (see the module docstring): each path's tp = 1
+    engine served eagerly here under `_StepTaps` (the oracle), then one
+    world of two spawned ranks on this device serving every path at tp = 2
+    (`_tp_rank`), the ranks' results checked and printed, then the sharded
+    kernel shapes timed here. Returns (the per-path lines, the kernel rows'
+    figures)."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.launch.mesh import spawn
+
+    cuda = dev.type == "cuda"
+    dev_str = "cuda" if cuda else "cpu"
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    log("tp world " + json.dumps(dict(
+        tp=TP, backend="gloo", device=dev_str, cards=torch.cuda.device_count() if cuda else 0,
+        ranks_share_one_card=cuda, why="NCCL refuses two ranks on one device; gloo's "
+        "collectives of CUDA tensors are staged through pinned host buffers")))
+    ones = {}
+    with tempfile.TemporaryDirectory(prefix="tp-oracle-") as tmp:
+        for name, spec in TP_PATHS.items():
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            eng = ServeEngine(_tp_config(spec, dev_str, full))
+            taps, res = _tp_serve(torch, np, eng, spec, full)
+            if cuda:
+                res["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+            torch.save(dict(k1=taps.k1, attn=taps.attn, head=taps.head, logits=taps.logits,
+                            moe=taps.moe), Path(tmp) / f"{name}.pt")
+            ones[name] = res
+            del eng, taps
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+        ranks = spawn(_tp_rank, TP, dev_str, list(TP_PATHS), full, tmp, backend="gloo")
+    lines = {}
+    for name, spec in TP_PATHS.items():
+        one, rs = ones[name], [r[name] for r in ranks]
+        base = PATHS[spec["base"]]
+        first = _first_divergence(rs[0]["streams"], one["streams"])
+        line = dict(
+            path=name, base=spec["base"], arch=base["arch"], scheme=base["scheme"],
+            depth=spec["depth"], tp=TP, ranks_agree=rs[0]["streams"] == rs[1]["streams"],
+            streams_equal_tp1=all(f is None for f in first), first_diverging_token=first,
+            first_logits=[r["checks"]["first_logits"] for r in rs],
+            head_columns_bit_equal=[r["checks"]["head_columns_bit_equal"] for r in rs],
+            k1=[r["checks"]["k1"] for r in rs],
+            attention=[r["checks"].get("attention") for r in rs],
+            moe_ep_vs_dense=[r["checks"].get("moe_ep_vs_dense") for r in rs],
+            moe_pairs_dropped_per_tick=[r["moe_pairs_dropped"] / r["ticks"] for r in rs],
+            moe_pairs_routed_per_tick=[r["moe_pairs_routed"] / r["ticks"] for r in rs],
+            no_drop=[dict(streams_equal_tp1=r["no_drop"]["streams"] == one["streams"],
+                          first_diverging_token=_first_divergence(r["no_drop"]["streams"],
+                                                                  one["streams"]),
+                          first_logits_bit_equal=r["no_drop"]["first_logits_bit_equal"],
+                          moe_pairs_dropped=r["no_drop"]["moe_pairs_dropped"])
+                     for r in rs] if spec.get("ep") else None,
+            eager_decode_tick_ms=dict(tp1=one["eager_decode_tick_ms"],
+                                      tp2=[r["eager_decode_tick_ms"] for r in rs]),
+            collective_ms_per_tick=[r["collective_ms_per_tick"] for r in rs],
+            collective_calls=[r["collective_calls"] for r in rs],
+            eager_decode_ticks=dict(tp1=one["eager_decode_ticks"],
+                                    tp2=[r["eager_decode_ticks"] for r in rs]),
+            tp1_graph_decode_tick_ms=one["graph_decode_tick_ms"],
+            weight_bytes=dict(tp1=one["weight_bytes"], tp2=[r["weight_bytes"] for r in rs]),
+            pool_bytes=dict(tp1=one["pool_bytes"], tp2=[r["pool_bytes"] for r in rs]),
+            kv_bytes_per_token=dict(tp1=one["kv_bytes_per_token"],
+                                    tp2=[r["kv_bytes_per_token"] for r in rs]),
+            peak_memory_bytes=dict(tp1=one.get("peak_memory_bytes"),
+                                   tp2=[r.get("peak_memory_bytes") for r in rs]),
+            init_seconds=[r["init_seconds"] for r in rs],
+            launches=dict(tp1=one["launches"], tp2=[r["launches"] for r in rs]),
+            graphs=[r["graphs"] for r in rs], note=TP_NOTE)
+        lines[name] = line
+        log("tp " + json.dumps(line))
+        _tp_fatal(name, spec, one, rs, line, cuda)
+    _cublas_shard_columns(torch, dev, full)
+    return lines, _tp_kernel_times(torch, dev, timed, full)
+
+
+# the cuBLAS products of the tp paths (FP16's projections, every path's
+# bf16 head): (name, K, N), whole and as a rank's N / 2 columns
+CUBLAS_TP2_SHAPES = [("wq/wo", 3584, 3584), ("wk/wv", 3584, 512), ("w_gate/w_up", 3584, 18944),
+                     ("w_down", 18944, 3584), ("lm_head", 3584, 152064)]
+
+
+def _cublas_shard_columns(torch, dev, full: bool):
+    """Whether a rank's N-shard of a bf16 weight gives the whole product's
+    columns bit for bit through torch.matmul (cuBLAS on the card) at a
+    decode tick's 8 rows and a prefill chunk's 128: printed, not held (the
+    kernels of the port are held; cuBLAS picks its own algorithm per
+    shape)."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    shapes = CUBLAS_TP2_SHAPES if full else [(n, K, N) for n, K, N, _ in TINY_SHAPES]
+    out = []
+    for name, K, N in shapes:
+        w = (torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)).to(torch.bfloat16)
+        n = N // TP
+        for rows in (8, 128):
+            x = torch.randn((rows, K), generator=gen, device=dev).to(torch.bfloat16)
+            whole = x @ w
+            equal = [_bits_equal(torch, x @ w[:, r * n:(r + 1) * n].contiguous(),
+                                 whole[:, r * n:(r + 1) * n]) for r in range(TP)]
+            out.append(dict(name=name, K=K, N=N, shard_N=n, rows=rows, bit_equal=all(equal)))
+    log("tp cublas-columns " + json.dumps(out))
+    return out
+
+
+def _tp_fatal(name, spec, one, rs, line, cuda: bool):
+    kernels = PATHS[spec["base"]]["kernels"]
+    if not line["ranks_agree"]:
+        fail(f"tp[{name}]: the ranks' streams differ")
+    if not spec.get("ep") and not spec.get("lean") and not line["streams_equal_tp1"]:
+        fail(f"tp[{name}]: streams differ from tp = 1's at tokens "
+             f"{line['first_diverging_token']}")
+    for r, res in enumerate(rs):
+        c = res["checks"]
+        if spec.get("lean") and c["first_logits"]["rel_err"] > LOGIT_TOL:
+            fail(f"tp[{name}] rank {r}: first-tick logits {c['first_logits']} beyond "
+                 f"{LOGIT_TOL} of tp = 1's")
+        if not spec.get("ep") and not spec.get("lean") and not c["first_logits"]["bit_equal"]:
+            fail(f"tp[{name}] rank {r}: first-tick logits {c['first_logits']} not bit-equal "
+                 "to tp = 1's")
+        if spec.get("ep"):
+            nd = line["no_drop"][r]
+            if not (nd["streams_equal_tp1"] and nd["first_logits_bit_equal"]) or \
+                    nd["moe_pairs_dropped"]:
+                fail(f"tp[{name}] rank {r}: at the capacity that drops nothing, streams and "
+                     f"first-tick logits not bit-equal to tp = 1's: {nd}")
+        if res["pool_bytes"] * TP != one["pool_bytes"]:
+            fail(f"tp[{name}] rank {r}: pool {res['pool_bytes']} bytes, not half of tp = 1's "
+                 f"{one['pool_bytes']}")
+        if not spec.get("lean"):
+            bad = [k["name"] for k in c["k1"] if not k["tp1_inputs_bit_equal"]]
+            if bad or len(c["k1"]) != spec["k1"]:
+                fail(f"tp[{name}] rank {r}: K1 shards of {bad} differ from tp = 1's columns "
+                     f"({len(c['k1'])} of {spec['k1']} projections held)")
+            if not c["attention"]["tp1_inputs_bit_equal"]:
+                fail(f"tp[{name}] rank {r}: paged attention on the rank's heads differs from "
+                     "tp = 1's")
+        moe = c.get("moe_ep_vs_dense")
+        if moe is not None and moe["rel_err"] > LOGIT_TOL:
+            fail(f"tp[{name}] rank {r}: moe_ep without drops {moe} beyond {LOGIT_TOL} of "
+                 "moe_dense")
+        if cuda:
+            launched = {k for k, n in res["launches"].items() if n}
+            if launched != set(kernels) or res["plain_calls_on_cuda"]:
+                fail(f"tp[{name}] rank {r}: launched {res['launches']} (plain versions on CUDA "
+                     f"{res['plain_calls_on_cuda']}); the path's kernels are {kernels}")
+    if rs[0]["launches"] != rs[1]["launches"]:
+        fail(f"tp[{name}]: the ranks launched {rs[0]['launches']} and {rs[1]['launches']}")
+
+
+# the sharded shapes a rank's kernels run at tp = 2 (K, N, launches a
+# layer): Qwen2-7B's N-shards (K1), Llama-4-Scout's attention and shared-
+# expert N-shards and its 8 local experts, whole (K1b, timed at 8 rows)
+QWEN_TP2_SHAPES = [("wq/wo shard", 3584, 1792, 2), ("wk/wv shard", 3584, 256, 2),
+                   ("w_gate/w_up shard", 3584, 9472, 2), ("w_down shard", 18944, 1792, 1)]
+SCOUT_TP2_SHAPES = [("wq/wo shard", 5120, 2560, 2), ("wk/wv shard", 5120, 512, 2),
+                    ("shared w_gate/w_up shard", 5120, 4096, 2),
+                    ("shared w_down shard", 8192, 2560, 1),
+                    ("w_gate/w_up x 8 local experts", 5120, 8192, 16),
+                    ("w_down x 8 local experts", 8192, 5120, 8)]
+
+
+def _tp_kernel_times(torch, dev, timed: bool, full: bool):
+    """K1, K1b, K2 and K3 at a rank's shapes, against their plain versions
+    (a sharded projection planned with the whole linear's K split): each
+    kernel's decode row and error, as the kernel phases report them."""
+    import numpy as np
+
+    from repro_torch.kernels.ams_matmul import (
+        ams_matmul_fp533,
+        ams_matmul_fp533_plain,
+        ams_matmul_planes,
+        ams_matmul_planes_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    rng = np.random.default_rng(29)
+    qwen = QWEN_TP2_SHAPES if full else [(n, K, N // TP, m) for n, K, N, m in TINY_SHAPES]
+    scout = SCOUT_TP2_SHAPES if full else qwen
+    shard_n = {N for _, _, N, _ in qwen} | {N for n, _, N, _ in scout if "shard" in n}
+
+    def split(pw):
+        return TP * pw.N if pw.N in shard_n else None
+
+    out = {}
+    out["ams_matmul_fp533"] = _matmul_phase(
+        torch, dev, "K1[qwen2-7b tp2]", "fp5.33-e2m3", gen,
+        lambda x, pw: ams_matmul_fp533(x, pw.hi, pw.scale, n_split=split(pw)),
+        lambda x, pw: ams_matmul_fp533_plain(x, pw.hi, pw.scale), timed, full,
+        decode_only=True, shapes=qwen)
+    out["ams_matmul_planes"] = _matmul_phase(
+        torch, dev, "K1b[llama4-scout-17b-16e tp2]", "fp4.25-e2m2", gen,
+        lambda x, pw: ams_matmul_planes(x, pw.hi, pw.lsb, pw.scale, pw.layout,
+                                        n_split=split(pw)),
+        lambda x, pw: ams_matmul_planes_plain(x, pw.hi, pw.lsb, pw.scale, pw.layout), timed,
+        full, decode_only=True, shapes=scout)
+    kv_hd = dict(qwen=(4 // TP, 7, 128), scout=(8 // TP, 5, 128)) if full else \
+        dict(qwen=(1, 2, 32), scout=(1, 2, 32))
+    paged = ((16,), 8, 1024) if full else (TINY_PAGES[:1], 4, 64)
+    out["paged_attention_ams"] = _k2_cases(torch, np, dev, rng, gen, *kv_hd["qwen"], *paged,
+                                           (1,), timed, "K2[qwen2-7b tp2]")
+    out["paged_attention_ams[scout]"] = _k2_cases(torch, np, dev, rng, gen, *kv_hd["scout"],
+                                                  *paged, (1,), timed,
+                                                  "K2[llama4-scout-17b-16e tp2]")
+    out["paged_attention_bf16"] = _k3_cases(torch, np, dev, rng, gen, *kv_hd["qwen"], *paged,
+                                            (1,), timed, "K3[qwen2-7b tp2]")
+    return out
+
+
+PHASES = ("k1", "k1b", "k2", "k3", "k4", "k5", "k5p", "tick", "rows", "train", "tp")
 
 
 def run_phases(torch, names, other):
@@ -3162,6 +3756,7 @@ def main():
         phase_engine_features(torch, dev, full=False)
         phase_seq(torch, dev, full=False)
         phase_frontend(torch, dev, full=False)
+        phase_tp(torch, dev, timed=False, full=False)
         phase_train(torch, dev, timed=False, full=False)
         log("rehearsal finished on the CPU: no result")
         sys.exit(2)
@@ -3236,6 +3831,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     mark("engine-features, seq, frontend")
+    tp_lines, tp_times = phase_tp(torch, dev, timed=True, full=True)
+    mark("tp")
     phase_train(torch, dev, timed=True, full=True)
     mark("train")
     log("phase-seconds " + json.dumps(seconds))
@@ -3263,7 +3860,9 @@ def main():
     def row(name, src, replaces, path, res, err, launches=None):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
                     replaces=replaces, path=path,
-                    paths=[p for p, sp in PATHS.items() if name.split("[")[0] in sp["kernels"]],
+                    paths=[p for p, sp in PATHS.items() if name.split("[")[0] in sp["kernels"]]
+                    + [p for p, sp in TP_PATHS.items()
+                       if name.split("[")[0] in PATHS[sp["base"]]["kernels"]],
                     launches=served[path]["launches"][name.split("[")[0]] if path else launches,
                     launches_engine_features=feature_launches[name]
                     if name in feature_launches else None,
@@ -3313,6 +3912,27 @@ def main():
             "src/repro/kernels/attention_template.py:309", None, k5p["ams"], k5p_err["ams"],
             k5p_launches["ams"]),
     ]
+    # the tp paths' kernels at a rank's shapes: launches per rank on the tp
+    # path's served run (the ranks' counts are equal: checked)
+    for name, key, src, replaces, path in (
+            ("ams_matmul_fp533[qwen2-7b tp2]", "ams_matmul_fp533", "ams_matmul.cu",
+             "src/repro/kernels/ams_matmul.py:138", "tp2-fp5.33"),
+            ("paged_attention_ams[qwen2-7b tp2]", "paged_attention_ams", "paged_attention.cu",
+             "src/repro/kernels/attention_template.py:399", "tp2-fp5.33"),
+            ("ams_matmul_planes[llama4-scout-17b-16e tp2]", "ams_matmul_planes", "ams_matmul.cu",
+             "src/repro/kernels/ams_matmul.py:95", "tp2-moe-fp4.25"),
+            ("paged_attention_ams[llama4-scout-17b-16e tp2]", "paged_attention_ams[scout]",
+             "paged_attention.cu", "src/repro/kernels/attention_template.py:399",
+             "tp2-moe-fp4.25"),
+            ("paged_attention_bf16[qwen2-7b tp2]", "paged_attention_bf16", "paged_attention.cu",
+             "src/repro/kernels/attention_template.py:292", "tp2-fp16")):
+        res, err = tp_times[key]
+        per_rank = [ls[name.split("[")[0]] for ls in tp_lines[path]["launches"]["tp2"]]
+        kernels.append(dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
+                            replaces=replaces, path=path, paths=[path], launches=per_rank[0],
+                            launches_per_rank=per_rank, max_abs_err=err, ms=res["ms"],
+                            plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
+                            bound_by=res["bound_by"], library_ms=None))
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

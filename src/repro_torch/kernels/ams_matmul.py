@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -86,10 +87,12 @@ def _kernel():
     return fn
 
 
-def ams_matmul_fp533(x: torch.Tensor, hi: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def ams_matmul_fp533(x: torch.Tensor, hi: torch.Tensor, scale: torch.Tensor,
+                     n_split: Optional[int] = None) -> torch.Tensor:
     """K1 wrapper: x [B, Kp], hi [Kp/6, N] int32, scale [N] f32 -> y [B, N]
     f32. CPU tensors take the plain version; CUDA tensors launch the kernel
-    (tiles and K split from `tuning.plan_ams_matmul`) or raise."""
+    (tiles and K split from `tuning.plan_ams_matmul`; ``n_split``: the N of
+    the whole linear when hi is one rank's N-shard of it) or raise."""
     _check(x, hi, scale)
     if x.device.type == "cpu":
         return ams_matmul_fp533_plain(x, hi, scale)
@@ -102,7 +105,7 @@ def ams_matmul_fp533(x: torch.Tensor, hi: torch.Tensor, scale: torch.Tensor) -> 
     y = torch.empty((B, N), dtype=torch.float32, device=x.device)
     if B == 0 or N == 0 or hi.shape[0] == 0:     # nothing to launch: y is 0
         return y.zero_()
-    plan = plan_ams_matmul(B, hi.shape[0], N)
+    plan = plan_ams_matmul(B, hi.shape[0], N, n_split=n_split)
     rc = fn(xb.data_ptr(), hi.data_ptr(), scale.data_ptr(), y.data_ptr(),
             B, hi.shape[0], N, plan.tn, plan.nt, plan.cluster, plan.split_words,
             stream_ptr(x.device))
@@ -186,11 +189,12 @@ def planes_on_tensor_cores(lay: PackLayout) -> bool:
 
 
 def ams_matmul_planes(x: torch.Tensor, hi: torch.Tensor, lsb: torch.Tensor,
-                      scale: torch.Tensor, lay: PackLayout) -> torch.Tensor:
+                      scale: torch.Tensor, lay: PackLayout,
+                      n_split: Optional[int] = None) -> torch.Tensor:
     """K1b wrapper: x [B, Kp], hi [Kp/per_word, N], lsb [Kp/(32k), N] (any
     [r, N] when k == 1), scale [N] -> y [B, N] f32. CPU tensors take the
     plain version; CUDA tensors launch the kernel (tiles and K split from
-    `tuning.plan_ams_matmul`) or raise. The kernel reads x as bf16 rows at a
+    `tuning.plan_ams_matmul`, ``n_split`` as in K1) or raise. The kernel reads x as bf16 rows at a
     stride of a multiple of 8 (16-byte copies): x is taken as it is when it
     has that layout (a view of wider rows too), else copied into it once."""
     _check_planes(x, hi, lsb, scale, lay)
@@ -215,7 +219,8 @@ def ams_matmul_planes(x: torch.Tensor, hi: torch.Tensor, lsb: torch.Tensor,
         xb = torch.empty((B, ldx), dtype=torch.bfloat16, device=x.device)
         xb[:, :Kp].copy_(x)                  # columns past Kp are never read
         x = xb
-    plan = plan_ams_matmul(B, Kw, N, container="planes", k=k, per_word=lay.per_word)
+    plan = plan_ams_matmul(B, Kw, N, container="planes", k=k, per_word=lay.per_word,
+                           n_split=n_split)
     rc = _kernel_planes_mma()(x.data_ptr(), hi.data_ptr(), lsb.data_ptr(), scale.data_ptr(),
                               y.data_ptr(), B, Kw, N, lsb.shape[0] if k > 1 else 0, ldx,
                               lay.hi_bits, k, fmt.man_bits, fmt.bias, plan.tn, plan.nt,

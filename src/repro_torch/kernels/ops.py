@@ -12,6 +12,7 @@ no counterpart).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -24,9 +25,11 @@ def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
     return t if t.shape[0] == rows else torch.nn.functional.pad(t, (0, 0, 0, rows - t.shape[0]))
 
 
-def ams_matmul(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
+def ams_matmul(x: torch.Tensor, pw: PackedWeight, n_split: Optional[int] = None) -> torch.Tensor:
     """y[..., N] = x[..., K] @ DeQ(W) in f32 through K1 (fp533) or K1b
-    (planes): the kernel on CUDA tensors, its plain version on CPU tensors."""
+    (planes): the kernel on CUDA tensors, its plain version on CPU tensors.
+    ``n_split``: the N of the whole linear when W is one rank's N-shard of
+    it (the kernel's K split is then the whole linear's)."""
     lay = pw.layout
     lead = x.shape[:-1]
     B = math.prod(lead) if lead else 1
@@ -36,9 +39,9 @@ def ams_matmul(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
         x2 = torch.nn.functional.pad(x2, (0, Kp - x2.shape[1]))
     hi = _pad_rows(pw.hi, Kp // lay.per_word)
     if lay.container == "fp533":
-        y = ams_matmul_fp533(x2, hi, pw.scale)
+        y = ams_matmul_fp533(x2, hi, pw.scale, n_split=n_split)
     else:
         k = lay.scheme.k
         lsb = _pad_rows(pw.lsb, Kp // (32 * k)) if k > 1 else pw.lsb
-        y = ams_matmul_planes(x2, hi, lsb, pw.scale, lay)
+        y = ams_matmul_planes(x2, hi, lsb, pw.scale, lay, n_split=n_split)
     return y.reshape(*lead, pw.N)

@@ -152,7 +152,8 @@ class MatmulPlan:
 
 
 def plan_ams_matmul(B: int, Kw: int, N: int, container: str = "fp533", k: int = 1,
-                    per_word: Optional[int] = None, sms: int = SMS) -> MatmulPlan:
+                    per_word: Optional[int] = None, sms: int = SMS,
+                    n_split: Optional[int] = None) -> MatmulPlan:
     """Tile plan of K1 for x [B, 6 Kw] against fp533 words [Kw, N], or of
     K1b (``container="planes"``, ``per_word`` K positions per word, 8 by
     default, shared-LSB group ``k``) for x [B, per_word Kw] against planes
@@ -165,26 +166,33 @@ def plan_ams_matmul(B: int, Kw: int, N: int, container: str = "fp533", k: int = 
     CTAs as fit at once, 4, fewer where their rings (`k1_ring_bytes`) do
     not fit an SM's shared memory together. A row's sum then has the same
     association at every B (the kernel adds each k-group's part in group
-    order), so a row gets the same bits in a tick of any width."""
+    order), so a row gets the same bits in a tick of any width.
+
+    ``n_split``: the N of the whole linear when [Kw, N] is one rank's
+    N-shard of it (tensor-parallel serving): the cluster, and so the K
+    split, is then the whole linear's, and a column gets the bits it gets
+    at tp = 1; the column tiles still follow the shard's N."""
     if B < 1 or Kw < 1 or N < 1:
         raise ValueError(f"empty matmul B={B} Kw={Kw} N={N}")
     pw = _per_word(container, per_word)
     gw = k1_group_words(pw)
     groups = _cdiv(Kw, gw)
 
-    def tile_cols(nt: int, row_tiles: int) -> int:
+    Nw = N if n_split is None else n_split   # the whole linear's N
+
+    def tile_cols(nt: int, row_tiles: int, n: int) -> int:
         if nt == K1_ROW_TILES[-1]:
             return 128
-        return 64 if _cdiv(N, 64) * row_tiles * min(MAX_CLUSTER, groups) >= K1_MIN_CTAS else 32
+        return 64 if _cdiv(n, 64) * row_tiles * min(MAX_CLUSTER, groups) >= K1_MIN_CTAS else 32
 
-    tn1 = tile_cols(1, 1)                      # the decode plan's cluster
+    tn1 = tile_cols(1, 1, Nw)                  # the decode plan's cluster
     fit = SM_SMEM_BYTES // (k1_ring_bytes(tn1, 1, container, k, pw) + CTA_SMEM_RESERVED)
-    cluster = max(1, min(MAX_CLUSTER, groups, _cdiv(max(1, min(4, fit)) * sms, _cdiv(N, tn1))))
+    cluster = max(1, min(MAX_CLUSTER, groups, _cdiv(max(1, min(4, fit)) * sms, _cdiv(Nw, tn1))))
     per = _cdiv(groups, cluster)               # k-groups per rank
     cluster = _cdiv(groups, per)               # no rank left without words
     nt = next((t for t in K1_ROW_TILES if 8 * t >= B), K1_ROW_TILES[-1])
     row_tiles = _cdiv(B, 8 * nt)
-    tn = tile_cols(nt, row_tiles)
+    tn = tile_cols(nt, row_tiles, N)
     return MatmulPlan(tn, nt, row_tiles, _cdiv(N, tn), cluster, per * gw)
 
 

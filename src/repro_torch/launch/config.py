@@ -7,8 +7,11 @@ config fails in one place before any device work. The port adds
 ``cache=None``; GQA, MoE-GQA and MLA) and paged caches (AMS or bf16
 pages; GQA and MoE-GQA), with seeded sampling, priorities and preemption
 with host spill (paged caches), and speculative decoding with the n-gram
-or the self drafters. Meshes, which it does not have yet, raise NotImplementedError
-here, naming their ROADMAP item.
+or the self drafters, and tensor-parallel serving over a (1, tp) mesh
+(`launch.mesh.make_serving_mesh`: paged caches, GQA and MoE-GQA layers;
+every rank builds the same config and submits the same requests in the
+same order). Other meshes raise NotImplementedError here, naming their
+ROADMAP item.
 
     cfg = EngineConfig(arch="qwen2-7b", reduced=False, impl="kernel",
                        slots=8, capacity=1024, prefill_chunk=16,
@@ -20,6 +23,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
+
+import torch
 
 from repro_torch.cache import CacheConfig
 from repro_torch.obs import ObsConfig
@@ -50,8 +55,12 @@ class EngineConfig:
     drafter       "ngram", "self", "self-full" or a `speculative.Drafter`; a
                   name is checked here and the drafter built by the engine
                   (the self drafters from its own params)
-    mesh          accepted for the reference's surface; anything but None
-                  raises NotImplementedError
+    mesh          None (one device) or a (1, tp) `launch.mesh.Mesh` from
+                  ``make_serving_mesh(tp)`` built on every rank: weights
+                  N-sharded, page pools head-sharded, expert-parallel MoE at
+                  decode; at tp > 1 the step runs eagerly (no CUDA graphs),
+                  and contiguous caches, MLA / Mamba / RG-LRU layers and the
+                  self drafters raise NotImplementedError
     """
 
     arch: str = "qwen2-7b"
@@ -113,8 +122,36 @@ class EngineConfig:
                 raise ValueError(f"unknown drafter {self.drafter!r} (expected one of "
                                  f"{DRAFTERS})")
         if self.mesh is not None:
-            raise NotImplementedError("tensor-parallel meshes are not ported yet "
-                                      "(ROADMAP.md, Modules to port)")
+            self._check_mesh()
+
+    def _check_mesh(self):
+        from .mesh import Mesh
+        if not isinstance(self.mesh, Mesh):
+            raise NotImplementedError(
+                f"only the (1, tp) serving meshes of launch.mesh.make_serving_mesh are ported; "
+                f"other meshes ({type(self.mesh).__name__}) are not (ROADMAP.md, Modules to "
+                "port)")
+        if "model" not in self.mesh.axis_names:
+            raise ValueError("ServeEngine mesh needs a 'model' axis")
+        if any(n > 1 for a, n in self.mesh.shape.items() if a != "model"):
+            raise NotImplementedError(f"mesh {self.mesh.shape}: data axes > 1 are not ported "
+                                      "yet (ROADMAP.md, Modules to port)")
+        if self.tp == 1:
+            return
+        if torch.device(self.device).type != self.mesh.device.type:
+            raise ValueError(f"device {self.device!r} but the mesh's rank runs on "
+                             f"{self.mesh.device}")
+        from repro_torch.models.transformer import check_tp_support
+        check_tp_support(self.model_config(), self.sized_cache(), self.tp)
+        if self.speculate_k and isinstance(self.drafter, str) and self.drafter != "ngram":
+            raise NotImplementedError(f"the {self.drafter!r} drafter runs the sequence forward "
+                                      "on sharded weights, which is not ported yet (ROADMAP.md, "
+                                      "Modules to port)")
+
+    @property
+    def tp(self) -> int:
+        """The model axis's size (1 without a mesh)."""
+        return 1 if self.mesh is None else self.mesh.shape["model"]
 
     @property
     def step_chunk(self) -> int:

@@ -76,13 +76,23 @@ outside the step; the step writes a slot's states only while it is live
 (``pos >= 0``), so the idle warm-up of a graph capture leaves live
 requests' states as they were.
 
-Not ported yet, and refused with NotImplementedError: meshes.
+Tensor-parallel serving (``EngineConfig(mesh=make_serving_mesh(tp))`` on
+every rank, one process per rank, `launch.mesh`): the weights are the
+rank's N-shards of every linear (vocab rows of the embedding, E / tp
+experts; `launch.sharding`), the page pools hold the rank's kv heads, MoE
+decodes expert-parallel (`models.moe.moe_ep`), and the residual stream and
+the logits are replicated. Every rank runs the same host scheduler on the
+same submissions in the same order, so the ranks stay in lockstep and emit
+the streams of the tp = 1 engine. The step runs eagerly (no CUDA graphs:
+`capture_graphs` raises, ``stats()["graphs"]`` is False); the KV and cost
+accounting is per device, as in the reference. Contiguous caches, MLA,
+Mamba and RG-LRU layers and meshes with data axes are refused at tp > 1
+(`EngineConfig`), with NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 import itertools
 import threading
 import time
@@ -105,6 +115,7 @@ from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.tree import tree_map
 from repro_torch.models import make_cache, model_dims, quantize_params, reset_cache_slot
 from repro_torch.models.common import make_linear, make_norm
+from repro_torch.models.parallel import NO_CTX, ParallelCtx, heads_split
 from repro_torch.models.transformer import (
     check_chunked_support,
     check_serving_support,
@@ -118,6 +129,8 @@ from repro_torch.obs import NULL_REGISTRY, MetricsRegistry, TraceRecorder, build
 from repro_torch.obs.metrics import COUNT_BUCKETS, TIME_BUCKETS
 
 from .config import EngineConfig
+from .mesh import dp_axes, tp_axis
+from .sharding import shard_params, shard_tree
 from .sampling import (
     GREEDY,
     SamplingParams,
@@ -174,7 +187,8 @@ def prepare_params(params, quant: Optional[QuantPolicy]):
     return params
 
 
-def init_serving_params(cfg, quant: Optional[QuantPolicy], seed: int, device):
+def init_serving_params(cfg, quant: Optional[QuantPolicy], seed: int, device,
+                        ctx: ParallelCtx = NO_CTX):
     """Serving params from ``torch.Generator(device).manual_seed(seed)``,
     initialised and quantized one layer at a time so a full-width model never
     exists in f32 (Qwen2-7B would need about 30 GB). Same draws, same result
@@ -185,22 +199,52 @@ def init_serving_params(cfg, quant: Optional[QuantPolicy], seed: int, device):
     path. A MoE block's experts are quantized one at a time as they are
     drawn (`moe.init_moe`'s ``expert_fn``), so no more than one expert's
     FFN exists in f32 (a full-width Llama-4-Scout block is 8.8 GB in
-    f32)."""
+    f32).
+
+    Under a ``ctx`` of tp > 1 every rank makes the same draws (``dims``
+    padded for tp, `models.model_dims`), slices each bf16 block to its
+    shard (`launch.sharding.shard_tree`) and quantizes only that, each
+    linear judged eligible at its whole size; of a MoE block it quantizes
+    and keeps only its own experts. These are the shards of the tp = 1
+    tree where tp pads nothing (quantizing a weight and slicing its planes
+    equals quantizing the slice: AMS groups run along K, the scale is per
+    column)."""
     check_serving_support(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
-    dims = model_dims(cfg)
+    dims = model_dims(cfg, ctx.tp)
     pat = layer_pattern(cfg)
     G, R = pattern_counts(cfg)
+    # a rank's N-shard of a linear holds 1 / tp of its elements
+    shard_quant = quant if quant is None or ctx.tp == 1 else dataclasses.replace(
+        quant, min_elements=-(-quant.min_elements // ctx.tp))
 
     def prep(tree, prefix: str, min_dim: int):
         tree = _cast(tree, min_dim)
-        return quantize_params(tree, quant, prefix=prefix) if quant is not None else tree
+        moe = tree.get("moe")
+        keys = list(moe or ())
+        experts = moe.pop("experts") if moe is not None else None    # the rank's, prepared
+        tree = shard_tree(tree, ctx.rank, ctx.tp, [n for n in prefix.split("/") if n],
+                          n_stack=0)
+        if quant is not None:
+            tree = quantize_params(tree, shard_quant, prefix=prefix)
+        if experts is not None:         # back in its place: the tree keeps init_moe's order
+            tree["moe"] = {k: experts if k == "experts" else tree["moe"][k] for k in keys}
+        return tree
 
-    embed = {"w": init_embed(gen, cfg, dims, device=device)["w"].to(torch.bfloat16)}
+    def local_experts(prefix: str, min_dim: int):
+        """`init_moe`'s expert_fn: the rank's E / tp experts prepared, the
+        others left out."""
+        e_loc = cfg.num_experts // ctx.tp
+        drawn = itertools.count()
+        return lambda ep: (_prep_expert(ep, quant, prefix, min_dim)
+                           if next(drawn) // e_loc == ctx.rank else None)
+
+    embed = shard_tree({"w": init_embed(gen, cfg, dims, device=device)["w"].to(torch.bfloat16)},
+                       ctx.rank, ctx.tp, ["embed"])
     layers: Dict[str, Any] = {}
     for l in range(G * len(pat)):
         g, i = divmod(l, len(pat))
-        experts = functools.partial(prep, prefix=f"/layers/sub{i}/moe/experts", min_dim=0)
+        experts = local_experts(f"/layers/sub{i}/moe/experts", 0)
         blk = prep(init_block(gen, cfg, dims, pat[i], device=device, expert_fn=experts),
                    f"/layers/sub{i}", 0)
         if g == 0:
@@ -218,19 +262,26 @@ def init_serving_params(cfg, quant: Optional[QuantPolicy], seed: int, device):
         del blk
     tail = {}
     for i in range(R):
-        experts = functools.partial(prep, prefix=f"/tail/sub{i}/moe/experts", min_dim=2)
+        experts = local_experts(f"/tail/sub{i}/moe/experts", 2)
         tail[f"sub{i}"] = prep(init_block(gen, cfg, dims, pat[i], device=device,
                                           expert_fn=experts), f"/tail/sub{i}", 2)
     lm_head = make_linear(gen, cfg.d_model, dims.V, device=device)
     lm_head = {k: _to_bf16(v) if v.dim() >= 2 else v for k, v in lm_head.items()}
+    # only lm_head / embed can still be eligible
+    lm_head = prep({"lm_head": lm_head}, "", 2)["lm_head"]
     params = {"embed": embed, "layers": layers,
               "final_norm": make_norm(cfg.d_model, device=device),
               "lm_head": lm_head}
     if R:
         params["tail"] = tail
-    if quant is not None:   # only lm_head/embed can still be eligible
-        params["lm_head"] = quantize_params({"lm_head": lm_head}, quant)["lm_head"]
     return params
+
+
+def _prep_expert(tree, quant: Optional[QuantPolicy], prefix: str, min_dim: int):
+    """One expert as the serving tree holds it: cast, quantized under its
+    path."""
+    tree = _cast(tree, min_dim)
+    return quantize_params(tree, quant, prefix=prefix) if quant is not None else tree
 
 
 class RequestHandle:
@@ -327,7 +378,11 @@ class ServeEngine:
             raise TypeError("ServeEngine takes an EngineConfig (the reference's legacy "
                             "keyword constructor is not ported)")
         ec = self.config = config
-        self.device = resolve_device(ec.device)
+        # the rank's model axis (NO_CTX on one device); a rank runs on its mesh's device
+        self.ctx = ctx = (ParallelCtx(mesh=ec.mesh, dp_axes=dp_axes(ec.mesh),
+                                      tp_axis=tp_axis(ec.mesh)) if ec.tp > 1 else NO_CTX)
+        self.tp = tp = ctx.tp
+        self.device = ec.mesh.device if tp > 1 else resolve_device(ec.device)
         cfg = ec.model_config()
         ccfg = self.cache_cfg = ec.sized_cache()
         check_support(cfg, ccfg)            # before the weights are made
@@ -357,9 +412,10 @@ class ServeEngine:
 
         t0 = time.perf_counter()
         if params is None:
-            params = init_serving_params(cfg, quant, ec.seed, self.device)
+            params = init_serving_params(cfg, quant, ec.seed, self.device, ctx)
         else:
-            params = prepare_params(tree_map(lambda t: t.to(self.device), params), quant)
+            params = shard_params(
+                prepare_params(tree_map(lambda t: t.to(self.device), params), quant), ctx)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.quantize_seconds = time.perf_counter() - t0
@@ -367,8 +423,13 @@ class ServeEngine:
             print(f"[ptq] {ec.scheme} ({ec.strategy}) in {self.quantize_seconds:.1f}s",
                   flush=True)
         self.params = params
-        self.cache = make_cache(cfg, slots, ec.capacity, cache_cfg=ccfg, device=self.device)
-        self._step = build_engine_step(cfg, self.rcfg, ccfg, speculate_k=k)
+        self.cache = make_cache(cfg, slots, ec.capacity, cache_cfg=ccfg, device=self.device,
+                                tp=tp)
+        # per-device KV: a head-sharded pool holds kv / tp heads of every page
+        kv_split = ccfg.paged and heads_split(model_dims(cfg, tp).kv, tp)
+        self._kv_shards = tp if kv_split else 1
+        self._step = build_engine_step(cfg, self.rcfg, ccfg, speculate_k=k,
+                                       ctx=ctx)
         self.drafter: Optional[Drafter] = None
         if k:
             # the self drafters propose from the engine's own (quantized) params
@@ -403,11 +464,13 @@ class ServeEngine:
                                  speculative=bool(k),
                                  d_embed=cfg.d_model if cfg.num_prefix_embeds else 0)
         self.samp = slot_batch(slots, self.device, rows={"ngen": self.inputs.dev["ngen"]})
-        # on the card every tick replays a CUDA graph of the step
+        # on the card every tick replays a CUDA graph of the step, but at
+        # tp > 1, whose collectives no graph can capture: there it runs eagerly
         self.graphs: Optional[GraphedStep] = None
         if self.device.type == "cuda":
-            self.graphs = GraphedStep(self._step, self.params, self.cache, self.inputs,
-                                      self.samp)
+            if tp == 1:
+                self.graphs = GraphedStep(self._step, self.params, self.cache, self.inputs,
+                                          self.samp)
             shape = (slots, k + 4) if k else (2, slots)
             self._out_host = torch.empty(shape, dtype=torch.int32, pin_memory=True)
             self._out_ready = torch.cuda.Event()     # recorded after the copy to _out_host
@@ -430,7 +493,7 @@ class ServeEngine:
 
         m = self.metrics
         self.signature = engine_step_signature(cfg, self.rcfg, cache_cfg=ccfg,
-                                               chunk=self.step_chunk, speculate_k=k)
+                                               chunk=self.step_chunk, speculate_k=k, tp=tp)
         m.gauge("serve_step_signature_info", "engine-step signature (value is always 1)",
                 tuple(self.signature)).labels(**self.signature).set(1)
         self._m_tick_s = m.histogram("serve_tick_seconds",
@@ -479,8 +542,9 @@ class ServeEngine:
         # signature, accumulated in step_end on the host
         self.cost_model = None
         if self.obs.cost_on:
-            dims = model_dims(cfg)
+            dims = model_dims(cfg, tp)
             self.cost_model = build_cost_model(cfg, ec.scheme, ccfg, kv=dims.kv, hd=dims.hd,
+                                               tp=tp, kv_shards=self._kv_shards,
                                                signature=self.signature)
             self._kv_bpt = float(self.kv_bytes_per_token())
             self._m_floor_b = m.counter("serve_floor_hbm_bytes_total",
@@ -1022,7 +1086,13 @@ class ServeEngine:
         chunk, greedy and sampled, with every slot idle. A capture must see
         no CUDA call from another thread, so a front end calls this on its
         stepping thread before it accepts connections (a graph is otherwise
-        captured at its first use). No-op on CPU tensors."""
+        captured at its first use). No-op on CPU tensors; at tp > 1, whose
+        step runs eagerly, it raises."""
+        if self.tp > 1:
+            raise NotImplementedError(
+                "CUDA graphs of the tp > 1 step: its collectives (gloo, staged through the host "
+                "when ranks share a card) cannot be captured; NCCL-captured ticks wait for a "
+                "machine with a card per rank (ROADMAP.md, Modules to port)")
         if self.graphs is None:
             return
         if self._pending is not None or self.has_work:
@@ -1065,12 +1135,15 @@ class ServeEngine:
         packed AMS planes; an MLA model is counted by its kv heads x head_dim
         as well, as the reference counts it, and so is a Mamba model, which
         keeps no KV at all: falcon-mamba-7b's num_kv_heads 1 x head_dim 64,
-        and a hybrid's rec layers beside its attn layers' rings)."""
-        dims = model_dims(self.cfg)
-        return self.cfg.num_layers * pool_bytes_per_token(dims.kv, dims.hd, self.cache_cfg)
+        and a hybrid's rec layers beside its attn layers' rings). Per device:
+        a head-sharded tp > 1 pool holds kv / tp heads of every page, so this
+        scales as 1 / tp, as in the reference."""
+        dims = model_dims(self.cfg, self.tp)
+        return self.cfg.num_layers * pool_bytes_per_token(dims.kv // self._kv_shards, dims.hd,
+                                                          self.cache_cfg)
 
     def kv_compression_vs_bf16(self) -> float:
-        dims = model_dims(self.cfg)
+        dims = model_dims(self.cfg, self.tp)
         return compression_vs_bf16(dims.kv, dims.hd, self.cache_cfg)
 
     def stats(self) -> Dict[str, Any]:
@@ -1124,6 +1197,8 @@ class ServeEngine:
             "spill_pages": self.spill_pages,
             "spill_bytes": self.spill_bytes,
             "restored_pages": self.restored_pages,
+            # whether ticks replay CUDA graphs (not on CPU tensors, nor at tp > 1)
+            "graphs": self.graphs is not None,
         }
         if self.alloc is not None:
             out["free_pages"] = self.alloc.free_pages

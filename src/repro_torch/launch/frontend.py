@@ -77,6 +77,10 @@ class ServeFrontend:
 
     def __init__(self, engine, host: str = "127.0.0.1", port: int = 0,
                  idle_poll_s: float = 0.02):
+        if getattr(engine, "tp", 1) > 1:
+            raise NotImplementedError(
+                "the front end over a tensor-parallel engine (every rank must see the same "
+                "submissions in the same order) is not ported yet (ROADMAP.md, Modules to port)")
         self.eng = engine
         self.host = host
         self.port = port              # 0 = ephemeral; the real port after start()

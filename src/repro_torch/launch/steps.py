@@ -1,6 +1,7 @@
 """The continuous-batching engine step and the train step (port of
 src/repro/launch/steps.py: build_engine_step, engine_step_signature,
-_loss_fn and build_train_step; the port has no mesh argument yet).
+_loss_fn and build_train_step; the engine step takes a `ParallelCtx` where
+the reference takes a mesh).
 
 The reference jits one slot-masked program per engine and donates the
 cache to it. The port's step is a plain function with the same arguments:
@@ -34,6 +35,13 @@ CUDA tensors `GraphedStep` replays the step as CUDA graphs, one per (chunk
 width, sampled) pair, the counterpart of the reference's compiled program:
 the caches and inputs are the graphs' static memory, written in place. On
 CPU tensors the engine calls the same step eagerly at the same widths.
+
+Tensor-parallel serving (a ``ctx`` of tp > 1, paged caches): every rank
+runs the step on its shards of the weights and its kv heads of the pools
+(`models.decode_step`); the residual stream and the logits are replicated,
+so every rank samples the same tokens as the tp = 1 step. The step then
+runs eagerly on the card: its collectives (gloo, staged through host
+memory, when the ranks share a card) cannot be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -51,19 +59,22 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.tree import tree_from_items, tree_items, tree_leaves, tree_map
 from repro_torch.kernels.build import add_counts, recorded_counts
 from repro_torch.models import decode_step, forward_seq, layer_pattern
+from repro_torch.models.parallel import NO_CTX
 from repro_torch.optim import AdamWConfig, apply_updates, warmup_cosine
 
 from .sampling import any_sampled, sample_tokens
 from .speculative import truncate_cache, verify_tokens
 
 
-def build_engine_step(cfg: ModelConfig, rcfg: RunConfig, cache_cfg, speculate_k: int = 0):
+def build_engine_step(cfg: ModelConfig, rcfg: RunConfig, cache_cfg, speculate_k: int = 0,
+                      ctx=NO_CTX):
     """Returns the step function for this (model, run, cache); one function
     serves one-token and chunked ticks (`decode_step` reads the token's
     shape). Which layers the cache holds was checked where the cache was
     made (`models.make_cache`). A speculative step verifies up to
     min(speculate_k, width - 1) drafts per slot: a width-1 tick of a
-    speculative engine scores one position with the same epilogue."""
+    speculative engine scores one position with the same epilogue. ``ctx``:
+    the rank's `models.parallel.ParallelCtx` (`NO_CTX`: one device)."""
     policy = rcfg.quant if rcfg.quantized else None
 
     def step(params, token, pos, cache, sampling, *, nvalid=None, block_tables=None,
@@ -72,13 +83,14 @@ def build_engine_step(cfg: ModelConfig, rcfg: RunConfig, cache_cfg, speculate_k:
         if not speculate_k:
             logits, cache = decode_step(params, token, cache, pos, cfg, policy=policy,
                                         block_tables=block_tables, cache_cfg=cache_cfg,
-                                        nvalid=nvalid, **emb)
+                                        nvalid=nvalid, ctx=ctx, **emb)
             next_token, done = sample_tokens(logits, sampling)
             return next_token, done, cache
         k = min(speculate_k, token.shape[1] - 1)
         logits, cache = decode_step(params, token, cache, pos, cfg, policy=policy,
                                     block_tables=block_tables, cache_cfg=cache_cfg,
-                                    nvalid=nvalid, ndraft=ndraft, n_logits=k + 1, **emb)
+                                    nvalid=nvalid, ndraft=ndraft, n_logits=k + 1, ctx=ctx,
+                                    **emb)
         if k == 0:
             logits = logits[:, None]
         out, n_emit, accepted, done = verify_tokens(logits, token, nvalid, ndraft, sampling, k)
@@ -276,9 +288,9 @@ def recurrent_states_kept(cache, cfg: ModelConfig):
 
 
 def engine_step_signature(cfg: ModelConfig, rcfg: RunConfig, cache_cfg=None,
-                          chunk: int = 1, speculate_k: int = 0) -> dict:
+                          chunk: int = 1, speculate_k: int = 0, tp: int = 1) -> dict:
     """Identity of one engine step: cache mode x attention impl x chunk x
-    weight scheme x slot count (tensor parallelism is not ported: tp = 1)."""
+    weight scheme x slot count x the model axis's size."""
     return dict(
         arch=cfg.name,
         scheme=rcfg.quant.scheme if rcfg.quantized else "fp16",
@@ -289,7 +301,7 @@ def engine_step_signature(cfg: ModelConfig, rcfg: RunConfig, cache_cfg=None,
         slots=rcfg.global_batch,
         chunk=chunk,
         speculate_k=speculate_k,
-        tp=1,
+        tp=tp,
     )
 
 

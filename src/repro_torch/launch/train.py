@@ -27,6 +27,7 @@ from repro_torch.launch.fault_tolerance import (
     StragglerMonitor,
     heartbeat_file,
 )
+from repro_torch.launch.mesh import make_driver_mesh
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import init_params
 from repro_torch.optim import init_state
@@ -55,15 +56,12 @@ def main(argv=None, *, params=None):
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(f"--mesh {args.mesh}: device meshes are not ported yet "
-                                  "(ROADMAP.md, Modules to port)")
     if args.grad_compression != "none":
         raise NotImplementedError(f"--grad-compression {args.grad_compression}: the "
                                   "compressed data-parallel all-reduce is not ported yet "
                                   "(ROADMAP.md, Modules to port)")
 
-    device = torch.device(args.device)
+    device = make_driver_mesh(args.mesh, args.device).device
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

@@ -36,6 +36,7 @@ from repro_torch.core.xla_math import bf16_dot, exp_f32, pairs_bf16_dot
 from repro_torch.kernels.attention_template import attend_contiguous
 
 from .common import apply_linear, apply_rope, make_linear, make_norm, materialize_weight, rms_norm
+from .parallel import NO_CTX, heads_split
 
 
 def kv_index_map(H_pad: int, H_true: int, kv: int) -> np.ndarray:
@@ -65,6 +66,41 @@ def gqa_qkv(p, x, cfg, dims, positions, policy=None):
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
 
+def rank_qkv(p, x, cfg, dims, positions, policy, ctx):
+    """q / k / v of this rank's heads, and their head mask. At tp = 1 (or
+    ``ctx`` None) every head. At tp > 1 the N-sharded projections give the
+    rank's H / tp q heads and, where the model axis divides the kv heads
+    (`parallel.heads_split`: the page pool holds the rank's kv heads), its kv / tp kv heads, which group-major order pairs with them;
+    otherwise q, k and v are gathered whole and every rank attends over the
+    whole pool."""
+    tp = ctx.tp
+    hm = dims.head_mask(x.device)
+    if tp == 1:
+        return (*gqa_qkv(p, x, cfg, dims, positions, policy), hm)
+    B, S, _ = x.shape
+    q, k, v = (apply_linear(p[n], x, policy, tp) for n in ("wq", "wk", "wv"))
+    if heads_split(dims.kv, tp):
+        h = dims.H // tp
+        hm = hm[ctx.rank * h:(ctx.rank + 1) * h]
+    else:
+        q, k, v = (ctx.all_gather_last(t) for t in (q, k, v))
+    q, k, v = (t.reshape(B, S, -1, dims.hd) for t in (q, k, v))
+    return (apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta),
+            v, hm)
+
+
+def attn_out(p, o, policy, ctx, dims):
+    """``wo`` of the attention output o [B, S, heads * hd]: at tp > 1 the
+    ranks' heads are gathered first (where they were split) and wo's
+    N-shards gathered after, so ``wo`` contracts every head on each rank."""
+    tp = ctx.tp
+    if tp == 1:
+        return apply_linear(p["wo"], o, policy)
+    if heads_split(dims.kv, tp):
+        o = ctx.all_gather_last(o)
+    return ctx.all_gather_last(apply_linear(p["wo"], o, policy, tp))
+
+
 def chunk_lengths(pos, nvalid, c: int) -> torch.Tensor:
     """Per-query valid-key counts [B, c] for a chunk inserted at ``pos``:
     query j sees pos + j + 1 keys; rows past nvalid (or idle slots) get 0."""
@@ -83,13 +119,15 @@ def gqa_paged_core(q, k_new, v_new, pool, pos, block_tables, *, cache_cfg, scale
 
 
 def gqa_attn_decode_paged(p, x, pool, pos, block_tables, cfg, dims, *, policy=None,
-                          cache_cfg=None):
-    """One-token paged decode: x [B, 1, D], pos [B]. Returns (out, pool)."""
+                          cache_cfg=None, ctx=NO_CTX):
+    """One-token paged decode: x [B, 1, D], pos [B]. Returns (out, pool).
+    Under a tp > 1 ``ctx`` the pool holds this rank's kv heads
+    (`rank_qkv`)."""
     B = x.shape[0]
-    q, k, v = gqa_qkv(p, x, cfg, dims, pos[:, None], policy)
+    q, k, v, hm = rank_qkv(p, x, cfg, dims, pos[:, None], policy, ctx)
     o, pool = gqa_paged_core(q[:, 0], k, v, pool, pos, block_tables, cache_cfg=cache_cfg)
-    o = o * dims.head_mask(o.device)[None, :, None].to(o.dtype)
-    return apply_linear(p["wo"], o.reshape(B, 1, dims.H * dims.hd), policy), pool
+    o = o * hm[None, :, None].to(o.dtype)
+    return attn_out(p, o.reshape(B, 1, -1), policy, ctx, dims), pool
 
 
 def gqa_paged_core_chunk(q, k_new, v_new, pool, pos, block_tables, nvalid, *, cache_cfg,
@@ -103,17 +141,18 @@ def gqa_paged_core_chunk(q, k_new, v_new, pool, pos, block_tables, nvalid, *, ca
 
 
 def gqa_attn_decode_paged_chunk(p, x, pool, pos, nvalid, block_tables, cfg, dims, *,
-                                policy=None, cache_cfg=None):
+                                policy=None, cache_cfg=None, ctx=NO_CTX):
     """Ragged paged decode: x [B, c, D], start positions ``pos`` [B], valid
-    counts ``nvalid`` [B]. Returns (out [B, c, D], pool)."""
+    counts ``nvalid`` [B]. Returns (out [B, c, D], pool). ``ctx`` as in
+    `gqa_attn_decode_paged`."""
     B, c, _ = x.shape
     positions = torch.clamp(pos[:, None] + torch.arange(c, dtype=torch.int32,
                                                         device=x.device), min=0)
-    q, k, v = gqa_qkv(p, x, cfg, dims, positions, policy)
+    q, k, v, hm = rank_qkv(p, x, cfg, dims, positions, policy, ctx)
     o, pool = gqa_paged_core_chunk(q, k, v, pool, pos, block_tables, nvalid,
                                    cache_cfg=cache_cfg)
-    o = o * dims.head_mask(o.device)[None, None, :, None].to(o.dtype)
-    return apply_linear(p["wo"], o.reshape(B, c, dims.H * dims.hd), policy), pool
+    o = o * hm[None, None, :, None].to(o.dtype)
+    return attn_out(p, o.reshape(B, c, -1), policy, ctx, dims), pool
 
 
 # ---------------------------------------------------------------------------

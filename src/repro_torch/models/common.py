@@ -40,8 +40,12 @@ def make_norm(d: int, *, dtype=torch.float32, device="cpu") -> torch.Tensor:
 
 # -------------------------------------------------------------------- apply
 def apply_linear(p: Dict[str, Any], x: torch.Tensor,
-                 policy: Optional[QuantPolicy] = None) -> torch.Tensor:
-    """y = x @ W (+b); dispatches plain vs AMS-packed representation."""
+                 policy: Optional[QuantPolicy] = None, shards: int = 1) -> torch.Tensor:
+    """y = x @ W (+b); dispatches plain vs AMS-packed representation.
+    ``shards`` > 1: W is one of that many N-shards of a linear
+    (`launch.sharding`); K1 / K1b then split K as they split the whole
+    linear (`kernels.tuning.plan_ams_matmul`'s ``n_split``), so the shard's
+    columns get the bits they get in the whole product."""
     if "w" in p:
         y = x @ p["w"].to(x.dtype)
     else:
@@ -59,7 +63,7 @@ def apply_linear(p: Dict[str, Any], x: torch.Tensor,
             y = ref.ams_matmul_blocked(x.reshape(-1, K), pw).reshape(*lead, N).to(x.dtype)
         elif impl == "kernel":
             from repro_torch.kernels import ops
-            y = ops.ams_matmul(x, pw).to(x.dtype)
+            y = ops.ams_matmul(x, pw, n_split=N * shards if shards > 1 else None).to(x.dtype)
         else:
             raise ValueError(f"unknown quant impl {impl!r}")
     if "b" in p:
@@ -179,10 +183,21 @@ def quantize_params(params, policy: QuantPolicy, strategy: Optional[str] = None,
     return visit(prefix, params)
 
 
+def ceil_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def pad_heads(h: int, tp: int) -> int:
+    """A head count padded so it shards evenly over ``tp`` ranks."""
+    return ceil_to(h, tp)
+
+
 @dataclasses.dataclass(frozen=True)
 class Dims:
-    """Derived head/vocab dimensions. Heads are GROUP-MAJOR: q-head slot j
-    belongs to kv group j // gp (the reference's layout at tp=1)."""
+    """Derived head/vocab dimensions, padded for a model axis of ``tp``
+    ranks. Heads are GROUP-MAJOR: q-head slot j belongs to kv group
+    j // gp; the first ``gt`` slots of each group are real heads, the rest
+    padding (masked after attention)."""
 
     H: int          # padded q-head count
     H_true: int
@@ -210,11 +225,14 @@ class Dims:
         return torch.where(j < self.V_true, 0.0, -1e9).to(torch.float32)
 
 
-def model_dims(cfg, head_dim: Optional[int] = None) -> Dims:
-    """Dims at tensor-parallel degree 1 (the only one the port serves)."""
+def model_dims(cfg, tp: int = 1, head_dim: Optional[int] = None) -> Dims:
+    """Dims at a model axis of ``tp`` ranks: q heads padded to a multiple
+    of tp (kv heads padded alongside where the padded count stops dividing
+    by them), the vocab to a multiple of tp; tp = 1 pads nothing."""
     hd = head_dim if head_dim is not None else cfg.head_dim
+    H_true = cfg.num_heads
     kv_true = max(1, cfg.num_kv_heads)
-    H = cfg.num_heads
-    kv = kv_true if H % kv_true == 0 else H
-    return Dims(H=H, H_true=H, kv=kv, kv_true=kv_true, hd=hd,
-                V=cfg.vocab_size, V_true=cfg.vocab_size)
+    Hp = pad_heads(H_true, tp)
+    kv = kv_true if Hp % kv_true == 0 else Hp
+    return Dims(H=Hp, H_true=H_true, kv=kv, kv_true=kv_true, hd=hd,
+                V=ceil_to(cfg.vocab_size, tp), V_true=cfg.vocab_size)

@@ -1,5 +1,5 @@
 """Dense FFN variants (port of src/repro/models/ffn.py): SwiGLU, GeGLU and
-the plain GELU MLP."""
+the plain GELU MLP, on one device or on a rank's d_ff / tp columns."""
 
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ import torch
 from repro_torch.core.rtn import device_table
 
 from .common import apply_linear, make_linear
+from .parallel import NO_CTX
 
 ACTIVATIONS = ("silu_glu", "gelu_glu", "gelu")
 
@@ -47,10 +48,24 @@ def _act(name: str):
     return silu if name.startswith("silu") else gelu
 
 
-def ffn_apply(p, x, activation: str, policy=None):
+def down_proj(p, h, policy=None, ctx=NO_CTX):
+    """``w_down`` of the FFN's hidden h. Under a tp > 1 ``ctx`` h holds this
+    rank's d_ff / tp columns (the N-shards of ``w_gate`` / ``w_up``): the
+    ranks' hiddens are gathered, ``w_down``'s N-shard contracts all of d_ff,
+    and its output columns are gathered into the replicated residual."""
+    tp = ctx.tp
+    if tp == 1:
+        return apply_linear(p["w_down"], h, policy)
+    return ctx.all_gather_last(apply_linear(p["w_down"], ctx.all_gather_last(h), policy, tp))
+
+
+def ffn_apply(p, x, activation: str, policy=None, ctx=NO_CTX):
+    """The FFN of x; under a tp > 1 ``ctx`` on the rank's d_ff / tp
+    columns (`down_proj`)."""
     act = _act(activation)
+    tp = ctx.tp
     if "w_gate" in p:
-        g = act(apply_linear(p["w_gate"], x, policy))
-        u = apply_linear(p["w_up"], x, policy)
-        return apply_linear(p["w_down"], g * u, policy)
-    return apply_linear(p["w_down"], act(apply_linear(p["w_up"], x, policy)), policy)
+        g = act(apply_linear(p["w_gate"], x, policy, tp))
+        u = apply_linear(p["w_up"], x, policy, tp)
+        return down_proj(p, g * u, policy, ctx)
+    return down_proj(p, act(apply_linear(p["w_up"], x, policy, tp)), policy, ctx)

@@ -17,13 +17,16 @@ Numerics follow the reference's compiled CPU step: the softmax is XLA's
 expert order), ties in the top-k go to the lower expert index (a stable
 sort), and the combine multiplies each expert's bf16 output by its weight
 rounded to bf16 and sums over the experts in f32 before one rounding to
-bf16; the shared expert's output is added in bf16. The expert-parallel and
-tensor-parallel paths (``moe_ep`` / ``moe_tp``) wait for meshes.
+bf16; the shared expert's output is added in bf16. Under a tensor-parallel
+mesh the decode step runs the expert-parallel path (`moe_ep`: a rank's
+E / tp experts, each serving its top ``cap`` tokens); the reference's
+tensor-parallel training path (``moe_tp``) is not ported.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -34,6 +37,7 @@ from repro_torch.core.xla_math import exp_f32, fma_f32, sum_in_order
 
 from .common import apply_linear, make_linear
 from .ffn import _act, ffn_apply, init_ffn
+from .parallel import NO_CTX
 
 
 def init_moe(gen, cfg, *, dtype=torch.float32, device="cpu",
@@ -42,11 +46,14 @@ def init_moe(gen, cfg, *, dtype=torch.float32, device="cpu",
     in index order (each its FFN's linears), the router (f32 whatever
     ``dtype``), the shared expert. ``expert_fn`` maps each expert's tree
     before the experts are stacked (the serving init quantizes each one
-    there, so no more than one expert's FFN exists in f32 at a time)."""
+    there, so no more than one expert's FFN exists in f32 at a time); an
+    expert it maps to None is drawn and left out (a rank of expert
+    parallelism keeps its own)."""
     kw = dict(dtype=dtype, device=device)
     fn = expert_fn or (lambda ep: ep)
-    experts = tree_stack([fn(init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn_activation, **kw))
-                          for _ in range(cfg.num_experts)])
+    experts = [fn(init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn_activation, **kw))
+               for _ in range(cfg.num_experts)]
+    experts = tree_stack([e for e in experts if e is not None])
     p = {"experts": experts,
          "router": make_linear(gen, cfg.d_model, cfg.num_experts, dtype=torch.float32,
                                device=device)}
@@ -169,11 +176,62 @@ def moe_dense(p, x: torch.Tensor, cfg, policy=None):
     return y.reshape(B, S, D).to(x.dtype), aux
 
 
-def moe_apply(p, x: torch.Tensor, cfg, policy=None, *, devices: int = 1):
-    """The MoE FFN of one block: `moe_dense` on one device. The reference's
-    expert-parallel (decode) and tensor-parallel (sequence) paths over more
-    devices are not ported."""
-    if devices != 1:
-        raise NotImplementedError(f"MoE over {devices} devices (expert or tensor "
-                                  "parallelism) is not ported yet (ROADMAP.md, Modules to port)")
+def expert_capacity(T: int, cfg) -> int:
+    """Tokens an expert serves in `moe_ep`: min(T, max(1, ceil(T * topk / E
+    * moe_capacity_factor)))."""
+    return min(T, max(1, math.ceil(T * cfg.experts_per_token / cfg.num_experts
+                                   * cfg.moe_capacity_factor)))
+
+
+def moe_ep(p, x: torch.Tensor, cfg, ctx, policy=None):
+    """Expert-parallel MoE over the model axis of ``ctx`` (the reference's
+    `moe_ep`). x [B, S, D], replicated on every rank; ``p["experts"]``
+    holds this rank's E / tp experts (`launch.sharding`), the router and
+    the shared expert's N-shards the rest. Each rank routes every token
+    (the router replicated), serves each of its experts the top ``cap``
+    tokens by that expert's gate (`expert_capacity`; a stable descending
+    sort, so ties go to the lower token index, as ``jax.lax.top_k``: a
+    token past an expert's capacity gets nothing from it), scatters
+    ``he * w_e`` into an f32 [T, D] sum over its experts in index order,
+    and the ranks' sums are added in rank order (`ParallelCtx.sum_ranks`).
+    Returns (y [B, S, D] in x.dtype, the auxiliary loss)."""
+    B, S, D = x.shape
+    E, tp = cfg.num_experts, ctx.tp
+    if E % tp:
+        raise ValueError(f"num_experts={E} must divide over tp={tp}")
+    e_loc = E // tp
+    xf = x.reshape(B * S, D)
+    T = xf.shape[0]
+    cap = expert_capacity(T, cfg)
+    combine, probs = gates(p, xf, cfg)
+    y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    for j in range(e_loc):
+        w_e = combine[:, ctx.rank * e_loc + j]
+        order = torch.sort(w_e, descending=True, stable=True).indices[:cap]
+        he = expert_ffn(tree_map(lambda t: t[j], p["experts"]), xf[order], cfg.ffn_activation,
+                        policy)
+        part = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+        part[order] = he.to(torch.float32) * w_e[order, None]
+        y = y + part
+    y = ctx.sum_ranks(y).reshape(B, S, D).to(x.dtype)
+    aux = load_balance_loss(combine, probs, E)
+    if "shared" in p:
+        y = y + ffn_apply(p["shared"], x, cfg.ffn_activation, policy, ctx)
+    return y, aux
+
+
+def moe_apply(p, x: torch.Tensor, cfg, policy=None, *, ctx=NO_CTX, phase: str = "seq",
+              devices: int = 1):
+    """The MoE FFN of one block: `moe_dense` on one device; `moe_ep` at
+    decode (the engine step, ``phase="decode"``) under a ``ctx`` of tp > 1.
+    The reference's tensor-parallel path for sequences (``moe_tp``, its
+    training path) is not ported, nor is MoE over devices without a
+    mesh (``devices`` > 1)."""
+    tp = ctx.tp
+    if devices != 1 or (tp > 1 and phase != "decode"):
+        raise NotImplementedError(
+            f"MoE over {max(devices, tp)} devices outside the decode step (the reference's "
+            "moe_tp) is not ported yet (ROADMAP.md, Modules to port)")
+    if tp > 1:
+        return moe_ep(p, x, cfg, ctx, policy)
     return moe_dense(p, x, cfg, policy)

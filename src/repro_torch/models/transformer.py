@@ -38,6 +38,7 @@ from . import ffn as F
 from . import moe as M
 from . import ssm as S
 from .common import Dims, apply_linear, make_linear, make_norm, model_dims, rms_norm
+from .parallel import NO_CTX, heads_split
 
 
 def layer_pattern(cfg) -> Tuple[str, ...]:
@@ -91,6 +92,24 @@ def check_support(cfg, cache_cfg=None):
     if cfg.sliding_window:
         raise NotImplementedError("paged caches do not hold sliding-window ring caches: "
                                   "serve the model over a contiguous cache")
+
+
+def check_tp_support(cfg, cache_cfg, tp: int):
+    """What a model axis of ``tp`` > 1 ranks serves: GQA and MoE-GQA layers
+    over paged caches (head-sharded page pools). Contiguous caches (whose
+    reference shards the sequence and merges across ranks), MLA, Mamba and
+    the RG-LRU raise."""
+    if tp == 1:
+        return
+    bad = sorted(set(layer_pattern(cfg)) - set(ATTENTION_KINDS))
+    if bad:
+        raise NotImplementedError(
+            f"tensor-parallel serving of {bad} layers ({cfg.name}) is not ported yet "
+            "(ROADMAP.md, Modules to port)")
+    if cache_cfg is None or not cache_cfg.paged:
+        raise NotImplementedError(
+            "tensor-parallel serving over contiguous caches (the reference's sequence-sharded "
+            "merge) is not ported yet (ROADMAP.md, Modules to port): use a paged cache")
 
 
 def check_chunked_support(cfg):
@@ -201,16 +220,21 @@ def block_cache_shape(cfg, dims: Dims, kind: str, B: int, cap: int, *,
 
 
 def make_cache(cfg, B: int = 0, cap: int = 0, *, cache_cfg=None, dtype=torch.bfloat16,
-               device="cpu"):
+               device="cpu", tp: int = 1):
     """Zero caches for every layer, laid out as the params: page pools
     (bf16 or AMS planes, [G, P, page, kv, ...]) for a paged ``cache_cfg``,
     else the fixed [G, B, S, ...] slot layout per pattern position
-    (``layers/sub{i}``) and [B, S, ...] per tail block (``tail/sub{i}``)."""
+    (``layers/sub{i}``) and [B, S, ...] per tail block (``tail/sub{i}``).
+    At ``tp`` > 1 the pools of one rank: its kv / tp heads where tp divides
+    them, else every head, as the reference's `pool_shardings`
+    (`models.parallel.heads_split`)."""
     check_support(cfg, cache_cfg)
-    dims = model_dims(cfg)
+    check_tp_support(cfg, cache_cfg, tp)
+    dims = model_dims(cfg, tp)
     if cache_cfg is not None and cache_cfg.paged:
         from repro_torch.cache import make_gqa_page_pool
-        return {"layers": {"sub0": make_gqa_page_pool(cache_cfg, dims.kv, dims.hd,
+        kv = dims.kv // tp if heads_split(dims.kv, tp) else dims.kv
+        return {"layers": {"sub0": make_gqa_page_pool(cache_cfg, kv, dims.hd,
                                                       device=device,
                                                       lead=(cfg.num_layers,))}}
     if B < 1 or cap < 1:
@@ -261,13 +285,13 @@ def residual_norm(x, out, g, eps):
     return y, _norm_in(y, pre, g, eps)
 
 
-def _ffn(p, h, cfg, policy):
+def _ffn(p, h, cfg, policy, ctx=NO_CTX, phase="seq"):
     """The block's FFN of its normed input: the MoE FFN of a ``gqa_moe``
-    block, the dense one otherwise. Returns (output, auxiliary loss or
-    None)."""
+    block, the dense one otherwise (under ``ctx``: a rank's shards).
+    Returns (output, auxiliary loss or None)."""
     if "moe" in p:
-        return M.moe_apply(p["moe"], h, cfg, policy)
-    return F.ffn_apply(p["ffn"], h, cfg.ffn_activation, policy), None
+        return M.moe_apply(p["moe"], h, cfg, policy, ctx=ctx, phase=phase)
+    return F.ffn_apply(p["ffn"], h, cfg.ffn_activation, policy, ctx), None
 
 
 def _attn_impl(cache_cfg) -> str:
@@ -276,7 +300,7 @@ def _attn_impl(cache_cfg) -> str:
 
 
 def block_decode(p, x, cache, pos, kind, cfg, dims, *, policy, block_tables, cache_cfg,
-                 pre=None):
+                 pre=None, ctx=NO_CTX):
     """x [B, 1, D] through one block: MLA over its compressed stream, GQA
     over a page pool or a contiguous cache (a ring of the last
     ``sliding_window`` keys for an ``attn`` block of a sliding-window
@@ -303,7 +327,7 @@ def block_decode(p, x, cache, pos, kind, cfg, dims, *, policy, block_tables, cac
         cache = {"kv": ckv}
     elif cache_cfg is not None and cache_cfg.paged:
         out, cache = A.gqa_attn_decode_paged(p["attn"], h, cache, pos, block_tables, cfg,
-                                             dims, policy=policy, cache_cfg=cache_cfg)
+                                             dims, policy=policy, cache_cfg=cache_cfg, ctx=ctx)
     else:
         window = cfg.sliding_window if kind == "attn" else 0
         out, (ck, cv) = A.gqa_attn_decode(p["attn"], h, cache["k"], cache["v"], pos, cfg,
@@ -311,12 +335,12 @@ def block_decode(p, x, cache, pos, kind, cfg, dims, *, policy, block_tables, cac
                                           ring=bool(window), attn_impl=_attn_impl(cache_cfg))
         cache = {"k": ck, "v": cv}
     x, h2 = residual_norm(x, out, p["ln2"], cfg.norm_eps)
-    x, pre = residual(x, _ffn(p, h2, cfg, policy)[0])
+    x, pre = residual(x, _ffn(p, h2, cfg, policy, ctx, "decode")[0])
     return x, cache, pre
 
 
 def block_decode_chunk(p, x, cache, pos, nvalid, kind, cfg, dims, *, policy, block_tables,
-                       cache_cfg):
+                       cache_cfg, ctx=NO_CTX):
     """Ragged analogue of `block_decode`: x [B, c, D] (attention layers
     only, `check_chunked_support`)."""
     if kind not in ATTENTION_KINDS + ("mla",):
@@ -329,18 +353,30 @@ def block_decode_chunk(p, x, cache, pos, nvalid, kind, cfg, dims, *, policy, blo
     elif cache_cfg is not None and cache_cfg.paged:
         out, cache = A.gqa_attn_decode_paged_chunk(p["attn"], h, cache, pos, nvalid,
                                                    block_tables, cfg, dims, policy=policy,
-                                                   cache_cfg=cache_cfg)
+                                                   cache_cfg=cache_cfg, ctx=ctx)
     else:
         out, (ck, cv) = A.gqa_attn_decode_chunk(p["attn"], h, cache["k"], cache["v"], pos,
                                                 nvalid, cfg, dims, policy=policy,
                                                 attn_impl=_attn_impl(cache_cfg))
         cache = {"k": ck, "v": cv}
     x, h2 = residual_norm(x, out, p["ln2"], cfg.norm_eps)
-    return x + _ffn(p, h2, cfg, policy)[0], cache
+    return x + _ffn(p, h2, cfg, policy, ctx, "decode")[0], cache
 
 
-def _embed(params, tokens, dtype=torch.bfloat16, prefix_embeds=None):
-    x = params["embed"]["w"].to(dtype)[tokens.long()]
+def _embed(params, tokens, dtype=torch.bfloat16, prefix_embeds=None, ctx=NO_CTX):
+    """Token embeddings (after ``prefix_embeds``). Under a tp > 1 ``ctx``
+    the table holds this rank's V / tp vocab rows: each rank looks up the
+    tokens it holds, -0.0 elsewhere, and `ParallelCtx.sum_ranks` adds the
+    ranks' lookups, which is exact (x + -0.0 is x, -0.0 included)."""
+    w = params["embed"]["w"].to(dtype)
+    tp = ctx.tp
+    if tp == 1:
+        x = w[tokens.long()]
+    else:
+        local = tokens.long() - ctx.rank * w.shape[0]
+        mine = (local >= 0) & (local < w.shape[0])
+        x = w[torch.where(mine, local, 0)]
+        x = ctx.sum_ranks(torch.where(mine[..., None], x, torch.full_like(x, -0.0)))
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
     return x
@@ -357,12 +393,19 @@ def _override(x, embeds, embed_mask):
                        embeds.reshape(x.shape).to(x.dtype), x)
 
 
-def _head(params, x, cfg, dims, policy=None, pre=None):
+def _head(params, x, cfg, dims, policy=None, pre=None, ctx=NO_CTX):
     """Final norm (of the last block's addends ``pre`` summed unrounded,
-    where given) and lm_head: f32 logits."""
+    where given) and lm_head: f32 logits. Under a tp > 1 ``ctx`` lm_head's
+    N-shards are gathered and cut to the true vocab: every rank samples
+    from the same logits, of tp = 1's width."""
     x = _norm_in(x, pre, params["final_norm"], cfg.norm_eps)
-    logits = apply_linear(params["lm_head"], x, policy)
-    return logits.to(torch.float32) + dims.vocab_mask_bias(x.device)[None, None, :]
+    tp = ctx.tp
+    if tp == 1:
+        logits = apply_linear(params["lm_head"], x, policy)
+        return logits.to(torch.float32) + dims.vocab_mask_bias(x.device)[None, None, :]
+    logits = ctx.all_gather_last(apply_linear(params["lm_head"], x, policy, tp))
+    return (logits.to(torch.float32)
+            + dims.vocab_mask_bias(x.device)[None, None, :])[..., :dims.V_true]
 
 
 def _blocks(params, cfg):
@@ -504,7 +547,7 @@ def forward_seq(params, tokens, cfg, *, policy=None, remat=True, block_kv=1024,
 
 def decode_step(params, token, cache, pos, cfg, *, policy=None, dtype=torch.bfloat16,
                 block_tables=None, cache_cfg=None, nvalid=None, ndraft=None, n_logits=1,
-                embeds=None, embed_mask=None):
+                embeds=None, embed_mask=None, ctx=NO_CTX):
     """One decode step. token [B] with per-slot positions ``pos`` [B]
     (negative = idle slot, write suppressed), or the ragged multi-token
     step: token [B, C] with start positions ``pos`` [B] and valid counts
@@ -522,37 +565,45 @@ def decode_step(params, token, cache, pos, cfg, *, policy=None, dtype=torch.bflo
     ``embeds`` [B, D] + ``embed_mask`` [B] (``[B, C, D]`` / ``[B, C]`` in
     the ragged step) override the token embedding where the mask is set:
     the engine streams modality prefix embeddings through the step this
-    way during prefill."""
+    way during prefill.
+
+    ``ctx``: a `models.parallel.ParallelCtx`; at tp > 1 (paged GQA and
+    MoE-GQA layers, `check_tp_support`) ``params`` and ``cache`` are this
+    rank's shards, the residual stream and the logits are replicated, and
+    every rank returns the logits of the tp = 1 step."""
+    tp = ctx.tp
+    check_tp_support(cfg, cache_cfg, tp)
     if token.dim() == 2:
         return _decode_step_chunk(params, token, cache, pos, nvalid, cfg, policy=policy,
                                   dtype=dtype, block_tables=block_tables,
                                   cache_cfg=cache_cfg, ndraft=ndraft, n_logits=n_logits,
-                                  embeds=embeds, embed_mask=embed_mask)
+                                  embeds=embeds, embed_mask=embed_mask, ctx=ctx)
     if n_logits != 1:
         raise ValueError("n_logits > 1 requires the ragged [B, C] step")
-    dims = model_dims(cfg)
+    dims = model_dims(cfg, tp)
     pos = pos.to(torch.int32)
-    x = _override(_embed(params, token[:, None], dtype), embeds, embed_mask)
+    x = _override(_embed(params, token[:, None], dtype, ctx=ctx), embeds, embed_mask)
 
     def fn(kind, bp, x, c, pre):
         return block_decode(bp, x, c, pos, kind, cfg, dims, policy=policy,
-                            block_tables=block_tables, cache_cfg=cache_cfg, pre=pre)
+                            block_tables=block_tables, cache_cfg=cache_cfg, pre=pre, ctx=ctx)
 
     x, pre = _layers(params, cache, fn, x, cfg)
-    return _head(params, x, cfg, dims, policy, pre)[:, 0], cache
+    return _head(params, x, cfg, dims, policy, pre, ctx)[:, 0], cache
 
 
 def _decode_step_chunk(params, token, cache, pos, nvalid, cfg, *, policy=None,
                        dtype=torch.bfloat16, block_tables=None, cache_cfg=None, ndraft=None,
-                       n_logits=1, embeds=None, embed_mask=None):
-    dims = model_dims(cfg)
+                       n_logits=1, embeds=None, embed_mask=None, ctx=NO_CTX):
+    dims = model_dims(cfg, ctx.tp)
     pos = pos.to(torch.int32)
     nvalid = nvalid.to(torch.int32)
-    x = _override(_embed(params, token, dtype), embeds, embed_mask)  # [B, C, D]
+    x = _override(_embed(params, token, dtype, ctx=ctx), embeds, embed_mask)  # [B, C, D]
 
     def fn(kind, bp, x, c, pre):   # attention layers, one per repeat: no addends
         return (*block_decode_chunk(bp, x, c, pos, nvalid, kind, cfg, dims, policy=policy,
-                                    block_tables=block_tables, cache_cfg=cache_cfg), None)
+                                    block_tables=block_tables, cache_cfg=cache_cfg,
+                                    ctx=ctx), None)
 
     x, _ = _layers(params, cache, fn, x, cfg)
     # logits only at each slot's last valid token, or its last ndraft + 1
@@ -562,7 +613,7 @@ def _decode_step_chunk(params, token, cache, pos, nvalid, cfg, *, policy=None,
         j = torch.arange(n_logits, dtype=torch.int32, device=x.device)[None, :]
         sel = torch.clamp(nvalid[:, None] - 1 - nd[:, None] + j, 0, C - 1).long()
         x_sel = torch.gather(x, 1, sel[:, :, None].expand(-1, -1, x.shape[2]))  # [B, K+1, D]
-        return _head(params, x_sel, cfg, dims, policy), cache
+        return _head(params, x_sel, cfg, dims, policy, ctx=ctx), cache
     last = torch.clamp(nvalid - 1, 0, C - 1).long()
     x_last = x[torch.arange(x.shape[0], device=x.device), last][:, None]    # [B, 1, D]
-    return _head(params, x_last, cfg, dims, policy)[:, 0], cache
+    return _head(params, x_last, cfg, dims, policy, ctx=ctx)[:, 0], cache

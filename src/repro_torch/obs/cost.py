@@ -124,16 +124,19 @@ def build_cost_model(cfg, scheme: str, cache_cfg=None, *, kv: Optional[int] = No
     """Cost model for one engine configuration. ``scheme`` is the weight
     scheme ("fp16": bf16 weights); ``cache_cfg`` selects the KV floors (None,
     contiguous or paged_bf16: bf16 KV); ``kv`` / ``hd`` override the
-    config's KV-head geometry with the engine's served dims. ``tp`` and
-    ``kv_shards`` keep the reference's signature; the port serves on one
-    device, so both must be 1."""
-    if tp != 1 or kv_shards != 1:
-        raise NotImplementedError("tensor-parallel cost accounting is not ported yet "
-                                  "(ROADMAP.md, Modules to port)")
+    config's KV-head geometry with the engine's served dims. Per device on a
+    (1, tp) mesh, as in the reference: the weight bytes divide by ``tp``,
+    and every KV floor by ``kv_shards`` (the engine passes tp where its
+    page pools are head-sharded, else 1), so ``kv_floor_ratio`` stays a
+    ratio of like quantities."""
     pc = param_count(cfg)
     wbits = SCHEMES[scheme].effective_bits if scheme in SCHEMES else 16.0
     kv = cfg.num_kv_heads if kv is None else kv
     hd = cfg.head_dim if hd is None else hd
+    if kv_shards > 1:
+        if kv % kv_shards:
+            raise ValueError(f"kv_shards={kv_shards} must divide kv={kv}")
+        kv //= kv_shards
     bf16_tok = 2 * kv * (2 * hd)
     dequant = 0.0
     if cache_cfg is not None and getattr(cache_cfg, "quantized", False):

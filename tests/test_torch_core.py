@@ -193,6 +193,37 @@ def test_bf16_dot_order_is_xla_s(hd):
     assert np.array_equal(f32_bits(_scores(tq, tk).numpy()), f32_bits(want))
 
 
+@pytest.mark.parametrize("M,K,N", [(12, 128, 8192), (3, 256, 4096), (24, 512, 2048)])
+def test_xla_cpu_projection_is_an_f32_dot_not_the_pair_order(M, K, N):
+    """Why `apply_linear` keeps torch's bf16 product on CPU tensors: the
+    reference's bf16 x bf16 -> bf16 projection compiles to a convert of
+    both operands to f32 and an f32 dot (its HLO), whose summation order
+    follows XLA's CPU GEMM blocking, not the `vdpbf16ps` pair order the
+    attention's f32-result einsum takes (`xla_math.bf16_dot`). Neither
+    torch's order nor the pair order gives XLA's bits at every shape; both
+    stay within one bf16 rounding of them. Prints the mismatch counts."""
+    from repro_torch.core.xla_math import bf16_dot, pairs_bf16_dot
+
+    rng = np.random.default_rng(M + K)
+    x = jnp.asarray(rng.standard_normal((M, K)), jnp.bfloat16)
+    w = jnp.asarray(rng.standard_normal((K, N)) / np.sqrt(K), jnp.bfloat16)
+    f = jax.jit(lambda x, w: x @ w)
+    hlo = f.lower(x, w).compile().as_text()
+    assert "f32[%d,%d]{1,0} dot(" % (M, N) in hlo and "bf16[%d,%d]" % (M, N) in hlo
+    want = np.asarray(f(x, w).astype(jnp.float32))
+    tx = torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16()
+    tw = torch.from_numpy(np.array(w.astype(jnp.float32))).bfloat16()
+    got = (tx @ tw).float().numpy()
+    ulp = np.abs(want) * 2.0 ** -7 + 1e-30
+    assert (np.abs(got - want) <= ulp).all()
+    msg = f"torch order {int((got != want).sum())} of {got.size} outputs apart"
+    if pairs_bf16_dot(tx, tw):
+        pairs = bf16_dot(tx[:, None, :], tw.T[None, :, :]).bfloat16().float().numpy()
+        assert (np.abs(pairs - want) <= ulp).all()
+        msg += f", pair order {int((pairs != want).sum())}"
+    print(f"[{M}, {K}] x [{K}, {N}]: {msg}")
+
+
 def test_attention_scores_bit_equal_on_the_reduced_dbrx_chunk_step(monkeypatch):
     """The q . k of every layer of five ragged chunk-4 ticks of reduced
     dbrx-132b (3 layers, bf16 weights, contiguous cache, slot 2 idle) through

@@ -1711,7 +1711,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.launch.engine, "
             "repro_torch.kernels.ops, repro_torch.cache.paged_attention, "
             "repro_torch.models.convert, repro_torch.launch.train, repro_torch.optim, "
-            "repro_torch.data, repro_torch.checkpoint, repro_torch.launch.fault_tolerance; "
+            "repro_torch.data, repro_torch.checkpoint, repro_torch.launch.fault_tolerance, "
+            "repro_torch.launch.mesh, repro_torch.launch.sharding, "
+            "repro_torch.models.parallel; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -1927,3 +1929,33 @@ def test_apply_updates_on_the_card_matches_the_cpu_path(arch):
     print("measured " + json.dumps(worst))
     assert max(worst["p"], worst["m"], worst["v"]) <= CARD_ADAMW_ULPS, worst
     assert worst["grad_norm_rel"] <= CARD_ADAMW_GNORM_REL, worst
+
+
+# ------------------------------------------------------ tensor-parallel shards
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["fp5.33-e2m3", "fp4.25-e2m2"])
+@pytest.mark.parametrize("K,N", [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584),
+                                 (5120, 8192), (8192, 5120), (5120, 1024)])
+def test_k1_n_shard_columns_equal_the_whole_launch(scheme, K, N):
+    """K1 (fp5.33) and K1b (fp4.25) on a rank's N / tp columns of Qwen2-7B's
+    and Llama-4-Scout's projections (the serving layout's shards, planned
+    with the whole linear's K split) give the whole launch's columns bit for
+    bit, at tp 2 and 4 and B 8 and 128."""
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.launch.sharding import shard_tree
+    from repro_torch.models.common import apply_linear, quantize_params
+
+    dev = cuda_device()
+    pol = QuantPolicy(scheme=scheme, impl="kernel", min_elements=1)
+    gen = torch.Generator(device=dev).manual_seed(K + N)
+    w = (torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)).to(torch.bfloat16)
+    p = quantize_params({"wq": {"w": w}}, pol)["wq"]
+    for B in (8, 128):
+        x = torch.randn((B, K), generator=gen, device=dev).to(torch.bfloat16).float()
+        whole = apply_linear(p, x, pol)
+        for tp in (2, 4):
+            n = N // tp
+            for r in range(tp):
+                shard = shard_tree({"wq": p}, r, tp, ["layers", "sub0", "attn"], n_stack=0)["wq"]
+                got = apply_linear(shard, x, pol, shards=tp)
+                assert torch.equal(got, whole[:, r * n:(r + 1) * n]), (B, tp, r)

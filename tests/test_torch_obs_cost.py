@@ -95,7 +95,9 @@ def test_build_cost_model_equals_jax(arch, scheme, kind):
 
 def test_step_time_floor_uses_h100_peaks():
     """The time floor divides by one H100 SXM's published peaks, not the
-    reference's TPU figures; tp and kv shards other than 1 are refused."""
+    reference's TPU figures; at tp and kv shards other than 1 the model is
+    per device, every field as the reference's, and a kv-head count the
+    shards do not divide is refused as the reference refuses it."""
     from repro_torch.analysis import roofline
     assert (roofline.HBM_BW, roofline.PEAK_FLOPS) == (3.35e12, 989e12)
     cm = cost.build_cost_model(get_config("qwen2-7b"), "fp5.33-e2m3",
@@ -107,8 +109,14 @@ def test_step_time_floor_uses_h100_peaks():
                    cm.tick_floor_flops(fed, reads) / 989e12)
         assert cm.step_time_floor_s(fed, reads) == want
         assert cm.step_time_floor_s(fed, reads) < jcm.step_time_floor_s(fed, reads)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        cost.build_cost_model(get_config("qwen2-7b"), "fp16", tp=2)
+    for tp, shards in ((2, 1), (2, 2), (4, 4)):
+        got = cost.build_cost_model(get_config("qwen2-7b"), "fp16", CacheConfig(kind="paged_ams"),
+                                    tp=tp, kv_shards=shards)
+        want = jcost.build_cost_model(j_get_config("qwen2-7b"), "fp16",
+                                      JCacheConfig(kind="paged_ams"), tp=tp, kv_shards=shards)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    with pytest.raises(ValueError, match="kv_shards"):
+        cost.build_cost_model(get_config("qwen2-7b"), "fp16", kv_shards=3)
 
 
 # ------------------------------------------------------------------ engines

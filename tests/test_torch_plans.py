@@ -1438,3 +1438,61 @@ def test_k5p_split_walk_mutations_are_caught():
     kw.update(page=16, max_keys=64, ams=True, share_keys=32)
     bad, _ = _paged_split_walk(S, V, lens, unweighted=True, **kw)
     assert float((bad - want).abs().max()) > 1e-4 * float(want.abs().max())
+
+
+# ----------------------------------------------------- tensor-parallel shards
+TP_PROJECTIONS = [(arch, *p) for arch in ("qwen2-7b", "llama4-scout-17b-16e")
+                  for p in _projections(arch)]
+
+
+def _k1_plans(K, N, scheme, B, **kw):
+    """K1's (fp5.33) or K1b's (a planes scheme) plan of x [B, K] @ [K, N]."""
+    lay = make_layout(get_scheme(scheme))
+    Kw = lay.padded_k(K) // lay.per_word
+    if lay.container == "fp533":
+        return plan_ams_matmul(B, Kw, N, **kw)
+    return plan_ams_matmul(B, Kw, N, container="planes", k=lay.scheme.k,
+                           per_word=lay.per_word, **kw)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("arch,name,K,N", TP_PROJECTIONS,
+                         ids=[f"{a}-{n}" for a, n, _, _ in TP_PROJECTIONS])
+def test_k1_plan_of_an_n_shard_splits_k_as_the_whole_linear(tp, arch, name, K, N):
+    """A rank's N / tp columns of a projection (`launch.sharding`) take the
+    K split of the whole projection (``n_split=N``): the same cluster and
+    words per rank, so each column sums its k-groups in the association it
+    has at tp = 1, for K1 and K1b at B 1, 8 and 128; the column tiles cover
+    the shard's N."""
+    for scheme in ("fp5.33-e2m3", "fp4.25-e2m2"):
+        for B in (1, 8, 128):
+            whole = _k1_plans(K, N, scheme, B)
+            shard = _k1_plans(K, N // tp, scheme, B, n_split=N)
+            assert (shard.cluster, shard.split_words) == (whole.cluster, whole.split_words)
+            assert shard.tn * shard.col_tiles >= N // tp > shard.tn * (shard.col_tiles - 1)
+
+
+def test_k1_plan_of_a_shard_alone_can_split_k_otherwise():
+    """Why the shard plan takes ``n_split``: planned on its own N, some
+    Qwen2-7B shard splits K over another cluster than the whole projection
+    (and would sum its columns in another order)."""
+    differ = [(name, tp) for _, name, K, N in TP_PROJECTIONS[:7] for tp in (2, 4)
+              if _k1_plans(K, N // tp, "fp5.33-e2m3", 8).split_words
+              != _k1_plans(K, N, "fp5.33-e2m3", 8).split_words]
+    assert differ
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "llama4-scout-17b-16e"])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_paged_plans_do_not_depend_on_the_kv_heads(arch, tp):
+    """K2's and K3's plans take their cluster from the slot's tokens and the
+    page, not the kv-head count: a rank's pool of kv / tp heads walks each
+    head's tokens as the whole pool does."""
+    cfg = get_config(arch)
+    kv, g = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    for B, chunk, max_keys, page in ((8, 1, 512, 16), (8, 16, 512, 16), (3, 4, 4096, 64)):
+        R = g * chunk
+        assert (plan_paged_attention(B, kv // tp, R, max_keys)
+                == plan_paged_attention(B, kv, R, max_keys))
+        assert (plan_paged_bf16_attention(B, kv // tp, R, max_keys, page)
+                == plan_paged_bf16_attention(B, kv, R, max_keys, page))

@@ -1,0 +1,203 @@
+"""Spawn targets of tests/test_torch_tp.py and tests/test_torch_moe_ep.py:
+what each rank of a CPU world (gloo, `repro_torch.launch.mesh.spawn`) runs.
+Spawn pickles a target by name, so they live in this importable module,
+which imports the port only (no JAX). Every function also runs without a
+mesh (``mesh=None``: one device), which is how the tests get tp = 1's
+answers for the same cells.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.cache import CacheConfig
+from repro_torch.core.tree import tree_leaves
+from repro_torch.launch.config import EngineConfig
+from repro_torch.launch.engine import ServeEngine
+from repro_torch.launch.sampling import SamplingParams
+from repro_torch.models.convert import params_from_numpy
+
+PAGE, CAP = 8, 32
+# the reference's equivalence grid (tests/test_sharded_serving.py): cache
+# format x chunk x epilogue (speculative decoding at k = 2, greedy)
+GRID = [(kind, scheme, chunk, mode)
+        for kind, scheme in (("paged_bf16", "fp16"), ("paged_ams", "fp5.33-e2m3"))
+        for chunk in (1, 4) for mode in ("greedy", "sampled", "spec")]
+STAT_KEYS = ("ticks", "ttft_ticks_p50", "latency_ticks_p50")
+SHARED = [3, 5, 7, 11, 13, 2, 9, 4] * 2          # two full pages of 8 tokens
+COST_FIELDS = ("kv_bytes_per_token", "kv_ideal_bytes_per_token", "kv_bf16_bytes_per_token",
+               "kv_dequant_bytes_per_token", "weight_bytes")
+
+
+def engine_config(mesh, scheme="fp5.33-e2m3", kind="paged_ams", chunk=4, k=0,
+                  arch="qwen2-7b", impl="fused_ref", attn="ref", **kw):
+    return EngineConfig(arch=arch, reduced=True, scheme=scheme, impl=impl, slots=2,
+                        capacity=CAP, prefill_chunk=chunk, speculate_k=k, mesh=mesh,
+                        device="cpu", cache=CacheConfig(kind=kind, page_size=PAGE, impl=attn),
+                        **kw)
+
+
+def drive(eng, mode: str):
+    """The reference test's two-request workload; (tokens per finished
+    request, the tick stats)."""
+    samp = SamplingParams(temperature=0.8, top_p=0.9, seed=123) if mode == "sampled" else None
+    eng.submit([3, 5, 7], max_tokens=6, sampling=samp)
+    eng.submit([3, 5, 11, 13, 2, 9], max_tokens=6, sampling=samp)
+    st = eng.run()
+    return [list(map(int, r.tokens)) for r in eng.finished], {k: st[k] for k in STAT_KEYS}
+
+
+def serve_cell(mesh, np_params, cell):
+    kind, scheme, chunk, mode = cell
+    eng = ServeEngine(engine_config(mesh, scheme, kind, chunk, 2 if mode == "spec" else 0),
+                      params=params_from_numpy(np_params))
+    return drive(eng, mode)
+
+
+def drive_shared(mesh, np_params):
+    """Shared-prefix workload: the second request is submitted after the
+    first drains, so its two full prefix pages hit the published index."""
+    eng = ServeEngine(engine_config(mesh), params=params_from_numpy(np_params))
+    eng.submit(SHARED + [17], max_tokens=4)
+    eng.run()
+    eng.submit(SHARED + [19], max_tokens=4)
+    eng.run()
+    toks = [list(map(int, r.tokens)) for r in eng.finished]
+    return toks, eng.block_tables.tolist(), eng.alloc.stats()
+
+
+def preempt(mesh, np_params):
+    """A request preempted after its prefill (its private pages spill to the
+    host, the rank's kv heads of them) and resumed; (tokens, spill stats)."""
+    eng = ServeEngine(engine_config(mesh), params=params_from_numpy(np_params))
+    a = eng.submit([3, 5, 7, 11, 13, 2, 9, 4, 6, 8], max_tokens=6)
+    b = eng.submit([3, 5, 11, 13, 2, 9], max_tokens=6)
+    for _ in range(3):
+        eng.step()
+    eng.preempt(a.request.slot)
+    eng.run()
+    return [list(a.tokens), list(b.tokens)], dict(
+        preemptions=eng.preemptions, resumes=eng.resumes, spill_pages=eng.spill_pages,
+        spill_bytes=eng.spill_bytes)
+
+
+def nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def accounting(mesh, np_params):
+    """Per-device accounting of the FP5.33 engine over AMS pages."""
+    eng = ServeEngine(engine_config(mesh), params=params_from_numpy(np_params))
+    cm = eng.cost_model
+    out = dict(kv_bytes_per_token=eng.kv_bytes_per_token(),
+               cost={f: getattr(cm, f) for f in COST_FIELDS},
+               tp=eng.signature["tp"], compression=eng.kv_compression_vs_bf16(),
+               pool_bytes=nbytes(eng.cache), param_bytes=nbytes(eng.params))
+    drive(eng, "greedy")
+    out["kv_floor_ratio"] = eng.stats()["kv_floor_ratio"]
+    out["graphs"] = eng.stats()["graphs"]
+    return out
+
+
+def refusals(mesh, np_params):
+    """What a tp > 1 mesh refuses: {case: (exception type, message)}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.frontend import ServeFrontend
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.models.parallel import ParallelCtx
+
+    def scout_seq():
+        cfg = get_config("llama4-scout-17b-16e").reduced()
+        x = torch.zeros((1, 2, cfg.d_model), dtype=torch.bfloat16)
+        M.moe_apply({}, x, cfg, ctx=ParallelCtx(mesh=mesh, tp_axis="model"), phase="seq")
+
+    eng = ServeEngine(engine_config(mesh), params=params_from_numpy(np_params))
+    cases = {
+        "contiguous": lambda: EngineConfig(reduced=True, device="cpu", mesh=mesh),
+        "mla": lambda: engine_config(mesh, arch="minicpm3-4b"),
+        "mamba": lambda: engine_config(mesh, arch="falcon-mamba-7b"),
+        "rglru": lambda: engine_config(mesh, arch="recurrentgemma-9b"),
+        "data>1": lambda: make_serving_mesh(1, "cpu"),
+        "frontend": lambda: ServeFrontend(eng),
+        "graphs": eng.capture_graphs,
+        "self-drafter": lambda: engine_config(mesh, k=2, drafter="self"),
+        "moe-seq": scout_seq,
+    }
+    out = {}
+    for name, fn in cases.items():
+        try:
+            fn()
+            out[name] = (None, "")
+        except Exception as e:        # noqa: BLE001 - the test reads the type and message
+            out[name] = (type(e).__name__, str(e))
+    return out
+
+
+def serving_world(mesh, np_params):
+    """One rank's share of tests/test_torch_tp.py: every grid cell, the
+    shared-prefix workload, a preemption, the accounting and the refusals."""
+    torch.set_num_threads(1)
+    return dict(cells={cell: serve_cell(mesh, np_params, cell) for cell in GRID},
+                shared=drive_shared(mesh, np_params),
+                preempt=preempt(mesh, np_params),
+                accounting=accounting(mesh, np_params),
+                refusals=refusals(mesh, np_params))
+
+
+def collective_inputs(rank: int):
+    """Rank r's operands: f32 values of magnitudes 1e-3 .. 1e3 (sums whose
+    association shows in the bits) and a bf16 slice."""
+    gen = torch.Generator().manual_seed(100 + rank)
+    x = torch.randn((3, 64), generator=gen) * 10.0 ** torch.randint(-3, 4, (3, 64),
+                                                                        generator=gen)
+    return x, torch.randn((2, 3, 5), generator=gen).to(torch.bfloat16)
+
+
+def collectives(mesh):
+    """`sum_ranks` and `all_gather_last` of this rank's operands."""
+    from repro_torch.models.parallel import ParallelCtx
+
+    ctx = ParallelCtx(mesh=mesh, tp_axis="model")
+    x, y = collective_inputs(ctx.rank)
+    return ctx.sum_ranks(x), ctx.all_gather_last(y)
+
+
+def moe_ep_world(mesh, np_moe, x, cfg, policy=None):
+    """`moe_ep` of one layer: the rank's experts of the whole layer tree
+    ``np_moe`` (numpy) on x (numpy), as f32 numpy (y, aux)."""
+    from repro_torch.launch.sharding import shard_tree
+    from repro_torch.models import moe as M
+    from repro_torch.models.parallel import ParallelCtx
+
+    torch.set_num_threads(1)
+    ctx = ParallelCtx(mesh=mesh, tp_axis="model")
+    p = shard_tree(params_from_numpy(np_moe), ctx.rank, ctx.tp, ["moe"])
+    y, aux = M.moe_ep(p, torch.from_numpy(x), cfg, ctx, policy)
+    return y.to(torch.float32).numpy(), float(aux)
+
+
+def moe_engine_world(mesh, np_params, scheme, impl):
+    """A reduced Llama-4-Scout engine at this mesh serving two requests;
+    returns (streams, [(moe_ep's input, output) per MoE call of the run])."""
+    from repro_torch.models import moe as M
+
+    torch.set_num_threads(1)
+    calls = []
+    inner = M.moe_ep
+
+    def recorded(p, x, cfg, ctx, policy=None):
+        y, aux = inner(p, x, cfg, ctx, policy)
+        calls.append((x.to(torch.float32).numpy(), y.to(torch.float32).numpy()))
+        return y, aux
+
+    M.moe_ep = recorded
+    try:
+        eng = ServeEngine(engine_config(mesh, scheme=scheme, arch="llama4-scout-17b-16e",
+                                        chunk=1, impl=impl),
+                          params=params_from_numpy(np_params))
+        toks, _ = drive(eng, "greedy")
+    finally:
+        M.moe_ep = inner
+    return toks, calls
+
