@@ -163,20 +163,39 @@ Phases, each fatal on failure:
       kernels are built before, the ranks load them): full-width Qwen2-7B
       at FP5.33 over AMS pages (`tp2-fp5.33`, all 28 layers, the FP5.33
       path's workload; K1, K2), Llama-4-Scout-17B-16E at FP4.25, 2 layers,
-      expert-parallel (`tp2-moe-fp4.25`; K1b, K2) and Qwen2-7B at FP16 over
-      bf16 pages, 4 layers (`tp2-fp16`; K3). Each path's tp = 1 engine
+      expert-parallel (`tp2-moe-fp4.25`; K1b, K2), Qwen2-7B at FP16 over
+      bf16 pages, 4 layers (`tp2-fp16`; K3), and over sequence-sharded
+      contiguous caches: Qwen2-7B at FP5.33, all 28 layers
+      (`tp2-contig-fp5.33`, 256 of 512 rows a rank, contig-fp5.33's
+      workload), MiniCPM3-4B's MLA stream, 4 layers (`tp2-mla-fp5.33`),
+      Falcon-Mamba-7B, 4 layers (`tp2-ssm-fp5.33`, conv / ssm states of
+      d_inner / 2 channels a rank, ssm-fp5.33's workload) and
+      RecurrentGemma-9B, 5 layers (`tp2-hybrid-fp5.33`, RG-LRU states of
+      half the width and 1024 of the 2048 ring slots a rank); K1 alone on
+      these four at tp = 2: their ranks merge their partial softmaxes in
+      plain torch where tp = 1 launches K4 / K5, as the reference routes a
+      sequence-sharded core. Each path's tp = 1 engine
       serves the same workload first (graph ticks but the first, the first
-      all-decode one, whose layer 0 K1 / K2 calls, head product, MoE call
-      and first logits are recorded, and 8 timed eager ones); then each
+      all-decode one, whose layer 0 K1 / K2 calls, first contiguous
+      attention call, head product, MoE call and first logits are
+      recorded, and 8 timed eager ones); then each
       rank serves it at tp = 2 eagerly and holds, fatally: the ranks'
-      streams equal; its K1 / K1b N-shards of layer 0 and its K2 / K3 kv
+      streams equal; its K1 / K1b N-shards of layer 0 (whole where the
+      rank holds the linear whole: MLA's wq_a / wkv_a) and its K2 / K3 kv
       heads bit-equal to tp = 1's columns and heads on tp = 1's inputs
-      (dense paths); on `tp2-fp5.33` its streams and first-tick logits
-      bit-equal to tp = 1's; on `tp2-moe-fp4.25`, whose capacity drops
+      (all but FP16); on `tp2-fp5.33` and `tp2-ssm-fp5.33` its streams and
+      first-tick logits bit-equal to tp = 1's, and on the Mamba and hybrid
+      paths the recurrent states gathered from both ranks bit-equal to
+      tp = 1's; on `tp2-moe-fp4.25`, whose capacity drops
       tokens, the same of a second serve at the capacity factor that
-      drops nothing; on `tp2-fp16` (cuBLAS projections) first-tick logits
-      within LOGIT_TOL; only the path's kernels launched, equal counts on
-      both ranks; its pool half of tp = 1's bytes; `moe_ep` with nothing
+      drops nothing; on `tp2-fp16` (cuBLAS projections) and the three
+      paths whose attention merges across ranks, first-tick logits within
+      LOGIT_TOL (streams' first diverging tokens printed), and on those
+      three the merge of tp = 1's first contiguous attention call (its q
+      and its cache, the rank's half of it) within MERGE_TOL of one rank's
+      plain walk, with f32 queries, at the recorded lengths and with every
+      row visible; only the path's kernels launched, equal counts on
+      both ranks; its cache half of tp = 1's bytes; `moe_ep` with nothing
       dropped against tp = 1's `moe_dense` within LOGIT_TOL. Printed
       (`tp {...}` lines): logits and streams against tp = 1, the head's
       columns, dropped (token, expert) pairs per tick (from the recorded
@@ -185,7 +204,9 @@ Phases, each fatal on failure:
       weight bytes and peak memory per rank, launches per rank;
       `tp cublas-columns`: whether cuBLAS gives a rank's N / 2 columns the
       whole product's bits at each bf16 projection and the head; then
-      K1, K1b, K2 and K3 timed at a rank's shapes (`K1[qwen2-7b tp2]`...);
+      K1, K1b, K2 and K3 timed at a rank's shapes (`K1[qwen2-7b tp2]`...,
+      `K1[falcon-mamba-7b tp2]`, `K1[recurrentgemma-9b tp2]`,
+      `K1[minicpm3-4b tp2]`);
   17. train (`phase_train`, after the serving phases have freed the card):
       full-width Qwen2-7B cut to 4 layers trains 8 steps through
       `launch.steps.build_train_step` (B 8 x 512 tokens, microbatches of 4,
@@ -3135,38 +3156,76 @@ def phase_train(torch, dev, timed: bool = True, full: bool = True):
 
 # --------------------------------------------------------------------- tp
 TP = 2
-# tensor-parallel serving: a (1, 2) mesh of two spawned ranks that share the
-# one card (gloo: NCCL refuses two ranks on one device), each path served as
-# its base path's workload at ``depth`` layers (None: all); ``k1`` is how
-# many of layer 0's K1 / K1b calls of a decode tick are N-sharded
-# projections held against tp = 1 (a dense layer's 7, a MoE layer's 4
-# attention projections: its experts are whole on their rank); ``ep``: the
-# MoE decodes expert-parallel, whose capacity drops tokens that tp = 1's
-# dense combine keeps, so its logits and streams at the config's factor
-# are printed, and held bit-equal to tp = 1 in a second serve at the
-# factor that drops nothing (`_no_drop_capacity`); ``lean``: cuBLAS
-# projections, whose N-shards may change bits, so the first logits are held
-# within LOGIT_TOL and the streams printed. Every other path's streams and
-# first-tick logits are held bit-equal to tp = 1's.
-TP_PATHS = {
-    "tp2-fp5.33": dict(base="fp5.33", depth=None, k1=7),
-    "tp2-moe-fp4.25": dict(base="moe-fp4.25", depth=2, k1=4, ep=True),
-    "tp2-fp16": dict(base="fp16", depth=4, k1=0, lean=True),
-}
-TP1_EAGER_TICKS = 8
-TP_NOTE = ("two ranks time-slice one card: these times say nothing of the speed of two "
-           "cards; collective_ms is host time in gloo, staged through pinned host memory")
+K1_ONLY = ("ams_matmul_fp533",)
 # layer 0's K1 / K1b projections in call order: (block subtree, linear)
 TP_PROJ = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
            ("ffn", "w_gate"), ("ffn", "w_up"), ("ffn", "w_down")]
+# MiniCPM3-4B's (w_uk / w_uv are dequantized for the absorb, not K1;
+# wq_a / wkv_a are whole on every rank)
+MLA_PROJ = [("attn", "wq_a"), ("attn", "wq_b"), ("attn", "wkv_a"), ("attn", "wo"),
+            ("ffn", "w_gate"), ("ffn", "w_up"), ("ffn", "w_down")]
+MAMBA_PROJ = [("mixer", "in_proj"), ("mixer", "x_proj"), ("mixer", "dt_proj"),
+              ("mixer", "out_proj")]
+RGLRU_PROJ = [("mixer", "in_gate"), ("mixer", "in_x"), ("mixer", "w_rec_gate"),
+              ("mixer", "w_in_gate"), ("mixer", "out_proj"),
+              ("ffn", "w_gate"), ("ffn", "w_up"), ("ffn", "w_down")]
+# tensor-parallel serving: a (1, 2) mesh of two spawned ranks that share the
+# one card (gloo: NCCL refuses two ranks on one device), each path served as
+# its base path's workload at ``depth`` layers (None: all); ``proj`` are
+# layer 0's K1 / K1b calls of a decode tick held against tp = 1 (a dense
+# layer's 7, a MoE layer's 4 attention projections: its experts are whole on
+# their rank; ``k1`` overrides their number); ``ep``: the MoE decodes
+# expert-parallel, whose capacity drops tokens that tp = 1's dense combine
+# keeps, so its logits and streams at the config's factor are printed, and
+# held bit-equal to tp = 1 in a second serve at the factor that drops
+# nothing (`_no_drop_capacity`); ``lean``: cuBLAS projections, whose
+# N-shards may change bits, so the first logits are held within LOGIT_TOL
+# and the streams printed; ``merged``: a sequence-sharded contiguous cache
+# (GQA, the MLA stream, the hybrid's rings), whose ranks merge their
+# partial softmaxes in plain torch where tp = 1 launches K4 / K5 (the
+# reference's routing: K1 alone runs at tp = 2, ``kernels``), so the first
+# logits are held within LOGIT_TOL, the streams' first diverging tokens
+# printed, and the merge of layer 0's (the first attention layer's) call
+# on tp = 1's inputs held within MERGE_TOL of one rank's plain walk;
+# ``states``: recurrent states, gathered from the ranks' halves of the
+# inner width and held bit-equal to tp = 1's at the end of the run. Every
+# other path's streams and first-tick logits are held bit-equal to tp = 1's.
+TP_PATHS = {
+    "tp2-fp5.33": dict(base="fp5.33", depth=None),
+    "tp2-moe-fp4.25": dict(base="moe-fp4.25", depth=2, k1=4, ep=True),
+    "tp2-fp16": dict(base="fp16", depth=4, k1=0, lean=True),
+    "tp2-contig-fp5.33": dict(base="contig-fp5.33", depth=None, merged=True, kernels=K1_ONLY),
+    "tp2-mla-fp5.33": dict(base="mla-fp5.33", depth=4, merged=True, kernels=K1_ONLY,
+                           proj=MLA_PROJ),
+    "tp2-ssm-fp5.33": dict(base="ssm-fp5.33", depth=4, states=True, proj=MAMBA_PROJ),
+    "tp2-hybrid-fp5.33": dict(base="hybrid-fp5.33", depth=5, states=True, merged=True,
+                              proj=RGLRU_PROJ),
+}
+TP1_EAGER_TICKS = 8
+# the merged flash-decode against one rank's walk over the whole cache, both
+# with f32 queries (so the outputs are not rounded to bf16): max |d| / max
+# |o|, the reference's own bound for its sharded cores
+MERGE_TOL = 2e-5
+TP_NOTE = ("two ranks time-slice one card: these times say nothing of the speed of two "
+           "cards; collective_ms is host time in gloo, staged through pinned host memory")
+
+
+def _tp_proj(spec):
+    return spec.get("proj", TP_PROJ)[:spec.get("k1", len(spec.get("proj", TP_PROJ)))]
+
+
+def _tp_kernels(spec):
+    return spec.get("kernels", PATHS[spec["base"]]["kernels"])
 
 
 class _StepTaps:
     """Taps on the eager engine step, installed while open: the first
     step's logits, and on the tick ``armed`` marks, layer 0's first ``k1``
     K1 / K1b calls (x, y), its paged attention call (q, the layer's pool,
-    lengths, block table, output), the head's product (x, y) and the MoE
-    FFN's call (x, y). Everything is copied to the host."""
+    lengths, block table, output) or its first contiguous one (q, the
+    layer's K and V caches, lengths, the call's options, output), the
+    head's product (x, y) and the MoE FFN's call (x, y). Everything is
+    copied to the host."""
 
     def __init__(self, torch, k1: int):
         from repro_torch.kernels import ops
@@ -3175,8 +3234,9 @@ class _StepTaps:
 
         self.torch, self.n_k1 = torch, k1
         self.logits, self.armed = None, False
-        self.k1, self.attn, self.head, self.moe = [], None, None, None
+        self.k1, self.attn, self.head, self.moe, self.contig = [], None, None, None, None
         self.sites = [(ops, "ams_matmul", self._k1), (attention, "paged_attend", self._attn),
+                      (attention, "attend_contiguous", self._contig),
                       (transformer, "apply_linear", self._head), (steps, "sample_tokens",
                                                                   self._logits),
                       (moe, "moe_dense", self._moe), (moe, "moe_ep", self._moe)]
@@ -3210,6 +3270,15 @@ class _StepTaps:
             self.attn = dict(q=self._host(q), pool=self._host(pool), lengths=self._host(lengths),
                              block_table=self._host(block_table), out=self._host(o),
                              scale=kw.get("scale"))
+        return o
+
+    def _contig(self, f, q, k_cache, v_cache, lengths, **kw):
+        o = f(q, k_cache, v_cache, lengths, **kw)
+        if self.armed and self.contig is None:
+            self.contig = dict(q=self._host(q), k=self._host(k_cache), v=self._host(v_cache),
+                               lengths=self._host(lengths), out=self._host(o),
+                               kv_map=kw["kv_map"], scale=kw.get("scale"),
+                               window=kw.get("window", 0), ring=kw.get("ring", False))
         return o
 
     def _head(self, f, p, x, policy=None, shards=1):
@@ -3267,10 +3336,12 @@ def _tp_config(spec, dev_str: str, full: bool, mesh=None):
     if full:
         return EngineConfig(arch=base["arch"], reduced=False, depth=spec["depth"],
                             scheme=base["scheme"], impl="kernel", slots=8, capacity=512,
-                            prefill_chunk=16, mesh=mesh, device=dev_str, seed=0,
+                            prefill_chunk=base.get("chunk", 16), mesh=mesh, device=dev_str,
+                            seed=0,
                             cache=CacheConfig(kind=base["kind"], page_size=16, impl="kernel"))
     return EngineConfig(arch=base["arch"], reduced=True, scheme=base["scheme"], impl="kernel",
-                        slots=4, capacity=64, prefill_chunk=4, mesh=mesh, device=dev_str, seed=0,
+                        slots=4, capacity=64, prefill_chunk=base.get("chunk", 4), mesh=mesh,
+                        device=dev_str, seed=0,
                         cache=CacheConfig(kind=base["kind"], page_size=8, impl="kernel"))
 
 
@@ -3281,6 +3352,8 @@ def _tp_workload(np, cfg, spec, full: bool):
         n_req, plen, max_tokens, shared = 6, (12, 24), 8, 8
     elif spec["base"] == MAIN_PATH:
         n_req, plen, max_tokens, shared = 10, (200, 320), 40, 128
+    elif PATHS[spec["base"]].get("chunk") == 1:        # the one-token step (phase_serve's)
+        n_req, plen, max_tokens, shared = 9, (32, 97), 24, 0
     else:
         n_req, plen, max_tokens, shared = 9, (96, 192), 24, 64
     rng = np.random.default_rng(1234)
@@ -3298,8 +3371,9 @@ def _tp_serve(torch, np, eng, spec, full: bool, mesh=None):
     run the eager step the taps see and time it; a tp = 2 engine has no
     graphs. The armed tick, which copies its taps to the host, is not
     timed. At tp > 1 the router calls are recorded and the pairs that the
-    experts' capacity dropped counted after the run. Returns (taps,
-    result)."""
+    experts' capacity dropped counted after the run. With ``states`` the
+    result holds the recurrent state leaves (conv / ssm / state) as the
+    run left them, on the host. Returns (taps, result)."""
     from repro_torch.models import moe
 
     prompts, max_tokens = _tp_workload(np, eng.cfg, spec, full)
@@ -3308,7 +3382,7 @@ def _tp_serve(torch, np, eng, spec, full: bool, mesh=None):
         cnt.reset()
     handles = [eng.submit(p, max_tokens) for p in prompts]
     ticks, dec_ms, graph_ms, coll_ms, armed_tick = 0, [], [], [], None
-    with _StepTaps(torch, spec["k1"]) as taps, moe.record_routes() as routes:
+    with _StepTaps(torch, len(_tp_proj(spec))) as taps, moe.record_routes() as routes:
         while eng.has_work:
             decoding = eng.active_count > 0 and all(
                 r is None or eng.fed[s] >= r.prompt_len for s, r in enumerate(eng.active))
@@ -3341,6 +3415,10 @@ def _tp_serve(torch, np, eng, spec, full: bool, mesh=None):
                kv_bytes_per_token=eng.kv_bytes_per_token(), tp=eng.tp,
                graphs=eng.stats()["graphs"], moe_pairs_routed=routed,
                moe_pairs_dropped=dropped)
+    if spec.get("states"):
+        from repro_torch.core.tree import tree_items
+        res["states"] = {"/".join(p): t.to("cpu", copy=True) for p, t in tree_items(eng.cache)
+                         if p[-1] in ("conv", "ssm", "state")}
     bad = [i for i, h in enumerate(handles) if not h.done or len(h.tokens) != max_tokens]
     if bad:
         fail(f"tp: requests {bad} did not finish with {max_tokens} tokens")
@@ -3363,9 +3441,10 @@ def _bits_equal(torch, a, b) -> bool:
 def _tp_checks(torch, eng, spec, one, taps, dev):
     """This rank's comparisons with the tp = 1 run ``one`` (its taps):
     layer 0's sharded K1 / K1b outputs and K2 / K3 heads on tp = 1's inputs,
-    bit for bit (direct calls, after the counts were read); the head's
-    columns; the first step's logits; the MoE FFN with nothing dropped
-    against tp = 1's moe_dense."""
+    bit for bit (direct calls, after the counts were read); the merged
+    contiguous attention on tp = 1's inputs (`_merged_attention`); the
+    head's columns; the first step's logits; the MoE FFN with nothing
+    dropped against tp = 1's moe_dense."""
     import dataclasses
 
     from repro_torch.cache import paged_attend
@@ -3373,6 +3452,7 @@ def _tp_checks(torch, eng, spec, one, taps, dev):
     from repro_torch.core.packing import PackedWeight, make_layout
     from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.kernels import ops
+    from repro_torch.launch.sharding import in_proj_halves
     from repro_torch.models import moe as M
     from repro_torch.models.attention import kv_index_map
     from repro_torch.models.common import apply_linear
@@ -3383,18 +3463,27 @@ def _tp_checks(torch, eng, spec, one, taps, dev):
     out = {}
     blk = tree_map(lambda t: t[0], eng.params["layers"]["sub0"])
     k1 = []
-    for (sub, name), rec, mine in zip(TP_PROJ, one["k1"], taps.k1):
+    for (sub, name), rec, mine in zip(_tp_proj(spec), one["k1"], taps.k1):
         p = blk[sub][name]
         pw = PackedWeight(p["hi"], p["lsb"], p["scale"],
                           make_layout(get_scheme(eng.config.scheme)), rec["x"].shape[-1],
                           p["scale"].shape[-1])
-        y = ops.ams_matmul(on(rec["x"]), pw, n_split=rec["N"]).cpu()
+        sharded = pw.N != rec["N"]              # wq_a / wkv_a are whole on every rank
+        y = ops.ams_matmul(on(rec["x"]), pw, n_split=rec["N"] if sharded else None).cpu()
         n = pw.N
-        k1.append(dict(name=name, N=rec["N"], shard_N=n,
-                       tp1_inputs_bit_equal=_bits_equal(torch, y, cols(rec["y"], n)),
+        # the rank's columns of tp = 1's output (in_proj: of each half, [x | z])
+        parts = in_proj_halves([name]) if sharded else 1
+        w, m = rec["y"].shape[-1] // parts, n // parts
+        want = torch.cat([rec["y"][..., i * w + r * m:i * w + (r + 1) * m] for i in range(parts)],
+                         dim=-1) if sharded else rec["y"]
+        k1.append(dict(name=name, N=rec["N"], shard_N=n if sharded else None,
+                       tp1_inputs_bit_equal=_bits_equal(torch, y, want),
                        engine_call_bit_equal=_bits_equal(torch, mine["x"], rec["x"])
-                       and _bits_equal(torch, mine["y"], cols(rec["y"], n))))
+                       and _bits_equal(torch, mine["y"], want)))
     out["k1"] = k1
+    c = one["contig"]
+    if c is not None:
+        out["contiguous_attention"] = _merged_attention(torch, eng, c, on)
     a = one["attn"]
     if a is not None:
         kv_loc = tree_leaves(eng.cache)[0].shape[-2]
@@ -3424,6 +3513,51 @@ def _tp_checks(torch, eng, spec, one, taps, dev):
         out["moe_ep_vs_dense"] = dict(capacity_factor=nodrop.moe_capacity_factor,
                                       rel_err=float((y.cpu().float() - want).abs().max()
                                                     / want.abs().max()))
+    return out
+
+
+def _merged_attention(torch, eng, c, on):
+    """The sequence-sharded flash-decode of this rank's shard of tp = 1's
+    recorded cache and tp = 1's q (the ranks merge) against one rank's walk
+    over the whole cache, both in plain torch on the card: in f32 (q and
+    the caches' bf16 values taken as f32, so p is not rounded to bf16 and
+    only the f32 sums' order differs: max |d| / max |o|, held within
+    MERGE_TOL), and as served, bf16 (whether the outputs keep their bits:
+    a score one ulp apart can round p one bf16 ulp apart); at the recorded
+    lengths, which the served prompts keep inside rank 0's half, and with
+    every cache row visible (lengths of the capacity, of two windows on a
+    ring), so that both halves hold keys. Beside it, that plain walk
+    against the kernel output tp = 1 recorded (K4 / K5; the plain
+    flash-decode on the ring)."""
+    from repro_torch.kernels.attention_template import flash_decode, flash_decode_chunk
+
+    r, tp = eng.ctx.rank, eng.tp
+    S = c["k"].shape[1]
+    s = S // tp
+    part = lambda t: on(t.narrow(1, r * s, s).contiguous())      # noqa: E731
+    one_token = c["q"].dim() == 3
+    kw = dict(kv_map=c["kv_map"], scale=c["scale"])
+    if one_token:
+        kw.update(window=c["window"], ring=c["ring"])
+    fn = flash_decode if one_token else flash_decode_chunk
+    every = torch.full_like(c["lengths"], 2 * S if c["ring"] else S)
+    out = dict(keys=S, shard_keys=s, one_token=one_token, ring=bool(c["ring"]))
+    for tag, lengths in (("recorded", c["lengths"]), ("every_row", every)):
+        res = {}
+        for name, dt in (("f32", torch.float32), ("bf16", c["q"].dtype)):
+            q, k, v = (c[n].to(dt) for n in ("q", "k", "v"))
+            whole = fn(on(q), on(k), on(v), on(lengths), **kw)
+            merged = fn(on(q), part(k), part(v), on(lengths), ctx=eng.ctx, **kw)
+            res[name] = (whole.float(), merged.float())
+        (w32, m32), (wb, mb) = res["f32"], res["bf16"]
+        out[tag] = dict(rel_err_f32=float((m32 - w32).abs().max() / w32.abs().max()),
+                        rel_err_bf16=float((mb - wb).abs().max() / wb.abs().max()),
+                        bf16_bit_equal=bool(torch.equal(mb, wb)),
+                        bf16_elements_apart=int((mb != wb).sum()))
+        if tag == "recorded":
+            ref = c["out"].float().to(wb.device)
+            out["plain_vs_tp1_call_rel"] = float((wb - ref).abs().max() / ref.abs().max())
+    out["rel_err_f32"] = max(out["recorded"]["rel_err_f32"], out["every_row"]["rel_err_f32"])
     return out
 
 
@@ -3506,7 +3640,7 @@ def phase_tp(torch, dev, timed: bool = True, full: bool = True):
             if cuda:
                 res["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
             torch.save(dict(k1=taps.k1, attn=taps.attn, head=taps.head, logits=taps.logits,
-                            moe=taps.moe), Path(tmp) / f"{name}.pt")
+                            moe=taps.moe, contig=taps.contig), Path(tmp) / f"{name}.pt")
             ones[name] = res
             del eng, taps
             gc.collect()
@@ -3526,6 +3660,8 @@ def phase_tp(torch, dev, timed: bool = True, full: bool = True):
             head_columns_bit_equal=[r["checks"]["head_columns_bit_equal"] for r in rs],
             k1=[r["checks"]["k1"] for r in rs],
             attention=[r["checks"].get("attention") for r in rs],
+            contiguous_attention=[r["checks"].get("contiguous_attention") for r in rs],
+            states_bit_equal=_tp_states_equal(torch, one, rs) if spec.get("states") else None,
             moe_ep_vs_dense=[r["checks"].get("moe_ep_vs_dense") for r in rs],
             moe_pairs_dropped_per_tick=[r["moe_pairs_dropped"] / r["ticks"] for r in rs],
             moe_pairs_routed_per_tick=[r["moe_pairs_routed"] / r["ticks"] for r in rs],
@@ -3553,9 +3689,24 @@ def phase_tp(torch, dev, timed: bool = True, full: bool = True):
             graphs=[r["graphs"] for r in rs], note=TP_NOTE)
         lines[name] = line
         log("tp " + json.dumps(line))
-        _tp_fatal(name, spec, one, rs, line, cuda)
+    for name, spec in TP_PATHS.items():          # every path printed before any fails
+        _tp_fatal(name, spec, ones[name], [r[name] for r in ranks], lines[name], cuda)
     _cublas_shard_columns(torch, dev, full)
     return lines, _tp_kernel_times(torch, dev, timed, full)
+
+
+def _tp_states_equal(torch, one, rs) -> dict:
+    """Each recurrent state leaf of the tp = 1 run against the two ranks'
+    halves concatenated along its inner width (`cache_shard_dim`): bit for
+    bit."""
+    from repro_torch.launch.sharding import cache_shard_dim
+
+    out = {}
+    for k, v in one["states"].items():
+        names = k.split("/")
+        d = cache_shard_dim(names, v, 1 if names[0] == "layers" else 0)
+        out[k] = _bits_equal(torch, torch.cat([r["states"][k] for r in rs], dim=d), v)
+    return out
 
 
 # the cuBLAS products of the tp paths (FP16's projections, every path's
@@ -3587,18 +3738,23 @@ def _cublas_shard_columns(torch, dev, full: bool):
 
 
 def _tp_fatal(name, spec, one, rs, line, cuda: bool):
-    kernels = PATHS[spec["base"]]["kernels"]
+    kernels = _tp_kernels(spec)
+    exact = not (spec.get("ep") or spec.get("lean") or spec.get("merged"))
     if not line["ranks_agree"]:
         fail(f"tp[{name}]: the ranks' streams differ")
-    if not spec.get("ep") and not spec.get("lean") and not line["streams_equal_tp1"]:
+    if exact and not line["streams_equal_tp1"]:
         fail(f"tp[{name}]: streams differ from tp = 1's at tokens "
              f"{line['first_diverging_token']}")
+    if spec.get("states") and not (line["states_bit_equal"]
+                                   and all(line["states_bit_equal"].values())):
+        fail(f"tp[{name}]: recurrent states gathered from the ranks differ from tp = 1's: "
+             f"{line['states_bit_equal']}")
     for r, res in enumerate(rs):
         c = res["checks"]
-        if spec.get("lean") and c["first_logits"]["rel_err"] > LOGIT_TOL:
+        if (spec.get("lean") or spec.get("merged")) and c["first_logits"]["rel_err"] > LOGIT_TOL:
             fail(f"tp[{name}] rank {r}: first-tick logits {c['first_logits']} beyond "
                  f"{LOGIT_TOL} of tp = 1's")
-        if not spec.get("ep") and not spec.get("lean") and not c["first_logits"]["bit_equal"]:
+        if exact and not c["first_logits"]["bit_equal"]:
             fail(f"tp[{name}] rank {r}: first-tick logits {c['first_logits']} not bit-equal "
                  "to tp = 1's")
         if spec.get("ep"):
@@ -3608,16 +3764,21 @@ def _tp_fatal(name, spec, one, rs, line, cuda: bool):
                 fail(f"tp[{name}] rank {r}: at the capacity that drops nothing, streams and "
                      f"first-tick logits not bit-equal to tp = 1's: {nd}")
         if res["pool_bytes"] * TP != one["pool_bytes"]:
-            fail(f"tp[{name}] rank {r}: pool {res['pool_bytes']} bytes, not half of tp = 1's "
+            fail(f"tp[{name}] rank {r}: cache {res['pool_bytes']} bytes, not half of tp = 1's "
                  f"{one['pool_bytes']}")
         if not spec.get("lean"):
             bad = [k["name"] for k in c["k1"] if not k["tp1_inputs_bit_equal"]]
-            if bad or len(c["k1"]) != spec["k1"]:
+            if bad or len(c["k1"]) != len(_tp_proj(spec)):
                 fail(f"tp[{name}] rank {r}: K1 shards of {bad} differ from tp = 1's columns "
-                     f"({len(c['k1'])} of {spec['k1']} projections held)")
-            if not c["attention"]["tp1_inputs_bit_equal"]:
+                     f"({len(c['k1'])} of {len(_tp_proj(spec))} projections held)")
+            if c.get("attention") and not c["attention"]["tp1_inputs_bit_equal"]:
                 fail(f"tp[{name}] rank {r}: paged attention on the rank's heads differs from "
                      "tp = 1's")
+        if spec.get("merged"):
+            m = c.get("contiguous_attention")
+            if m is None or not m["rel_err_f32"] <= MERGE_TOL:
+                fail(f"tp[{name}] rank {r}: the merged attention on tp = 1's inputs {m} beyond "
+                     f"{MERGE_TOL} of one rank's walk")
         moe = c.get("moe_ep_vs_dense")
         if moe is not None and moe["rel_err"] > LOGIT_TOL:
             fail(f"tp[{name}] rank {r}: moe_ep without drops {moe} beyond {LOGIT_TOL} of "
@@ -3641,12 +3802,32 @@ SCOUT_TP2_SHAPES = [("wq/wo shard", 5120, 2560, 2), ("wk/wv shard", 5120, 512, 2
                     ("shared w_down shard", 8192, 2560, 1),
                     ("w_gate/w_up x 8 local experts", 5120, 8192, 16),
                     ("w_down x 8 local experts", 8192, 5120, 8)]
+# K1 at a rank's shapes on the paths over contiguous caches: (name, K, the
+# rank's N, launches a layer, the whole linear's N or None where the rank
+# holds the linear whole): Falcon-Mamba-7B's layer (in_proj's N-shard is
+# its slices of both halves; x_proj's 288 columns are 144 a rank),
+# RecurrentGemma-9B's rec layer, MiniCPM3-4B's (wq_a / wkv_a whole)
+K1_TP2_SHAPES = {
+    "falcon-mamba-7b": [("in_proj shard", 4096, 8192, 1, 16384),
+                        ("x_proj shard", 8192, 144, 1, 288),
+                        ("dt_proj shard", 256, 4096, 1, 8192),
+                        ("out_proj shard", 8192, 2048, 1, 4096)],
+    "recurrentgemma-9b": [("in_x/in_gate/w_rec_gate/w_in_gate/out_proj shard", 4096, 2048, 5,
+                           4096),
+                          ("w_gate/w_up shard", 4096, 6144, 2, 12288),
+                          ("w_down shard", 12288, 2048, 1, 4096)],
+    "minicpm3-4b": [("wq_a whole", 2560, 768, 1, None), ("wq_b shard", 768, 1920, 1, 3840),
+                    ("wkv_a whole", 2560, 288, 1, None), ("wo shard", 2560, 1280, 1, 2560),
+                    ("w_gate/w_up shard", 2560, 3200, 2, 6400),
+                    ("w_down shard", 6400, 1280, 1, 2560)],
+}
 
 
 def _tp_kernel_times(torch, dev, timed: bool, full: bool):
     """K1, K1b, K2 and K3 at a rank's shapes, against their plain versions
     (a sharded projection planned with the whole linear's K split): each
-    kernel's decode row and error, as the kernel phases report them."""
+    kernel's decode row and error, as the kernel phases report them; K1
+    also at the contiguous paths' shapes (`K1_TP2_SHAPES`)."""
     import numpy as np
 
     from repro_torch.kernels.ams_matmul import (
@@ -3687,6 +3868,16 @@ def _tp_kernel_times(torch, dev, timed: bool, full: bool):
                                                   "K2[llama4-scout-17b-16e tp2]")
     out["paged_attention_bf16"] = _k3_cases(torch, np, dev, rng, gen, *kv_hd["qwen"], *paged,
                                             (1,), timed, "K3[qwen2-7b tp2]")
+    for arch, rows in K1_TP2_SHAPES.items():
+        if not full:
+            rows = [(n, K, N // TP, m, N) for n, K, N, m in TINY_SHAPES]
+        n_split = {N: whole for _, _, N, _, whole in rows}
+        out[f"ams_matmul_fp533[{arch}]"] = _matmul_phase(
+            torch, dev, f"K1[{arch} tp2]", "fp5.33-e2m3", gen,
+            lambda x, pw, n_split=n_split: ams_matmul_fp533(x, pw.hi, pw.scale,
+                                                            n_split=n_split.get(pw.N)),
+            lambda x, pw: ams_matmul_fp533_plain(x, pw.hi, pw.scale), timed, full,
+            decode_only=True, shapes=[r[:4] for r in rows])
     return out
 
 
@@ -3861,8 +4052,7 @@ def main():
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
                     replaces=replaces, path=path,
                     paths=[p for p, sp in PATHS.items() if name.split("[")[0] in sp["kernels"]]
-                    + [p for p, sp in TP_PATHS.items()
-                       if name.split("[")[0] in PATHS[sp["base"]]["kernels"]],
+                    + [p for p, sp in TP_PATHS.items() if name.split("[")[0] in _tp_kernels(sp)],
                     launches=served[path]["launches"][name.split("[")[0]] if path else launches,
                     launches_engine_features=feature_launches[name]
                     if name in feature_launches else None,
@@ -3913,10 +4103,19 @@ def main():
             k5p_launches["ams"]),
     ]
     # the tp paths' kernels at a rank's shapes: launches per rank on the tp
-    # path's served run (the ranks' counts are equal: checked)
+    # path's served run (the ranks' counts are equal: checked); Qwen2-7B's
+    # K1 shards serve both the paged and the contiguous path
     for name, key, src, replaces, path in (
             ("ams_matmul_fp533[qwen2-7b tp2]", "ams_matmul_fp533", "ams_matmul.cu",
              "src/repro/kernels/ams_matmul.py:138", "tp2-fp5.33"),
+            ("ams_matmul_fp533[qwen2-7b contig tp2]", "ams_matmul_fp533", "ams_matmul.cu",
+             "src/repro/kernels/ams_matmul.py:138", "tp2-contig-fp5.33"),
+            ("ams_matmul_fp533[minicpm3-4b tp2]", "ams_matmul_fp533[minicpm3-4b]",
+             "ams_matmul.cu", "src/repro/kernels/ams_matmul.py:138", "tp2-mla-fp5.33"),
+            ("ams_matmul_fp533[falcon-mamba-7b tp2]", "ams_matmul_fp533[falcon-mamba-7b]",
+             "ams_matmul.cu", "src/repro/kernels/ams_matmul.py:138", "tp2-ssm-fp5.33"),
+            ("ams_matmul_fp533[recurrentgemma-9b tp2]", "ams_matmul_fp533[recurrentgemma-9b]",
+             "ams_matmul.cu", "src/repro/kernels/ams_matmul.py:138", "tp2-hybrid-fp5.33"),
             ("paged_attention_ams[qwen2-7b tp2]", "paged_attention_ams", "paged_attention.cu",
              "src/repro/kernels/attention_template.py:399", "tp2-fp5.33"),
             ("ams_matmul_planes[llama4-scout-17b-16e tp2]", "ams_matmul_planes", "ams_matmul.cu",

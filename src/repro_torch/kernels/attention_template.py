@@ -18,7 +18,8 @@ src/repro/kernels/attention_template.py).
     whose values are the first ``hd_v`` columns of the keys), walking the
     keys in the reference's ``block_kv`` blocks (`tuning.reference_block_kv`).
   * `attend_contiguous` — the dispatch the model cores call (``ref`` or
-    ``kernel``).
+    ``kernel``; a cache sequence-sharded at tp > 1 always takes the plain
+    bodies with the cross-rank merge, as the reference routes it).
 
 The wrappers launch the CUDA kernels in ``csrc/`` on CUDA tensors (bound and
 design noted there) and run their plain torch versions on CPU tensors. As in
@@ -76,16 +77,23 @@ def _scores(qf, k):
     return torch.einsum("bcngd,bknd->bcngk", qf.to(torch.float32), k.to(torch.float32))
 
 
-def _attend(qf, k, v, valid, g):
+def _attend(qf, k, v, valid, g, ctx=None):
     """Shared softmax body: qf [B, c, kv, g, hd] (already scaled), k/v
     [B, S, kv, hd], valid [B, c, S] -> o [B, c, kv*g, hd_v] f32. The
     products q . k and bf16(p) . v of bf16 operands on the CPU sum in XLA's
-    bf16 dot order (`xla_math.bf16_dot`)."""
+    bf16 dot order (`xla_math.bf16_dot`). Under a sequence-sharded ``ctx``
+    (`models.parallel.ParallelCtx`, ``seq_shard``) k / v are this rank's
+    shard of the keys: the row max is the ranks' max (`max_ranks`), and
+    ``l`` and ``o`` the ranks' sums in rank order (`sum_ranks`, one
+    exchange of both), the reference's pmax / psum merge."""
     B, c, kv_n = qf.shape[:3]
+    merge = ctx is not None and ctx.seq_shard and ctx.tp > 1
     s = _scores(qf, k)
     vmask = valid[:, :, None, None, :]
     s = torch.where(vmask, s, -torch.inf)
     m = s.amax(dim=-1)
+    if merge:
+        m = ctx.max_ranks(m)
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m_safe[..., None])
     p = torch.where(vmask, p, torch.zeros_like(p))
@@ -95,6 +103,9 @@ def _attend(qf, k, v, valid, g):
         o = bf16_dot(pb[..., None, :], v.permute(0, 2, 3, 1)[:, None, :, None])
     else:
         o = torch.einsum("bcngk,bknd->bcngd", pb.to(torch.float32), v.to(torch.float32))
+    if merge:
+        lo = ctx.sum_ranks(torch.cat([o, l[..., None]], dim=-1))
+        o, l = lo[..., :-1], lo[..., -1]
     o = o / torch.clamp(l, min=1e-20)[..., None]
     return o.reshape(B, c, kv_n * g, v.shape[-1])
 
@@ -111,48 +122,57 @@ def _scaled(q: torch.Tensor, scale: Optional[float]) -> torch.Tensor:
     return q * _scale_factor(q, scale)
 
 
-def _cache_positions(S: int, pos: torch.Tensor, ring_window: int) -> torch.Tensor:
-    """Key position held by each cache slot: slot j holds j, or in a ring
-    of width W the largest p <= ``pos`` with p % W == j (older entries
-    were overwritten; negative where the slot holds nothing yet). ``pos``
-    [B, 1] -> [B, S]."""
-    g = torch.arange(S, dtype=torch.int32, device=pos.device)[None, :]
+def _cache_positions(S: int, pos: torch.Tensor, ring_window: int,
+                     offset: int = 0) -> torch.Tensor:
+    """Key position held by each cache slot: slot j holds ``offset`` + j
+    (``offset``: the first position of a rank's sequence shard), or in a
+    ring of width W the largest p <= ``pos`` with p % W == offset + j (older
+    entries were overwritten; negative where the slot holds nothing yet).
+    ``pos`` [B, 1] -> [B, S]."""
+    g = offset + torch.arange(S, dtype=torch.int32, device=pos.device)[None, :]
     if ring_window:
         return pos - torch.remainder(pos - g, ring_window)
     return g.expand(pos.shape[0], S)
 
 
 def flash_decode(q, k_cache, v_cache, pos, *, kv_map, scale=None, window: int = 0,
-                 ring: bool = False):
+                 ring: bool = False, ctx=None):
     """q [B, H, hd]; caches [B, S, kv, hd]; ``pos`` valid keys per slot
     ([B]) or shared (scalar). A query sees the keys at positions below
     ``pos``, with a ``window`` only the last ``window`` of them; a ``ring``
     cache holds position p at slot p % window. The index math is tensor
-    ops on the device (no host sync). Returns [B, H, hd_v] in q.dtype."""
+    ops on the device (no host sync). Under a sequence-sharded ``ctx``
+    the caches are rank r's S positions from r * S (of a ring: its slots
+    from r * S), masked by their global positions, and the ranks merge
+    (`_attend`). Returns [B, H, hd_v] in q.dtype."""
     B, H, hd = q.shape
     S, kv_n = k_cache.shape[1], k_cache.shape[2]
     g = _check_grouped(H, kv_n, kv_map)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
     lens = pos.reshape(-1, 1).expand(B, 1)
-    k_pos = _cache_positions(S, lens - 1, window if ring else 0)       # [B, S]
+    off = S * ctx.seq_rank if ctx is not None else 0
+    k_pos = _cache_positions(S, lens - 1, window if ring else 0, off)   # [B, S]
     valid = (k_pos >= 0) & (k_pos < lens)          # ring slots may map to pre-history
     if window > 0:
         valid = valid & (lens - 1 - k_pos < window)
     valid = valid[:, None, :]
     qf = _scaled(q, scale).reshape(B, 1, kv_n, g, hd)
-    return _attend(qf, k_cache, v_cache, valid, g)[:, 0].to(q.dtype)
+    return _attend(qf, k_cache, v_cache, valid, g, ctx)[:, 0].to(q.dtype)
 
 
-def flash_decode_chunk(q, k_cache, v_cache, lengths, *, kv_map, scale=None):
+def flash_decode_chunk(q, k_cache, v_cache, lengths, *, kv_map, scale=None, ctx=None):
     """q [B, c, H, hd] ragged query block; ``lengths`` [B, c] valid keys per
-    query (0 = masked row -> exact zeros). Returns [B, c, H, hd_v]."""
+    query (0 = masked row -> exact zeros); ``ctx`` as in `flash_decode`.
+    Returns [B, c, H, hd_v]."""
     B, c, H, hd = q.shape
     S, kv_n = k_cache.shape[1], k_cache.shape[2]
     g = _check_grouped(H, kv_n, kv_map)
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=q.device)
-    valid = torch.arange(S, device=q.device)[None, None, :] < lengths[:, :, None]
+    off = S * ctx.seq_rank if ctx is not None else 0
+    k_pos = off + torch.arange(S, device=q.device)
+    valid = k_pos[None, None, :] < lengths[:, :, None]
     qf = _scaled(q, scale).reshape(B, c, kv_n, g, hd)
-    return _attend(qf, k_cache, v_cache, valid, g).to(q.dtype)
+    return _attend(qf, k_cache, v_cache, valid, g, ctx).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -688,7 +708,8 @@ def fused_contiguous_attention(q, k_cache, lengths, *, v_cache=None,
 
 
 def attend_contiguous(q, k_cache, v_cache, lengths, *, kv_map, scale=None, impl: str = "ref",
-                      value_slice: Optional[int] = None, window: int = 0, ring: bool = False):
+                      value_slice: Optional[int] = None, window: int = 0, ring: bool = False,
+                      ctx=None):
     """Decode attention over a contiguous cache, routed by ``impl``: ``ref``
     is `flash_decode` / `flash_decode_chunk` (``v_cache`` are the values;
     for MLA the [..., :r_kv] view of the stream), ``kernel`` is
@@ -696,18 +717,28 @@ def attend_contiguous(q, k_cache, v_cache, lengths, *, kv_map, scale=None, impl:
     hd] with lengths [B], or [B, c, H, hd] with per-query lengths [B, c].
     A sliding ``window`` or a ``ring`` cache (one-token queries only) takes
     `flash_decode` whatever ``impl`` says, as the reference routes them:
-    its fused template has no window or ring index math."""
+    its fused template has no window or ring index math. So does a cache
+    sequence-sharded over a tp > 1 ``ctx``: the reference routes every
+    sequence-sharded core to its XLA bodies, whose pmax / psum merge the
+    ranks' partial softmaxes (its attention_template.py:572-576), and the
+    port takes `flash_decode` / `flash_decode_chunk` with the merge; K4 and
+    K5 are never launched there (they would have to return their partial
+    (m, l, o), which the reference's kernels never do)."""
+    if impl not in ("ref", "kernel"):
+        raise ValueError(f"unknown contiguous attention impl {impl!r}")
+    sharded = ctx is not None and ctx.seq_shard and ctx.tp > 1
     if window or ring:
         if q.dim() != 3:
             raise NotImplementedError("sliding-window and ring caches take one-token "
                                       "queries only")
         return flash_decode(q, k_cache, v_cache, lengths, kv_map=kv_map, scale=scale,
-                            window=window, ring=ring)
-    if impl == "ref":
-        fn = flash_decode if q.dim() == 3 else flash_decode_chunk
-        return fn(q, k_cache, v_cache, lengths, kv_map=kv_map, scale=scale)
-    if impl != "kernel":
-        raise ValueError(f"unknown contiguous attention impl {impl!r}")
+                            window=window, ring=ring, ctx=ctx)
+    if impl == "ref" or sharded:
+        if q.dim() == 3:
+            return flash_decode(q, k_cache, v_cache, lengths, kv_map=kv_map, scale=scale,
+                                ctx=ctx)
+        return flash_decode_chunk(q, k_cache, v_cache, lengths, kv_map=kv_map, scale=scale,
+                                  ctx=ctx)
     _check_grouped(q.shape[-2], k_cache.shape[2], kv_map)
     return fused_contiguous_attention(
         q, k_cache, lengths, v_cache=None if value_slice is not None else v_cache,

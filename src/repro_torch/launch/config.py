@@ -8,10 +8,10 @@ config fails in one place before any device work. The port adds
 pages; GQA and MoE-GQA), with seeded sampling, priorities and preemption
 with host spill (paged caches), and speculative decoding with the n-gram
 or the self drafters, and tensor-parallel serving over a (1, tp) mesh
-(`launch.mesh.make_serving_mesh`: paged caches, GQA and MoE-GQA layers;
-every rank builds the same config and submits the same requests in the
-same order). Other meshes raise NotImplementedError here, naming their
-ROADMAP item.
+(`launch.mesh.make_serving_mesh`: every served layer kind, over
+head-sharded page pools or sequence-sharded contiguous caches; every rank
+builds the same config and submits the same requests in the same order).
+Other meshes raise NotImplementedError here, naming their ROADMAP item.
 
     cfg = EngineConfig(arch="qwen2-7b", reduced=False, impl="kernel",
                        slots=8, capacity=1024, prefill_chunk=16,
@@ -57,10 +57,12 @@ class EngineConfig:
                   (the self drafters from its own params)
     mesh          None (one device) or a (1, tp) `launch.mesh.Mesh` from
                   ``make_serving_mesh(tp)`` built on every rank: weights
-                  N-sharded, page pools head-sharded, expert-parallel MoE at
-                  decode; at tp > 1 the step runs eagerly (no CUDA graphs),
-                  and contiguous caches, MLA / Mamba / RG-LRU layers and the
-                  self drafters raise NotImplementedError
+                  N-sharded, page pools head-sharded, contiguous caches
+                  sequence-sharded (capacity, window and inner widths must
+                  divide by tp), Mamba / RG-LRU states on the rank's inner
+                  width, expert-parallel MoE at decode; at tp > 1 the step
+                  runs eagerly (no CUDA graphs), and the self drafters raise
+                  NotImplementedError
     """
 
     arch: str = "qwen2-7b"
@@ -142,7 +144,7 @@ class EngineConfig:
             raise ValueError(f"device {self.device!r} but the mesh's rank runs on "
                              f"{self.mesh.device}")
         from repro_torch.models.transformer import check_tp_support
-        check_tp_support(self.model_config(), self.sized_cache(), self.tp)
+        check_tp_support(self.model_config(), self.sized_cache(), self.tp, self.capacity)
         if self.speculate_k and isinstance(self.drafter, str) and self.drafter != "ngram":
             raise NotImplementedError(f"the {self.drafter!r} drafter runs the sequence forward "
                                       "on sharded weights, which is not ported yet (ROADMAP.md, "

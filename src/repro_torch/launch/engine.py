@@ -85,9 +85,14 @@ the logits are replicated. Every rank runs the same host scheduler on the
 same submissions in the same order, so the ranks stay in lockstep and emit
 the streams of the tp = 1 engine. The step runs eagerly (no CUDA graphs:
 `capture_graphs` raises, ``stats()["graphs"]`` is False); the KV and cost
-accounting is per device, as in the reference. Contiguous caches, MLA,
-Mamba and RG-LRU layers and meshes with data axes are refused at tp > 1
-(`EngineConfig`), with NotImplementedError.
+accounting is per device, as in the reference. Contiguous caches (GQA,
+rings, the MLA stream) are sequence-sharded: a rank holds capacity / tp
+rows of every slot (window / tp ring slots), the owner of a position
+inserts it, and the ranks merge their partial softmaxes; Mamba and RG-LRU
+layers keep the rank's d_inner / tp channels of their states. Each rank
+zeroes its own shard at admission; contiguous caches never preempt.
+Meshes with data axes are refused (`EngineConfig`), with
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -378,13 +383,15 @@ class ServeEngine:
             raise TypeError("ServeEngine takes an EngineConfig (the reference's legacy "
                             "keyword constructor is not ported)")
         ec = self.config = config
-        # the rank's model axis (NO_CTX on one device); a rank runs on its mesh's device
-        self.ctx = ctx = (ParallelCtx(mesh=ec.mesh, dp_axes=dp_axes(ec.mesh),
-                                      tp_axis=tp_axis(ec.mesh)) if ec.tp > 1 else NO_CTX)
-        self.tp = tp = ctx.tp
-        self.device = ec.mesh.device if tp > 1 else resolve_device(ec.device)
         cfg = ec.model_config()
         ccfg = self.cache_cfg = ec.sized_cache()
+        # the rank's model axis (NO_CTX on one device); a rank runs on its
+        # mesh's device; a contiguous cache is sequence-sharded over it
+        self.ctx = ctx = (ParallelCtx(mesh=ec.mesh, dp_axes=dp_axes(ec.mesh),
+                                      tp_axis=tp_axis(ec.mesh), seq_shard=not ccfg.paged)
+                          if ec.tp > 1 else NO_CTX)
+        self.tp = tp = ctx.tp
+        self.device = ec.mesh.device if tp > 1 else resolve_device(ec.device)
         check_support(cfg, ccfg)            # before the weights are made
         if ec.step_chunk > 1:
             check_chunked_support(cfg)      # a ragged step: attention layers only
@@ -425,9 +432,12 @@ class ServeEngine:
         self.params = params
         self.cache = make_cache(cfg, slots, ec.capacity, cache_cfg=ccfg, device=self.device,
                                 tp=tp)
-        # per-device KV: a head-sharded pool holds kv / tp heads of every page
+        # per-device KV: a head-sharded pool holds kv / tp heads of every
+        # page, a sequence-sharded contiguous cache 1 / tp of every slot's
+        # positions (and of the recurrent states' channels)
         kv_split = ccfg.paged and heads_split(model_dims(cfg, tp).kv, tp)
         self._kv_shards = tp if kv_split else 1
+        self._seq_shards = tp if ctx.seq_shard else 1
         self._step = build_engine_step(cfg, self.rcfg, ccfg, speculate_k=k,
                                        ctx=ctx)
         self.drafter: Optional[Drafter] = None
@@ -545,6 +555,7 @@ class ServeEngine:
             dims = model_dims(cfg, tp)
             self.cost_model = build_cost_model(cfg, ec.scheme, ccfg, kv=dims.kv, hd=dims.hd,
                                                tp=tp, kv_shards=self._kv_shards,
+                                               seq_shards=self._seq_shards,
                                                signature=self.signature)
             self._kv_bpt = float(self.kv_bytes_per_token())
             self._m_floor_b = m.counter("serve_floor_hbm_bytes_total",
@@ -1137,10 +1148,12 @@ class ServeEngine:
         keeps no KV at all: falcon-mamba-7b's num_kv_heads 1 x head_dim 64,
         and a hybrid's rec layers beside its attn layers' rings). Per device:
         a head-sharded tp > 1 pool holds kv / tp heads of every page, so this
-        scales as 1 / tp, as in the reference."""
+        scales as 1 / tp, as in the reference; so does a sequence-sharded
+        contiguous cache, whose rank holds 1 / tp of every slot's positions
+        (the reference counts it whole there)."""
         dims = model_dims(self.cfg, self.tp)
-        return self.cfg.num_layers * pool_bytes_per_token(dims.kv // self._kv_shards, dims.hd,
-                                                          self.cache_cfg)
+        return self.cfg.num_layers * pool_bytes_per_token(
+            dims.kv // self._kv_shards, dims.hd, self.cache_cfg) // self._seq_shards
 
     def kv_compression_vs_bf16(self) -> float:
         dims = model_dims(self.cfg, self.tp)

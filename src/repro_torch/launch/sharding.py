@@ -3,19 +3,28 @@ layout of src/repro/launch/sharding.py, ``param_spec(serve_n_shard=True,
 moe="ep")``) and the slicing that applies it.
 
 In that layout every linear of the served blocks is N-sharded: its output
-dim over the ``model`` axis, row-parallel ones (``wo``, ``w_down``) too,
-so every decode contraction keeps its K dim whole on each rank and sharded
-streams are bit-identical to tp = 1 (the only cross-rank traffic is an
-exact all-gather of activations, `models.parallel`). Quantized planes
-``hi`` / ``lsb`` [.., K_rows, N] and ``scale`` [.., N] shard N; the
+dim over the ``model`` axis, row-parallel ones (``wo``, ``w_down``,
+Mamba's ``x_proj`` / ``out_proj``, the RG-LRU's gates and ``out_proj``)
+too, so every decode contraction keeps its K dim whole on each rank and
+sharded streams are bit-identical to tp = 1 (the only cross-rank traffic
+is an exact all-gather of activations, `models.parallel`). Quantized
+planes ``hi`` / ``lsb`` [.., K_rows, N] and ``scale`` [.., N] shard N; the
 embedding shards its vocab rows; experts shard their expert dim; the
-router and the norms stay whole. AMS groups run along K and the scale is
-per column (`core.ams`), so quantizing a weight and slicing its planes
-equals quantizing the slice.
+router, the norms and MLA's down-projections ``wq_a`` / ``wkv_a`` stay
+whole (the reference's REPLICATED; its packed-plane rule would shard the
+planes of those two as well, which the port does not: every rank computes
+the whole latent). The SSM / RG-LRU vectors of the inner width (A_log
+[di, n] along di, D, Λ, the conv bias) and the conv taps [w, di] shard
+the inner width. Mamba's ``in_proj`` [D, 2 di] is the two halves [x | z]:
+a rank holds its slice of each, side by side (`in_proj_halves`), so its x
+and z channels pair up. AMS groups run along K and the scale is per column
+(`core.ams`), so quantizing a weight and slicing its planes equals
+quantizing the slice.
 
 Page pools are head-sharded by `models.make_cache(tp=)`
 (`models.parallel.heads_split`); page ids, block tables and the prefix
-index never see the mesh.
+index never see the mesh. Contiguous caches are sequence-sharded
+(`cache_shard_dim`, the reference's ``cache_spec(seq_shard=True)``).
 """
 
 from __future__ import annotations
@@ -24,8 +33,16 @@ from typing import Optional, Sequence
 
 import torch
 
-# linears of the served blocks (GQA, MoE-GQA, the head) whose N is sharded
-N_SHARDED = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head"}
+# linears of the served blocks (GQA, MoE-GQA, MLA, Mamba, RG-LRU, the head)
+# whose N is sharded
+N_SHARDED = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head",
+             "wq_b", "w_uk", "w_uv",
+             "in_proj", "x_proj", "dt_proj", "out_proj",
+             "in_x", "in_gate", "w_rec_gate", "w_in_gate"}
+# linears every rank holds whole (the reference's REPLICATED)
+WHOLE = {"router", "wq_a", "wkv_a"}
+# vectors of the inner width, sharded along it (the reference's MODEL_VECTORS)
+INNER_VECTORS = {"A_log", "D", "lam", "conv_b"}
 
 
 def serve_shard_dim(names: Sequence[str], leaf, n_stack: int = 0) -> Optional[int]:
@@ -38,22 +55,39 @@ def serve_shard_dim(names: Sequence[str], leaf, n_stack: int = 0) -> Optional[in
     gparent = names[-3] if len(names) >= 3 else ""
     if "experts" in names:
         return n_stack                                  # the expert dim
+    if parent in WHOLE:
+        return None
     if last in ("hi", "lsb", "scale"):
         return leaf.ndim - 1
     if last == "w" and "embed" in (parent, gparent):
         return n_stack                                  # vocab rows
     if last in ("w", "b") and parent in N_SHARDED:
         return leaf.ndim - 1
+    if last in INNER_VECTORS:
+        return n_stack                                  # di (A_log [di, n]), W
+    if last == "conv_w":
+        return leaf.ndim - 1                            # [w, di]
     return None
 
 
-def _slice(t: torch.Tensor, dim: Optional[int], rank: int, tp: int) -> torch.Tensor:
+def in_proj_halves(names: Sequence[str]) -> int:
+    """How many equal parts the sharded dim of the leaf at ``names`` holds,
+    each sliced on its own: Mamba's ``in_proj`` is [x | z], 2; else 1."""
+    return 2 if "in_proj" in [str(n) for n in names] else 1
+
+
+def _slice(t: torch.Tensor, dim: Optional[int], rank: int, tp: int,
+           parts: int = 1) -> torch.Tensor:
+    """Rank ``rank``'s 1 / tp of ``t`` along ``dim``: of each of its
+    ``parts`` equal parts, side by side."""
     if dim is None or tp == 1:
         return t
     n = t.shape[dim]
-    if n % tp:
-        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not divide over tp={tp}")
-    return t.narrow(dim, rank * (n // tp), n // tp).clone()
+    if n % (tp * parts):
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not divide over tp={tp}"
+                         + (f" in {parts} parts" if parts > 1 else ""))
+    w, m = n // parts, n // (tp * parts)
+    return torch.cat([t.narrow(dim, i * w + rank * m, m) for i in range(parts)], dim=dim)
 
 
 def shard_tree(tree, rank: int, tp: int, prefix: Sequence[str] = (),
@@ -65,9 +99,26 @@ def shard_tree(tree, rank: int, tp: int, prefix: Sequence[str] = (),
         if isinstance(node, dict):
             return {k: visit(names + [k], v) for k, v in node.items()}
         ns = n_stack if n_stack is not None else int(bool(names) and names[0] == "layers")
-        return _slice(node, serve_shard_dim(names, node, ns), rank, tp)
+        return _slice(node, serve_shard_dim(names, node, ns), rank, tp, in_proj_halves(names))
 
     return visit(list(prefix), tree)
+
+
+def cache_shard_dim(names: Sequence[str], leaf, n_stack: int = 0) -> Optional[int]:
+    """The dim of a contiguous cache leaf split over ``model`` at decode
+    (the reference's ``cache_spec(seq_shard=True)``): the sequence of
+    ``k`` / ``v`` / ``kv`` [.., B, S, ...] (a ring's slots too), the inner
+    width of ``conv`` [.., B, w - 1, di], ``ssm`` [.., B, di, n] and
+    ``state`` [.., B, W]. `models.make_cache(tp=)` makes a rank's leaves
+    with these dims cut to 1 / tp."""
+    last = str(names[-1])
+    if last in ("k", "v", "kv"):
+        return n_stack + 1
+    if last == "conv":
+        return leaf.ndim - 1
+    if last in ("ssm", "state"):
+        return n_stack + 1
+    return None
 
 
 def shard_params(params, ctx):

@@ -243,13 +243,15 @@ def verify_tokens(logits, token, nvalid, ndraft, sampling: dict, k_max: int):
 # ---------------------------------------------------------------------------
 # in-step rollback: rejected positions back to the cache's initial zeros
 # ---------------------------------------------------------------------------
-def truncate_cache(cache, start, count, c_max: int, cache_cfg=None, block_tables=None):
+def truncate_cache(cache, start, count, c_max: int, cache_cfg=None, block_tables=None,
+                   ctx=None):
     """Zero ``count`` cache positions from ``start`` (per slot) in every
     layer's leaves, in place: page pools through the block tables
     (`cache.pool.paged_truncate`), contiguous caches by (slot, row)
-    (`models.attention.cache_truncate_chunk`). Slots with count == 0 or
-    start < 0 keep every byte. ``c_max`` bounds the per-slot width (the
-    step's draft count). Returns ``cache``."""
+    (`models.attention.cache_truncate_chunk`; under a sequence-sharded
+    ``ctx`` the rank zeroes the positions its shard holds). Slots with
+    count == 0 or start < 0 keep every byte. ``c_max`` bounds the per-slot
+    width (the step's draft count). Returns ``cache``."""
     if cache_cfg is not None and cache_cfg.paged:
         from repro_torch.cache.pool import paged_truncate
         for pool in cache["layers"].values():
@@ -258,5 +260,5 @@ def truncate_cache(cache, start, count, c_max: int, cache_cfg=None, block_tables
     from repro_torch.models.attention import cache_truncate_chunk
     for leaf in tree_leaves(cache["layers"]):
         for g in range(leaf.shape[0]):
-            cache_truncate_chunk(leaf[g], start, count, c_max)
+            cache_truncate_chunk(leaf[g], start, count, c_max, ctx)
     return cache

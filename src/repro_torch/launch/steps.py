@@ -36,12 +36,14 @@ width, sampled) pair, the counterpart of the reference's compiled program:
 the caches and inputs are the graphs' static memory, written in place. On
 CPU tensors the engine calls the same step eagerly at the same widths.
 
-Tensor-parallel serving (a ``ctx`` of tp > 1, paged caches): every rank
-runs the step on its shards of the weights and its kv heads of the pools
-(`models.decode_step`); the residual stream and the logits are replicated,
-so every rank samples the same tokens as the tp = 1 step. The step then
-runs eagerly on the card: its collectives (gloo, staged through host
-memory, when the ranks share a card) cannot be captured in a CUDA graph.
+Tensor-parallel serving (a ``ctx`` of tp > 1): every rank runs the step
+on its shards of the weights and its kv heads of the pools, or its shard
+of a contiguous cache's sequence and of the recurrent states
+(`models.decode_step`; the speculative rollback zeroes the positions the
+rank holds); the residual stream and the logits are replicated, so every
+rank samples the same tokens. The step then runs eagerly on the card: its
+collectives (gloo, staged through host memory, when the ranks share a
+card) cannot be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -98,7 +100,7 @@ def build_engine_step(cfg: ModelConfig, rcfg: RunConfig, cache_cfg, speculate_k:
             # un-insert the rejected suffix in the step: positions
             # pos + 1 + accepted .. pos + ndraft go back to zeros
             truncate_cache(cache, pos + 1 + accepted, torch.clamp_min(ndraft - accepted, 0), k,
-                           cache_cfg=cache_cfg, block_tables=block_tables)
+                           cache_cfg=cache_cfg, block_tables=block_tables, ctx=ctx)
         out = torch.nn.functional.pad(out, (0, speculate_k - k))
         return (out, n_emit, accepted, done), cache
 

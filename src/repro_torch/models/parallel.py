@@ -15,8 +15,16 @@ step gives every rank the bits of the tp = 1 step:
     output before ``wo``, the FFN's hidden before ``w_down``);
   * `sum_ranks` all-gathers and adds the ranks' tensors in rank order,
     ``((r0 + r1) + r2) + ...``, the same on every rank (the vocab-sharded
-    embedding lookup, expert parallelism's partial sums). No
-    ``all_reduce``: its association differs by backend and algorithm.
+    embedding lookup, expert parallelism's partial sums, the merge of the
+    sequence-sharded flash-decode's ``l`` and ``o``). No ``all_reduce``:
+    its association differs by backend and algorithm;
+  * `max_ranks` all-gathers and takes the element-wise max, which is exact
+    in any order (the merge's running max ``m``).
+
+Contiguous caches at tp > 1 are sequence-sharded (``seq_shard``, as the
+reference's ``seq_shard_cache``): rank r holds positions r * S_loc ..
+(r + 1) * S_loc - 1 of every slot's K / V rows (of a ring's slots), and
+the recurrent states' inner width in slices of d_inner / tp channels.
 
 A collective of CUDA tensors over a backend without CUDA transport (gloo,
 the backend of ranks that share one card) is staged explicitly through
@@ -39,6 +47,9 @@ class ParallelCtx:
     mesh: Optional[object] = None          # launch.mesh.Mesh
     dp_axes: Tuple[str, ...] = ()          # mesh axes the batch is sharded over (none yet)
     tp_axis: Optional[str] = None          # the tensor / expert-parallel axis
+    # contiguous caches sharded over their sequence (decode at tp > 1; off
+    # for page pools, which shard their heads, and at tp = 1)
+    seq_shard: bool = False
 
     @property
     def tp(self) -> int:
@@ -51,11 +62,30 @@ class ParallelCtx:
         """This process's index along the model axis."""
         return self.mesh.rank if self.tp > 1 else 0
 
+    @property
+    def seq_rank(self) -> int:
+        """The index of this rank's sequence shard of a contiguous cache (0
+        where the cache is whole)."""
+        return self.rank if self.seq_shard and self.tp > 1 else 0
+
     def all_gather_last(self, x: torch.Tensor) -> torch.Tensor:
         """The ranks' ``x`` concatenated along the last axis in rank order."""
         if self.tp == 1:
             return x
         return torch.cat(self._gather(x), dim=-1)
+
+    def all_gather_last_each(self, *xs: torch.Tensor) -> List[torch.Tensor]:
+        """`all_gather_last` of each of ``xs`` (one dtype, one leading
+        shape) in one exchange of their concatenation."""
+        if self.tp == 1:
+            return list(xs)
+        parts = self._gather(torch.cat(xs, dim=-1))
+        out, lo = [], 0
+        for x in xs:
+            w = x.shape[-1]
+            out.append(torch.cat([p[..., lo:lo + w] for p in parts], dim=-1))
+            lo += w
+        return out
 
     def sum_ranks(self, x: torch.Tensor) -> torch.Tensor:
         """The ranks' ``x`` added in rank order, ``((r0 + r1) + r2) + ...``:
@@ -67,6 +97,12 @@ class ParallelCtx:
         for p in parts[1:]:
             s = s + p
         return s
+
+    def max_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """The element-wise max of the ranks' ``x`` (exact in any order)."""
+        if self.tp == 1:
+            return x
+        return torch.stack(self._gather(x)).amax(dim=0)
 
     def _gather(self, x: torch.Tensor) -> List[torch.Tensor]:
         """Every rank's ``x`` (same shape and dtype on every rank), in rank

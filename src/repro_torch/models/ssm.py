@@ -34,6 +34,15 @@ RG-LRU (`_rglru_elems`):
     cast by the engine) every op rounds to bf16 but the divide;
   * ``a * a`` is ``exp(log_a + log_a)`` (XLA rewrites the product of two
     exps), and ``a * h + b`` one fused multiply-add.
+Tensor parallelism (a `models.parallel.ParallelCtx` of tp > 1, the
+reference's serving layout): a rank holds d_inner / tp (lru_width / tp)
+channels of the inner width: its slices of the conv, A_log, D, Λ, the
+states, and the N-shards of every projection (``in_proj``'s slices of both
+its x and z halves). The conv, exp(dt A), the state update and the
+read-out act per channel, so they run on the rank's channels as they run
+on all of them; a projection whose K is the inner width (``x_proj``,
+``out_proj``, the RG-LRU's gates) gets its input gathered whole first, so
+every contraction keeps its K whole and tp > 1 gives tp = 1's bits.
 The served engine casts every stacked leaf of ndim >= 2 to bf16
 (`launch.engine.prepare_params`), so A_log, D, Λ, the conv bias and the dt
 bias are bf16 there and ``A = -exp(A_log)`` is rounded to bf16, as in the
@@ -59,6 +68,7 @@ from repro_torch.core.xla_math import (  # noqa: F401  (also imported from here)
 
 from .common import apply_linear, make_linear
 from .ffn import gelu, silu
+from .parallel import NO_CTX
 
 
 # ---------------------------------------------------------------- scan core
@@ -137,17 +147,27 @@ def readout(h: torch.Tensor, c: torch.Tensor, d: torch.Tensor, xc: torch.Tensor)
 
 
 # -------------------------------------------------------------------- Mamba1
-def _gated_out(p, y, z, policy):
+def _row_parallel(p, x, policy, ctx):
+    """A projection whose K is the inner width, of a rank's channels x: at
+    tp > 1 x is gathered whole, the rank's N-shard contracts it, and the
+    N-shards are gathered (the reference's serving layout N-shards these
+    row-parallel linears)."""
+    if ctx.tp == 1:
+        return apply_linear(p, x, policy)
+    return ctx.all_gather_last(apply_linear(p, ctx.all_gather_last(x), policy, ctx.tp))
+
+
+def _gated_out(p, y, z, policy, ctx=NO_CTX):
     """out_proj(bf16(y) * silu(z)) for Mamba (y f32, z in the activations'
     dtype). Under ``impl="fused_ref"`` with packed weights the product
     enters the K-blocked f32 product unrounded, as in the reference's
     compiled step (XLA drops the rounding of the bf16 product ahead of the
     f32 convert that `ams_matmul_blocked` starts with); the output rounds
-    to the activations' dtype as ever."""
+    to the activations' dtype as ever. ``ctx``: `_row_parallel`."""
     if policy is not None and policy.impl == "fused_ref" and "w" not in p:
         g = y.to(z.dtype).to(torch.float32) * silu(z).to(torch.float32)
-        return apply_linear(p, g, policy).to(z.dtype)
-    return apply_linear(p, y.to(z.dtype) * silu(z), policy)
+        return _row_parallel(p, g, policy, ctx).to(z.dtype)
+    return _row_parallel(p, y.to(z.dtype) * silu(z), policy, ctx)
 
 
 def init_mamba(gen: torch.Generator, cfg, *, dtype=torch.float32, device="cpu"):
@@ -170,18 +190,23 @@ def init_mamba(gen: torch.Generator, cfg, *, dtype=torch.float32, device="cpu"):
     }
 
 
-def _mamba_core(p, xc, cfg, policy):
-    """xc: [B, S, di] post-conv activations -> (da, db, C) scan elements."""
+def _mamba_core(p, xc, cfg, policy, ctx=NO_CTX):
+    """xc: [B, S, di] post-conv activations -> (da, db, C) scan elements.
+    Under a tp > 1 ``ctx`` xc holds the rank's channels: ``x_proj`` reads
+    it gathered and its output is gathered whole (`_row_parallel`), so
+    dt_proj's K (dt_rank) is whole, and its N-shard gives the rank's
+    channels of dt."""
     n = cfg.ssm_state
     dt_rank = cfg.dt_rank or max(1, cfg.d_model // 16)
-    xdb = apply_linear(p["x_proj"], xc, policy)
+    xdb = _row_parallel(p["x_proj"], xc, policy, ctx)
     dt_r = xdb[..., :dt_rank]
     Bc = xdb[..., dt_rank: dt_rank + n]
     Cc = xdb[..., dt_rank + n:]
     # the bias joins the bf16 product unrounded in f32 (XLA keeps the
     # excess precision of ``y + b`` into the f32 softplus)
     w = {k: v for k, v in p["dt_proj"].items() if k != "b"}
-    dt = apply_linear(w, dt_r, policy).to(torch.float32) + p["dt_proj"]["b"].to(torch.float32)
+    dt = (apply_linear(w, dt_r, policy, ctx.tp).to(torch.float32)
+          + p["dt_proj"]["b"].to(torch.float32))
     dt = softplus(dt)
     A = -exp_f32(p["A_log"].to(torch.float32)).to(p["A_log"].dtype)    # [di, n]
     da = exp_f32(dt[..., None] * A.to(torch.float32))                   # [B, S, di, n]
@@ -204,26 +229,29 @@ def mamba_train(p, x, cfg, *, policy=None, chunk=256):
 
 
 def mamba_decode(p, x, conv_state, ssm_state, cfg, *, policy=None,
-                 live: Optional[torch.Tensor] = None):
+                 live: Optional[torch.Tensor] = None, ctx=NO_CTX):
     """x: [B, 1, D]; conv_state [B, w-1, di]; ssm_state [B, di, n] f32.
 
     Returns (y [B, 1, D], (conv_state, ssm_state)). With ``live`` [B]
     (bool), the states of rows that are not live come back exactly as they
     were (the reference advances every row; an idle slot's garbage is
     harmless there because admission zeroes it, but the port's graph
-    warm-up runs a step with every slot idle over live states)."""
-    di = cfg.d_inner
-    xz = apply_linear(p["in_proj"], x, policy)
+    warm-up runs a step with every slot idle over live states). Under a
+    tp > 1 ``ctx`` the params and states are the rank's d_inner / tp
+    channels (``in_proj``'s N-shard is [x slice | z slice])."""
+    di = cfg.d_inner // ctx.tp
+    xz = apply_linear(p["in_proj"], x, policy, ctx.tp)
     x_in, z = xz[..., :di], xz[..., di:]
     xc, new_conv = causal_conv1d(x_in, p["conv_w"], p["conv_b"], conv_state)
     xc = silu(xc)
-    da, db, Cc = _mamba_core(p, xc, cfg, policy)
+    da, db, Cc = _mamba_core(p, xc, cfg, policy, ctx)
     h = fma_f32(da[:, 0], ssm_state, db[:, 0])                # [B, di, n]
     y = readout(h, Cc[:, 0].to(torch.float32)[:, None, :], p["D"], xc[:, 0].to(torch.float32))
     if live is not None:
         new_conv = torch.where(live[:, None, None], new_conv, conv_state)
         h = torch.where(live[:, None, None], h, ssm_state)
-    return _gated_out(p["out_proj"], y[:, None], z, policy), (new_conv, h)
+    tp_kw = {"ctx": ctx} if ctx.tp > 1 else {}     # one device: the four-argument call
+    return _gated_out(p["out_proj"], y[:, None], z, policy, **tp_kw), (new_conv, h)
 
 
 # -------------------------------------------------------------------- RG-LRU
@@ -256,26 +284,31 @@ def _neg8_sigmoid(lam: torch.Tensor) -> torch.Tensor:
     return (1.0 / d).to(lam.dtype).to(torch.float32) * -8.0
 
 
-def _rglru_elems(p, u, u32, policy):
+def _rglru_elems(p, u, u32, policy, ctx=NO_CTX):
     """u [B, S, W] (the conv output rounded, the projections' input) and
     u32 (unrounded, f32) -> (a, b) recurrence elements, f32:
     r, i = sigmoid(W_r u), sigmoid(W_i u); log a = -8 sigmoid(Λ) r;
-    b = sqrt(max(1 - a^2, 1e-12)) (i u)."""
-    r = sigmoid_f32(apply_linear(p["w_rec_gate"], u, policy).to(torch.float32))
-    i = sigmoid_f32(apply_linear(p["w_in_gate"], u, policy).to(torch.float32))
+    b = sqrt(max(1 - a^2, 1e-12)) (i u). Under a tp > 1 ``ctx`` u holds
+    the rank's channels: it is gathered whole once, and the gates'
+    N-shards give the rank's channels of r and i."""
+    tp = ctx.tp
+    uw = ctx.all_gather_last(u)
+    r = sigmoid_f32(apply_linear(p["w_rec_gate"], uw, policy, tp).to(torch.float32))
+    i = sigmoid_f32(apply_linear(p["w_in_gate"], uw, policy, tp).to(torch.float32))
     log_a = _neg8_sigmoid(p["lam"]) * r
     a = exp_f32(log_a)
     b = sqrt_f32(torch.clamp_min(1.0 - exp_f32(log_a + log_a), 1e-12)) * (i * u32)
     return a, b
 
 
-def _rglru_in(p, x, conv_state, policy):
+def _rglru_in(p, x, conv_state, policy, shards: int = 1):
     """The block's two branches up to the recurrence: (gate, u, u32,
     new_conv_state), u32 the f32 sum of the conv's rounded taps and its
-    bias (in x.dtype), u that sum rounded."""
-    gate = gelu(apply_linear(p["in_gate"], x, policy))
-    taps, new_conv = causal_conv1d(apply_linear(p["in_x"], x, policy), p["conv_w"], None,
-                                   conv_state)
+    bias (in x.dtype), u that sum rounded. ``shards`` > 1: the rank's
+    channels (N-shards of ``in_gate`` and ``in_x``)."""
+    gate = gelu(apply_linear(p["in_gate"], x, policy, shards))
+    taps, new_conv = causal_conv1d(apply_linear(p["in_x"], x, policy, shards), p["conv_w"],
+                                   None, conv_state)
     u32 = taps.to(torch.float32) + p["conv_b"].to(x.dtype).to(torch.float32)
     return gate, u32.to(x.dtype), u32, new_conv
 
@@ -290,17 +323,18 @@ def rglru_train(p, x, cfg, *, policy=None, chunk=256):
 
 
 def rglru_decode(p, x, conv_state, rec_state, cfg, *, policy=None,
-                 live: Optional[torch.Tensor] = None):
+                 live: Optional[torch.Tensor] = None, ctx=NO_CTX):
     """x: [B, 1, D]; conv_state [B, 3, W]; rec_state [B, W] f32.
 
     Returns (y [B, 1, D], (conv_state, rec_state)); with ``live`` [B]
     (bool) the states of rows that are not live come back exactly as they
-    were (as `mamba_decode`)."""
-    gate, u, u32, new_conv = _rglru_in(p, x, conv_state, policy)
-    a, b = _rglru_elems(p, u, u32, policy)
+    were (as `mamba_decode`). Under a tp > 1 ``ctx`` the params and states
+    are the rank's W / tp channels."""
+    gate, u, u32, new_conv = _rglru_in(p, x, conv_state, policy, ctx.tp)
+    a, b = _rglru_elems(p, u, u32, policy, ctx)
     h = fma_f32(a[:, 0], rec_state, b[:, 0])                      # [B, W]
     y = h[:, None].to(x.dtype) * gate
     if live is not None:
         new_conv = torch.where(live[:, None, None], new_conv, conv_state)
         h = torch.where(live[:, None], h, rec_state)
-    return apply_linear(p["out_proj"], y, policy), (new_conv, h)
+    return _row_parallel(p["out_proj"], y, policy, ctx), (new_conv, h)

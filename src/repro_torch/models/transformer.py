@@ -22,6 +22,13 @@ block of a model with a sliding window keeps a ring of the last
 ``sliding_window`` keys, slot ``position % window``. Modality prefix
 embeddings (VLM patches) enter `forward_seq` ahead of the tokens, and the
 decode step through its ``embeds`` / ``embed_mask`` override.
+
+The decode steps also run as one rank of a (1, tp) serving mesh (a
+`models.parallel.ParallelCtx`): the params are the rank's N-shards, page
+pools hold the rank's kv heads, contiguous caches (GQA, rings, the MLA
+stream) the rank's shard of the sequence (``ctx.seq_shard``; the ranks
+merge their partial softmaxes), and Mamba / RG-LRU states the rank's
+channels of the inner width (`make_cache(tp=)`).
 """
 
 from __future__ import annotations
@@ -94,22 +101,31 @@ def check_support(cfg, cache_cfg=None):
                                   "serve the model over a contiguous cache")
 
 
-def check_tp_support(cfg, cache_cfg, tp: int):
-    """What a model axis of ``tp`` > 1 ranks serves: GQA and MoE-GQA layers
-    over paged caches (head-sharded page pools). Contiguous caches (whose
-    reference shards the sequence and merges across ranks), MLA, Mamba and
-    the RG-LRU raise."""
-    if tp == 1:
+def check_tp_support(cfg, cache_cfg, tp: int, capacity: int = 0):
+    """What a model axis of ``tp`` > 1 ranks serves: every layer the port
+    serves, as the reference's engine step shards it. GQA and MoE-GQA
+    layers over page pools hold the rank's kv heads; contiguous caches
+    (GQA, sliding-window rings, the MLA stream) hold the rank's shard of
+    the sequence and merge the ranks' partial softmaxes; Mamba and RG-LRU
+    layers run on the rank's slice of the inner width. A contiguous
+    cache's capacity (where given), window and inner widths must divide
+    over tp: ValueError otherwise. What stays unported at tp > 1 (data
+    axes, the front end, CUDA graphs, the self drafters, the sequence
+    forward) is refused where it is asked for."""
+    if tp == 1 or (cache_cfg is not None and cache_cfg.paged):
         return
-    bad = sorted(set(layer_pattern(cfg)) - set(ATTENTION_KINDS))
+    sizes = {"capacity": capacity}
+    pat = set(layer_pattern(cfg))
+    if "attn" in pat and cfg.sliding_window:
+        sizes["sliding_window"] = cfg.sliding_window
+    if "mamba" in pat:
+        sizes["d_inner"] = cfg.d_inner
+    if "rec" in pat:
+        sizes["lru_width"] = cfg.lru_width
+    bad = {k: n for k, n in sizes.items() if n % tp}
     if bad:
-        raise NotImplementedError(
-            f"tensor-parallel serving of {bad} layers ({cfg.name}) is not ported yet "
-            "(ROADMAP.md, Modules to port)")
-    if cache_cfg is None or not cache_cfg.paged:
-        raise NotImplementedError(
-            "tensor-parallel serving over contiguous caches (the reference's sequence-sharded "
-            "merge) is not ported yet (ROADMAP.md, Modules to port): use a paged cache")
+        raise ValueError(f"a contiguous cache at tp={tp} splits its sequence and inner widths "
+                         f"over the ranks: {bad} do not divide by {tp}")
 
 
 def check_chunked_support(cfg):
@@ -194,7 +210,7 @@ def init_params(seed: int, cfg, *, dtype=torch.float32, device="cpu") -> Dict[st
 
 
 def block_cache_shape(cfg, dims: Dims, kind: str, B: int, cap: int, *,
-                      dtype=torch.bfloat16, device="cpu", lead=()):
+                      dtype=torch.bfloat16, device="cpu", lead=(), tp: int = 1):
     """Zero contiguous cache leaves of one block kind: ``{"k", "v"}`` [*lead,
     B, S, kv, hd] for GQA (S = cap, or the window for a ring ``attn`` block
     of a sliding-window model), ``{"kv"}`` [*lead, B, cap, 1, r_kv + dr]
@@ -202,20 +218,24 @@ def block_cache_shape(cfg, dims: Dims, kind: str, B: int, cap: int, *,
     of ``cap``: Mamba's ``{"conv"}`` [*lead, B, conv - 1, d_inner] in
     ``dtype`` and ``{"ssm"}`` [*lead, B, d_inner, n] f32, the RG-LRU's
     ``{"conv"}`` [*lead, B, 3, lru_width] and ``{"state"}`` [*lead, B,
-    lru_width] f32."""
+    lru_width] f32. ``tp`` > 1: one rank's leaves, the sequence (a ring's
+    slots) and the inner widths cut to 1 / tp (`launch.sharding.
+    cache_shard_dim`)."""
     kw = dict(dtype=dtype, device=device)
     f32 = dict(dtype=torch.float32, device=device)
     if kind == "mamba":
-        return {"conv": torch.zeros((*lead, B, cfg.ssm_conv - 1, cfg.d_inner), **kw),
-                "ssm": torch.zeros((*lead, B, cfg.d_inner, cfg.ssm_state), **f32)}
+        di = cfg.d_inner // tp
+        return {"conv": torch.zeros((*lead, B, cfg.ssm_conv - 1, di), **kw),
+                "ssm": torch.zeros((*lead, B, di, cfg.ssm_state), **f32)}
     if kind == "rec":
-        return {"conv": torch.zeros((*lead, B, 3, cfg.lru_width), **kw),
-                "state": torch.zeros((*lead, B, cfg.lru_width), **f32)}
+        W = cfg.lru_width // tp
+        return {"conv": torch.zeros((*lead, B, 3, W), **kw),
+                "state": torch.zeros((*lead, B, W), **f32)}
     if kind == "mla":
         c = cfg.kv_lora_rank + cfg.qk_rope_dim
-        return {"kv": torch.zeros((*lead, B, cap, 1, c), **kw)}
+        return {"kv": torch.zeros((*lead, B, cap // tp, 1, c), **kw)}
     S_cap = cfg.sliding_window if (kind == "attn" and cfg.sliding_window) else cap
-    shape = (*lead, B, S_cap, dims.kv, dims.hd)
+    shape = (*lead, B, S_cap // tp, dims.kv, dims.hd)
     return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
 
 
@@ -227,9 +247,13 @@ def make_cache(cfg, B: int = 0, cap: int = 0, *, cache_cfg=None, dtype=torch.bfl
     (``layers/sub{i}``) and [B, S, ...] per tail block (``tail/sub{i}``).
     At ``tp`` > 1 the pools of one rank: its kv / tp heads where tp divides
     them, else every head, as the reference's `pool_shardings`
-    (`models.parallel.heads_split`)."""
+    (`models.parallel.heads_split`); the contiguous caches of one rank: its
+    shard of the sequence (capacity / tp rows, window / tp ring slots) and
+    its d_inner / tp or lru_width / tp channels of the recurrent states,
+    as the reference's ``cache_shardings(seq_shard=True)``."""
     check_support(cfg, cache_cfg)
-    check_tp_support(cfg, cache_cfg, tp)
+    check_tp_support(cfg, cache_cfg, tp, 0 if cache_cfg is not None and cache_cfg.paged
+                     else cap)
     dims = model_dims(cfg, tp)
     if cache_cfg is not None and cache_cfg.paged:
         from repro_torch.cache import make_gqa_page_pool
@@ -241,7 +265,7 @@ def make_cache(cfg, B: int = 0, cap: int = 0, *, cache_cfg=None, dtype=torch.bfl
         raise ValueError(f"a contiguous cache needs slots and capacity >= 1, got {B}, {cap}")
     pat = layer_pattern(cfg)
     G, R = pattern_counts(cfg)
-    kw = dict(dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=device, tp=tp)
     cache = {"layers": {f"sub{i}": block_cache_shape(cfg, dims, kind, B, cap, lead=(G,), **kw)
                         for i, kind in enumerate(pat)}}
     if R:
@@ -311,19 +335,19 @@ def block_decode(p, x, cache, pos, kind, cfg, dims, *, policy, block_tables, cac
     h = _norm_in(x, pre, p["ln1"], cfg.norm_eps)
     if kind == "mamba":
         out, (conv, ssm) = S.mamba_decode(p["mixer"], h, cache["conv"], cache["ssm"], cfg,
-                                          policy=policy, live=pos >= 0)
+                                          policy=policy, live=pos >= 0, ctx=ctx)
         cache["conv"].copy_(conv)
         cache["ssm"].copy_(ssm)
         x, pre = residual(x, out)
         return x, cache, pre
     if kind == "rec":
         out, (conv, state) = S.rglru_decode(p["mixer"], h, cache["conv"], cache["state"], cfg,
-                                            policy=policy, live=pos >= 0)
+                                            policy=policy, live=pos >= 0, ctx=ctx)
         cache["conv"].copy_(conv)
         cache["state"].copy_(state)
     elif kind == "mla":
         out, ckv = A.mla_attn_decode(p["attn"], h, cache["kv"], pos, cfg, dims, policy=policy,
-                                     attn_impl=_attn_impl(cache_cfg))
+                                     attn_impl=_attn_impl(cache_cfg), ctx=ctx)
         cache = {"kv": ckv}
     elif cache_cfg is not None and cache_cfg.paged:
         out, cache = A.gqa_attn_decode_paged(p["attn"], h, cache, pos, block_tables, cfg,
@@ -332,7 +356,8 @@ def block_decode(p, x, cache, pos, kind, cfg, dims, *, policy, block_tables, cac
         window = cfg.sliding_window if kind == "attn" else 0
         out, (ck, cv) = A.gqa_attn_decode(p["attn"], h, cache["k"], cache["v"], pos, cfg,
                                           dims, policy=policy, window=window,
-                                          ring=bool(window), attn_impl=_attn_impl(cache_cfg))
+                                          ring=bool(window), attn_impl=_attn_impl(cache_cfg),
+                                          ctx=ctx)
         cache = {"k": ck, "v": cv}
     x, h2 = residual_norm(x, out, p["ln2"], cfg.norm_eps)
     x, pre = residual(x, _ffn(p, h2, cfg, policy, ctx, "decode")[0])
@@ -348,7 +373,8 @@ def block_decode_chunk(p, x, cache, pos, nvalid, kind, cfg, dims, *, policy, blo
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "mla":
         out, ckv = A.mla_attn_decode_chunk(p["attn"], h, cache["kv"], pos, nvalid, cfg, dims,
-                                           policy=policy, attn_impl=_attn_impl(cache_cfg))
+                                           policy=policy, attn_impl=_attn_impl(cache_cfg),
+                                           ctx=ctx)
         cache = {"kv": ckv}
     elif cache_cfg is not None and cache_cfg.paged:
         out, cache = A.gqa_attn_decode_paged_chunk(p["attn"], h, cache, pos, nvalid,
@@ -357,7 +383,7 @@ def block_decode_chunk(p, x, cache, pos, nvalid, kind, cfg, dims, *, policy, blo
     else:
         out, (ck, cv) = A.gqa_attn_decode_chunk(p["attn"], h, cache["k"], cache["v"], pos,
                                                 nvalid, cfg, dims, policy=policy,
-                                                attn_impl=_attn_impl(cache_cfg))
+                                                attn_impl=_attn_impl(cache_cfg), ctx=ctx)
         cache = {"k": ck, "v": cv}
     x, h2 = residual_norm(x, out, p["ln2"], cfg.norm_eps)
     return x + _ffn(p, h2, cfg, policy, ctx, "decode")[0], cache
@@ -567,10 +593,13 @@ def decode_step(params, token, cache, pos, cfg, *, policy=None, dtype=torch.bflo
     the engine streams modality prefix embeddings through the step this
     way during prefill.
 
-    ``ctx``: a `models.parallel.ParallelCtx`; at tp > 1 (paged GQA and
-    MoE-GQA layers, `check_tp_support`) ``params`` and ``cache`` are this
-    rank's shards, the residual stream and the logits are replicated, and
-    every rank returns the logits of the tp = 1 step."""
+    ``ctx``: a `models.parallel.ParallelCtx`; at tp > 1 (`check_tp_support`)
+    ``params`` and ``cache`` are this rank's shards (page pools: its kv
+    heads; contiguous caches, ``ctx.seq_shard``: its shard of the sequence
+    and of the recurrent states' inner width), the residual stream and the
+    logits are replicated, and every rank returns the same logits: tp =
+    1's bits wherever no attention merges across ranks (the merged softmax
+    adds the ranks' partial sums, another association than one rank's)."""
     tp = ctx.tp
     check_tp_support(cfg, cache_cfg, tp)
     if token.dim() == 2:

@@ -120,6 +120,7 @@ class StepCostModel:
 
 def build_cost_model(cfg, scheme: str, cache_cfg=None, *, kv: Optional[int] = None,
                      hd: Optional[int] = None, tp: int = 1, kv_shards: int = 1,
+                     seq_shards: int = 1,
                      signature: Optional[Dict[str, object]] = None) -> StepCostModel:
     """Cost model for one engine configuration. ``scheme`` is the weight
     scheme ("fp16": bf16 weights); ``cache_cfg`` selects the KV floors (None,
@@ -127,8 +128,10 @@ def build_cost_model(cfg, scheme: str, cache_cfg=None, *, kv: Optional[int] = No
     config's KV-head geometry with the engine's served dims. Per device on a
     (1, tp) mesh, as in the reference: the weight bytes divide by ``tp``,
     and every KV floor by ``kv_shards`` (the engine passes tp where its
-    page pools are head-sharded, else 1), so ``kv_floor_ratio`` stays a
-    ratio of like quantities."""
+    page pools are head-sharded, else 1) and by ``seq_shards`` (tp where
+    its contiguous caches are sequence-sharded: a rank holds and reads 1 /
+    tp of every slot's positions), so ``kv_floor_ratio`` stays a ratio of
+    like quantities."""
     pc = param_count(cfg)
     wbits = SCHEMES[scheme].effective_bits if scheme in SCHEMES else 16.0
     kv = cfg.num_kv_heads if kv is None else kv
@@ -149,15 +152,16 @@ def build_cost_model(cfg, scheme: str, cache_cfg=None, *, kv: Optional[int] = No
     else:
         kv_tok = float(bf16_tok)
         kv_ideal = float(bf16_tok)
+    per = cfg.num_layers / seq_shards
     return StepCostModel(
         signature=dict(signature or {}),
         weight_bytes=pc["total"] * wbits / 8.0 / tp,
         flops_per_token=2.0 * pc["active"],
         attn_flops_per_pos=4.0 * cfg.num_heads * hd,
-        kv_bytes_per_token=cfg.num_layers * kv_tok,
-        kv_ideal_bytes_per_token=cfg.num_layers * kv_ideal,
-        kv_bf16_bytes_per_token=cfg.num_layers * float(bf16_tok),
-        kv_dequant_bytes_per_token=cfg.num_layers * float(dequant),
+        kv_bytes_per_token=per * kv_tok,
+        kv_ideal_bytes_per_token=per * kv_ideal,
+        kv_bf16_bytes_per_token=per * float(bf16_tok),
+        kv_dequant_bytes_per_token=per * float(dequant),
     )
 
 

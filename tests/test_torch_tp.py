@@ -51,9 +51,15 @@ from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.transformer import layer_pattern  # noqa: E402
 
 TP = 2
-# the reduced configs of the slice's layer kinds (dense GQA, MoE-GQA)
+# the reduced configs of the served layer kinds (dense GQA, MoE-GQA; MLA,
+# Mamba-1 and the RG-LRU hybrid, over contiguous caches only)
 SLICE_ARCHS = ["qwen2-7b", "qwen2.5-7b", "qwen1.5-4b", "deepseek-coder-33b", "internvl2-1b",
-               "musicgen-medium", "llama4-scout-17b-16e", "dbrx-132b"]
+               "musicgen-medium", "llama4-scout-17b-16e", "dbrx-132b", "minicpm3-4b",
+               "falcon-mamba-7b", "recurrentgemma-9b"]
+# linears the port keeps whole on every rank where the reference's
+# packed-plane rule N-shards their planes (its REPLICATED MLA down-projections;
+# their plain weights are whole in both)
+PORT_WHOLE = {"wq_a", "wkv_a"}
 
 
 @pytest.fixture(scope="module")
@@ -162,15 +168,22 @@ def test_sum_ranks_and_gather_in_rank_order():
 
 
 def test_tp2_refuses_what_it_does_not_serve(world):
-    """Contiguous caches, MLA, Mamba and RG-LRU layers, data axes > 1, the
-    front end, CUDA graphs, the self drafters and MoE outside decode raise
-    at tp > 1, naming the ROADMAP item."""
+    """Data axes > 1, the front end, CUDA graphs, the self drafters and MoE
+    outside decode (``moe_tp``) raise at tp > 1, naming the ROADMAP item.
+    Contiguous caches, MLA, Mamba and RG-LRU layers, refused before, are
+    served now (sequence-sharded caches, tests/test_torch_tp_contiguous.py):
+    their configs build."""
     r0, r1 = results(world)
     assert r0["refusals"] == r1["refusals"]
+    served = {"contiguous", "mla", "mamba", "rglru"}
     for case, (kind, msg) in r0["refusals"].items():
+        if case in served:
+            assert kind is None, (case, kind, msg)
+            continue
         assert kind == "NotImplementedError", (case, kind, msg)
         assert "ROADMAP.md, Modules to port" in msg, (case, msg)
-    assert set(r0["refusals"]) >= {"contiguous", "mla", "mamba", "rglru", "data>1", "frontend"}
+    assert set(r0["refusals"]) >= served | {"data>1", "frontend", "graphs", "self-drafter",
+                                            "moe-seq"}
 
 
 def test_meshes_the_port_does_not_build():
@@ -198,10 +211,14 @@ def _model_dim(spec):
 def test_shard_dims_follow_the_reference_specs(arch, scheme):
     """For every leaf of the reduced config's serving tree (plain and
     quantized), the port's shard dim equals the ``model`` dim of the
-    reference's ``param_spec(serve_n_shard=True)``; every page-pool plane
-    a rank's `make_cache(tp=2)` makes is the reference's plane cut along the
+    reference's ``param_spec(serve_n_shard=True)`` (the planes of MLA's
+    ``wq_a`` / ``wkv_a`` excepted: whole in the port, N over ``model`` in
+    the reference's packed-plane rule); every page-pool plane a rank's
+    `make_cache(tp=2)` makes is the reference's plane cut along the
     ``model`` dim of ``pool_spec`` where ``pool_shardings`` splits it (the
-    heads divide tp), and whole otherwise."""
+    heads divide tp), and whole otherwise (configs that page); every
+    contiguous cache leaf is the reference's cut along the ``model`` dim of
+    ``cache_spec(seq_shard=True)``, which `cache_shard_dim` names."""
     jcfg = j_get_config(arch).reduced()
 
     def serving(k):
@@ -218,11 +235,15 @@ def test_shard_dims_follow_the_reference_specs(arch, scheme):
         ns = 1 if names[0] == "layers" else 0
         want = _model_dim(jsh.param_spec(path, leaf, fsdp=None, n_stack=ns, moe="ep",
                                          serve_n_shard=True))
+        if len(names) > 1 and names[-2] in PORT_WHOLE and names[-1] in ("hi", "lsb", "scale"):
+            assert want == leaf.ndim - 1, names
+            want = None
         assert SH.serve_shard_dim(names, leaf, ns) == want, names
         n += 1
     assert n > 5
     cfg = get_config(arch).reduced()
-    for kind in ("paged_ams", "paged_bf16"):
+    paged = set(layer_pattern(cfg)) <= {"gqa", "gqa_moe"} and not cfg.sliding_window
+    for kind in ("paged_ams", "paged_bf16") if paged else ():
         jcc = JCacheConfig(kind=kind, page_size=8).sized(capacity=32, slots=2)
         pool = jax.eval_shape(lambda: j_make_cache(jcfg, 2, 32, tp=TP, cache_cfg=jcc))
         mine = dict(tree_items(make_cache(cfg, 2, 32, cache_cfg=CacheConfig(
@@ -232,6 +253,18 @@ def test_shard_dims_follow_the_reference_specs(arch, scheme):
             if leaf.ndim >= 2 and leaf.shape[-2] % TP == 0:
                 want[_model_dim(jsh.pool_spec(leaf))] //= TP
             assert list(mine[tuple(_names(path))].shape) == want, _names(path)
+    contig = jax.eval_shape(lambda: j_make_cache(jcfg, 2, 32, tp=TP))
+    mine = dict(tree_items(make_cache(cfg, 2, 32, tp=TP)))
+    assert len(mine) == len(jax.tree_util.tree_leaves(contig))
+    for path, leaf in jax.tree_util.tree_flatten_with_path(contig)[0]:
+        names = _names(path)
+        ns = 1 if names[0] == "layers" else 0
+        d = _model_dim(jsh.cache_spec(path, leaf, dp=None, seq_shard=True, n_stack=ns))
+        assert SH.cache_shard_dim(names, leaf, ns) == d, names
+        want = list(leaf.shape)
+        if d is not None:
+            want[d] //= TP
+        assert list(mine[tuple(names)].shape) == want, names
 
 
 @pytest.mark.parametrize("scheme", ["fp5.33-e2m3", "fp4.25-e2m2"])

@@ -100,7 +100,9 @@ def accounting(mesh, np_params):
 
 
 def refusals(mesh, np_params):
-    """What a tp > 1 mesh refuses: {case: (exception type, message)}."""
+    """What a tp > 1 mesh refuses: {case: (exception type, message)}, (None,
+    "") where the case builds (the contiguous, MLA, Mamba and RG-LRU
+    configs, served since sequence-sharded caches were ported)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.frontend import ServeFrontend
     from repro_torch.launch.mesh import make_serving_mesh
@@ -115,9 +117,11 @@ def refusals(mesh, np_params):
     eng = ServeEngine(engine_config(mesh), params=params_from_numpy(np_params))
     cases = {
         "contiguous": lambda: EngineConfig(reduced=True, device="cpu", mesh=mesh),
-        "mla": lambda: engine_config(mesh, arch="minicpm3-4b"),
-        "mamba": lambda: engine_config(mesh, arch="falcon-mamba-7b"),
-        "rglru": lambda: engine_config(mesh, arch="recurrentgemma-9b"),
+        "mla": lambda: engine_config(mesh, arch="minicpm3-4b", kind="contiguous"),
+        "mamba": lambda: engine_config(mesh, arch="falcon-mamba-7b", kind="contiguous",
+                                       chunk=1),
+        "rglru": lambda: engine_config(mesh, arch="recurrentgemma-9b", kind="contiguous",
+                                       chunk=1),
         "data>1": lambda: make_serving_mesh(1, "cpu"),
         "frontend": lambda: ServeFrontend(eng),
         "graphs": eng.capture_graphs,
@@ -201,3 +205,130 @@ def moe_engine_world(mesh, np_params, scheme, impl):
         M.moe_ep = inner
     return toks, calls
 
+
+
+# ------------------------------------------------ contiguous caches at tp > 1
+# (tests/test_torch_tp_contiguous.py) the reduced configs of the slice, each
+# over a contiguous cache: (prefill chunk, capacity, prompts, new tokens).
+# The attention prompts cross the middle of the cache (rank 1's first
+# position); the hybrid's second prompt wraps its 64-slot ring.
+CONTIG = {
+    "qwen2-7b": (4, 48, (list(range(3, 23)), [3, 5, 11, 13, 2, 9, 4, 4, 2] * 2,
+                         [1, 2, 3] * 12), (8, 9, 10)),
+    "minicpm3-4b": (4, 48, (list(range(3, 23)), [3, 5, 11, 13, 2, 9, 4, 4, 2] * 2,
+                            [1, 2, 3] * 12), (8, 9, 10)),
+    "falcon-mamba-7b": (1, 32, ([3, 5, 7, 9, 11, 13, 2, 9, 4], [7, 1, 8, 2, 8],
+                                list(range(40, 52))), (8, 8, 8)),
+    "recurrentgemma-9b": (1, 96, ([3, 5, 7, 9, 11, 13, 2, 9, 4],
+                                  [(7 * i) % 500 + 1 for i in range(74)],
+                                  list(range(40, 52))), (8, 8, 8)),
+}
+
+
+def contig_config(mesh, arch, k=0, impl="kernel"):
+    chunk, cap, _, _ = CONTIG[arch]
+    return EngineConfig(arch=arch, reduced=True, scheme="fp5.33-e2m3", impl=impl, slots=2,
+                        capacity=cap, prefill_chunk=max(chunk, k + 1 if k else 1),
+                        speculate_k=k, mesh=mesh, device="cpu",
+                        cache=CacheConfig(kind="contiguous", impl="ref"))
+
+
+def contig_serve(mesh, np_params, arch, k=0):
+    """The arch's workload on a contiguous-cache engine at this mesh: (the
+    streams, the logits of every step (greedy engines), the cache leaves as
+    numpy, kv_bytes_per_token, the cost model's KV and weight fields, the
+    cache's and the params' bytes)."""
+    from repro_torch.core.tree import tree_items
+    from repro_torch.launch import steps
+
+    _, _, prompts, new = CONTIG[arch]
+    eng = ServeEngine(contig_config(mesh, arch, k), params=params_from_numpy(np_params))
+    logits = []
+    real = steps.sample_tokens
+
+    def tap(lg, sampling):
+        logits.append(lg.to(torch.float32).numpy().copy())
+        return real(lg, sampling)
+
+    steps.sample_tokens = tap
+    try:
+        hs = [eng.submit(p, n) for p, n in zip(prompts, new)]
+        eng.run()
+    finally:
+        steps.sample_tokens = real
+    cm = eng.cost_model
+    return dict(streams=[list(map(int, h.tokens)) for h in hs], logits=logits,
+                last_slot=eng.finished[-1].slot,
+                cache={"/".join(p): t.view(torch.uint8).numpy().copy() if t.dtype == torch.bfloat16
+                       else t.numpy().copy() for p, t in tree_items(eng.cache)},
+                kv_bytes_per_token=eng.kv_bytes_per_token(),
+                cost={f: getattr(cm, f) for f in COST_FIELDS},
+                cache_bytes=nbytes(eng.cache), param_bytes=nbytes(eng.params),
+                ticks=eng.stats()["ticks"])
+
+
+def contiguous_world(mesh, np_params_by_arch):
+    """One rank's share of tests/test_torch_tp_contiguous.py: every arch's
+    workload and n-gram speculation (k = 2) on the GQA one."""
+    torch.set_num_threads(1)
+    out = {arch: contig_serve(mesh, np_params_by_arch[arch], arch) for arch in CONTIG}
+    out["spec"] = contig_serve(mesh, np_params_by_arch["qwen2-7b"], "qwen2-7b", k=2)
+    return out
+
+
+def seq_cores(mesh, cases):
+    """The sequence-sharded insert + attend cores on this rank: for each
+    case of ``cases`` (numpy inputs, the caches whole), the rank's shard of
+    the caches goes in; returns {case: (output, the rank's cache shards)}
+    as uint16 views of the bf16 bits."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.parallel import ParallelCtx
+
+    torch.set_num_threads(1)
+    ctx = ParallelCtx(mesh=mesh, tp_axis="model", seq_shard=True) if mesh is not None \
+        else None
+    r, tp = (ctx.rank, ctx.tp) if ctx is not None else (0, 1)
+    bits = lambda t: t.contiguous().view(torch.int16).numpy().view("uint16")   # noqa: E731
+
+    def bf(a):
+        return torch.from_numpy(a.copy()).view(torch.bfloat16)
+
+    def shard(a):
+        s = a.shape[1] // tp
+        return bf(a[:, r * s:(r + 1) * s].copy())
+
+    out = {}
+    for name, c in cases.items():
+        pos = torch.from_numpy(c["pos"])
+        if name.startswith("mla"):
+            kw = dict(r_kv=int(c["r_kv"]), scale=float(c["scale"]), ctx=ctx)
+            cache = shard(c["cache"])
+            if "nvalid" in c:
+                o, cache = A.mla_decode_core_chunk(bf(c["q"]), bf(c["new"]), cache, pos,
+                                                   torch.from_numpy(c["nvalid"]), **kw)
+            else:
+                o, cache = A.mla_decode_core(bf(c["q"]), bf(c["new"]), cache, pos, **kw)
+            out[name] = (bits(o), [bits(cache)])
+            continue
+        kvm = A.kv_index_map(c["q"].shape[-2], c["q"].shape[-2], c["k"].shape[-2])
+        ck, cv = shard(c["ck"]), shard(c["cv"])
+        if "nvalid" in c:
+            o, ck, cv = A.gqa_decode_core_chunk(bf(c["q"]), bf(c["k"]), bf(c["v"]), ck, cv, pos,
+                                                torch.from_numpy(c["nvalid"]), kv_map=kvm,
+                                                ctx=ctx)
+        else:
+            w = int(c.get("window", 0))
+            o, ck, cv = A.gqa_decode_core(bf(c["q"]), bf(c["k"]), bf(c["v"]), ck, cv, pos,
+                                          kv_map=kvm, window=w, ring=bool(w), ctx=ctx)
+        out[name] = (bits(o), [bits(ck), bits(cv)])
+    return out
+
+
+def collectives_merge(mesh):
+    """`max_ranks` of this rank's f32 operand and `all_gather_last_each` of
+    its two bf16 slices (`collective_inputs`)."""
+    from repro_torch.models.parallel import ParallelCtx
+
+    ctx = ParallelCtx(mesh=mesh, tp_axis="model")
+    x, y = collective_inputs(ctx.rank)
+    return ctx.max_ranks(x), ctx.all_gather_last_each(y, y[..., :2] * 3)
