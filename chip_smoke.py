@@ -8,7 +8,8 @@
         # (a parent commit unpacked), to compare two versions in one call;
         # phase "tick" times the greedy FP5.33 graph tick, "rows" runs the
         # row-invariance check of the FP16, contiguous and MLA paths, "tp"
-        # the tensor-parallel phase (two ranks on the card)
+        # the tensor-parallel phase (two ranks on the card), "dp" the
+        # data-parallel training phase (two ranks on the card)
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -160,7 +161,8 @@ Phases, each fatal on failure:
       replay of its graph (`obs.cost.attribution(profile=True)`);
   16. tp (`phase_tp`): tensor-parallel serving, two ranks spawned over
       gloo on the one card (NCCL refuses two ranks on one device; the
-      kernels are built before, the ranks load them): full-width Qwen2-7B
+      kernels are built before, the ranks load them), in two such worlds
+      at once that split the paths (`TP_WORLDS`): full-width Qwen2-7B
       at FP5.33 over AMS pages (`tp2-fp5.33`, all 28 layers, the FP5.33
       path's workload; K1, K2), Llama-4-Scout-17B-16E at FP4.25, 2 layers,
       expert-parallel (`tp2-moe-fp4.25`; K1b, K2), Qwen2-7B at FP16 over
@@ -186,10 +188,12 @@ Phases, each fatal on failure:
       (all but FP16); on `tp2-fp5.33` and `tp2-ssm-fp5.33` its streams and
       first-tick logits bit-equal to tp = 1's, and on the Mamba and hybrid
       paths the recurrent states gathered from both ranks bit-equal to
-      tp = 1's; on `tp2-moe-fp4.25`, whose capacity drops
-      tokens, the same of a second serve at the capacity factor that
-      drops nothing; on `tp2-fp16` (cuBLAS projections) and the three
-      paths whose attention merges across ranks, first-tick logits within
+      tp = 1's (on the hybrid, whose long request puts ring keys on rank
+      1, up to its first attention layer, and within LOGIT_TOL after it);
+      on `tp2-moe-fp4.25`, whose capacity drops tokens, the same of a
+      second serve at the capacity factor that drops nothing; on
+      `tp2-fp16` (cuBLAS projections) and the three paths whose attention
+      merges across ranks, first-tick logits within
       LOGIT_TOL (streams' first diverging tokens printed), and on those
       three the merge of tp = 1's first contiguous attention call (its q
       and its cache, the rank's half of it) within MERGE_TOL of one rank's
@@ -206,7 +210,13 @@ Phases, each fatal on failure:
       whole product's bits at each bf16 projection and the head; then
       K1, K1b, K2 and K3 timed at a rank's shapes (`K1[qwen2-7b tp2]`...,
       `K1[falcon-mamba-7b tp2]`, `K1[recurrentgemma-9b tp2]`,
-      `K1[minicpm3-4b tp2]`);
+      `K1[minicpm3-4b tp2]`). The contiguous, MLA and hybrid paths each
+      serve one more request, submitted first, whose prompt (300 tokens;
+      1100 on the hybrid, at capacity 1280) runs past rank 0's half, and
+      the taps arm on the first all-decode tick that request takes part
+      in: rank 1's written rows of layer 0's cache at that tick (printed)
+      must be > 0, and the logits and the merge held there read keys on
+      both ranks;
   17. train (`phase_train`, after the serving phases have freed the card):
       full-width Qwen2-7B cut to 4 layers trains 8 steps through
       `launch.steps.build_train_step` (B 8 x 512 tokens, microbatches of 4,
@@ -220,7 +230,25 @@ Phases, each fatal on failure:
       to the saved ones, the restored step's loss repeated, a fresh driver
       resuming from the newest step). Run it alone with ``python -c
       "import chip_smoke, torch; chip_smoke.phase_train(torch,
-      torch.device('cuda', 0))"``.
+      torch.device('cuda', 0))"``;
+  18. dp (`phase_dp`, after train): data-parallel training in worlds of
+      two ranks spawned over gloo on the one card, after dp = 1 baselines
+      here (their memory freed first): `single`, (data 2),
+      full-width Qwen2-7B at the train phase's config cut to
+      DP_SINGLE_LAYERS = 3 layers (B 8 x 512, microbatch 4, remat,
+      TRAIN_LR) for DP_STEPS steps, FSDP over data, each step's
+      loss and grad norm within TRAIN_LOSS_REL / TRAIN_GNORM_REL of dp = 1
+      from the same `init_params(0)`, the ranks' metrics and whole leaves
+      bit-equal at every step, each FSDP leaf's master, m and v half a leaf
+      on each rank; `multi`, (pod 2, data 1) at depth 1 with the int8
+      all-gather (`int8_ag`) for DP_MULTI_STEPS steps, in a world of its
+      own: step 0's every compressed leaf within amax / 127 of
+      the rank-order f32 sum, step 0's grad norm within TRAIN_GNORM_REL of
+      the uncompressed dp = 1 run's plus the int8 error's norm, losses
+      within DP_MULTI_LOSS_TOL of the uncompressed dp = 1 run, the ranks'
+      params bit-equal; no port kernel launched (`dp single` / `dp multi`
+      lines: step and gloo ms, gloo calls and bytes by collective, pinned
+      and peak bytes per rank, int8 bytes against f32's).
 
 A line ``compare {...}`` sets the thirteen paths' graph and eager decode
 ticks, replay ms, device-busy ms, idle shares, gaps inside ticks and
@@ -242,6 +270,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -3111,8 +3140,8 @@ def phase_train(torch, dev, timed: bool = True, full: bool = True):
         saved[step] = {k: ckpt._to_host(v) for k, v in ckpt._flatten(tree)}
         return real_save(self, step, tree, **kw)
 
-    def restore(self, tree_like, step=None, shard_id=0):
-        tree, got = real_restore(self, tree_like, step, shard_id)
+    def restore(self, tree_like, step=None, shard_id=0, **kw):
+        tree, got = real_restore(self, tree_like, step, shard_id, **kw)
         # host bytes now: the train step then updates the restored masters in place
         restored.append((None if tree is None else
                          {k: ckpt._to_host(v).tobytes() for k, v in ckpt._flatten(tree)}, got))
@@ -3188,26 +3217,45 @@ RGLRU_PROJ = [("mixer", "in_gate"), ("mixer", "in_x"), ("mixer", "w_rec_gate"),
 # printed, and the merge of layer 0's (the first attention layer's) call
 # on tp = 1's inputs held within MERGE_TOL of one rank's plain walk;
 # ``states``: recurrent states, gathered from the ranks' halves of the
-# inner width and held bit-equal to tp = 1's at the end of the run. Every
+# inner width at the end of the run: bit-equal to tp = 1's, or on a
+# ``merged`` path (whose long request puts keys on rank 1) bit-equal up to
+# the first attention layer and within LOGIT_TOL of max |state| after it. Every
 # other path's streams and first-tick logits are held bit-equal to tp = 1's.
+# ``long``: one more request, submitted first, whose prompt of that many
+# tokens runs past a rank's half of the sequence-sharded cache (256 of 512
+# rows; 1024 of the ring's 2048 slots, on an engine of ``capacity`` 1280);
+# the taps arm on the first all-decode tick it takes part in, so the logits
+# and merged attention held there read keys on both ranks; each rank's
+# written rows of layer 0's cache at that tick are printed, and rank 1's
+# must be > 0
 TP_PATHS = {
     "tp2-fp5.33": dict(base="fp5.33", depth=None),
     "tp2-moe-fp4.25": dict(base="moe-fp4.25", depth=2, k1=4, ep=True),
     "tp2-fp16": dict(base="fp16", depth=4, k1=0, lean=True),
-    "tp2-contig-fp5.33": dict(base="contig-fp5.33", depth=None, merged=True, kernels=K1_ONLY),
+    "tp2-contig-fp5.33": dict(base="contig-fp5.33", depth=None, merged=True, kernels=K1_ONLY,
+                              long=300),
     "tp2-mla-fp5.33": dict(base="mla-fp5.33", depth=4, merged=True, kernels=K1_ONLY,
-                           proj=MLA_PROJ),
+                           proj=MLA_PROJ, long=300),
     "tp2-ssm-fp5.33": dict(base="ssm-fp5.33", depth=4, states=True, proj=MAMBA_PROJ),
     "tp2-hybrid-fp5.33": dict(base="hybrid-fp5.33", depth=5, states=True, merged=True,
-                              proj=RGLRU_PROJ),
+                              proj=RGLRU_PROJ, long=1100, capacity=1280),
 }
+# the long request's prompt on the CPU rehearsal (capacity 64: 32 rows a rank)
+TINY_LONG = 56
 TP1_EAGER_TICKS = 8
 # the merged flash-decode against one rank's walk over the whole cache, both
 # with f32 queries (so the outputs are not rounded to bf16): max |d| / max
 # |o|, the reference's own bound for its sharded cores
 MERGE_TOL = 2e-5
-TP_NOTE = ("two ranks time-slice one card: these times say nothing of the speed of two "
-           "cards; collective_ms is host time in gloo, staged through pinned host memory")
+TP_NOTE = ("two worlds of two ranks each time-slice one card: these times say nothing of "
+           "the speed of two cards; collective_ms is host time in gloo, staged through "
+           "pinned host memory")
+# the tp = 2 paths run in two worlds at once, each serving its paths in
+# turn: a rank's eager tick waits on its syncs and gloo, which the other
+# world's work overlaps (the two split the slowest paths, full-depth Qwen2-7B
+# and the hybrid's 1100 one-token ticks, evenly)
+TP_WORLDS = (("tp2-fp5.33", "tp2-fp16", "tp2-mla-fp5.33", "tp2-contig-fp5.33"),
+             ("tp2-hybrid-fp5.33", "tp2-moe-fp4.25", "tp2-ssm-fp5.33"))
 
 
 def _tp_proj(spec):
@@ -3335,7 +3383,8 @@ def _tp_config(spec, dev_str: str, full: bool, mesh=None):
     base = PATHS[spec["base"]]
     if full:
         return EngineConfig(arch=base["arch"], reduced=False, depth=spec["depth"],
-                            scheme=base["scheme"], impl="kernel", slots=8, capacity=512,
+                            scheme=base["scheme"], impl="kernel", slots=8,
+                            capacity=spec.get("capacity", 512),
                             prefill_chunk=base.get("chunk", 16), mesh=mesh, device=dev_str,
                             seed=0,
                             cache=CacheConfig(kind=base["kind"], page_size=16, impl="kernel"))
@@ -3360,7 +3409,24 @@ def _tp_workload(np, cfg, spec, full: bool):
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
                for n in rng.integers(plen[0], plen[1], n_req)]
     prompts[-1][:shared] = prompts[0][:shared]
+    if spec.get("long"):
+        n = spec["long"] if full else TINY_LONG
+        prompts.insert(0, np.random.default_rng(4321).integers(0, cfg.vocab_size, n)
+                       .astype(np.int32))
     return prompts, max_tokens
+
+
+def _written_rows(torch, cache) -> int:
+    """(slot, row) pairs of the rank's layer-0 attention cache (the first
+    ``k`` / ``kv`` leaf: a contiguous shard or a ring) holding any nonzero
+    value."""
+    from repro_torch.core.tree import tree_items
+
+    for path, t in tree_items(cache):
+        if path[-1] in ("k", "kv"):
+            t = t[0] if path[0] == "layers" else t
+            return int((t.reshape(t.shape[0], t.shape[1], -1) != 0).any(-1).sum())
+    return 0
 
 
 def _tp_serve(torch, np, eng, spec, full: bool, mesh=None):
@@ -3382,10 +3448,13 @@ def _tp_serve(torch, np, eng, spec, full: bool, mesh=None):
         cnt.reset()
     handles = [eng.submit(p, max_tokens) for p in prompts]
     ticks, dec_ms, graph_ms, coll_ms, armed_tick = 0, [], [], [], None
+    armed_lengths, written = [], None
+    long_rid = handles[0].rid if spec.get("long") else None
     with _StepTaps(torch, len(_tp_proj(spec))) as taps, moe.record_routes() as routes:
         while eng.has_work:
             decoding = eng.active_count > 0 and all(
-                r is None or eng.fed[s] >= r.prompt_len for s, r in enumerate(eng.active))
+                r is None or eng.fed[s] >= r.prompt_len for s, r in enumerate(eng.active)) and (
+                long_rid is None or any(r is not None and r.rid == long_rid for r in eng.active))
             taps.armed = decoding and armed_tick is None
             if taps.armed:
                 armed_tick = ticks
@@ -3393,7 +3462,12 @@ def _tp_serve(torch, np, eng, spec, full: bool, mesh=None):
                 armed_tick is not None and ticks - armed_tick <= TP1_EAGER_TICKS)
             c0 = mesh.collective_seconds if mesh is not None else 0.0
             t0 = time.perf_counter()
+            if taps.armed:
+                armed_lengths = [int(eng.fed[s]) for s, r in enumerate(eng.active)
+                                 if r is not None]
             eng.step(eager=eager)
+            if taps.armed:
+                written = _written_rows(torch, eng.cache) if spec.get("merged") else None
             if decoding and not taps.armed:
                 (dec_ms if eager else graph_ms).append(1e3 * (time.perf_counter() - t0))
                 if mesh is not None:
@@ -3414,7 +3488,8 @@ def _tp_serve(torch, np, eng, spec, full: bool, mesh=None):
                param_bytes=_nbytes(eng.params), pool_bytes=_nbytes(eng.cache),
                kv_bytes_per_token=eng.kv_bytes_per_token(), tp=eng.tp,
                graphs=eng.stats()["graphs"], moe_pairs_routed=routed,
-               moe_pairs_dropped=dropped)
+               moe_pairs_dropped=dropped, armed_lengths=armed_lengths,
+               written_rows_at_armed_tick=written)
     if spec.get("states"):
         from repro_torch.core.tree import tree_items
         res["states"] = {"/".join(p): t.to("cpu", copy=True) for p, t in tree_items(eng.cache)
@@ -3557,6 +3632,10 @@ def _merged_attention(torch, eng, c, on):
         if tag == "recorded":
             ref = c["out"].float().to(wb.device)
             out["plain_vs_tp1_call_rel"] = float((wb - ref).abs().max() / ref.abs().max())
+    top = int(c["lengths"].max())
+    out["recorded_max_length"] = top
+    # keys rank 1's shard holds at the recorded lengths (a ring's slot p % S)
+    out["recorded_rank1_keys"] = s if top > S else max(0, top - s)
     out["rel_err_f32"] = max(out["recorded"]["rel_err_f32"], out["every_row"]["rel_err_f32"])
     return out
 
@@ -3609,12 +3688,13 @@ def _first_divergence(got, want):
 
 def phase_tp(torch, dev, timed: bool = True, full: bool = True):
     """Tensor-parallel serving (see the module docstring): each path's tp = 1
-    engine served eagerly here under `_StepTaps` (the oracle), then one
-    world of two spawned ranks on this device serving every path at tp = 2
-    (`_tp_rank`), the ranks' results checked and printed, then the sharded
-    kernel shapes timed here. Returns (the per-path lines, the kernel rows'
-    figures)."""
+    engine served eagerly here under `_StepTaps` (the oracle), then two
+    worlds of two spawned ranks at once on this device, each serving its
+    paths of TP_WORLDS at tp = 2 (`_tp_rank`), the ranks' results checked
+    and printed, then the sharded kernel shapes timed here. Returns (the
+    per-path lines, the kernel rows' figures)."""
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
@@ -3627,7 +3707,8 @@ def phase_tp(torch, dev, timed: bool = True, full: bool = True):
     if cuda:
         torch.cuda.empty_cache()
     log("tp world " + json.dumps(dict(
-        tp=TP, backend="gloo", device=dev_str, cards=torch.cuda.device_count() if cuda else 0,
+        tp=TP, worlds=len(TP_WORLDS), backend="gloo", device=dev_str,
+        cards=torch.cuda.device_count() if cuda else 0,
         ranks_share_one_card=cuda, why="NCCL refuses two ranks on one device; gloo's "
         "collectives of CUDA tensors are staged through pinned host buffers")))
     ones = {}
@@ -3646,7 +3727,11 @@ def phase_tp(torch, dev, timed: bool = True, full: bool = True):
             gc.collect()
             if cuda:
                 torch.cuda.empty_cache()
-        ranks = spawn(_tp_rank, TP, dev_str, list(TP_PATHS), full, tmp, backend="gloo")
+        with ThreadPoolExecutor(len(TP_WORLDS)) as pool:
+            worlds = [pool.submit(spawn, _tp_rank, {"model": TP}, dev_str, list(paths), full,
+                                  tmp, backend="gloo") for paths in TP_WORLDS]
+            worlds = [w.result() for w in worlds]
+        ranks = [{k: v for w in worlds for k, v in w[r].items()} for r in range(TP)]
     lines = {}
     for name, spec in TP_PATHS.items():
         one, rs = ones[name], [r[name] for r in ranks]
@@ -3661,7 +3746,7 @@ def phase_tp(torch, dev, timed: bool = True, full: bool = True):
             k1=[r["checks"]["k1"] for r in rs],
             attention=[r["checks"].get("attention") for r in rs],
             contiguous_attention=[r["checks"].get("contiguous_attention") for r in rs],
-            states_bit_equal=_tp_states_equal(torch, one, rs) if spec.get("states") else None,
+            states=_tp_states(torch, one, rs, base["arch"]) if spec.get("states") else None,
             moe_ep_vs_dense=[r["checks"].get("moe_ep_vs_dense") for r in rs],
             moe_pairs_dropped_per_tick=[r["moe_pairs_dropped"] / r["ticks"] for r in rs],
             moe_pairs_routed_per_tick=[r["moe_pairs_routed"] / r["ticks"] for r in rs],
@@ -3685,6 +3770,9 @@ def phase_tp(torch, dev, timed: bool = True, full: bool = True):
             peak_memory_bytes=dict(tp1=one.get("peak_memory_bytes"),
                                    tp2=[r.get("peak_memory_bytes") for r in rs]),
             init_seconds=[r["init_seconds"] for r in rs],
+            long_prompt=spec.get("long"),
+            armed_lengths=dict(tp1=one["armed_lengths"], tp2=[r["armed_lengths"] for r in rs]),
+            written_rows_per_rank=[r["written_rows_at_armed_tick"] for r in rs],
             launches=dict(tp1=one["launches"], tp2=[r["launches"] for r in rs]),
             graphs=[r["graphs"] for r in rs], note=TP_NOTE)
         lines[name] = line
@@ -3695,17 +3783,31 @@ def phase_tp(torch, dev, timed: bool = True, full: bool = True):
     return lines, _tp_kernel_times(torch, dev, timed, full)
 
 
-def _tp_states_equal(torch, one, rs) -> dict:
+def _tp_states(torch, one, rs, arch: str) -> dict:
     """Each recurrent state leaf of the tp = 1 run against the two ranks'
-    halves concatenated along its inner width (`cache_shard_dim`): bit for
-    bit."""
+    halves concatenated along its inner width (`cache_shard_dim`): whether
+    the bits are equal, max |d| / max |state|, and whether the leaf's first
+    repeat runs before any attention layer (``upstream``: nothing merged
+    across ranks feeds it, so its bits must be tp = 1's; downstream of a
+    merge whose rank 1 holds keys, a p rounded one bf16 ulp apart can move
+    a state)."""
+    from repro_torch.configs import get_config
     from repro_torch.launch.sharding import cache_shard_dim
+    from repro_torch.models import layer_pattern
 
+    pat = layer_pattern(get_config(arch))
+    first_attn = next((i for i, k in enumerate(pat) if k not in ("mamba", "rec")), len(pat))
     out = {}
     for k, v in one["states"].items():
         names = k.split("/")
-        d = cache_shard_dim(names, v, 1 if names[0] == "layers" else 0)
-        out[k] = _bits_equal(torch, torch.cat([r["states"][k] for r in rs], dim=d), v)
+        stacked = names[0] == "layers"
+        d = cache_shard_dim(names, v, 1 if stacked else 0)
+        got = torch.cat([r["states"][k] for r in rs], dim=d)
+        up = stacked and int(names[1][3:]) < first_attn
+        out[k] = dict(bit_equal=_bits_equal(torch, got, v), upstream=up,
+                      upstream_bit_equal=_bits_equal(torch, got[0], v[0]) if up else None,
+                      rel_err=float((got.float() - v.float()).abs().max()
+                                    / v.float().abs().max().clamp_min(1e-30)))
     return out
 
 
@@ -3745,10 +3847,24 @@ def _tp_fatal(name, spec, one, rs, line, cuda: bool):
     if exact and not line["streams_equal_tp1"]:
         fail(f"tp[{name}]: streams differ from tp = 1's at tokens "
              f"{line['first_diverging_token']}")
-    if spec.get("states") and not (line["states_bit_equal"]
-                                   and all(line["states_bit_equal"].values())):
+    st = line["states"]
+    if spec.get("states") and not (st and all(
+            (x["bit_equal"] if not spec.get("merged") else
+             (x["upstream_bit_equal"] is not False and x["rel_err"] <= LOGIT_TOL))
+            for x in st.values())):
         fail(f"tp[{name}]: recurrent states gathered from the ranks differ from tp = 1's: "
-             f"{line['states_bit_equal']}")
+             f"{st}")
+    if spec.get("long"):
+        n = max(line["armed_lengths"]["tp2"][0] or [0])
+        if not line["written_rows_per_rank"][1] or n < (spec["long"] if cuda else TINY_LONG):
+            fail(f"tp[{name}]: the long request did not reach rank 1's half at the first "
+                 f"all-decode tick (lengths {line['armed_lengths']}, written rows per rank "
+                 f"{line['written_rows_per_rank']})")
+        for r, res in enumerate(rs):
+            m = res["checks"].get("contiguous_attention") or {}
+            if not m.get("recorded_rank1_keys"):
+                fail(f"tp[{name}] rank {r}: the merged attention's recorded lengths leave rank "
+                     f"1's half empty: {m}")
     for r, res in enumerate(rs):
         c = res["checks"]
         if (spec.get("lean") or spec.get("merged")) and c["first_logits"]["rel_err"] > LOGIT_TOL:
@@ -3881,7 +3997,317 @@ def _tp_kernel_times(torch, dev, timed: bool, full: bool):
     return out
 
 
-PHASES = ("k1", "k1b", "k2", "k3", "k4", "k5", "k5p", "tick", "rows", "train", "tp")
+# --------------------------------------------------------------------- dp
+# data-parallel training: two ranks share the one card over gloo, as in the
+# tp phase; ``single`` (data 2) at the train phase's config, FSDP over data,
+# against dp = 1 from the same params; ``multi`` (pod 2, data 1) at depth
+# 1 with the int8 all-gather over pod, against the uncompressed dp = 1 run
+DP_STEPS = 4
+DP_MULTI_STEPS = 3
+# single's depth: at the train phase's 4 layers (33.9 GB a rank) the two
+# ranks and this process left the card under 2 GB, and a rank ran out
+DP_SINGLE_LAYERS = 3
+# the two runs, each in a world of its own (one after the other in one
+# world, the second run's peak rose by 3.3 GB a rank), whose ranks' CUDA
+# allocator grows expandable segments: with 4 GB a rank reserved and unused
+# the two ranks and this process filled the card
+DP_MESHES = (("single", {"data": 2, "model": 1}), ("multi", {"pod": 2, "data": 1, "model": 1}))
+DP_ALLOC_CONF = "expandable_segments:True"
+DP_MULTI_LOSS_TOL = 2e-2        # tests/test_distributed.py's sharded-train bound (rtol = atol)
+# the int8 error's norm over step 0's grad norm must stay under this, so the
+# grad-norm gate it widens still catches a sum off by a factor (1 / npod)
+DP_INT8_ERR_MAX = 0.25
+DP_NOTE = ("two ranks time-slice one card: step and gloo ms say nothing of the speed of two "
+           "cards; gloo's collectives of CUDA tensors are staged through the mesh's one "
+           "pinned host buffer")
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """While open, these environment variables are set (for the processes
+    spawned meanwhile), then put back as they were."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _dp_configs(full: bool):
+    """(the single run's config, the multi run's, their RunConfig fields,
+    the cuts): the train phase's (B 8 x 512, microbatch 4, remat,
+    TRAIN_LR)."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+
+    base = get_config("qwen2-7b")
+    if full:
+        return (dc.replace(base, num_layers=DP_SINGLE_LAYERS), dc.replace(base, num_layers=1),
+                dict(seq_len=512, global_batch=8, microbatch=4),
+                [f"single: num_layers 28 -> {DP_SINGLE_LAYERS} (4 did not fit two ranks "
+                 "beside this process)", "multi: num_layers 28 -> 1"])
+    return base.reduced(), base.reduced(), dict(seq_len=32, global_batch=4, microbatch=2), \
+        ["reduced() config"]
+
+
+def _fingerprint(torch, t) -> list:
+    """Two int64 sums of a (4-byte) tensor's 32-bit words (plain and position-
+    weighted, wrapping), in chunks on its device: equal bits give equal
+    fingerprints, and a flipped bit changes them."""
+    w = t.detach().contiguous().reshape(-1).view(torch.int32)
+    a = b = 0
+    for lo in range(0, w.numel(), 1 << 26):
+        part = w[lo:lo + (1 << 26)].to(torch.int64)
+        pos = torch.arange(lo, lo + part.numel(), device=w.device, dtype=torch.int64) % 65521 + 1
+        a += int(part.sum())
+        b += int((part * pos).sum())
+    return [a, b]
+
+
+def _dp_run(torch, cfg, rcfg, dev, steps, ctx=None, compress_stats=None):
+    """Train ``steps`` steps from ``init_params(0, cfg)`` on ``dev`` (the
+    whole masters drawn, then this rank's FSDP slices kept): per step the
+    metrics, step ms and (on a mesh) gloo ms, calls and bytes by
+    collective; the whole leaves' fingerprint; the sliced leaves' shapes
+    against their whole shapes (masters, m and v); peak memory, and the
+    memory allocated when the run began."""
+    from repro_torch.core.tree import tree_items
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import init_params
+    from repro_torch.models.parallel import NO_CTX
+    from repro_torch.optim import compressed_psum, init_state
+
+    cuda = dev.type == "cuda"
+    mesh = ctx.mesh if ctx is not None else None
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    at_start = torch.cuda.memory_allocated(dev) if cuda else 0
+    step_fn = steps_mod.build_train_step(cfg, rcfg, dev, ctx or NO_CTX)
+    whole = init_params(0, cfg, device=dev)
+    shapes = {"/".join(p): tuple(t.shape) for p, t in tree_items(whole)}
+    params = step_fn.shard(whole)
+    del whole
+    dims = {"/".join(p): d for p, d in tree_items(step_fn.layout())}
+    opt = init_state(params)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, rcfg.seq_len, rcfg.global_batch))
+    real = steps_mod.compressed_psum
+    out = dict(steps=[], fingerprints=[])
+    for s in range(steps):
+        if compress_stats is not None and s == 0:       # step 0's per-leaf int8 errors
+            steps_mod.compressed_psum = lambda g, c, a: real(g, c, a, compress_stats)
+        toks, tgts = data.batch(s, shard=0, num_shards=1)
+        tok, tgt = torch.from_numpy(toks).to(dev), torch.from_numpy(tgts).to(dev)
+        if mesh is not None:
+            mesh.reset_counts()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        try:
+            params, opt, met = step_fn(params, opt, tok, tgt, None, s)
+            met = {k: float(v) for k, v in met.items()}
+        finally:
+            steps_mod.compressed_psum = real
+        dt = time.perf_counter() - t0
+        row = dict(step=s, **met, step_ms=1e3 * dt)
+        if cuda:
+            row["card_free_gb"] = torch.cuda.mem_get_info(dev)[0] / 1e9
+        if mesh is not None:
+            row.update(gloo_ms=1e3 * mesh.collective_seconds, gloo_calls=mesh.collective_calls,
+                       bytes_by_collective=dict(mesh.collective_bytes))
+        out["steps"].append(row)
+        out["fingerprints"].append({k: _fingerprint(torch, t) for k, t in
+                                    (("/".join(p), t) for p, t in tree_items(params))
+                                    if dims[k] is None})
+    own = {name: {"/".join(p): tuple(t.shape) for p, t in tree_items(tree)}
+           for name, tree in (("master", params), ("m", opt["m"]), ("v", opt["v"]))}
+    out["halves"] = {k: dict(whole=shapes[k], dim=d, **{n: own[n][k] for n in own})
+                     for k, d in dims.items() if d is not None}
+    out["master_bytes"] = sum(t.numel() * t.element_size() for _, t in tree_items(params))
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
+    out["allocated_at_start_gb"] = at_start / 1e9 if cuda else None
+    out["card_free_gb"] = min((r["card_free_gb"] for r in out["steps"]), default=None) \
+        if cuda else None
+    if mesh is not None:
+        out["pinned_bytes"] = mesh.pinned_bytes
+    del params, opt, step_fn
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dp_rank(mesh, kind: str, full: bool):
+    """One rank of a dp world: the ``kind`` run on this rank's mesh, the
+    port's kernel counts zeroed before and read after."""
+    import torch
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models.parallel import ParallelCtx
+
+    dev = mesh.device
+    if dev.type == "cpu":                     # the ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // mesh.world))
+    cfg_single, cfg_multi, kw, _ = _dp_configs(full)
+    cfg = cfg_single if kind == "single" else cfg_multi
+    rcfg = RunConfig(model=cfg, learning_rate=TRAIN_LR, warmup_steps=2,
+                     grad_compression="int8_ag" if kind == "multi" else "none", **kw)
+    for cnt in all_counts():
+        cnt.reset()
+    stats = [] if kind == "multi" else None
+    t0 = time.perf_counter()
+    res = _dp_run(torch, cfg, rcfg, dev, DP_STEPS if kind == "single" else DP_MULTI_STEPS,
+                  ParallelCtx(mesh=mesh, tp_axis="model"), stats)
+    res.update(rank=mesh.rank, coords=mesh.coords, compress_stats=stats,
+               launches={c.name: c.launches for c in all_counts() if c.launches},
+               run_seconds=time.perf_counter() - t0)
+    return res
+
+
+def phase_dp(torch, dev, timed: bool = True, full: bool = True):
+    """Data-parallel training on two ranks of the one card (see DP_NOTE):
+    dp = 1 baselines here first (the single run's config for DP_STEPS
+    steps, the multi run's uncompressed for DP_MULTI_STEPS), their memory
+    freed, then a world of two ranks (`launch.mesh.spawn`, gloo) at (data
+    2) and one at (pod 2, data 1) with ``int8_ag`` (`_dp_rank`). Fatal:
+    each single step's loss within TRAIN_LOSS_REL and grad norm within
+    TRAIN_GNORM_REL of dp = 1's, the ranks' metrics and
+    whole leaves bit-equal at every step, each FSDP leaf's master, m and v
+    half a leaf on each rank; on the multi run every compressed leaf of
+    step 0 within amax / 127 of the rank-order f32 sum (the rank's shard),
+    step 0's grad norm within TRAIN_GNORM_REL of the uncompressed dp = 1
+    run's plus the norm of the int8 error (|a| - |b| <= |a - b|; that error
+    under DP_INT8_ERR_MAX of the norm, so a wrong scale of the sum cannot
+    hide in it), the losses within DP_MULTI_LOSS_TOL of the uncompressed
+    run's, the ranks' params bit-equal; no port kernel launched. Printed:
+    step and gloo ms, gloo calls and bytes by collective per step, pinned
+    and peak bytes per rank, the card's free bytes after each step, this
+    process's bytes, the int8 all-gather's bytes against f32's."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import spawn
+
+    cuda = dev.type == "cuda"
+    dev_str = "cuda" if cuda else "cpu"
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    cfg_single, cfg_multi, kw, reduced = _dp_configs(full)
+    base = {}
+    for kind, cfg, n in (("single", cfg_single, DP_STEPS), ("multi", cfg_multi, DP_MULTI_STEPS)):
+        for cnt in all_counts():
+            cnt.reset()
+        rcfg = RunConfig(model=cfg, learning_rate=TRAIN_LR, warmup_steps=2, **kw)
+        base[kind] = _dp_run(torch, cfg, rcfg, dev, n)
+        base[kind]["launches"] = {c.name: c.launches for c in all_counts() if c.launches}
+    main_gb = dict(allocated=torch.cuda.memory_allocated(dev) / 1e9,
+                   reserved=torch.cuda.memory_reserved(dev) / 1e9,
+                   card_free=torch.cuda.mem_get_info(dev)[0] / 1e9) if cuda else None
+    log("dp main-process " + json.dumps(main_gb))
+    out = {}
+    for kind, shape in DP_MESHES:
+        t0 = time.perf_counter()
+        with _env(PYTORCH_CUDA_ALLOC_CONF=DP_ALLOC_CONF):
+            rs = spawn(_dp_rank, shape, dev_str, kind, full, backend="gloo")
+        wall = time.perf_counter() - t0
+        one = base[kind]
+        first = rs[0]["steps"]
+        line = dict(
+            kind=kind, mesh=shape, arch="qwen2-7b", layers=(cfg_single if kind == "single"
+                                                            else cfg_multi).num_layers,
+            reduced=reduced, **kw, grad_compression="int8_ag" if kind == "multi" else "none",
+            loss=dict(dp1=[r["loss"] for r in one["steps"]], dp2=[r["loss"] for r in first]),
+            grad_norm=dict(dp1=[r["grad_norm"] for r in one["steps"]],
+                           dp2=[r["grad_norm"] for r in first]),
+            loss_rel=[abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                      for a, b in zip(first, one["steps"])],
+            grad_norm_rel=[abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                           for a, b in zip(first, one["steps"])],
+            ranks_metrics_equal=all(
+                [{k: v for k, v in a.items() if k in ("loss", "grad_norm", "lr")}
+                 for a in r["steps"]]
+                == [{k: v for k, v in a.items() if k in ("loss", "grad_norm", "lr")}
+                    for a in first]
+                for r in rs),
+            ranks_whole_leaves_equal=all(r["fingerprints"] == rs[0]["fingerprints"] for r in rs),
+            whole_leaves=len(rs[0]["fingerprints"][0]),
+            step_ms=dict(dp1=[r["step_ms"] for r in one["steps"]],
+                         dp2=[[x["step_ms"] for x in r["steps"]] for r in rs]),
+            gloo_ms=[[x["gloo_ms"] for x in r["steps"]] for r in rs],
+            gloo_calls=[[x["gloo_calls"] for x in r["steps"]] for r in rs],
+            bytes_by_collective=[r["steps"][-1]["bytes_by_collective"] for r in rs],
+            pinned_bytes=[r["pinned_bytes"] for r in rs],
+            peak_memory_gb=dict(dp1=one["peak_memory_gb"], dp2=[r["peak_memory_gb"] for r in rs]),
+            allocated_at_start_gb=dict(dp1=one["allocated_at_start_gb"],
+                                       dp2=[r["allocated_at_start_gb"] for r in rs]),
+            master_bytes=dict(dp1=one["master_bytes"], dp2=[r["master_bytes"] for r in rs]),
+            fsdp_leaves=len(rs[0]["halves"]),
+            halves=all(h["master"] == h["m"] == h["v"]
+                       and h["master"][h["dim"]] * 2 == h["whole"][h["dim"]]
+                       and all(a == b for i, (a, b) in enumerate(zip(h["master"], h["whole"]))
+                               if i != h["dim"])
+                       for r in rs for h in r["halves"].values()),
+            launches=[r["launches"] for r in rs] + [one["launches"]],
+            card_free_gb=[r["card_free_gb"] for r in rs], main_process_gb=main_gb,
+            run_seconds=[r["run_seconds"] for r in rs], world_seconds=wall, note=DP_NOTE)
+        if kind == "multi":
+            st = [x for r in rs for x in r["compress_stats"] if not x["fallback"]]
+            int8 = rs[0]["steps"][-1]["bytes_by_collective"].get("all_gather_int8", 0)
+            sc = rs[0]["steps"][-1]["bytes_by_collective"].get("all_gather_scale", 0)
+            gn0, gn1 = line["grad_norm"]["dp2"][0], line["grad_norm"]["dp1"][0]
+            err = math.sqrt(sum(x["err_sq"] for x in st))
+            line.update(
+                compressed_leaves=len(st), fallback_leaves=sum(x["fallback"] for r in rs
+                                                               for x in r["compress_stats"]) // 2,
+                worst_int8_err_over_amax=max(x["max_err"] / max(x["amax"], 1e-30) for x in st),
+                int8_bound_over_amax=1 / 127,
+                int8_err_norm_over_grad_norm=err / gn1,
+                grad_norm0_allow=TRAIN_GNORM_REL * gn1 + err,
+                grad_norm0_diff=abs(gn0 - gn1),
+                all_gather_bytes=dict(int8_codes=int8, scales=sc, f32_equivalent=4 * int8,
+                                      ratio=4 * int8 / max(1, int8 + sc)),
+                loss_abs_diff=[abs(a["loss"] - b["loss"]) for a, b in zip(first, one["steps"])],
+                loss_tol=DP_MULTI_LOSS_TOL)
+        out[kind] = line
+        log(f"dp {kind} " + json.dumps(line))
+    for kind, line in out.items():             # both lines printed before any fails
+        if not line["ranks_metrics_equal"] or not line["ranks_whole_leaves_equal"]:
+            fail(f"dp[{kind}]: the ranks' metrics or whole leaves differ")
+        if any(line["launches"]):
+            fail(f"dp[{kind}]: the training path launched port kernels {line['launches']}")
+        fin = line["loss"]["dp2"] + line["grad_norm"]["dp2"]
+        if not all(math.isfinite(x) for x in fin):
+            fail(f"dp[{kind}]: a loss or grad norm is not finite: {fin}")
+        if kind == "single":
+            if max(line["loss_rel"]) > TRAIN_LOSS_REL or \
+                    max(line["grad_norm_rel"]) > TRAIN_GNORM_REL:
+                fail(f"dp[single]: losses {line['loss']} / grad norms {line['grad_norm']} beyond "
+                     f"{TRAIN_LOSS_REL} / {TRAIN_GNORM_REL} of dp = 1's")
+            if not line["halves"] or (full and not line["fsdp_leaves"]):
+                fail("dp[single]: an FSDP leaf's master, m or v is not half a leaf on a rank")
+        else:
+            if not line["worst_int8_err_over_amax"] <= 1 / 127:
+                fail(f"dp[multi]: a compressed leaf beyond amax / 127 of the f32 sum: "
+                     f"{line['worst_int8_err_over_amax']}")
+            if not line["int8_err_norm_over_grad_norm"] < DP_INT8_ERR_MAX:
+                fail(f"dp[multi]: the int8 error's norm is {line['int8_err_norm_over_grad_norm']}"
+                     f" of the grad norm, not under {DP_INT8_ERR_MAX}")
+            if not line["grad_norm0_diff"] <= line["grad_norm0_allow"]:
+                fail(f"dp[multi]: step 0's grad norm {line['grad_norm']['dp2'][0]} beyond "
+                     f"{line['grad_norm0_allow']} of the uncompressed run's "
+                     f"{line['grad_norm']['dp1'][0]}")
+            if any(d > DP_MULTI_LOSS_TOL * (1 + abs(b)) for d, b in
+                   zip(line["loss_abs_diff"], line["loss"]["dp1"])):
+                fail(f"dp[multi]: losses {line['loss']} beyond {DP_MULTI_LOSS_TOL} of the "
+                     "uncompressed run's")
+    return (out,)
+
+
+PHASES = ("k1", "k1b", "k2", "k3", "k4", "k5", "k5p", "tick", "rows", "train", "tp", "dp")
 
 
 def run_phases(torch, names, other):
@@ -3910,7 +4336,9 @@ def run_phases(torch, names, other):
     dev = torch.device("cuda", 0)
     for n in names:
         phase = getattr(mod, f"phase_{n}", None) or globals()[f"phase_{n}"]
+        t0 = time.perf_counter()
         res = phase(torch, dev, timed=True, full=True)
+        log(f"phase {n} seconds {time.perf_counter() - t0:.1f}")
         log(f"phase {n} " + json.dumps(res[0], default=str))
 
 
@@ -3949,6 +4377,7 @@ def main():
         phase_frontend(torch, dev, full=False)
         phase_tp(torch, dev, timed=False, full=False)
         phase_train(torch, dev, timed=False, full=False)
+        phase_dp(torch, dev, timed=False, full=False)
         log("rehearsal finished on the CPU: no result")
         sys.exit(2)
     if not torch.cuda.is_available():
@@ -4026,6 +4455,8 @@ def main():
     mark("tp")
     phase_train(torch, dev, timed=True, full=True)
     mark("train")
+    phase_dp(torch, dev, timed=True, full=True)
+    mark("dp")
     log("phase-seconds " + json.dumps(seconds))
     log("compare " + json.dumps({
         path: dict(arch=r["arch"], scheme=r["scheme"], cache=r["cache"],

@@ -14,6 +14,15 @@ the matching leaf of ``tree_like``.
 
 Restore picks the newest *complete* step, so a node failure mid-save falls
 back to the previous checkpoint (crash-consistency test covers this).
+
+Under data parallelism a rank holds FSDP slices of some leaves
+(`launch.sharding.params_shardings`). ``save(..., dims=, ctx=)`` gathers
+each sliced leaf whole over ``data`` (every rank takes part in the
+exchange) and only global rank 0 writes; ``restore(..., dims=, ctx=)``
+reads the whole arrays on every rank and keeps the rank's slice. A
+checkpoint thus holds whole arrays in the reference's format whatever the
+mesh, and restores at another data size (elastic re-sharding: written at
+dp = 2, restored at dp = 1, and the reverse).
 """
 
 from __future__ import annotations
@@ -60,9 +69,23 @@ class CheckpointManager:
 
     # ------------------------------------------------------------- save
     def save(self, step: int, tree, blocking: bool = False,
-             shard_id: int = 0, num_shards: int = 1):
-        """Snapshot to host memory now; write in the background."""
-        host = {k: _to_host(v) for k, v in _flatten(tree)}  # device -> host copy
+             shard_id: int = 0, num_shards: int = 1, dims=None, ctx=None):
+        """Snapshot to host memory now; write in the background. ``dims``
+        (a tree matching ``tree``: each leaf's FSDP dim or None) and
+        ``ctx``: gather the slices whole, leaf by leaf, and write on rank 0
+        only."""
+        root = ctx is None or ctx.mesh is None or ctx.mesh.rank == 0
+        host = {}
+        d_items = dict(tree_items(dims)) if dims is not None else {}
+        for path, leaf in tree_items(tree):
+            d = d_items.get(path)
+            if d is not None and ctx is not None:
+                leaf = ctx.all_gather_dim(leaf, d, "data")
+            if root:
+                host["/".join(str(k) for k in path)] = _to_host(leaf)  # device -> host copy
+            del leaf
+        if not root:
+            return
         job = (step, host, shard_id, num_shards)
         if self._thread is None or blocking:
             self._write(job)
@@ -132,23 +155,34 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, tree_like, step: Optional[int] = None,
-                shard_id: int = 0):
+                shard_id: int = 0, dims=None, ctx=None):
         """Restore into the structure of `tree_like` (shapes validated): a
         tree of tensors with the stored dtypes, each on its leaf's device
-        (the CPU for a leaf that is not a tensor)."""
+        (the CPU for a leaf that is not a tensor). ``dims`` and ``ctx``: a
+        leaf of ``tree_like`` with a dim is the rank's FSDP slice of the
+        stored array, which is read whole and sliced."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None
+        d_items = dict(tree_items(dims)) if dims is not None else {}
+        n = ctx.size("data") if ctx is not None else 1
+        r = ctx.coord("data") if ctx is not None else 0
         d = os.path.join(self.dir, f"step_{step:08d}")
         with np.load(os.path.join(d, f"shard_{shard_id}.npz")) as data:
             items = []
             for path, like in tree_items(tree_like):
                 key = "/".join(str(k) for k in path)
                 arr = data[key]
-                shape = tuple(like.shape) if torch.is_tensor(like) else np.shape(like)
+                shape = list(like.shape) if torch.is_tensor(like) else list(np.shape(like))
+                dim = d_items.get(path)
+                if dim is not None:
+                    shape[dim] *= n
                 if tuple(arr.shape) != tuple(shape):
                     raise ValueError(
                         f"checkpoint shape mismatch at {key}: {arr.shape} vs {tuple(shape)}")
+                if dim is not None and n > 1:
+                    m = arr.shape[dim] // n
+                    arr = np.ascontiguousarray(np.take(arr, np.arange(r * m, (r + 1) * m), dim))
                 device = like.device if torch.is_tensor(like) else "cpu"
                 items.append((path, torch.from_numpy(arr).to(device)))
         return tree_from_items(items), step

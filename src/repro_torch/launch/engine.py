@@ -135,7 +135,7 @@ from repro_torch.obs.metrics import COUNT_BUCKETS, TIME_BUCKETS
 
 from .config import EngineConfig
 from .mesh import dp_axes, tp_axis
-from .sharding import shard_params, shard_tree
+from .sharding import serve_shard_dim, shard_params, shard_tree
 from .sampling import (
     GREEDY,
     SamplingParams,
@@ -219,9 +219,14 @@ def init_serving_params(cfg, quant: Optional[QuantPolicy], seed: int, device,
     dims = model_dims(cfg, ctx.tp)
     pat = layer_pattern(cfg)
     G, R = pattern_counts(cfg)
-    # a rank's N-shard of a linear holds 1 / tp of its elements
+    # a rank's N-shard of a linear holds 1 / tp of its elements; a linear the
+    # rank holds whole (`serve_shard_dim` None) is judged at its own size
     shard_quant = quant if quant is None or ctx.tp == 1 else dataclasses.replace(
         quant, min_elements=-(-quant.min_elements // ctx.tp))
+
+    def policy_of(path: str, w):
+        names = [n for n in path.split("/") if n] + ["w"]
+        return quant if serve_shard_dim(names, w) is None else shard_quant
 
     def prep(tree, prefix: str, min_dim: int):
         tree = _cast(tree, min_dim)
@@ -231,7 +236,7 @@ def init_serving_params(cfg, quant: Optional[QuantPolicy], seed: int, device,
         tree = shard_tree(tree, ctx.rank, ctx.tp, [n for n in prefix.split("/") if n],
                           n_stack=0)
         if quant is not None:
-            tree = quantize_params(tree, shard_quant, prefix=prefix)
+            tree = quantize_params(tree, quant, prefix=prefix, policy_of=policy_of)
         if experts is not None:         # back in its place: the tree keeps init_moe's order
             tree["moe"] = {k: experts if k == "experts" else tree["moe"][k] for k in keys}
         return tree

@@ -1,6 +1,21 @@
-"""Parameter sharding of tensor-parallel serving (port of the engine-step
-layout of src/repro/launch/sharding.py, ``param_spec(serve_n_shard=True,
-moe="ep")``) and the slicing that applies it.
+"""Parameter sharding (port of src/repro/launch/sharding.py): the layout of
+tensor-parallel serving, ``param_spec(serve_n_shard=True, moe="ep")``, the
+training layout at model = 1, ``param_spec(fsdp="data", moe="tp")``, and
+the slicing that applies them.
+
+Training (`fsdp_dim`, `params_shardings`): FSDP shards a plain 2-D ``w``
+(after its stacked dims) over ``data`` where both of its last two dims are
+>= 1024; which dim follows the linear's class, as in the reference: a
+column-parallel linear (``wq``, ``w_up``, ``lm_head``, ...) and a
+replicated one shard their K rows, a row-parallel one (``wo``,
+``w_down``, ...) its N columns. The embedding is never FSDP-sharded (the
+reference shards it over ``model`` only), nor are biases, norms, vectors
+and the smaller factors. An expert's FFN follows the dense rule (``moe=
+"tp"``: the expert dim is whole). A rank holds slice ``data_index`` of
+each such leaf of the masters, m and v (`shard_tree(..., dims=)`); the
+train step all-gathers the bf16 compute copies (`unshard_tree`).
+
+Serving:
 
 In that layout every linear of the served blocks is N-sharded: its output
 dim over the ``model`` axis, row-parallel ones (``wo``, ``w_down``,
@@ -43,6 +58,11 @@ N_SHARDED = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head",
 WHOLE = {"router", "wq_a", "wkv_a"}
 # vectors of the inner width, sharded along it (the reference's MODEL_VECTORS)
 INNER_VECTORS = {"A_log", "D", "lam", "conv_b"}
+# the reference's row-parallel linears: FSDP shards their N columns, every
+# other linear (column-parallel or replicated) its K rows
+ROW_PARALLEL = {"wo", "w_down", "out_proj", "x_proj", "w_rec_gate", "w_in_gate"}
+# FSDP shards a weight only where both of its last two dims are at least this
+FSDP_MIN_DIM = 1024
 
 
 def serve_shard_dim(names: Sequence[str], leaf, n_stack: int = 0) -> Optional[int]:
@@ -76,6 +96,50 @@ def in_proj_halves(names: Sequence[str]) -> int:
     return 2 if "in_proj" in [str(n) for n in names] else 1
 
 
+def fsdp_dim(names: Sequence[str], leaf, n_stack: int = 0) -> Optional[int]:
+    """The dim of the leaf at path ``names`` sharded over ``data`` in the
+    training layout at model = 1 (the reference's ``param_spec(...,
+    fsdp="data", moe="tp")``), or None. ``n_stack``: its leading stacked
+    dims (the layers' G); an expert's leaf has one more, the expert dim."""
+    names = [str(n) for n in names]
+    last = names[-1]
+    parent = names[-2] if len(names) >= 2 else ""
+    gparent = names[-3] if len(names) >= 3 else ""
+    if last != "w" or "embed" in (parent, gparent):
+        return None
+    lead = n_stack + ("experts" in names)
+    if leaf.dim() - lead != 2 or min(leaf.shape[-2:]) < FSDP_MIN_DIM:
+        return None
+    return leaf.dim() - 1 if parent in ROW_PARALLEL else leaf.dim() - 2
+
+
+def params_shardings(params, *, fsdp: bool = True):
+    """The training layout of a params(-shaped) tree at model = 1: a tree of
+    the dim each leaf shards over ``data`` (`fsdp_dim`; the leaves under
+    ``layers`` have one stacked dim), None where it is whole (every leaf,
+    without ``fsdp``)."""
+    def visit(names, node):
+        if isinstance(node, dict):
+            return {k: visit(names + [k], v) for k, v in node.items()}
+        if not fsdp:
+            return None
+        return fsdp_dim(names, node, int(bool(names) and names[0] == "layers"))
+
+    return visit([], params)
+
+
+def unshard_tree(tree, dims, ctx):
+    """The whole leaves of a tree of FSDP slices: each leaf whose ``dims``
+    entry is a dim all-gathered along it over ``data`` in rank order
+    (`ParallelCtx.all_gather_dim`), the others as they are."""
+    def visit(node, d):
+        if isinstance(node, dict):
+            return {k: visit(v, d[k]) for k, v in node.items()}
+        return node if d is None else ctx.all_gather_dim(node, d, "data")
+
+    return visit(tree, dims)
+
+
 def _slice(t: torch.Tensor, dim: Optional[int], rank: int, tp: int,
            parts: int = 1) -> torch.Tensor:
     """Rank ``rank``'s 1 / tp of ``t`` along ``dim``: of each of its
@@ -91,17 +155,23 @@ def _slice(t: torch.Tensor, dim: Optional[int], rank: int, tp: int,
 
 
 def shard_tree(tree, rank: int, tp: int, prefix: Sequence[str] = (),
-               n_stack: Optional[int] = None):
+               n_stack: Optional[int] = None, dims=None):
     """Rank ``rank``'s slice of every leaf of the serving tree ``tree``
     found at path ``prefix`` in the full params. ``n_stack`` defaults to 1
-    under ``layers`` (the stacked repeats), else 0."""
-    def visit(names, node):
+    under ``layers`` (the stacked repeats), else 0. With ``dims`` (a tree
+    of dims, `params_shardings`) each leaf is cut along its own entry
+    instead, in ``tp`` parts (the FSDP slices of a data axis of that
+    size)."""
+    def visit(names, node, d):
         if isinstance(node, dict):
-            return {k: visit(names + [k], v) for k, v in node.items()}
+            return {k: visit(names + [k], v, None if d is None else d[k])
+                    for k, v in node.items()}
+        if dims is not None:
+            return _slice(node, d, rank, tp)
         ns = n_stack if n_stack is not None else int(bool(names) and names[0] == "layers")
         return _slice(node, serve_shard_dim(names, node, ns), rank, tp, in_proj_halves(names))
 
-    return visit(list(prefix), tree)
+    return visit(list(prefix), tree, dims)
 
 
 def cache_shard_dim(names: Sequence[str], leaf, n_stack: int = 0) -> Optional[int]:

@@ -48,6 +48,7 @@ card) cannot be captured in a CUDA graph.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import math
 import time
@@ -62,9 +63,11 @@ from repro_torch.core.tree import tree_from_items, tree_items, tree_leaves, tree
 from repro_torch.kernels.build import add_counts, recorded_counts
 from repro_torch.models import decode_step, forward_seq, layer_pattern
 from repro_torch.models.parallel import NO_CTX
-from repro_torch.optim import AdamWConfig, apply_updates, warmup_cosine
+from repro_torch.optim import AdamWConfig, apply_updates, compressed_psum, warmup_cosine
 
+from .mesh import dp_axes
 from .sampling import any_sampled, sample_tokens
+from .sharding import params_shardings, shard_tree, unshard_tree
 from .speculative import truncate_cache, verify_tokens
 
 
@@ -311,28 +314,48 @@ def engine_step_signature(cfg: ModelConfig, rcfg: RunConfig, cache_cfg=None,
 # TRAIN
 # ---------------------------------------------------------------------------
 def _loss_fn(params, tokens, targets, cfg: ModelConfig, rcfg: RunConfig, prefix,
-             dtype=torch.bfloat16):
-    """(loss + 0.01 aux, loss): the f32 log-softmax NLL mean over the target
-    positions (the prefix positions skipped) plus the MoE load-balance
-    loss."""
+             dtype=torch.bfloat16, ctx=NO_CTX, nll_scale: float = 1.0):
+    """(nll_scale * loss + 0.01 aux, loss + 0.01 aux): the f32 log-softmax
+    NLL mean over the target positions (the prefix positions skipped) plus
+    the MoE load-balance loss (over the tokens of ``ctx.dp_axes``' ranks).
+    The first is differentiated: ``nll_scale`` is the rank's share of a mean
+    over the ranks' rows (1: the two are one tensor)."""
     logits, aux, _ = forward_seq(params, tokens, cfg, remat=rcfg.remat,
-                                 block_kv=rcfg.attn_block_kv, prefix_embeds=prefix, dtype=dtype)
+                                 block_kv=rcfg.attn_block_kv, prefix_embeds=prefix, dtype=dtype,
+                                 ctx=ctx)
     logits = logits[:, -targets.shape[1]:]
     ls = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(ls, -1, targets.long()[..., None])[..., 0]
     loss = nll.mean()
-    return loss + 0.01 * aux, loss
+    total = loss + 0.01 * aux
+    if nll_scale == 1.0:
+        return total, total
+    return loss * nll_scale + 0.01 * aux, total
 
 
 def _compute_copy(x: torch.Tensor) -> torch.Tensor:
-    """The leaf the forward differentiates: an f32 leaf of ndim >= 2 cast to
-    bf16, any other leaf as it is, detached from the master."""
+    """The leaf the forward differentiates (a rank's slice of it, before the
+    gather): an f32 leaf of ndim >= 2 cast to bf16, any other leaf as it
+    is, detached from the master."""
     if x.dtype == torch.float32 and x.dim() >= 2:
-        return x.detach().to(torch.bfloat16).requires_grad_(True)
-    return x.detach().requires_grad_(True)
+        return x.detach().to(torch.bfloat16)
+    return x.detach()
 
 
-def build_train_step(cfg: ModelConfig, rcfg: RunConfig, device="cuda"):
+def batch_dp(mesh, global_batch: int):
+    """The dp axes actually usable for this batch size (None if B too small),
+    as the reference's: every dp axis where B divides over them, else
+    ``data`` alone where B divides over it."""
+    axes = dp_axes(mesh) if mesh is not None else ()
+    n = math.prod(mesh.shape[a] for a in axes) if axes else 1
+    if axes and global_batch % n == 0:
+        return axes
+    if "data" in axes and global_batch % mesh.shape["data"] == 0:
+        return ("data",)
+    return None
+
+
+def build_train_step(cfg: ModelConfig, rcfg: RunConfig, device="cuda", ctx=NO_CTX):
     """Returns ``step_fn(params, opt_state, tokens [B, S_tok], targets [B,
     S_tok], prefix [B, P, D] or None, step) -> (params, opt_state, metrics)``
     with ``metrics = {"loss", "lr", "grad_norm"}`` (0-d f32 tensors; loss
@@ -340,42 +363,148 @@ def build_train_step(cfg: ModelConfig, rcfg: RunConfig, device="cuda"):
 
     The forward runs on bf16 copies of the f32 leaves of ndim >= 2 (1-D
     leaves stay f32), over ``n_micro = B // micro`` microbatches of
-    ``micro = rcfg.microbatch or 1`` rows; each microbatch's grads are added
-    in f32 and the sum is scaled by 1 / n_micro. Then ``warmup_cosine(step,
-    lr, warmup, 10_000)`` and AdamW on the f32 masters, which, with m and
-    v, are updated in place (the reference's step donates them). ``device``
-    is where the inputs are expected (``cuda`` or ``cpu``)."""
-    if rcfg.grad_compression != "none":
+    ``micro = rcfg.microbatch or dp_n`` rows (one row per dp shard by
+    default, as the reference); each microbatch's grads are added in f32
+    and the sum is scaled by 1 / n_micro. Then ``warmup_cosine(step, lr,
+    warmup, 10_000)`` and AdamW on the f32 masters, which, with m and v,
+    are updated in place (the reference's step donates them). ``device``
+    is where the inputs are expected (``cuda`` or ``cpu``).
+
+    Data parallelism (``ctx`` of a training mesh, `launch.mesh.make_train_mesh`;
+    the reference's sharded step):
+
+      * every rank is handed the whole batch and keeps the rows the
+        reference's ``P(None, dp, None)`` gives it: a contiguous micro /
+        dp_n of each microbatch at dp index pod * data_n + data (`batch_dp`
+        picks the dp axes; the prefix embeds alike);
+      * it holds its FSDP slices of the masters, m and v
+        (`launch.sharding.params_shardings` over ``data``; ``rcfg.fsdp``),
+        all-gathers each sliced leaf's bf16 cast before the microbatches,
+        and accumulates the f32 grads of its rows, whose NLL is scaled to its
+        share of the mean (the MoE loss's means span the ranks, `forward_seq`);
+      * the grads are summed over ``data`` in rank order: `reduce_scatter_ranks`
+        to the rank's slice, `sum_ranks` for whole leaves;
+      * over ``pod``: with ``grad_compression="int8_ag"`` the grads scaled by
+        1 / npod go through `optim.compressed_psum` (f32 reduce-scatter,
+        int8 all-gather), and the MoE loss's means span a pod's tokens only,
+        as in the reference's pod-manual region; else the rank-order sum.
+        Without a pod axis ``int8_ag`` does nothing, as in the reference;
+        where a leaf is sliced over ``data`` too, its int8 shards are those
+        of the rank's slice (finer than the reference's shards of the leaf);
+      * the loss is the mean of the ranks' losses in rank order, and the
+        global norm adds the slices' squares over ``data`` (`optim.adamw`):
+        every rank's metrics and whole leaves come out bit-equal.
+
+    A model axis > 1 raises NotImplementedError."""
+    if ctx.tp > 1:
         raise NotImplementedError(
-            f"grad_compression={rcfg.grad_compression!r} needs a data-parallel mesh, "
-            "which is not ported yet (ROADMAP.md, Modules to port)")
+            f"a train step on model shards (tp={ctx.tp}): tensor-parallel training is not "
+            "ported yet (ROADMAP.md, Modules to port)")
     B = rcfg.global_batch
-    micro = rcfg.microbatch or 1
+    mesh = ctx.mesh
+    dp = batch_dp(mesh, B) or ()
+    dp_n = math.prod(mesh.shape[a] for a in dp) if dp else 1
+    micro = rcfg.microbatch or dp_n
     if B % micro:
         raise ValueError(f"global batch {B} is not a multiple of the microbatch {micro}")
+    if micro % dp_n:
+        raise ValueError(f"microbatch {micro} does not split over the {dp_n} dp ranks {dp}")
     n_micro = B // micro
     inv_micro = float(np.float32(1.0 / n_micro))
+    compress = rcfg.grad_compression == "int8_ag" and "pod" in dp
+    # the axes one forward's batch spans: within a pod where the pods
+    # exchange their grads explicitly
+    fwd_axes = tuple(a for a in dp if a != "pod") if compress else dp
+    fwd_n = math.prod(mesh.shape[a] for a in fwd_axes) if fwd_axes else 1
+    rctx = dataclasses.replace(ctx, dp_axes=fwd_axes)
+    rows = micro // dp_n
+    dp_idx = 0
+    for a in dp:
+        dp_idx = dp_idx * mesh.shape[a] + mesh.coord(a)
+    data_n = ctx.size("data")
+    inv_pod = float(np.float32(1.0 / ctx.size("pod")))
+    nll_scale = float(np.float32(1.0 / fwd_n))
+    inv_dp = float(np.float32(1.0 / dp_n))
     adamw = AdamWConfig(grad_clip=rcfg.grad_clip)
     device = torch.device(device)
+    fsdp = rcfg.fsdp and "data" in dp          # dp holds the axes of more than one rank
+    layout = {}
+
+    def shard(params):
+        """This rank's FSDP slices of the whole masters ``params`` (the
+        layout is read from the whole shapes and kept for the step); the
+        tree as it is where nothing is sliced."""
+        layout["dims"] = params_shardings(params, fsdp=fsdp)
+        if not fsdp:
+            return params
+        return shard_tree(params, ctx.coord("data"), data_n, dims=layout["dims"])
+
+    def reduce_grads(acc, d_items, paths):
+        """The rank's accumulated f32 grads summed over its dp axes: its slice
+        of each sharded leaf, each whole leaf whole."""
+        if "data" in dp:
+            for i, d in enumerate(d_items):         # in place: each whole leaf freed in turn
+                acc[i] = (ctx.sum_ranks(acc[i], "data") if d is None
+                          else _reduce_scatter_dim(ctx, acc[i], d))
+        if compress:
+            out = compressed_psum({p: a.mul_(inv_pod) for p, a in zip(paths, acc)}, ctx,
+                                  ("pod",))
+            acc = [out[p] for p in paths]
+        elif "pod" in dp:
+            for i in range(len(acc)):
+                acc[i] = ctx.sum_ranks(acc[i], "pod")
+        return acc
 
     def step_fn(params, opt_state, tokens, targets, prefix, step):
-        p_cmp = tree_map(_compute_copy, params)
+        if "dims" not in layout:
+            if fsdp:
+                raise RuntimeError("FSDP over data: slice the whole masters with "
+                                   "step_fn.shard(params) before the first step")
+            layout["dims"] = params_shardings(params, fsdp=False)
+        dims = layout["dims"]
+        items = tree_items(params)
+        paths = ["/".join(path) for path, _ in items]
+        d_items = [d for _, d in tree_items(dims)]
+        p_cmp = tree_map(lambda t: t.requires_grad_(True),
+                         unshard_tree(tree_map(_compute_copy, params), dims, ctx))
         leaves = [leaf for _, leaf in tree_items(p_cmp)]
         acc = [torch.zeros(leaf.shape, dtype=torch.float32, device=device) for leaf in leaves]
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
         for i in range(n_micro):
-            rows = slice(i * micro, (i + 1) * micro)
-            pre = prefix[rows] if prefix is not None and prefix.shape[1] else None
-            total, _ = _loss_fn(p_cmp, tokens[rows], targets[rows], cfg, rcfg, pre)
+            lo = i * micro + dp_idx * rows
+            sel = slice(lo, lo + rows)
+            pre = prefix[sel] if prefix is not None and prefix.shape[1] else None
+            total, metric = _loss_fn(p_cmp, tokens[sel], targets[sel], cfg, rcfg, pre,
+                                     ctx=rctx, nll_scale=nll_scale)
             grads = torch.autograd.grad(total, leaves, allow_unused=True)
             for a, g in zip(acc, grads):
                 if g is not None:
                     a.add_(g.to(torch.float32))
-            loss_sum = loss_sum + total.detach()
-        grads = tree_from_items([(path, a.mul_(inv_micro))
-                                 for (path, _), a in zip(tree_items(p_cmp), acc)])
+            loss_sum = loss_sum + metric.detach()
+            del grads, total, metric
+        del p_cmp, leaves
+        acc = [a.mul_(inv_micro) for a in acc]
+        loss = loss_sum * inv_micro
+        if dp_n > 1:
+            loss = ctx.sum_ranks(loss, dp) * inv_dp
+            acc = reduce_grads(acc, d_items, paths)
+        grads = tree_from_items([(path, a) for (path, _), a in zip(items, acc)])
         lr = warmup_cosine(step, rcfg.learning_rate, rcfg.warmup_steps, 10_000).to(device)
-        params, opt_state, om = apply_updates(params, grads, opt_state, lr, adamw)
-        return params, opt_state, {"loss": loss_sum * inv_micro, "lr": lr, **om}
+        params, opt_state, om = apply_updates(params, grads, opt_state, lr, adamw,
+                                              ctx if fsdp else None, dims if fsdp else None)
+        return params, opt_state, {"loss": loss, "lr": lr, **om}
 
+    step_fn.shard = shard
+    step_fn.layout = lambda: layout.get("dims")
     return step_fn
+
+
+def _reduce_scatter_dim(ctx, a: torch.Tensor, dim: int) -> torch.Tensor:
+    """The rank's slice along ``dim`` of the rank-order sum over ``data`` of
+    the whole leaf ``a``: ``dim`` moved to the front so each rank's slice
+    is a contiguous run of the flat tensor."""
+    w = ctx.size("data")
+    moved = a.movedim(dim, 0).contiguous()
+    red = ctx.reduce_scatter_ranks(moved.reshape(-1), "data")
+    shape = (moved.shape[0] // w,) + tuple(moved.shape[1:])
+    return red.reshape(shape).movedim(0, dim).contiguous()

@@ -1,18 +1,34 @@
 """End-to-end training driver (port of src/repro/launch/train.py): data ->
-microbatched train step -> checkpoints, with fault containment and
-straggler monitoring, on one device (the card unless ``--device cpu``).
+microbatched train step -> checkpoints, with fault containment, straggler
+monitoring and elastic data-parallel re-sharding, on the card unless
+``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b --reduced \\
         --steps 50 --device cpu --ckpt-dir /tmp/ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b --reduced \\
+        --steps 20 --device cpu --mesh single --dp-size 2 [--grad-compression int8_ag]
 
-Meshes (``--mesh single|multi``) and the int8 all-gather of data-parallel
-gradients (``--grad-compression int8_ag``) are not ported yet and raise.
+``--mesh single|multi`` runs W ranks of a data-parallel mesh
+(`launch.mesh.make_driver_mesh`: ``single`` (data W), ``multi`` (pod 2,
+data W / 2), the port's stand-ins for the reference's 16 x 16 and
+2 x 16 x 16 TPU pods): under ``torchrun`` every rank runs `main` (W is the
+world size); otherwise `main` spawns ``--dp-size`` ranks (`launch.mesh.spawn`)
+and returns rank 0's losses. Every rank draws the whole batch (``shard=0,
+num_shards=1``, as the reference) and keeps its rows
+(`launch.steps.build_train_step`); rank 0 logs and writes the checkpoints
+(whole arrays, `checkpoint.CheckpointManager`); a failed step restores every
+rank from the newest complete checkpoint (the failure injector's
+``REPRO_INJECT_FAIL_AT`` is in every rank's environment, so it fires on all
+of them at the same step).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -27,16 +43,15 @@ from repro_torch.launch.fault_tolerance import (
     StragglerMonitor,
     heartbeat_file,
 )
-from repro_torch.launch.mesh import make_driver_mesh
+from repro_torch.core.tree import tree_map
+from repro_torch.launch.mesh import dp_axes, driver_shape, make_driver_mesh, spawn
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import init_params
+from repro_torch.models.parallel import ParallelCtx
 from repro_torch.optim import init_state
 
 
-def main(argv=None, *, params=None):
-    """Train and return the list of step losses. ``params``: the initial
-    parameter tree (f32 masters on the device; written in place), else
-    ``init_params(0, cfg)`` on the device."""
+def _parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-7b")
     ap.add_argument("--reduced", action="store_true",
@@ -50,18 +65,41 @@ def main(argv=None, *, params=None):
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--dp-size", type=int, default=1,
-                    help="data shards for the (elastic) host pipeline")
+                    help="ranks to spawn for --mesh single|multi outside torchrun")
     ap.add_argument("--grad-compression", default="none",
                     choices=["none", "int8_ag"])
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
-    if args.grad_compression != "none":
-        raise NotImplementedError(f"--grad-compression {args.grad_compression}: the "
-                                  "compressed data-parallel all-reduce is not ported yet "
-                                  "(ROADMAP.md, Modules to port)")
+    return ap
 
-    device = make_driver_mesh(args.mesh, args.device).device
+
+def main(argv=None, *, params=None):
+    """Train and return the list of step losses (rank 0's). ``params``: the
+    initial parameter tree (whole f32 masters; on one rank written in
+    place), else ``init_params(0, cfg)`` on the device."""
+    import torch.distributed as dist
+
+    args = _parser().parse_args(argv)
+    if args.mesh != "none" and not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
+        world = args.dp_size
+        shape = driver_shape(args.mesh, world)
+        if params is not None:
+            params = tree_map(lambda t: t.detach().to("cpu"), params)
+        argv = list(sys.argv[1:] if argv is None else argv)
+        return spawn(_rank_main, shape, args.device, argv, params)[0]
+    return _train(args, make_driver_mesh(args.mesh, args.device), params)
+
+
+def _rank_main(mesh, argv, params):
+    return _train(_parser().parse_args(argv), mesh, params)
+
+
+def _train(args, mesh, params):
+    ctx = ParallelCtx(mesh=mesh, dp_axes=dp_axes(mesh), tp_axis="model")
+    root = mesh.rank == 0
+    device = mesh.device
+    if device.type == "cpu" and mesh.world > 1:     # the ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // mesh.world))
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -70,10 +108,15 @@ def main(argv=None, *, params=None):
                      microbatch=args.microbatch, learning_rate=args.lr,
                      warmup_steps=max(5, args.steps // 10),
                      grad_compression=args.grad_compression)
-    step_fn = build_train_step(cfg, rcfg, device)
+    step_fn = build_train_step(cfg, rcfg, device, ctx)
     if params is None:
         params = init_params(0, cfg, device=device)
+    else:
+        params = tree_map(lambda t: t.to(device), params)
+    params = step_fn.shard(params)
+    dims = step_fn.layout()
     opt_state = init_state(params)
+    opt_dims = {"m": dims, "v": dims, "step": None}
 
     prefix_n = cfg.num_prefix_embeds
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
@@ -81,24 +124,31 @@ def main(argv=None, *, params=None):
                                   global_batch=args.global_batch))
 
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    layout = dict(dims={"params": dims, "opt": opt_dims}, ctx=ctx)
+
+    def restore() -> Optional[int]:
+        nonlocal params, opt_state
+        restored, rstep = mgr.restore({"params": params, "opt": opt_state}, **layout)
+        if restored is None:
+            return None
+        params, opt_state = restored["params"], restored["opt"]
+        return rstep
+
     start = 0
     if mgr is not None:
-        restored, rstep = mgr.restore({"params": params, "opt": opt_state})
-        if restored is not None:
-            params, opt_state = restored["params"], restored["opt"]
+        rstep = restore()
+        if rstep is not None:
             start = rstep
-            print(f"[restore] resumed from step {start}", flush=True)
+            if root:
+                print(f"[restore] resumed from step {start}", flush=True)
 
     def restore_fn() -> int:
-        nonlocal params, opt_state
         if mgr is None:
             return 0
         mgr.wait()
-        restored, rstep = mgr.restore({"params": params, "opt": opt_state})
-        if restored is None:
-            return 0
-        params, opt_state = restored["params"], restored["opt"]
-        return rstep
+        ctx.barrier()               # rank 0's pending writes are complete for every rank
+        rstep = restore()
+        return 0 if rstep is None else rstep
 
     injector = FailureInjector()
     monitor = StragglerMonitor()
@@ -129,23 +179,23 @@ def main(argv=None, *, params=None):
         dt = time.time() - t0
         monitor.observe(step, dt)
         losses.append(captured.get("loss", float("nan")))
-        if step % args.log_every == 0:
+        if root and step % args.log_every == 0:
             print(f"step {step:5d}  loss {captured.get('loss', -1):.4f}  "
                   f"gnorm {captured.get('grad_norm', -1):.3f}  "
                   f"lr {captured.get('lr', -1):.2e}  {dt:.2f}s", flush=True)
         if mgr is not None and (step + 1) % args.ckpt_every == 0:
-            mgr.save(step + 1, {"params": params, "opt": opt_state})
-        if args.ckpt_dir:
+            mgr.save(step + 1, {"params": params, "opt": opt_state}, **layout)
+        if args.ckpt_dir and root:
             heartbeat_file(f"{args.ckpt_dir}/heartbeat", step)
         step = nxt
 
     if mgr is not None:
-        mgr.save(args.steps, {"params": params, "opt": opt_state},
-                 blocking=True)
+        mgr.save(args.steps, {"params": params, "opt": opt_state}, blocking=True, **layout)
         mgr.wait()
-    if monitor.straggles:
+        ctx.barrier()
+    if root and monitor.straggles:
         print(f"[straggler] slow steps: {monitor.straggles}")
-    if losses:
+    if root and losses:
         print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f}); "
               f"median step {monitor.median:.2f}s")
     return losses

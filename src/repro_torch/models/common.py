@@ -142,11 +142,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 # ----------------------------------------------------------- quantize tree
 def quantize_params(params, policy: QuantPolicy, strategy: Optional[str] = None,
-                    prefix: str = ""):
+                    prefix: str = "", policy_of=None):
     """Offline PTQ pass: replace eligible {'w': [.., K, N]} linears by packed
     planes; stacked leading dims (layers) are quantized slice by slice.
     Biases, norms and small tensors stay as they are. ``prefix`` is the path
-    of ``params`` inside the full tree (the policy reads names)."""
+    of ``params`` inside the full tree (the policy reads names).
+    ``policy_of(path, w)``, where given, is the policy that judges the
+    linear ``w`` at ``path`` eligible (the scheme and strategy stay ``policy``'s)."""
     from repro_torch.core.ams import ams_quantize
     from repro_torch.core.packing import pack
 
@@ -170,7 +172,8 @@ def quantize_params(params, policy: QuantPolicy, strategy: Optional[str] = None,
     def visit(path: str, node):
         if isinstance(node, dict) and "w" in node:
             w = node["w"]
-            if w.dim() >= 2 and policy.wants(path, tuple(w.shape[-2:])):
+            judge = policy if policy_of is None else policy_of(path, w)
+            if w.dim() >= 2 and judge.wants(path, tuple(w.shape[-2:])):
                 out = quant_stacked(w)
                 if "b" in node:
                     out["b"] = node["b"]

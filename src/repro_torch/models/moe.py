@@ -129,12 +129,26 @@ def gates(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     return combine, probs
 
 
-def load_balance_loss(combine: torch.Tensor, probs: torch.Tensor, E: int) -> torch.Tensor:
+def load_balance_loss(combine: torch.Tensor, probs: torch.Tensor, E: int,
+                      ctx=NO_CTX) -> torch.Tensor:
     """Switch-style auxiliary loss: E * <f_e> . <p_e> (f_e: the share of
     tokens routed to expert e, p_e: its mean probability). On CPU tensors
     as the reference's compiled step computes it: the sums in index order,
-    a mean as the sum times the f32 reciprocal of the count."""
+    a mean as the sum times the f32 reciprocal of the count.
+
+    Under a ``ctx`` whose ``dp_axes`` hold the forward's other rows (data-
+    parallel training), the means run over every rank's tokens, as the
+    reference's sharded program takes them: each rank's per-expert sums of
+    f and p are added over those axes (`ParallelCtx.sum_ranks_grad`, whose
+    backward hands each rank the gradient of its own tokens' share)."""
     frac = (combine > 0).to(torch.float32)
+    n = 1
+    for a in ctx.dp_axes:
+        n *= ctx.size(a)
+    if n > 1:
+        both = ctx.sum_ranks_grad(torch.stack([frac.sum(dim=0), probs.sum(dim=0)]), ctx.dp_axes)
+        inv = np.float32(1.0 / (probs.shape[0] * n))
+        return (both[0] * inv * (both[1] * inv)).sum() * E
     if probs.is_cuda:
         return (frac.mean(dim=0) * probs.mean(dim=0)).sum() * E
     inv = np.float32(1.0 / probs.shape[0])
@@ -159,9 +173,10 @@ def expert_ffn(p, x: torch.Tensor, activation: str, policy=None) -> torch.Tensor
     return apply_linear(p["w_down"], g * u, policy).to(x.dtype)
 
 
-def moe_dense(p, x: torch.Tensor, cfg, policy=None):
+def moe_dense(p, x: torch.Tensor, cfg, policy=None, ctx=NO_CTX):
     """Every expert on every token, combined with the gates. x [B, S, D] ->
-    (y [B, S, D] in x.dtype, the auxiliary loss)."""
+    (y [B, S, D] in x.dtype, the auxiliary loss; over ``ctx.dp_axes``'
+    tokens, `load_balance_loss`)."""
     B, S, D = x.shape
     xf = x.reshape(B * S, D)
     combine, probs = gates(p, xf, cfg)
@@ -170,7 +185,7 @@ def moe_dense(p, x: torch.Tensor, cfg, policy=None):
                       for e in range(cfg.num_experts)])                     # [E, T, D]
     c = combine.to(ys.dtype).to(torch.float32)
     y = torch.einsum("te,etd->td", c, ys.to(torch.float32)).to(ys.dtype)
-    aux = load_balance_loss(combine, probs, cfg.num_experts)
+    aux = load_balance_loss(combine, probs, cfg.num_experts, ctx)
     if "shared" in p:
         y = y + expert_ffn(p["shared"], xf, cfg.ffn_activation, policy)
     return y.reshape(B, S, D).to(x.dtype), aux
@@ -234,4 +249,4 @@ def moe_apply(p, x: torch.Tensor, cfg, policy=None, *, ctx=NO_CTX, phase: str = 
             "moe_tp) is not ported yet (ROADMAP.md, Modules to port)")
     if tp > 1:
         return moe_ep(p, x, cfg, ctx, policy)
-    return moe_dense(p, x, cfg, policy)
+    return moe_dense(p, x, cfg, policy, ctx)

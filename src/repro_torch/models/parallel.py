@@ -6,18 +6,30 @@ device) every layer runs its single-device path; with the context of a
 (1, tp) serving mesh (`launch.mesh.make_serving_mesh`) each process is one
 rank of the ``model`` axis, holds its shards of the weights
 (`launch.sharding`) and its kv heads of the page pools, and the layers
-exchange activations through the two collectives below. Neither splits a
-sum across ranks in an order that depends on the backend, so a tp > 1
-step gives every rank the bits of the tp = 1 step:
+exchange activations through the collectives below; with the context of a
+training mesh (`launch.mesh.make_train_mesh`) each process holds its rows
+of the batch (``dp_axes``) and its FSDP slices of the masters, and the
+train step (`launch.steps.build_train_step`) exchanges weights and grads
+over ``data`` and ``pod``. Every collective takes the mesh axis it runs
+over (``"model"`` by default). None splits a sum across ranks in an order
+that depends on the backend, so every rank gets the same bits, and a tp > 1
+serving step gives every rank the bits of the tp = 1 step:
 
   * `all_gather_last` concatenates the ranks' slices along the last axis
     in rank order (the N-sharded outputs of every linear, the attention
     output before ``wo``, the FFN's hidden before ``w_down``);
+    `all_gather_dim` along any dim (an FSDP leaf from its slices);
   * `sum_ranks` all-gathers and adds the ranks' tensors in rank order,
     ``((r0 + r1) + r2) + ...``, the same on every rank (the vocab-sharded
     embedding lookup, expert parallelism's partial sums, the merge of the
-    sequence-sharded flash-decode's ``l`` and ``o``). No ``all_reduce``:
-    its association differs by backend and algorithm;
+    sequence-sharded flash-decode's ``l`` and ``o``, replicated grads).
+    No ``all_reduce``: its association differs by backend and algorithm;
+  * `reduce_scatter_ranks` gives each rank its 1 / w slice of the rank-order
+    sum (each rank's slice the bits `sum_ranks` gives it), from an
+    ``all_to_all``: no ``reduce_scatter`` either (the FSDP grads);
+  * `sum_ranks_grad` is `sum_ranks` under autograd: its backward passes
+    the gradient through unchanged (a batch-wide statistic of a forward
+    whose rows are sharded, the MoE load-balance loss's);
   * `max_ranks` all-gathers and takes the element-wise max, which is exact
     in any order (the merge's running max ``m``).
 
@@ -28,9 +40,11 @@ the recurrent states' inner width in slices of d_inner / tp channels.
 
 A collective of CUDA tensors over a backend without CUDA transport (gloo,
 the backend of ranks that share one card) is staged explicitly through
-pinned host buffers of the mesh: device -> host, the gather on the host,
-host -> device. The mesh counts the calls and the host seconds they take
-(`Mesh.collective_calls` / ``collective_seconds``).
+the mesh's one pinned host buffer (`Mesh.stage`), in chunks that fit it:
+device -> host, the exchange on the host, host -> device. The mesh counts
+the calls, the host seconds they take and the bytes the rank sent by
+collective (`Mesh.collective_calls` / ``collective_seconds`` /
+``collective_bytes``).
 """
 
 from __future__ import annotations
@@ -45,7 +59,9 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
     mesh: Optional[object] = None          # launch.mesh.Mesh
-    dp_axes: Tuple[str, ...] = ()          # mesh axes the batch is sharded over (none yet)
+    # mesh axes whose ranks hold other rows of one forward's batch, over
+    # which its batch-wide statistics sum (training; () when serving)
+    dp_axes: Tuple[str, ...] = ()
     tp_axis: Optional[str] = None          # the tensor / expert-parallel axis
     # contiguous caches sharded over their sequence (decode at tp > 1; off
     # for page pools, which shard their heads, and at tp = 1)
@@ -59,8 +75,9 @@ class ParallelCtx:
 
     @property
     def rank(self) -> int:
-        """This process's index along the model axis."""
-        return self.mesh.rank if self.tp > 1 else 0
+        """This process's index along the model axis (the innermost one in
+        rank order)."""
+        return self.mesh.rank % self.tp if self.tp > 1 else 0
 
     @property
     def seq_rank(self) -> int:
@@ -68,18 +85,32 @@ class ParallelCtx:
         where the cache is whole)."""
         return self.rank if self.seq_shard and self.tp > 1 else 0
 
-    def all_gather_last(self, x: torch.Tensor) -> torch.Tensor:
-        """The ranks' ``x`` concatenated along the last axis in rank order."""
-        if self.tp == 1:
-            return x
-        return torch.cat(self._gather(x), dim=-1)
+    def size(self, axis: str = "model") -> int:
+        """The number of ranks along ``axis`` (1 without a mesh)."""
+        if axis == "model":
+            return self.tp
+        return 1 if self.mesh is None else self.mesh.size(axis)
 
-    def all_gather_last_each(self, *xs: torch.Tensor) -> List[torch.Tensor]:
+    def coord(self, axis: str = "model") -> int:
+        """This rank's index along ``axis``."""
+        return 0 if self.size(axis) == 1 else self.mesh.coord(axis)
+
+    def all_gather_last(self, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+        """The ranks' ``x`` concatenated along the last axis in rank order."""
+        return self.all_gather_dim(x, -1, axis)
+
+    def all_gather_dim(self, x: torch.Tensor, dim: int, axis: str = "model") -> torch.Tensor:
+        """The ranks' ``x`` concatenated along ``dim`` in rank order."""
+        if self.size(axis) == 1:
+            return x
+        return torch.cat(self._gather(x, axis), dim=dim)
+
+    def all_gather_last_each(self, *xs: torch.Tensor, axis: str = "model") -> List[torch.Tensor]:
         """`all_gather_last` of each of ``xs`` (one dtype, one leading
         shape) in one exchange of their concatenation."""
-        if self.tp == 1:
+        if self.size(axis) == 1:
             return list(xs)
-        parts = self._gather(torch.cat(xs, dim=-1))
+        parts = self._gather(torch.cat(xs, dim=-1), axis)
         out, lo = [], 0
         for x in xs:
             w = x.shape[-1]
@@ -87,47 +118,156 @@ class ParallelCtx:
             lo += w
         return out
 
-    def sum_ranks(self, x: torch.Tensor) -> torch.Tensor:
+    def gather_ranks(self, x: torch.Tensor, axis: str = "model",
+                     kind: str = "all_gather") -> List[torch.Tensor]:
+        """Every rank's ``x`` along ``axis``, in rank order (``kind`` names
+        the exchange in the mesh's byte counts)."""
+        if self.size(axis) == 1:
+            return [x]
+        return self._gather(x, axis, kind)
+
+    def sum_ranks(self, x: torch.Tensor, axis="model") -> torch.Tensor:
         """The ranks' ``x`` added in rank order, ``((r0 + r1) + r2) + ...``:
-        the same bits on every rank."""
-        if self.tp == 1:
-            return x
-        parts = self._gather(x)
-        s = parts[0]
-        for p in parts[1:]:
-            s = s + p
-        return s
+        the same bits on every rank. ``axis``: one axis, or a tuple summed
+        one axis after the other (the last first)."""
+        for a in reversed((axis,) if isinstance(axis, str) else tuple(axis)):
+            if self.size(a) == 1:
+                continue
+            parts = self._gather(x, a, "sum")
+            x = parts[0]
+            for p in parts[1:]:
+                x = x + p
+        return x
 
-    def max_ranks(self, x: torch.Tensor) -> torch.Tensor:
+    def sum_ranks_grad(self, x: torch.Tensor, axis="data") -> torch.Tensor:
+        """`sum_ranks` that autograd records: the backward passes the
+        gradient through unchanged, so each rank's ``x`` takes the gradient
+        of the sum (the ranks' grads are summed later, with the weights')."""
+        if all(self.size(a) == 1 for a in ((axis,) if isinstance(axis, str) else axis)):
+            return x
+        return _SumRanks.apply(x, self, axis)
+
+    def max_ranks(self, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
         """The element-wise max of the ranks' ``x`` (exact in any order)."""
-        if self.tp == 1:
+        if self.size(axis) == 1:
             return x
-        return torch.stack(self._gather(x)).amax(dim=0)
+        return torch.stack(self._gather(x, axis, "max")).amax(dim=0)
 
-    def _gather(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """Every rank's ``x`` (same shape and dtype on every rank), in rank
-        order, on x's device. The bytes travel, so any dtype is exact."""
+    def reduce_scatter_ranks(self, flat: torch.Tensor, axis: str = "data") -> torch.Tensor:
+        """Rank r's slice r of ``flat`` [n] (n a multiple of the axis's w
+        ranks) summed over the ranks in rank order: ``flat`` split in w
+        slices of n / w, slice j sent to rank j (``all_to_all``), the w
+        received added ``((r0 + r1) + r2) + ...``: the bits of `sum_ranks`'s
+        slice r, at 1 / w of its traffic."""
+        w = self.size(axis)
+        if w == 1:
+            return flat
         import torch.distributed as dist
 
-        mesh, tp = self.mesh, self.tp
+        mesh = self.mesh
+        n = flat.numel()
+        if flat.dim() != 1 or n % w:
+            raise ValueError(f"reduce_scatter_ranks takes a flat tensor of a multiple of {w} "
+                             f"elements, got {tuple(flat.shape)}")
+        t0 = time.perf_counter()
+        s, es = n // w, flat.element_size()
+        parts = flat.contiguous().view(w, s)
+        out = torch.empty(s, dtype=flat.dtype, device=flat.device)
+        group = mesh.groups[axis]
+        if flat.is_cuda and mesh.backend == "nccl":
+            recv = torch.empty((w, s), dtype=flat.dtype, device=flat.device)
+            dist.all_to_all_single(recv, parts, group=group)
+            _add_rows(recv, out)
+        else:
+            step = _chunk(s, 2 * w * es, mesh.stage().numel() if flat.is_cuda else _CPU_CHUNK)
+            for lo in range(0, s, step):
+                m = min(step, s - lo)
+                if flat.is_cuda:
+                    buf = mesh.stage()
+                    send = buf[:w * m * es].view(flat.dtype).view(w, m)
+                    recv = buf[w * m * es:2 * w * m * es].view(flat.dtype).view(w, m)
+                    send.copy_(parts[:, lo:lo + m])          # waits for flat on its stream
+                    dist.all_to_all_single(recv, send, group=group)
+                    _add_rows(recv.to(flat.device), out[lo:lo + m])
+                else:
+                    recv = torch.empty((w, m), dtype=flat.dtype)
+                    dist.all_to_all_single(recv, parts[:, lo:lo + m].contiguous(), group=group)
+                    _add_rows(recv, out[lo:lo + m])
+        mesh.count("reduce_scatter", n * es, time.perf_counter() - t0)
+        return out
+
+    def barrier(self):
+        """Every rank of the mesh waits for the others: a barrier over each
+        axis's group in turn (nothing without a process group)."""
+        import torch.distributed as dist
+
+        if self.mesh is None:
+            return
+        for axis in self.mesh.axis_names:
+            if axis in self.mesh.groups:
+                dist.barrier(group=self.mesh.groups[axis])
+
+    def _gather(self, x: torch.Tensor, axis: str = "model",
+                kind: str = "all_gather") -> List[torch.Tensor]:
+        """Every rank's ``x`` along ``axis`` (same shape and dtype on every
+        rank), in rank order, on x's device. The bytes travel, so any dtype
+        is exact."""
+        import torch.distributed as dist
+
+        mesh, w = self.mesh, self.size(axis)
+        group = mesh.groups[axis]
         t0 = time.perf_counter()
         x = x.contiguous()
         flat = x.reshape(-1).view(torch.uint8)
         n = flat.numel()
+        out = torch.empty((w, n), dtype=torch.uint8, device=x.device)
         if x.is_cuda and mesh.backend == "nccl":
-            out = torch.empty((tp, n), dtype=torch.uint8, device=x.device)
-            dist.all_gather_into_tensor(out, flat, group=mesh.group)
-        elif x.is_cuda:
-            send, recv = mesh.staging(n, tp)
-            send.copy_(flat)                         # waits for x on its stream
-            dist.all_gather(list(recv.unbind(0)), send, group=mesh.group)
-            out = recv.to(x.device)                  # pinned -> device, before reuse
+            dist.all_gather_into_tensor(out, flat, group=group)
         else:
-            out = torch.empty((tp, n), dtype=torch.uint8)
-            dist.all_gather(list(out.unbind(0)), flat, group=mesh.group)
-        mesh.collective_calls += 1
-        mesh.collective_seconds += time.perf_counter() - t0
-        return [out[r].view(x.dtype).reshape(x.shape) for r in range(tp)]
+            step = _chunk(n, w + 1, mesh.stage().numel() if x.is_cuda else _CPU_CHUNK)
+            for lo in range(0, n, step):
+                m = min(step, n - lo)
+                if x.is_cuda:
+                    buf = mesh.stage()
+                    send, recv = buf[:m], buf[m:(w + 1) * m].view(w, m)
+                    send.copy_(flat[lo:lo + m])              # waits for x on its stream
+                    dist.all_gather(list(recv.unbind(0)), send, group=group)
+                    out[:, lo:lo + m].copy_(recv)            # pinned -> device, before reuse
+                else:
+                    dist.all_gather(list(out[:, lo:lo + m].unbind(0)), flat[lo:lo + m],
+                                    group=group)
+        mesh.count(kind, n, time.perf_counter() - t0)
+        return [out[r].view(x.dtype).reshape(x.shape) for r in range(w)]
+
+
+# CPU collectives run in chunks of this many bytes too (no staging: the
+# chunking keeps gloo's buffers bounded and is the path the card's takes)
+_CPU_CHUNK = 64 << 20
+
+
+def _chunk(n: int, per: int, cap: int) -> int:
+    """Elements (bytes) of one chunk of an exchange of ``n`` whose staging
+    holds ``per`` bytes an element, within ``cap`` bytes: a multiple of 64
+    (aligned views of any dtype), at least 64."""
+    return min(n, max(64, (cap // per) // 64 * 64))
+
+
+def _add_rows(recv: torch.Tensor, out: torch.Tensor):
+    """out = ((recv[0] + recv[1]) + recv[2]) + ..."""
+    s = recv[0]
+    for p in recv[1:]:
+        s = s + p
+    out.copy_(s)
+
+
+class _SumRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, pctx, axis):
+        return pctx.sum_ranks(x, axis)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None, None
 
 
 NO_CTX = ParallelCtx()

@@ -466,14 +466,15 @@ def _layers(params, cache, fn, x, cfg):
 
 
 def block_seq(p, x, kind, cfg, dims, *, policy=None, block_kv=1024, prefix_len=0,
-              want_cache=False, pre=None):
+              want_cache=False, pre=None, ctx=NO_CTX):
     """x [B, S, D] through one block over the whole sequence. Returns (x,
     cache or None): GQA's ``{"k", "v"}`` [B, S, kv, hd] (a ring cache
     [B, window, kv, hd] for an ``attn`` block of a sliding-window model,
     `_to_ring`), MLA's ``{"kv"}`` [B, S, 1, r_kv + dr], the final recurrent
     states of Mamba (``{"conv", "ssm"}``) or the RG-LRU (``{"conv",
     "state"}``), x's addends (``pre`` as in `block_decode`) and the
-    block's auxiliary loss (the MoE router's; None for the other kinds)."""
+    block's auxiliary loss (the MoE router's, over the tokens of
+    ``ctx.dp_axes``' ranks; None for the other kinds)."""
     h = _norm_in(x, pre, p["ln1"], cfg.norm_eps)
     if kind == "mamba":
         out, (conv, ssm) = S.mamba_train(p["mixer"], h, cfg, policy=policy)
@@ -494,7 +495,7 @@ def block_seq(p, x, kind, cfg, dims, *, policy=None, block_kv=1024, prefix_len=0
             k, v = _to_ring(k, window), _to_ring(v, window)
         cache = {"k": k, "v": v} if want_cache else None
     x, h2 = residual_norm(x, out, p["ln2"], cfg.norm_eps)
-    y, aux = _ffn(p, h2, cfg, policy)
+    y, aux = _ffn(p, h2, cfg, policy, ctx)
     x, pre = residual(x, y)
     return x, cache, pre, aux
 
@@ -523,7 +524,7 @@ def _seq_blocks(blocks, x, aux, cfg, dims, kw):
 
 
 def forward_seq(params, tokens, cfg, *, policy=None, remat=True, block_kv=1024,
-                prefix_embeds=None, want_cache=False, dtype=torch.bfloat16):
+                prefix_embeds=None, want_cache=False, dtype=torch.bfloat16, ctx=NO_CTX):
     """Full-sequence forward: tokens [B, S] (after ``prefix_embeds`` [B, P,
     D], which attend to each other both ways). Returns (logits [B, P + S, V]
     f32, aux, cache or None): aux is the reference's auxiliary loss, the
@@ -540,14 +541,25 @@ def forward_seq(params, tokens, cfg, *, policy=None, remat=True, block_kv=1024,
     (non-reentrant; the forward draws no random numbers),
     so its activations are recomputed in the backward pass instead of kept,
     as the reference's ``jax.checkpoint`` of its scan body; the tail is not
-    rematerialised."""
+    rematerialised.
+
+    ``ctx``: a rank of data-parallel training at model = 1, whose
+    ``tokens`` are its rows of a batch sharded over ``ctx.dp_axes``; the
+    only term that is not a sum over rows, the MoE load-balance loss, then
+    takes its means over every rank's tokens (`moe.load_balance_loss`).
+    Model shards (tp > 1) are not ported here."""
     check_serving_support(cfg)
+    if ctx.tp > 1:
+        raise NotImplementedError(
+            f"forward_seq on model shards (tp={ctx.tp}): tensor-parallel training is not "
+            "ported yet (ROADMAP.md, Modules to port)")
     dims = model_dims(cfg)
     pat = layer_pattern(cfg)
     prefix_len = 0 if prefix_embeds is None else prefix_embeds.shape[1]
     x = _embed(params, tokens, dtype, prefix_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    kw = dict(policy=policy, block_kv=block_kv, prefix_len=prefix_len, want_cache=want_cache)
+    kw = dict(policy=policy, block_kv=block_kv, prefix_len=prefix_len, want_cache=want_cache,
+              ctx=ctx)
     recompute = (remat and torch.is_grad_enabled()
                  and any(t.requires_grad for t in tree_leaves(params["layers"])))
     layer_caches = []

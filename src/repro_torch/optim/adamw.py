@@ -21,6 +21,13 @@ rounding and sums the grad norm in its own order, so the CPU result is
 within a few ulp of the reference's, not bit-equal
 (`tests/test_torch_train.py` states the bound); the card's is held to the
 CPU's (`tests/test_torch_gpu.py`, `chip_smoke.py`'s ``train`` phase).
+
+Under data parallelism (a ``ctx`` of a training mesh and the layout's
+``dims``, `launch.sharding.params_shardings`) a rank holds its FSDP slices
+of the sharded leaves, whole replicated ones, and their grads alike. The
+global norm's sum of squares then adds the ranks' slices' sums in rank
+order over ``data`` and each replicated leaf once, so every rank clips by
+the same bits; the update runs on each rank's slices.
 """
 
 from __future__ import annotations
@@ -52,11 +59,23 @@ def init_state(params):
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, ctx=None, dims=None) -> torch.Tensor:
     """sqrt of the sum over leaves (in flatten order) of each leaf's sum of
-    squares in f32, as a 0-d f32 tensor."""
-    sums = [torch.square(g.to(torch.float32)).sum() for _, g in tree_items(tree)]
-    return torch.sqrt(torch.stack(sums).sum())
+    squares in f32, as a 0-d f32 tensor. With ``ctx`` and ``dims`` (the
+    FSDP layout) the leaves whose dim is set are this rank's slices: their
+    sums are added over ``data`` in rank order, then the whole leaves'."""
+    items = tree_items(tree)
+    sums = [torch.square(g.to(torch.float32)).sum() for _, g in items]
+    if ctx is None or dims is None or ctx.size("data") == 1:
+        return torch.sqrt(torch.stack(sums).sum())
+    sharded = dict(tree_items(dims))
+    part = torch.stack([s for (path, _), s in zip(items, sums) if sharded[path] is not None]
+                       or [torch.zeros((), device=sums[0].device)]).sum()
+    whole = [s for (path, _), s in zip(items, sums) if sharded[path] is None]
+    total = ctx.sum_ranks(part, "data")
+    if whole:
+        total = total + torch.stack(whole).sum()
+    return torch.sqrt(total)
 
 
 def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -89,12 +108,13 @@ def _update(p, g, m, v, scale, c1, c2, lr, decay, cfg: AdamWConfig):
     p.addcmul_(delta, lr, value=-1.0)
 
 
-def apply_updates(params, grads, state, lr, cfg: AdamWConfig):
+def apply_updates(params, grads, state, lr, cfg: AdamWConfig, ctx=None, dims=None):
     """Returns (params, state, metrics): the params, m and v updated in
     place, the step advanced, and ``{"grad_norm": the norm before
     clipping}``. ``lr`` is a 0-d f32 tensor (or a float) on the params'
-    device. The f32 grads are consumed (scaled in place)."""
-    gn = global_norm(grads)
+    device. The f32 grads are consumed (scaled in place). ``ctx`` and
+    ``dims``: a rank's FSDP slices (`global_norm`)."""
+    gn = global_norm(grads, ctx, dims)
     scale = _clip_scale(gn, cfg.grad_clip)
     step = state["step"] + 1
     t = step.to(torch.float32)

@@ -82,7 +82,8 @@ def test_moe_ep_matches_the_reference(cf, reference):
     token drops, so both equal the dense combine within that tolerance;
     at 1.25 some (token, expert) pairs drop and y moves away from it."""
     cfg = dataclasses.replace(get_config("dbrx-132b").reduced(**DBRX), moe_capacity_factor=cf)
-    (y0, aux0), (y1, aux1) = spawn(C.moe_ep_world, 2, "cpu", reference["p"], reference["x"], cfg)
+    (y0, aux0), (y1, aux1) = spawn(C.moe_ep_world, {"model": 2}, "cpu", reference["p"],
+                                   reference["x"], cfg)
     want, want_aux, dense = reference[cf]
     np.testing.assert_array_equal(y0, y1)
     assert aux0 == aux1
@@ -110,8 +111,8 @@ def test_scout_engine_tp2_moe_matches_the_reference(tmp_path):
     ``moe_ep`` of that layer's params on the call's input."""
     jcfg = j_get_config("llama4-scout-17b-16e").reduced()
     np_params = jax.tree.map(np.asarray, j_init_params(jax.random.PRNGKey(0), jcfg))
-    (t0, calls0), (t1, calls1) = spawn(C.moe_engine_world, 2, "cpu", np_params, "fp16",
-                                       "fused_ref")
+    (t0, calls0), (t1, calls1) = spawn(C.moe_engine_world, {"model": 2}, "cpu", np_params,
+                                       "fp16", "fused_ref")
     assert t0 == t1 and len(calls0) == len(calls1) > 0
     for (x0, y0), (x1, y1) in zip(calls0, calls1):
         np.testing.assert_array_equal(x0, x1)

@@ -77,7 +77,7 @@ def world(np_params):
     """The two ranks' results, spawned from a thread here so the JAX
     engines of the module's first test run in this process meanwhile."""
     with ThreadPoolExecutor(1) as pool:
-        yield pool.submit(spawn, C.serving_world, TP, "cpu", np_params)
+        yield pool.submit(spawn, C.serving_world, {"model": TP}, "cpu", np_params)
 
 
 def results(world):
@@ -158,7 +158,7 @@ def test_sum_ranks_and_gather_in_rank_order():
     """Four ranks: every rank gets the same bits, the rank-order sum
     ((r0 + r1) + r2) + r3 (another association gives other bits on these
     operands), and the slices concatenated in rank order."""
-    got = spawn(C.collectives, 4, "cpu")
+    got = spawn(C.collectives, {"model": 4}, "cpu")
     xs, ys = zip(*(C.collective_inputs(r) for r in range(4)))
     want = ((xs[0] + xs[1]) + xs[2]) + xs[3]
     assert not torch.equal(want, xs[0] + (xs[1] + (xs[2] + xs[3])))
@@ -187,8 +187,17 @@ def test_tp2_refuses_what_it_does_not_serve(world):
 
 
 def test_meshes_the_port_does_not_build():
+    """Outside a process group: ``single`` is the one-rank (data 1) mesh,
+    ``multi`` needs an even world, a training mesh with a model axis > 1 is
+    not ported, a tp > 1 serving mesh needs a process group, and an engine
+    mesh needs a model axis."""
+    from repro_torch.launch.mesh import make_train_mesh
+
+    assert make_driver_mesh("single", "cpu").shape == {"data": 1, "model": 1}
+    with pytest.raises(ValueError, match="two pods"):
+        make_driver_mesh("multi", "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Modules to port"):
-        make_driver_mesh("single")
+        make_train_mesh({"data": 1, "model": 2}, "cpu")
     with pytest.raises(RuntimeError, match="process group"):
         make_serving_mesh(2, "cpu")
     m = make_serving_mesh(1, "cpu")

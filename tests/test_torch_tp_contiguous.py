@@ -85,7 +85,7 @@ def world(params):
     """The two ranks' results, spawned from a thread so the JAX engines run
     in this process meanwhile."""
     with ThreadPoolExecutor(1) as pool:
-        yield pool.submit(spawn, C.contiguous_world, TP, "cpu",
+        yield pool.submit(spawn, C.contiguous_world, {"model": TP}, "cpu",
                           {a: p[1] for a, p in params.items()})
 
 
@@ -226,7 +226,7 @@ def core_results():
         with ThreadPoolExecutor(1) as pool:
             ref = pool.submit(subprocess.run, [sys.executable, "-c", REF_CORES, src, dst],
                               capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
-            ranks = spawn(C.seq_cores, TP, "cpu", cases)
+            ranks = spawn(C.seq_cores, {"model": TP}, "cpu", cases)
             r = ref.result()
         assert r.returncode == 0, f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr[-3000:]}"
         flat = dict(np.load(dst))
@@ -260,7 +260,7 @@ def test_max_ranks_and_gather_each():
     """Three ranks: `max_ranks` is the element-wise max of every rank's
     operand on every rank; `all_gather_last_each` gathers each of two
     tensors in one exchange, each equal to its own `all_gather_last`."""
-    got = spawn(C.collectives_merge, 3, "cpu")
+    got = spawn(C.collectives_merge, {"model": 3}, "cpu")
     xs, ys = zip(*(C.collective_inputs(r) for r in range(3)))
     want = torch.maximum(torch.maximum(xs[0], xs[1]), xs[2])
     for m, (a, b) in got:
@@ -462,3 +462,37 @@ def test_in_proj_shard_holds_both_halves():
                 assert torch.equal(part[key], want), (key, r)
             x_half = torch.cat([p[key][..., :m] for p in parts], dim=-1)
             assert torch.equal(x_half, leaf[..., :di]), key
+
+
+def test_whole_leaves_quantize_as_at_tp1():
+    """A rank's serving params judge a leaf it holds whole (MLA's wq_a /
+    wkv_a) at its own size and an N-shard at 1 / tp of it: with
+    ``min_elements`` between reduced MiniCPM3-4B's wkv_a (6144 elements)
+    and twice it, every linear is quantized at tp = 2 exactly where it is
+    at tp = 1, and each rank's whole leaves are tp = 1's bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.tree import tree_items
+    from repro_torch.launch.engine import init_serving_params
+
+    cfg = get_config("minicpm3-4b").reduced()
+    policy = QuantPolicy(scheme="fp5.33-e2m3", min_elements=8192)
+    one = init_serving_params(cfg, policy, 0, "cpu")
+    wkv_a = one["layers"]["sub0"]["attn"]["wkv_a"]
+    assert "w" in wkv_a and 8192 // 2 < wkv_a["w"][0].numel() < 8192
+
+    def quantized(tree):
+        return {path[:-1]: path[-1] == "hi" for path, _ in tree_items(tree)
+                if path[-1] in ("w", "hi") and len(path) >= 2}
+
+    want = quantized(one)
+    assert any(want.values()) and not all(want.values())
+    whole = {path: leaf for path, leaf in tree_items(one)}
+    for rank in range(TP):
+        ctx = ParallelCtx(mesh=Mesh({"data": 1, "model": TP}, rank=rank), tp_axis="model")
+        mine = init_serving_params(cfg, policy, 0, "cpu", ctx)
+        assert quantized(mine) == want, rank
+        for path, leaf in tree_items(mine):
+            n_stack = 1 if path[0] == "layers" else 0
+            if SH.serve_shard_dim(list(path), leaf, n_stack) is None:
+                assert leaf.dtype == whole[path].dtype and torch.equal(leaf, whole[path]), path

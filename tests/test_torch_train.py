@@ -4,8 +4,9 @@ AdamW within ADAMW_ULPS; one `build_train_step` step per block kind
 (reduced configs, the reference's own `init_params` carried across with
 `params_from_numpy`)
 within stated tolerances; the driver `launch.train.main` learns and
-starts as the reference's driver does; meshes and compressed gradients
-are refused.
+starts as the reference's driver does; its meshes and compressed
+gradients train (tests/test_torch_dp.py holds them against the
+reference's sharded steps); a model axis > 1 is refused.
 
 Step tolerances (measured worst case over the six configurations, one
 step at B 4, microbatch 2, 32 tokens): the loss within LOSS_REL (measured
@@ -249,11 +250,46 @@ def test_train_main_learns_and_starts_as_the_reference(capsys):
 @pytest.mark.parametrize("flag,value", [("--mesh", "single"), ("--mesh", "multi"),
                                         ("--grad-compression", "int8_ag")])
 def test_train_main_refuses_what_is_not_ported(flag, value):
+    """Meshes and compressed gradients are ported now: ``--mesh single``
+    (one spawned rank), ``--mesh multi`` (two pods of one rank each) and
+    ``--grad-compression int8_ag`` (a no-op without a pod axis, as in the
+    reference) train, their first loss the single-device driver's within
+    LOSS_REL (the bits where nothing is exchanged); what stays refused, a
+    model axis > 1 in training, raises naming the ROADMAP item."""
+    from repro_torch.launch.mesh import make_train_mesh
+
+    extra = ["--dp-size", "2"] if value == "multi" else []
+    losses = train.main(ARGS + ["--steps", "1", "--device", "cpu", flag, value] + extra)
+    plain = train.main(ARGS + ["--steps", "1", "--device", "cpu"])
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    assert abs(losses[0] - plain[0]) <= LOSS_REL * abs(plain[0])
+    if flag == "--grad-compression":
+        assert losses == plain
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Modules to port"):
-        train.main(ARGS + ["--steps", "1", "--device", "cpu", flag, value])
+        make_train_mesh({"data": 1, "model": 2}, "cpu")
 
 
 def test_train_step_refuses_compressed_gradients():
-    _, tcfg, _, tr = _configs("qwen2-7b")
+    """``int8_ag`` without a pod axis leaves the step as it is (the
+    reference's ``compress`` needs ``pod`` among the dp axes): the same
+    bits as ``none``. A train step on model shards still raises, naming
+    the ROADMAP item."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.parallel import ParallelCtx
+
+    cfg, tcfg, jr, tr = _configs("qwen2-7b")
+    toks, tgts, _ = _batch(cfg, jr)
+    p_np = _reduced_tree("qwen2-7b", 0)
+    out = []
+    for comp in ("none", "int8_ag"):
+        step = build_train_step(tcfg, dataclasses.replace(tr, grad_compression=comp), "cpu")
+        tp = params_from_numpy(p_np)
+        out.append(step(tp, init_state(tp), torch.from_numpy(toks), torch.from_numpy(tgts),
+                        None, 0))
+    assert {k: float(v) for k, v in out[0][2].items()} == \
+        {k: float(v) for k, v in out[1][2].items()}
+    for (_, a), (_, b) in zip(tree_items(out[0][0]), tree_items(out[1][0])):
+        assert torch.equal(a, b)
+    ctx = ParallelCtx(mesh=Mesh({"data": 1, "model": 2}), tp_axis="model")
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Modules to port"):
-        build_train_step(tcfg, dataclasses.replace(tr, grad_compression="int8_ag"), "cpu")
+        build_train_step(tcfg, tr, "cpu", ctx)
