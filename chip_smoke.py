@@ -9,7 +9,8 @@
         # phase "tick" times the greedy FP5.33 graph tick, "rows" runs the
         # row-invariance check of the FP16, contiguous and MLA paths, "tp"
         # the tensor-parallel phase (two ranks on the card), "dp" the
-        # data-parallel training phase (two ranks on the card)
+        # data- and tensor-parallel training phase (two ranks on the card),
+        # "tptrain" its tensor-parallel run alone
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -231,9 +232,9 @@ Phases, each fatal on failure:
       resuming from the newest step). Run it alone with ``python -c
       "import chip_smoke, torch; chip_smoke.phase_train(torch,
       torch.device('cuda', 0))"``;
-  18. dp (`phase_dp`, after train): data-parallel training in worlds of
-      two ranks spawned over gloo on the one card, after dp = 1 baselines
-      here (their memory freed first): `single`, (data 2),
+  18. dp (`phase_dp`, after train): data- and tensor-parallel training in
+      worlds of two ranks spawned over gloo on the one card, after dp = 1
+      baselines here (their memory freed first): `single`, (data 2),
       full-width Qwen2-7B at the train phase's config cut to
       DP_SINGLE_LAYERS = 3 layers (B 8 x 512, microbatch 4, remat,
       TRAIN_LR) for DP_STEPS steps, FSDP over data, each step's
@@ -246,9 +247,16 @@ Phases, each fatal on failure:
       the rank-order f32 sum, step 0's grad norm within TRAIN_GNORM_REL of
       the uncompressed dp = 1 run's plus the int8 error's norm, losses
       within DP_MULTI_LOSS_TOL of the uncompressed dp = 1 run, the ranks'
-      params bit-equal; no port kernel launched (`dp single` / `dp multi`
-      lines: step and gloo ms, gloo calls and bytes by collective, pinned
-      and peak bytes per rank, int8 bytes against f32's).
+      params bit-equal; `tp`, (data 1, model 2), single's config in the
+      training layout (column / row shards, the vocab split over the
+      ranks), in a world of its own, held to single's dp = 1 run: each
+      step's loss and grad norm within TRAIN_LOSS_REL / TRAIN_GNORM_REL,
+      the ranks' metrics and the master, m and v of every leaf whole over
+      ``model`` bit-equal at every step, each model-sharded master, m and
+      v half a leaf; no port kernel launched (`dp single` / `dp multi` /
+      `dp tp` lines: step and gloo ms, gloo calls and bytes by collective,
+      pinned and peak bytes per rank, the card's free bytes, int8 bytes
+      against f32's).
 
 A line ``compare {...}`` sets the thirteen paths' graph and eager decode
 ticks, replay ms, device-busy ms, idle shares, gaps inside ticks and
@@ -3998,20 +4006,26 @@ def _tp_kernel_times(torch, dev, timed: bool, full: bool):
 
 
 # --------------------------------------------------------------------- dp
-# data-parallel training: two ranks share the one card over gloo, as in the
-# tp phase; ``single`` (data 2) at the train phase's config, FSDP over data,
-# against dp = 1 from the same params; ``multi`` (pod 2, data 1) at depth
-# 1 with the int8 all-gather over pod, against the uncompressed dp = 1 run
+# data- and tensor-parallel training: two ranks share the one card over
+# gloo, as in the tp phase; ``single`` (data 2) at the train phase's config,
+# FSDP over data, against dp = 1 from the same params; ``multi`` (pod 2,
+# data 1) at depth 1 with the int8 all-gather over pod, against the
+# uncompressed dp = 1 run; ``tp`` (data 1, model 2) at single's config, the
+# training layout's column / row shards, against the same dp = 1 run
 DP_STEPS = 4
 DP_MULTI_STEPS = 3
 # single's depth: at the train phase's 4 layers (33.9 GB a rank) the two
 # ranks and this process left the card under 2 GB, and a rank ran out
 DP_SINGLE_LAYERS = 3
-# the two runs, each in a world of its own (one after the other in one
-# world, the second run's peak rose by 3.3 GB a rank), whose ranks' CUDA
-# allocator grows expandable segments: with 4 GB a rank reserved and unused
-# the two ranks and this process filled the card
-DP_MESHES = (("single", {"data": 2, "model": 1}), ("multi", {"pod": 2, "data": 1, "model": 1}))
+# the runs, each in a world of its own (one after the other in one world,
+# the second run's peak rose by 3.3 GB a rank), whose ranks' CUDA allocator
+# grows expandable segments: with 4 GB a rank reserved and unused the two
+# ranks and this process filled the card. kind -> (its mesh, the dp = 1
+# baseline it is held to, whose config and steps it takes (`_dp_configs`),
+# its gradient compression)
+DP_MESHES = {"single": ({"data": 2, "model": 1}, "single", "none"),
+             "multi": ({"pod": 2, "data": 1, "model": 1}, "multi", "int8_ag"),
+             "tp": ({"data": 1, "model": 2}, "single", "none")}
 DP_ALLOC_CONF = "expandable_segments:True"
 DP_MULTI_LOSS_TOL = 2e-2        # tests/test_distributed.py's sharded-train bound (rtol = atol)
 # the int8 error's norm over step 0's grad norm must stay under this, so the
@@ -4039,21 +4053,22 @@ def _env(**values):
 
 
 def _dp_configs(full: bool):
-    """(the single run's config, the multi run's, their RunConfig fields,
-    the cuts): the train phase's (B 8 x 512, microbatch 4, remat,
-    TRAIN_LR)."""
+    """({baseline: (its config, its steps)} for the baselines DP_MESHES
+    names, their RunConfig fields, the cuts): the train phase's (B 8 x 512,
+    microbatch 4, remat, TRAIN_LR)."""
     import dataclasses as dc
 
     from repro_torch.configs import get_config
 
     base = get_config("qwen2-7b")
     if full:
-        return (dc.replace(base, num_layers=DP_SINGLE_LAYERS), dc.replace(base, num_layers=1),
+        return ({"single": (dc.replace(base, num_layers=DP_SINGLE_LAYERS), DP_STEPS),
+                 "multi": (dc.replace(base, num_layers=1), DP_MULTI_STEPS)},
                 dict(seq_len=512, global_batch=8, microbatch=4),
                 [f"single: num_layers 28 -> {DP_SINGLE_LAYERS} (4 did not fit two ranks "
                  "beside this process)", "multi: num_layers 28 -> 1"])
-    return base.reduced(), base.reduced(), dict(seq_len=32, global_batch=4, microbatch=2), \
-        ["reduced() config"]
+    return ({"single": (base.reduced(), DP_STEPS), "multi": (base.reduced(), DP_MULTI_STEPS)},
+            dict(seq_len=32, global_batch=4, microbatch=2), ["reduced() config"])
 
 
 def _fingerprint(torch, t) -> list:
@@ -4071,12 +4086,13 @@ def _fingerprint(torch, t) -> list:
 
 
 def _dp_run(torch, cfg, rcfg, dev, steps, ctx=None, compress_stats=None):
-    """Train ``steps`` steps from ``init_params(0, cfg)`` on ``dev`` (the
-    whole masters drawn, then this rank's FSDP slices kept): per step the
-    metrics, step ms and (on a mesh) gloo ms, calls and bytes by
-    collective; the whole leaves' fingerprint; the sliced leaves' shapes
-    against their whole shapes (masters, m and v); peak memory, and the
-    memory allocated when the run began."""
+    """Train ``steps`` steps from ``init_params(0, cfg, tp=model axis)`` on
+    ``dev`` (the whole masters drawn, then this rank's model shards and
+    FSDP slices kept): per step the metrics, step ms and (on a mesh) gloo
+    ms, calls and bytes by collective; the fingerprint of the leaves whole
+    on the rank (the masters, and with a model axis m and v too); the
+    sliced leaves' shapes against their whole shapes (masters, m and v);
+    peak memory, and the memory allocated when the run began."""
     from repro_torch.core.tree import tree_items
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch import steps as steps_mod
@@ -4089,12 +4105,15 @@ def _dp_run(torch, cfg, rcfg, dev, steps, ctx=None, compress_stats=None):
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     at_start = torch.cuda.memory_allocated(dev) if cuda else 0
-    step_fn = steps_mod.build_train_step(cfg, rcfg, dev, ctx or NO_CTX)
-    whole = init_params(0, cfg, device=dev)
+    ctx = ctx or NO_CTX
+    step_fn = steps_mod.build_train_step(cfg, rcfg, dev, ctx)
+    whole = init_params(0, cfg, tp=ctx.tp, device=dev)
     shapes = {"/".join(p): tuple(t.shape) for p, t in tree_items(whole)}
     params = step_fn.shard(whole)
     del whole
     dims = {"/".join(p): d for p, d in tree_items(step_fn.layout())}
+    mdims = ({"/".join(p): d for p, d in tree_items(step_fn.layout("model"))} if ctx.tp > 1
+             else dict.fromkeys(dims))
     opt = init_state(params)
     data = SyntheticLM(DataConfig(cfg.vocab_size, rcfg.seq_len, rcfg.global_batch))
     real = steps_mod.compressed_psum
@@ -4121,13 +4140,17 @@ def _dp_run(torch, cfg, rcfg, dev, steps, ctx=None, compress_stats=None):
             row.update(gloo_ms=1e3 * mesh.collective_seconds, gloo_calls=mesh.collective_calls,
                        bytes_by_collective=dict(mesh.collective_bytes))
         out["steps"].append(row)
-        out["fingerprints"].append({k: _fingerprint(torch, t) for k, t in
-                                    (("/".join(p), t) for p, t in tree_items(params))
-                                    if dims[k] is None})
+        out["fingerprints"].append({   # no name keeps the trees: `del params` frees them
+            n + k: _fingerprint(torch, t)
+            for n, tree in [("", params)] + ([("m/", opt["m"]), ("v/", opt["v"])]
+                                             if ctx.tp > 1 else [])
+            for k, t in (("/".join(p), t) for p, t in tree_items(tree))
+            if dims[k] is None and mdims[k] is None})
     own = {name: {"/".join(p): tuple(t.shape) for p, t in tree_items(tree)}
            for name, tree in (("master", params), ("m", opt["m"]), ("v", opt["v"]))}
-    out["halves"] = {k: dict(whole=shapes[k], dim=d, **{n: own[n][k] for n in own})
-                     for k, d in dims.items() if d is not None}
+    out["halves"] = {k: dict(whole=shapes[k], dims=[x for x in (d, mdims[k]) if x is not None],
+                             **{n: own[n][k] for n in own})
+                     for k, d in dims.items() if d is not None or mdims[k] is not None}
     out["master_bytes"] = sum(t.numel() * t.element_size() for _, t in tree_items(params))
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
     out["allocated_at_start_gb"] = at_start / 1e9 if cuda else None
@@ -4153,41 +4176,46 @@ def _dp_rank(mesh, kind: str, full: bool):
     dev = mesh.device
     if dev.type == "cpu":                     # the ranks share the host's cores
         torch.set_num_threads(max(1, torch.get_num_threads() // mesh.world))
-    cfg_single, cfg_multi, kw, _ = _dp_configs(full)
-    cfg = cfg_single if kind == "single" else cfg_multi
+    _, baseline, compression = DP_MESHES[kind]
+    runs, kw, _ = _dp_configs(full)
+    cfg, steps = runs[baseline]
     rcfg = RunConfig(model=cfg, learning_rate=TRAIN_LR, warmup_steps=2,
-                     grad_compression="int8_ag" if kind == "multi" else "none", **kw)
+                     grad_compression=compression, **kw)
     for cnt in all_counts():
         cnt.reset()
-    stats = [] if kind == "multi" else None
+    stats = [] if compression == "int8_ag" else None
     t0 = time.perf_counter()
-    res = _dp_run(torch, cfg, rcfg, dev, DP_STEPS if kind == "single" else DP_MULTI_STEPS,
-                  ParallelCtx(mesh=mesh, tp_axis="model"), stats)
+    res = _dp_run(torch, cfg, rcfg, dev, steps, ParallelCtx(mesh=mesh, tp_axis="model"), stats)
     res.update(rank=mesh.rank, coords=mesh.coords, compress_stats=stats,
                launches={c.name: c.launches for c in all_counts() if c.launches},
                run_seconds=time.perf_counter() - t0)
     return res
 
 
-def phase_dp(torch, dev, timed: bool = True, full: bool = True):
-    """Data-parallel training on two ranks of the one card (see DP_NOTE):
-    dp = 1 baselines here first (the single run's config for DP_STEPS
-    steps, the multi run's uncompressed for DP_MULTI_STEPS), their memory
-    freed, then a world of two ranks (`launch.mesh.spawn`, gloo) at (data
-    2) and one at (pod 2, data 1) with ``int8_ag`` (`_dp_rank`). Fatal:
-    each single step's loss within TRAIN_LOSS_REL and grad norm within
-    TRAIN_GNORM_REL of dp = 1's, the ranks' metrics and
-    whole leaves bit-equal at every step, each FSDP leaf's master, m and v
-    half a leaf on each rank; on the multi run every compressed leaf of
-    step 0 within amax / 127 of the rank-order f32 sum (the rank's shard),
-    step 0's grad norm within TRAIN_GNORM_REL of the uncompressed dp = 1
-    run's plus the norm of the int8 error (|a| - |b| <= |a - b|; that error
-    under DP_INT8_ERR_MAX of the norm, so a wrong scale of the sum cannot
-    hide in it), the losses within DP_MULTI_LOSS_TOL of the uncompressed
-    run's, the ranks' params bit-equal; no port kernel launched. Printed:
-    step and gloo ms, gloo calls and bytes by collective per step, pinned
-    and peak bytes per rank, the card's free bytes after each step, this
-    process's bytes, the int8 all-gather's bytes against f32's."""
+def phase_dp(torch, dev, timed: bool = True, full: bool = True,
+             kinds=tuple(DP_MESHES)):
+    """Data- and tensor-parallel training on two ranks of the one card (see
+    DP_NOTE): dp = 1 baselines here first (the single run's config for
+    DP_STEPS steps, the multi run's uncompressed for DP_MULTI_STEPS; only
+    those ``kinds`` need), their memory freed, then a world of two ranks
+    for each of ``kinds`` (`launch.mesh.spawn`, gloo): ``single`` at (data
+    2), ``multi`` at (pod 2, data 1) with ``int8_ag``, ``tp`` at (data 1,
+    model 2) at single's config (`_dp_rank`). Fatal: each single and tp
+    step's loss within TRAIN_LOSS_REL and grad norm within TRAIN_GNORM_REL
+    of dp = 1's, the ranks' metrics and whole leaves bit-equal at every
+    step (on tp the master, m and v of every leaf whole over ``model``),
+    each sliced leaf's master, m and v half a leaf on each rank (single:
+    the FSDP leaves, tp: the model shards); on the multi run every
+    compressed leaf of step 0 within amax / 127 of the rank-order f32 sum
+    (the rank's shard), step 0's grad norm within TRAIN_GNORM_REL of the
+    uncompressed dp = 1 run's plus the norm of the int8 error (|a| - |b| <=
+    |a - b|; that error under DP_INT8_ERR_MAX of the norm, so a wrong
+    scale of the sum cannot hide in it), the losses within
+    DP_MULTI_LOSS_TOL of the uncompressed run's, the ranks' params
+    bit-equal; no port kernel launched. Printed: step and gloo ms, gloo
+    calls and bytes by collective per step, pinned and peak bytes per
+    rank, the card's free bytes after each step, this process's bytes,
+    the int8 all-gather's bytes against f32's."""
     from repro_torch.configs.base import RunConfig
     from repro_torch.launch.mesh import spawn
 
@@ -4195,10 +4223,14 @@ def phase_dp(torch, dev, timed: bool = True, full: bool = True):
     dev_str = "cuda" if cuda else "cpu"
     gc.collect()
     if cuda:
+        torch.cuda.init()                      # run alone, no phase has touched the card yet
         torch.cuda.empty_cache()
-    cfg_single, cfg_multi, kw, reduced = _dp_configs(full)
+    runs, kw, reduced = _dp_configs(full)
     base = {}
-    for kind, cfg, n in (("single", cfg_single, DP_STEPS), ("multi", cfg_multi, DP_MULTI_STEPS)):
+    need = {DP_MESHES[k][1] for k in kinds}
+    for kind, (cfg, n) in runs.items():
+        if kind not in need:
+            continue
         for cnt in all_counts():
             cnt.reset()
         rcfg = RunConfig(model=cfg, learning_rate=TRAIN_LR, warmup_steps=2, **kw)
@@ -4209,17 +4241,17 @@ def phase_dp(torch, dev, timed: bool = True, full: bool = True):
                    card_free=torch.cuda.mem_get_info(dev)[0] / 1e9) if cuda else None
     log("dp main-process " + json.dumps(main_gb))
     out = {}
-    for kind, shape in DP_MESHES:
+    for kind in kinds:
+        shape, baseline, compression = DP_MESHES[kind]
         t0 = time.perf_counter()
         with _env(PYTORCH_CUDA_ALLOC_CONF=DP_ALLOC_CONF):
             rs = spawn(_dp_rank, shape, dev_str, kind, full, backend="gloo")
         wall = time.perf_counter() - t0
-        one = base[kind]
+        one = base[baseline]
         first = rs[0]["steps"]
         line = dict(
-            kind=kind, mesh=shape, arch="qwen2-7b", layers=(cfg_single if kind == "single"
-                                                            else cfg_multi).num_layers,
-            reduced=reduced, **kw, grad_compression="int8_ag" if kind == "multi" else "none",
+            kind=kind, mesh=shape, arch="qwen2-7b", layers=runs[baseline][0].num_layers,
+            reduced=reduced, **kw, grad_compression=compression,
             loss=dict(dp1=[r["loss"] for r in one["steps"]], dp2=[r["loss"] for r in first]),
             grad_norm=dict(dp1=[r["grad_norm"] for r in one["steps"]],
                            dp2=[r["grad_norm"] for r in first]),
@@ -4245,16 +4277,15 @@ def phase_dp(torch, dev, timed: bool = True, full: bool = True):
             allocated_at_start_gb=dict(dp1=one["allocated_at_start_gb"],
                                        dp2=[r["allocated_at_start_gb"] for r in rs]),
             master_bytes=dict(dp1=one["master_bytes"], dp2=[r["master_bytes"] for r in rs]),
-            fsdp_leaves=len(rs[0]["halves"]),
+            sliced_leaves=len(rs[0]["halves"]),
             halves=all(h["master"] == h["m"] == h["v"]
-                       and h["master"][h["dim"]] * 2 == h["whole"][h["dim"]]
-                       and all(a == b for i, (a, b) in enumerate(zip(h["master"], h["whole"]))
-                               if i != h["dim"])
+                       and all(h["master"][i] * (2 if i in h["dims"] else 1) == w
+                               for i, w in enumerate(h["whole"]))
                        for r in rs for h in r["halves"].values()),
             launches=[r["launches"] for r in rs] + [one["launches"]],
             card_free_gb=[r["card_free_gb"] for r in rs], main_process_gb=main_gb,
             run_seconds=[r["run_seconds"] for r in rs], world_seconds=wall, note=DP_NOTE)
-        if kind == "multi":
+        if compression == "int8_ag":
             st = [x for r in rs for x in r["compress_stats"] if not x["fallback"]]
             int8 = rs[0]["steps"][-1]["bytes_by_collective"].get("all_gather_int8", 0)
             sc = rs[0]["steps"][-1]["bytes_by_collective"].get("all_gather_scale", 0)
@@ -4274,7 +4305,7 @@ def phase_dp(torch, dev, timed: bool = True, full: bool = True):
                 loss_tol=DP_MULTI_LOSS_TOL)
         out[kind] = line
         log(f"dp {kind} " + json.dumps(line))
-    for kind, line in out.items():             # both lines printed before any fails
+    for kind, line in out.items():             # every line printed before any fails
         if not line["ranks_metrics_equal"] or not line["ranks_whole_leaves_equal"]:
             fail(f"dp[{kind}]: the ranks' metrics or whole leaves differ")
         if any(line["launches"]):
@@ -4282,13 +4313,14 @@ def phase_dp(torch, dev, timed: bool = True, full: bool = True):
         fin = line["loss"]["dp2"] + line["grad_norm"]["dp2"]
         if not all(math.isfinite(x) for x in fin):
             fail(f"dp[{kind}]: a loss or grad norm is not finite: {fin}")
-        if kind == "single":
+        if line["grad_compression"] == "none":
             if max(line["loss_rel"]) > TRAIN_LOSS_REL or \
                     max(line["grad_norm_rel"]) > TRAIN_GNORM_REL:
-                fail(f"dp[single]: losses {line['loss']} / grad norms {line['grad_norm']} beyond "
+                fail(f"dp[{kind}]: losses {line['loss']} / grad norms {line['grad_norm']} beyond "
                      f"{TRAIN_LOSS_REL} / {TRAIN_GNORM_REL} of dp = 1's")
-            if not line["halves"] or (full and not line["fsdp_leaves"]):
-                fail("dp[single]: an FSDP leaf's master, m or v is not half a leaf on a rank")
+            if not line["halves"] or ((full or line["mesh"]["model"] > 1)
+                                      and not line["sliced_leaves"]):
+                fail(f"dp[{kind}]: a sliced leaf's master, m or v is not half a leaf on a rank")
         else:
             if not line["worst_int8_err_over_amax"] <= 1 / 127:
                 fail(f"dp[multi]: a compressed leaf beyond amax / 127 of the f32 sum: "
@@ -4307,7 +4339,14 @@ def phase_dp(torch, dev, timed: bool = True, full: bool = True):
     return (out,)
 
 
-PHASES = ("k1", "k1b", "k2", "k3", "k4", "k5", "k5p", "tick", "rows", "train", "tp", "dp")
+def phase_tptrain(torch, dev, timed: bool = True, full: bool = True):
+    """The dp phase's tensor-parallel run alone (`phase_dp` with kinds
+    ("tp",)): its dp = 1 baseline, then the (data 1, model 2) world."""
+    return phase_dp(torch, dev, timed, full, kinds=("tp",))
+
+
+PHASES = ("k1", "k1b", "k2", "k3", "k4", "k5", "k5p", "tick", "rows", "train", "tp", "dp",
+          "tptrain")
 
 
 def run_phases(torch, names, other):

@@ -15,14 +15,17 @@ the matching leaf of ``tree_like``.
 Restore picks the newest *complete* step, so a node failure mid-save falls
 back to the previous checkpoint (crash-consistency test covers this).
 
-Under data parallelism a rank holds FSDP slices of some leaves
-(`launch.sharding.params_shardings`). ``save(..., dims=, ctx=)`` gathers
-each sliced leaf whole over ``data`` (every rank takes part in the
-exchange) and only global rank 0 writes; ``restore(..., dims=, ctx=)``
-reads the whole arrays on every rank and keeps the rank's slice. A
-checkpoint thus holds whole arrays in the reference's format whatever the
-mesh, and restores at another data size (elastic re-sharding: written at
-dp = 2, restored at dp = 1, and the reverse).
+Under data and tensor parallelism a rank holds slices of some leaves
+(`launch.sharding.params_shardings`: FSDP slices over ``data``, model
+shards over ``model``). ``save(..., dims=, model_dims=, ctx=)`` gathers
+each sliced leaf whole, over ``data`` and then over ``model`` (every rank
+takes part in the exchanges), and only global rank 0 writes;
+``restore(..., dims=, model_dims=, ctx=)`` reads the whole arrays on every
+rank and keeps the rank's slice along both axes. A checkpoint thus holds
+whole arrays in the reference's format whatever the mesh (at the
+tp-padded shapes of ``init_params(tp=)``, as the reference's), and
+restores at another data size (elastic re-sharding: written at dp = 2,
+restored at dp = 1, and the reverse).
 """
 
 from __future__ import annotations
@@ -69,18 +72,21 @@ class CheckpointManager:
 
     # ------------------------------------------------------------- save
     def save(self, step: int, tree, blocking: bool = False,
-             shard_id: int = 0, num_shards: int = 1, dims=None, ctx=None):
-        """Snapshot to host memory now; write in the background. ``dims``
-        (a tree matching ``tree``: each leaf's FSDP dim or None) and
-        ``ctx``: gather the slices whole, leaf by leaf, and write on rank 0
-        only."""
+             shard_id: int = 0, num_shards: int = 1, dims=None, ctx=None, model_dims=None):
+        """Snapshot to host memory now; write in the background. ``dims`` /
+        ``model_dims`` (trees matching ``tree``: each leaf's dim over
+        ``data`` / ``model``, or None) and ``ctx``: gather the slices whole,
+        leaf by leaf, and write on rank 0 only."""
         root = ctx is None or ctx.mesh is None or ctx.mesh.rank == 0
         host = {}
         d_items = dict(tree_items(dims)) if dims is not None else {}
+        m_items = dict(tree_items(model_dims)) if model_dims is not None else {}
         for path, leaf in tree_items(tree):
-            d = d_items.get(path)
+            d, md = d_items.get(path), m_items.get(path)
             if d is not None and ctx is not None:
                 leaf = ctx.all_gather_dim(leaf, d, "data")
+            if md is not None and ctx is not None:
+                leaf = ctx.all_gather_dim(leaf, md, "model")
             if root:
                 host["/".join(str(k) for k in path)] = _to_host(leaf)  # device -> host copy
             del leaf
@@ -155,18 +161,19 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, tree_like, step: Optional[int] = None,
-                shard_id: int = 0, dims=None, ctx=None):
+                shard_id: int = 0, dims=None, ctx=None, model_dims=None):
         """Restore into the structure of `tree_like` (shapes validated): a
         tree of tensors with the stored dtypes, each on its leaf's device
-        (the CPU for a leaf that is not a tensor). ``dims`` and ``ctx``: a
-        leaf of ``tree_like`` with a dim is the rank's FSDP slice of the
-        stored array, which is read whole and sliced."""
+        (the CPU for a leaf that is not a tensor). ``dims`` / ``model_dims``
+        and ``ctx``: a leaf of ``tree_like`` with a dim is the rank's slice
+        of the stored array along ``data`` / ``model``, which is read whole
+        and sliced."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None
-        d_items = dict(tree_items(dims)) if dims is not None else {}
-        n = ctx.size("data") if ctx is not None else 1
-        r = ctx.coord("data") if ctx is not None else 0
+        axes = [(dict(tree_items(t)), ctx.size(a), ctx.coord(a))
+                for t, a in ((dims, "data"), (model_dims, "model"))
+                if t is not None and ctx is not None]
         d = os.path.join(self.dir, f"step_{step:08d}")
         with np.load(os.path.join(d, f"shard_{shard_id}.npz")) as data:
             items = []
@@ -174,15 +181,17 @@ class CheckpointManager:
                 key = "/".join(str(k) for k in path)
                 arr = data[key]
                 shape = list(like.shape) if torch.is_tensor(like) else list(np.shape(like))
-                dim = d_items.get(path)
-                if dim is not None:
+                cuts = [(by[path], n, r) for by, n, r in axes if by.get(path) is not None]
+                for dim, n, _ in cuts:
                     shape[dim] *= n
                 if tuple(arr.shape) != tuple(shape):
                     raise ValueError(
                         f"checkpoint shape mismatch at {key}: {arr.shape} vs {tuple(shape)}")
-                if dim is not None and n > 1:
-                    m = arr.shape[dim] // n
-                    arr = np.ascontiguousarray(np.take(arr, np.arange(r * m, (r + 1) * m), dim))
+                for dim, n, r in cuts:
+                    if n > 1:
+                        m = arr.shape[dim] // n
+                        arr = np.ascontiguousarray(
+                            np.take(arr, np.arange(r * m, (r + 1) * m), dim))
                 device = like.device if torch.is_tensor(like) else "cpu"
                 items.append((path, torch.from_numpy(arr).to(device)))
         return tree_from_items(items), step

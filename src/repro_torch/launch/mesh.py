@@ -18,13 +18,13 @@ mesh; three callers hold it to what is ported:
 
   * ``make_serving_mesh(tp)``: (data 1, model tp), tensor-parallel serving
     (data axes > 1 are refused: serving has no data parallelism);
-  * ``make_train_mesh({"pod": p, "data": d, "model": 1})``: data-parallel
-    training (a model axis > 1 in training is not ported yet);
-  * ``make_driver_mesh("none" | "single" | "multi")``: the train driver's
-    ``--mesh``, the port's stand-in for the reference's TPU pod meshes
-    (16 x 16 and 2 x 16 x 16, which are not built): over the world's W
-    ranks, ``single`` is (data W, model 1) and ``multi`` (pod 2, data W / 2,
-    model 1).
+  * ``make_train_mesh({"pod": p, "data": d, "model": m})``: data- and
+    tensor-parallel training;
+  * ``make_driver_mesh("none" | "single" | "multi", model=M)``: the train
+    driver's ``--mesh``, the port's stand-in for the reference's TPU pod
+    meshes (16 x 16 and 2 x 16 x 16, which are not built): over the world's
+    W ranks, ``single`` is (data W / M, model M) and ``multi`` (pod 2,
+    data W / 2M, model M).
 
 Two ways into a mesh: inside an initialised process group (``torchrun``'s
 environment, or a caller's own ``init_process_group``), call the maker on
@@ -241,41 +241,43 @@ def make_serving_mesh(tp: int = 1, device: str = "cuda", backend: Optional[str] 
 
 def make_train_mesh(shape: Mapping[str, int], device: str = "cuda",
                     backend: Optional[str] = None) -> Mesh:
-    """A training mesh of ``shape`` (`make_mesh`). A model axis > 1 raises
-    NotImplementedError: tensor-parallel training is not ported yet."""
-    shape = _normal_shape(shape)
-    if shape["model"] > 1:
-        raise NotImplementedError(
-            f"a training mesh {shape} with a model axis > 1: tensor-parallel training is not "
-            "ported yet (ROADMAP.md, Modules to port)")
+    """A training mesh of ``shape`` (`make_mesh`): FSDP and the batch over
+    ``pod`` / ``data``, the training layout's shards over ``model``."""
     return make_mesh(shape, device, backend)
 
 
-def driver_shape(kind: str, world: int) -> Dict[str, int]:
-    """The train driver's mesh over ``world`` ranks: ``none`` (one rank),
-    ``single`` (data W, model 1), ``multi`` (pod 2, data W / 2, model 1)."""
+def driver_shape(kind: str, world: int, model: int = 1) -> Dict[str, int]:
+    """The train driver's mesh over ``world`` ranks with a model axis of
+    ``model``: ``none`` (one rank), ``single`` (data W / M, model M),
+    ``multi`` (pod 2, data W / 2M, model M). A world that does not divide
+    raises ValueError."""
+    if model < 1:
+        raise ValueError(f"the model axis must be >= 1, got {model}")
     if kind == "none":
         if world != 1:
             raise ValueError(f"mesh 'none' is one rank; the world has {world}")
         return {"data": 1, "model": 1}
     if kind == "single":
-        return {"data": world, "model": 1}
+        if world % model:
+            raise ValueError(f"mesh 'single' puts a model axis of {model} over the world; "
+                             f"{world} ranks do not divide by it")
+        return {"data": world // model, "model": model}
     if kind == "multi":
-        if world % 2:
-            raise ValueError(f"mesh 'multi' puts two pods over the world; {world} ranks do "
-                             "not split in two")
-        return {"pod": 2, "data": world // 2, "model": 1}
+        if world % (2 * model):
+            raise ValueError(f"mesh 'multi' puts two pods with a model axis of {model} over "
+                             f"the world; {world} ranks do not split in two pods of it")
+        return {"pod": 2, "data": world // (2 * model), "model": model}
     raise ValueError(f"unknown mesh kind {kind!r} (none, single, multi)")
 
 
-def make_driver_mesh(kind: str = "none", device: str = "cuda") -> Mesh:
+def make_driver_mesh(kind: str = "none", device: str = "cuda", model: int = 1) -> Mesh:
     """The train driver's ``--mesh`` on every rank of the world
     (`driver_shape`); without a process group the world is one rank."""
     import torch.distributed as dist
 
     world = (dist.get_world_size() if dist.is_initialized()
              else int(os.environ.get("WORLD_SIZE", "1")))
-    return make_train_mesh(driver_shape(kind, world), device)
+    return make_train_mesh(driver_shape(kind, world, model), device)
 
 
 def dp_axes(mesh) -> tuple:

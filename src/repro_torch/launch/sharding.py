@@ -1,19 +1,24 @@
 """Parameter sharding (port of src/repro/launch/sharding.py): the layout of
 tensor-parallel serving, ``param_spec(serve_n_shard=True, moe="ep")``, the
-training layout at model = 1, ``param_spec(fsdp="data", moe="tp")``, and
-the slicing that applies them.
+training layout, ``param_spec(fsdp="data" | None, moe="tp")``, and the
+slicing that applies them.
 
-Training (`fsdp_dim`, `params_shardings`): FSDP shards a plain 2-D ``w``
+Training (`train_dims`, `params_shardings`): the reference's Megatron
+pairing over ``model``. A column-parallel linear (``wq``, ``w_up``,
+``lm_head``, ...; `COL_PARALLEL`) shards its output dim N, a row-parallel
+one (``wo``, ``w_down``, ...; `ROW_PARALLEL`) its input dim K, and the
+embedding its vocab rows; a column-parallel bias shards with N, a
+row-parallel bias, the norms and the replicated linears (``router``,
+``wq_a``, ``wkv_a``) stay whole; the SSM / RG-LRU vectors and conv taps
+shard the inner width. FSDP shards the other dim of a plain 2-D ``w``
 (after its stacked dims) over ``data`` where both of its last two dims are
->= 1024; which dim follows the linear's class, as in the reference: a
-column-parallel linear (``wq``, ``w_up``, ``lm_head``, ...) and a
-replicated one shard their K rows, a row-parallel one (``wo``,
-``w_down``, ...) its N columns. The embedding is never FSDP-sharded (the
-reference shards it over ``model`` only), nor are biases, norms, vectors
-and the smaller factors. An expert's FFN follows the dense rule (``moe=
-"tp"``: the expert dim is whole). A rank holds slice ``data_index`` of
-each such leaf of the masters, m and v (`shard_tree(..., dims=)`); the
-train step all-gathers the bf16 compute copies (`unshard_tree`).
+>= `FSDP_MIN_DIM`: K of a column-parallel or replicated linear, N of a
+row-parallel one; never the embedding. An expert's FFN follows the dense
+rule (``moe="tp"``: the expert dim is whole). A rank holds slice
+(``model`` index, ``data`` index) of each such leaf of the masters, m and
+v (`shard_tree(..., dims=)` once per axis); the train step all-gathers the
+bf16 compute copies over ``data`` only (`unshard_tree`), so the model
+shards stay shards.
 
 Serving:
 
@@ -44,7 +49,7 @@ index never see the mesh. Contiguous caches are sequence-sharded
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -58,8 +63,11 @@ N_SHARDED = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head",
 WHOLE = {"router", "wq_a", "wkv_a"}
 # vectors of the inner width, sharded along it (the reference's MODEL_VECTORS)
 INNER_VECTORS = {"A_log", "D", "lam", "conv_b"}
-# the reference's row-parallel linears: FSDP shards their N columns, every
-# other linear (column-parallel or replicated) its K rows
+# the reference's column-parallel linears (training: N over model, K over
+# data) and row-parallel ones (K over model, N over data); every other
+# linear is replicated (K over data)
+COL_PARALLEL = {"wq", "wk", "wv", "w_gate", "w_up", "in_proj", "in_x", "in_gate",
+                "wq_b", "w_uk", "w_uv", "dt_proj", "lm_head"}
 ROW_PARALLEL = {"wo", "w_down", "out_proj", "x_proj", "w_rec_gate", "w_in_gate"}
 # FSDP shards a weight only where both of its last two dims are at least this
 FSDP_MIN_DIM = 1024
@@ -96,42 +104,60 @@ def in_proj_halves(names: Sequence[str]) -> int:
     return 2 if "in_proj" in [str(n) for n in names] else 1
 
 
-def fsdp_dim(names: Sequence[str], leaf, n_stack: int = 0) -> Optional[int]:
-    """The dim of the leaf at path ``names`` sharded over ``data`` in the
-    training layout at model = 1 (the reference's ``param_spec(...,
-    fsdp="data", moe="tp")``), or None. ``n_stack``: its leading stacked
-    dims (the layers' G); an expert's leaf has one more, the expert dim."""
+def train_dims(names: Sequence[str], leaf, n_stack: int = 0,
+               fsdp: bool = True) -> Tuple[Optional[int], Optional[int]]:
+    """(the dim over ``model``, the dim over ``data``) of the leaf at path
+    ``names`` in the training layout, each None where the leaf is whole
+    along that axis: the dims where the reference's ``param_spec(path,
+    leaf, fsdp="data" if fsdp else None, moe="tp", n_stack=n_stack)`` puts
+    ``model`` and ``data``. ``n_stack``: its leading stacked dims (the
+    layers' G); an expert's leaf has one more, the expert dim, whole."""
     names = [str(n) for n in names]
     last = names[-1]
     parent = names[-2] if len(names) >= 2 else ""
     gparent = names[-3] if len(names) >= 3 else ""
-    if last != "w" or "embed" in (parent, gparent):
-        return None
     lead = n_stack + ("experts" in names)
-    if leaf.dim() - lead != 2 or min(leaf.shape[-2:]) < FSDP_MIN_DIM:
-        return None
-    return leaf.dim() - 1 if parent in ROW_PARALLEL else leaf.dim() - 2
+    nd = leaf.dim()
+    if last == "w":
+        if "embed" in (parent, gparent):
+            return lead, None                           # vocab rows
+        if nd - lead != 2:
+            return None, None
+        wf = fsdp and min(leaf.shape[-2:]) >= FSDP_MIN_DIM
+        if parent in COL_PARALLEL:
+            return nd - 1, (nd - 2 if wf else None)
+        if parent in ROW_PARALLEL:
+            return nd - 2, (nd - 1 if wf else None)
+        return None, (nd - 2 if wf else None)
+    if last == "b":
+        return (nd - 1 if parent in COL_PARALLEL else None), None
+    if last in INNER_VECTORS:
+        return lead, None                               # di (A_log [di, n]), W
+    if last == "conv_w":
+        return nd - 1, None                             # [w, di]
+    return None, None
 
 
-def params_shardings(params, *, fsdp: bool = True):
-    """The training layout of a params(-shaped) tree at model = 1: a tree of
-    the dim each leaf shards over ``data`` (`fsdp_dim`; the leaves under
-    ``layers`` have one stacked dim), None where it is whole (every leaf,
-    without ``fsdp``)."""
+def params_shardings(params, *, fsdp: bool = True, axis: str = "data"):
+    """The training layout of a params(-shaped) tree along ``axis``: a
+    tree of the dim each leaf shards over it (`train_dims`; the leaves
+    under ``layers`` have one stacked dim), None where it is whole (over
+    ``data``: every leaf, without ``fsdp``)."""
+    which = ("model", "data").index(axis)
+
     def visit(names, node):
         if isinstance(node, dict):
             return {k: visit(names + [k], v) for k, v in node.items()}
-        if not fsdp:
-            return None
-        return fsdp_dim(names, node, int(bool(names) and names[0] == "layers"))
+        n_stack = int(bool(names) and names[0] == "layers")
+        return train_dims(names, node, n_stack, fsdp)[which]
 
     return visit([], params)
 
 
 def unshard_tree(tree, dims, ctx):
-    """The whole leaves of a tree of FSDP slices: each leaf whose ``dims``
-    entry is a dim all-gathered along it over ``data`` in rank order
-    (`ParallelCtx.all_gather_dim`), the others as they are."""
+    """The leaves of a tree of FSDP slices made whole: each leaf whose
+    ``dims`` entry is a dim all-gathered along it over ``data`` in rank
+    order (`ParallelCtx.all_gather_dim`), the others as they are."""
     def visit(node, d):
         if isinstance(node, dict):
             return {k: visit(v, d[k]) for k, v in node.items()}
@@ -160,8 +186,8 @@ def shard_tree(tree, rank: int, tp: int, prefix: Sequence[str] = (),
     found at path ``prefix`` in the full params. ``n_stack`` defaults to 1
     under ``layers`` (the stacked repeats), else 0. With ``dims`` (a tree
     of dims, `params_shardings`) each leaf is cut along its own entry
-    instead, in ``tp`` parts (the FSDP slices of a data axis of that
-    size)."""
+    instead, in ``tp`` parts (a training layout's slices over an axis of
+    that size, `params_shardings`)."""
     def visit(names, node, d):
         if isinstance(node, dict):
             return {k: visit(names + [k], v, None if d is None else d[k])

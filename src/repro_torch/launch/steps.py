@@ -319,18 +319,41 @@ def _loss_fn(params, tokens, targets, cfg: ModelConfig, rcfg: RunConfig, prefix,
     NLL mean over the target positions (the prefix positions skipped) plus
     the MoE load-balance loss (over the tokens of ``ctx.dp_axes``' ranks).
     The first is differentiated: ``nll_scale`` is the rank's share of a mean
-    over the ranks' rows (1: the two are one tensor)."""
+    over the ranks' rows (1: the two are one tensor). In the training
+    layout at tp > 1 the logits are the rank's vocab columns
+    (`_sharded_nll`)."""
     logits, aux, _ = forward_seq(params, tokens, cfg, remat=rcfg.remat,
                                  block_kv=rcfg.attn_block_kv, prefix_embeds=prefix, dtype=dtype,
                                  ctx=ctx)
     logits = logits[:, -targets.shape[1]:]
-    ls = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    nll = -torch.gather(ls, -1, targets.long()[..., None])[..., 0]
+    if ctx.col_row:
+        nll = _sharded_nll(logits, targets, ctx)
+    else:
+        ls = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        nll = -torch.gather(ls, -1, targets.long()[..., None])[..., 0]
     loss = nll.mean()
     total = loss + 0.01 * aux
     if nll_scale == 1.0:
         return total, total
     return loss * nll_scale + 0.01 * aux, total
+
+
+def _sharded_nll(logits: torch.Tensor, targets: torch.Tensor, ctx) -> torch.Tensor:
+    """-log_softmax(logits)[target] [B, S] from this rank's vocab columns
+    [B, S, V / tp] (f32) of the logits: the row max over the ranks
+    (`ParallelCtx.max_ranks`, detached: the NLL does not depend on it), and
+    the rank's sum of exp(l - max) and its logit of the target (0 where
+    another rank holds it) added over ``model`` in one rank-order sum that
+    autograd passes through (`ParallelCtx.sum_ranks_grad`): each rank's
+    columns take the gradient of the whole row."""
+    n = logits.shape[-1]
+    m = ctx.max_ranks(logits.detach().amax(dim=-1), "model")
+    sum_exp = torch.exp(logits - m[..., None]).sum(dim=-1)
+    local = targets.long() - ctx.rank * n
+    mine = (local >= 0) & (local < n)
+    t = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])[..., 0]
+    both = ctx.sum_ranks_grad(torch.stack([sum_exp, torch.where(mine, t, 0.0)]), "model")
+    return -((both[1] - m) - torch.log(both[0]))
 
 
 def _compute_copy(x: torch.Tensor) -> torch.Tensor:
@@ -395,11 +418,26 @@ def build_train_step(cfg: ModelConfig, rcfg: RunConfig, device="cuda", ctx=NO_CT
         global norm adds the slices' squares over ``data`` (`optim.adamw`):
         every rank's metrics and whole leaves come out bit-equal.
 
-    A model axis > 1 raises NotImplementedError."""
-    if ctx.tp > 1:
-        raise NotImplementedError(
-            f"a train step on model shards (tp={ctx.tp}): tensor-parallel training is not "
-            "ported yet (ROADMAP.md, Modules to port)")
+    Tensor parallelism (a model axis of tp > 1; the reference's column /
+    row layout, ``init_params(..., tp=tp)``'s padded dims):
+
+      * every rank of a model group takes the same rows; ``shard`` keeps
+        the rank's model shard of each leaf (`launch.sharding.train_dims`)
+        and, under FSDP, its data slice of that shard; only the data slices
+        are gathered before the microbatches, so the forward runs on model
+        shards (`forward_seq` under ``ctx.train_layout``), and the loss
+        reads the vocab-sharded logits (`_sharded_nll`);
+      * the grads of the rank's shards are reduced over ``data`` / ``pod``
+        as above (``int8_ag``'s shards those of the rank's (model, data)
+        slice); a replicated leaf's grad comes out bit-equal on every model
+        rank with no reduction over ``model`` (`models.parallel`'s
+        conjugate collectives), and so do its master, m and v;
+      * the global norm adds the model shards' squares over ``model`` too.
+
+    Call ``step_fn.shard(whole_params)`` first on a mesh that slices a
+    leaf (FSDP, or tp > 1); ``step_fn.layout(axis)`` is then the tree of
+    each leaf's dim over ``axis`` (``"data"``, the default, or
+    ``"model"``)."""
     B = rcfg.global_batch
     mesh = ctx.mesh
     dp = batch_dp(mesh, B) or ()
@@ -416,7 +454,8 @@ def build_train_step(cfg: ModelConfig, rcfg: RunConfig, device="cuda", ctx=NO_CT
     # exchange their grads explicitly
     fwd_axes = tuple(a for a in dp if a != "pod") if compress else dp
     fwd_n = math.prod(mesh.shape[a] for a in fwd_axes) if fwd_axes else 1
-    rctx = dataclasses.replace(ctx, dp_axes=fwd_axes)
+    rctx = dataclasses.replace(ctx, dp_axes=fwd_axes, train_layout=True)
+    tp = ctx.tp
     rows = micro // dp_n
     dp_idx = 0
     for a in dp:
@@ -431,13 +470,17 @@ def build_train_step(cfg: ModelConfig, rcfg: RunConfig, device="cuda", ctx=NO_CT
     layout = {}
 
     def shard(params):
-        """This rank's FSDP slices of the whole masters ``params`` (the
-        layout is read from the whole shapes and kept for the step); the
-        tree as it is where nothing is sliced."""
-        layout["dims"] = params_shardings(params, fsdp=fsdp)
-        if not fsdp:
-            return params
-        return shard_tree(params, ctx.coord("data"), data_n, dims=layout["dims"])
+        """This rank's slices of the whole masters ``params`` (the layout
+        is read from the whole shapes and kept for the step): its model
+        shard of each leaf, then its FSDP slice of that; the tree as it is
+        where nothing is sliced."""
+        layout["data"] = params_shardings(params, fsdp=fsdp)
+        layout["model"] = params_shardings(params, axis="model")
+        if tp > 1:
+            params = shard_tree(params, ctx.rank, tp, dims=layout["model"])
+        if fsdp:
+            params = shard_tree(params, ctx.coord("data"), data_n, dims=layout["data"])
+        return params
 
     def reduce_grads(acc, d_items, paths):
         """The rank's accumulated f32 grads summed over its dp axes: its slice
@@ -456,12 +499,12 @@ def build_train_step(cfg: ModelConfig, rcfg: RunConfig, device="cuda", ctx=NO_CT
         return acc
 
     def step_fn(params, opt_state, tokens, targets, prefix, step):
-        if "dims" not in layout:
-            if fsdp:
-                raise RuntimeError("FSDP over data: slice the whole masters with "
-                                   "step_fn.shard(params) before the first step")
-            layout["dims"] = params_shardings(params, fsdp=False)
-        dims = layout["dims"]
+        if "data" not in layout:
+            if fsdp or tp > 1:
+                raise RuntimeError("FSDP over data or a model axis: slice the whole masters "
+                                   "with step_fn.shard(params) before the first step")
+            layout["data"] = params_shardings(params, fsdp=False)
+        dims = layout["data"]
         items = tree_items(params)
         paths = ["/".join(path) for path, _ in items]
         d_items = [d for _, d in tree_items(dims)]
@@ -490,12 +533,14 @@ def build_train_step(cfg: ModelConfig, rcfg: RunConfig, device="cuda", ctx=NO_CT
             acc = reduce_grads(acc, d_items, paths)
         grads = tree_from_items([(path, a) for (path, _), a in zip(items, acc)])
         lr = warmup_cosine(step, rcfg.learning_rate, rcfg.warmup_steps, 10_000).to(device)
+        sliced = fsdp or tp > 1
         params, opt_state, om = apply_updates(params, grads, opt_state, lr, adamw,
-                                              ctx if fsdp else None, dims if fsdp else None)
+                                              ctx if sliced else None, dims if sliced else None,
+                                              layout["model"] if tp > 1 else None)
         return params, opt_state, {"loss": loss, "lr": lr, **om}
 
     step_fn.shard = shard
-    step_fn.layout = lambda: layout.get("dims")
+    step_fn.layout = lambda axis="data": layout.get(axis)
     return step_fn
 
 

@@ -7,13 +7,18 @@ monitoring and elastic data-parallel re-sharding, on the card unless
         --steps 50 --device cpu --ckpt-dir /tmp/ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b --reduced \\
         --steps 20 --device cpu --mesh single --dp-size 2 [--grad-compression int8_ag]
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --mesh single \\
+        --dp-size 2 --model-size 2 --device cpu
 
-``--mesh single|multi`` runs W ranks of a data-parallel mesh
-(`launch.mesh.make_driver_mesh`: ``single`` (data W), ``multi`` (pod 2,
-data W / 2), the port's stand-ins for the reference's 16 x 16 and
-2 x 16 x 16 TPU pods): under ``torchrun`` every rank runs `main` (W is the
-world size); otherwise `main` spawns ``--dp-size`` ranks (`launch.mesh.spawn`)
-and returns rank 0's losses. Every rank draws the whole batch (``shard=0,
+``--mesh single|multi`` runs W ranks of a mesh
+(`launch.mesh.make_driver_mesh`: ``single`` (data W / M, model M),
+``multi`` (pod 2, data W / 2M, model M), the port's stand-ins for the
+reference's 16 x 16 and 2 x 16 x 16 TPU pods, ``--model-size`` M standing
+in for their model axis of 16 as ``--dp-size`` does for their dp ranks):
+under ``torchrun`` every rank runs `main` (W is the world size); otherwise
+`main` spawns ``--dp-size`` x ``--model-size`` ranks (`launch.mesh.spawn`)
+and returns rank 0's losses. The params are drawn at the model axis's
+padded dims (``init_params(0, cfg, tp=M)``). Every rank draws the whole batch (``shard=0,
 num_shards=1``, as the reference) and keeps its rows
 (`launch.steps.build_train_step`); rank 0 logs and writes the checkpoints
 (whole arrays, `checkpoint.CheckpointManager`); a failed step restores every
@@ -65,7 +70,9 @@ def _parser():
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--dp-size", type=int, default=1,
-                    help="ranks to spawn for --mesh single|multi outside torchrun")
+                    help="data-parallel ranks to spawn for --mesh single|multi outside torchrun")
+    ap.add_argument("--model-size", type=int, default=1,
+                    help="the mesh's model axis (tensor-parallel ranks) for --mesh single|multi")
     ap.add_argument("--grad-compression", default="none",
                     choices=["none", "int8_ag"])
     ap.add_argument("--log-every", type=int, default=5)
@@ -76,18 +83,21 @@ def _parser():
 def main(argv=None, *, params=None):
     """Train and return the list of step losses (rank 0's). ``params``: the
     initial parameter tree (whole f32 masters; on one rank written in
-    place), else ``init_params(0, cfg)`` on the device."""
+    place; drawn at ``--model-size``'s padded dims), else ``init_params(0,
+    cfg, tp=--model-size)`` on the device."""
     import torch.distributed as dist
 
     args = _parser().parse_args(argv)
     if args.mesh != "none" and not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
-        world = args.dp_size
-        shape = driver_shape(args.mesh, world)
+        world = args.dp_size * args.model_size
+        shape = driver_shape(args.mesh, world, args.model_size)
         if params is not None:
             params = tree_map(lambda t: t.detach().to("cpu"), params)
         argv = list(sys.argv[1:] if argv is None else argv)
         return spawn(_rank_main, shape, args.device, argv, params)[0]
-    return _train(args, make_driver_mesh(args.mesh, args.device), params)
+    if args.mesh == "none" and args.model_size != 1:
+        raise ValueError("--model-size needs --mesh single or multi")
+    return _train(args, make_driver_mesh(args.mesh, args.device, args.model_size), params)
 
 
 def _rank_main(mesh, argv, params):
@@ -110,13 +120,15 @@ def _train(args, mesh, params):
                      grad_compression=args.grad_compression)
     step_fn = build_train_step(cfg, rcfg, device, ctx)
     if params is None:
-        params = init_params(0, cfg, device=device)
+        params = init_params(0, cfg, tp=mesh.tp, device=device)
     else:
         params = tree_map(lambda t: t.to(device), params)
     params = step_fn.shard(params)
-    dims = step_fn.layout()
+    dims, mdims = step_fn.layout("data"), step_fn.layout("model")
     opt_state = init_state(params)
-    opt_dims = {"m": dims, "v": dims, "step": None}
+
+    def both(d):
+        return None if d is None else {"params": d, "opt": {"m": d, "v": d, "step": None}}
 
     prefix_n = cfg.num_prefix_embeds
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
@@ -124,7 +136,7 @@ def _train(args, mesh, params):
                                   global_batch=args.global_batch))
 
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
-    layout = dict(dims={"params": dims, "opt": opt_dims}, ctx=ctx)
+    layout = dict(dims=both(dims), model_dims=both(mdims), ctx=ctx)
 
     def restore() -> Optional[int]:
         nonlocal params, opt_state

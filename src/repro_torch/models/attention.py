@@ -33,7 +33,9 @@ contiguous caches (GQA, rings, the MLA stream) are sequence-sharded
 projections' N-shards; MLA's q_eff from each rank's absorbed heads), the
 rank that owns a position inserts it, and the ranks' partial softmaxes
 merge in `attention_template.flash_decode`. Every projection keeps its K
-whole on each rank.
+whole on each rank. The sequence forward in the training layout
+(``ctx.col_row``) attends with the rank's heads instead and sums ``wo``'s
+partial products over the ranks (`gqa_attn_train`).
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ from repro_torch.cache import paged_attend, paged_insert
 from repro_torch.core.xla_math import bf16_dot, exp_f32, pairs_bf16_dot
 from repro_torch.kernels.attention_template import attend_contiguous
 
-from .common import apply_linear, apply_rope, make_linear, make_norm, materialize_weight, rms_norm
+from .common import (apply_linear, apply_row_parallel, apply_rope, make_linear, make_norm,
+                     materialize_weight, rms_norm)
 from .parallel import NO_CTX, heads_split
 
 
@@ -229,16 +232,54 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0, prefix
     return out.reshape(B, H, Sq, hd_v).permute(0, 2, 1, 3).to(q.dtype)
 
 
-def gqa_attn_train(p, x, cfg, dims, *, policy=None, block_kv=1024, prefix_len=0, window=0):
+def gqa_attn_train(p, x, cfg, dims, *, policy=None, block_kv=1024, prefix_len=0, window=0,
+                   ctx=NO_CTX):
     """GQA over a whole sequence x [B, S, D]. Returns (out [B, S, D], (k, v))
-    with k / v [B, S, kv, hd], the contiguous cache the sequence leaves."""
+    with k / v [B, S, kv, hd], the contiguous cache the sequence leaves.
+    In the training layout (``ctx.col_row``) the rank attends with its
+    heads (`train_qkv`; k / v then hold the kv heads it attends with) and
+    ``wo`` takes its K rows, the ranks' partial outputs summed
+    (`common.apply_row_parallel`)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = gqa_qkv(p, x, cfg, dims, positions, policy)
+    if ctx.col_row:
+        q, k, v, hm = train_qkv(p, x, cfg, dims, positions, policy, ctx)
+    else:
+        q, k, v = gqa_qkv(p, x, cfg, dims, positions, policy)
+        hm = dims.head_mask(x.device)
     o = blockwise_attention(q, k, v, causal=True, window=window or cfg.sliding_window,
                             prefix_len=prefix_len, block_kv=block_kv)
-    o = o * dims.head_mask(o.device)[None, None, :, None].to(o.dtype)
-    return apply_linear(p["wo"], o.reshape(B, S, dims.H * dims.hd), policy), (k, v)
+    o = (o * hm[None, None, :, None].to(o.dtype)).reshape(B, S, -1)
+    if ctx.col_row:
+        return apply_row_parallel(p["wo"], o, ctx), (k, v)
+    return apply_linear(p["wo"], o, policy), (k, v)
+
+
+def train_qkv(p, x, cfg, dims, positions, policy, ctx):
+    """q / k / v of this rank's H / tp q heads in the training layout, and
+    their slice of the head mask: x through `ParallelCtx.copy_ranks` into
+    the column shards of ``wq`` / ``wk`` / ``wv`` (their biases too). Where
+    the model axis divides the kv heads (`parallel.heads_split`) the
+    rank's kv / tp heads are the ones its q heads read (group-major);
+    otherwise the ranks' k / v columns are gathered whole
+    (`ParallelCtx.gather_ranks_grad`, a slice of the summed grads back)
+    and each q head of the rank is given its kv head, so k / v hold H / tp
+    heads, one per q head."""
+    B, S, _ = x.shape
+    tp, r, hd = ctx.tp, ctx.rank, dims.hd
+    h = dims.H // tp
+    x = ctx.copy_ranks(x)
+    q, k, v = (apply_linear(p[n], x, policy) for n in ("wq", "wk", "wv"))
+    q = q.reshape(B, S, h, hd)
+    if heads_split(dims.kv, tp):
+        k, v = (t.reshape(B, S, dims.kv // tp, hd) for t in (k, v))
+    else:
+        idx = torch.div(torch.arange(r * h, (r + 1) * h, device=x.device), dims.gp,
+                        rounding_mode="floor")
+        k, v = (ctx.gather_ranks_grad(t).reshape(B, S, dims.kv, hd)[:, :, idx] for t in (k, v))
+    hm = dims.head_mask(x.device)[r * h:(r + 1) * h]
+    return (apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta),
+            v, hm)
 
 
 # ---------------------------------------------------------------------------

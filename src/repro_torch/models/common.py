@@ -71,6 +71,18 @@ def apply_linear(p: Dict[str, Any], x: torch.Tensor,
     return y
 
 
+def apply_row_parallel(p: Dict[str, Any], x: torch.Tensor, ctx) -> torch.Tensor:
+    """A row-parallel linear of the training layout (``ctx.col_row``): x
+    holds this rank's K / tp input columns and ``p["w"]`` its K rows; the
+    ranks' partial products are added in rank order
+    (`ParallelCtx.sum_ranks_grad` over ``model``: the identity backward),
+    and the bias, whole on every rank, is added once after the sum."""
+    y = ctx.sum_ranks_grad(x @ p["w"].to(x.dtype), "model")
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
 def materialize_weight(p: Dict[str, Any], K: int, dtype,
                        policy: Optional[QuantPolicy] = None) -> torch.Tensor:
     """The [K, N] weight in ``dtype``, dequantizing packed planes if needed

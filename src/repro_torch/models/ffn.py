@@ -1,5 +1,9 @@
 """Dense FFN variants (port of src/repro/models/ffn.py): SwiGLU, GeGLU and
-the plain GELU MLP, on one device or on a rank's d_ff / tp columns."""
+the plain GELU MLP, on one device or on a rank's d_ff / tp columns: in the
+serving layout every linear N-sharded and the hiddens gathered
+(`down_proj`), in the training layout (``ctx.col_row``) ``w_gate`` /
+``w_up`` column-parallel and ``w_down`` row-parallel, its partial products
+summed over ``model``."""
 
 from __future__ import annotations
 
@@ -8,7 +12,7 @@ import torch
 
 from repro_torch.core.rtn import device_table
 
-from .common import apply_linear, make_linear
+from .common import apply_linear, apply_row_parallel, make_linear
 from .parallel import NO_CTX
 
 ACTIVATIONS = ("silu_glu", "gelu_glu", "gelu")
@@ -61,9 +65,19 @@ def down_proj(p, h, policy=None, ctx=NO_CTX):
 
 def ffn_apply(p, x, activation: str, policy=None, ctx=NO_CTX):
     """The FFN of x; under a tp > 1 ``ctx`` on the rank's d_ff / tp
-    columns (`down_proj`)."""
+    columns: the serving layout's `down_proj`, or, in the training layout
+    (``ctx.col_row``), x through `ParallelCtx.copy_ranks` into the column
+    shards of ``w_gate`` / ``w_up`` and the hidden into ``w_down``'s K rows
+    (`common.apply_row_parallel`)."""
     act = _act(activation)
     tp = ctx.tp
+    if ctx.col_row:
+        x = ctx.copy_ranks(x)
+        if "w_gate" in p:
+            h = act(apply_linear(p["w_gate"], x, policy)) * apply_linear(p["w_up"], x, policy)
+        else:
+            h = act(apply_linear(p["w_up"], x, policy))
+        return apply_row_parallel(p["w_down"], h, ctx)
     if "w_gate" in p:
         g = act(apply_linear(p["w_gate"], x, policy, tp))
         u = apply_linear(p["w_up"], x, policy, tp)

@@ -19,8 +19,10 @@ sort), and the combine multiplies each expert's bf16 output by its weight
 rounded to bf16 and sums over the experts in f32 before one rounding to
 bf16; the shared expert's output is added in bf16. Under a tensor-parallel
 mesh the decode step runs the expert-parallel path (`moe_ep`: a rank's
-E / tp experts, each serving its top ``cap`` tokens); the reference's
-tensor-parallel training path (``moe_tp``) is not ported.
+E / tp experts, each serving its top ``cap`` tokens), and the sequence
+forward of training the reference's tensor-parallel path (`moe_tp`: every
+expert in turn on its top ``cap`` tokens, its FFN sharded over the ranks
+as a dense FFN in the training layout).
 """
 
 from __future__ import annotations
@@ -235,18 +237,74 @@ def moe_ep(p, x: torch.Tensor, cfg, ctx, policy=None):
     return y, aux
 
 
+def moe_tp(p, x: torch.Tensor, cfg, ctx, policy=None):
+    """Expert-sequential tensor-parallel MoE (the reference's `moe_tp`, its
+    training path). x [B, S, D], the same on every model rank; the router and
+    the expert dim are whole, each expert's FFN holds the training
+    layout's shards (``w_gate`` / ``w_up`` column-parallel, ``w_down``
+    row-parallel). Every rank routes every token; each expert e in index
+    order takes its top ``cap`` tokens by its combine weight
+    (`expert_capacity`; ties to the lower token index, as
+    ``jax.lax.top_k``), runs its FFN on them, whose output is summed over
+    the ranks inside the FFN (`ffn.ffn_apply` under ``ctx.col_row``) before
+    it meets the gate, and sets ``he * bf16(w_e)`` (bf16) at those rows of
+    a zero [T, D], which is added to an f32 sum over the experts. Summing
+    before the gate keeps the combine weights' and so the router's grad
+    whole and the same on every rank. The auxiliary loss runs over the
+    tokens of ``ctx.dp_axes`` (`load_balance_loss`); the shared expert is
+    added after, in bf16. Returns (y [B, S, D] in x.dtype, aux).
+
+    Under data parallelism (``ctx.dp_axes``) the reference's program sees
+    the whole batch: the capacity counts every dp rank's tokens and an
+    expert's top ``cap`` are taken among all of them. Each rank gathers the
+    ranks' combine weights (detached; token order pod-major, then data, as
+    the rows lie) to pick them, and serves the picked tokens that are its
+    own rows; the model ranks of one data index hold the same rows, so
+    they take the same experts (an expert none of whose picked tokens is a
+    rank's own is skipped there, sum and all)."""
+    B, S, D = x.shape
+    E = cfg.num_experts
+    xf = x.reshape(B * S, D)
+    T = xf.shape[0]
+    combine, probs = gates(p, xf, cfg)
+    w_all, lo = combine.detach(), 0
+    for a in ctx.dp_axes:
+        lo = lo * ctx.size(a) + ctx.coord(a)
+    for a in reversed(ctx.dp_axes):
+        w_all = ctx.all_gather_dim(w_all, 0, a)
+    lo *= T
+    cap = expert_capacity(w_all.shape[0], cfg)
+    y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    for e in range(E):
+        w_e = combine[:, e]
+        order = torch.sort(w_all[:, e], descending=True, stable=True).indices[:cap]
+        order = order[(order >= lo) & (order < lo + T)] - lo
+        if not order.numel():
+            continue
+        he = ffn_apply(tree_map(lambda t: t[e], p["experts"]), xf[order], cfg.ffn_activation,
+                       policy, ctx)
+        part = he.new_zeros((T, D)).index_put((order,), he * w_e[order, None].to(he.dtype))
+        y = y + part.to(torch.float32)
+    aux = load_balance_loss(combine, probs, E, ctx)
+    y = y.reshape(B, S, D).to(x.dtype)
+    if "shared" in p:
+        y = y + ffn_apply(p["shared"], x, cfg.ffn_activation, policy, ctx)
+    return y, aux
+
+
 def moe_apply(p, x: torch.Tensor, cfg, policy=None, *, ctx=NO_CTX, phase: str = "seq",
               devices: int = 1):
-    """The MoE FFN of one block: `moe_dense` on one device; `moe_ep` at
-    decode (the engine step, ``phase="decode"``) under a ``ctx`` of tp > 1.
-    The reference's tensor-parallel path for sequences (``moe_tp``, its
-    training path) is not ported, nor is MoE over devices without a
-    mesh (``devices`` > 1)."""
+    """The MoE FFN of one block: `moe_dense` on one device; under a ``ctx``
+    of tp > 1 `moe_ep` at decode (the engine step, ``phase="decode"``) and
+    `moe_tp` over a sequence in the training layout (``ctx.col_row``). MoE
+    over devices without a mesh (``devices`` > 1) is not ported, nor is a
+    sequence over the serving layout's expert shards."""
     tp = ctx.tp
-    if devices != 1 or (tp > 1 and phase != "decode"):
+    if devices != 1 or (tp > 1 and phase != "decode" and not ctx.col_row):
         raise NotImplementedError(
-            f"MoE over {max(devices, tp)} devices outside the decode step (the reference's "
-            "moe_tp) is not ported yet (ROADMAP.md, Modules to port)")
+            f"MoE over {max(devices, tp)} devices outside the decode step and the training "
+            "layout is not ported yet (ROADMAP.md, Modules to port)")
     if tp > 1:
-        return moe_ep(p, x, cfg, ctx, policy)
+        return moe_ep(p, x, cfg, ctx, policy) if phase == "decode" else moe_tp(p, x, cfg, ctx,
+                                                                                 policy)
     return moe_dense(p, x, cfg, policy, ctx)

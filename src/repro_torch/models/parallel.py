@@ -10,10 +10,12 @@ exchange activations through the collectives below; with the context of a
 training mesh (`launch.mesh.make_train_mesh`) each process holds its rows
 of the batch (``dp_axes``) and its FSDP slices of the masters, and the
 train step (`launch.steps.build_train_step`) exchanges weights and grads
-over ``data`` and ``pod``. Every collective takes the mesh axis it runs
-over (``"model"`` by default). None splits a sum across ranks in an order
-that depends on the backend, so every rank gets the same bits, and a tp > 1
-serving step gives every rank the bits of the tp = 1 step:
+over ``data`` and ``pod``, and, with a model axis, the forward runs the
+reference's column / row pairing (``train_layout``, below). Every
+collective takes the mesh axis it runs over (``"model"`` by default).
+None splits a sum across ranks in an order that depends on the backend,
+so every rank gets the same bits, and a tp > 1 serving step gives every
+rank the bits of the tp = 1 step:
 
   * `all_gather_last` concatenates the ranks' slices along the last axis
     in rank order (the N-sharded outputs of every linear, the attention
@@ -32,6 +34,26 @@ serving step gives every rank the bits of the tp = 1 step:
     whose rows are sharded, the MoE load-balance loss's);
   * `max_ranks` all-gathers and takes the element-wise max, which is exact
     in any order (the merge's running max ``m``).
+
+Tensor-parallel training (``train_layout`` on a ctx of tp > 1, `col_row`)
+pairs two conjugate operations under autograd, as Megatron's f / g, and
+gathers where heads do not split:
+
+  * `copy_ranks`: the identity forward, `sum_ranks` over ``model`` in the
+    backward. It takes the replicated input of every column-parallel group
+    (``wq / wk / wv``, ``w_gate / w_up``, each expert's FFN, ``lm_head``),
+    whose ranks' partial input grads add up to the whole one;
+  * `sum_ranks_grad` over ``model``: `sum_ranks` forward, the identity
+    backward. It adds every row-parallel product's partial sums (``wo``,
+    ``w_down``), the vocab-sharded embedding lookup and the loss's
+    vocab-sharded statistics;
+  * `gather_ranks_grad`: `all_gather_last` forward, the rank's slice of the
+    rank-order sum backward (k / v where the kv heads do not split).
+
+Every rank runs the same graph, so autograd issues the backward's
+collectives in one order on every rank (the rematerialised forward's, under
+`torch.utils.checkpoint`, too), and a replicated leaf's grad comes out with
+the same bits on every model rank without a reduction.
 
 Contiguous caches at tp > 1 are sequence-sharded (``seq_shard``, as the
 reference's ``seq_shard_cache``): rank r holds positions r * S_loc ..
@@ -66,6 +88,17 @@ class ParallelCtx:
     # contiguous caches sharded over their sequence (decode at tp > 1; off
     # for page pools, which shard their heads, and at tp = 1)
     seq_shard: bool = False
+    # the training layout over ``model`` (`launch.sharding.train_dims`:
+    # column-parallel linears shard N, row-parallel ones K, the embedding
+    # its vocab); False: the serving layout (every linear N-sharded)
+    train_layout: bool = False
+
+    @property
+    def col_row(self) -> bool:
+        """Whether the layers run the training layout's column / row
+        pairing: ``train_layout`` at tp > 1. Every layer that shards a
+        linear asks this one rule."""
+        return self.train_layout and self.tp > 1
 
     @property
     def tp(self) -> int:
@@ -146,6 +179,21 @@ class ParallelCtx:
         if all(self.size(a) == 1 for a in ((axis,) if isinstance(axis, str) else axis)):
             return x
         return _SumRanks.apply(x, self, axis)
+
+    def copy_ranks(self, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+        """``x`` as it is, recorded by autograd so that the backward adds
+        the ranks' gradients of it in rank order (`sum_ranks`): the
+        replicated input of a column-parallel group."""
+        if self.size(axis) == 1:
+            return x
+        return _CopyRanks.apply(x, self, axis)
+
+    def gather_ranks_grad(self, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+        """`all_gather_last` recorded by autograd: the backward hands each
+        rank its slice of the rank-order sum of the ranks' gradients."""
+        if self.size(axis) == 1:
+            return x
+        return _GatherRanks.apply(x, self, axis)
 
     def max_ranks(self, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
         """The element-wise max of the ranks' ``x`` (exact in any order)."""
@@ -268,6 +316,29 @@ class _SumRanks(torch.autograd.Function):
     @staticmethod
     def backward(fctx, g):
         return g, None, None
+
+
+class _CopyRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, pctx, axis):
+        fctx.pctx, fctx.axis = pctx, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.pctx.sum_ranks(g, fctx.axis), None, None
+
+
+class _GatherRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, pctx, axis):
+        fctx.pctx, fctx.axis, fctx.width = pctx, axis, x.shape[-1]
+        return pctx.all_gather_last(x, axis)
+
+    @staticmethod
+    def backward(fctx, g):
+        w, r = fctx.width, fctx.pctx.coord(fctx.axis)
+        return fctx.pctx.sum_ranks(g, fctx.axis)[..., r * w:(r + 1) * w], None, None
 
 
 NO_CTX = ParallelCtx()

@@ -28,7 +28,10 @@ The decode steps also run as one rank of a (1, tp) serving mesh (a
 pools hold the rank's kv heads, contiguous caches (GQA, rings, the MLA
 stream) the rank's shard of the sequence (``ctx.seq_shard``; the ranks
 merge their partial softmaxes), and Mamba / RG-LRU states the rank's
-channels of the inner width (`make_cache(tp=)`).
+channels of the inner width (`make_cache(tp=)`). `forward_seq` runs as one
+rank of a training mesh's model axis (``ctx.train_layout``): the
+reference's column / row shards of ``gqa`` and ``gqa_moe`` blocks, the
+embedding's and the head's vocab rows and columns.
 """
 
 from __future__ import annotations
@@ -184,14 +187,18 @@ def init_embed(gen, cfg, dims: Dims, *, dtype=torch.float32, device="cpu"):
     return {"w": w.to(dtype)}
 
 
-def init_params(seed: int, cfg, *, dtype=torch.float32, device="cpu") -> Dict[str, Any]:
+def init_params(seed: int, cfg, *, tp: int = 1, dtype=torch.float32,
+                device="cpu") -> Dict[str, Any]:
     """Full parameter tree from ``torch.Generator(device).manual_seed(seed)``
-    (draw order: embed, the layers in model order, the tail, lm_head). For
-    full-width models on the card use `launch.engine.init_serving_params`,
-    which quantizes layer by layer from the same draws."""
+    (draw order: embed, the layers in model order, the tail, lm_head), at
+    the dims of a model axis of ``tp`` ranks (`model_dims`: q heads and the
+    vocab padded, as the reference's ``init_params(key, cfg, tp)``; tp = 1
+    pads nothing). For full-width models on the card use
+    `launch.engine.init_serving_params`, which quantizes layer by layer
+    from the same draws."""
     check_serving_support(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
-    dims = model_dims(cfg)
+    dims = model_dims(cfg, tp)
     pat = layer_pattern(cfg)
     G, R = pattern_counts(cfg)
     kw = dict(dtype=dtype, device=device)
@@ -392,8 +399,10 @@ def block_decode_chunk(p, x, cache, pos, nvalid, kind, cfg, dims, *, policy, blo
 def _embed(params, tokens, dtype=torch.bfloat16, prefix_embeds=None, ctx=NO_CTX):
     """Token embeddings (after ``prefix_embeds``). Under a tp > 1 ``ctx``
     the table holds this rank's V / tp vocab rows: each rank looks up the
-    tokens it holds, -0.0 elsewhere, and `ParallelCtx.sum_ranks` adds the
-    ranks' lookups, which is exact (x + -0.0 is x, -0.0 included)."""
+    tokens it holds, -0.0 elsewhere, and the ranks' lookups are added in
+    rank order, which is exact (x + -0.0 is x, -0.0 included), by
+    `ParallelCtx.sum_ranks_grad` (in training each rank's rows take the
+    gradient of the sum)."""
     w = params["embed"]["w"].to(dtype)
     tp = ctx.tp
     if tp == 1:
@@ -402,7 +411,8 @@ def _embed(params, tokens, dtype=torch.bfloat16, prefix_embeds=None, ctx=NO_CTX)
         local = tokens.long() - ctx.rank * w.shape[0]
         mine = (local >= 0) & (local < w.shape[0])
         x = w[torch.where(mine, local, 0)]
-        x = ctx.sum_ranks(torch.where(mine[..., None], x, torch.full_like(x, -0.0)))
+        x = torch.where(mine[..., None], x, torch.full_like(x, -0.0))
+        x = ctx.sum_ranks_grad(x, "model")
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
     return x
@@ -423,12 +433,20 @@ def _head(params, x, cfg, dims, policy=None, pre=None, ctx=NO_CTX):
     """Final norm (of the last block's addends ``pre`` summed unrounded,
     where given) and lm_head: f32 logits. Under a tp > 1 ``ctx`` lm_head's
     N-shards are gathered and cut to the true vocab: every rank samples
-    from the same logits, of tp = 1's width."""
+    from the same logits, of tp = 1's width. In the training layout
+    (``ctx.col_row``) lm_head is column-parallel and the logits stay the
+    rank's V / tp vocab columns, with its slice of the padded slots' bias:
+    the loss reads them sharded (`launch.steps._loss_fn`)."""
     x = _norm_in(x, pre, params["final_norm"], cfg.norm_eps)
     tp = ctx.tp
     if tp == 1:
         logits = apply_linear(params["lm_head"], x, policy)
         return logits.to(torch.float32) + dims.vocab_mask_bias(x.device)[None, None, :]
+    if ctx.col_row:
+        v = dims.V // tp
+        logits = apply_linear(params["lm_head"], ctx.copy_ranks(x), policy)
+        bias = dims.vocab_mask_bias(x.device)[ctx.rank * v:(ctx.rank + 1) * v]
+        return logits.to(torch.float32) + bias[None, None, :]
     logits = ctx.all_gather_last(apply_linear(params["lm_head"], x, policy, tp))
     return (logits.to(torch.float32)
             + dims.vocab_mask_bias(x.device)[None, None, :])[..., :dims.V_true]
@@ -490,7 +508,8 @@ def block_seq(p, x, kind, cfg, dims, *, policy=None, block_kv=1024, prefix_len=0
     else:
         window = cfg.sliding_window if kind == "attn" else 0
         out, (k, v) = A.gqa_attn_train(p["attn"], h, cfg, dims, policy=policy,
-                                       block_kv=block_kv, prefix_len=prefix_len, window=window)
+                                       block_kv=block_kv, prefix_len=prefix_len, window=window,
+                                       ctx=ctx)
         if window:
             k, v = _to_ring(k, window), _to_ring(v, window)
         cache = {"k": k, "v": v} if want_cache else None
@@ -543,20 +562,30 @@ def forward_seq(params, tokens, cfg, *, policy=None, remat=True, block_kv=1024,
     as the reference's ``jax.checkpoint`` of its scan body; the tail is not
     rematerialised.
 
-    ``ctx``: a rank of data-parallel training at model = 1, whose
-    ``tokens`` are its rows of a batch sharded over ``ctx.dp_axes``; the
-    only term that is not a sum over rows, the MoE load-balance loss, then
-    takes its means over every rank's tokens (`moe.load_balance_loss`).
-    Model shards (tp > 1) are not ported here."""
+    ``ctx``: a rank of data-parallel training, whose ``tokens`` are its
+    rows of a batch sharded over ``ctx.dp_axes``; the only term that is
+    not a sum over rows, the MoE load-balance loss, then takes its means
+    over every rank's tokens (`moe.load_balance_loss`). With a model axis
+    (tp > 1) the params are the rank's shards of the training layout
+    (``ctx.train_layout``, `launch.sharding.train_dims`, at the dims of
+    ``model_dims(cfg, tp)``): the embedding's vocab rows, each block's
+    heads and FFN columns (``moe_tp`` for MoE blocks), and the logits come
+    back as the rank's vocab columns (`_head`). Block kinds ``gqa`` and
+    ``gqa_moe`` run there; the others, and the serving layout's shards,
+    are not ported at tp > 1."""
     check_serving_support(cfg)
     if ctx.tp > 1:
-        raise NotImplementedError(
-            f"forward_seq on model shards (tp={ctx.tp}): tensor-parallel training is not "
-            "ported yet (ROADMAP.md, Modules to port)")
-    dims = model_dims(cfg)
+        bad = sorted(set(layer_pattern(cfg)) - set(ATTENTION_KINDS))
+        if not ctx.train_layout or bad:
+            what = (f"block kinds {bad}" if ctx.train_layout
+                    else "the serving layout's shards")
+            raise NotImplementedError(
+                f"forward_seq on model shards (tp={ctx.tp}) over {what} is not ported yet "
+                "(ROADMAP.md, Modules to port)")
+    dims = model_dims(cfg, ctx.tp)
     pat = layer_pattern(cfg)
     prefix_len = 0 if prefix_embeds is None else prefix_embeds.shape[1]
-    x = _embed(params, tokens, dtype, prefix_embeds)
+    x = _embed(params, tokens, dtype, prefix_embeds, ctx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kw = dict(policy=policy, block_kv=block_kv, prefix_len=prefix_len, want_cache=want_cache,
               ctx=ctx)
@@ -580,7 +609,7 @@ def forward_seq(params, tokens, cfg, *, policy=None, remat=True, block_kv=1024,
                             for i in range(len(pat))}}
         if tail:
             cache["tail"] = {f"sub{i}": c for i, c in enumerate(tail_caches)}
-    return _head(params, x, cfg, dims, policy, pre if tail else None), aux, cache
+    return _head(params, x, cfg, dims, policy, pre if tail else None, ctx), aux, cache
 
 
 def decode_step(params, token, cache, pos, cfg, *, policy=None, dtype=torch.bfloat16,

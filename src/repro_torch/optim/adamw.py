@@ -22,12 +22,13 @@ within a few ulp of the reference's, not bit-equal
 (`tests/test_torch_train.py` states the bound); the card's is held to the
 CPU's (`tests/test_torch_gpu.py`, `chip_smoke.py`'s ``train`` phase).
 
-Under data parallelism (a ``ctx`` of a training mesh and the layout's
-``dims``, `launch.sharding.params_shardings`) a rank holds its FSDP slices
-of the sharded leaves, whole replicated ones, and their grads alike. The
-global norm's sum of squares then adds the ranks' slices' sums in rank
-order over ``data`` and each replicated leaf once, so every rank clips by
-the same bits; the update runs on each rank's slices.
+Under data and tensor parallelism (a ``ctx`` of a training mesh and the
+layout's ``dims`` over ``data`` and ``model_dims`` over ``model``,
+`launch.sharding.params_shardings`) a rank holds its slices of the
+sharded leaves, whole replicated ones, and their grads alike. The global
+norm's sum of squares then adds the slices' sums in rank order, over
+``data`` and then over ``model``, and each replicated leaf once, so every
+rank clips by the same bits; the update runs on each rank's slices.
 """
 
 from __future__ import annotations
@@ -59,20 +60,36 @@ def init_state(params):
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree, ctx=None, dims=None) -> torch.Tensor:
+def global_norm(tree, ctx=None, dims=None, model_dims=None) -> torch.Tensor:
     """sqrt of the sum over leaves (in flatten order) of each leaf's sum of
-    squares in f32, as a 0-d f32 tensor. With ``ctx`` and ``dims`` (the
-    FSDP layout) the leaves whose dim is set are this rank's slices: their
-    sums are added over ``data`` in rank order, then the whole leaves'."""
+    squares in f32, as a 0-d f32 tensor. With ``ctx`` and the layout
+    (``dims`` over ``data``, ``model_dims`` over ``model``; either None
+    where nothing is sliced along it) the leaves whose dim is set are this
+    rank's slices: the sums of the leaves sliced over ``data`` are added
+    over ``data`` in rank order, then those of the leaves sliced over
+    ``model`` (the first group's totals among them) over ``model``, then
+    the groups' totals and the whole leaves' sum."""
     items = tree_items(tree)
     sums = [torch.square(g.to(torch.float32)).sum() for _, g in items]
-    if ctx is None or dims is None or ctx.size("data") == 1:
+    n_data = ctx.size("data") if ctx is not None and dims is not None else 1
+    n_model = ctx.size("model") if ctx is not None and model_dims is not None else 1
+    if n_data == 1 and n_model == 1:
         return torch.sqrt(torch.stack(sums).sum())
-    sharded = dict(tree_items(dims))
-    part = torch.stack([s for (path, _), s in zip(items, sums) if sharded[path] is not None]
-                       or [torch.zeros((), device=sums[0].device)]).sum()
-    whole = [s for (path, _), s in zip(items, sums) if sharded[path] is None]
-    total = ctx.sum_ranks(part, "data")
+    by_data = dict(tree_items(dims)) if n_data > 1 else {}
+    by_model = dict(tree_items(model_dims)) if n_model > 1 else {}
+    zero = torch.zeros((), device=sums[0].device)
+
+    def group(on_data: bool, on_model: bool) -> torch.Tensor:
+        return torch.stack([s for (path, _), s in zip(items, sums)
+                            if (by_data.get(path) is not None) == on_data
+                            and (by_model.get(path) is not None) == on_model] or [zero]).sum()
+
+    both, data_only, model_only = group(True, True), group(True, False), group(False, True)
+    whole = [s for (path, _), s in zip(items, sums)
+             if by_data.get(path) is None and by_model.get(path) is None]
+    both, data_only = ctx.sum_ranks(torch.stack([both, data_only]), "data")
+    both, model_only = ctx.sum_ranks(torch.stack([both, model_only]), "model")
+    total = (both + model_only) + data_only
     if whole:
         total = total + torch.stack(whole).sum()
     return torch.sqrt(total)
@@ -108,13 +125,14 @@ def _update(p, g, m, v, scale, c1, c2, lr, decay, cfg: AdamWConfig):
     p.addcmul_(delta, lr, value=-1.0)
 
 
-def apply_updates(params, grads, state, lr, cfg: AdamWConfig, ctx=None, dims=None):
+def apply_updates(params, grads, state, lr, cfg: AdamWConfig, ctx=None, dims=None,
+                  model_dims=None):
     """Returns (params, state, metrics): the params, m and v updated in
     place, the step advanced, and ``{"grad_norm": the norm before
     clipping}``. ``lr`` is a 0-d f32 tensor (or a float) on the params'
-    device. The f32 grads are consumed (scaled in place). ``ctx`` and
-    ``dims``: a rank's FSDP slices (`global_norm`)."""
-    gn = global_norm(grads, ctx, dims)
+    device. The f32 grads are consumed (scaled in place). ``ctx``,
+    ``dims`` and ``model_dims``: a rank's slices (`global_norm`)."""
+    gn = global_norm(grads, ctx, dims, model_dims)
     scale = _clip_scale(gn, cfg.grad_clip)
     step = state["step"] + 1
     t = step.to(torch.float32)

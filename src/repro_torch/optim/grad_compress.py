@@ -13,7 +13,10 @@ each element is within half a step of the int8 grid, amax / 254, of the
 rank-order f32 sum, amax the largest |value| of its shard.
 
 ``compressed_psum`` runs inside a train step on a rank's grads (the
-cross-pod reduction of `launch.steps.build_train_step`);
+cross-pod reduction of `launch.steps.build_train_step`): on a mesh with
+data or model axes > 1 those are the grads of the rank's (model, data)
+slice of each leaf, so a leaf's int8 shards are the pod shards of that
+slice;
 ``compressed_allreduce`` wraps it for standalone use.
 """
 

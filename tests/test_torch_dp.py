@@ -50,7 +50,7 @@ from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core.tree import tree_items  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.mesh import make_driver_mesh, make_train_mesh, spawn  # noqa: E402
-from repro_torch.launch.sharding import FSDP_MIN_DIM, fsdp_dim  # noqa: E402
+from repro_torch.launch.sharding import FSDP_MIN_DIM, train_dims  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.optim import init_state  # noqa: E402
 
@@ -299,7 +299,7 @@ def test_fsdp_dims_are_the_reference_specs(arch):
         n_stack = int(names[0] == "layers")
         spec = param_spec(path, leaf, fsdp="data", n_stack=n_stack, moe="tp")
         want = next((i for i, a in enumerate(spec) if a == "data"), None)
-        got = fsdp_dim(names, torch.empty(leaf.shape, device="meta"), n_stack)
+        got = train_dims(names, torch.empty(leaf.shape, device="meta"), n_stack)[1]
         assert got == want, (names, leaf.shape, spec)
         n_fsdp += want is not None
     assert n_fsdp > 0 or cfg.d_model < FSDP_MIN_DIM          # internvl2-1b's 896
@@ -495,10 +495,11 @@ def test_driver_single_dp2_with_an_injected_failure(monkeypatch, tmp_path):
 def test_meshes_of_the_driver():
     """Without a process group the world is one rank: ``single`` is
     (data 1, model 1); ``multi`` needs an even world; a model axis > 1 in
-    training stays refused, naming the ROADMAP item."""
+    training, refused before, is ported: a training mesh of it needs a
+    process group of its ranks, as any mesh of more than one rank."""
     m = make_driver_mesh("single", "cpu")
     assert m.shape == {"data": 1, "model": 1} and m.coords == {"data": 0, "model": 0}
     with pytest.raises(ValueError, match="two pods"):
         make_driver_mesh("multi", "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Modules to port"):
+    with pytest.raises(RuntimeError, match="process group"):
         make_train_mesh({"data": 1, "model": 2}, "cpu")

@@ -168,14 +168,15 @@ def test_sum_ranks_and_gather_in_rank_order():
 
 
 def test_tp2_refuses_what_it_does_not_serve(world):
-    """Data axes > 1, the front end, CUDA graphs, the self drafters and MoE
-    outside decode (``moe_tp``) raise at tp > 1, naming the ROADMAP item.
-    Contiguous caches, MLA, Mamba and RG-LRU layers, refused before, are
-    served now (sequence-sharded caches, tests/test_torch_tp_contiguous.py):
-    their configs build."""
+    """Data axes > 1, the front end, CUDA graphs and the self drafters
+    raise at tp > 1, naming the ROADMAP item. Contiguous caches, MLA, Mamba
+    and RG-LRU layers, refused before, are served now (sequence-sharded
+    caches, tests/test_torch_tp_contiguous.py): their configs build. MoE
+    over a sequence at tp > 1 (``moe_tp``), refused before, runs in the
+    training layout (tests/test_torch_tp_train.py holds it)."""
     r0, r1 = results(world)
     assert r0["refusals"] == r1["refusals"]
-    served = {"contiguous", "mla", "mamba", "rglru"}
+    served = {"contiguous", "mla", "mamba", "rglru", "moe-seq"}
     for case, (kind, msg) in r0["refusals"].items():
         if case in served:
             assert kind is None, (case, kind, msg)
@@ -188,15 +189,15 @@ def test_tp2_refuses_what_it_does_not_serve(world):
 
 def test_meshes_the_port_does_not_build():
     """Outside a process group: ``single`` is the one-rank (data 1) mesh,
-    ``multi`` needs an even world, a training mesh with a model axis > 1 is
-    not ported, a tp > 1 serving mesh needs a process group, and an engine
-    mesh needs a model axis."""
+    ``multi`` needs an even world, a training mesh with a model axis > 1
+    (ported now) and a tp > 1 serving mesh need a process group, and an
+    engine mesh needs a model axis."""
     from repro_torch.launch.mesh import make_train_mesh
 
     assert make_driver_mesh("single", "cpu").shape == {"data": 1, "model": 1}
     with pytest.raises(ValueError, match="two pods"):
         make_driver_mesh("multi", "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Modules to port"):
+    with pytest.raises(RuntimeError, match="process group"):
         make_train_mesh({"data": 1, "model": 2}, "cpu")
     with pytest.raises(RuntimeError, match="process group"):
         make_serving_mesh(2, "cpu")

@@ -254,9 +254,11 @@ def test_train_main_refuses_what_is_not_ported(flag, value):
     (one spawned rank), ``--mesh multi`` (two pods of one rank each) and
     ``--grad-compression int8_ag`` (a no-op without a pod axis, as in the
     reference) train, their first loss the single-device driver's within
-    LOSS_REL (the bits where nothing is exchanged); what stays refused, a
-    model axis > 1 in training, raises naming the ROADMAP item."""
-    from repro_torch.launch.mesh import make_train_mesh
+    LOSS_REL (the bits where nothing is exchanged); a model axis > 1 in
+    training, refused before, is ported too: the driver's mesh of two ranks
+    at ``--model-size 2`` is (data 1, model 2) (tests/test_torch_tp_train.py
+    trains it)."""
+    from repro_torch.launch.mesh import driver_shape
 
     extra = ["--dp-size", "2"] if value == "multi" else []
     losses = train.main(ARGS + ["--steps", "1", "--device", "cpu", flag, value] + extra)
@@ -265,15 +267,16 @@ def test_train_main_refuses_what_is_not_ported(flag, value):
     assert abs(losses[0] - plain[0]) <= LOSS_REL * abs(plain[0])
     if flag == "--grad-compression":
         assert losses == plain
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Modules to port"):
-        make_train_mesh({"data": 1, "model": 2}, "cpu")
+    assert driver_shape(value if flag == "--mesh" else "single", 4, 2) == (
+        {"pod": 2, "data": 1, "model": 2} if value == "multi" else {"data": 2, "model": 2})
 
 
 def test_train_step_refuses_compressed_gradients():
     """``int8_ag`` without a pod axis leaves the step as it is (the
     reference's ``compress`` needs ``pod`` among the dp axes): the same
-    bits as ``none``. A train step on model shards still raises, naming
-    the ROADMAP item."""
+    bits as ``none``. A train step on model shards, refused before, builds
+    now: its ``shard`` keeps the rank's half of each model-sharded leaf
+    (tests/test_torch_tp_train.py runs it)."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models.parallel import ParallelCtx
 
@@ -291,5 +294,12 @@ def test_train_step_refuses_compressed_gradients():
     for (_, a), (_, b) in zip(tree_items(out[0][0]), tree_items(out[1][0])):
         assert torch.equal(a, b)
     ctx = ParallelCtx(mesh=Mesh({"data": 1, "model": 2}), tp_axis="model")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Modules to port"):
-        build_train_step(tcfg, tr, "cpu", ctx)
+    step = build_train_step(tcfg, tr, "cpu", ctx)
+    whole = params_from_numpy(p_np)
+    mine = dict(tree_items(step.shard(whole)))
+    dims = dict(tree_items(step.layout("model")))
+    for path, t in tree_items(whole):
+        d = dims[path]
+        assert mine[path].shape == (t.shape if d is None else
+                                    t.narrow(d, 0, t.shape[d] // 2).shape), path
+    assert sum(d is not None for d in dims.values()) >= 10

@@ -102,7 +102,8 @@ def accounting(mesh, np_params):
 def refusals(mesh, np_params):
     """What a tp > 1 mesh refuses: {case: (exception type, message)}, (None,
     "") where the case builds (the contiguous, MLA, Mamba and RG-LRU
-    configs, served since sequence-sharded caches were ported)."""
+    configs, served since sequence-sharded caches were ported; MoE over a
+    sequence in the training layout, ``moe_tp``)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.frontend import ServeFrontend
     from repro_torch.launch.mesh import make_serving_mesh
@@ -110,9 +111,17 @@ def refusals(mesh, np_params):
     from repro_torch.models.parallel import ParallelCtx
 
     def scout_seq():
+        from repro_torch.core.tree import tree_map
+        from repro_torch.launch.sharding import params_shardings, shard_tree
+        from repro_torch.models import init_params
+
         cfg = get_config("llama4-scout-17b-16e").reduced()
+        p = tree_map(lambda t: t[0], init_params(0, cfg)["layers"]["sub0"]["moe"])
+        ctx = ParallelCtx(mesh=mesh, tp_axis="model", train_layout=True)
+        p = shard_tree(p, ctx.rank, ctx.tp, dims=params_shardings(p, axis="model"))
         x = torch.zeros((1, 2, cfg.d_model), dtype=torch.bfloat16)
-        M.moe_apply({}, x, cfg, ctx=ParallelCtx(mesh=mesh, tp_axis="model"), phase="seq")
+        y, _ = M.moe_apply(p, x, cfg, ctx=ctx, phase="seq")
+        assert y.shape == x.shape
 
     eng = ServeEngine(engine_config(mesh), params=params_from_numpy(np_params))
     cases = {
